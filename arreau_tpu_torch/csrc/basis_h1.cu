@@ -18,21 +18,12 @@
 // slice of the 258 features in shared memory right before the tile product
 // consumes it, and adds the bias on the way out.
 
+#include "poly_features.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using namespace arreau;
-
-constexpr int MAX_D = 8;  // invariants per edge the kernel stages
-
-__device__ __forceinline__ float poly_feature(const float (*a)[BM], int f, int d, int col) {
-    if (f < d) return a[f][col];
-    f -= d;
-    if (f < d * d) return a[f / d][col] * a[f % d][col];
-    f -= d * d;  // f = (i*d + j)*d + k  ->  (x_i * x_j) * x_k
-    return a[f / (d * d)][col] * a[(f / d) % d][col] * a[f % d][col];
-}
 
 __global__ void __launch_bounds__(THREADS)
 basis_h1_fwd_kernel(const float* __restrict__ attrT,  // [B'*O, d, E]
@@ -60,21 +51,9 @@ basis_h1_fwd_kernel(const float* __restrict__ attrT,  // [B'*O, d, E]
     __syncthreads();
 
     float acc[TM][TN] = {};
-    for (int f0 = 0; f0 < F; f0 += BK) {
-        for (int i = tid; i < BK * BM; i += THREADS) {
-            const int kk = i / BM, col = i % BM;
-            const int f = f0 + kk;
-            As[kk][col] = f < F ? poly_feature(s_attr, f, d, col) : 0.f;
-        }
-        for (int i = tid; i < BK * BN; i += THREADS) {
-            const int kk = i / BN, cc = i % BN;
-            const int f = f0 + kk, h = h0 + cc;
-            Bs[kk][cc] = (f < F && h < H) ? w1[(size_t)f * H + h] : 0.f;
-        }
-        __syncthreads();
-        tile_fma(As, Bs, ty, tx, acc);
-        __syncthreads();
-    }
+    tile_gemm<false, true>(
+        F, [&](int col, int f) { return poly_feature([&](int i) { return s_attr[i][col]; }, f, d); },
+        [&](int f, int n) { return h0 + n < H ? w1[(size_t)f * H + h0 + n] : 0.f; }, As, Bs, acc);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
         const int e = e0 + ty * TM + i;

@@ -61,6 +61,16 @@ class AtomicNumberTable:
     def mask_index(self) -> int:
         return self._z_to_index[MASK_ATOMIC_NUMBER]
 
+    def zs_to_indices(self, atomic_numbers: np.ndarray) -> np.ndarray:
+        lut = np.full(max(self.zs) + 1, -1, dtype=np.int64)
+        for i, z in enumerate(self.zs):
+            lut[z] = i
+        out = lut[np.asarray(atomic_numbers, dtype=np.int64)]
+        if (out < 0).any():
+            bad = np.asarray(atomic_numbers)[out < 0]
+            raise KeyError(f"atomic numbers not in table: {np.unique(bad)}")
+        return out
+
     def indices_to_zs(self, indices: np.ndarray) -> np.ndarray:
         return np.asarray(self.zs, dtype=np.int64)[np.asarray(indices, dtype=np.int64)]
 

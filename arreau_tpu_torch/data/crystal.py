@@ -1,0 +1,174 @@
+"""Crystal datasets in memory, size-bucketed dense batching, and splits;
+counterpart of ``arreau_tpu/data/crystal.py`` (numpy only).
+
+Crystals are stored columnar (:class:`PackedCrystals`), assigned to the
+smallest size bucket that fits, and emitted as dense ``[B, A_bucket]``
+:class:`CrystalBatch`es of numpy arrays with masks. Each bucket's batch
+size comes from a node budget, and for one seed the loader yields the same
+batches in the same order as the JAX package's. Reading HDF5 shards (the
+JAX package's ``read_h5``) is not ported: the card's machine has no
+``h5py``. The collator is the JAX package's numpy one; its optional C++
+collator (host code) is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+
+from arreau_tpu_torch.data.atoms import AtomicNumberTable, table_from_zs
+from arreau_tpu_torch.tasks.diffusion import CrystalBatch
+
+DEFAULT_BUCKETS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+@dataclass
+class PackedCrystals:
+    """Columnar in-memory crystal store (float64 on the host, cast at batch)."""
+
+    atomic_numbers: np.ndarray  # [total_atoms] int
+    frac_coords: np.ndarray  # [total_atoms, 3]
+    offsets: np.ndarray  # [N + 1] int64 prefix sums
+    lattices: np.ndarray  # [N, 3, 3]
+
+    def __len__(self) -> int:
+        return len(self.lattices)
+
+    @property
+    def num_atoms(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+
+class CrystalDataset:
+    """Packed arrays, the z-table, and the atoms' z-table indices."""
+
+    def __init__(self, packed: PackedCrystals, z_table: Optional[AtomicNumberTable] = None):
+        self.packed = packed
+        self.z_table = z_table or table_from_zs(np.unique(packed.atomic_numbers).tolist())
+        self.type_indices = self.z_table.zs_to_indices(packed.atomic_numbers)
+
+    def __len__(self) -> int:
+        return len(self.packed)
+
+
+def random_split(n: int, fractions: Sequence[float], seed: int) -> list[np.ndarray]:
+    """Shuffled index split (the reference's 0.7/0.15/0.15)."""
+    perm = np.random.default_rng(seed).permutation(n)
+    out, start = [], 0
+    for frac in fractions[:-1]:
+        size = int(round(frac * n))
+        out.append(perm[start : start + size])
+        start += size
+    out.append(perm[start:])
+    return out
+
+
+def _bucket_for(n_atoms: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n_atoms <= b:
+            return b
+    raise ValueError(f"crystal with {n_atoms} atoms exceeds largest bucket {buckets[-1]}")
+
+
+def collate_dense(type_indices, frac_coords, offsets, lattices, idx, max_atoms: int,
+                  dtype=np.float32) -> CrystalBatch:
+    """One dense padded batch of the crystals ``idx``; an index of -1 is a
+    padding slot: an empty example with the identity lattice (which keeps
+    the lattice codecs finite)."""
+    B = len(idx)
+    frac = np.zeros((B, max_atoms, 3), dtype)
+    types = np.zeros((B, max_atoms), np.int32)
+    lattice = np.zeros((B, 3, 3), dtype)
+    num_atoms = np.zeros((B,), np.int32)
+    mask = np.zeros((B, max_atoms), bool)
+    for b, ci in enumerate(idx):
+        if ci < 0:
+            lattice[b] = np.eye(3, dtype=dtype)
+            continue
+        start, end = offsets[ci], offsets[ci + 1]
+        n = end - start
+        if n > max_atoms:
+            raise ValueError(f"crystal {ci} has {n} atoms, more than the bucket's {max_atoms}")
+        frac[b, :n] = frac_coords[start:end]
+        types[b, :n] = type_indices[start:end]
+        lattice[b] = lattices[ci]
+        num_atoms[b] = n
+        mask[b, :n] = True
+    return CrystalBatch(frac, types, lattice, num_atoms, mask)
+
+
+def pack_dense_batch(dataset: CrystalDataset, idx: np.ndarray, max_atoms: int,
+                     dtype=np.float32) -> CrystalBatch:
+    packed = dataset.packed
+    return collate_dense(dataset.type_indices, packed.frac_coords, packed.offsets,
+                         packed.lattices, np.asarray(idx, np.int64), max_atoms, dtype)
+
+
+class BucketedLoader:
+    """Shuffled size-bucketed batch iterator: each bucket's batch size is
+    ``node_budget // bucket``, rounded down to a multiple of
+    ``batch_multiple``; a bucket's last short chunk is padded with empty
+    examples (or dropped); chunks come in a shuffled order each epoch."""
+
+    def __init__(
+        self,
+        dataset: CrystalDataset,
+        indices: np.ndarray,
+        node_budget: int = 4096,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        seed: int = 0,
+        dtype=np.float32,
+        batch_multiple: int = 1,
+        drop_remainder: bool = False,
+    ):
+        self.dataset = dataset
+        self.node_budget = node_budget
+        self.buckets = tuple(buckets)
+        self.dtype = dtype
+        self.batch_multiple = batch_multiple
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+        num_atoms = dataset.packed.num_atoms
+        assign = {b: [] for b in self.buckets}
+        for i in np.asarray(indices):
+            assign[_bucket_for(int(num_atoms[i]), self.buckets)].append(i)
+        self.by_bucket = {b: np.asarray(v, np.int64) for b, v in assign.items() if v}
+
+    def batch_size_for(self, bucket: int) -> int:
+        bs = max(self.node_budget // bucket, 1)
+        m = self.batch_multiple
+        if m > 1:
+            bs = max((bs // m) * m, m)
+        return bs
+
+    def chunks(self) -> list[tuple[int, np.ndarray]]:
+        """One epoch's (bucket, crystal indices) in order; draws from the
+        loader's generator, as iterating does."""
+        chunks = []
+        for bucket in self.buckets:
+            if bucket not in self.by_bucket:
+                continue
+            perm = self._rng.permutation(self.by_bucket[bucket])
+            bs = self.batch_size_for(bucket)
+            for start in range(0, len(perm), bs):
+                chunk = perm[start : start + bs]
+                if len(chunk) < bs:
+                    if self.drop_remainder:
+                        continue
+                    chunk = np.concatenate([chunk, np.full(bs - len(chunk), -1, np.int64)])
+                chunks.append((bucket, chunk))
+        order = self._rng.permutation(len(chunks))
+        return [chunks[i] for i in order]
+
+    def __iter__(self) -> Iterator[CrystalBatch]:
+        for bucket, chunk in self.chunks():
+            yield pack_dense_batch(self.dataset, chunk, bucket, self.dtype)
+
+    def num_batches(self) -> int:
+        total = 0
+        for bucket, idx in self.by_bucket.items():
+            bs = self.batch_size_for(bucket)
+            total += len(idx) // bs if self.drop_remainder else -(-len(idx) // bs)
+        return total

@@ -1,5 +1,6 @@
-"""D3PM discrete (masking) diffusion over atom types, reverse steps only;
-counterpart of ``arreau_tpu/diffusion/d3pm.py``.
+"""D3PM discrete (masking) diffusion over atom types: forward corruption,
+the hybrid loss and the reverse steps; counterpart of
+``arreau_tpu/diffusion/d3pm.py``.
 
 The forward process is the sampler's "mask" process: every real class
 jumps to the absorbing MASK class (last index) with probability
@@ -23,6 +24,7 @@ MASK_TRANSITION_PROB = 0.02
 class D3PMTables(NamedTuple):
     q_one_step_transposed: torch.Tensor  # [T, C, C]
     q_mats: torch.Tensor  # [T, C, C] cumulative products Qbar_t = Q_1 ... Q_t
+    hybrid_loss_coeff: float = 0.001
 
 
 def _one_step_mats(num_steps: int, num_classes: int, mask_prob: float) -> np.ndarray:
@@ -118,3 +120,54 @@ def d3pm_strided_reverse_step(
     transposed strided transition ``Q_{s->t}^T``."""
     fact1 = q_strided_transposed[xt, :]  # [B, A, C]
     return _posterior_step(tables, fact1, uniform, predicted_x0_logits, s, temperature)
+
+
+def d3pm_sample_xt(tables: D3PMTables, uniform: torch.Tensor, x0: torch.Tensor,
+                   t: torch.Tensor) -> torch.Tensor:
+    """Forward corruption ``x_t ~ Cat(x0 @ Qbar_t)`` by gumbel-argmax from
+    ``uniform [B, A, C]``; ``x0``, ``t``: ``[B, A]``, t in [1, T]."""
+    probs = tables.q_mats[t - 1, x0, :]
+    return torch.argmax(torch.log(probs + EPS) + gumbel_from_uniform(uniform), dim=-1)
+
+
+def _q_posterior_logits_from_onehotish(tables: D3PMTables, x0_logits: torch.Tensor,
+                                       xt: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """log q(x_{t-1} | x_t, x0-distribution); the x0 logits at ``t == 1``."""
+    fact1 = tables.q_one_step_transposed[t - 1, xt, :]
+    softmaxed = torch.softmax(x0_logits, dim=-1)
+    qmats2 = tables.q_mats[torch.clamp(t - 2, min=0)]  # Qbar_{t-1}; replaced at t == 1
+    fact2 = torch.einsum("...c,...cd->...d", softmaxed, qmats2)
+    out = torch.log(fact1 + EPS) + torch.log(fact2 + EPS)
+    return torch.where((t == 1)[..., None], x0_logits, out)
+
+
+def q_posterior_logits(tables: D3PMTables, x0: torch.Tensor, xt: torch.Tensor,
+                       t: torch.Tensor) -> torch.Tensor:
+    """Posterior logits for integer classes or logits ``x0``."""
+    if not torch.is_floating_point(x0):
+        num_classes = tables.q_mats.shape[-1]
+        x0 = torch.log(torch.nn.functional.one_hot(x0.long(), num_classes).to(tables.q_mats.dtype)
+                       + EPS)
+    return _q_posterior_logits_from_onehotish(tables, x0, xt, t)
+
+
+def _vb_kl(dist1: torch.Tensor, dist2: torch.Tensor, atom_mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean of KL(softmax(dist1) || softmax(dist2)) over real atoms,
+    with the reference's eps added to the logits."""
+    kl = torch.softmax(dist1 + EPS, dim=-1) * (
+        torch.log_softmax(dist1 + EPS, dim=-1) - torch.log_softmax(dist2 + EPS, dim=-1)
+    )
+    denom = torch.clamp(atom_mask.sum(), min=1)
+    return torch.where(atom_mask, kl.sum(dim=-1), 0.0).sum() / denom
+
+
+def d3pm_loss(tables: D3PMTables, x0: torch.Tensor, predicted_x0_logits: torch.Tensor,
+              xt: torch.Tensor, t: torch.Tensor, atom_mask: torch.Tensor) -> torch.Tensor:
+    """Hybrid loss: ``hybrid_loss_coeff`` x VB-KL + cross-entropy against
+    x0, both masked means over real atoms."""
+    vb = _vb_kl(q_posterior_logits(tables, x0, xt, t),
+                q_posterior_logits(tables, predicted_x0_logits, xt, t), atom_mask)
+    logp = torch.log_softmax(predicted_x0_logits, dim=-1)
+    ce = -torch.gather(logp, -1, x0.long()[..., None])[..., 0]
+    ce = torch.where(atom_mask, ce, 0.0).sum() / torch.clamp(atom_mask.sum(), min=1)
+    return tables.hybrid_loss_coeff * vb + ce

@@ -1,5 +1,5 @@
-"""Variance-exploding score diffusion on fractional coordinates (reverse
-steps only); counterpart of ``arreau_tpu/diffusion/ve.py``.
+"""Variance-exploding score diffusion on fractional coordinates;
+counterpart of ``arreau_tpu/diffusion/ve.py``.
 
 Every random number is passed in (``noise``, standard normal, shaped like
 the state), so callers decide where it comes from.
@@ -12,6 +12,9 @@ from typing import NamedTuple
 
 import torch
 
+from arreau_tpu_torch.ops.lattice import cart_to_frac, frac_to_cart
+from arreau_tpu_torch.ops.pbc import min_distance_pbc
+
 
 class VESchedule(NamedTuple):
     """Geometric sigma ladder ``sigmas[0..T]`` (sigmas[t] used at step t)."""
@@ -22,6 +25,24 @@ class VESchedule(NamedTuple):
 def make_ve_schedule(num_steps: int, sigma_min: float, sigma_max: float, device="cpu") -> VESchedule:
     log_s = torch.linspace(math.log(sigma_min), math.log(sigma_max), num_steps + 1, device=device)
     return VESchedule(sigmas=torch.exp(log_s))
+
+
+def ve_forward_pbc(
+    schedule: VESchedule,
+    noise: torch.Tensor,
+    frac_x0: torch.Tensor,
+    t: torch.Tensor,
+    lattice: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(noisy frac ``(x0 + sigma_t z) mod 1``, target, sigmas ``[B, 1, 1]``)
+    for ``t [B]`` in [1, T]; the target is the min-image displacement from
+    the clean point's nearest image to the noisy point, in fractional
+    coordinates wrapped into [0, 1)."""
+    sigmas = schedule.sigmas[t][:, None, None]
+    frac_noisy = (frac_x0 + noise * sigmas) % 1.0
+    _, min_vec = min_distance_pbc(frac_to_cart(frac_noisy, lattice),
+                                  frac_to_cart(frac_x0, lattice), lattice)
+    return frac_noisy, cart_to_frac(min_vec, lattice), sigmas
 
 
 def ve_reverse_step(

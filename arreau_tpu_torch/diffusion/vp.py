@@ -1,5 +1,6 @@
-"""Variance-preserving DDPM with a cosine alpha-bar schedule (reverse steps
-from an x0 prediction); counterpart of ``arreau_tpu/diffusion/vp.py``.
+"""Variance-preserving DDPM with a cosine alpha-bar schedule (forward
+noising and reverse steps from an x0 prediction); counterpart of
+``arreau_tpu/diffusion/vp.py``.
 
 Every random number is passed in (``noise``, standard normal)."""
 
@@ -35,6 +36,15 @@ def make_vp_schedule(
     betas = torch.clamp(betas, max=clipmax)
     sigmas = torch.sqrt(betas[1:] * (1 - alpha_bars[:-1]) / (1 - alpha_bars[1:]))
     return VPSchedule(alpha_bars=alpha_bars, betas=betas, sigmas=torch.cat([zero, sigmas]))
+
+
+def vp_forward(
+    schedule: VPSchedule, noise: torch.Tensor, h0: torch.Tensor, t: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """q(h_t | h_0) for ``h0 [B, D]``, ``t [B]``: (``sqrt(abar) h0 +
+    sqrt(1 - abar) noise``, noise)."""
+    abar = schedule.alpha_bars[t][:, None]
+    return torch.sqrt(abar) * h0 + torch.sqrt(1 - abar) * noise, noise
 
 
 def vp_reverse_given_x0(

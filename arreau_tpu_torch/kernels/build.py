@@ -88,6 +88,15 @@ def kernel_function(name: str, argtypes: tuple):
     return fn
 
 
+def row_splits(rows: int, rows_per_block: int = 4096, max_splits: int = 256) -> tuple[int, int]:
+    """(splits, rows per split) for a split-K weight gradient over ``rows``
+    rows: about ``rows_per_block`` rows per block, at most ``max_splits``
+    partial tiles to add in the second pass."""
+    splits = max(1, min(max_splits, -(-rows // rows_per_block)))
+    per = -(-rows // splits)
+    return -(-rows // per), per
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:

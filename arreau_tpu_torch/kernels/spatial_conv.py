@@ -1,8 +1,11 @@
-"""Spatial fiber-bundle convolution over super-crystal tiles.
+"""Spatial fiber-bundle convolution over super-crystal tiles, forward and
+backward.
 
-Replaces the TPU kernel ``arreau_tpu/ops/pallas_conv.py:_fwd_spatial_kernel``
-(public entry ``fused_spatial_conv``) with the hand-written CUDA kernel
-``csrc/spatial_conv.cu``:
+Replaces the TPU kernels ``arreau_tpu/ops/pallas_conv.py:_fwd_spatial_kernel``
+and ``_bwd_spatial_kernel`` (public entry ``fused_spatial_conv``, a
+``jax.custom_vjp``) with the hand-written CUDA kernels
+``csrc/spatial_conv.cu`` and ``csrc/spatial_conv_bwd.cu``, joined by the
+``torch.autograd.Function`` :func:`fused_spatial_conv`. The forward is
 
     out[b',o,t,c] = sum_k win[b',e] * (basis[b',o,e,:] @ w)[c] * x[b',o,src[b',e],c]
 
@@ -14,9 +17,14 @@ matrix ``sel [B', E, TA]`` (an MXU trick); here the layout code hands over
 On the H100 the function is bound by float32 arithmetic (2*B'*O*E*D*C
 operations against one read of the basis); the kernel keeps the per-edge
 ``[E, C]`` kernel in registers and reduces over k there (see the source).
+The backward (:func:`spatial_conv_bwd`) returns the cotangents of the basis,
+of ``w`` and of ``x``; the window's is not computed (it is a function of
+positions, which training does not differentiate: the JAX package's
+``window_grad = position_grads = False``), so ``win`` gets none.
 
-:func:`spatial_conv` launches the kernel for a CUDA tensor and runs
-:func:`spatial_conv_plain` for a CPU tensor; it never falls back.
+:func:`spatial_conv` and :func:`spatial_conv_bwd` launch their kernels for
+CUDA tensors and run :func:`spatial_conv_plain` / :func:`spatial_conv_bwd_plain`
+for CPU tensors; they never fall back.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_BWD_ARGTYPES = (_P,) * 10 + (_I,) * 8 + (_P,)
 
 
 def spatial_conv_plain(basis, w, x, src, win):
@@ -41,6 +50,24 @@ def spatial_conv_plain(basis, w, x, src, win):
     xj = torch.gather(x, 2, idx)
     msg = torch.where(live[:, None, :, None], kern * xj, 0.0)
     return msg.reshape(Bp, O, E // TA, TA, C).sum(dim=2)
+
+
+def spatial_conv_bwd_plain(basis, w, x, src, win, g):
+    """Plain PyTorch version of the backward: (dbasis, dw, dx) for the
+    cotangent ``g [B', O, TA, C]`` of :func:`spatial_conv_plain`'s output."""
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    live = (src >= 0) & (src < TA)
+    idx = torch.where(live, src, 0).long()[:, None, :, None].expand(Bp, O, E, C)
+    live = live[:, None, :, None]
+    g_e = g.repeat(1, 1, E // TA, 1)  # row e = k*TA + t holds g[t]
+    win_e = win[:, None, :, None]
+    gxw = torch.where(live, g_e * torch.gather(x, 2, idx), 0.0) * win_e
+    dbasis = torch.matmul(gxw, w.t())
+    dw = torch.einsum("boed,boec->dc", basis, gxw)
+    dxc = torch.where(live, torch.matmul(basis, w) * win_e * g_e, 0.0)
+    dx = torch.zeros_like(x).scatter_add_(2, idx, dxc)
+    return dbasis, dw, dx
 
 
 def _check(basis, w, x, src, win):
@@ -92,3 +119,63 @@ def spatial_conv(basis, w, x, src, win):
 
 
 spatial_conv.launches = 0
+
+
+def spatial_conv_bwd(basis, w, x, src, win, g):
+    """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``): the
+    cotangents of :func:`spatial_conv`'s inputs for the output cotangent
+    ``g [B', O, TA, C]``; see the module docstring."""
+    _check(basis, w, x, src, win)
+    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"g must be float32 {tuple(x.shape)} on {x.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if basis.device.type == "cpu":
+        return spatial_conv_bwd_plain(basis, w, x, src, win, g)
+    if basis.device.type != "cuda":
+        raise ValueError(f"spatial_conv_bwd runs on cuda or cpu, not {basis.device}")
+    if not all(t.is_contiguous() for t in (basis, w, x, src, win, g)):
+        raise ValueError("spatial_conv_bwd's CUDA kernels need contiguous inputs")
+    from arreau_tpu_torch.kernels.build import check, kernel_function, row_splits
+
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    if Bp * O > 65535:
+        raise ValueError(f"B'*O = {Bp * O} exceeds the kernels' grid limit")
+    if TA * 64 * 4 > 227 * 1024:
+        raise ValueError(f"TA = {TA} receivers exceed the dx kernel's shared memory")
+    splits, per_split = row_splits(Bp * O * E)
+    dbasis = torch.empty_like(basis)
+    dw = torch.empty_like(w)
+    dx = torch.empty_like(x)
+    partial = torch.empty((splits, D, C), dtype=torch.float32, device=basis.device)
+    fn = kernel_function("arreau_spatial_conv_bwd", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(basis.device).cuda_stream
+    err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), win.data_ptr(),
+             g.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+             Bp, O, E // TA, TA, D, C, splits, per_split, stream)
+    check("arreau_spatial_conv_bwd", err)
+    spatial_conv_bwd.launches += 1
+    return dbasis, dw, dx
+
+
+spatial_conv_bwd.launches = 0
+
+
+class _SpatialConv(torch.autograd.Function):
+    """``fused_spatial_conv``'s custom VJP: :func:`spatial_conv` forward,
+    :func:`spatial_conv_bwd` backward; ``src`` and ``win`` get no cotangent."""
+
+    @staticmethod
+    def forward(ctx, basis, w, x, src, win):
+        ctx.save_for_backward(basis, w, x, src, win)
+        return spatial_conv(basis, w, x, src, win)
+
+    @staticmethod
+    def backward(ctx, g):
+        dbasis, dw, dx = spatial_conv_bwd(*ctx.saved_tensors, g.contiguous())
+        return dbasis, dw, dx, None, None
+
+
+def fused_spatial_conv(basis, w, x, src, win):
+    """Differentiable :func:`spatial_conv` (cotangents for basis, w and x)."""
+    return _SpatialConv.apply(basis, w, x, src, win)

@@ -1,13 +1,15 @@
 """Building blocks of the Ponita backbone: polynomial features, sphere
 codecs, the basis MLP, the separable fiber-bundle convolution and the
-ConvNext block; counterpart of ``arreau_tpu/models/blocks.py`` (forward
-only).
+ConvNext block; counterpart of ``arreau_tpu/models/blocks.py``.
 
 Two layouts run through these blocks. The plain layout keeps crystals and
 atoms apart (``x [B, A, O, C]``, basis ``[B, A, K, O, D]``). The kernel
 layout folds T crystals into one super-crystal of TA = T*A atoms, with
 orientation-major features ``x [B', O, TA, C]`` and k-major edge rows
-``[B', O, E = K*TA, D]``; it is the layout of the CUDA kernels.
+``[B', O, E = K*TA, D]``; it is the layout of the CUDA kernels. There
+the basis MLP and the spatial conv are ``torch.autograd.Function``s whose
+forwards and backwards are the kernels (``kernels/basis_mlp.py``,
+``kernels/spatial_conv.py``).
 
 Two numerical details follow the JAX package: GELU is the tanh
 approximation (flax ``nn.gelu``), and LayerNorm takes the fast variance
@@ -22,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from arreau_tpu_torch.kernels.basis_h1 import basis_h1
-from arreau_tpu_torch.kernels.spatial_conv import spatial_conv
+from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_multi
+from arreau_tpu_torch.kernels.spatial_conv import fused_spatial_conv
 
 LN_EPS = 1e-5
 
@@ -98,17 +100,22 @@ class BasisMLP(nn.Module):
         h = gelu(self.dense_in(polynomial_features(attr, self.degree)))
         return gelu(self.dense_out(h))
 
-    def forward_kernel_layout(self, attrT: torch.Tensor) -> torch.Tensor:
+    def forward_kernel_layout(self, attrT: torch.Tensor, n_out: int) -> tuple[torch.Tensor, ...]:
         """The same function from lane-major ``attrT [B', O, d, E]`` to
-        ``[B', O, E, D]``, with the first layer in the ``basis_h1`` kernel
-        (the forward of the JAX package's ``MultiBasisMLP``; the one basis
-        tensor serves every conv layer)."""
-        w1 = self.dense_in.weight.t().contiguous()
-        b1 = self.dense_in.bias
-        if b1 is None:
-            b1 = torch.zeros(w1.shape[1], dtype=w1.dtype, device=w1.device)
-        h1 = gelu(basis_h1(attrT, w1, b1, self.degree))
-        return gelu(self.dense_out(h1))
+        ``n_out`` aliases of the ``[B', O, E, D]`` basis, one per consuming
+        conv layer (the JAX package's ``MultiBasisMLP``): first layer in the
+        ``basis_h1`` kernel, backward in the ``basis_mlp_bwd`` kernel, no
+        cotangent for ``attrT``."""
+
+        def bias(linear: nn.Linear) -> torch.Tensor:
+            if linear.bias is not None:
+                return linear.bias
+            return torch.zeros(linear.out_features, dtype=linear.weight.dtype,
+                               device=linear.weight.device)
+
+        return basis_mlp_multi(attrT, self.dense_in.weight.t().contiguous(), bias(self.dense_in),
+                               self.dense_out.weight.t().contiguous(), bias(self.dense_out),
+                               self.degree, n_out)
 
 
 class FiberBundleConv(nn.Module):
@@ -132,7 +139,7 @@ class FiberBundleConv(nn.Module):
         fiber_kernel = self.fiber_kernel(fiber_kernel_basis)  # [O, P, C]
         num_ori = fiber_kernel.shape[0]
         if kernel_layout:
-            x_sp = spatial_conv(kernel_basis, self.kernel, x, src, window)
+            x_sp = fused_spatial_conv(kernel_basis, self.kernel, x.contiguous(), src, window)
             y = torch.einsum("botc,opc->bptc", x_sp, fiber_kernel) / num_ori
             return y + self.bias
         kernel = torch.einsum("bakod,dc->bakoc", kernel_basis, self.kernel)

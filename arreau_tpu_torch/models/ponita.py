@@ -1,5 +1,5 @@
-"""PonitaFiberBundle: the SE(3)-equivariant backbone on an R^3 x S^2 grid,
-forward only; counterpart of ``arreau_tpu/models/ponita.py``.
+"""PonitaFiberBundle: the SE(3)-equivariant backbone on an R^3 x S^2 grid;
+counterpart of ``arreau_tpu/models/ponita.py``.
 
 Scalar and vector features are lifted onto the orientation grid, per-edge
 invariants feed the polynomial-basis kernel MLPs, ``num_layers`` ConvNext
@@ -9,9 +9,13 @@ global-scalar heads.
 
 On CUDA the backbone takes the kernel branch (the JAX package's
 ``use_pallas`` branch with ``fuse_fiber=False``): super-crystals of
-``pick_tile(B, A, 128)`` crystals, the ``basis_h1`` and ``spatial_conv``
-kernels. On the CPU it takes the plain branch. ``use_kernels`` forces
-either; the kernel branch on CPU tensors runs the kernels' plain versions.
+``pick_tile(B, A, 128)`` crystals, the basis MLP and spatial conv as
+``torch.autograd.Function``s over the CUDA kernels (forwards ``basis_h1``
+and ``spatial_conv``, backwards ``basis_mlp_bwd`` and ``spatial_conv_bwd``).
+On the CPU it takes the plain branch. ``use_kernels`` forces either; the
+kernel branch on CPU tensors runs the kernels' plain versions. Parameter
+gradients only: the kernel branch gives no cotangent for positions or the
+lattice (``position_grads`` is not ported).
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ class PonitaConfig:
     use_kernels: Optional[bool] = None
     # True = biases on both basis Dense layers, "in" = dense_in only, False = none
     basis_bias: "bool | str" = True
+    # differentiate through positions (window and attribute cotangents): not ported
+    position_grads: bool = False
 
     @property
     def output_dim(self) -> int:
@@ -129,6 +135,8 @@ class PonitaFiberBundle(nn.Module):
     def __init__(self, config: PonitaConfig):
         super().__init__()
         cfg = self.config = config
+        if cfg.position_grads:
+            raise NotImplementedError("position_grads waits for the point-cloud slice of the port")
         bb_in = cfg.basis_bias is True or cfg.basis_bias == "in"
         bb_out = cfg.basis_bias is True
         # invariants per edge and orientation: 2 spatial + 4 lattice_edge_scalars
@@ -201,12 +209,13 @@ class PonitaFiberBundle(nn.Module):
             E = K * TA
             # [B, A, K, O, d] -> lane-major [B', O, d, E], rows e = k*TA + t*A + a
             attrT = attr.reshape(Bp, tile, A, K, O, d).permute(0, 4, 5, 3, 1, 2)
-            kernel_basis = self.basis_fn.forward_kernel_layout(attrT.reshape(Bp, O, d, E).contiguous())
+            kernel_bases = self.basis_fn.forward_kernel_layout(
+                attrT.reshape(Bp, O, d, E).contiguous(), len(self.layers))
             win = window.reshape(Bp, tile, A, K).permute(0, 3, 1, 2).reshape(Bp, E).contiguous()
             conv_src, conv_mask, conv_window = tile_senders(nb.src, nb.mask, tile), None, win
             x = x.reshape(Bp, tile, A, O, -1).permute(0, 3, 1, 2, 4).reshape(Bp, O, TA, -1)
         else:
-            kernel_basis = self.basis_fn(attr) * window[..., None, None]
+            kernel_bases = (self.basis_fn(attr) * window[..., None, None],) * len(self.layers)
             conv_src, conv_mask, conv_window = nb.src, nb.mask, None
         fiber_kernel_basis = self.fiber_basis_fn(fiber_attr)  # [O, O, D]
 
@@ -214,7 +223,7 @@ class PonitaFiberBundle(nn.Module):
         x = self.x_embedder(x)
         xs = []
         for i, layer in enumerate(self.layers):
-            x = layer(x, kernel_basis, fiber_kernel_basis, conv_src, conv_mask, conv_window,
+            x = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask, conv_window,
                       kernel_layout=use_kernels)
             if str(i) in self.readouts:
                 xs.append((x, self.readouts[str(i)]))

@@ -13,6 +13,11 @@ from typing import Optional
 import torch
 
 
+def encode_angles(angles: torch.Tensor) -> torch.Tensor:
+    """3 angles -> their ``[sin || cos]`` encoding ``[..., 6]``."""
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 def decode_angles(encoded: torch.Tensor) -> torch.Tensor:
     """3 angles from their ``[sin || cos]`` encoding ``[..., 6]``."""
     return torch.atan2(encoded[..., :3], encoded[..., 3:])
@@ -41,6 +46,32 @@ def lattice_from_params(lengths: torch.Tensor, angles: torch.Tensor) -> torch.Te
     )
     vector_c = torch.stack([zeros, zeros, c], dim=-1)
     return torch.stack([vector_a, vector_b, vector_c], dim=-2)
+
+
+def matrix_to_params(matrix: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lattice ``[..., 3, 3]`` -> (lengths ``[..., 3]``, angles ``[..., 3]``);
+    ``angles[i]`` is the angle between rows ``(i+1)%3`` and ``(i+2)%3``."""
+    lengths = torch.sqrt(torch.sum(matrix**2, dim=-1))
+    j, k = [1, 2, 0], [2, 0, 1]
+    cos = torch.sum(matrix[..., j, :] * matrix[..., k, :], dim=-1) / (lengths[..., j] * lengths[..., k])
+    return lengths, torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions ``[..., 4]`` (w, x, y, z) -> rotations ``[..., 3, 3]``."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rotations_from_normals(normals: torch.Tensor) -> torch.Tensor:
+    """Uniform random rotations ``[..., 3, 3]`` from standard normals
+    ``[..., 4]`` (normalised to unit quaternions)."""
+    return quat_to_matrix(normals / torch.linalg.norm(normals, dim=-1, keepdim=True))
 
 
 def frac_to_cart(frac: torch.Tensor, lattice: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Fixed-degree periodic radius graph over a dense crystal batch.
+"""Periodic-boundary geometry: min-image distances and the fixed-degree
+radius graph over a dense crystal batch.
 
-Counterpart of ``arreau_tpu/ops/pbc.py:pbc_neighbor_list``: receiver-major
+Counterpart of ``arreau_tpu/ops/pbc.py``. ``pbc_neighbor_list``: receiver-major
 neighbor lists with exactly K slots per atom (masked), chosen among the
 A*27 candidate (atom, image) pairs within the radius, nearest first.
 
@@ -33,6 +34,21 @@ class NeighborList(NamedTuple):
     dist: torch.Tensor
     direction: torch.Tensor
     mask: torch.Tensor
+
+
+def min_distance_pbc(cart1: torch.Tensor, cart2: torch.Tensor,
+                     lattice: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min-image squared distance ``[..., A]``, vector ``[..., A, 3]``)
+    between paired atoms of ``cart1``/``cart2 [..., A, 3]``; the vector
+    points from cart2's nearest image to cart1 (first minimum on ties)."""
+    supercells = torch.as_tensor(SUPERCELLS, dtype=cart1.dtype, device=cart1.device)
+    offsets = torch.einsum("ci,...ij->...cj", supercells, lattice)  # [..., 27, 3]
+    diff = cart1[..., :, None, :] - (cart2[..., :, None, :] + offsets[..., None, :, :])
+    dist_sqr = torch.sum(diff**2, dim=-1)
+    min_idx = torch.argmin(dist_sqr, dim=-1, keepdim=True)
+    min_sqr = torch.gather(dist_sqr, -1, min_idx)[..., 0]
+    min_vec = torch.gather(diff, -2, min_idx[..., None].expand(*min_idx.shape, 3))[..., 0, :]
+    return min_sqr, min_vec
 
 
 def _select_chunk_size(B: int, A: int, max_elems: int) -> int:

@@ -1,10 +1,13 @@
-"""Joint crystal diffusion: score prediction and the reverse sampler;
-counterpart of ``arreau_tpu/tasks/diffusion.py`` (``DiffusionConfig``,
-``CrystalBatch``, ``DiffusionModel`` up to ``_sample_impl``).
+"""Joint crystal diffusion: noising, score prediction, the training loss
+and the reverse sampler; counterpart of ``arreau_tpu/tasks/diffusion.py``.
 
-The sampler runs both chains of the JAX package: the dense T-1-step
-reference chain and the strided DDIM-family chain over ``sample_steps``
-levels. Every random number it uses is drawn up front into a
+The loss noises the three modalities (VE on fractional coordinates, D3PM
+on atom types, VP on lattice lengths, and VP on the encoded angles with
+``diffuse_angles``), rebuilds the PBC graph, runs the backbone and returns
+the weighted sum of the per-modality losses. The sampler runs both chains of
+the JAX package: the dense T-1-step reference chain and the strided
+DDIM-family chain over ``sample_steps`` levels. Every random number the
+loss or the sampler uses is drawn up front into a :class:`LossNoise` or
 :class:`SamplerNoise` (from a ``torch.Generator``), or handed in, so the
 tests can feed the port and the JAX package the same numbers.
 """
@@ -19,15 +22,23 @@ import torch
 import torch.nn.functional as F
 
 from arreau_tpu_torch.diffusion.d3pm import (
+    d3pm_loss,
     d3pm_reverse_step,
+    d3pm_sample_xt,
     d3pm_strided_reverse_step,
     make_d3pm_tables,
     make_strided_transitions,
 )
-from arreau_tpu_torch.diffusion.ve import make_ve_schedule, ve_ddim_step, ve_reverse_step
+from arreau_tpu_torch.diffusion.ve import (
+    make_ve_schedule,
+    ve_ddim_step,
+    ve_forward_pbc,
+    ve_reverse_step,
+)
 from arreau_tpu_torch.diffusion.vp import (
     make_vp_schedule,
     vp_ddim_step_given_x0,
+    vp_forward,
     vp_reverse_given_x0,
 )
 from arreau_tpu_torch.models.ponita import FiberBundleInputs, PonitaConfig, PonitaFiberBundle
@@ -35,8 +46,10 @@ from arreau_tpu_torch.ops.fourier import default_fourier_weights, gaussian_fouri
 from arreau_tpu_torch.ops.grids import cached_grid_s2
 from arreau_tpu_torch.ops.lattice import (
     decode_angles,
+    encode_angles,
     frac_to_cart,
     lattice_from_params,
+    matrix_to_params,
     sample_bravais_angles,
 )
 from arreau_tpu_torch.ops.pbc import pbc_neighbor_list
@@ -59,6 +72,20 @@ class CrystalBatch(NamedTuple):
     lattice: torch.Tensor
     num_atoms: torch.Tensor
     atom_mask: torch.Tensor
+
+
+def batch_to_device(batch: CrystalBatch, device) -> CrystalBatch:
+    """A batch of numpy arrays (the loader's) as tensors on ``device``:
+    float32 coordinates and lattices, int64 types and counts, bool mask."""
+    dtypes = (torch.float32, torch.long, torch.float32, torch.long, torch.bool)
+    return CrystalBatch(*(torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+                          for a, dt in zip(batch, dtypes)))
+
+
+def rotate_batch(rotations: torch.Tensor, batch: CrystalBatch) -> CrystalBatch:
+    """Rotation augmentation: one rotation ``[B, 3, 3]`` per crystal applied
+    to the lattice rows (rows @ R^T); fractional coordinates stay."""
+    return batch._replace(lattice=torch.einsum("brj,bij->bri", batch.lattice, rotations))
 
 
 @dataclass(frozen=True)
@@ -179,6 +206,36 @@ def draw_sampler_noise(generator: torch.Generator, num_steps: int, B: int, A: in
     )
 
 
+@dataclass
+class LossNoise:
+    """Every random number of one loss evaluation: timesteps ``t [B]`` in
+    [1, T], standard normals ``pos [B, A, 3]``, ``lattice [B, 3]`` and
+    ``angle [B, 6]`` (None without ``diffuse_angles``), and uniforms ``types
+    [B, A, C]`` for the gumbel draw of the noisy types."""
+
+    t: torch.Tensor
+    pos: torch.Tensor
+    types: torch.Tensor
+    lattice: torch.Tensor
+    angle: Optional[torch.Tensor]
+
+
+def draw_loss_noise(generator: torch.Generator, B: int, A: int, C: int, num_timesteps: int,
+                    diffuse_angles: bool, device, timestep: Optional[int] = None) -> LossNoise:
+    """Draw a :class:`LossNoise` on ``device``; ``timestep`` fixes t."""
+    if timestep is None:
+        t = torch.randint(1, num_timesteps + 1, (B,), generator=generator, device=device)
+    else:
+        t = torch.full((B,), timestep, dtype=torch.long, device=device)
+    return LossNoise(
+        t=t,
+        pos=torch.randn((B, A, 3), generator=generator, device=device),
+        types=torch.rand((B, A, C), generator=generator, device=device),
+        lattice=torch.randn((B, 3), generator=generator, device=device),
+        angle=torch.randn((B, 6), generator=generator, device=device) if diffuse_angles else None,
+    )
+
+
 def _decode_angles_safe(enc: torch.Tensor) -> torch.Tensor:
     return torch.clamp(decode_angles(enc), ANGLE_CLIP[0], ANGLE_CLIP[1])
 
@@ -208,6 +265,21 @@ class DiffusionModel:
         self.fourier_w = w.to(device)
         self.ori_grid = torch.as_tensor(cached_grid_s2(config.num_ori), dtype=torch.float32,
                                         device=device)
+
+    # ---------------- init ----------------
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, batch: CrystalBatch) -> None:
+        """Seeded parameters with the JAX package's init distributions,
+        checked against one forward on ``batch`` at the inputs the JAX
+        package's ``init`` traces (t = 1, lengths 4, right angles)."""
+        self.model.init_parameters(generator)
+        B = batch.frac_x.shape[0]
+        dev = self.device
+        onehot = F.one_hot(batch.atom_types, self.config.num_atomic_states).to(torch.float32)
+        self.predict_scores(batch.frac_x, onehot, torch.ones((B,), dtype=torch.long, device=dev),
+                            batch.num_atoms, torch.full((B, 3), 4.0, device=dev),
+                            torch.full((B, 3), float(np.pi) / 2, device=dev), batch.atom_mask)
 
     # ---------------- forward ----------------
 
@@ -240,6 +312,62 @@ class DiffusionModel:
                                     angles, atom_mask)
         out = self.model(inputs)
         return out.node_vec[:, :, 0, :], out.node_scalar, out.global_scalar
+
+    # ---------------- loss ----------------
+
+    def loss(self, batch: CrystalBatch, noise: LossNoise) -> tuple[torch.Tensor, dict]:
+        """(total, metrics): wrapped fractional-coordinate MSE + D3PM hybrid
+        loss + lattice-length MSE (+ encoded-angle MSE with
+        ``diffuse_angles``), weighted by the config. Per-atom means are over
+        real atoms and per-crystal means over real crystals, so padding slots
+        and padding crystals weigh nothing; ``num_crystals`` and
+        ``num_atoms`` give those counts for exact epoch means. Every metric
+        stays a tensor on the device."""
+        cfg = self.config
+        B, A, _ = batch.frac_x.shape
+        t = noise.t
+        t_atom = t[:, None].expand(B, A)
+        noisy_frac, target_eps, _ = ve_forward_pbc(self.ve, noise.pos, batch.frac_x, t,
+                                                   batch.lattice)
+        noisy_types = d3pm_sample_xt(self.d3pm, noise.types, batch.atom_types, t_atom)
+        lengths, angles = matrix_to_params(batch.lattice)
+        noisy_lengths, _ = vp_forward(self.vp, noise.lattice, lengths, t)
+        if cfg.diffuse_angles:
+            target_enc = encode_angles(angles)
+            noisy_enc, _ = vp_forward(self.vp, noise.angle, target_enc, t)
+            angles_in = _decode_angles_safe(noisy_enc)
+        else:
+            angles_in = angles
+        onehot = F.one_hot(noisy_types, cfg.num_atomic_states).to(torch.float32)
+        pred_eps, logits, pred_global = self.predict_scores(
+            noisy_frac, onehot, t, batch.num_atoms, noisy_lengths, angles_in, batch.atom_mask)
+
+        diff = torch.abs(pred_eps - target_eps) % 1.0
+        wrapped = torch.minimum(diff, 1.0 - diff)
+        n_valid = torch.clamp(batch.atom_mask.sum(), min=1)
+        error_coord = torch.where(batch.atom_mask, torch.sum(wrapped**2, dim=-1), 0.0).sum() / n_valid
+
+        error_type = d3pm_loss(self.d3pm, batch.atom_types, logits, noisy_types, t_atom,
+                               batch.atom_mask)
+
+        example_mask = batch.atom_mask.any(dim=-1)
+        n_examples = torch.clamp(example_mask.sum(), min=1)
+        target_lengths = lengths / torch.clamp(batch.num_atoms, min=1).to(lengths.dtype)[:, None]
+        sq = torch.mean((pred_global[:, :3] - target_lengths) ** 2, dim=-1)
+        error_lattice = torch.where(example_mask, sq, 0.0).sum() / n_examples
+
+        total = (cfg.coord_loss_weight * error_coord + cfg.atom_type_loss_weight * error_type
+                 + cfg.lattice_loss_weight * error_lattice)
+        metrics = {"loss_coord": error_coord, "loss_type": error_type,
+                   "loss_lattice": error_lattice}
+        if cfg.diffuse_angles:
+            sq_ang = torch.mean((pred_global[:, 3:9] - target_enc) ** 2, dim=-1)
+            metrics["loss_angle"] = torch.where(example_mask, sq_ang, 0.0).sum() / n_examples
+            total = total + cfg.angle_loss_weight * metrics["loss_angle"]
+        metrics["loss"] = total
+        metrics["num_crystals"] = n_examples.to(torch.float32)
+        metrics["num_atoms"] = n_valid.to(torch.float32)
+        return total, metrics
 
     # ---------------- sampler ----------------
 

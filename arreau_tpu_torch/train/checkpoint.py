@@ -1,0 +1,133 @@
+"""Checkpoints of the port: parameters in the JAX layout beside the
+training state; counterpart of ``arreau_tpu/train/checkpoint.py`` (which
+writes orbax checkpoints the card's machine cannot read).
+
+``<directory>/meta.json`` describes the run (:func:`diffusion_meta`). Each
+tag (``last``, ``best``, ``best-<step>``) is a directory of its own that
+``arreau_tpu_torch.cli.generate --checkpoint_dir <directory>/<tag>`` reads
+as it is:
+
+- ``meta.json``, a copy of the run's;
+- ``params.npz``, the parameters as a flat JAX-layout tree
+  (``interop/from_jax.py``), and ``ema_params.npz`` when an EMA is kept;
+- ``state.pt``, a ``torch.save`` of the optimizer state, the EMA and the
+  step, for ``--resume``.
+
+A save writes a temporary directory and then renames it over the tag. The
+``keep`` lowest validation losses are kept as ``best-<step>`` (their scores
+in ``scores.json``, which also carries the best score across resumes), and
+``best`` is the lowest.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from dataclasses import asdict
+from typing import Optional
+
+import torch
+
+from arreau_tpu_torch.interop.from_jax import (
+    load_params_npz,
+    params_from_jax,
+    params_to_jax,
+    save_params_npz,
+)
+from arreau_tpu_torch.tasks.diffusion import DiffusionModel
+from arreau_tpu_torch.train.optim import AdamW
+from arreau_tpu_torch.train.state import EMA
+
+
+def diffusion_meta(config, z_table, length_stats: Optional[dict] = None,
+                   fourier_w: Optional[torch.Tensor] = None) -> dict:
+    """Self-describing metadata: the config, the z-table, the training
+    lattice-length statistics (generation's ``clip_denoised`` envelope) and
+    the fixed Fourier frequencies of the time embedding."""
+    meta = {"config": asdict(config), "z_table_zs": [int(z) for z in z_table.zs]}
+    if length_stats is not None:
+        meta["length_stats"] = {k: float(v) for k, v in length_stats.items()}
+    if fourier_w is not None:
+        meta["fourier_w"] = [float(v) for v in fourier_w.detach().cpu().reshape(-1)]
+    return meta
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, meta: Optional[dict] = None):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        if meta is not None:
+            self._write_json("meta.json", meta)
+
+    def path(self, tag: str) -> str:
+        return os.path.join(self.directory, tag)
+
+    def has(self, tag: str = "last") -> bool:
+        return os.path.exists(os.path.join(self.path(tag), "state.pt"))
+
+    def load_meta(self) -> dict:
+        with open(os.path.join(self.directory, "meta.json")) as f:
+            return json.load(f)
+
+    def save(self, tag: str, model: DiffusionModel, optimizer: AdamW,
+             ema: Optional[EMA] = None) -> None:
+        target = self.path(tag)
+        tmp = target + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        shutil.copyfile(os.path.join(self.directory, "meta.json"), os.path.join(tmp, "meta.json"))
+        save_params_npz(os.path.join(tmp, "params.npz"), params_to_jax(model.model))
+        if ema is not None:
+            with ema.swapped_in(model.model):
+                save_params_npz(os.path.join(tmp, "ema_params.npz"), params_to_jax(model.model))
+        torch.save({"step": optimizer.count, "optimizer": optimizer.state_dict(),
+                    "ema": ema.state_dict() if ema is not None else None},
+                   os.path.join(tmp, "state.pt"))
+        shutil.rmtree(target, ignore_errors=True)
+        os.replace(tmp, target)
+
+    def restore(self, tag: str, model: DiffusionModel, optimizer: AdamW,
+                ema: Optional[EMA] = None) -> int:
+        """Load a tag's parameters, optimizer state and EMA; returns its step."""
+        params_from_jax(model, load_params_npz(os.path.join(self.path(tag), "params.npz")))
+        state = torch.load(os.path.join(self.path(tag), "state.pt"), map_location=model.device,
+                           weights_only=True)
+        optimizer.load_state_dict(state["optimizer"])
+        if ema is not None and state["ema"] is not None:
+            ema.load_state_dict(state["ema"])
+        return int(state["step"])
+
+    # ---- ranked retention
+
+    def load_scores(self) -> dict:
+        path = os.path.join(self.directory, "scores.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        return {"ranked": []}  # [score, tag] pairs, ascending
+
+    def best_score(self) -> float:
+        ranked = self.load_scores()["ranked"]
+        return float(ranked[0][0]) if ranked else float("inf")
+
+    def save_ranked(self, score: float, step: int, model: DiffusionModel, optimizer: AdamW,
+                    ema: Optional[EMA] = None, keep: int = 3) -> bool:
+        """Keep the ``keep`` lowest scores as ``best-<step>`` and the lowest
+        as ``best``; returns whether this one entered."""
+        ranked = [(float(s), t) for s, t in self.load_scores()["ranked"]]
+        if len(ranked) >= keep and score >= ranked[-1][0]:
+            return False
+        tag = f"best-{step}"
+        ranked = sorted(ranked + [(float(score), tag)], key=lambda st: st[0])
+        self.save(tag, model, optimizer, ema)
+        if ranked[0][1] == tag:
+            self.save("best", model, optimizer, ema)
+        for _, old in ranked[keep:]:
+            shutil.rmtree(self.path(old), ignore_errors=True)
+        self._write_json("scores.json", {"ranked": [[s, t] for s, t in ranked[:keep]]})
+        return True
+
+    def _write_json(self, name: str, obj: dict) -> None:
+        with open(os.path.join(self.directory, name), "w") as f:
+            json.dump(obj, f, indent=2)

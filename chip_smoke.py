@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the sampler and
+the training path, every CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, with no arguments:
 
@@ -9,34 +10,52 @@ Phases, each printing its elapsed seconds and raising on any failure:
 
 1. device: requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. build: builds the port's CUDA kernels (one nvcc call) or loads a current build.
-3. kernels: captures the inputs each kernel gets in one full-width forward
-   of the sampler (batch 128 x 8 atoms), holds every kernel against its
-   plain PyTorch version on them, and times kernel, plain version and a
-   library yardstick with CUDA events.
-4. main path: writes a seeded full-width checkpoint (the default diffusion
-   config with random weights) to a temporary directory and runs the
-   generate CLI on it: 256 crystals, batch 128 x 8 atoms, 50 strided
-   steps. Checks the crystals and that every forward went through both
-   kernels (launch counts).
-5. reference: one backbone forward of the full-width model on a small
-   batch of realistic crystals (one neighbour list) through the CUDA kernel
-   branch and through the plain branch on the CPU, with the same weights,
-   must agree.
+3. serving kernels: captures the inputs each forward kernel gets in one
+   full-width forward of the sampler (batch 128 x 8 atoms), holds both
+   against their plain PyTorch versions and times kernel, plain version and
+   a library yardstick with CUDA events.
+4. sampler path: writes a seeded full-width checkpoint (random weights) and
+   runs the generate CLI on it: 256 crystals, batch 128 x 8 atoms, 50
+   strided steps. Checks the crystals and that every forward went through
+   both forward kernels (launch counts, set to 0 just before the path).
+5. forward reference: one backbone forward of the full-width model on
+   realistic crystals, CUDA kernel branch against the plain branch on the
+   CPU, on one neighbour list.
+6. training kernels: captures the inputs of all four kernels (forwards
+   spatial_conv and basis_h1, backwards spatial_conv_bwd and basis_mlp_bwd)
+   in one training step at the canonical shape (256 crystals x 16 atoms,
+   hidden 200), holds each against its plain version and times it.
+7. training step: one training step's time at that batch (CUDA events) and
+   where it goes (torch.profiler: the device's busy share and its largest
+   kernels).
+8. training reference: one training step's loss terms and every parameter
+   gradient on the card's kernel branch against the CPU's plain branch, on
+   one neighbour list.
+9. training path: the training CLI on the synthetic dataset at batch 256,
+   hidden 200, for TRAIN_STEPS steps. Checks that every step launched each
+   forward kernel once per layer / once, and each backward kernel once per
+   layer / once, and that every loss is finite; prints steps/s.
+10. trained sampling: the generate CLI on the checkpoint the training path wrote.
 
-The last two lines are the kernels' JSON record and the result
-``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
-the repository beside it, the script exits non-zero before printing either.
+The last two lines are the kernels' JSON record (training-shape numbers;
+``launches`` from the training path) and the result
+``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
+repository beside it, the script exits non-zero before printing either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from functools import reduce
 from pathlib import Path
 
 import numpy as np
@@ -47,7 +66,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TIMED_RUNS = 20
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max |plain|: float32, other summation order
+# a training step's gradients, card kernel branch vs CPU plain branch: each
+# parameter's max |difference| over its max |gradient| (float32 forward and
+# backward through five layers in other summation orders)
+GRAD_REL_TOL = 1e-3
 BATCH, ATOMS, CRYSTALS, STEPS, SEED = 128, 8, 256, 50, 0
+TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_STEPS = 256, 200, 35  # 35 steps = 5 epochs of the synthetic set
 
 
 class Phase:
@@ -63,6 +87,20 @@ class Phase:
 
     def __exit__(self, *exc):
         print(f"== {self.name}: {time.perf_counter() - self.t0:.2f} s", flush=True)
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -84,8 +122,23 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+def tensors_of(*items) -> list:
+    """The tensors among ``items``, lists and tuples opened."""
+    out = []
+    for item in items:
+        if torch.is_tensor(item):
+            out.append(item)
+        elif isinstance(item, (list, tuple)):
+            out.extend(tensors_of(*item))
+    return out
+
+
+def nbytes(*items) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors_of(*items))
+
+
+def as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
 def first_step_inputs(model, noise):
@@ -98,44 +151,189 @@ def first_step_inputs(model, noise):
             noise.lengths0, noise.angles, torch.ones((B, A), dtype=torch.bool, device=dev))
 
 
-def capture_kernel_inputs(model, inputs, blocks):
-    """Inputs of the first call of each kernel in one forward of the model."""
+def kernel_sites():
+    """{kernel name: (module, attribute)} where the port's autograd
+    Functions look each kernel wrapper up when they run."""
+    from arreau_tpu_torch.kernels import basis_mlp, spatial_conv
+
+    return {"spatial_conv": (spatial_conv, "spatial_conv"),
+            "spatial_conv_bwd": (spatial_conv, "spatial_conv_bwd"),
+            "basis_h1": (basis_mlp, "basis_h1"),
+            "basis_mlp_bwd": (basis_mlp, "basis_mlp_bwd")}
+
+
+def wrappers() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernel_sites().items()}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+class Recorder:
+    """Stands in for a kernel wrapper: keeps the arguments of its first call
+    and passes every call on. Its ``launches`` is the wrapper's (a wrapper
+    counts through its module-level name, which is this object meanwhile)."""
+
+    def __init__(self, fn, captured: dict, name: str):
+        self.fn, self.captured, self.name = fn, captured, name
+
+    def __call__(self, *args):
+        self.captured.setdefault(self.name, args)
+        return self.fn(*args)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def capturing():
+    """Records the arguments of the first call of each kernel wrapper."""
     captured = {}
-    originals = {name: getattr(blocks, name) for name in ("spatial_conv", "basis_h1")}
-
-    def recorder(name):
-        def call(*args):
-            captured.setdefault(name, args)
-            return originals[name](*args)
-        return call
-
-    for name in originals:
-        setattr(blocks, name, recorder(name))
+    originals = wrappers()
+    for name, (mod, attr) in kernel_sites().items():
+        setattr(mod, attr, Recorder(originals[name], captured, name))
     try:
-        model.predict_scores(*inputs)
+        yield captured
     finally:
-        for name, fn in originals.items():
-            setattr(blocks, name, fn)
-    return captured
+        for name, (mod, attr) in kernel_sites().items():
+            setattr(mod, attr, originals[name])
+
+
+def conv_library(basis, w, x, src, win):
+    """The spatial conv as a chain of library calls: the per-edge kernel by
+    bmm, then gather, multiply, sum (PyTorch has no one call for it)."""
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    kern = torch.bmm(basis.reshape(Bp * O, E, D), w.expand(Bp * O, D, C))
+    kern = kern.view(Bp, O, E, C) * win[:, None, :, None]
+    live = ((src >= 0) & (src < TA))[:, None, :, None]
+    idx = torch.where(live, src[:, None, :, None], 0).long().expand(Bp, O, E, C)
+    msg = torch.where(live, kern * torch.gather(x, 2, idx), 0.0)
+    return msg.view(Bp, O, E // TA, TA, C).sum(dim=2)
 
 
 def check_kernel(name, kernel, plain, library, args, flops, source, replaces):
-    out_k = kernel(*args)
-    out_p = plain(*args)
+    """Hold ``kernel`` against ``plain`` on ``args`` (every output within
+    KERNEL_REL_TOL of that output's scale), then time kernel, plain version
+    and library yardstick; returns the kernel's JSON record."""
+    out_k, out_p = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    scale = out_p.abs().max().item()
-    print(f"{name}: max_abs_err {err:.3e}, max |plain| {scale:.3e}, "
-          f"rel {err / scale:.3e} (tolerance {KERNEL_REL_TOL:g})")
-    if not math.isfinite(err) or err > KERNEL_REL_TOL * scale:
-        raise RuntimeError(f"{name} disagrees with its plain version")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(out_k, out_p)):
+        e, scale = (a - b).abs().max().item(), b.abs().max().item()
+        print(f"{name} output {i}: max_abs_err {e:.3e}, max |plain| {scale:.3e}, "
+              f"rel {e / scale:.3e} (tolerance {KERNEL_REL_TOL:g})")
+        if not math.isfinite(e) or e > KERNEL_REL_TOL * scale:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        err = max(err, e)
     ms, plain_ms, lib_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args)), cuda_ms(library)
-    b_ms, b_by = bound_ms(nbytes(*[a for a in args if torch.is_tensor(a)], out_p), flops)
+    b_ms, b_by = bound_ms(nbytes(args, out_p), flops)
     print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+def forward_kernel_records(args, label):
+    """Records of the two forward kernels (#3, #8) on captured arguments."""
+    from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
+    from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
+    from arreau_tpu_torch.models.blocks import polynomial_features
+
+    basis, w, x, src, win = args["spatial_conv"]
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    n_valid = int(((src >= 0) & (src < TA)).sum())
+    print(f"{label}: spatial_conv shapes B'={Bp} O={O} E={E} TA={TA} K={E // TA} D={D} C={C}, "
+          f"{n_valid}/{Bp * E} edge slots filled")
+    conv = check_kernel(
+        "spatial_conv", spatial_conv, spatial_conv_plain,
+        lambda: conv_library(basis, w, x, src, win), args["spatial_conv"],
+        O * n_valid * (2 * D * C + 3 * C),
+        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298",
+    )
+    attrT, w1, b1, degree = args["basis_h1"]
+    d = attrT.shape[2]
+    F_, H = w1.shape
+    print(f"{label}: basis_h1 shapes B'={Bp} O={O} d={d} E={E} F={F_} H={H}")
+    poly = polynomial_features(attrT.transpose(-1, -2), degree).reshape(-1, F_)
+    h1 = check_kernel(
+        "basis_h1", basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
+        args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
+        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397",
+    )
+    return conv, h1, n_valid
+
+
+def backward_kernel_records(args, n_valid):
+    """Records of the two backward kernels (#4, #7) on captured arguments;
+    the library yardstick is autograd's backward through the library chain
+    of the same forward."""
+    from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd, basis_mlp_bwd_plain
+    from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd, spatial_conv_bwd_plain
+    from arreau_tpu_torch.models.blocks import gelu, polynomial_features
+
+    basis, w, x, src, win, g = args["spatial_conv_bwd"]
+    Bp, O, E, D = basis.shape
+    C = x.shape[3]
+    leaves = [t.detach().requires_grad_() for t in (basis, w, x)]
+    with torch.enable_grad():
+        out = conv_library(*leaves, src, win)
+    conv_bwd = check_kernel(
+        "spatial_conv_bwd", spatial_conv_bwd, spatial_conv_bwd_plain,
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
+        O * n_valid * (6 * D * C + 5 * C),
+        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331",
+    )
+    del out, leaves
+
+    attrT, w1, b1, w2, b2, degree, gs = args["basis_mlp_bwd"]
+    F_, H = w1.shape
+    print(f"basis_mlp_bwd shapes: B'={Bp} O={O} E={E} F={F_} H={H} D={w2.shape[1]}, "
+          f"{len(gs)} cotangents")
+    poly = polynomial_features(attrT.transpose(-1, -2), degree).reshape(-1, F_)
+    leaves = [t.detach().requires_grad_() for t in (w1, b1, w2, b2)]
+    with torch.enable_grad():
+        lib_basis = gelu(torch.addmm(leaves[3], gelu(torch.addmm(leaves[1], poly, leaves[0])),
+                                     leaves[2]))
+    flat_gs = [t.reshape(lib_basis.shape) for t in gs]
+    mlp_bwd = check_kernel(
+        "basis_mlp_bwd", basis_mlp_bwd, basis_mlp_bwd_plain,
+        lambda: torch.autograd.grad(lib_basis, leaves, reduce(torch.add, flat_gs), retain_graph=True),
+        args["basis_mlp_bwd"], O * n_valid * 2 * (2 * F_ * H + 3 * H * w2.shape[1]),
+        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289",
+    )
+    return conv_bwd, mlp_bwd
+
+
+def crystal_checks(result, z_table, n, atoms, bounds) -> None:
+    lengths = np.linalg.norm(result.lattice, axis=-1)
+    lo, hi = bounds
+    checks = {
+        f"{n} crystals": result.num_crystals == n,
+        f"{atoms} atoms each": bool(np.all(result.num_atoms == atoms))
+        and len(result.frac_x) == n * atoms,
+        "finite": all(np.isfinite(a).all() for a in (result.frac_x, result.lattice)),
+        "frac in [0, 1)": bool(np.all((result.frac_x >= 0) & (result.frac_x < 1))),
+        "lengths positive and clamped": bool(np.all((lengths > 0) & (lengths >= lo - 1e-4)
+                                                    & (lengths <= hi + 1e-4))),
+        "types in the z-table": bool(np.isin(result.atomic_numbers, z_table.zs).all()),
+    }
+    print("checks: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise RuntimeError("generated crystals failed their checks")
 
 
 def main() -> int:
@@ -144,20 +342,26 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.cli import generate, train_diffusion
     from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.data.crystal import BucketedLoader, pack_dense_batch
+    from arreau_tpu_torch.data.synthetic import make_synthetic_batch, synthetic_packed
     from arreau_tpu_torch.inference.io import load_sample_results
     from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
     from arreau_tpu_torch.kernels import build
-    from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
-    from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
-    from arreau_tpu_torch.models import blocks
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.tasks import diffusion
     from arreau_tpu_torch.tasks.diffusion import (
         DiffusionConfig,
         DiffusionModel,
+        LossNoise,
+        batch_to_device,
+        draw_loss_noise,
         draw_sampler_noise,
         strided_levels,
     )
+    from arreau_tpu_torch.train.loop import train_step
+    from arreau_tpu_torch.train.optim import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,49 +385,21 @@ def main() -> int:
     model = DiffusionModel(cfg, device=dev)
     model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
 
-    with Phase("kernels"):
+    with Phase("serving kernels"):
         noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
-            args = capture_kernel_inputs(model, inputs, blocks)
-            basis, w, x, src, win = args["spatial_conv"]
-            Bp, O, E, D = basis.shape
-            TA, C = x.shape[2], x.shape[3]
-            n_valid = int(((src >= 0) & (src < TA)).sum())
-            print(f"spatial_conv shapes: B'={Bp} O={O} E={E} TA={TA} K={E // TA} D={D} C={C}, "
-                  f"{n_valid}/{Bp * E} edge slots filled")
-
-            def conv_library():  # per-edge kernel by bmm, then gather, multiply, sum
-                kern = torch.bmm(basis.view(Bp * O, E, D), w.expand(Bp * O, D, C))
-                kern = kern.view(Bp, O, E, C) * win[:, None, :, None]
-                idx = src.clamp(min=0).long()[:, None, :, None].expand(Bp, O, E, C)
-                msg = torch.where((src >= 0)[:, None, :, None], kern * torch.gather(x, 2, idx), 0.0)
-                return msg.view(Bp, O, E // TA, TA, C).sum(dim=2)
-
-            conv = check_kernel(
-                "spatial_conv", spatial_conv, spatial_conv_plain, conv_library, args["spatial_conv"],
-                O * n_valid * (2 * D * C + 3 * C),
-                "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298",
-            )
-
-            attrT, w1, b1, degree = args["basis_h1"]
-            _, _, d, _ = attrT.shape
-            F_, H = w1.shape
-            print(f"basis_h1 shapes: B'={Bp} O={O} d={d} E={E} F={F_} H={H}")
-            poly = blocks.polynomial_features(attrT.transpose(-1, -2), degree).reshape(-1, F_)
-            h1 = check_kernel(
-                "basis_h1", basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
-                args["basis_h1"], Bp * O * E * (2 * F_ * H + H),
-                "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397",
-            )
+            with capturing() as args:
+                model.predict_scores(*inputs)
+            serve_conv, serve_h1, _ = forward_kernel_records(args, f"serving {BATCH}x{ATOMS}")
             fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
-            kernels_ms = cfg.num_layers * conv["ms"] + h1["ms"]
+            kernels_ms = cfg.num_layers * serve_conv["ms"] + serve_h1["ms"]
             print(f"forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 runs), of which "
                   f"{cfg.num_layers} x spatial_conv + basis_h1 = {kernels_ms:.4f} ms")
-            del args, inputs, basis, x, src, win, attrT, poly
+            del args, inputs
 
-    with Phase("main path"), tempfile.TemporaryDirectory() as tmp:
+    with Phase("sampler path"), tempfile.TemporaryDirectory() as tmp:
         ckpt, out_dir = Path(tmp) / "ckpt", Path(tmp) / "out"
         ckpt.mkdir()
         meta = {
@@ -237,8 +413,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
-        spatial_conv.launches = 0
-        basis_h1.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         generate.main([
             "--checkpoint_dir", str(ckpt), "--batch_size", str(BATCH),
@@ -247,34 +422,19 @@ def main() -> int:
             "--device", "cuda",
         ])
         wall = time.perf_counter() - t0
-        conv["launches"], h1["launches"] = spatial_conv.launches, basis_h1.launches
-
+        sampler_counts = launch_counts()
         forwards = math.ceil(CRYSTALS / BATCH) * (len(strided_levels(cfg.num_timesteps, STEPS)) - 1)
-        print(f"forwards {forwards}: spatial_conv launches {conv['launches']}, "
-              f"basis_h1 launches {h1['launches']}")
-        if conv["launches"] != cfg.num_layers * forwards or h1["launches"] != forwards:
-            raise RuntimeError("the main path did not launch each kernel once per layer and forward")
-
-        result = load_sample_results(str(out_dir / "crystals.npz"))
-        lengths = np.linalg.norm(result.lattice, axis=-1)
-        lo, hi = generate.length_bounds_from_meta(meta)
-        checks = {
-            f"{CRYSTALS} crystals": result.num_crystals == CRYSTALS,
-            f"{ATOMS} atoms each": bool(np.all(result.num_atoms == ATOMS))
-            and len(result.frac_x) == CRYSTALS * ATOMS,
-            "finite": all(np.isfinite(a).all() for a in (result.frac_x, result.lattice)),
-            "frac in [0, 1)": bool(np.all((result.frac_x >= 0) & (result.frac_x < 1))),
-            "lengths positive and clamped": bool(np.all((lengths > 0) & (lengths >= lo - 1e-4)
-                                                        & (lengths <= hi + 1e-4))),
-            "types in the z-table": bool(np.isin(result.atomic_numbers, z_table.zs).all()),
-        }
-        print("checks: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}" for k, v in checks.items()))
-        if not all(checks.values()):
-            raise RuntimeError("generated crystals failed their checks")
-        print(f"main path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
+        print(f"forwards {forwards}: launches {sampler_counts}")
+        if sampler_counts != {"spatial_conv": cfg.num_layers * forwards, "basis_h1": forwards,
+                              "spatial_conv_bwd": 0, "basis_mlp_bwd": 0}:
+            raise RuntimeError("the sampler path did not launch each forward kernel once per "
+                               "layer and forward (and no backward kernel)")
+        crystal_checks(load_sample_results(str(out_dir / "crystals.npz")), z_table, CRYSTALS,
+                       ATOMS, generate.length_bounds_from_meta(meta))
+        print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
               f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
 
-    with Phase("reference"):
+    with Phase("forward reference"):
         # one backbone forward on realistic crystals (lengths U(3, 8) angstrom,
         # angles U(75, 105) degrees): the CUDA kernel branch against the plain
         # branch on the CPU, on one neighbour list built on the CPU (the top-K
@@ -309,8 +469,182 @@ def main() -> int:
                   f"max_abs_err {err:.3e}, max |plain| {scale:.3e} (tolerance {KERNEL_REL_TOL:g} rel)")
             if not err <= KERNEL_REL_TOL * scale:
                 raise RuntimeError(f"{name}: kernel branch disagrees with the plain branch")
+        del model, plain
 
-    print(json.dumps({"kernels": [conv, h1]}))
+    L = cfg.num_layers
+    # the training CLI's model at the canonical width (BASELINE.md: hidden 200,
+    # basis 256, 5 layers, 16 orientations, K=8, radius 5, T=1000) with its
+    # default diffuse_angles: four loss terms
+    train_cfg = dataclasses.replace(cfg, hidden_dim=TRAIN_HIDDEN, diffuse_angles=True)
+
+    with Phase("training kernels"):
+        dataset = synthetic_packed(2000, seed=SEED)
+        loader = BucketedLoader(dataset, np.arange(len(dataset)), node_budget=TRAIN_BATCH * 16)
+        # the 16-atom bucket's fullest batch: 256 crystals, B' = 32 super-crystals of 128 atoms
+        bucket, chunk = max(((b, c) for b, c in loader.chunks() if b == 16),
+                            key=lambda bc: int((bc[1] >= 0).sum()))
+        batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+        model = DiffusionModel(train_cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+                                train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        with torch.no_grad():
+            conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}")
+            conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid)
+        records = {"spatial_conv": conv, "basis_h1": h1, "spatial_conv_bwd": conv_bwd,
+                   "basis_mlp_bwd": mlp_bwd}
+        del args
+
+    with Phase("training step"):
+        # where one training step's time goes, at the same batch: CUDA-event
+        # step time, then a torch.profiler trace of the device's kernels
+        optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+
+        def one_step():
+            train_step(model, optimizer, None, batch, noise)
+
+        step_ms = cuda_ms(one_step, runs=5)
+        kernels_ms = sum(records[k]["ms"] * n for k, n in
+                         (("spatial_conv", L), ("basis_h1", 1), ("spatial_conv_bwd", L),
+                          ("basis_mlp_bwd", 1)))
+        print(f"training step at {TRAIN_BATCH}x{bucket}: {step_ms:.4f} ms (CUDA events, 5 steps), "
+              f"of which the kernels' launches {kernels_ms:.4f} ms ({kernels_ms / step_ms:.1%})")
+        profile_steps = 3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(profile_steps):
+                one_step()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        device_ms = sum(by_name.values()) / profile_steps
+        if device_ms > 0:
+            print(f"device busy {device_ms:.4f} ms per step of {step_ms:.4f} ms "
+                  f"(busy share {device_ms / step_ms:.1%}, idle share {1 - device_ms / step_ms:.1%}); "
+                  f"{len(by_name)} distinct device activities; the largest, ms per step:")
+            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+                print(f"  {ms / profile_steps:9.4f}  {name[:110]}")
+        else:
+            print("device busy share: not measured (the profiler recorded no device activity)")
+        del model, batch, noise, optimizer
+        torch.cuda.empty_cache()
+
+    with Phase("training reference"):
+        # one training step's loss and gradients at full width on 32 crystals of
+        # 8 atoms: the card's kernel branch against the CPU's plain branch, both
+        # given the neighbour list the CPU built
+        B = 32
+        host = make_synthetic_batch(np.random.default_rng(SEED + 2), z_table, B, ATOMS)
+        ref_cfg = dataclasses.replace(train_cfg, layer_scale=1.0)
+        model = DiffusionModel(ref_cfg, device=dev)
+        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED + 2))
+        plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
+        plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+        noise = draw_loss_noise(torch.Generator().manual_seed(SEED + 2), B, ATOMS,
+                                ref_cfg.num_atomic_states, ref_cfg.num_timesteps, True, "cpu")
+        graphs = []
+        build_graph = diffusion.pbc_neighbor_list
+        try:
+            diffusion.pbc_neighbor_list = lambda *a: graphs.append(build_graph(*a)) or graphs[-1]
+            want_loss, want_m = plain.loss(batch_to_device(host, "cpu"), noise)
+            want_loss.backward()
+            diffusion.pbc_neighbor_list = lambda *a: NeighborList(*(x.to(dev) for x in graphs[0]))
+            card_noise = LossNoise(**{f.name: getattr(noise, f.name).to(dev)
+                                      for f in dataclasses.fields(noise)})
+            got_loss, got_m = model.loss(batch_to_device(host, dev), card_noise)
+            got_loss.backward()
+        finally:
+            diffusion.pbc_neighbor_list = build_graph
+        for name, value in want_m.items():
+            err, scale = abs(got_m[name].item() - value.item()), abs(value.item())
+            print(f"{name}: card {got_m[name].item():.6f}, cpu {value.item():.6f}")
+            if not err <= KERNEL_REL_TOL * max(scale, 1e-3):
+                raise RuntimeError(f"{name}: the card's loss disagrees with the CPU's")
+        worst = 0.0
+        want_grads = dict(plain.model.named_parameters())
+        for name, p in model.model.named_parameters():
+            want = want_grads[name].grad
+            err = (p.grad.cpu() - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not (scale > 0 and err <= GRAD_REL_TOL * scale):
+                raise RuntimeError(f"gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
+                                   f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel)")
+            worst = max(worst, err / scale)
+        print(f"{graphs[0].mask.sum().item()} edges; {len(want_grads)} parameter gradients, "
+              f"worst max_abs_err / max |cpu| {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
+        del model, plain
+
+    with Phase("training path"), tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "ckpt"
+        per_step, step_metrics = [], []
+        step = train_diffusion.train_step
+
+        def counted_step(*a, **kw):
+            before = launch_counts()
+            metrics = step(*a, **kw)
+            after = launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            step_metrics.append(metrics)
+            return metrics
+
+        reset_launch_counts()
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        try:
+            train_diffusion.train_step = counted_step
+            with contextlib.redirect_stdout(tee):
+                test_loss = train_diffusion.main([
+                    "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+                    "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
+                    "--max_steps", str(TRAIN_STEPS), "--seed", str(SEED),
+                    "--checkpoint_dir", str(ckpt), "--device", "cuda",
+                ])
+        finally:
+            train_diffusion.train_step = step
+        wall = time.perf_counter() - t0
+        train_counts = launch_counts()
+        want_step = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1}
+        bad = [i for i, c in enumerate(per_step) if c != want_step]
+        print(f"{len(per_step)} steps; launches per step {per_step[0] if per_step else None}; "
+              f"launches in the whole run (evaluation forwards included) {train_counts}")
+        if len(per_step) != TRAIN_STEPS or bad:
+            raise RuntimeError(f"steps {bad} did not launch {want_step}")
+        values = torch.stack([torch.stack(list(m.values())) for m in step_metrics]).cpu()
+        if not torch.isfinite(values).all() or not math.isfinite(test_loss):
+            raise RuntimeError("a training loss is not finite")
+        rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
+        if rate is None:
+            raise RuntimeError("the training CLI printed no throughput")
+        print(f"training path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, hidden {TRAIN_HIDDEN} "
+              f"in {wall:.2f} s wall (build of the data, evaluation and checkpoints included); "
+              f"{float(rate.group(1)):.3f} steps/s warm on {card}")
+        for name, record in records.items():
+            record["launches"] = train_counts[name]
+        for name in ("spatial_conv", "basis_h1"):
+            records[name]["launches_sampler"] = sampler_counts[name]
+
+        with Phase("trained sampling"):
+            reset_launch_counts()
+            n = 128
+            result = generate.main([
+                "--checkpoint_dir", str(ckpt / "best"), "--batch_size", str(n),
+                "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(n),
+                "--sample_steps", str(STEPS), "--seed", str(SEED), "--out_dir", str(Path(tmp) / "out"),
+                "--device", "cuda",
+            ])
+            counts = launch_counts()
+            print(f"launches {counts}")
+            forwards = len(strided_levels(train_cfg.num_timesteps, STEPS)) - 1
+            if counts["spatial_conv"] != L * forwards or counts["basis_h1"] != forwards:
+                raise RuntimeError("sampling from the trained checkpoint missed a kernel launch")
+            meta = json.loads((ckpt / "best" / "meta.json").read_text())
+            crystal_checks(result, z_table, n, ATOMS, generate.length_bounds_from_meta(meta))
+
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-at ragged shapes (tiles that do not divide the receivers, channels, basis
-or hidden widths; empty neighbour slots). Needs an NVIDIA GPU and nvcc; on
+"""The port's CUDA kernels, forward and backward, against their plain
+PyTorch versions on the card, at ragged shapes (tiles that do not divide
+the receivers, channels, basis or hidden widths; empty neighbour slots),
+and the kernel branch's parameter gradients against the plain branch's. Needs an NVIDIA GPU and nvcc; on
 a machine without CUDA every test here skips. This file imports no JAX, so
 it runs on the card's machine:
 
@@ -12,10 +13,20 @@ import pytest
 import torch
 
 from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
-from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
+from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd, basis_mlp_bwd_plain
+from arreau_tpu_torch.kernels.spatial_conv import (
+    spatial_conv,
+    spatial_conv_bwd,
+    spatial_conv_bwd_plain,
+    spatial_conv_plain,
+)
 
 # float32 sums in another order than the plain version's matmul
 REL_TOL = 1e-5
+# the backward kernels' weight gradients add every edge row (up to ~1e5
+# terms) in split partials, and dx adds with shared-memory atomics, in
+# another order than the plain version's matmuls and scatter
+BWD_REL_TOL = 1e-4
 
 
 def _device():
@@ -25,27 +36,30 @@ def _device():
     return torch.device("cuda")
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, rel=REL_TOL):
     err = (got - want).abs().max().item()
-    assert err <= REL_TOL * want.abs().max().item(), err
+    assert err <= rel * want.abs().max().item(), err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (1, 16, 8, 128, 256, 200)])
-def test_spatial_conv_kernel_matches_plain(Bp, O, K, TA, D, C):
-    dev = _device()
-    rng = np.random.default_rng(0)
+def _conv_args(rng, dev, Bp, O, K, TA, D, C):
     E = K * TA
     src = rng.integers(0, TA, size=(Bp, E))
     src[rng.random((Bp, E)) < 0.3] = -1
     src[rng.random((Bp, E)) < 0.05] = TA + 2  # outside [0, TA): an empty slot too
-    args = (
+    return (
         torch.tensor(rng.normal(size=(Bp, O, E, D)), dtype=torch.float32, device=dev),
         torch.tensor(rng.normal(size=(D, C)) * 0.1, dtype=torch.float32, device=dev),
         torch.tensor(rng.normal(size=(Bp, O, TA, C)), dtype=torch.float32, device=dev),
         torch.tensor(src, dtype=torch.int32, device=dev),
         torch.tensor(rng.random((Bp, E)), dtype=torch.float32, device=dev),
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (1, 16, 8, 128, 256, 200)])
+def test_spatial_conv_kernel_matches_plain(Bp, O, K, TA, D, C):
+    dev = _device()
+    args = _conv_args(np.random.default_rng(0), dev, Bp, O, K, TA, D, C)
     before = spatial_conv.launches
     got = spatial_conv(*args)
     torch.cuda.synchronize()
@@ -70,6 +84,90 @@ def test_basis_h1_kernel_matches_plain(Bp, O, d, E, H, degree):
     torch.cuda.synchronize()
     assert basis_h1.launches == before + 1
     _assert_close(got, basis_h1_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 120, 256, 200)])
+def test_spatial_conv_bwd_kernel_matches_plain(Bp, O, K, TA, D, C):
+    """Ragged tiles (TA = 120 as at the 24-atom bucket, D and C not
+    multiples of 64), empty slots, and every receiver's senders colliding in
+    the dx scatter."""
+    dev = _device()
+    rng = np.random.default_rng(2)
+    args = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    g = torch.tensor(rng.normal(size=(Bp, O, TA, C)), dtype=torch.float32, device=dev)
+    before = spatial_conv_bwd.launches
+    got = spatial_conv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert spatial_conv_bwd.launches == before + 1
+    for a, b in zip(got, spatial_conv_bwd_plain(*args, g)):
+        _assert_close(a, b, BWD_REL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,d,E,H,D,n_g", [(2, 3, 6, 100, 70, 37, 3), (2, 16, 6, 960, 200, 256, 5),
+                                              (1, 2, 5, 64, 33, 20, 1)])
+def test_basis_mlp_bwd_kernel_matches_plain(Bp, O, d, E, H, D, n_g):
+    dev = _device()
+    rng = np.random.default_rng(3)
+    degree = 3 if d == 6 else 2
+    F = sum(d**i for i in range(1, degree + 1))
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    args = (t(Bp, O, d, E), t(F, H, scale=0.1), t(H), t(H, D, scale=0.1), t(D), degree)
+    gs = [t(Bp, O, E, D) for _ in range(n_g)]
+    before = basis_mlp_bwd.launches
+    got = basis_mlp_bwd(*args, gs)
+    torch.cuda.synchronize()
+    assert basis_mlp_bwd.launches == before + 1
+    for a, b in zip(got, basis_mlp_bwd_plain(*args, gs)):
+        _assert_close(a, b, BWD_REL_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_branch_parameter_gradients_match_plain_branch():
+    """The kernel branch's parameter gradients on the card equal the plain
+    branch's (both on the card, one neighbour list): the forward kernels'
+    outputs carry their backward kernels, not a detached tensor."""
+    import dataclasses
+
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    dev = _device()
+    rng = np.random.default_rng(4)
+    B, A = 12, 5
+    cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()), num_timesteps=50,
+                          hidden_dim=32, basis_dim=24, num_layers=2, num_ori=4,
+                          max_neighbors=27 * A, layer_scale=1.0)
+    models = {k: DiffusionModel(dataclasses.replace(cfg, use_pallas=k), device=dev)
+              for k in (True, False)}
+    models[True].model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    models[False].model.load_state_dict(models[True].model.state_dict())
+    inputs = (
+        torch.tensor(rng.random((B, A, 3)), dtype=torch.float32, device=dev),
+        torch.nn.functional.one_hot(torch.tensor(rng.integers(0, 8, (B, A)), device=dev),
+                                    cfg.num_atomic_states).float(),
+        torch.tensor(rng.integers(1, 50, B), device=dev),
+        torch.full((B,), A, device=dev),
+        torch.tensor(3.0 + 3.0 * rng.random((B, 3)), dtype=torch.float32, device=dev),
+        torch.full((B, 3), np.pi / 2, device=dev),
+        torch.ones((B, A), dtype=torch.bool, device=dev),
+    )
+    grads = {}
+    for k, model in models.items():
+        outs = model.predict_scores(*inputs)
+        loss = sum((o * torch.linspace(-1, 1, o.numel(), device=dev).view_as(o)).sum() for o in outs)
+        loss.backward()
+        grads[k] = {n: p.grad for n, p in model.model.named_parameters()}
+    for name, want in grads[False].items():
+        got = grads[True][name]
+        assert got is not None, name
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        assert (got - want).abs().max().item() <= BWD_REL_TOL * scale, name
 
 
 @pytest.mark.cuda

@@ -107,14 +107,17 @@ def test_layer_norm_and_gelu_match_flax():
 
 def test_basis_mlp_kernel_layout_matches_plain_layout():
     """The kernel-layout forward (lane-major attributes, first layer in the
-    basis_h1 wrapper) is the same function as the plain forward."""
+    basis_h1 wrapper, one alias per consuming layer) is the same function as
+    the plain forward."""
     torch.manual_seed(0)
     mlp = BasisMLP(6, 20, 12, 3)
     attr = torch.randn(2, 3, 6, 40)  # [B', O, d, E]
     with torch.no_grad():
         want = mlp(attr.transpose(-1, -2))
-        got = mlp.forward_kernel_layout(attr)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+        got = mlp.forward_kernel_layout(attr, 3)
+    assert len(got) == 3
+    for g in got:
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
 # ---------------- parameters ----------------
