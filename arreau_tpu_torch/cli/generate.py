@@ -1,13 +1,17 @@
 """Crystal generation CLI; counterpart of ``arreau_tpu/cli/generate.py``.
 
-Reads a checkpoint directory holding ``meta.json`` (the JAX package's
-schema: ``config``, ``z_table_zs``, optional ``fourier_w`` and
-``length_stats``) and ``params.npz`` (the parameter tree, flat and
-``'/'``-joined, see ``interop/from_jax.py``), runs the reverse sampler in
+Reads a checkpoint directory as the JAX CLI does: ``<checkpoint_dir>/meta.json``
+(the JAX package's schema: ``config``, ``z_table_zs``, optional
+``fourier_w`` and ``length_stats``) and the parameters of one tag
+(``--tag``, default ``last``): ``<checkpoint_dir>/<tag>/ema_params.npz``
+when ``--use_ema`` (the default) and that file exists, else
+``<checkpoint_dir>/<tag>/params.npz`` (the parameter tree, flat and
+``'/'``-joined, see ``interop/from_jax.py``). It runs the reverse sampler in
 batches on ``--device`` (default ``cuda``; it never falls back to the CPU)
-and writes ``crystals.npz``.
+and writes ``crystals.npz``. A ``meta.json`` config with ``fuse_fiber``
+set serves through the fused fiber conv kernels.
 
-    python -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt \\
+    python -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt --tag best \\
         --batch_size 128 --num_atoms_per_sample 8 --num_crystals 256 \\
         --sample_steps 50 --out_dir out
 """
@@ -41,9 +45,12 @@ def parse_bool(value: str) -> bool:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Generate crystals from a trained model")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
+    p.add_argument("--tag", type=str, default="last", help="checkpoint tag (last/best)")
     p.add_argument("--num_crystals", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=10)
     p.add_argument("--num_atoms_per_sample", type=int, default=4)
+    p.add_argument("--use_ema", type=parse_bool, default=True,
+                   help="sample the tag's EMA weights (ema_params.npz) when it has them")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out_dir", type=str, default="out")
     p.add_argument("--device", type=str, default="cuda",
@@ -67,13 +74,25 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_model(checkpoint_dir: str, device):
-    """(model, z_table, meta) from ``meta.json`` + ``params.npz``."""
+def params_path(checkpoint_dir: str, tag: str, use_ema: bool) -> str:
+    """The tag's ``ema_params.npz`` when ``use_ema`` and it exists, else its
+    ``params.npz`` (the JAX CLI's choice between ``ema_params`` and ``params``)."""
+    ema = os.path.join(checkpoint_dir, tag, "ema_params.npz")
+    if use_ema and os.path.exists(ema):
+        return ema
+    return os.path.join(checkpoint_dir, tag, "params.npz")
+
+
+def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device):
+    """(model, z_table, meta) from ``<checkpoint_dir>/meta.json`` and the
+    parameters :func:`params_path` picks."""
     with open(os.path.join(checkpoint_dir, "meta.json")) as f:
         meta = json.load(f)
     model = DiffusionModel(DiffusionConfig(**meta["config"]), device=device,
                            fourier_w=meta.get("fourier_w"))
-    params_from_jax(model, load_params_npz(os.path.join(checkpoint_dir, "params.npz")))
+    path = params_path(checkpoint_dir, tag, use_ema)
+    params_from_jax(model, load_params_npz(path))
+    print(f"loaded {path}")
     return model, AtomicNumberTable(meta["z_table_zs"]), meta
 
 
@@ -97,7 +116,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
 
-    model, z_table, meta = load_model(args.checkpoint_dir, device)
+    model, z_table, meta = load_model(args.checkpoint_dir, args.tag, args.use_ema, device)
     length_bounds = length_bounds_from_meta(meta) if args.clip_denoised else None
     if args.clip_denoised and length_bounds is None:
         print("checkpoint has no length_stats; clip_denoised disabled")

@@ -8,7 +8,8 @@ clip -> AdamW -> EMA. A 0.7/0.15/0.15 random split; validation every
 test pass with the best checkpoint. Runs on ``--device`` (default
 ``cuda``; it never falls back to the CPU). Checkpoints are the port's own
 (``train/checkpoint.py``): ``arreau_tpu_torch.cli.generate
---checkpoint_dir <checkpoint_dir>/best`` samples from one.
+--checkpoint_dir <checkpoint_dir> --tag best`` samples from one (its EMA
+weights when ``--ema`` kept them).
 
     python -m arreau_tpu_torch.cli.train_diffusion --dataset synthetic \\
         --batch_size 256 --hidden_dim 200 --max_steps 100

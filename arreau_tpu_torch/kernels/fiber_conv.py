@@ -1,0 +1,206 @@
+"""Fused fiber-bundle convolution over super-crystal tiles (spatial conv,
+sum over the K neighbour slots and fiber mixing in one kernel), forward and
+backward.
+
+Replaces the TPU kernels ``arreau_tpu/ops/pallas_conv.py:_fwd_kernel`` and
+``_bwd_kernel`` (public entry ``fused_fiber_conv``, a ``jax.custom_vjp``)
+with the hand-written CUDA kernels ``csrc/fiber_conv.cu`` (#1) and
+``csrc/fiber_conv_bwd.cu`` (#2), joined by the ``torch.autograd.Function``
+:func:`fused_fiber_conv`. The forward is
+
+    y[b',p,t,c] = sum_o Kf[o,p,c] * sum_k (basis[b',o,e,:] @ w)[c] * x[b',o,src[b',e],c]
+
+with ``e = k*TA + t``, the window already folded into the basis and the
+fiber kernel ``Kf`` pre-scaled by ``1/O``. The layouts are those of
+:mod:`arreau_tpu_torch.kernels.spatial_conv`: the tile-local sender ``src
+[B', E]`` int32 (a value outside ``[0, TA)``, -1 by convention, marks an
+empty slot) takes the place of the JAX package's one-hot ``sel``.
+
+On the H100 both directions are bound by float32 arithmetic (the per-edge
+kernel ``basis @ w``; the backward runs three products of the same size).
+The forward keeps the spatial conv and its ``[P, 16, 64]`` output tile in
+registers, so nothing per edge reaches device memory; when gradients are
+wanted it also stores the spatial conv ``x_sp [B', O, TA, C]`` as the
+backward's residual, where the TPU kernel recomputes it. The backward
+launches the fiber cotangent, the fiber-kernel gradient with a fixed-order
+second pass, and the spatial conv's own backward kernels. See the sources.
+
+:func:`fiber_conv` and :func:`fiber_conv_bwd` launch their kernels for CUDA
+tensors and run :func:`fiber_conv_plain` / :func:`fiber_conv_bwd_plain` for
+CPU tensors; they never fall back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd_plain, spatial_conv_plain
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = (_P,) * 7 + (_I,) * 7 + (_P,)
+_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 9 + (_P,)
+_SMEM_BYTES = 227 * 1024 - 1024  # a block's shared memory less the forward's static arrays
+_MAX_P = 16  # output orientations the kernels hold in registers (csrc/*.cu: MAX_P)
+
+
+def _unit_window(src):
+    return torch.ones(src.shape, dtype=torch.float32, device=src.device)
+
+
+def fiber_conv_plain(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
+    """Plain PyTorch version: the spatial conv's plain version with a unit
+    window, then the fiber mixing as one einsum; with ``save_x_sp`` also
+    the spatial conv."""
+    x_sp = spatial_conv_plain(basis, w, x, src, _unit_window(src))
+    y = torch.einsum("botc,opc->bptc", x_sp, fiber_kernel)
+    return (y, x_sp) if save_x_sp else y
+
+
+def fiber_conv_bwd_plain(basis, w, x, src, fiber_kernel, g, x_sp):
+    """Plain PyTorch version of the backward: (dbasis, dw, dx, dfiber_kernel)
+    for the cotangent ``g [B', P, TA, C]`` of :func:`fiber_conv_plain`,
+    whose spatial conv ``x_sp`` the forward saved."""
+    g_o = torch.einsum("bptc,opc->botc", g, fiber_kernel)
+    dfk = torch.einsum("botc,bptc->opc", x_sp, g)
+    return (*spatial_conv_bwd_plain(basis, w, x, src, _unit_window(src), g_o), dfk)
+
+
+def _check(basis, w, x, src, fiber_kernel):
+    if basis.dim() != 4 or x.dim() != 4 or w.dim() != 2 or src.dim() != 2 or fiber_kernel.dim() != 3:
+        raise ValueError("fiber_conv expects basis [B',O,E,D], w [D,C], x [B',O,TA,C], src [B',E], "
+                         "fiber_kernel [O,P,C]")
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    if x.shape[:2] != (Bp, O) or E % TA or tuple(w.shape) != (D, C):
+        raise ValueError(f"shape mismatch: basis {tuple(basis.shape)}, w {tuple(w.shape)}, "
+                         f"x {tuple(x.shape)}")
+    if tuple(src.shape) != (Bp, E):
+        raise ValueError(f"src {tuple(src.shape)} must be {(Bp, E)}")
+    if fiber_kernel.shape[0] != O or fiber_kernel.shape[2] != C:
+        raise ValueError(f"fiber_kernel {tuple(fiber_kernel.shape)} must be [{O}, P, {C}]")
+    for name, t in (("basis", basis), ("w", w), ("x", x), ("fiber_kernel", fiber_kernel)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if src.dtype != torch.int32:
+        raise TypeError(f"src must be int32, got {src.dtype}")
+    if len({t.device for t in (basis, w, x, src, fiber_kernel)}) != 1:
+        raise ValueError("all fiber_conv inputs must be on one device")
+
+
+def _check_cuda(name, *tensors):
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}'s CUDA kernels need contiguous inputs")
+
+
+def fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
+    """``[B', P, TA, C]`` float32 fused fiber conv; see the module docstring.
+    With ``save_x_sp``, (y, the spatial conv ``x_sp [B', O, TA, C]``).
+
+    basis ``[B', O, E, D]``, w ``[D, C]``, x ``[B', O, TA, C]``, fiber_kernel
+    ``[O, P, C]`` float32; src ``[B', E]`` int32."""
+    _check(basis, w, x, src, fiber_kernel)
+    if basis.device.type == "cpu":
+        return fiber_conv_plain(basis, w, x, src, fiber_kernel, save_x_sp)
+    _check_cuda("fiber_conv", basis, w, x, src, fiber_kernel)
+    from arreau_tpu_torch.kernels.build import check, kernel_function
+
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    P = fiber_kernel.shape[1]
+    smem = 4 * -(-D // 4) * 4 * (64 + 2 * 16)  # the W slice and two 16-row slot buffers
+    if smem > _SMEM_BYTES or P > _MAX_P or Bp > 65535:
+        raise ValueError(f"fiber_conv's kernel takes D <= {_SMEM_BYTES // 384}, P <= {_MAX_P} "
+                         f"and B' <= 65535, not D = {D}, P = {P}, B' = {Bp}")
+    y = torch.empty((Bp, P, TA, C), dtype=torch.float32, device=basis.device)
+    x_sp = torch.empty_like(x) if save_x_sp else None
+    fn = kernel_function("arreau_fiber_conv_fwd", _ARGTYPES)
+    stream = torch.cuda.current_stream(basis.device).cuda_stream
+    err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(),
+             fiber_kernel.data_ptr(), y.data_ptr(), x_sp.data_ptr() if save_x_sp else None,
+             Bp, O, P, E // TA, TA, D, C, stream)
+    check("arreau_fiber_conv_fwd", err)
+    fiber_conv.launches += 1
+    return (y, x_sp) if save_x_sp else y
+
+
+fiber_conv.launches = 0
+
+
+def fiber_conv_bwd(basis, w, x, src, fiber_kernel, g, x_sp):
+    """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``,
+    dfiber_kernel ``[O, P, C]``): the cotangents of :func:`fiber_conv`'s
+    inputs for the output cotangent ``g [B', P, TA, C]``, given the spatial
+    conv ``x_sp [B', O, TA, C]`` the forward saved."""
+    _check(basis, w, x, src, fiber_kernel)
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    P = fiber_kernel.shape[1]
+    for name, t, shape in (("g", g, (Bp, P, TA, C)), ("x_sp", x_sp, tuple(x.shape))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if basis.device.type == "cpu":
+        return fiber_conv_bwd_plain(basis, w, x, src, fiber_kernel, g, x_sp)
+    _check_cuda("fiber_conv_bwd", basis, w, x, src, fiber_kernel, g, x_sp)
+    from arreau_tpu_torch.kernels.build import check, kernel_function, row_splits
+
+    if Bp * O > 65535 or P > _MAX_P:
+        raise ValueError(f"fiber_conv_bwd's kernels take B'*O <= 65535 and P <= {_MAX_P}")
+    if TA * 64 * 4 > 227 * 1024:
+        raise ValueError(f"TA = {TA} receivers exceed the dx kernel's shared memory")
+    dev = basis.device
+    splits, per_split = row_splits(Bp * O * E)
+    ones = _unit_window(src)
+    g_o = torch.empty_like(x)
+    dfk_partial = torch.empty((Bp, O, P, C), dtype=torch.float32, device=dev)
+    dw_partial = torch.empty((splits, D, C), dtype=torch.float32, device=dev)
+    dbasis = torch.empty_like(basis)
+    dw = torch.empty_like(w)
+    dx = torch.empty_like(x)
+    dfk = torch.empty_like(fiber_kernel)
+    fn = kernel_function("arreau_fiber_conv_bwd", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), fiber_kernel.data_ptr(),
+             g.data_ptr(), x_sp.data_ptr(), ones.data_ptr(), g_o.data_ptr(), dfk_partial.data_ptr(),
+             dw_partial.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), dfk.data_ptr(),
+             Bp, O, P, E // TA, TA, D, C, splits, per_split, stream)
+    check("arreau_fiber_conv_bwd", err)
+    fiber_conv_bwd.launches += 1
+    return dbasis, dw, dx, dfk
+
+
+fiber_conv_bwd.launches = 0
+
+
+class _FiberConv(torch.autograd.Function):
+    """``fused_fiber_conv``'s custom VJP: :func:`fiber_conv` forward (#1),
+    :func:`fiber_conv_bwd` backward (#2); ``src`` gets no cotangent. With
+    ``save`` the forward keeps the spatial conv for the backward."""
+
+    @staticmethod
+    def forward(ctx, basis, w, x, src, fiber_kernel, save):
+        out = fiber_conv(basis, w, x, src, fiber_kernel, save)
+        if not save:
+            return out
+        y, x_sp = out
+        ctx.save_for_backward(basis, w, x, src, fiber_kernel, x_sp)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        basis, w, x, src, fiber_kernel, x_sp = ctx.saved_tensors
+        dbasis, dw, dx, dfk = fiber_conv_bwd(basis, w, x, src, fiber_kernel, g.contiguous(), x_sp)
+        return dbasis, dw, dx, None, dfk, None
+
+
+def fused_fiber_conv(basis, w, x, src, fiber_kernel):
+    """Differentiable :func:`fiber_conv` (cotangents for basis, w, x and the
+    fiber kernel); the residual is kept only where a gradient can flow."""
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (basis, w, x, fiber_kernel))
+    return _FiberConv.apply(basis, w, x, src, fiber_kernel, save)

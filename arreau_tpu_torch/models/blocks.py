@@ -9,7 +9,8 @@ orientation-major features ``x [B', O, TA, C]`` and k-major edge rows
 ``[B', O, E = K*TA, D]``; it is the layout of the CUDA kernels. There
 the basis MLP and the spatial conv are ``torch.autograd.Function``s whose
 forwards and backwards are the kernels (``kernels/basis_mlp.py``,
-``kernels/spatial_conv.py``).
+``kernels/spatial_conv.py``); with ``fuse_fiber`` the spatial conv and the
+fiber mixing are one (``kernels/fiber_conv.py``).
 
 Two numerical details follow the JAX package: GELU is the tanh
 approximation (flax ``nn.gelu``), and LayerNorm takes the fast variance
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_multi
+from arreau_tpu_torch.kernels.fiber_conv import fused_fiber_conv
 from arreau_tpu_torch.kernels.spatial_conv import fused_spatial_conv
 
 LN_EPS = 1e-5
@@ -122,10 +124,12 @@ class FiberBundleConv(nn.Module):
     """Separable depthwise R^3 x S^2 convolution over the fixed-degree
     neighbour list: the spatial step (per-edge kernel from the basis,
     gathered senders, sum over the K slots) then the dense orientation
-    mixing ``x[.., o, c] K[o, p, c] / O``."""
+    mixing ``x[.., o, c] K[o, p, c] / O``. With ``fuse_fiber`` the kernel
+    layout runs both steps in one kernel (``fused_fiber_conv``)."""
 
-    def __init__(self, basis_dim: int, channels: int):
+    def __init__(self, basis_dim: int, channels: int, fuse_fiber: bool = False):
         super().__init__()
+        self.fuse_fiber = fuse_fiber
         self.kernel = nn.Parameter(torch.empty(basis_dim, channels))  # [D, C]
         self.fiber_kernel = nn.Linear(basis_dim, channels, bias=False)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -135,9 +139,14 @@ class FiberBundleConv(nn.Module):
         """Plain layout: ``x [B, A, O, C]``, windowed ``kernel_basis [B, A,
         K, O, D]``, ``src``/``edge_mask [B, A, K]``. Kernel layout: ``x [B',
         O, TA, C]``, ``kernel_basis [B', O, E, D]``, tile-local ``src [B',
-        E]`` int32 (-1 = empty slot), ``window [B', E]``."""
+        E]`` int32 (-1 = empty slot), ``window [B', E]`` (``None`` with
+        ``fuse_fiber``: the window is folded into the basis)."""
         fiber_kernel = self.fiber_kernel(fiber_kernel_basis)  # [O, P, C]
         num_ori = fiber_kernel.shape[0]
+        if kernel_layout and self.fuse_fiber:
+            y = fused_fiber_conv(kernel_basis, self.kernel, x.contiguous(), src,
+                                 fiber_kernel / num_ori)
+            return y + self.bias
         if kernel_layout:
             x_sp = fused_spatial_conv(kernel_basis, self.kernel, x.contiguous(), src, window)
             y = torch.einsum("botc,opc->bptc", x_sp, fiber_kernel) / num_ori
@@ -157,9 +166,9 @@ class ConvNextBlock(nn.Module):
     layer scale -> + residual."""
 
     def __init__(self, basis_dim: int, channels: int, widening_factor: int = 4,
-                 layer_scale_init: Optional[float] = 1e-6):
+                 layer_scale_init: Optional[float] = 1e-6, fuse_fiber: bool = False):
         super().__init__()
-        self.conv = FiberBundleConv(basis_dim, channels)
+        self.conv = FiberBundleConv(basis_dim, channels, fuse_fiber)
         self.norm = LayerNorm(channels)
         self.linear_1 = nn.Linear(channels, widening_factor * channels)
         self.linear_2 = nn.Linear(widening_factor * channels, channels)

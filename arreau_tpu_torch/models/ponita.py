@@ -8,11 +8,14 @@ readouts are averaged and split into node-scalar, node-vector and
 global-scalar heads.
 
 On CUDA the backbone takes the kernel branch (the JAX package's
-``use_pallas`` branch with ``fuse_fiber=False``): super-crystals of
-``pick_tile(B, A, 128)`` crystals, the basis MLP and spatial conv as
+``use_pallas`` branch): super-crystals of ``pick_tile(B, A, 128)``
+crystals. With ``fuse_fiber=False`` the basis MLP and spatial conv are
 ``torch.autograd.Function``s over the CUDA kernels (forwards ``basis_h1``
 and ``spatial_conv``, backwards ``basis_mlp_bwd`` and ``spatial_conv_bwd``).
-On the CPU it takes the plain branch. ``use_kernels`` forces either; the
+With ``fuse_fiber=True`` the basis MLP is the plain chain on ``[B', O, E,
+d]`` invariants, windowed outside the kernel and shared by every layer, and
+each layer's conv is the ``fiber_conv`` / ``fiber_conv_bwd`` Function. On
+the CPU the backbone takes the plain branch. ``use_kernels`` forces either; the
 kernel branch on CPU tensors runs the kernels' plain versions. Parameter
 gradients only: the kernel branch gives no cotangent for positions or the
 lattice (``position_grads`` is not ported).
@@ -62,6 +65,8 @@ class PonitaConfig:
     expected_degree: float = 8.0
     # None = kernel branch on CUDA, plain branch on CPU; True/False = force
     use_kernels: Optional[bool] = None
+    # kernel branch: the spatial conv and the fiber mixing in one kernel
+    fuse_fiber: bool = False
     # True = biases on both basis Dense layers, "in" = dense_in only, False = none
     basis_bias: "bool | str" = True
     # differentiate through positions (window and attribute cotangents): not ported
@@ -147,7 +152,8 @@ class PonitaFiberBundle(nn.Module):
         self.x_embedder = nn.Linear(cfg.input_dim_scalar + cfg.input_dim_vec, cfg.hidden_dim,
                                     bias=False)
         self.layers = nn.ModuleList(
-            ConvNextBlock(cfg.basis_dim, cfg.hidden_dim, cfg.widening_factor, cfg.layer_scale)
+            ConvNextBlock(cfg.basis_dim, cfg.hidden_dim, cfg.widening_factor, cfg.layer_scale,
+                          cfg.fuse_fiber)
             for _ in range(cfg.num_layers)
         )
         # keyed by layer index: without multiple_readouts only the last layer reads out
@@ -207,12 +213,21 @@ class PonitaFiberBundle(nn.Module):
             tile = pick_tile(B, A, target=128)
             Bp, TA = B // tile, tile * A
             E = K * TA
-            # [B, A, K, O, d] -> lane-major [B', O, d, E], rows e = k*TA + t*A + a
-            attrT = attr.reshape(Bp, tile, A, K, O, d).permute(0, 4, 5, 3, 1, 2)
-            kernel_bases = self.basis_fn.forward_kernel_layout(
-                attrT.reshape(Bp, O, d, E).contiguous(), len(self.layers))
-            win = window.reshape(Bp, tile, A, K).permute(0, 3, 1, 2).reshape(Bp, E).contiguous()
-            conv_src, conv_mask, conv_window = tile_senders(nb.src, nb.mask, tile), None, win
+            attr = attr.reshape(Bp, tile, A, K, O, d)
+            # window [B, A, K] -> k-major rows [B', E], e = k*TA + t*A + a
+            win = window.reshape(Bp, tile, A, K).permute(0, 3, 1, 2).reshape(Bp, E)
+            if cfg.fuse_fiber:
+                # [B', O, E, d] invariants through the plain basis MLP, windowed
+                # here, one basis for every layer
+                attr = attr.permute(0, 4, 3, 1, 2, 5).reshape(Bp, O, E, d)
+                kernel_bases = (self.basis_fn(attr) * win[:, None, :, None],) * len(self.layers)
+                conv_window = None
+            else:
+                # lane-major [B', O, d, E]
+                attrT = attr.permute(0, 4, 5, 3, 1, 2).reshape(Bp, O, d, E).contiguous()
+                kernel_bases = self.basis_fn.forward_kernel_layout(attrT, len(self.layers))
+                conv_window = win.contiguous()
+            conv_src, conv_mask = tile_senders(nb.src, nb.mask, tile), None
             x = x.reshape(Bp, tile, A, O, -1).permute(0, 3, 1, 2, 4).reshape(Bp, O, TA, -1)
         else:
             kernel_bases = (self.basis_fn(attr) * window[..., None, None],) * len(self.layers)

@@ -135,8 +135,6 @@ class DiffusionConfig:
     def ponita_config(self) -> PonitaConfig:
         if self.compute_dtype is not None:
             raise NotImplementedError("the port computes in float32; compute_dtype is not ported")
-        if self.fuse_fiber:
-            raise NotImplementedError("fuse_fiber (fused_fiber_conv) waits for a later slice")
         return PonitaConfig(
             input_dim_scalar=self.in_scalar_dim,
             input_dim_vec=self.in_vec_dim,
@@ -154,6 +152,7 @@ class DiffusionConfig:
             output_dim_global_scalar=3 + (6 if self.diffuse_angles else 0),
             expected_degree=float(self.max_neighbors),
             use_kernels=self.use_pallas,
+            fuse_fiber=self.fuse_fiber,
             basis_bias=self.basis_bias,
         )
 

@@ -3,9 +3,9 @@ training state; counterpart of ``arreau_tpu/train/checkpoint.py`` (which
 writes orbax checkpoints the card's machine cannot read).
 
 ``<directory>/meta.json`` describes the run (:func:`diffusion_meta`). Each
-tag (``last``, ``best``, ``best-<step>``) is a directory of its own that
-``arreau_tpu_torch.cli.generate --checkpoint_dir <directory>/<tag>`` reads
-as it is:
+tag (``last``, ``best``, ``best-<step>``) is a directory of its own, which
+``arreau_tpu_torch.cli.generate --checkpoint_dir <directory> --tag <tag>``
+reads (its EMA weights by default, as the JAX CLI):
 
 - ``meta.json``, a copy of the run's;
 - ``params.npz``, the parameters as a flat JAX-layout tree

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the sampler and
-the training path, every CUDA kernel against its plain PyTorch version.
+the training path, on the default conv path and on the fused fiber conv
+path (``fuse_fiber``), every CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, with no arguments:
 
@@ -14,10 +15,11 @@ Phases, each printing its elapsed seconds and raising on any failure:
    full-width forward of the sampler (batch 128 x 8 atoms), holds both
    against their plain PyTorch versions and times kernel, plain version and
    a library yardstick with CUDA events.
-4. sampler path: writes a seeded full-width checkpoint (random weights) and
-   runs the generate CLI on it: 256 crystals, batch 128 x 8 atoms, 50
-   strided steps. Checks the crystals and that every forward went through
-   both forward kernels (launch counts, set to 0 just before the path).
+4. sampler path: writes a seeded full-width checkpoint (random weights;
+   ``meta.json`` and ``last/params.npz``) and runs the generate CLI on it:
+   256 crystals, batch 128 x 8 atoms, 50 strided steps. Checks the crystals
+   and that every forward went through both forward kernels and no other
+   (launch counts, set to 0 just before the path).
 5. forward reference: one backbone forward of the full-width model on
    realistic crystals, CUDA kernel branch against the plain branch on the
    CPU, on one neighbour list.
@@ -35,10 +37,22 @@ Phases, each printing its elapsed seconds and raising on any failure:
    hidden 200, for TRAIN_STEPS steps. Checks that every step launched each
    forward kernel once per layer / once, and each backward kernel once per
    layer / once, and that every loss is finite; prints steps/s.
-10. trained sampling: the generate CLI on the checkpoint the training path wrote.
+10. trained sampling: the generate CLI on the checkpoint the training path
+   wrote (``--tag best``, its EMA weights where it kept them).
+11. fiber kernels: captures the fused fiber conv's inputs (#1) in one
+   ``fuse_fiber`` sampler forward (128 x 8) and #1's and #2's in one
+   ``fuse_fiber`` training step (256 x 16), holds both against their plain
+   versions and times kernel, plain version and library chain.
+12. fiber sampler path: the sampler path on a ``fuse_fiber`` checkpoint:
+   every forward launches #1 once per layer and no other kernel.
+13. fiber training: one ``fuse_fiber`` training step on the card's kernel
+   branch against the CPU's plain branch (as phase 8), then the step time
+   at 256 x 16, its launches (#1 and #2 once per layer, no other kernel)
+   and its profile (as phase 7).
 
 The last two lines are the kernels' JSON record (training-shape numbers;
-``launches`` from the training path) and the result
+``launches`` from the training paths, ``launches_sampler`` from the
+sampler paths) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -66,6 +80,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TIMED_RUNS = 20
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max |plain|: float32, other summation order
+# a fuse_fiber training step's loss terms, card kernel branch vs CPU plain
+# branch (the default path measured 7e-6 on the H100, PERF.md)
+FIBER_LOSS_REL_TOL = 1e-5
 # a training step's gradients, card kernel branch vs CPU plain branch: each
 # parameter's max |difference| over its max |gradient| (float32 forward and
 # backward through five layers in other summation orders)
@@ -154,12 +171,14 @@ def first_step_inputs(model, noise):
 def kernel_sites():
     """{kernel name: (module, attribute)} where the port's autograd
     Functions look each kernel wrapper up when they run."""
-    from arreau_tpu_torch.kernels import basis_mlp, spatial_conv
+    from arreau_tpu_torch.kernels import basis_mlp, fiber_conv, spatial_conv
 
     return {"spatial_conv": (spatial_conv, "spatial_conv"),
             "spatial_conv_bwd": (spatial_conv, "spatial_conv_bwd"),
             "basis_h1": (basis_mlp, "basis_h1"),
-            "basis_mlp_bwd": (basis_mlp, "basis_mlp_bwd")}
+            "basis_mlp_bwd": (basis_mlp, "basis_mlp_bwd"),
+            "fiber_conv": (fiber_conv, "fiber_conv"),
+            "fiber_conv_bwd": (fiber_conv, "fiber_conv_bwd")}
 
 
 def wrappers() -> dict:
@@ -318,6 +337,183 @@ def backward_kernel_records(args, n_valid):
     return conv_bwd, mlp_bwd
 
 
+def fiber_library(basis, w, x, src, fiber_kernel):
+    """The fused fiber conv as a chain of library calls: the spatial conv's
+    chain with a unit window, then the fiber mixing as one einsum."""
+    ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    return torch.einsum("botc,opc->bptc", conv_library(basis, w, x, src, ones), fiber_kernel)
+
+
+def fiber_records(args, label):
+    """Records of #1 (and of #2 where ``args`` holds its inputs: a training
+    step, whose forward also stores the spatial conv for the backward) on
+    captured arguments; the backward's library yardstick is autograd's
+    backward through :func:`fiber_library`."""
+    from arreau_tpu_torch.kernels.fiber_conv import (
+        fiber_conv,
+        fiber_conv_bwd,
+        fiber_conv_bwd_plain,
+        fiber_conv_plain,
+    )
+
+    basis, w, x, src, fk, save = args["fiber_conv"]
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    P = fk.shape[1]
+    n_valid = int(((src >= 0) & (src < TA)).sum())
+    mixing = 2 * Bp * O * P * TA * C  # the fiber mixing; the backward's g_o and dKf each as much
+    print(f"{label}: fiber_conv shapes B'={Bp} O={O} P={P} E={E} TA={TA} K={E // TA} D={D} "
+          f"C={C}, {n_valid}/{Bp * E} edge slots filled")
+    records = [check_kernel(
+        "fiber_conv", fiber_conv, fiber_conv_plain, lambda: fiber_library(basis, w, x, src, fk),
+        args["fiber_conv"], O * n_valid * (2 * D * C + 2 * C) + mixing,
+        "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82",
+    )]
+    if "fiber_conv_bwd" in args:
+        basis, w, x, src, fk, g, _ = args["fiber_conv_bwd"]
+        leaves = [t.detach().requires_grad_() for t in (basis, w, x, fk)]
+        with torch.enable_grad():
+            out = fiber_library(leaves[0], leaves[1], leaves[2], src, leaves[3])
+        # dbasis, dW and dx: three edge products, as the spatial conv's backward
+        records.append(check_kernel(
+            "fiber_conv_bwd", fiber_conv_bwd, fiber_conv_bwd_plain,
+            lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["fiber_conv_bwd"],
+            O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
+            "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108",
+        ))
+        del out, leaves
+    return records
+
+
+def write_checkpoint(ckpt: Path, cfg, model, z_table) -> dict:
+    """A checkpoint directory as generate reads it: ``meta.json`` and the
+    tag ``last`` with ``params.npz``; returns the meta."""
+    from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
+
+    (ckpt / "last").mkdir(parents=True)
+    meta = {
+        "config": dataclasses.asdict(cfg),
+        "z_table_zs": [int(z) for z in z_table.zs],
+        # the synthetic training data's lattice lengths are U(3, 8) angstrom
+        "length_stats": {"min": 3.0, "max": 8.0},
+    }
+    (ckpt / "meta.json").write_text(json.dumps(meta, indent=2))
+    save_params_npz(str(ckpt / "last" / "params.npz"), params_to_jax(model.model))
+    return meta
+
+
+def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
+                 per_forward: dict) -> dict:
+    """The generate CLI on ``ckpt``: CRYSTALS crystals, batch BATCH x ATOMS,
+    STEPS strided steps. Checks the crystals and that every forward launched
+    ``per_forward`` kernels and no other (counts set to 0 just before);
+    returns the launch counts."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.inference.io import load_sample_results
+    from arreau_tpu_torch.tasks.diffusion import strided_levels
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    generate.main([
+        "--checkpoint_dir", str(ckpt), "--batch_size", str(BATCH),
+        "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(CRYSTALS),
+        "--sample_steps", str(STEPS), "--seed", str(SEED), "--out_dir", str(out_dir),
+        "--device", "cuda",
+    ])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    T = meta["config"]["num_timesteps"]
+    forwards = math.ceil(CRYSTALS / BATCH) * (len(strided_levels(T, STEPS)) - 1)
+    print(f"forwards {forwards}: launches {counts}")
+    want = {name: per_forward.get(name, 0) * forwards for name in counts}
+    if counts != want:
+        raise RuntimeError(f"the sampler path launched {counts}, not {want}")
+    crystal_checks(load_sample_results(str(out_dir / "crystals.npz")), z_table, CRYSTALS,
+                   ATOMS, generate.length_bounds_from_meta(meta))
+    print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
+          f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
+    return counts
+
+
+def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float) -> None:
+    """One training step's loss terms and every parameter gradient at full
+    width on 32 crystals of 8 atoms: the card's kernel branch against the
+    CPU's plain branch, both given the neighbour list the CPU built."""
+    from arreau_tpu_torch.data.synthetic import make_synthetic_batch
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.tasks import diffusion
+    from arreau_tpu_torch.tasks.diffusion import (
+        DiffusionModel,
+        LossNoise,
+        batch_to_device,
+        draw_loss_noise,
+    )
+
+    dev = torch.device("cuda")
+    B = 32
+    host = make_synthetic_batch(np.random.default_rng(seed), z_table, B, ATOMS)
+    model = DiffusionModel(ref_cfg, device=dev)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
+    plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    noise = draw_loss_noise(torch.Generator().manual_seed(seed), B, ATOMS,
+                            ref_cfg.num_atomic_states, ref_cfg.num_timesteps, True, "cpu")
+    graphs = []
+    build_graph = diffusion.pbc_neighbor_list
+    try:
+        diffusion.pbc_neighbor_list = lambda *a: graphs.append(build_graph(*a)) or graphs[-1]
+        want_loss, want_m = plain.loss(batch_to_device(host, "cpu"), noise)
+        want_loss.backward()
+        diffusion.pbc_neighbor_list = lambda *a: NeighborList(*(x.to(dev) for x in graphs[0]))
+        card_noise = LossNoise(**{f.name: getattr(noise, f.name).to(dev)
+                                  for f in dataclasses.fields(noise)})
+        got_loss, got_m = model.loss(batch_to_device(host, dev), card_noise)
+        got_loss.backward()
+    finally:
+        diffusion.pbc_neighbor_list = build_graph
+    for name, value in want_m.items():
+        err, scale = abs(got_m[name].item() - value.item()), abs(value.item())
+        print(f"{name}: card {got_m[name].item():.6f}, cpu {value.item():.6f}, "
+              f"rel {err / max(scale, 1e-3):.3e} (tolerance {loss_rel_tol:g})")
+        if not err <= loss_rel_tol * max(scale, 1e-3):
+            raise RuntimeError(f"{name}: the card's loss disagrees with the CPU's")
+    worst = 0.0
+    want_grads = dict(plain.model.named_parameters())
+    for name, p in model.model.named_parameters():
+        want = want_grads[name].grad
+        err = (p.grad.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (scale > 0 and err <= GRAD_REL_TOL * scale):
+            raise RuntimeError(f"gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
+                               f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel)")
+        worst = max(worst, err / scale)
+    print(f"{graphs[0].mask.sum().item()} edges; {len(want_grads)} parameter gradients, "
+          f"worst max_abs_err / max |cpu| {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
+
+
+def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
+    """Where a training step's time goes: a torch.profiler trace of
+    ``steps`` steps, the device's busy share and its largest kernels."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values()) / steps
+    if device_ms > 0:
+        print(f"device busy {device_ms:.4f} ms per step of {step_ms:.4f} ms "
+              f"(busy share {device_ms / step_ms:.1%}, idle share {1 - device_ms / step_ms:.1%}); "
+              f"{len(by_name)} distinct device activities; the largest, ms per step:")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {ms / steps:9.4f}  {name[:110]}")
+    else:
+        print("device busy share: not measured (the profiler recorded no device activity)")
+
+
 def crystal_checks(result, z_table, n, atoms, bounds) -> None:
     lengths = np.linalg.norm(result.lattice, axis=-1)
     lo, hi = bounds
@@ -345,16 +541,11 @@ def main() -> int:
     from arreau_tpu_torch.cli import generate, train_diffusion
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import BucketedLoader, pack_dense_batch
-    from arreau_tpu_torch.data.synthetic import make_synthetic_batch, synthetic_packed
-    from arreau_tpu_torch.inference.io import load_sample_results
-    from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
+    from arreau_tpu_torch.data.synthetic import synthetic_packed
     from arreau_tpu_torch.kernels import build
-    from arreau_tpu_torch.ops.pbc import NeighborList
-    from arreau_tpu_torch.tasks import diffusion
     from arreau_tpu_torch.tasks.diffusion import (
         DiffusionConfig,
         DiffusionModel,
-        LossNoise,
         batch_to_device,
         draw_loss_noise,
         draw_sampler_noise,
@@ -399,40 +590,13 @@ def main() -> int:
                   f"{cfg.num_layers} x spatial_conv + basis_h1 = {kernels_ms:.4f} ms")
             del args, inputs
 
+    L = cfg.num_layers
     with Phase("sampler path"), tempfile.TemporaryDirectory() as tmp:
-        ckpt, out_dir = Path(tmp) / "ckpt", Path(tmp) / "out"
-        ckpt.mkdir()
-        meta = {
-            "config": dataclasses.asdict(cfg),
-            "z_table_zs": [int(z) for z in z_table.zs],
-            # the synthetic training data's lattice lengths are U(3, 8) angstrom
-            "length_stats": {"min": 3.0, "max": 8.0},
-        }
-        (ckpt / "meta.json").write_text(json.dumps(meta, indent=2))
-        save_params_npz(str(ckpt / "params.npz"), params_to_jax(model.model))
+        meta = write_checkpoint(Path(tmp) / "ckpt", cfg, model, z_table)
         del model
         torch.cuda.empty_cache()
-
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        generate.main([
-            "--checkpoint_dir", str(ckpt), "--batch_size", str(BATCH),
-            "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(CRYSTALS),
-            "--sample_steps", str(STEPS), "--seed", str(SEED), "--out_dir", str(out_dir),
-            "--device", "cuda",
-        ])
-        wall = time.perf_counter() - t0
-        sampler_counts = launch_counts()
-        forwards = math.ceil(CRYSTALS / BATCH) * (len(strided_levels(cfg.num_timesteps, STEPS)) - 1)
-        print(f"forwards {forwards}: launches {sampler_counts}")
-        if sampler_counts != {"spatial_conv": cfg.num_layers * forwards, "basis_h1": forwards,
-                              "spatial_conv_bwd": 0, "basis_mlp_bwd": 0}:
-            raise RuntimeError("the sampler path did not launch each forward kernel once per "
-                               "layer and forward (and no backward kernel)")
-        crystal_checks(load_sample_results(str(out_dir / "crystals.npz")), z_table, CRYSTALS,
-                       ATOMS, generate.length_bounds_from_meta(meta))
-        print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
-              f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
+        sampler_counts = sampler_path(Path(tmp) / "ckpt", Path(tmp) / "out", meta, z_table, card,
+                                      {"spatial_conv": L, "basis_h1": 1})
 
     with Phase("forward reference"):
         # one backbone forward on realistic crystals (lengths U(3, 8) angstrom,
@@ -471,7 +635,6 @@ def main() -> int:
                 raise RuntimeError(f"{name}: kernel branch disagrees with the plain branch")
         del model, plain
 
-    L = cfg.num_layers
     # the training CLI's model at the canonical width (BASELINE.md: hidden 200,
     # basis 256, 5 layers, 16 orientations, K=8, radius 5, T=1000) with its
     # default diffuse_angles: four loss terms
@@ -511,72 +674,13 @@ def main() -> int:
                           ("basis_mlp_bwd", 1)))
         print(f"training step at {TRAIN_BATCH}x{bucket}: {step_ms:.4f} ms (CUDA events, 5 steps), "
               f"of which the kernels' launches {kernels_ms:.4f} ms ({kernels_ms / step_ms:.1%})")
-        profile_steps = 3
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(profile_steps):
-                one_step()
-            torch.cuda.synchronize()
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        device_ms = sum(by_name.values()) / profile_steps
-        if device_ms > 0:
-            print(f"device busy {device_ms:.4f} ms per step of {step_ms:.4f} ms "
-                  f"(busy share {device_ms / step_ms:.1%}, idle share {1 - device_ms / step_ms:.1%}); "
-                  f"{len(by_name)} distinct device activities; the largest, ms per step:")
-            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-                print(f"  {ms / profile_steps:9.4f}  {name[:110]}")
-        else:
-            print("device busy share: not measured (the profiler recorded no device activity)")
+        profile_step(one_step, step_ms)
         del model, batch, noise, optimizer
         torch.cuda.empty_cache()
 
     with Phase("training reference"):
-        # one training step's loss and gradients at full width on 32 crystals of
-        # 8 atoms: the card's kernel branch against the CPU's plain branch, both
-        # given the neighbour list the CPU built
-        B = 32
-        host = make_synthetic_batch(np.random.default_rng(SEED + 2), z_table, B, ATOMS)
-        ref_cfg = dataclasses.replace(train_cfg, layer_scale=1.0)
-        model = DiffusionModel(ref_cfg, device=dev)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED + 2))
-        plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
-        plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
-        noise = draw_loss_noise(torch.Generator().manual_seed(SEED + 2), B, ATOMS,
-                                ref_cfg.num_atomic_states, ref_cfg.num_timesteps, True, "cpu")
-        graphs = []
-        build_graph = diffusion.pbc_neighbor_list
-        try:
-            diffusion.pbc_neighbor_list = lambda *a: graphs.append(build_graph(*a)) or graphs[-1]
-            want_loss, want_m = plain.loss(batch_to_device(host, "cpu"), noise)
-            want_loss.backward()
-            diffusion.pbc_neighbor_list = lambda *a: NeighborList(*(x.to(dev) for x in graphs[0]))
-            card_noise = LossNoise(**{f.name: getattr(noise, f.name).to(dev)
-                                      for f in dataclasses.fields(noise)})
-            got_loss, got_m = model.loss(batch_to_device(host, dev), card_noise)
-            got_loss.backward()
-        finally:
-            diffusion.pbc_neighbor_list = build_graph
-        for name, value in want_m.items():
-            err, scale = abs(got_m[name].item() - value.item()), abs(value.item())
-            print(f"{name}: card {got_m[name].item():.6f}, cpu {value.item():.6f}")
-            if not err <= KERNEL_REL_TOL * max(scale, 1e-3):
-                raise RuntimeError(f"{name}: the card's loss disagrees with the CPU's")
-        worst = 0.0
-        want_grads = dict(plain.model.named_parameters())
-        for name, p in model.model.named_parameters():
-            want = want_grads[name].grad
-            err = (p.grad.cpu() - want).abs().max().item()
-            scale = want.abs().max().item()
-            if not (scale > 0 and err <= GRAD_REL_TOL * scale):
-                raise RuntimeError(f"gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
-                                   f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel)")
-            worst = max(worst, err / scale)
-        print(f"{graphs[0].mask.sum().item()} edges; {len(want_grads)} parameter gradients, "
-              f"worst max_abs_err / max |cpu| {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
-        del model, plain
+        training_reference(dataclasses.replace(train_cfg, layer_scale=1.0), z_table, SEED + 2,
+                           KERNEL_REL_TOL)
 
     with Phase("training path"), tempfile.TemporaryDirectory() as tmp:
         ckpt = Path(tmp) / "ckpt"
@@ -607,7 +711,8 @@ def main() -> int:
             train_diffusion.train_step = step
         wall = time.perf_counter() - t0
         train_counts = launch_counts()
-        want_step = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1}
+        want_step = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1,
+                     "fiber_conv": 0, "fiber_conv_bwd": 0}
         bad = [i for i, c in enumerate(per_step) if c != want_step]
         print(f"{len(per_step)} steps; launches per step {per_step[0] if per_step else None}; "
               f"launches in the whole run (evaluation forwards included) {train_counts}")
@@ -631,7 +736,7 @@ def main() -> int:
             reset_launch_counts()
             n = 128
             result = generate.main([
-                "--checkpoint_dir", str(ckpt / "best"), "--batch_size", str(n),
+                "--checkpoint_dir", str(ckpt), "--tag", "best", "--batch_size", str(n),
                 "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(n),
                 "--sample_steps", str(STEPS), "--seed", str(SEED), "--out_dir", str(Path(tmp) / "out"),
                 "--device", "cuda",
@@ -641,8 +746,81 @@ def main() -> int:
             forwards = len(strided_levels(train_cfg.num_timesteps, STEPS)) - 1
             if counts["spatial_conv"] != L * forwards or counts["basis_h1"] != forwards:
                 raise RuntimeError("sampling from the trained checkpoint missed a kernel launch")
-            meta = json.loads((ckpt / "best" / "meta.json").read_text())
+            meta = json.loads((ckpt / "meta.json").read_text())
             crystal_checks(result, z_table, n, ATOMS, generate.length_bounds_from_meta(meta))
+
+    # the fused fiber conv path: the same model and shapes with fuse_fiber
+    fiber_cfg = dataclasses.replace(cfg, fuse_fiber=True)
+    fiber_train_cfg = dataclasses.replace(train_cfg, fuse_fiber=True)
+
+    with Phase("fiber kernels"):
+        model = DiffusionModel(fiber_cfg, device=dev)
+        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+                                   cfg.num_atomic_states, "monoclinic", False, dev)
+        with torch.inference_mode():
+            inputs = first_step_inputs(model, noise)
+            with capturing() as args:
+                model.predict_scores(*inputs)
+            [serve_fiber] = fiber_records(args, f"fiber serving {BATCH}x{ATOMS}")
+            fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
+            print(f"fuse_fiber forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 runs), "
+                  f"of which {L} x fiber_conv = {L * serve_fiber['ms']:.4f} ms")
+            del args, inputs, model
+
+        batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+        model = DiffusionModel(fiber_train_cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+                                train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        with torch.no_grad():
+            fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}")
+        fiber_fwd["serve"] = {k: serve_fiber[k] for k in
+                              ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+        records.update(fiber_conv=fiber_fwd, fiber_conv_bwd=fiber_bwd)
+        del args
+        model.model.zero_grad(set_to_none=True)
+
+    with Phase("fiber sampler path"), tempfile.TemporaryDirectory() as tmp:
+        sampler_model = DiffusionModel(fiber_cfg, device=dev)
+        sampler_model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        meta = write_checkpoint(Path(tmp) / "ckpt", fiber_cfg, sampler_model, z_table)
+        del sampler_model
+        counts = sampler_path(Path(tmp) / "ckpt", Path(tmp) / "out", meta, z_table, card,
+                              {"fiber_conv": L})
+        records["fiber_conv"]["launches_sampler"] = counts["fiber_conv"]
+
+    with Phase("fiber training"):
+        training_reference(dataclasses.replace(fiber_train_cfg, layer_scale=1.0), z_table,
+                           SEED + 2, FIBER_LOSS_REL_TOL)
+        optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+
+        def one_step():
+            train_step(model, optimizer, None, batch, noise)
+
+        reset_launch_counts()
+        one_step()
+        first = launch_counts()
+        want_step = {name: (L if name.startswith("fiber_conv") else 0) for name in first}
+        print(f"launches of one fuse_fiber step: {first}")
+        if first != want_step:
+            raise RuntimeError(f"a fuse_fiber step launched {first}, not {want_step}")
+        step_ms = cuda_ms(one_step, runs=5)
+        counts = launch_counts()
+        steps = 1 + 3 + 5  # the counted step, cuda_ms's warm-up and timed steps
+        if counts != {name: n * steps for name, n in want_step.items()}:
+            raise RuntimeError(f"{steps} fuse_fiber steps launched {counts}")
+        for name in ("fiber_conv", "fiber_conv_bwd"):
+            records[name]["launches"] = counts[name]
+        kernels_ms = L * (fiber_fwd["ms"] + fiber_bwd["ms"])
+        print(f"fuse_fiber training step at {TRAIN_BATCH}x{bucket}: {step_ms:.4f} ms (CUDA events, "
+              f"5 steps), of which the kernels' launches {kernels_ms:.4f} ms "
+              f"({kernels_ms / step_ms:.1%}); the default path's step: see 'training step'")
+        profile_step(one_step, step_ms)
+        del model, batch, noise, optimizer
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

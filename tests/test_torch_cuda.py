@@ -1,7 +1,8 @@
 """The port's CUDA kernels, forward and backward, against their plain
 PyTorch versions on the card, at ragged shapes (tiles that do not divide
 the receivers, channels, basis or hidden widths; empty neighbour slots),
-and the kernel branch's parameter gradients against the plain branch's. Needs an NVIDIA GPU and nvcc; on
+and the kernel branch's parameter gradients against the plain branch's,
+with and without ``fuse_fiber``. Needs an NVIDIA GPU and nvcc; on
 a machine without CUDA every test here skips. This file imports no JAX, so
 it runs on the card's machine:
 
@@ -14,6 +15,12 @@ import torch
 
 from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
 from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd, basis_mlp_bwd_plain
+from arreau_tpu_torch.kernels.fiber_conv import (
+    fiber_conv,
+    fiber_conv_bwd,
+    fiber_conv_bwd_plain,
+    fiber_conv_plain,
+)
 from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv,
     spatial_conv_bwd,
@@ -126,11 +133,53 @@ def test_basis_mlp_bwd_kernel_matches_plain(Bp, O, d, E, H, D, n_g):
         _assert_close(a, b, BWD_REL_TOL)
 
 
+def _fiber_args(rng, dev, Bp, O, P, K, TA, D, C):
+    basis, w, x, src, _ = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    fk = torch.tensor(rng.normal(size=(O, P, C)) * 0.3 / O, dtype=torch.float32, device=dev)
+    return basis, w, x, src, fk
+
+
+# ragged: TA = 120 (the 24-atom bucket), D and C not multiples of 64, P != O;
+# and the full width, O = P = 16
+FIBER_SHAPES = [(2, 3, 5, 4, 40, 37, 70), (2, 16, 16, 8, 120, 256, 200)]
+
+
 @pytest.mark.cuda
-def test_kernel_branch_parameter_gradients_match_plain_branch():
-    """The kernel branch's parameter gradients on the card equal the plain
-    branch's (both on the card, one neighbour list): the forward kernels'
-    outputs carry their backward kernels, not a detached tensor."""
+@pytest.mark.parametrize("Bp,O,P,K,TA,D,C", FIBER_SHAPES)
+def test_fiber_conv_kernel_matches_plain(Bp, O, P, K, TA, D, C):
+    """#1 with empty and out-of-range slots; every output element is written
+    by one block, so no element may keep a stale value. With the residual:
+    the spatial conv too."""
+    dev = _device()
+    args = _fiber_args(np.random.default_rng(5), dev, Bp, O, P, K, TA, D, C)
+    before = fiber_conv.launches
+    got = fiber_conv(*args)
+    got_y, got_x_sp = fiber_conv(*args, save_x_sp=True)
+    torch.cuda.synchronize()
+    assert fiber_conv.launches == before + 2
+    want_y, want_x_sp = fiber_conv_plain(*args, save_x_sp=True)
+    _assert_close(got, want_y)
+    assert torch.equal(got_y, got)
+    _assert_close(got_x_sp, want_x_sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,P,K,TA,D,C", FIBER_SHAPES)
+def test_fiber_conv_bwd_kernel_matches_plain(Bp, O, P, K, TA, D, C):
+    dev = _device()
+    rng = np.random.default_rng(6)
+    args = _fiber_args(rng, dev, Bp, O, P, K, TA, D, C)
+    g = torch.tensor(rng.normal(size=(Bp, P, TA, C)), dtype=torch.float32, device=dev)
+    x_sp = fiber_conv_plain(*args, save_x_sp=True)[1]
+    before = fiber_conv_bwd.launches
+    got = fiber_conv_bwd(*args, g, x_sp)
+    torch.cuda.synchronize()
+    assert fiber_conv_bwd.launches == before + 1
+    for a, b in zip(got, fiber_conv_bwd_plain(*args, g, x_sp)):
+        _assert_close(a, b, BWD_REL_TOL)
+
+
+def _assert_kernel_branch_gradients_match_plain_branch(**config):
     import dataclasses
 
     from arreau_tpu_torch.data.atoms import synthetic_z_table
@@ -141,7 +190,7 @@ def test_kernel_branch_parameter_gradients_match_plain_branch():
     B, A = 12, 5
     cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()), num_timesteps=50,
                           hidden_dim=32, basis_dim=24, num_layers=2, num_ori=4,
-                          max_neighbors=27 * A, layer_scale=1.0)
+                          max_neighbors=27 * A, layer_scale=1.0, **config)
     models = {k: DiffusionModel(dataclasses.replace(cfg, use_pallas=k), device=dev)
               for k in (True, False)}
     models[True].model.init_parameters(torch.Generator(device=dev).manual_seed(0))
@@ -171,6 +220,20 @@ def test_kernel_branch_parameter_gradients_match_plain_branch():
 
 
 @pytest.mark.cuda
+def test_kernel_branch_parameter_gradients_match_plain_branch():
+    """The kernel branch's parameter gradients on the card equal the plain
+    branch's (both on the card, one neighbour list): the forward kernels'
+    outputs carry their backward kernels, not a detached tensor."""
+    _assert_kernel_branch_gradients_match_plain_branch()
+
+
+@pytest.mark.cuda
+def test_fuse_fiber_kernel_branch_parameter_gradients_match_plain_branch():
+    """The same with ``fuse_fiber``: kernels #1/#2 and the plain basis MLP."""
+    _assert_kernel_branch_gradients_match_plain_branch(fuse_fiber=True)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back():
     dev = _device()
     x = torch.zeros((1, 1, 4, 8), device=dev)
@@ -181,3 +244,8 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         basis_h1(torch.zeros((1, 1, 2, 8), device=dev)[..., ::2],
                  torch.zeros((6, 3), device=dev), torch.zeros((3,), device=dev), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fiber_conv(torch.zeros((1, 1, 4, 2), device=dev), torch.zeros((2, 8), device=dev),
+                   torch.zeros((1, 1, 8, 4), device=dev).transpose(2, 3),
+                   torch.zeros((1, 4), dtype=torch.int32, device=dev),
+                   torch.zeros((1, 2, 8), device=dev))

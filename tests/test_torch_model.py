@@ -178,3 +178,45 @@ def test_backbone_scores_match_jax(degree):
     for a, b in zip(outs[True], outs[False]):
         # the two branches of the port differ only in summation order
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---------------- the fused fiber conv path (fuse_fiber) ----------------
+
+
+@pytest.mark.parametrize("degree", [2, 3])
+def test_fuse_fiber_backbone_scores_match_jax_pallas_branch(degree):
+    """``predict_scores`` of the port's kernel branch with ``fuse_fiber``
+    (plain basis MLP windowed outside the kernel, one basis for every layer,
+    fused_fiber_conv per layer) against the JAX package's Pallas branch with
+    ``fuse_fiber=True`` (fused_fiber_conv in interpret mode), same weights;
+    30 crystals of up to 5 atoms make two super-crystals of 15."""
+    jcfg = tiny_config(degree=degree, use_pallas=True, fuse_fiber=True)
+    jmodel = JModel(jcfg)
+    host = _batch(30, 5, seed=5)
+    params = perturbed_params(jax.jit(jmodel.init)(jax.random.PRNGKey(2), JBatch(*map(jnp.asarray, host))))
+    inputs = _scores_inputs(host, jcfg.num_timesteps, seed=6)
+    want = jax.jit(jmodel.predict_scores)(params, *map(jnp.asarray, inputs))
+    model = DiffusionModel(port_config(jcfg), device="cpu", fourier_w=np.asarray(jmodel.fourier_w))
+    assert model.model.config.fuse_fiber and model.model.config.use_kernels
+    params_from_jax(model, params)
+    with torch.no_grad():
+        got = model.predict_scores(*map(torch.tensor, inputs))
+    for a, ref in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(ref), **F32_MODEL)
+
+
+def test_jax_fuse_fiber_params_load_into_port():
+    """A JAX ``fuse_fiber=True`` parameter tree (its basis MLP is the plain
+    ``BasisMLP``, not ``MultiBasisMLP``) has the default tree's names: it
+    loads into the port and comes back unchanged."""
+    host = _batch(4, 5, 2)
+    jbatch = JBatch(*map(jnp.asarray, host))
+    fused = jax.jit(JModel(tiny_config(use_pallas=True, fuse_fiber=True)).init)(jax.random.PRNGKey(0), jbatch)
+    default = jax.jit(JModel(tiny_config(use_pallas=True)).init)(jax.random.PRNGKey(0), jbatch)
+    paths = [p for p, _ in jax.tree_util.tree_leaves_with_path(fused)]
+    assert paths == [p for p, _ in jax.tree_util.tree_leaves_with_path(default)]
+    model = DiffusionModel(port_config(tiny_config(fuse_fiber=True)), device="cpu")
+    params_from_jax(model, fused)
+    back = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(model.model)))
+    for path, value in jax.tree_util.tree_leaves_with_path(fused):
+        np.testing.assert_array_equal(back[path], np.asarray(value))

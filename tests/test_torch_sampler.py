@@ -159,11 +159,13 @@ def test_crystals_file_holds_the_h5_datasets(tmp_path):
 
 
 def write_checkpoint(path, jmodel, params, **meta_extra):
-    path.mkdir()
+    """``meta.json`` at ``path`` and the parameters under the tag ``last``,
+    the layout generate reads (``--checkpoint_dir path``, default tag)."""
+    (path / "last").mkdir(parents=True)
     meta = {"config": dataclasses.asdict(jmodel.config), "z_table_zs": list(map(int, Z_TABLE.zs)),
             **meta_extra}
     (path / "meta.json").write_text(json.dumps(meta))
-    save_params_npz(str(path / "params.npz"), params)
+    save_params_npz(str(path / "last" / "params.npz"), params)
 
 
 def test_generate_cli_on_cpu(tmp_path, capsys):

@@ -25,7 +25,7 @@ from arreau_tpu.train.optim import cosine_warmup_schedule as j_schedule
 from arreau_tpu.train.optim import make_optimizer
 from arreau_tpu.train.state import create_train_state, apply_gradients
 from arreau_tpu_torch.cli import generate, train_diffusion
-from arreau_tpu_torch.interop.from_jax import _jax_name, params_from_jax
+from arreau_tpu_torch.interop.from_jax import _jax_name, params_from_jax, params_to_jax
 from arreau_tpu_torch.tasks.diffusion import (
     DiffusionModel,
     LossNoise,
@@ -57,8 +57,8 @@ def _batch(seed=0):
     return j_pack(ds, idx, A)
 
 
-def _jax_setup(diffuse_angles, use_pallas=True, seed=0):
-    jcfg = tiny_config(diffuse_angles=diffuse_angles, use_pallas=use_pallas, **GRAPH)
+def _jax_setup(diffuse_angles, use_pallas=True, seed=0, **config):
+    jcfg = tiny_config(diffuse_angles=diffuse_angles, use_pallas=use_pallas, **GRAPH, **config)
     jmodel = JModel(jcfg)
     host = _batch(seed)
     params = perturbed_params(jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
@@ -105,7 +105,19 @@ def test_loss_terms_and_every_gradient_match_jax_pallas_branch(diffuse_angles):
     plain versions on the CPU) against jax.grad of the JAX loss on its
     Pallas branch (fused_spatial_conv and basis_mlp_multi with their custom
     VJPs, Pallas kernels in interpret mode)."""
-    jmodel, host, params = _jax_setup(diffuse_angles)
+    _assert_loss_and_gradients_match_jax(*_jax_setup(diffuse_angles))
+
+
+@pytest.mark.parametrize("diffuse_angles", [False, True])
+def test_fuse_fiber_loss_terms_and_every_gradient_match_jax_pallas_branch(diffuse_angles):
+    """The same with ``fuse_fiber=True`` on both sides: the port's kernel
+    branch runs the plain basis MLP and the fused_fiber_conv Function
+    (kernels #1/#2, plain versions on the CPU); the JAX Pallas branch runs
+    fused_fiber_conv with its custom VJP in interpret mode."""
+    _assert_loss_and_gradients_match_jax(*_jax_setup(diffuse_angles, fuse_fiber=True))
+
+
+def _assert_loss_and_gradients_match_jax(jmodel, host, params):
     key = jax.random.PRNGKey(7)
     jbatch = JBatch(*map(jnp.asarray, host))
     (_, want_metrics), want_grads = jax.jit(jax.value_and_grad(
@@ -248,7 +260,7 @@ def test_train_cli_checkpoint_feeds_generate(tmp_path, capsys):
     records = [json.loads(line) for line in (ckpt / "metrics.jsonl").read_text().splitlines()]
     assert any("valid/loss" in r for r in records) and "test/loss" in records[-1]
 
-    result = generate.main(["--device", "cpu", "--checkpoint_dir", str(ckpt / "best"),
+    result = generate.main(["--device", "cpu", "--checkpoint_dir", str(ckpt), "--tag", "best",
                             "--num_crystals", "3", "--batch_size", "3", "--num_atoms_per_sample",
                             "4", "--sample_steps", "4", "--out_dir", str(tmp_path / "gen")])
     assert result.num_crystals == 3 and np.isfinite(result.frac_x).all()
@@ -257,6 +269,36 @@ def test_train_cli_checkpoint_feeds_generate(tmp_path, capsys):
     assert "resumed from" in capsys.readouterr().out
     state = torch.load(ckpt / "last" / "state.pt", weights_only=True)
     assert state["step"] == 6
+
+
+def test_generate_samples_ema_weights_by_default(tmp_path, capsys):
+    """generate reads ``<dir>/<tag>`` with the JAX CLI's defaults (``--tag
+    last --use_ema true``): after a CPU run of the training CLI with
+    ``--ema``, the defaults load exactly the tensors of ``last/ema_params.npz``,
+    ``--use_ema false`` exactly those of ``last/params.npz``, and the two
+    samples differ."""
+    from arreau_tpu_torch.interop.from_jax import load_params_npz
+
+    ckpt = tmp_path / "ckpt"
+    train_diffusion.main([*TINY_ARGS, "--max_steps", "4", "--checkpoint_dir", str(ckpt)])
+    gen = ["--device", "cpu", "--checkpoint_dir", str(ckpt), "--num_crystals", "3",
+           "--batch_size", "3", "--num_atoms_per_sample", "4", "--sample_steps", "4"]
+    results = {}
+    for use_ema, name in ((None, "ema_params.npz"), ("false", "params.npz")):
+        capsys.readouterr()
+        flags = [] if use_ema is None else ["--use_ema", use_ema]
+        results[name] = generate.main([*gen, *flags, "--out_dir", str(tmp_path / name)])
+        assert f"loaded {ckpt / 'last' / name}" in capsys.readouterr().out
+        model, _, _ = generate.load_model(str(ckpt), "last", use_ema is None, "cpu")
+        want = _flat(load_params_npz(str(ckpt / "last" / name)))
+        loaded = _flat(params_to_jax(model.model))
+        assert loaded.keys() == want.keys()
+        for key_, value in want.items():
+            np.testing.assert_array_equal(loaded[key_], value, err_msg=key_)
+    ema, raw = (_flat(load_params_npz(str(ckpt / "last" / n))) for n in ("ema_params.npz", "params.npz"))
+    assert any(not np.array_equal(ema[k], raw[k]) for k in raw)
+    a, b = results["ema_params.npz"], results["params.npz"]
+    assert not (np.array_equal(a.frac_x, b.frac_x) and np.array_equal(a.lattice, b.lattice))
 
 
 @pytest.mark.parametrize("flag", [["--compute_dtype", "bfloat16"], ["--model_parallel", "2"],
