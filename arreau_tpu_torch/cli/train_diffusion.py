@@ -109,7 +109,9 @@ def parse_args(argv=None):
                    help="resume from <checkpoint_dir>/last if present")
     p.add_argument("--debug_nans", type=parse_bool, default=False,
                    help="autograd anomaly detection (slow)")
-    p.add_argument("--compute_dtype", type=str, default=None, help="not ported: float32 only")
+    p.add_argument("--compute_dtype", type=str, default=None, choices=[None, "bfloat16"],
+                   help="bfloat16 Dense layers, convs and residual stream (params and "
+                        "LayerNorm statistics stay float32); default float32")
     p.add_argument("--buckets", type=str, default=None,
                    help="comma-separated max-atom bucket ladder")
     p.add_argument("--basis_bias", type=_parse_basis_bias, default=True,
@@ -125,7 +127,6 @@ def _check_ported(args) -> None:
         "log": args.log,
         "model_parallel": args.model_parallel != 1,
         "profiler": args.profiler is not None,
-        "compute_dtype": args.compute_dtype is not None,
         "dataset": args.dataset != "synthetic",
     }
     for flag, used in later.items():
@@ -171,6 +172,7 @@ def main(argv=None):
         basis_bias=args.basis_bias,
         stacked_readout=args.stacked_readout,
         mask_prob=args.mask_prob,
+        compute_dtype=args.compute_dtype,
         diffuse_angles=args.diffuse_angles,
         angle_loss_weight=args.angle_loss_weight,
     )

@@ -1,4 +1,5 @@
-// Edge-basis MLP, backward of all its consumers at once, float32, for sm_90a.
+// Edge-basis MLP, backward of all its consumers at once, float32 or bfloat16,
+// for sm_90a.
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_basis.py:_multi_bwd_kernel
 // (the VJP of basis_mlp_multi, reached through _multi_bwd). The forward is
@@ -37,12 +38,24 @@
 //      invariants as A is staged.
 //   Each split-K product ends in a second pass that adds the per-split
 //   partial tiles in a fixed order (deterministic).
+//
+// Element type T (dtype.cuh) of the invariants, weights, biases, cotangents
+// and the h1_pre / dpre2 scratch: float32, or bfloat16 on the
+// compute_dtype="bfloat16" path, with the JAX kernel's rounding points
+// (pallas_basis.py:289-331): h1_pre and h2_pre are rounded to T, as are
+// gelu(h1_pre), gelu'(h1_pre) and gelu'(h2_pre) (the JAX kernel evaluates
+// them in T); the cotangents are summed in float32; dpre2 and dpre1 are
+// rounded to T before their products; the weight and bias gradients are
+// float32 sums.
 
+#include <type_traits>
+
+#include "dtype.cuh"
 #include "poly_features.cuh"
 #include "tile_gemm.cuh"
 
-extern "C" int arreau_basis_h1_fwd(const float* attrT, const float* w1, const float* b1,
-                                   float* out, int Bp, int O, int d, int E, int F, int H,
+extern "C" int arreau_basis_h1_fwd(const void* attrT, const void* w1, const void* b1, void* out,
+                                   int Bp, int O, int d, int E, int F, int H, int is_bf16,
                                    void* stream);
 
 namespace {
@@ -51,18 +64,20 @@ using namespace arreau;
 
 constexpr int MAX_G = 16;  // cotangents (consuming layers) one launch sums
 
+template <class T>
 struct Cotangents {
-    const float* g[MAX_G];
+    const T* g[MAX_G];
     int n;
 };
 
 // 2. dpre2[row, n] = (sum_i g_i[row, n]) * gelu'(gelu(h1_pre[row, :]) @ W2[:, n] + b2[n])
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-dpre2_kernel(const float* __restrict__ h1_pre,  // [rows, H]
-             const float* __restrict__ w2,      // [H, D]
-             const float* __restrict__ b2,      // [D]
-             Cotangents gs,                     // n x [rows, D]
-             float* __restrict__ dpre2,         // [rows, D]
+dpre2_kernel(const T* __restrict__ h1_pre,  // [rows, H]
+             const T* __restrict__ w2,      // [H, D]
+             const T* __restrict__ b2,      // [D]
+             Cotangents<T> gs,              // n x [rows, D]
+             T* __restrict__ dpre2,         // [rows, D]
              long long rows, int H, int D) {
     __shared__ __align__(16) float As[BK][AS_LD];
     __shared__ __align__(16) float Bs[BK][BN];
@@ -71,8 +86,13 @@ dpre2_kernel(const float* __restrict__ h1_pre,  // [rows, H]
 
     float acc[TM][TN] = {};
     tile_gemm<true, true>(
-        H, [&](int r, int k) { return row0 + r < rows ? gelu(h1_pre[(size_t)(row0 + r) * H + k]) : 0.f; },
-        [&](int k, int n) { return n0 + n < D ? w2[(size_t)k * D + n0 + n] : 0.f; }, As, Bs, acc);
+        H,
+        [&](int r, int k) {
+            return row0 + r < rows ? round_to<T>(gelu(to_float(h1_pre[(size_t)(row0 + r) * H + k])))
+                                   : 0.f;
+        },
+        [&](int k, int n) { return n0 + n < D ? to_float(w2[(size_t)k * D + n0 + n]) : 0.f; }, As,
+        Bs, acc);
 
     const int tx = threadIdx.x % (BN / TN);
     const int ty = threadIdx.x / (BN / TN);
@@ -85,18 +105,20 @@ dpre2_kernel(const float* __restrict__ h1_pre,  // [rows, H]
             const int n = n0 + tx * TN + j;
             if (n >= D) continue;
             const size_t at = (size_t)row * D + n;
-            float g = gs.g[0][at];
-            for (int q = 1; q < gs.n; ++q) g += gs.g[q][at];
-            dpre2[at] = g * gelu_deriv(acc[i][j] + b2[n]);
+            float g = to_float(gs.g[0][at]);
+            for (int q = 1; q < gs.n; ++q) g += to_float(gs.g[q][at]);
+            const float h2_pre = round_to<T>(acc[i][j] + to_float(b2[n]));
+            dpre2[at] = from_float<T>(g * round_to<T>(gelu_deriv(h2_pre)));
         }
     }
 }
 
 // 4. dpre1[row, h] = (dpre2[row, :] @ W2[h, :]) * gelu'(h1_pre[row, h]), in place over h1_pre
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-dpre1_kernel(const float* __restrict__ dpre2,  // [rows, D]
-             const float* __restrict__ w2,     // [H, D]
-             float* h1_pre_dpre1,              // [rows, H]: h1_pre in, dpre1 out
+dpre1_kernel(const T* __restrict__ dpre2,  // [rows, D]
+             const T* __restrict__ w2,     // [H, D]
+             T* h1_pre_dpre1,              // [rows, H]: h1_pre in, dpre1 out
              long long rows, int H, int D) {
     __shared__ __align__(16) float As[BK][AS_LD];
     __shared__ __align__(16) float Bs[BK][BN];
@@ -105,8 +127,12 @@ dpre1_kernel(const float* __restrict__ dpre2,  // [rows, D]
 
     float acc[TM][TN] = {};
     tile_gemm<true, false>(
-        D, [&](int r, int k) { return row0 + r < rows ? dpre2[(size_t)(row0 + r) * D + k] : 0.f; },
-        [&](int k, int n) { return h0 + n < H ? w2[(size_t)(h0 + n) * D + k] : 0.f; }, As, Bs, acc);
+        D,
+        [&](int r, int k) {
+            return row0 + r < rows ? to_float(dpre2[(size_t)(row0 + r) * D + k]) : 0.f;
+        },
+        [&](int k, int n) { return h0 + n < H ? to_float(w2[(size_t)(h0 + n) * D + k]) : 0.f; },
+        As, Bs, acc);
 
     const int tx = threadIdx.x % (BN / TN);
     const int ty = threadIdx.x / (BN / TN);
@@ -119,116 +145,97 @@ dpre1_kernel(const float* __restrict__ dpre2,  // [rows, D]
             const int h = h0 + tx * TN + j;
             if (h >= H) continue;
             const size_t at = (size_t)row * H + h;
-            h1_pre_dpre1[at] = acc[i][j] * gelu_deriv(h1_pre_dpre1[at]);
+            h1_pre_dpre1[at] =
+                from_float<T>(acc[i][j] * round_to<T>(gelu_deriv(to_float(h1_pre_dpre1[at]))));
         }
     }
 }
 
 // Features of a row for the weight gradients: gelu(h1_pre) (for dW2) ...
+template <class T>
 struct HiddenFeature {
-    const float* h1_pre;  // [rows, H]
+    const T* h1_pre;  // [rows, H]
     int H;
     __device__ __forceinline__ float operator()(long long row, int m) const {
-        return gelu(h1_pre[(size_t)row * H + m]);
+        return round_to<T>(gelu(to_float(h1_pre[(size_t)row * H + m])));
     }
 };
 
 // ... and the polynomial features of the row's invariants (for dW1).
+template <class T>
 struct PolyFeature {
-    const float* attrT;  // [B'*O, d, E]
+    const T* attrT;  // [B'*O, d, E]
     int d, E;
     __device__ __forceinline__ float operator()(long long row, int f) const {
         const long long bo = row / E;
-        const float* a = attrT + (size_t)bo * d * E + (row - bo * E);
-        return poly_feature([&](int i) { return a[(size_t)i * E]; }, f, d);
+        const T* a = attrT + (size_t)bo * d * E + (row - bo * E);
+        return round_to<T>(poly_feature([&](int i) { return to_float(a[(size_t)i * E]); }, f, d));
     }
 };
 
-// 3 and 5. partial[split, m, n] = sum over the split's rows of A[row, m] * cot[row, n]
-// with A = [feature(row, 0..M-1) | 1]: row M of the result is the bias gradient.
-template <class Feature>
-__global__ void __launch_bounds__(THREADS)
-weight_grad_partial_kernel(Feature feature, const float* __restrict__ cot,  // [rows, N]
-                           float* __restrict__ partial,  // [splits, M + 1, N]
-                           long long rows, int M, int N, int rows_per_split) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const int m0 = blockIdx.x * BM;
-    const int n0 = blockIdx.y * BN;
-    const long long row0 = (long long)blockIdx.z * rows_per_split;
-    const long long left = rows - row0;
-    const int n_rows = left < rows_per_split ? (int)left : rows_per_split;
-
-    float acc[TM][TN] = {};
-    tile_gemm<false, true>(
-        n_rows,
-        [&](int m, int k) {
-            const int mm = m0 + m;
-            if (mm > M) return 0.f;
-            return mm == M ? 1.f : feature(row0 + k, mm);
-        },
-        [&](int k, int n) { return n0 + n < N ? cot[(size_t)(row0 + k) * N + n0 + n] : 0.f; },
-        As, Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
-    float* out = partial + (size_t)blockIdx.z * (M + 1) * N;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int m = m0 + ty * TM + i;
-        if (m > M) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int n = n0 + tx * TN + j;
-            if (n < N) out[(size_t)m * N + n] = acc[i][j];
-        }
-    }
-}
-
-}  // namespace
-
-// dw1_ext [F+1, H] = [dW1; db1], dw2_ext [H+1, D] = [dW2; db2]. Scratch:
-// h1_pre [rows, H] (ends as dpre1), dpre2 [rows, D], partial [splits *
-// max((F+1)*H, (H+1)*D)]. gs is a host array of n_g device pointers.
-extern "C" int arreau_basis_mlp_bwd(const float* attrT, const float* w1, const float* b1,
-                                    const float* w2, const float* b2, const float* const* gs,
-                                    int n_g, float* h1_pre, float* dpre2, float* partial,
-                                    float* dw1_ext, float* dw2_ext, int Bp, int O, int d, int E,
-                                    int F, int H, int D, int splits, int rows_per_split,
-                                    void* stream_ptr) {
-    if (n_g < 1 || n_g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+template <class T>
+int basis_mlp_bwd(const T* attrT, const T* w1, const T* b1, const T* w2, const T* b2,
+                  const void* const* gs, int n_g, T* h1_pre, T* dpre2, float* partial,
+                  float* dw1_ext, float* dw2_ext, int Bp, int O, int d, int E, int F, int H,
+                  int D, int splits, int rows_per_split, cudaStream_t stream) {
     const long long rows = (long long)Bp * O * E;
     const unsigned row_tiles = static_cast<unsigned>((rows + BM - 1) / BM);
     int status;
 
-    status = arreau_basis_h1_fwd(attrT, w1, b1, h1_pre, Bp, O, d, E, F, H, stream_ptr);
+    status = arreau_basis_h1_fwd(attrT, w1, b1, h1_pre, Bp, O, d, E, F, H,
+                                 std::is_same<T, bf16>::value, stream);
     if (status != 0) return status;
 
-    Cotangents cots{};
-    for (int i = 0; i < n_g; ++i) cots.g[i] = gs[i];
+    Cotangents<T> cots{};
+    for (int i = 0; i < n_g; ++i) cots.g[i] = static_cast<const T*>(gs[i]);
     cots.n = n_g;
-    dpre2_kernel<<<dim3(row_tiles, (D + BN - 1) / BN), THREADS, 0, stream>>>(
+    dpre2_kernel<T><<<dim3(row_tiles, (D + BN - 1) / BN), THREADS, 0, stream>>>(
         h1_pre, w2, b2, cots, dpre2, rows, H, D);
     if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
 
     weight_grad_partial_kernel<<<dim3((H + 1 + BM - 1) / BM, (D + BN - 1) / BN, splits), THREADS,
-                                 0, stream>>>(HiddenFeature{h1_pre, H}, dpre2, partial, rows, H, D,
-                                              rows_per_split);
+                                 0, stream>>>(HiddenFeature<T>{h1_pre, H}, dpre2, partial, rows, H,
+                                              D, rows_per_split);
     if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
     const long long n2 = (long long)(H + 1) * D;
     sum_splits_kernel<<<sum_splits_blocks(n2), THREADS, 0, stream>>>(partial, dw2_ext, splits, n2);
     if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
 
-    dpre1_kernel<<<dim3(row_tiles, (H + BN - 1) / BN), THREADS, 0, stream>>>(dpre2, w2, h1_pre,
-                                                                              rows, H, D);
+    dpre1_kernel<T><<<dim3(row_tiles, (H + BN - 1) / BN), THREADS, 0, stream>>>(dpre2, w2, h1_pre,
+                                                                                 rows, H, D);
     if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
 
     weight_grad_partial_kernel<<<dim3((F + 1 + BM - 1) / BM, (H + BN - 1) / BN, splits), THREADS,
-                                 0, stream>>>(PolyFeature{attrT, d, E}, h1_pre, partial, rows, F, H,
-                                              rows_per_split);
+                                 0, stream>>>(PolyFeature<T>{attrT, d, E}, h1_pre, partial, rows,
+                                              F, H, rows_per_split);
     if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
     const long long n1 = (long long)(F + 1) * H;
     sum_splits_kernel<<<sum_splits_blocks(n1), THREADS, 0, stream>>>(partial, dw1_ext, splits, n1);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dw1_ext [F+1, H] = [dW1; db1], dw2_ext [H+1, D] = [dW2; db2] (float32).
+// Scratch: h1_pre [rows, H] (ends as dpre1), dpre2 [rows, D], partial
+// [splits * max((F+1)*H, (H+1)*D)] float32. gs is a host array of n_g
+// device pointers. attrT, the weights, biases, cotangents and the h1_pre /
+// dpre2 scratch are float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
+extern "C" int arreau_basis_mlp_bwd(const void* attrT, const void* w1, const void* b1,
+                                    const void* w2, const void* b2, const void* const* gs,
+                                    int n_g, void* h1_pre, void* dpre2, float* partial,
+                                    float* dw1_ext, float* dw2_ext, int Bp, int O, int d, int E,
+                                    int F, int H, int D, int splits, int rows_per_split,
+                                    int is_bf16, void* stream_ptr) {
+    if (n_g < 1 || n_g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int status = 0;
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        status = basis_mlp_bwd<T>(
+            static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
+            static_cast<const T*>(w2), static_cast<const T*>(b2), gs, n_g,
+            static_cast<T*>(h1_pre), static_cast<T*>(dpre2), partial, dw1_ext, dw2_ext, Bp, O, d,
+            E, F, H, D, splits, rows_per_split, stream);
+    });
+    return status;
 }

@@ -34,15 +34,17 @@
 //      for the cotangent g_o and the unit window: its dbasis tile product,
 //      its shared-memory dx scatter and its split-K dW with a fixed-order
 //      second pass.
-// No global atomics: every result is deterministic.
+// No global atomics. Every result but dx is deterministic; dx's
+// shared-memory scatter adds in no fixed order, so it may differ by an ulp
+// from one call to the next.
 
 #include "tile_gemm.cuh"
 
-extern "C" int arreau_spatial_conv_bwd(const float* basis, const float* w, const float* x,
-                                       const int* src, const float* win, const float* g,
-                                       float* dbasis, float* dw, float* dx, float* partial,
+extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
+                                       const int* src, const float* win, const void* g,
+                                       void* dbasis, float* dw, void* dx, float* partial,
                                        int Bp, int O, int K, int TA, int D, int C, int splits,
-                                       int rows_per_split, void* stream_ptr);
+                                       int rows_per_split, int is_bf16, void* stream_ptr);
 
 namespace {
 
@@ -128,5 +130,6 @@ extern "C" int arreau_fiber_conv_bwd(const float* basis, const float* w, const f
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
 
     return arreau_spatial_conv_bwd(basis, w, x, src, ones, g_o, dbasis, dw, dx, dw_partial, Bp,
-                                   O, K, TA, D, C, splits, rows_per_split, stream_ptr);
+                                   O, K, TA, D, C, splits, rows_per_split, /*is_bf16=*/0,
+                                   stream_ptr);
 }

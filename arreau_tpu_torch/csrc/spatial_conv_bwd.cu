@@ -1,4 +1,4 @@
-// Spatial fiber-bundle convolution, backward, float32, for sm_90a.
+// Spatial fiber-bundle convolution, backward, float32 or bfloat16, for sm_90a.
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_conv.py:_bwd_spatial_kernel
 // (the VJP of fused_spatial_conv, reached through _bwd_spatial). With the
@@ -29,11 +29,20 @@
 //      recomputes the per-edge kernel basis @ W in registers (as the forward
 //      does) and scatters kern * win * g into a [TA, 64] slice of dx held in
 //      shared memory with shared-memory atomics: no global atomics, and each
-//      dx element is written once.
+//      dx element is written once. The atomics add in no fixed order, so dx
+//      may differ by an ulp from one call to the next.
 //   3. dW: split-K over all B'*O*E edge rows; each block sums basis^T gxw
 //      over one slice of rows into its own partial tile, and a second pass
 //      adds the partials in a fixed order (deterministic).
+//
+// Element type T (dtype.cuh) of basis, W, x, g, dbasis and dx: float32, or
+// bfloat16 on the compute_dtype="bfloat16" path. There the JAX kernel's
+// rounding points hold (pallas_conv.py:331-390): gxw and kern * win * g are
+// rounded to T before their products (:371, :376), every product and sum is
+// float32, dbasis and dx are rounded once as they are stored, and the dW
+// partials stay float32 (the wrapper rounds the sum to W's type).
 
+#include "dtype.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -41,10 +50,11 @@ namespace {
 using namespace arreau;
 
 // gxw[e, c] of one (b', o): the receiver cotangent times the sender's
-// features and the window; 0 on an empty slot.
+// features and the window, rounded to T; 0 on an empty slot.
+template <class T>
 struct EdgeCotangent {
-    const float* g_bo;   // [TA, C]
-    const float* x_bo;   // [TA, C]
+    const T* g_bo;       // [TA, C]
+    const T* x_bo;       // [TA, C]
     const int* src_b;    // [E]
     const float* win_b;  // [E]
     int TA, C;
@@ -52,39 +62,42 @@ struct EdgeCotangent {
     __device__ __forceinline__ float operator()(int e, int c) const {
         const int s = src_b[e];
         if (s < 0 || s >= TA) return 0.f;
-        return g_bo[(size_t)(e % TA) * C + c] * x_bo[(size_t)s * C + c] * win_b[e];
+        return round_to<T>(to_float(g_bo[(size_t)(e % TA) * C + c]) *
+                           to_float(x_bo[(size_t)s * C + c]) * win_b[e]);
     }
 };
 
-__device__ __forceinline__ EdgeCotangent edge_cotangent(const float* g, const float* x,
-                                                        const int* src, const float* win,
-                                                        int bo, int O, int TA, int E, int C) {
+template <class T>
+__device__ __forceinline__ EdgeCotangent<T> edge_cotangent(const T* g, const T* x,
+                                                           const int* src, const float* win,
+                                                           int bo, int O, int TA, int E, int C) {
     const int b = bo / O;
     return {g + (size_t)bo * TA * C, x + (size_t)bo * TA * C, src + (size_t)b * E,
             win + (size_t)b * E, TA, C};
 }
 
 // 1. dbasis[b',o,e,d] = sum_c gxw[e,c] * W[d,c]
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-dbasis_kernel(const float* __restrict__ w,    // [D, C]
-              const float* __restrict__ x,    // [B'*O, TA, C]
+dbasis_kernel(const T* __restrict__ w,        // [D, C]
+              const T* __restrict__ x,        // [B'*O, TA, C]
               const int* __restrict__ src,    // [B', E]
               const float* __restrict__ win,  // [B', E]
-              const float* __restrict__ g,    // [B'*O, TA, C]
-              float* __restrict__ dbasis,     // [B'*O, E, D]
+              const T* __restrict__ g,        // [B'*O, TA, C]
+              T* __restrict__ dbasis,         // [B'*O, E, D]
               int O, int TA, int E, int D, int C) {
     __shared__ __align__(16) float As[BK][AS_LD];
     __shared__ __align__(16) float Bs[BK][BN];
     const int e0 = blockIdx.x * BM;
     const int d0 = blockIdx.y * BN;
     const int bo = blockIdx.z;
-    const EdgeCotangent gxw = edge_cotangent(g, x, src, win, bo, O, TA, E, C);
+    const EdgeCotangent<T> gxw = edge_cotangent(g, x, src, win, bo, O, TA, E, C);
 
     float acc[TM][TN] = {};
     tile_gemm<true, false>(
         C, [&](int r, int c) { return e0 + r < E ? gxw(e0 + r, c) : 0.f; },
-        [&](int c, int n) { return d0 + n < D ? w[(size_t)(d0 + n) * C + c] : 0.f; }, As, Bs,
-        acc);
+        [&](int c, int n) { return d0 + n < D ? to_float(w[(size_t)(d0 + n) * C + c]) : 0.f; },
+        As, Bs, acc);
 
     const int tx = threadIdx.x % (BN / TN);
     const int ty = threadIdx.x / (BN / TN);
@@ -95,19 +108,21 @@ dbasis_kernel(const float* __restrict__ w,    // [D, C]
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             const int d = d0 + tx * TN + j;
-            if (d < D) dbasis[((size_t)bo * E + e) * D + d] = acc[i][j];
+            if (d < D) dbasis[((size_t)bo * E + e) * D + d] = from_float<T>(acc[i][j]);
         }
     }
 }
 
 // 2. dx[b',o,s,c] = sum over edges e with src[e] = s of kern[e,c] * win[e] * g[t,c]
+//    (each term rounded to T)
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-dx_kernel(const float* __restrict__ basis,  // [B'*O, E, D]
-          const float* __restrict__ w,      // [D, C]
+dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
+          const T* __restrict__ w,          // [D, C]
           const int* __restrict__ src,      // [B', E]
           const float* __restrict__ win,    // [B', E]
-          const float* __restrict__ g,      // [B'*O, TA, C]
-          float* __restrict__ dx,           // [B'*O, TA, C]
+          const T* __restrict__ g,          // [B'*O, TA, C]
+          T* __restrict__ dx,               // [B'*O, TA, C]
           int O, int K, int TA, int D, int C) {
     extern __shared__ float s_dx[];  // [TA][BN]: this block's channel slice of dx
     __shared__ __align__(16) float As[BK][AS_LD];
@@ -119,8 +134,8 @@ dx_kernel(const float* __restrict__ basis,  // [B'*O, E, D]
     const int bo = blockIdx.y;
     const int b = bo / O;
     const int E = K * TA;
-    const float* basis_bo = basis + (size_t)bo * E * D;
-    const float* g_bo = g + (size_t)bo * TA * C;
+    const T* basis_bo = basis + (size_t)bo * E * D;
+    const T* g_bo = g + (size_t)bo * TA * C;
     const int* src_b = src + (size_t)b * E;
     const float* win_b = win + (size_t)b * E;
     const int tid = threadIdx.x;
@@ -139,20 +154,22 @@ dx_kernel(const float* __restrict__ basis,  // [B'*O, E, D]
             float kern[TM][TN] = {};
             // ends with a barrier: s_dx's zeros, s_src and s_win are visible after it
             tile_gemm<true, true>(
-                D, [&](int r, int d) { return t0 + r < TA ? basis_bo[(size_t)(e0 + r) * D + d] : 0.f; },
-                [&](int d, int n) { return c0 + n < C ? w[(size_t)d * C + c0 + n] : 0.f; }, As,
-                Bs, kern);
+                D, [&](int r, int d) { return t0 + r < TA ? to_float(basis_bo[(size_t)(e0 + r) * D + d]) : 0.f; },
+                [&](int d, int n) { return c0 + n < C ? to_float(w[(size_t)d * C + c0 + n]) : 0.f; },
+                As, Bs, kern);
 #pragma unroll
             for (int i = 0; i < TM; ++i) {
                 const int r = ty * TM + i;
                 const int s = s_src[r];
                 if (s < 0 || s >= TA) continue;
                 const float wv = s_win[r];
-                const float* g_t = g_bo + (size_t)(t0 + r) * C;
+                const T* g_t = g_bo + (size_t)(t0 + r) * C;
 #pragma unroll
                 for (int j = 0; j < TN; ++j) {
                     const int n = tx * TN + j;
-                    if (c0 + n < C) atomicAdd(&s_dx[s * BN + n], kern[i][j] * wv * g_t[c0 + n]);
+                    if (c0 + n < C)
+                        atomicAdd(&s_dx[s * BN + n],
+                                  round_to<T>(kern[i][j] * wv * to_float(g_t[c0 + n])));
                 }
             }
             __syncthreads();  // s_src / s_win are restaged for the next tile
@@ -160,17 +177,18 @@ dx_kernel(const float* __restrict__ basis,  // [B'*O, E, D]
     }
     for (int i = tid; i < TA * BN; i += THREADS) {
         const int t = i / BN, n = i % BN;
-        if (c0 + n < C) dx[((size_t)bo * TA + t) * C + c0 + n] = s_dx[i];
+        if (c0 + n < C) dx[((size_t)bo * TA + t) * C + c0 + n] = from_float<T>(s_dx[i]);
     }
 }
 
 // 3. partial[split, d, c] = sum over this split's edge rows of basis[row, d] * gxw[row, c]
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-dw_partial_kernel(const float* __restrict__ basis,  // [B'*O*E, D]
-                  const float* __restrict__ x,      // [B'*O, TA, C]
+dw_partial_kernel(const T* __restrict__ basis,      // [B'*O*E, D]
+                  const T* __restrict__ x,          // [B'*O, TA, C]
                   const int* __restrict__ src,      // [B', E]
                   const float* __restrict__ win,    // [B', E]
-                  const float* __restrict__ g,      // [B'*O, TA, C]
+                  const T* __restrict__ g,          // [B'*O, TA, C]
                   float* __restrict__ partial,      // [splits, D, C]
                   int O, int TA, int E, int D, int C, long long rows, int rows_per_split) {
     __shared__ __align__(16) float As[BK][AS_LD];
@@ -185,7 +203,7 @@ dw_partial_kernel(const float* __restrict__ basis,  // [B'*O*E, D]
     tile_gemm<false, true>(
         n_rows,
         [&](int m, int k) {
-            return d0 + m < D ? basis[(size_t)(row0 + k) * D + d0 + m] : 0.f;
+            return d0 + m < D ? to_float(basis[(size_t)(row0 + k) * D + d0 + m]) : 0.f;
         },
         [&](int k, int n) {
             if (c0 + n >= C) return 0.f;
@@ -213,33 +231,42 @@ dw_partial_kernel(const float* __restrict__ basis,  // [B'*O*E, D]
 
 }  // namespace
 
-extern "C" int arreau_spatial_conv_bwd(const float* basis, const float* w, const float* x,
-                                       const int* src, const float* win, const float* g,
-                                       float* dbasis, float* dw, float* dx, float* partial,
+// basis, w, x, g, dbasis and dx are float32 (is_bf16 = 0) or bfloat16
+// (is_bf16 = 1); win, partial and dw are float32.
+extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
+                                       const int* src, const float* win, const void* g,
+                                       void* dbasis, float* dw, void* dx, float* partial,
                                        int Bp, int O, int K, int TA, int D, int C, int splits,
-                                       int rows_per_split, void* stream_ptr) {
+                                       int rows_per_split, int is_bf16, void* stream_ptr) {
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int E = K * TA;
-    cudaError_t err;
+    cudaError_t err = cudaSuccess;
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        const T* basis_t = static_cast<const T*>(basis);
+        const T* w_t = static_cast<const T*>(w);
+        const T* x_t = static_cast<const T*>(x);
+        const T* g_t = static_cast<const T*>(g);
+        dbasis_kernel<T><<<dim3((E + BM - 1) / BM, (D + BN - 1) / BN, Bp * O), THREADS, 0,
+                           stream>>>(w_t, x_t, src, win, g_t, static_cast<T*>(dbasis), O, TA,
+                                     E, D, C);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    dbasis_kernel<<<dim3((E + BM - 1) / BM, (D + BN - 1) / BN, Bp * O), THREADS, 0, stream>>>(
-        w, x, src, win, g, dbasis, O, TA, E, D, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+        const size_t dx_smem = (size_t)TA * BN * sizeof(float);
+        if (dx_smem > 48 * 1024) {
+            err = cudaFuncSetAttribute(dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(dx_smem));
+            if (err != cudaSuccess) return static_cast<int>(err);
+        }
+        dx_kernel<T><<<dim3((C + BN - 1) / BN, Bp * O), THREADS, dx_smem, stream>>>(
+            basis_t, w_t, src, win, g_t, static_cast<T*>(dx), O, K, TA, D, C);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    const size_t dx_smem = (size_t)TA * BN * sizeof(float);
-    if (dx_smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(dx_smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dx_kernel<<<dim3((C + BN - 1) / BN, Bp * O), THREADS, dx_smem, stream>>>(
-        basis, w, src, win, g, dx, O, K, TA, D, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    const long long rows = (long long)Bp * O * E;
-    dw_partial_kernel<<<dim3((D + BM - 1) / BM, (C + BN - 1) / BN, splits), THREADS, 0, stream>>>(
-        basis, x, src, win, g, partial, O, TA, E, D, C, rows, rows_per_split);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+        const long long rows = (long long)Bp * O * E;
+        dw_partial_kernel<T><<<dim3((D + BM - 1) / BM, (C + BN - 1) / BN, splits), THREADS, 0,
+                               stream>>>(basis_t, x_t, src, win, g_t, partial, O, TA, E, D, C,
+                                         rows, rows_per_split);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    });
 
     const long long n = (long long)D * C;
     sum_splits_kernel<<<sum_splits_blocks(n), THREADS, 0, stream>>>(partial, dw, splits, n);

@@ -9,6 +9,8 @@
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace arreau {
 
 constexpr int BM = 64;        // output rows per block
@@ -84,6 +86,51 @@ __device__ __forceinline__ float gelu(float x) {
 __device__ __forceinline__ float gelu_deriv(float x) {
     const float t = tanhf(GELU_C0 * (x + GELU_C1 * x * x * x));
     return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * GELU_C0 * (1.f + 3.f * GELU_C1 * x * x);
+}
+
+// partial[split, m, n] = sum over the split's rows of A[row, m] * cot[row, n]
+// with A = [feature(row, 0..M-1) | 1]: row M of the result is the bias
+// gradient. One split-K weight gradient over every row of a layer; the
+// second pass (sum_splits_kernel) adds the splits. cot is float or bf16.
+template <class Feature, class Cot>
+__global__ void __launch_bounds__(THREADS)
+weight_grad_partial_kernel(Feature feature, const Cot* __restrict__ cot,  // [rows, N]
+                           float* __restrict__ partial,  // [splits, M + 1, N]
+                           long long rows, int M, int N, int rows_per_split) {
+    __shared__ __align__(16) float As[BK][AS_LD];
+    __shared__ __align__(16) float Bs[BK][BN];
+    const int m0 = blockIdx.x * BM;
+    const int n0 = blockIdx.y * BN;
+    const long long row0 = (long long)blockIdx.z * rows_per_split;
+    const long long left = rows - row0;
+    const int n_rows = left < rows_per_split ? (int)left : rows_per_split;
+
+    float acc[TM][TN] = {};
+    tile_gemm<false, true>(
+        n_rows,
+        [&](int m, int k) {
+            const int mm = m0 + m;
+            if (mm > M) return 0.f;
+            return mm == M ? 1.f : feature(row0 + k, mm);
+        },
+        [&](int k, int n) {
+            return n0 + n < N ? to_float(cot[(size_t)(row0 + k) * N + n0 + n]) : 0.f;
+        },
+        As, Bs, acc);
+
+    const int tx = threadIdx.x % (BN / TN);
+    const int ty = threadIdx.x / (BN / TN);
+    float* out = partial + (size_t)blockIdx.z * (M + 1) * N;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int m = m0 + ty * TM + i;
+        if (m > M) continue;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            const int n = n0 + tx * TN + j;
+            if (n < N) out[(size_t)m * N + n] = acc[i][j];
+        }
+    }
 }
 
 // out[i] = sum_s partial[s * n + i]: the second pass of a split reduction

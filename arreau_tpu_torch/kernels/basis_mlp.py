@@ -19,11 +19,19 @@ passes over a ``[B', O, E, D]`` tensor (537 MB at the training shape). The
 cost is memory: the ``n_out`` cotangents are alive together until the
 kernel runs.
 
-On the H100 the backward is bound by float32 arithmetic
-(2*rows*(2*F*H + 3*H*D) operations against the cotangent reads); see the
-source for its design. It returns (dw1, db1, dw2, db2) and no cotangent for
-the invariants: they derive from positions and the lattice, which training
-does not differentiate (the JAX package zeroes it).
+On the H100 the backward is bound by arithmetic (2*rows*(2*F*H + 3*H*D)
+operations against the cotangent reads); see the source for its design. It
+returns (dw1, db1, dw2, db2) and no cotangent for the invariants: they
+derive from positions and the lattice, which training does not
+differentiate (the JAX package zeroes it).
+
+The invariants, weights, biases and cotangents are float32, or all
+bfloat16 on the ``compute_dtype="bfloat16"`` path, where the backward
+rounds at the JAX kernel's points (``pallas_basis.py:289-331``): the
+recomputed ``h1_pre``/``h2_pre``, the GELU values and derivatives, ``dpre2``
+and ``dpre1`` are rounded to bfloat16, the cotangents are summed in
+float32, and the weight and bias gradients are float32 sums (autograd
+rounds them to the bfloat16 weights' type, as the JAX VJP's ``.astype``).
 
 :func:`basis_mlp_bwd` launches its kernel for CUDA tensors and runs
 :func:`basis_mlp_bwd_plain` for CPU tensors; it never falls back.
@@ -36,11 +44,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from arreau_tpu_torch.kernels.basis_h1 import basis_h1
+from arreau_tpu_torch.kernels.basis_h1 import basis_h1, poly_features_t
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 5 + (_I,) * 9 + (_P,)
+_ARGTYPES = (_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 5 + (_I,) * 10 + (_P,)
 _MAX_G = 16  # cotangents one launch sums (csrc/basis_mlp_bwd.cu: MAX_G)
 _GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 _GELU_C1 = 0.044715
@@ -56,19 +64,25 @@ def gelu_and_deriv(x):
 
 
 def basis_mlp_bwd_plain(attrT, w1, b1, w2, b2, degree: int, gs):
-    """Plain PyTorch version of the backward: (dw1, db1, dw2, db2) for the
-    cotangents ``gs`` (a sequence of ``[B', O, E, D]``) of the basis."""
-    from arreau_tpu_torch.models.blocks import polynomial_features
+    """Plain PyTorch version of the backward: (dw1, db1, dw2, db2), float32,
+    for the cotangents ``gs`` (a sequence of ``[B', O, E, D]``) of the
+    basis; float32 arithmetic, rounded to the inputs' type where the JAX
+    kernel rounds."""
+    dt, wt = attrT.dtype, torch.promote_types(attrT.dtype, torch.float32)
+
+    def rnd(v):
+        return v.to(dt).to(wt)
 
     D = w2.shape[1]
-    poly = polynomial_features(attrT.transpose(-1, -2), degree).reshape(-1, w1.shape[0])
-    h1, dg1 = gelu_and_deriv(torch.addmm(b1, poly, w1))
-    _, dg2 = gelu_and_deriv(torch.addmm(b2, h1, w2))
-    g = gs[0]
+    w1, b1, w2, b2 = w1.to(wt), b1.to(wt), w2.to(wt), b2.to(wt)
+    poly = poly_features_t(attrT, degree).reshape(-1, w1.shape[0])
+    h1, dg1 = (rnd(v) for v in gelu_and_deriv(rnd(torch.addmm(b1, poly, w1))))
+    dg2 = rnd(gelu_and_deriv(rnd(torch.addmm(b2, h1, w2)))[1])
+    g = gs[0].to(wt)
     for gi in gs[1:]:
-        g = g + gi
-    dpre2 = g.reshape(-1, D) * dg2
-    dpre1 = torch.matmul(dpre2, w2.t()) * dg1
+        g = g + gi.to(wt)
+    dpre2 = rnd(g.reshape(-1, D) * dg2)
+    dpre1 = rnd(torch.matmul(dpre2, w2.t()) * dg1)
     return poly.t() @ dpre1, dpre1.sum(dim=0), h1.t() @ dpre2, dpre2.sum(dim=0)
 
 
@@ -81,12 +95,12 @@ def _check(attrT, w1, b1, w2, b2, gs):
     if not gs:
         raise ValueError("basis_mlp_bwd needs at least one cotangent")
     for g in gs:
-        if tuple(g.shape) != (Bp, O, E, D) or g.dtype != torch.float32 or g.device != attrT.device:
-            raise ValueError(f"each cotangent must be float32 {(Bp, O, E, D)} on {attrT.device}, "
-                             f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+        if tuple(g.shape) != (Bp, O, E, D) or g.dtype != attrT.dtype or g.device != attrT.device:
+            raise ValueError(f"each cotangent must be {attrT.dtype} {(Bp, O, E, D)} on "
+                             f"{attrT.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     for name, t in (("w2", w2), ("b2", b2)):
-        if t.dtype != torch.float32 or t.device != attrT.device:
-            raise TypeError(f"{name} must be float32 on {attrT.device}")
+        if t.dtype != attrT.dtype or t.device != attrT.device:
+            raise TypeError(f"{name} must be {attrT.dtype} on {attrT.device}")
 
 
 def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
@@ -115,8 +129,8 @@ def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
     rows = Bp * O * E
     splits, per_split = row_splits(rows)
     dev = attrT.device
-    h1_pre = torch.empty((rows, H), dtype=torch.float32, device=dev)
-    dpre2 = torch.empty((rows, D), dtype=torch.float32, device=dev)
+    h1_pre = torch.empty((rows, H), dtype=attrT.dtype, device=dev)
+    dpre2 = torch.empty((rows, D), dtype=attrT.dtype, device=dev)
     partial = torch.empty(splits * max((F_ + 1) * H, (H + 1) * D), dtype=torch.float32, device=dev)
     dw1_ext = torch.empty((F_ + 1, H), dtype=torch.float32, device=dev)
     dw2_ext = torch.empty((H + 1, D), dtype=torch.float32, device=dev)
@@ -126,7 +140,7 @@ def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
     err = fn(attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              pointers, len(gs), h1_pre.data_ptr(), dpre2.data_ptr(), partial.data_ptr(),
              dw1_ext.data_ptr(), dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D, splits, per_split,
-             stream)
+             int(attrT.dtype == torch.bfloat16), stream)
     check("arreau_basis_mlp_bwd", err)
     basis_mlp_bwd.launches += 1
     return dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]
@@ -153,8 +167,10 @@ class _BasisMLPMulti(torch.autograd.Function):
         gs = [g.contiguous() for g in gs if g is not None]
         if not gs:
             return (None,) * 7
-        dw1, db1, dw2, db2 = basis_mlp_bwd(*ctx.saved_tensors, ctx.degree, gs)
-        return None, dw1, db1, dw2, db2, None, None
+        attrT = ctx.saved_tensors[0]
+        grads = basis_mlp_bwd(*ctx.saved_tensors, ctx.degree, gs)
+        # in the weights' type, as the JAX VJP's .astype(w.dtype)
+        return (None, *(g.to(attrT.dtype) for g in grads), None, None)
 
 
 def basis_mlp_multi(attrT, w1, b1, w2, b2, degree: int, n_out: int):

@@ -19,6 +19,17 @@ the CPU the backbone takes the plain branch. ``use_kernels`` forces either; the
 kernel branch on CPU tensors runs the kernels' plain versions. Parameter
 gradients only: the kernel branch gives no cotangent for positions or the
 lattice (``position_grads`` is not ported).
+
+``compute_dtype="bfloat16"`` runs the backbone in bfloat16 at the JAX
+package's cast points: the lift, the invariants, the LayerNorm statistics
+and the readout stay float32; the invariants are cast before the
+lane-major transpose on the kernel branch and before the polynomial
+expansion on the plain branch; the embedder, the basis MLPs, the spatial
+conv and the ConvNext MLPs run in bfloat16, and the residual stream between
+layers is bfloat16. ``"float32"`` is the float32 function, and lets
+``fuse_convnext`` run in float32. With ``fuse_convnext`` and a compute type,
+the kernel branch runs each layer's ConvNext MLP tail and its readout in the
+``fused_convnext_mlp`` kernels (#9/#10); the parameters are the same.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from torch import nn
 from arreau_tpu_torch.models.blocks import (
     BasisMLP,
     ConvNextBlock,
+    dense,
     scalar_to_sphere,
     sphere_to_scalar,
     sphere_to_vec,
@@ -44,6 +56,7 @@ from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 _EPS = 1e-8
 # jax.nn.initializers' truncated-normal std correction for the [-2, 2] cut
 _TRUNC_STD = 0.87962566103423978
+COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -71,6 +84,13 @@ class PonitaConfig:
     basis_bias: "bool | str" = True
     # differentiate through positions (window and attribute cotangents): not ported
     position_grads: bool = False
+    # None = float32; "bfloat16" runs the Dense layers, convs and the residual
+    # stream in bfloat16 (parameters, LayerNorm statistics and readouts stay
+    # float32); "float32" is the float32 function as a compute type
+    compute_dtype: Optional[str] = None
+    # kernel branch with a compute type: the ConvNext MLP tail and the
+    # layer's readout in one kernel pair (fused_convnext_mlp)
+    fuse_convnext: bool = False
 
     @property
     def output_dim(self) -> int:
@@ -142,6 +162,13 @@ class PonitaFiberBundle(nn.Module):
         cfg = self.config = config
         if cfg.position_grads:
             raise NotImplementedError("position_grads waits for the point-cloud slice of the port")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}, "
+                             f"got {cfg.compute_dtype!r}")
+        if cfg.fuse_fiber and cfg.compute_dtype == "bfloat16":
+            raise NotImplementedError("fuse_fiber with compute_dtype='bfloat16' waits for the "
+                                      "bfloat16 slice of the fused fiber conv kernels (#1/#2)")
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         bb_in = cfg.basis_bias is True or cfg.basis_bias == "in"
         bb_out = cfg.basis_bias is True
         # invariants per edge and orientation: 2 spatial + 4 lattice_edge_scalars
@@ -153,7 +180,7 @@ class PonitaFiberBundle(nn.Module):
                                     bias=False)
         self.layers = nn.ModuleList(
             ConvNextBlock(cfg.basis_dim, cfg.hidden_dim, cfg.widening_factor, cfg.layer_scale,
-                          cfg.fuse_fiber)
+                          cfg.fuse_fiber, cfg.fuse_convnext)
             for _ in range(cfg.num_layers)
         )
         # keyed by layer index: without multiple_readouts only the last layer reads out
@@ -190,6 +217,7 @@ class PonitaFiberBundle(nn.Module):
 
     def forward(self, inputs: FiberBundleInputs) -> PonitaOutputs:
         cfg = self.config
+        cdt = self.dtype
         nb = inputs.neighbors
         ori_grid = inputs.ori_grid
         num_ori = ori_grid.shape[0]
@@ -220,32 +248,49 @@ class PonitaFiberBundle(nn.Module):
                 # [B', O, E, d] invariants through the plain basis MLP, windowed
                 # here, one basis for every layer
                 attr = attr.permute(0, 4, 3, 1, 2, 5).reshape(Bp, O, E, d)
-                kernel_bases = (self.basis_fn(attr) * win[:, None, :, None],) * len(self.layers)
+                if cdt is not None:
+                    attr = attr.to(cdt)
+                basis = self.basis_fn(attr, cdt)
+                kernel_bases = (basis * win[:, None, :, None].to(basis.dtype),) * len(self.layers)
                 conv_window = None
             else:
-                # lane-major [B', O, d, E]
-                attrT = attr.permute(0, 4, 5, 3, 1, 2).reshape(Bp, O, d, E).contiguous()
+                # lane-major [B', O, d, E], cast to the compute type before the
+                # transpose as the JAX package does
+                attrT = attr.to(cdt) if cdt is not None else attr
+                attrT = attrT.permute(0, 4, 5, 3, 1, 2).reshape(Bp, O, d, E).contiguous()
                 kernel_bases = self.basis_fn.forward_kernel_layout(attrT, len(self.layers))
                 conv_window = win.contiguous()
             conv_src, conv_mask = tile_senders(nb.src, nb.mask, tile), None
             x = x.reshape(Bp, tile, A, O, -1).permute(0, 3, 1, 2, 4).reshape(Bp, O, TA, -1)
         else:
-            kernel_bases = (self.basis_fn(attr) * window[..., None, None],) * len(self.layers)
+            # cast before the polynomial expansion, as the JAX package does
+            basis = self.basis_fn(attr.to(cdt) if cdt is not None else attr, cdt)
+            kernel_bases = (basis * window[..., None, None].to(basis.dtype),) * len(self.layers)
             conv_src, conv_mask, conv_window = nb.src, nb.mask, None
-        fiber_kernel_basis = self.fiber_basis_fn(fiber_attr)  # [O, O, D]
+        # the fiber invariants stay float32 into the features (cast at the Dense)
+        fiber_kernel_basis = self.fiber_basis_fn(fiber_attr, cdt)  # [O, O, D]
 
         # ---- embed, interaction layers, readouts ----
-        x = self.x_embedder(x)
-        xs = []
+        x = dense(self.x_embedder, x, cdt)
+        xs, fused = [], []
         for i, layer in enumerate(self.layers):
-            x = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask, conv_window,
-                      kernel_layout=use_kernels)
-            if str(i) in self.readouts:
-                xs.append((x, self.readouts[str(i)]))
-        # mean over layers of x_i W_i^T + b_i, as one matmul over the concatenated layers
-        xcat = torch.cat([xi for xi, _ in xs], dim=-1)
-        wcat = torch.cat([lin.weight for _, lin in xs], dim=1)
-        readout = (xcat @ wcat.t() + sum(lin.bias for _, lin in xs)) / len(xs)
+            readout_i = self.readouts[str(i)] if str(i) in self.readouts else None
+            x, r = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask, conv_window,
+                         kernel_layout=use_kernels, dtype=cdt, readout=readout_i)
+            if r is not None:
+                fused.append(r)
+            elif readout_i is not None:
+                xs.append((x, readout_i))
+        if fused:
+            # the fused kernels' float32 readouts, averaged as the JAX package does
+            readout = sum(fused) / len(fused)
+        else:
+            # mean over layers of x_i W_i^T + b_i, as one matmul over the
+            # concatenated layers; a bfloat16 xcat times the float32 weights
+            # is a float32 product (JAX's type promotion)
+            xcat = torch.cat([xi for xi, _ in xs], dim=-1).float()
+            wcat = torch.cat([lin.weight for _, lin in xs], dim=1)
+            readout = (xcat @ wcat.t() + sum(lin.bias for _, lin in xs)) / len(xs)
         if use_kernels:
             out = readout.shape[-1]
             readout = readout.reshape(Bp, O, tile, A, out).permute(0, 2, 3, 1, 4)

@@ -94,7 +94,8 @@ class DiffusionConfig:
     checkpoint's ``meta.json`` loads unchanged. Training-only fields are
     carried and unused, as is ``stacked_readout`` (the port always sums the
     readouts as one matmul: the same function); settings of later slices
-    raise."""
+    raise. ``compute_dtype`` is None (float32) or ``"bfloat16"``; the losses
+    and the sampler's states stay float32 either way."""
 
     num_atomic_states: int  # len(z_table) incl. the MASK class
     num_timesteps: int = 1000
@@ -133,8 +134,6 @@ class DiffusionConfig:
         return 1 + 3  # fractional coords + 3 lattice rows
 
     def ponita_config(self) -> PonitaConfig:
-        if self.compute_dtype is not None:
-            raise NotImplementedError("the port computes in float32; compute_dtype is not ported")
         return PonitaConfig(
             input_dim_scalar=self.in_scalar_dim,
             input_dim_vec=self.in_vec_dim,
@@ -154,6 +153,7 @@ class DiffusionConfig:
             use_kernels=self.use_pallas,
             fuse_fiber=self.fuse_fiber,
             basis_bias=self.basis_bias,
+            compute_dtype=self.compute_dtype,
         )
 
 
@@ -247,9 +247,12 @@ class DiffusionModel:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        # float32 products stay float32 on the card (no TF32 rounding)
+        # float32 products stay float32 on the card (no TF32 rounding), and
+        # bfloat16 products sum in float32 (cuBLAS may otherwise reduce
+        # partial sums in bfloat16; the JAX package accumulates in float32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.config = config
         self.device = device
         self.model = PonitaFiberBundle(config.ponita_config()).to(device).eval()

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the sampler and
-the training path, on the default conv path and on the fused fiber conv
-path (``fuse_fiber``), every CUDA kernel against its plain PyTorch version.
+the training path, on the default conv path, on the fused fiber conv path
+(``fuse_fiber``), in bfloat16 (``compute_dtype="bfloat16"``) and on the
+fused ConvNext path (``fuse_convnext``, bfloat16), every CUDA kernel
+against its plain PyTorch version.
 
 Run from the repository root, with no arguments:
 
@@ -49,10 +51,32 @@ Phases, each printing its elapsed seconds and raising on any failure:
    branch against the CPU's plain branch (as phase 8), then the step time
    at 256 x 16, its launches (#1 and #2 once per layer, no other kernel)
    and its profile (as phase 7).
+14. bf16 kernels: the bfloat16 instantiations of #3 and #8 on one bfloat16
+   sampler forward (128 x 8) and of #3, #8, #4 and #7 on one bfloat16
+   training step (256 x 16), each against its bfloat16 plain version
+   (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
+   rate.
+15. bf16 training reference: one bfloat16 training step, card kernel branch
+   against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
+   with ``fuse_convnext``.
+16. bf16 training path: the training CLI with ``--compute_dtype bfloat16``
+   (as phase 9: 5/1/5/1 launches of #3/#8/#4/#7 a step, no other kernel),
+   then the step time and profile at 256 x 16; and the generate CLI on its
+   checkpoint (``--tag best``: 5 of #3 and 1 of #8 a forward).
+17. convnext kernels: #9 on one ``fuse_convnext`` bfloat16 sampler forward
+   and #9/#10 on one such training step (layer scale 1, so that the MLP
+   weighs in ``out``), with and without the readout, against their plain
+   versions, timed; and the float32 instantiations on the same values.
+18. fuse_convnext path: a bfloat16 ``fuse_convnext`` training step (5 of
+   #9, #10, #3 and #4, 1 of #8 and #7, nothing else), its time and
+   profile; then 256 crystals through ``DiffusionModel.sample`` (5 of #9
+   and #3 and 1 of #8 a forward).
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
-sampler paths) and the result
+sampler paths; bfloat16 instantiations as entries of their own, named
+``*_bf16``; #9/#10 in bfloat16, their float32 instantiation, serving
+shape and no-readout call beside) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -75,11 +99,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and float32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
+# tensor cores, and the dense bfloat16 tensor cores (the bound of the same
+# work in bfloat16)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max |plain|: float32, other summation order
+# bfloat16 kernel against its bfloat16 plain version: both sum in float32 and
+# round at the same points, but a value next to a rounding boundary may
+# round the other way (one bf16 ulp, 2^-8) and carry
+BF16_KERNEL_REL_TOL = 1e-2
+# a bfloat16 training step, card kernel branch against CPU plain branch: loss
+# terms 5e-3 relative, every gradient 5e-2 of its largest entry (the two
+# branches round at different points, as the JAX package's two do)
+BF16_LOSS_REL_TOL = 5e-3
+BF16_GRAD_REL_TOL = 5e-2
 # a fuse_fiber training step's loss terms, card kernel branch vs CPU plain
 # branch (the default path measured 7e-6 on the H100, PERF.md)
 FIBER_LOSS_REL_TOL = 1e-5
@@ -134,8 +170,8 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
     return start.elapsed_time(end) / runs
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,6 +194,20 @@ def as_tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
+def training_chunk():
+    """(synthetic set, chunk, bucket): the 16-atom bucket's fullest batch at
+    the node budget TRAIN_BATCH x 16, 256 crystals (B' = 32 super-crystals
+    of 128 atoms)."""
+    from arreau_tpu_torch.data.crystal import BucketedLoader
+    from arreau_tpu_torch.data.synthetic import synthetic_packed
+
+    dataset = synthetic_packed(2000, seed=SEED)
+    loader = BucketedLoader(dataset, np.arange(len(dataset)), node_budget=TRAIN_BATCH * 16)
+    bucket, chunk = max(((b, c) for b, c in loader.chunks() if b == 16),
+                        key=lambda bc: int((bc[1] >= 0).sum()))
+    return dataset, chunk, bucket
+
+
 def first_step_inputs(model, noise):
     """``predict_scores`` arguments of the sampler's first step."""
     B, A = noise.frac0.shape[:2]
@@ -171,14 +221,16 @@ def first_step_inputs(model, noise):
 def kernel_sites():
     """{kernel name: (module, attribute)} where the port's autograd
     Functions look each kernel wrapper up when they run."""
-    from arreau_tpu_torch.kernels import basis_mlp, fiber_conv, spatial_conv
+    from arreau_tpu_torch.kernels import basis_mlp, convnext_mlp, fiber_conv, spatial_conv
 
     return {"spatial_conv": (spatial_conv, "spatial_conv"),
             "spatial_conv_bwd": (spatial_conv, "spatial_conv_bwd"),
             "basis_h1": (basis_mlp, "basis_h1"),
             "basis_mlp_bwd": (basis_mlp, "basis_mlp_bwd"),
             "fiber_conv": (fiber_conv, "fiber_conv"),
-            "fiber_conv_bwd": (fiber_conv, "fiber_conv_bwd")}
+            "fiber_conv_bwd": (fiber_conv, "fiber_conv_bwd"),
+            "convnext_mlp": (convnext_mlp, "convnext_mlp"),
+            "convnext_mlp_bwd": (convnext_mlp, "convnext_mlp_bwd")}
 
 
 def wrappers() -> dict:
@@ -235,29 +287,40 @@ def conv_library(basis, w, x, src, win):
     Bp, O, E, D = basis.shape
     TA, C = x.shape[2], x.shape[3]
     kern = torch.bmm(basis.reshape(Bp * O, E, D), w.expand(Bp * O, D, C))
-    kern = kern.view(Bp, O, E, C) * win[:, None, :, None]
+    kern = kern.view(Bp, O, E, C) * win[:, None, :, None].to(kern.dtype)
     live = ((src >= 0) & (src < TA))[:, None, :, None]
     idx = torch.where(live, src[:, None, :, None], 0).long().expand(Bp, O, E, C)
     msg = torch.where(live, kern * torch.gather(x, 2, idx), 0.0)
     return msg.view(Bp, O, E // TA, TA, C).sum(dim=2)
 
 
-def check_kernel(name, kernel, plain, library, args, flops, source, replaces):
+def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
+                 tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
     """Hold ``kernel`` against ``plain`` on ``args`` (every output within
-    KERNEL_REL_TOL of that output's scale), then time kernel, plain version
-    and library yardstick; returns the kernel's JSON record."""
+    ``tol`` of that output's scale; an output the plain version gives as
+    None the kernel must give as None), then time kernel, plain version and
+    library yardstick; returns the kernel's JSON record, its bound taken at
+    the ``peak`` operation rate."""
     out_k, out_p = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
     err = 0.0
     for i, (a, b) in enumerate(zip(out_k, out_p)):
-        e, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if b is None:
+            if a is not None:
+                raise RuntimeError(f"{name} output {i}: the plain version gives None")
+            continue
+        if a.dtype != b.dtype:
+            raise RuntimeError(f"{name} output {i}: {a.dtype}, the plain version's {b.dtype}")
+        e, scale = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+        if not scale > 0:
+            raise RuntimeError(f"{name} output {i}: the plain version's output is all zero")
         print(f"{name} output {i}: max_abs_err {e:.3e}, max |plain| {scale:.3e}, "
-              f"rel {e / scale:.3e} (tolerance {KERNEL_REL_TOL:g})")
-        if not math.isfinite(e) or e > KERNEL_REL_TOL * scale:
+              f"rel {e / scale:.3e} (tolerance {tol:g})")
+        if not math.isfinite(e) or e > tol * scale:
             raise RuntimeError(f"{name} disagrees with its plain version")
         err = max(err, e)
     ms, plain_ms, lib_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args)), cuda_ms(library)
-    b_ms, b_by = bound_ms(nbytes(args, out_p), flops)
+    b_ms, b_by = bound_ms(nbytes(args, out_p), flops, peak)
     print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -265,8 +328,9 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces):
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def forward_kernel_records(args, label):
-    """Records of the two forward kernels (#3, #8) on captured arguments."""
+def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
+    """Records of the two forward kernels (#3, #8) on captured arguments,
+    named with ``suffix`` (``_bf16`` for the bfloat16 instantiations)."""
     from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
     from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
     from arreau_tpu_torch.models.blocks import polynomial_features
@@ -278,10 +342,10 @@ def forward_kernel_records(args, label):
     print(f"{label}: spatial_conv shapes B'={Bp} O={O} E={E} TA={TA} K={E // TA} D={D} C={C}, "
           f"{n_valid}/{Bp * E} edge slots filled")
     conv = check_kernel(
-        "spatial_conv", spatial_conv, spatial_conv_plain,
+        "spatial_conv" + suffix, spatial_conv, spatial_conv_plain,
         lambda: conv_library(basis, w, x, src, win), args["spatial_conv"],
         O * n_valid * (2 * D * C + 3 * C),
-        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298",
+        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak,
     )
     attrT, w1, b1, degree = args["basis_h1"]
     d = attrT.shape[2]
@@ -289,14 +353,15 @@ def forward_kernel_records(args, label):
     print(f"{label}: basis_h1 shapes B'={Bp} O={O} d={d} E={E} F={F_} H={H}")
     poly = polynomial_features(attrT.transpose(-1, -2), degree).reshape(-1, F_)
     h1 = check_kernel(
-        "basis_h1", basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
+        "basis_h1" + suffix, basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
         args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
-        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397",
+        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak,
     )
     return conv, h1, n_valid
 
 
-def backward_kernel_records(args, n_valid):
+def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
+                            peak=FP32_FLOP_PER_S):
     """Records of the two backward kernels (#4, #7) on captured arguments;
     the library yardstick is autograd's backward through the library chain
     of the same forward."""
@@ -311,10 +376,11 @@ def backward_kernel_records(args, n_valid):
     with torch.enable_grad():
         out = conv_library(*leaves, src, win)
     conv_bwd = check_kernel(
-        "spatial_conv_bwd", spatial_conv_bwd, spatial_conv_bwd_plain,
+        "spatial_conv_bwd" + suffix, spatial_conv_bwd, spatial_conv_bwd_plain,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 5 * C),
-        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331",
+        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
+        peak,
     )
     del out, leaves
 
@@ -329,10 +395,10 @@ def backward_kernel_records(args, n_valid):
                                      leaves[2]))
     flat_gs = [t.reshape(lib_basis.shape) for t in gs]
     mlp_bwd = check_kernel(
-        "basis_mlp_bwd", basis_mlp_bwd, basis_mlp_bwd_plain,
+        "basis_mlp_bwd" + suffix, basis_mlp_bwd, basis_mlp_bwd_plain,
         lambda: torch.autograd.grad(lib_basis, leaves, reduce(torch.add, flat_gs), retain_graph=True),
         args["basis_mlp_bwd"], O * n_valid * 2 * (2 * F_ * H + 3 * H * w2.shape[1]),
-        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289",
+        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289", tol, peak,
     )
     return conv_bwd, mlp_bwd
 
@@ -385,6 +451,82 @@ def fiber_records(args, label):
     return records
 
 
+def convnext_library(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr=None, br=None):
+    """The fused ConvNext MLP as a chain of library calls in the compute
+    type: layer_norm, linear, tanh-GELU, linear, scale and add, and the
+    float32 readout linear."""
+    F = torch.nn.functional
+    dt = res.dtype
+    y = F.layer_norm(xc, (xc.shape[-1],), ln_s, ln_b, eps=1e-5).to(dt)
+    h = F.gelu(F.linear(y, w1.t(), b1), approximate="tanh")
+    out = res + gamma.to(dt) * F.linear(h, w2.t(), b2)
+    return out, (F.linear(out.float(), wr.t(), br) if wr is not None else None)
+
+
+def convnext_records(args, label, tol, peak):
+    """Records of #9 (and of #10 where ``args`` holds its inputs: a training
+    step) on captured arguments, each with its no-readout call checked and
+    timed beside it; the backward's library yardstick is autograd's backward
+    through :func:`convnext_library`."""
+    from arreau_tpu_torch.kernels.convnext_mlp import (
+        convnext_mlp,
+        convnext_mlp_bwd,
+        convnext_mlp_bwd_plain,
+        convnext_mlp_plain,
+    )
+
+    fargs = args["convnext_mlp"]
+    xc, res, w1, wr = fargs[0], fargs[1], fargs[4], fargs[9]
+    C, W = w1.shape
+    M, R = xc.numel() // C, wr.shape[1]
+    print(f"{label}: convnext_mlp shapes M={M} rows ({tuple(xc.shape)}) C={C} W={W} R={R}, "
+          f"compute type {res.dtype}")
+    # a check passes a kernel that returns out = res unless the MLP's share
+    # of out exceeds the tolerance
+    out = convnext_mlp_plain(*fargs)[0].float()
+    share = (out - res.float()).abs().max().item() / out.abs().max().item()
+    print(f"{label}: the MLP's share of out {share:.3e} (must exceed the tolerance {tol:g})")
+    if not share > tol:
+        raise RuntimeError(f"{label}: the MLP's share of out is within the tolerance")
+    del out
+    src, rep = "arreau_tpu_torch/csrc/convnext_mlp.cu", "arreau_tpu/ops/pallas_convnext.py:61"
+    fwd = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
+                       lambda: convnext_library(*fargs), fargs, 2 * M * (2 * C * W + C * R),
+                       src, rep, tol, peak)
+    bare = fargs[:9] + (None, None)
+    fwd["no_readout"] = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
+                                     lambda: convnext_library(*bare), bare, 4 * M * C * W, src,
+                                     rep, tol, peak)
+    records = [fwd]
+    if "convnext_mlp_bwd" in args:
+        bargs = args["convnext_mlp_bwd"]
+        src, rep = ("arreau_tpu_torch/csrc/convnext_mlp_bwd.cu",
+                    "arreau_tpu/ops/pallas_convnext.py:78")
+
+        def library_bwd(call_args):
+            leaves = [t.detach().requires_grad_() for t in call_args[:11] if t is not None]
+            with torch.enable_grad():
+                out, r = convnext_library(*leaves, *([None, None] if len(leaves) == 9 else []))
+            outs, cots = [out], [call_args[11]]
+            if r is not None:
+                outs.append(r)
+                cots.append(call_args[12])
+            return lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+        bwd = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd, convnext_mlp_bwd_plain,
+                           library_bwd(bargs), bargs, 2 * M * (6 * C * W + 2 * C * R), src, rep,
+                           tol, peak)
+        # without the readout, the cotangent the readout adds to out's
+        # (the captured layer is the last: its out feeds only its readout)
+        g_nr = (bargs[11].float() + bargs[12] @ bargs[9].t()).to(bargs[11].dtype)
+        bare = bargs[:9] + (None, None, g_nr, None)
+        bwd["no_readout"] = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd,
+                                         convnext_mlp_bwd_plain, library_bwd(bare), bare,
+                                         12 * M * C * W, src, rep, tol, peak)
+        records.append(bwd)
+    return records
+
+
 def write_checkpoint(ckpt: Path, cfg, model, z_table) -> dict:
     """A checkpoint directory as generate reads it: ``meta.json`` and the
     tag ``last`` with ``params.npz``; returns the meta."""
@@ -403,11 +545,11 @@ def write_checkpoint(ckpt: Path, cfg, model, z_table) -> dict:
 
 
 def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
-                 per_forward: dict) -> dict:
-    """The generate CLI on ``ckpt``: CRYSTALS crystals, batch BATCH x ATOMS,
-    STEPS strided steps. Checks the crystals and that every forward launched
-    ``per_forward`` kernels and no other (counts set to 0 just before);
-    returns the launch counts."""
+                 per_forward: dict, tag: str = "last") -> dict:
+    """The generate CLI on ``ckpt`` (``--tag``): CRYSTALS crystals, batch
+    BATCH x ATOMS, STEPS strided steps. Checks the crystals and that every
+    forward launched ``per_forward`` kernels and no other (counts set to 0
+    just before); returns the launch counts."""
     from arreau_tpu_torch.cli import generate
     from arreau_tpu_torch.inference.io import load_sample_results
     from arreau_tpu_torch.tasks.diffusion import strided_levels
@@ -418,7 +560,7 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
         "--checkpoint_dir", str(ckpt), "--batch_size", str(BATCH),
         "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(CRYSTALS),
         "--sample_steps", str(STEPS), "--seed", str(SEED), "--out_dir", str(out_dir),
-        "--device", "cuda",
+        "--device", "cuda", "--tag", tag,
     ])
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -435,10 +577,12 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
     return counts
 
 
-def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float) -> None:
+def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float,
+                       grad_rel_tol: float = GRAD_REL_TOL, fuse_convnext: bool = False) -> None:
     """One training step's loss terms and every parameter gradient at full
-    width on 32 crystals of 8 atoms: the card's kernel branch against the
-    CPU's plain branch, both given the neighbour list the CPU built."""
+    width on 32 crystals of 8 atoms: the card's kernel branch (with
+    ``fuse_convnext``: its backbone built so) against the CPU's plain
+    branch, both given the neighbour list the CPU built."""
     from arreau_tpu_torch.data.synthetic import make_synthetic_batch
     from arreau_tpu_torch.ops.pbc import NeighborList
     from arreau_tpu_torch.tasks import diffusion
@@ -453,6 +597,8 @@ def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float) -> None
     B = 32
     host = make_synthetic_batch(np.random.default_rng(seed), z_table, B, ATOMS)
     model = DiffusionModel(ref_cfg, device=dev)
+    if fuse_convnext:
+        model.model = fused_convnext_backbone(model)
     model.model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
     plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
     plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
@@ -483,12 +629,22 @@ def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float) -> None
         want = want_grads[name].grad
         err = (p.grad.cpu() - want).abs().max().item()
         scale = want.abs().max().item()
-        if not (scale > 0 and err <= GRAD_REL_TOL * scale):
+        if not (scale > 0 and err <= grad_rel_tol * scale):
             raise RuntimeError(f"gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
-                               f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel)")
+                               f"{scale:.3e} (tolerance {grad_rel_tol:g} rel)")
         worst = max(worst, err / scale)
     print(f"{graphs[0].mask.sum().item()} edges; {len(want_grads)} parameter gradients, "
-          f"worst max_abs_err / max |cpu| {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
+          f"worst max_abs_err / max |cpu| {worst:.3e} (tolerance {grad_rel_tol:g})")
+
+
+def fused_convnext_backbone(model):
+    """A backbone like ``model``'s with ``fuse_convnext=True``: how a caller
+    reaches the fused ConvNext path (DiffusionConfig has no such field, in
+    either package)."""
+    from arreau_tpu_torch.models.ponita import PonitaFiberBundle
+
+    cfg = dataclasses.replace(model.model.config, fuse_convnext=True)
+    return PonitaFiberBundle(cfg).to(model.device).eval()
 
 
 def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
@@ -532,16 +688,100 @@ def crystal_checks(result, z_table, n, atoms, bounds) -> None:
         raise RuntimeError("generated crystals failed their checks")
 
 
+def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> dict:
+    """The training CLI on the synthetic dataset at batch TRAIN_BATCH, hidden
+    TRAIN_HIDDEN, for TRAIN_STEPS steps (``extra_args`` appended). Checks
+    that every step launched ``want_step`` kernels and no other (counts set
+    to 0 just before) and that every loss is finite; prints steps/s and
+    returns the launch counts of the whole run."""
+    from arreau_tpu_torch.cli import train_diffusion
+
+    per_step, step_metrics = [], []
+    step = train_diffusion.train_step
+
+    def counted_step(*a, **kw):
+        before = launch_counts()
+        metrics = step(*a, **kw)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        step_metrics.append(metrics)
+        return metrics
+
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        train_diffusion.train_step = counted_step
+        with contextlib.redirect_stdout(tee):
+            test_loss = train_diffusion.main([
+                "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+                "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
+                "--max_steps", str(TRAIN_STEPS), "--seed", str(SEED),
+                "--checkpoint_dir", str(ckpt), "--device", "cuda", *extra_args,
+            ])
+    finally:
+        train_diffusion.train_step = step
+    wall = time.perf_counter() - t0
+    train_counts = launch_counts()
+    want_step = {name: want_step.get(name, 0) for name in train_counts}
+    bad = [i for i, c in enumerate(per_step) if c != want_step]
+    print(f"{len(per_step)} steps; launches per step {per_step[0] if per_step else None}; "
+          f"launches in the whole run (evaluation forwards included) {train_counts}")
+    if len(per_step) != TRAIN_STEPS or bad:
+        raise RuntimeError(f"steps {bad} did not launch {want_step}")
+    values = torch.stack([torch.stack(list(m.values())) for m in step_metrics]).cpu()
+    if not torch.isfinite(values).all() or not math.isfinite(test_loss):
+        raise RuntimeError("a training loss is not finite")
+    rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
+    if rate is None:
+        raise RuntimeError("the training CLI printed no throughput")
+    print(f"training path {' '.join(extra_args)}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, "
+          f"hidden {TRAIN_HIDDEN} in {wall:.2f} s wall (build of the data, evaluation and "
+          f"checkpoints included); {float(rate.group(1)):.3f} steps/s warm on {card}")
+    return train_counts
+
+
+def step_time(model, batch, noise, label: str, want_step: dict, kernels_ms: float) -> float:
+    """One training step's launches (``want_step`` and no other kernel), its
+    time at ``batch`` (CUDA events) and where it goes (profile_step);
+    returns the step's milliseconds."""
+    from arreau_tpu_torch.train.loop import train_step
+    from arreau_tpu_torch.train.optim import AdamW
+
+    optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+
+    def one_step():
+        train_step(model, optimizer, None, batch, noise)
+
+    reset_launch_counts()
+    one_step()
+    first = launch_counts()
+    want = {name: want_step.get(name, 0) for name in first}
+    print(f"launches of one {label} step: {first}")
+    if first != want:
+        raise RuntimeError(f"a {label} step launched {first}, not {want}")
+    step_ms = cuda_ms(one_step, runs=5)
+    counts = launch_counts()
+    steps = 1 + 3 + 5  # the counted step, cuda_ms's warm-up and timed steps
+    if counts != {name: n * steps for name, n in want.items()}:
+        raise RuntimeError(f"{steps} {label} steps launched {counts}")
+    print(f"{label} training step at {tuple(batch.atom_types.shape)}: {step_ms:.4f} ms (CUDA "
+          f"events, 5 steps), of which the kernels' launches {kernels_ms:.4f} ms "
+          f"({kernels_ms / step_ms:.1%})")
+    profile_step(one_step, step_ms)
+    return step_ms, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from arreau_tpu_torch.cli import generate, train_diffusion
+    from arreau_tpu_torch.cli import generate
     from arreau_tpu_torch.data.atoms import synthetic_z_table
-    from arreau_tpu_torch.data.crystal import BucketedLoader, pack_dense_batch
-    from arreau_tpu_torch.data.synthetic import synthetic_packed
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.inference.io import concat_results, from_dense_batch
     from arreau_tpu_torch.kernels import build
     from arreau_tpu_torch.tasks.diffusion import (
         DiffusionConfig,
@@ -551,8 +791,6 @@ def main() -> int:
         draw_sampler_noise,
         strided_levels,
     )
-    from arreau_tpu_torch.train.loop import train_step
-    from arreau_tpu_torch.train.optim import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -641,11 +879,7 @@ def main() -> int:
     train_cfg = dataclasses.replace(cfg, hidden_dim=TRAIN_HIDDEN, diffuse_angles=True)
 
     with Phase("training kernels"):
-        dataset = synthetic_packed(2000, seed=SEED)
-        loader = BucketedLoader(dataset, np.arange(len(dataset)), node_budget=TRAIN_BATCH * 16)
-        # the 16-atom bucket's fullest batch: 256 crystals, B' = 32 super-crystals of 128 atoms
-        bucket, chunk = max(((b, c) for b, c in loader.chunks() if b == 16),
-                            key=lambda bc: int((bc[1] >= 0).sum()))
+        dataset, chunk, bucket = training_chunk()
         batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
         model = DiffusionModel(train_cfg, device=dev)
         model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
@@ -660,22 +894,13 @@ def main() -> int:
                    "basis_mlp_bwd": mlp_bwd}
         del args
 
+    default_step = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1}
     with Phase("training step"):
         # where one training step's time goes, at the same batch: CUDA-event
         # step time, then a torch.profiler trace of the device's kernels
-        optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
-
-        def one_step():
-            train_step(model, optimizer, None, batch, noise)
-
-        step_ms = cuda_ms(one_step, runs=5)
-        kernels_ms = sum(records[k]["ms"] * n for k, n in
-                         (("spatial_conv", L), ("basis_h1", 1), ("spatial_conv_bwd", L),
-                          ("basis_mlp_bwd", 1)))
-        print(f"training step at {TRAIN_BATCH}x{bucket}: {step_ms:.4f} ms (CUDA events, 5 steps), "
-              f"of which the kernels' launches {kernels_ms:.4f} ms ({kernels_ms / step_ms:.1%})")
-        profile_step(one_step, step_ms)
-        del model, batch, noise, optimizer
+        step_time(model, batch, noise, "default", default_step,
+                  sum(records[k]["ms"] * n for k, n in default_step.items()))
+        del model, batch, noise
         torch.cuda.empty_cache()
 
     with Phase("training reference"):
@@ -683,50 +908,7 @@ def main() -> int:
                            KERNEL_REL_TOL)
 
     with Phase("training path"), tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "ckpt"
-        per_step, step_metrics = [], []
-        step = train_diffusion.train_step
-
-        def counted_step(*a, **kw):
-            before = launch_counts()
-            metrics = step(*a, **kw)
-            after = launch_counts()
-            per_step.append({k: after[k] - before[k] for k in after})
-            step_metrics.append(metrics)
-            return metrics
-
-        reset_launch_counts()
-        tee = Tee(sys.stdout)
-        t0 = time.perf_counter()
-        try:
-            train_diffusion.train_step = counted_step
-            with contextlib.redirect_stdout(tee):
-                test_loss = train_diffusion.main([
-                    "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
-                    "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
-                    "--max_steps", str(TRAIN_STEPS), "--seed", str(SEED),
-                    "--checkpoint_dir", str(ckpt), "--device", "cuda",
-                ])
-        finally:
-            train_diffusion.train_step = step
-        wall = time.perf_counter() - t0
-        train_counts = launch_counts()
-        want_step = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1,
-                     "fiber_conv": 0, "fiber_conv_bwd": 0}
-        bad = [i for i, c in enumerate(per_step) if c != want_step]
-        print(f"{len(per_step)} steps; launches per step {per_step[0] if per_step else None}; "
-              f"launches in the whole run (evaluation forwards included) {train_counts}")
-        if len(per_step) != TRAIN_STEPS or bad:
-            raise RuntimeError(f"steps {bad} did not launch {want_step}")
-        values = torch.stack([torch.stack(list(m.values())) for m in step_metrics]).cpu()
-        if not torch.isfinite(values).all() or not math.isfinite(test_loss):
-            raise RuntimeError("a training loss is not finite")
-        rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
-        if rate is None:
-            raise RuntimeError("the training CLI printed no throughput")
-        print(f"training path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, hidden {TRAIN_HIDDEN} "
-              f"in {wall:.2f} s wall (build of the data, evaluation and checkpoints included); "
-              f"{float(rate.group(1)):.3f} steps/s warm on {card}")
+        train_counts = training_path(Path(tmp) / "ckpt", [], default_step, card)
         for name, record in records.items():
             record["launches"] = train_counts[name]
         for name in ("spatial_conv", "basis_h1"):
@@ -735,6 +917,7 @@ def main() -> int:
         with Phase("trained sampling"):
             reset_launch_counts()
             n = 128
+            ckpt = Path(tmp) / "ckpt"
             result = generate.main([
                 "--checkpoint_dir", str(ckpt), "--tag", "best", "--batch_size", str(n),
                 "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(n),
@@ -795,32 +978,164 @@ def main() -> int:
     with Phase("fiber training"):
         training_reference(dataclasses.replace(fiber_train_cfg, layer_scale=1.0), z_table,
                            SEED + 2, FIBER_LOSS_REL_TOL)
-        optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
-
-        def one_step():
-            train_step(model, optimizer, None, batch, noise)
-
-        reset_launch_counts()
-        one_step()
-        first = launch_counts()
-        want_step = {name: (L if name.startswith("fiber_conv") else 0) for name in first}
-        print(f"launches of one fuse_fiber step: {first}")
-        if first != want_step:
-            raise RuntimeError(f"a fuse_fiber step launched {first}, not {want_step}")
-        step_ms = cuda_ms(one_step, runs=5)
-        counts = launch_counts()
-        steps = 1 + 3 + 5  # the counted step, cuda_ms's warm-up and timed steps
-        if counts != {name: n * steps for name, n in want_step.items()}:
-            raise RuntimeError(f"{steps} fuse_fiber steps launched {counts}")
+        _, counts = step_time(model, batch, noise, "fuse_fiber",
+                              {"fiber_conv": L, "fiber_conv_bwd": L},
+                              L * (fiber_fwd["ms"] + fiber_bwd["ms"]))
         for name in ("fiber_conv", "fiber_conv_bwd"):
             records[name]["launches"] = counts[name]
-        kernels_ms = L * (fiber_fwd["ms"] + fiber_bwd["ms"])
-        print(f"fuse_fiber training step at {TRAIN_BATCH}x{bucket}: {step_ms:.4f} ms (CUDA events, "
-              f"5 steps), of which the kernels' launches {kernels_ms:.4f} ms "
-              f"({kernels_ms / step_ms:.1%}); the default path's step: see 'training step'")
-        profile_step(one_step, step_ms)
-        del model, batch, noise, optimizer
+        del model, noise
         torch.cuda.empty_cache()
+
+    # ---------------- the bfloat16 compute path ----------------
+    bf16_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bf16_train_cfg = dataclasses.replace(train_cfg, compute_dtype="bfloat16")
+    bf16 = dict(tol=BF16_KERNEL_REL_TOL, peak=BF16_FLOP_PER_S)
+    served = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+
+    with Phase("bf16 kernels"):
+        model = DiffusionModel(bf16_cfg, device=dev)
+        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+                                   cfg.num_atomic_states, "monoclinic", False, dev)
+        with torch.inference_mode():
+            inputs = first_step_inputs(model, noise)
+            with capturing() as args:
+                model.predict_scores(*inputs)
+            serve_conv, serve_h1, _ = forward_kernel_records(
+                args, f"bf16 serving {BATCH}x{ATOMS}", "_bf16", **bf16)
+            fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
+            print(f"bf16 forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 runs), of "
+                  f"which {L} x spatial_conv_bf16 + basis_h1_bf16 = "
+                  f"{L * serve_conv['ms'] + serve_h1['ms']:.4f} ms")
+            del args, inputs, model
+
+        batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+        model = DiffusionModel(bf16_train_cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+                                train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        with torch.no_grad():
+            conv16, h116, n_valid = forward_kernel_records(
+                args, f"bf16 training {TRAIN_BATCH}x{bucket}", "_bf16", **bf16)
+            bwd16 = backward_kernel_records(args, n_valid, "_bf16", **bf16)
+        conv16["serve"] = {k: serve_conv[k] for k in served}
+        h116["serve"] = {k: serve_h1[k] for k in served}
+        for record in (conv16, h116, *bwd16):
+            records[record["name"]] = record
+        del args
+        model.model.zero_grad(set_to_none=True)
+
+    with Phase("bf16 training reference"):
+        ref_cfg = dataclasses.replace(bf16_train_cfg, layer_scale=1.0)
+        training_reference(ref_cfg, z_table, SEED + 2, BF16_LOSS_REL_TOL, BF16_GRAD_REL_TOL)
+        print("-- with fuse_convnext (#9/#10 on the card)")
+        training_reference(ref_cfg, z_table, SEED + 2, BF16_LOSS_REL_TOL, BF16_GRAD_REL_TOL,
+                           fuse_convnext=True)
+
+    with Phase("bf16 training path"), tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "ckpt"
+        counts = training_path(ckpt, ["--compute_dtype", "bfloat16"], default_step, card)
+        for name in default_step:
+            records[name + "_bf16"]["launches"] = counts[name]
+        kernels_ms = sum(records[k + "_bf16"]["ms"] * n for k, n in default_step.items())
+        step_time(model, batch, noise, "bf16", default_step, kernels_ms)
+        del model, noise
+        torch.cuda.empty_cache()
+
+        with Phase("bf16 sampler path"):
+            meta = json.loads((ckpt / "meta.json").read_text())
+            if meta["config"]["compute_dtype"] != "bfloat16":
+                raise RuntimeError("the bf16 training run's meta.json lost its compute_dtype")
+            counts = sampler_path(ckpt, Path(tmp) / "out", meta, z_table, card,
+                                  {"spatial_conv": L, "basis_h1": 1}, tag="best")
+            for name in ("spatial_conv", "basis_h1"):
+                records[name + "_bf16"]["launches_sampler"] = counts[name]
+
+    # ---------------- the fused ConvNext MLP (fuse_convnext, bfloat16) ----------------
+    with Phase("convnext kernels"):
+        # layer scale 1 (not the init's 1e-6): with gamma ~ 1e-6, gamma * m is
+        # below half a bf16 ulp of res, so out would equal res whatever the MLP
+        # computed and no check below could see it
+        model = DiffusionModel(dataclasses.replace(bf16_cfg, layer_scale=1.0), device=dev)
+        model.model = fused_convnext_backbone(model)
+        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+                                   cfg.num_atomic_states, "monoclinic", False, dev)
+        with torch.inference_mode():
+            inputs = first_step_inputs(model, noise)
+            with capturing() as args:
+                model.predict_scores(*inputs)
+            [serve_cn] = convnext_records(args, f"convnext serving {BATCH}x{ATOMS}", **bf16)
+            fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
+            print(f"fuse_convnext bf16 forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, "
+                  f"10 runs), of which {L} x convnext_mlp = {L * serve_cn['ms']:.4f} ms")
+            del args, inputs, model
+
+        model = DiffusionModel(dataclasses.replace(bf16_train_cfg, layer_scale=1.0), device=dev)
+        model.model = fused_convnext_backbone(model)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+                                train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        with torch.no_grad():
+            cn_fwd, cn_bwd = convnext_records(args, f"convnext training {TRAIN_BATCH}x{bucket}",
+                                              **bf16)
+            print("-- the float32 instantiation on the same values")
+            f32_args = {k: tuple(t.float() if torch.is_tensor(t) else t for t in v)
+                        for k, v in args.items() if k.startswith("convnext")}
+            cn_fwd32, cn_bwd32 = convnext_records(
+                f32_args, f"convnext float32 {TRAIN_BATCH}x{bucket}", KERNEL_REL_TOL,
+                FP32_FLOP_PER_S)
+        cn_fwd["serve"] = {k: serve_cn[k] for k in served}
+        cn_fwd["float32"] = {k: cn_fwd32[k] for k in served}
+        cn_bwd["float32"] = {k: cn_bwd32[k] for k in served}
+        records.update(convnext_mlp=cn_fwd, convnext_mlp_bwd=cn_bwd)
+        del args
+        model.model.zero_grad(set_to_none=True)
+
+    with Phase("fuse_convnext path"):
+        want_cn_step = {"convnext_mlp": L, "convnext_mlp_bwd": L, "spatial_conv": L,
+                        "spatial_conv_bwd": L, "basis_h1": 1, "basis_mlp_bwd": 1}
+        kernels_ms = L * (cn_fwd["ms"] + cn_bwd["ms"]) + sum(
+            records[k + "_bf16"]["ms"] * n for k, n in default_step.items())
+        _, counts = step_time(model, batch, noise, "fuse_convnext bf16", want_cn_step, kernels_ms)
+        for name in ("convnext_mlp", "convnext_mlp_bwd"):
+            records[name]["launches"] = counts[name]
+        del model, batch, noise
+        torch.cuda.empty_cache()
+
+        # the sampler through DiffusionModel.sample (generate reads its
+        # backbone from meta.json, which has no fuse_convnext, as in the JAX
+        # package): CRYSTALS crystals in batches of BATCH x ATOMS, STEPS steps
+        sampler = DiffusionModel(bf16_cfg, device=dev)
+        sampler.model = fused_convnext_backbone(sampler)
+        sampler.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        bounds = generate.length_bounds_from_meta({"length_stats": {"min": 3.0, "max": 8.0}})
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = []
+        for _ in range(CRYSTALS // BATCH):
+            out = sampler.sample(BATCH, ATOMS, generator=gen, sample_steps=STEPS,
+                                 length_bounds=bounds)
+            results.append(from_dense_batch(out, z_table))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        forwards = (CRYSTALS // BATCH) * (len(strided_levels(cfg.num_timesteps, STEPS)) - 1)
+        want = {name: 0 for name in counts}
+        want.update(convnext_mlp=L * forwards, spatial_conv=L * forwards, basis_h1=forwards)
+        print(f"forwards {forwards}: launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"the fuse_convnext sampler launched {counts}, not {want}")
+        crystal_checks(concat_results(results), z_table, CRYSTALS, ATOMS, bounds)
+        records["convnext_mlp"]["launches_sampler"] = counts["convnext_mlp"]
+        print(f"fuse_convnext sampler: {CRYSTALS} crystals in {wall:.2f} s wall, first batch "
+              f"included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
+        del sampler
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of ``arreau_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, orbax, optax, h5py or the JAX package,
-and the port's entry point never falls back to the CPU on its own."""
+"""The PyTorch port stands alone: no module of ``arreau_tpu_torch``, and
+not ``chip_smoke.py`` or ``compare_builds.py``, imports JAX, flax, orbax,
+optax, h5py or the JAX package, and the port's entry point never falls back
+to the CPU on its own."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "arreau_tpu_torch"
 FORBIDDEN = ("jax", "flax", "orbax", "optax", "h5py", "arreau_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_builds.py"]
 
 
 def _module_name(path: Path) -> str:
@@ -37,7 +38,8 @@ def test_source_imports_nothing_forbidden(path):
 
 def test_every_module_imports_with_jax_and_h5py_unavailable():
     """In a fresh interpreter where importing any forbidden package fails,
-    every module of the port and chip_smoke (without running it) imports."""
+    every module of the port, chip_smoke and compare_builds (without running
+    them) imports."""
     modules = [_module_name(p) for p in SOURCES]
     blocked = ", ".join(f"{name!r}: None" for name in FORBIDDEN)
     code = (

@@ -301,9 +301,8 @@ def test_generate_samples_ema_weights_by_default(tmp_path, capsys):
     assert not (np.array_equal(a.frac_x, b.frac_x) and np.array_equal(a.lattice, b.lattice))
 
 
-@pytest.mark.parametrize("flag", [["--compute_dtype", "bfloat16"], ["--model_parallel", "2"],
-                                  ["--profiler", "jax"], ["--log", "true"],
-                                  ["--dataset", "alexandria"]])
+@pytest.mark.parametrize("flag", [["--model_parallel", "2"], ["--profiler", "jax"],
+                                  ["--log", "true"], ["--dataset", "alexandria"]])
 def test_train_cli_later_slices_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         train_diffusion.main([*TINY_ARGS, "--checkpoint_dir", str(tmp_path), *flag])
