@@ -1,4 +1,4 @@
-// Fused fiber-bundle convolution, backward, float32, for sm_90a.
+// Fused fiber-bundle convolution, backward, float32 or bfloat16, for sm_90a.
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_conv.py:_bwd_kernel (called by
 // _bwd, the VJP of fused_fiber_conv). With the forward
@@ -37,14 +37,26 @@
 // No global atomics. Every result but dx is deterministic; dx's
 // shared-memory scatter adds in no fixed order, so it may differ by an ulp
 // from one call to the next.
+//
+// Element type T (dtype.cuh) of basis, W, x, Kf, dbasis and dx: float32, or
+// bfloat16 on the compute_dtype="bfloat16" path, where the JAX kernel's
+// rounding points hold (pallas_conv.py:108-161): g, x_sp, g_o and every sum
+// stay float32; the spatial conv's backward gets the float32 g_o and its
+// fiber rounding (fiber_dx = 1): gxw = round_T(g_o * x), and each dx term
+// round_T(round_T(kern) * round_T(g_o)), kern and g_o rounded apart and
+// multiplied in T (:143, :153, :158), where #4's own backward rounds the
+// float32 product once (:376); dbasis and dx are rounded as stored; dW and
+// dKf are float32 sums (the wrapper rounds them to the weights' type).
 
+#include "dtype.cuh"
 #include "tile_gemm.cuh"
 
 extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
                                        const int* src, const float* win, const void* g,
                                        void* dbasis, float* dw, void* dx, float* partial,
                                        int Bp, int O, int K, int TA, int D, int C, int splits,
-                                       int rows_per_split, int is_bf16, void* stream_ptr);
+                                       int rows_per_split, int is_bf16, int fiber_dx,
+                                       void* stream_ptr);
 
 namespace {
 
@@ -53,9 +65,10 @@ using namespace arreau;
 constexpr int MAX_P = 16;  // output orientations a thread holds in registers
 
 // 1. g_o[b',o,t,c] = sum_p g[b',p,t,c] * Kf[o,p,c]
+template <class T>
 __global__ void __launch_bounds__(THREADS)
 fiber_cotangent_kernel(const float* __restrict__ g,   // [B', P, TA, C]
-                       const float* __restrict__ fk,  // [O, P, C]
+                       const T* __restrict__ fk,      // [O, P, C]
                        float* __restrict__ g_o,       // [B', O, TA, C]
                        int O, int P, int TA, int C, long long n) {  // n = B'*TA*C
     for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n;
@@ -68,11 +81,11 @@ fiber_cotangent_kernel(const float* __restrict__ g,   // [B', P, TA, C]
 #pragma unroll
         for (int p = 0; p < MAX_P; ++p) gv[p] = p < P ? g_bt[(size_t)p * TA * C] : 0.f;
         for (int o = 0; o < O; ++o) {
-            const float* fk_o = fk + (size_t)o * P * C + c;
+            const T* fk_o = fk + (size_t)o * P * C + c;
             float s = 0.f;
 #pragma unroll
             for (int p = 0; p < MAX_P; ++p)
-                if (p < P) s = fmaf(gv[p], fk_o[(size_t)p * C], s);
+                if (p < P) s = fmaf(gv[p], to_float(fk_o[(size_t)p * C]), s);
             g_o[(b * O + o) * TA * C + tc] = s;
         }
     }
@@ -106,19 +119,24 @@ fiber_kernel_grad_partial(const float* __restrict__ x_sp,  // [B'*O, TA, C]
 
 }  // namespace
 
-extern "C" int arreau_fiber_conv_bwd(const float* basis, const float* w, const float* x,
-                                     const int* src, const float* fk, const float* g,
+// basis, w, x, fk, dbasis and dx are float32 (is_bf16 = 0) or bfloat16
+// (is_bf16 = 1); g, x_sp, ones, the g_o and partial scratch, dw and dfk are
+// float32.
+extern "C" int arreau_fiber_conv_bwd(const void* basis, const void* w, const void* x,
+                                     const int* src, const void* fk, const float* g,
                                      const float* x_sp, const float* ones, float* g_o,
-                                     float* dfk_partial, float* dw_partial, float* dbasis,
-                                     float* dw, float* dx, float* dfk, int Bp, int O, int P,
+                                     float* dfk_partial, float* dw_partial, void* dbasis,
+                                     float* dw, void* dx, float* dfk, int Bp, int O, int P,
                                      int K, int TA, int D, int C, int splits, int rows_per_split,
-                                     void* stream_ptr) {
+                                     int is_bf16, void* stream_ptr) {
     if (P > MAX_P) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    int err;
+    int err = 0;
     const long long n_btc = (long long)Bp * TA * C;
-    fiber_cotangent_kernel<<<sum_splits_blocks(n_btc), THREADS, 0, stream>>>(g, fk, g_o, O, P,
-                                                                             TA, C, n_btc);
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        fiber_cotangent_kernel<T><<<sum_splits_blocks(n_btc), THREADS, 0, stream>>>(
+            g, static_cast<const T*>(fk), g_o, O, P, TA, C, n_btc);
+    });
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
 
     fiber_kernel_grad_partial<<<dim3((C + THREADS - 1) / THREADS, Bp * O), THREADS, 0, stream>>>(
@@ -130,6 +148,6 @@ extern "C" int arreau_fiber_conv_bwd(const float* basis, const float* w, const f
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
 
     return arreau_spatial_conv_bwd(basis, w, x, src, ones, g_o, dbasis, dw, dx, dw_partial, Bp,
-                                   O, K, TA, D, C, splits, rows_per_split, /*is_bf16=*/0,
-                                   stream_ptr);
+                                   O, K, TA, D, C, splits, rows_per_split, is_bf16,
+                                   /*fiber_dx=*/1, stream_ptr);
 }

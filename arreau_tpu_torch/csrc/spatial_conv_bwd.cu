@@ -41,6 +41,14 @@
 // rounded to T before their products (:371, :376), every product and sum is
 // float32, dbasis and dx are rounded once as they are stored, and the dW
 // partials stay float32 (the wrapper rounds the sum to W's type).
+//
+// The fused fiber conv's backward (fiber_conv_bwd.cu, #2) calls the same
+// entry point with fiber_dx = 1: its cotangent g (type G) is float32 in both
+// element types, and in bfloat16 each dx term rounds the per-edge kernel and
+// g to T apart and multiplies them in T (pallas_conv.py:143, :158: kern_k
+// and g_o cast to bf16, their product bf16) instead of rounding the float32
+// product once (:376). In float32 both roundings are the identity, and the
+// flag is not read.
 
 #include "dtype.cuh"
 #include "tile_gemm.cuh"
@@ -51,9 +59,9 @@ using namespace arreau;
 
 // gxw[e, c] of one (b', o): the receiver cotangent times the sender's
 // features and the window, rounded to T; 0 on an empty slot.
-template <class T>
+template <class T, class G>
 struct EdgeCotangent {
-    const T* g_bo;       // [TA, C]
+    const G* g_bo;       // [TA, C]
     const T* x_bo;       // [TA, C]
     const int* src_b;    // [E]
     const float* win_b;  // [E]
@@ -67,23 +75,24 @@ struct EdgeCotangent {
     }
 };
 
-template <class T>
-__device__ __forceinline__ EdgeCotangent<T> edge_cotangent(const T* g, const T* x,
-                                                           const int* src, const float* win,
-                                                           int bo, int O, int TA, int E, int C) {
+template <class T, class G>
+__device__ __forceinline__ EdgeCotangent<T, G> edge_cotangent(const G* g, const T* x,
+                                                              const int* src, const float* win,
+                                                              int bo, int O, int TA, int E,
+                                                              int C) {
     const int b = bo / O;
     return {g + (size_t)bo * TA * C, x + (size_t)bo * TA * C, src + (size_t)b * E,
             win + (size_t)b * E, TA, C};
 }
 
 // 1. dbasis[b',o,e,d] = sum_c gxw[e,c] * W[d,c]
-template <class T>
+template <class T, class G>
 __global__ void __launch_bounds__(THREADS)
 dbasis_kernel(const T* __restrict__ w,        // [D, C]
               const T* __restrict__ x,        // [B'*O, TA, C]
               const int* __restrict__ src,    // [B', E]
               const float* __restrict__ win,  // [B', E]
-              const T* __restrict__ g,        // [B'*O, TA, C]
+              const G* __restrict__ g,        // [B'*O, TA, C]
               T* __restrict__ dbasis,         // [B'*O, E, D]
               int O, int TA, int E, int D, int C) {
     __shared__ __align__(16) float As[BK][AS_LD];
@@ -91,7 +100,7 @@ dbasis_kernel(const T* __restrict__ w,        // [D, C]
     const int e0 = blockIdx.x * BM;
     const int d0 = blockIdx.y * BN;
     const int bo = blockIdx.z;
-    const EdgeCotangent<T> gxw = edge_cotangent(g, x, src, win, bo, O, TA, E, C);
+    const EdgeCotangent<T, G> gxw = edge_cotangent(g, x, src, win, bo, O, TA, E, C);
 
     float acc[TM][TN] = {};
     tile_gemm<true, false>(
@@ -114,14 +123,14 @@ dbasis_kernel(const T* __restrict__ w,        // [D, C]
 }
 
 // 2. dx[b',o,s,c] = sum over edges e with src[e] = s of kern[e,c] * win[e] * g[t,c]
-//    (each term rounded to T)
-template <class T>
+//    (each term rounded to T; with FIBER, kern * win and g rounded apart first)
+template <class T, class G, bool FIBER>
 __global__ void __launch_bounds__(THREADS)
 dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
           const T* __restrict__ w,          // [D, C]
           const int* __restrict__ src,      // [B', E]
           const float* __restrict__ win,    // [B', E]
-          const T* __restrict__ g,          // [B'*O, TA, C]
+          const G* __restrict__ g,          // [B'*O, TA, C]
           T* __restrict__ dx,               // [B'*O, TA, C]
           int O, int K, int TA, int D, int C) {
     extern __shared__ float s_dx[];  // [TA][BN]: this block's channel slice of dx
@@ -135,7 +144,7 @@ dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
     const int b = bo / O;
     const int E = K * TA;
     const T* basis_bo = basis + (size_t)bo * E * D;
-    const T* g_bo = g + (size_t)bo * TA * C;
+    const G* g_bo = g + (size_t)bo * TA * C;
     const int* src_b = src + (size_t)b * E;
     const float* win_b = win + (size_t)b * E;
     const int tid = threadIdx.x;
@@ -163,11 +172,16 @@ dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
                 const int s = s_src[r];
                 if (s < 0 || s >= TA) continue;
                 const float wv = s_win[r];
-                const T* g_t = g_bo + (size_t)(t0 + r) * C;
+                const G* g_t = g_bo + (size_t)(t0 + r) * C;
 #pragma unroll
                 for (int j = 0; j < TN; ++j) {
                     const int n = tx * TN + j;
-                    if (c0 + n < C)
+                    if (c0 + n >= C) continue;
+                    if constexpr (FIBER)
+                        atomicAdd(&s_dx[s * BN + n],
+                                  round_to<T>(round_to<T>(kern[i][j] * wv) *
+                                              round_to<T>(to_float(g_t[c0 + n]))));
+                    else
                         atomicAdd(&s_dx[s * BN + n],
                                   round_to<T>(kern[i][j] * wv * to_float(g_t[c0 + n])));
                 }
@@ -182,13 +196,13 @@ dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
 }
 
 // 3. partial[split, d, c] = sum over this split's edge rows of basis[row, d] * gxw[row, c]
-template <class T>
+template <class T, class G>
 __global__ void __launch_bounds__(THREADS)
 dw_partial_kernel(const T* __restrict__ basis,      // [B'*O*E, D]
                   const T* __restrict__ x,          // [B'*O, TA, C]
                   const int* __restrict__ src,      // [B', E]
                   const float* __restrict__ win,    // [B', E]
-                  const T* __restrict__ g,          // [B'*O, TA, C]
+                  const G* __restrict__ g,          // [B'*O, TA, C]
                   float* __restrict__ partial,      // [splits, D, C]
                   int O, int TA, int E, int D, int C, long long rows, int rows_per_split) {
     __shared__ __align__(16) float As[BK][AS_LD];
@@ -229,46 +243,67 @@ dw_partial_kernel(const T* __restrict__ basis,      // [B'*O*E, D]
     }
 }
 
-}  // namespace
-
-// basis, w, x, g, dbasis and dx are float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); win, partial and dw are float32.
-extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
-                                       const int* src, const float* win, const void* g,
-                                       void* dbasis, float* dw, void* dx, float* partial,
-                                       int Bp, int O, int K, int TA, int D, int C, int splits,
-                                       int rows_per_split, int is_bf16, void* stream_ptr) {
-    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// The three products and the second pass, for element type T, cotangent
+// type G and dx rounding FIBER.
+template <class T, class G, bool FIBER>
+int spatial_conv_bwd(const T* basis, const T* w, const T* x, const int* src, const float* win,
+                     const G* g, T* dbasis, float* dw, T* dx, float* partial, int Bp, int O, int K,
+                     int TA, int D, int C, int splits, int rows_per_split, cudaStream_t stream) {
     const int E = K * TA;
-    cudaError_t err = cudaSuccess;
-    ARREAU_DISPATCH_DTYPE(is_bf16, {
-        const T* basis_t = static_cast<const T*>(basis);
-        const T* w_t = static_cast<const T*>(w);
-        const T* x_t = static_cast<const T*>(x);
-        const T* g_t = static_cast<const T*>(g);
-        dbasis_kernel<T><<<dim3((E + BM - 1) / BM, (D + BN - 1) / BN, Bp * O), THREADS, 0,
-                           stream>>>(w_t, x_t, src, win, g_t, static_cast<T*>(dbasis), O, TA,
-                                     E, D, C);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    cudaError_t err;
+    dbasis_kernel<T, G><<<dim3((E + BM - 1) / BM, (D + BN - 1) / BN, Bp * O), THREADS, 0,
+                          stream>>>(w, x, src, win, g, dbasis, O, TA, E, D, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-        const size_t dx_smem = (size_t)TA * BN * sizeof(float);
-        if (dx_smem > 48 * 1024) {
-            err = cudaFuncSetAttribute(dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(dx_smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
-        }
-        dx_kernel<T><<<dim3((C + BN - 1) / BN, Bp * O), THREADS, dx_smem, stream>>>(
-            basis_t, w_t, src, win, g_t, static_cast<T*>(dx), O, K, TA, D, C);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const size_t dx_smem = (size_t)TA * BN * sizeof(float);
+    if (dx_smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(dx_kernel<T, G, FIBER>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(dx_smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    dx_kernel<T, G, FIBER><<<dim3((C + BN - 1) / BN, Bp * O), THREADS, dx_smem, stream>>>(
+        basis, w, src, win, g, dx, O, K, TA, D, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-        const long long rows = (long long)Bp * O * E;
-        dw_partial_kernel<T><<<dim3((D + BM - 1) / BM, (C + BN - 1) / BN, splits), THREADS, 0,
-                               stream>>>(basis_t, x_t, src, win, g_t, partial, O, TA, E, D, C,
-                                         rows, rows_per_split);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    });
+    const long long rows = (long long)Bp * O * E;
+    dw_partial_kernel<T, G><<<dim3((D + BM - 1) / BM, (C + BN - 1) / BN, splits), THREADS, 0,
+                              stream>>>(basis, x, src, win, g, partial, O, TA, E, D, C, rows,
+                                        rows_per_split);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
     const long long n = (long long)D * C;
     sum_splits_kernel<<<sum_splits_blocks(n), THREADS, 0, stream>>>(partial, dw, splits, n);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// basis, w, x, dbasis and dx are float32 (is_bf16 = 0) or bfloat16
+// (is_bf16 = 1); win, partial and dw are float32. g is of the element type,
+// or float32 with fiber_dx = 1 (the fused fiber conv's backward, whose dx
+// terms then round as its JAX kernel's; see the header).
+extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
+                                       const int* src, const float* win, const void* g,
+                                       void* dbasis, float* dw, void* dx, float* partial,
+                                       int Bp, int O, int K, int TA, int D, int C, int splits,
+                                       int rows_per_split, int is_bf16, int fiber_dx,
+                                       void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    if (!is_bf16)
+        return spatial_conv_bwd<float, float, false>(
+            static_cast<const float*>(basis), static_cast<const float*>(w),
+            static_cast<const float*>(x), src, win, static_cast<const float*>(g),
+            static_cast<float*>(dbasis), dw, static_cast<float*>(dx), partial, Bp, O, K, TA, D, C,
+            splits, rows_per_split, stream);
+    if (fiber_dx)
+        return spatial_conv_bwd<bf16, float, true>(
+            static_cast<const bf16*>(basis), static_cast<const bf16*>(w),
+            static_cast<const bf16*>(x), src, win, static_cast<const float*>(g),
+            static_cast<bf16*>(dbasis), dw, static_cast<bf16*>(dx), partial, Bp, O, K, TA, D, C,
+            splits, rows_per_split, stream);
+    return spatial_conv_bwd<bf16, bf16, false>(
+        static_cast<const bf16*>(basis), static_cast<const bf16*>(w), static_cast<const bf16*>(x),
+        src, win, static_cast<const bf16*>(g), static_cast<bf16*>(dbasis), dw,
+        static_cast<bf16*>(dx), partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
 }

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from arreau_tpu_torch.models.blocks import BasisMLP
 from arreau_tpu_torch.models.ponita import PonitaFiberBundle
 
 
@@ -67,12 +68,9 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None:
-    """Load a JAX parameter tree into ``model`` (a ``DiffusionModel`` or a
-    bare ``PonitaFiberBundle``); every parameter must be matched. With a
-    ``DiffusionModel`` and ``fourier_w`` given, the frequencies are carried
-    too."""
-    module = model if isinstance(model, PonitaFiberBundle) else model.model
+def _load(module, tree) -> None:
+    """Load a JAX parameter tree into ``module``; every parameter on either
+    side must be matched."""
     flat = _flatten(tree if "params" in tree else {"params": tree})
     state = {}
     for name, param in module.state_dict().items():
@@ -84,10 +82,25 @@ def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None
     if flat:
         raise KeyError(f"JAX tree entries the port has no place for: {sorted(flat)}")
     module.load_state_dict(state, strict=True)
+
+
+def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None:
+    """Load a JAX parameter tree into ``model`` (a ``DiffusionModel`` or a
+    bare ``PonitaFiberBundle``); every parameter must be matched. With a
+    ``DiffusionModel`` and ``fourier_w`` given, the frequencies are carried
+    too."""
+    _load(model if isinstance(model, PonitaFiberBundle) else model.model, tree)
     if fourier_w is not None:
         model.fourier_w = torch.as_tensor(
             np.asarray(fourier_w, dtype=np.float32), device=model.fourier_w.device
         )
+
+
+def basis_mlp_params_from_jax(module: BasisMLP, tree) -> None:
+    """Load a JAX ``BasisMLP`` parameter tree (``{"dense_in": {"kernel"[,
+    "bias"]}, "dense_out": {...}}``, or the flax variables around it) into
+    the port's ``BasisMLP``; ``fused=True`` or not, the tree is the same."""
+    _load(module, tree)
 
 
 def params_to_jax(module: PonitaFiberBundle) -> dict:

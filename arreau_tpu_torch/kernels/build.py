@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels with one plain ``nvcc`` call and bind them
+"""Build the port's CUDA kernels with plain ``nvcc`` calls and bind them
 with ``ctypes``.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into one shared library
-with a plain C interface, ``build/arreau_tpu_torch/libkernels.so`` under the
-repository root (``build/`` is git-ignored). The library is rebuilt only
-when the hash of the sources and flags changes. Each C entry point returns
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into an object by its
+own ``nvcc -c`` call, all started together, and the objects are linked
+into one shared library with a plain C interface,
+``build/arreau_tpu_torch/libkernels.so`` under the repository root
+(``build/`` is git-ignored). The library is rebuilt only when the hash of
+the sources and flags changes. Each C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on a non-zero
 code. Nothing here runs at import time.
 """
@@ -51,19 +53,40 @@ def _nvcc() -> str:
 
 def build_library() -> float:
     """Build ``libkernels.so`` unless an up-to-date one exists; returns the
-    seconds spent in ``nvcc`` (0.0 when the cached build was current)."""
+    wall seconds spent in ``nvcc`` (0.0 when the cached build was current).
+    The sources compile concurrently, one process each; a failure or a
+    timeout stops every compile still running."""
     digest = _source_hash()
     stamp = BUILD_DIR / "libkernels.sha256"
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libkernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), os.getpid()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    cmds = [[nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    running = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)) for cmd in cmds]
+    try:
+        for cmd, proc in running:
+            _, err = proc.communicate(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        tmp = BUILD_DIR / f"libkernels.{tag}.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for _, p in running:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return seconds

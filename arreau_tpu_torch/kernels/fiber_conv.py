@@ -28,6 +28,17 @@ second pass, and the spatial conv's own backward kernels. See the sources.
 :func:`fiber_conv` and :func:`fiber_conv_bwd` launch their kernels for CUDA
 tensors and run :func:`fiber_conv_plain` / :func:`fiber_conv_bwd_plain` for
 CPU tensors; they never fall back.
+
+basis, w, x and the fiber kernel are float32, or all bfloat16 on the
+``compute_dtype="bfloat16"`` path; y, the saved spatial conv ``x_sp`` and
+the cotangent ``g`` are float32 in both. In bfloat16 the functions follow
+the JAX kernels' cast points (``pallas_conv.py:82-161``): the forward
+multiplies and sums in float32 and rounds nothing; the backward keeps
+``g_o`` float32, rounds ``gxw = g_o * x`` to bfloat16 before its products,
+rounds the per-edge kernel and ``g_o`` to bfloat16 apart before their
+product for dx (where #4's own backward rounds the product once), stores
+dbasis and dx in bfloat16, and returns dw and dfiber_kernel, float32 sums,
+in the weights' type (the JAX VJP's ``.astype``).
 """
 
 from __future__ import annotations
@@ -36,12 +47,16 @@ import ctypes
 
 import torch
 
-from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd_plain, spatial_conv_plain
+from arreau_tpu_torch.kernels.spatial_conv import (
+    DTYPES,
+    spatial_conv_bwd_plain,
+    spatial_conv_plain,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 7 + (_I,) * 7 + (_P,)
-_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 9 + (_P,)
+_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
+_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 10 + (_P,)
 _SMEM_BYTES = 227 * 1024 - 1024  # a block's shared memory less the forward's static arrays
 _MAX_P = 16  # output orientations the kernels hold in registers (csrc/*.cu: MAX_P)
 
@@ -52,10 +67,11 @@ def _unit_window(src):
 
 def fiber_conv_plain(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
     """Plain PyTorch version: the spatial conv's plain version with a unit
-    window, then the fiber mixing as one einsum; with ``save_x_sp`` also
-    the spatial conv."""
-    x_sp = spatial_conv_plain(basis, w, x, src, _unit_window(src))
-    y = torch.einsum("botc,opc->bptc", x_sp, fiber_kernel)
+    window in float32 (float64 stays float64), then the fiber mixing as one
+    einsum; with ``save_x_sp`` also the spatial conv."""
+    wt = torch.promote_types(basis.dtype, torch.float32)
+    x_sp = spatial_conv_plain(basis.to(wt), w.to(wt), x.to(wt), src, _unit_window(src))
+    y = torch.einsum("botc,opc->bptc", x_sp, fiber_kernel.to(wt))
     return (y, x_sp) if save_x_sp else y
 
 
@@ -63,9 +79,10 @@ def fiber_conv_bwd_plain(basis, w, x, src, fiber_kernel, g, x_sp):
     """Plain PyTorch version of the backward: (dbasis, dw, dx, dfiber_kernel)
     for the cotangent ``g [B', P, TA, C]`` of :func:`fiber_conv_plain`,
     whose spatial conv ``x_sp`` the forward saved."""
-    g_o = torch.einsum("bptc,opc->botc", g, fiber_kernel)
+    g_o = torch.einsum("bptc,opc->botc", g, fiber_kernel.to(g.dtype))
     dfk = torch.einsum("botc,bptc->opc", x_sp, g)
-    return (*spatial_conv_bwd_plain(basis, w, x, src, _unit_window(src), g_o), dfk)
+    return (*spatial_conv_bwd_plain(basis, w, x, src, _unit_window(src), g_o, fiber=True),
+            dfk.to(fiber_kernel.dtype))
 
 
 def _check(basis, w, x, src, fiber_kernel):
@@ -81,9 +98,11 @@ def _check(basis, w, x, src, fiber_kernel):
         raise ValueError(f"src {tuple(src.shape)} must be {(Bp, E)}")
     if fiber_kernel.shape[0] != O or fiber_kernel.shape[2] != C:
         raise ValueError(f"fiber_kernel {tuple(fiber_kernel.shape)} must be [{O}, P, {C}]")
-    for name, t in (("basis", basis), ("w", w), ("x", x), ("fiber_kernel", fiber_kernel)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if basis.dtype not in DTYPES:
+        raise TypeError(f"basis must be float32 or bfloat16, got {basis.dtype}")
+    for name, t in (("w", w), ("x", x), ("fiber_kernel", fiber_kernel)):
+        if t.dtype != basis.dtype:
+            raise TypeError(f"{name} must be {basis.dtype} like the basis, got {t.dtype}")
     if src.dtype != torch.int32:
         raise TypeError(f"src must be int32, got {src.dtype}")
     if len({t.device for t in (basis, w, x, src, fiber_kernel)}) != 1:
@@ -99,10 +118,11 @@ def _check_cuda(name, *tensors):
 
 def fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
     """``[B', P, TA, C]`` float32 fused fiber conv; see the module docstring.
-    With ``save_x_sp``, (y, the spatial conv ``x_sp [B', O, TA, C]``).
+    With ``save_x_sp``, (y, the float32 spatial conv ``x_sp [B', O, TA,
+    C]``).
 
     basis ``[B', O, E, D]``, w ``[D, C]``, x ``[B', O, TA, C]``, fiber_kernel
-    ``[O, P, C]`` float32; src ``[B', E]`` int32."""
+    ``[O, P, C]``, all float32 or all bfloat16; src ``[B', E]`` int32."""
     _check(basis, w, x, src, fiber_kernel)
     if basis.device.type == "cpu":
         return fiber_conv_plain(basis, w, x, src, fiber_kernel, save_x_sp)
@@ -112,17 +132,20 @@ def fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
     Bp, O, E, D = basis.shape
     TA, C = x.shape[2], x.shape[3]
     P = fiber_kernel.shape[1]
-    smem = 4 * -(-D // 4) * 4 * (64 + 2 * 16)  # the W slice and two 16-row slot buffers
+    # the float32 W slice and two 16-row slot buffers in the element type
+    size = basis.element_size()
+    ld = -(-D // (16 // size)) * (16 // size)
+    smem = ld * (64 * 4 + 2 * 16 * size)
     if smem > _SMEM_BYTES or P > _MAX_P or Bp > 65535:
-        raise ValueError(f"fiber_conv's kernel takes D <= {_SMEM_BYTES // 384}, P <= {_MAX_P} "
-                         f"and B' <= 65535, not D = {D}, P = {P}, B' = {Bp}")
+        raise ValueError(f"fiber_conv's kernel takes D <= {_SMEM_BYTES // (256 + 32 * size)}, "
+                         f"P <= {_MAX_P} and B' <= 65535, not D = {D}, P = {P}, B' = {Bp}")
     y = torch.empty((Bp, P, TA, C), dtype=torch.float32, device=basis.device)
-    x_sp = torch.empty_like(x) if save_x_sp else None
+    x_sp = torch.empty(x.shape, dtype=torch.float32, device=x.device) if save_x_sp else None
     fn = kernel_function("arreau_fiber_conv_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(basis.device).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(),
              fiber_kernel.data_ptr(), y.data_ptr(), x_sp.data_ptr() if save_x_sp else None,
-             Bp, O, P, E // TA, TA, D, C, stream)
+             Bp, O, P, E // TA, TA, D, C, int(basis.dtype == torch.bfloat16), stream)
     check("arreau_fiber_conv_fwd", err)
     fiber_conv.launches += 1
     return (y, x_sp) if save_x_sp else y
@@ -134,13 +157,15 @@ fiber_conv.launches = 0
 def fiber_conv_bwd(basis, w, x, src, fiber_kernel, g, x_sp):
     """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``,
     dfiber_kernel ``[O, P, C]``): the cotangents of :func:`fiber_conv`'s
-    inputs for the output cotangent ``g [B', P, TA, C]``, given the spatial
-    conv ``x_sp [B', O, TA, C]`` the forward saved."""
+    inputs for the output cotangent ``g [B', P, TA, C]`` (float32), given
+    the spatial conv ``x_sp [B', O, TA, C]`` (float32) the forward saved;
+    dbasis and dx in the basis's type, dw and dfiber_kernel in their
+    weights' type."""
     _check(basis, w, x, src, fiber_kernel)
     Bp, O, E, D = basis.shape
     TA, C = x.shape[2], x.shape[3]
     P = fiber_kernel.shape[1]
-    for name, t, shape in (("g", g, (Bp, P, TA, C)), ("x_sp", x_sp, tuple(x.shape))):
+    for name, t, shape in (("g", g, (Bp, P, TA, C)), ("x_sp", x_sp, (Bp, O, TA, C))):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
             raise ValueError(f"{name} must be float32 {shape} on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -156,22 +181,23 @@ def fiber_conv_bwd(basis, w, x, src, fiber_kernel, g, x_sp):
     dev = basis.device
     splits, per_split = row_splits(Bp * O * E)
     ones = _unit_window(src)
-    g_o = torch.empty_like(x)
+    g_o = torch.empty_like(x_sp)
     dfk_partial = torch.empty((Bp, O, P, C), dtype=torch.float32, device=dev)
     dw_partial = torch.empty((splits, D, C), dtype=torch.float32, device=dev)
     dbasis = torch.empty_like(basis)
-    dw = torch.empty_like(w)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    dfk = torch.empty_like(fiber_kernel)
+    dfk = torch.empty(fiber_kernel.shape, dtype=torch.float32, device=dev)
     fn = kernel_function("arreau_fiber_conv_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), fiber_kernel.data_ptr(),
              g.data_ptr(), x_sp.data_ptr(), ones.data_ptr(), g_o.data_ptr(), dfk_partial.data_ptr(),
              dw_partial.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), dfk.data_ptr(),
-             Bp, O, P, E // TA, TA, D, C, splits, per_split, stream)
+             Bp, O, P, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16),
+             stream)
     check("arreau_fiber_conv_bwd", err)
     fiber_conv_bwd.launches += 1
-    return dbasis, dw, dx, dfk
+    return dbasis, dw.to(w.dtype), dx, dfk.to(fiber_kernel.dtype)
 
 
 fiber_conv_bwd.launches = 0

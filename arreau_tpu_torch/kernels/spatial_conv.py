@@ -44,7 +44,7 @@ import torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_BWD_ARGTYPES = (_P,) * 10 + (_I,) * 9 + (_P,)
+_BWD_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (_P,)
 DTYPES = (torch.float32, torch.bfloat16)  # the element types the kernels take
 
 
@@ -65,11 +65,14 @@ def spatial_conv_plain(basis, w, x, src, win):
     return msg.reshape(Bp, O, E // TA, TA, C).sum(dim=2).to(dt)
 
 
-def spatial_conv_bwd_plain(basis, w, x, src, win, g):
+def spatial_conv_bwd_plain(basis, w, x, src, win, g, fiber: bool = False):
     """Plain PyTorch version of the backward: (dbasis, dw, dx) for the
     cotangent ``g [B', O, TA, C]`` of :func:`spatial_conv_plain`'s output;
     float32 arithmetic, rounded to the basis's type where the JAX kernel
-    rounds."""
+    rounds. With ``fiber`` (the fused fiber conv's backward, whose ``g`` is
+    float32), each dx term rounds ``kern * win`` and ``g`` apart before their
+    product, as ``pallas_conv.py:158`` does, where #4 rounds the product
+    once (:376)."""
     dt, wt = basis.dtype, torch.promote_types(basis.dtype, torch.float32)
 
     def rnd(v):
@@ -86,7 +89,8 @@ def spatial_conv_bwd_plain(basis, w, x, src, win, g):
     gxw = rnd(torch.where(live, g_e * torch.gather(x, 2, idx), 0.0) * win_e)
     dbasis = torch.matmul(gxw, w.t())
     dw = torch.einsum("boed,boec->dc", basis, gxw)
-    dxc = rnd(torch.where(live, torch.matmul(basis, w) * win_e * g_e, 0.0))
+    kern = torch.matmul(basis, w) * win_e
+    dxc = rnd(torch.where(live, rnd(kern) * rnd(g_e) if fiber else kern * g_e, 0.0))
     dx = torch.zeros_like(x).scatter_add_(2, idx, dxc)
     return dbasis.to(dt), dw.to(dt), dx.to(dt)
 
@@ -179,7 +183,7 @@ def spatial_conv_bwd(basis, w, x, src, win, g):
     stream = torch.cuda.current_stream(basis.device).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), win.data_ptr(),
              g.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-             Bp, O, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16),
+             Bp, O, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16), 0,
              stream)
     check("arreau_spatial_conv_bwd", err)
     spatial_conv_bwd.launches += 1

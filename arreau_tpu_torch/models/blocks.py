@@ -38,6 +38,7 @@ from torch import nn
 from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_multi
 from arreau_tpu_torch.kernels.convnext_mlp import fused_convnext_mlp
 from arreau_tpu_torch.kernels.fiber_conv import fused_fiber_conv
+from arreau_tpu_torch.kernels.fused_basis_mlp import fused_basis_mlp_fn
 from arreau_tpu_torch.kernels.spatial_conv import fused_spatial_conv
 
 LN_EPS = 1e-5
@@ -108,12 +109,21 @@ class LayerNorm(nn.Module):
 
 class BasisMLP(nn.Module):
     """Kernel-basis network: polynomial features -> Dense -> GELU -> Dense ->
-    GELU, over the last axis of ``attr``."""
+    GELU, over the last axis of ``attr``.
+
+    With ``fused`` (the JAX package's ``BasisMLP(fused=True)``), no bias on
+    either layer, a 4-D ``attr [B', O, E, d]`` and degree <= 3, the whole
+    chain is the fused kernel pair #5/#6 (``kernels/fused_basis_mlp.py``):
+    ``attr`` and both weights are cast to the compute type (``dtype``, else
+    the weights' float32), the output is in it, and ``attr`` gets a zero
+    cotangent. Otherwise, as in the JAX package, the plain chain runs. The
+    parameters are the same either way."""
 
     def __init__(self, input_dim: int, hidden_dim: int, basis_dim: int, degree: int,
-                 use_bias: bool = True, out_bias: Optional[bool] = None):
+                 use_bias: bool = True, out_bias: Optional[bool] = None, fused: bool = False):
         super().__init__()
         self.degree = degree
+        self.fused = fused
         out_bias = use_bias if out_bias is None else out_bias
         in_dim = polynomial_feature_dim(input_dim, degree)
         self.dense_in = nn.Linear(in_dim, hidden_dim, bias=use_bias)
@@ -122,7 +132,13 @@ class BasisMLP(nn.Module):
     def forward(self, attr: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``attr`` in its own type: the features are formed in it (the
         caller casts where the JAX package does), the Dense layers run in
-        ``dtype``."""
+        ``dtype``; see the class docstring for the fused path."""
+        if (self.fused and self.dense_in.bias is None and self.dense_out.bias is None
+                and attr.dim() == 4 and self.degree <= 3):
+            cdt = dtype or self.dense_in.weight.dtype
+            return fused_basis_mlp_fn(attr.to(cdt).contiguous(),
+                                      self.dense_in.weight.t().to(cdt).contiguous(),
+                                      self.dense_out.weight.t().to(cdt).contiguous(), self.degree)
         h = gelu(dense(self.dense_in, polynomial_features(attr, self.degree), dtype))
         return gelu(dense(self.dense_out, h, dtype))
 
@@ -174,7 +190,8 @@ class FiberBundleConv(nn.Module):
         fiber_kernel = dense(self.fiber_kernel, fiber_kernel_basis, dtype)  # [O, P, C]
         num_ori = fiber_kernel.shape[0]
         if kernel_layout and self.fuse_fiber:
-            y = fused_fiber_conv(kernel_basis, self.kernel, x.contiguous(), src,
+            # the basis, w, x and the fiber kernel in the compute type, y float32
+            y = fused_fiber_conv(kernel_basis.to(w.dtype), w, x.to(w.dtype).contiguous(), src,
                                  fiber_kernel / num_ori)
             return y + self.bias
         if kernel_layout:

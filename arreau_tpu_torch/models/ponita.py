@@ -26,10 +26,13 @@ and the readout stay float32; the invariants are cast before the
 lane-major transpose on the kernel branch and before the polynomial
 expansion on the plain branch; the embedder, the basis MLPs, the spatial
 conv and the ConvNext MLPs run in bfloat16, and the residual stream between
-layers is bfloat16. ``"float32"`` is the float32 function, and lets
-``fuse_convnext`` run in float32. With ``fuse_convnext`` and a compute type,
-the kernel branch runs each layer's ConvNext MLP tail and its readout in the
-``fused_convnext_mlp`` kernels (#9/#10); the parameters are the same.
+layers is bfloat16; with ``fuse_fiber`` the shared basis is bfloat16 and
+each layer's ``fiber_conv`` takes the basis, the conv weight, x and the
+fiber kernel in bfloat16 and returns float32. ``"float32"`` is the float32
+function, and lets ``fuse_convnext`` run in float32. With ``fuse_convnext``
+and a compute type, the kernel branch runs each layer's ConvNext MLP tail
+and its readout in the ``fused_convnext_mlp`` kernels (#9/#10); the
+parameters are the same.
 """
 
 from __future__ import annotations
@@ -165,9 +168,6 @@ class PonitaFiberBundle(nn.Module):
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
-        if cfg.fuse_fiber and cfg.compute_dtype == "bfloat16":
-            raise NotImplementedError("fuse_fiber with compute_dtype='bfloat16' waits for the "
-                                      "bfloat16 slice of the fused fiber conv kernels (#1/#2)")
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         bb_in = cfg.basis_bias is True or cfg.basis_bias == "in"
         bb_out = cfg.basis_bias is True

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the sampler and
 the training path, on the default conv path, on the fused fiber conv path
-(``fuse_fiber``), in bfloat16 (``compute_dtype="bfloat16"``) and on the
-fused ConvNext path (``fuse_convnext``, bfloat16), every CUDA kernel
+(``fuse_fiber``), in bfloat16 (``compute_dtype="bfloat16"``), on the
+fused ConvNext path (``fuse_convnext``, bfloat16) and on the fused fiber
+conv path in bfloat16, and ``BasisMLP(fused=True)``, every CUDA kernel
 against its plain PyTorch version.
 
 Run from the repository root, with no arguments:
@@ -12,7 +13,8 @@ Run from the repository root, with no arguments:
 Phases, each printing its elapsed seconds and raising on any failure:
 
 1. device: requires CUDA; prints the card's name and power limit (nvidia-smi).
-2. build: builds the port's CUDA kernels (one nvcc call) or loads a current build.
+2. build: builds the port's CUDA kernels (one nvcc process per source, all
+   at once, then one link) or loads a current build.
 3. serving kernels: captures the inputs each forward kernel gets in one
    full-width forward of the sampler (batch 128 x 8 atoms), holds both
    against their plain PyTorch versions and times kernel, plain version and
@@ -71,12 +73,26 @@ Phases, each printing its elapsed seconds and raising on any failure:
    #9, #10, #3 and #4, 1 of #8 and #7, nothing else), its time and
    profile; then 256 crystals through ``DiffusionModel.sample`` (5 of #9
    and #3 and 1 of #8 a forward).
+19. fiber bf16 kernels: the bfloat16 instantiations of #1 on one
+   ``fuse_fiber`` bfloat16 sampler forward and of #1/#2 on one such
+   training step, against their bfloat16 plain versions, timed.
+20. fuse_fiber bf16 path: a ``fuse_fiber`` bfloat16 training step, card
+   kernel branch against CPU plain branch (as phase 15), its time, its
+   launches (#1 and #2 once per layer, no other kernel) and profile; then
+   the generate CLI on a checkpoint whose ``meta.json`` carries
+   ``fuse_fiber`` and ``compute_dtype="bfloat16"`` (5 of #1 a forward).
+21. fused basis kernels: ``BasisMLP(fused=True, use_bias=False)`` at the
+   canonical basis width, weights from numpy, on the invariants phase 11
+   captured (training and serving shapes), float32 and bfloat16: one
+   launch of #5 a forward and of #6 a backward and no plain version, then
+   each kernel against its plain version, timed beside the library chain.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
 sampler paths; bfloat16 instantiations as entries of their own, named
 ``*_bf16``; #9/#10 in bfloat16, their float32 instantiation, serving
-shape and no-readout call beside) and the result
+shape and no-readout call beside; #5/#6 ``fused_basis_mlp*`` with the
+launches of phase 21) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -221,7 +237,13 @@ def first_step_inputs(model, noise):
 def kernel_sites():
     """{kernel name: (module, attribute)} where the port's autograd
     Functions look each kernel wrapper up when they run."""
-    from arreau_tpu_torch.kernels import basis_mlp, convnext_mlp, fiber_conv, spatial_conv
+    from arreau_tpu_torch.kernels import (
+        basis_mlp,
+        convnext_mlp,
+        fiber_conv,
+        fused_basis_mlp,
+        spatial_conv,
+    )
 
     return {"spatial_conv": (spatial_conv, "spatial_conv"),
             "spatial_conv_bwd": (spatial_conv, "spatial_conv_bwd"),
@@ -230,7 +252,9 @@ def kernel_sites():
             "fiber_conv": (fiber_conv, "fiber_conv"),
             "fiber_conv_bwd": (fiber_conv, "fiber_conv_bwd"),
             "convnext_mlp": (convnext_mlp, "convnext_mlp"),
-            "convnext_mlp_bwd": (convnext_mlp, "convnext_mlp_bwd")}
+            "convnext_mlp_bwd": (convnext_mlp, "convnext_mlp_bwd"),
+            "fused_basis_mlp": (fused_basis_mlp, "fused_basis_mlp"),
+            "fused_basis_mlp_bwd": (fused_basis_mlp, "fused_basis_mlp_bwd")}
 
 
 def wrappers() -> dict:
@@ -410,10 +434,11 @@ def fiber_library(basis, w, x, src, fiber_kernel):
     return torch.einsum("botc,opc->bptc", conv_library(basis, w, x, src, ones), fiber_kernel)
 
 
-def fiber_records(args, label):
+def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
     """Records of #1 (and of #2 where ``args`` holds its inputs: a training
     step, whose forward also stores the spatial conv for the backward) on
-    captured arguments; the backward's library yardstick is autograd's
+    captured arguments, named with ``suffix`` (``_bf16`` for the bfloat16
+    instantiations); the backward's library yardstick is autograd's
     backward through :func:`fiber_library`."""
     from arreau_tpu_torch.kernels.fiber_conv import (
         fiber_conv,
@@ -431,9 +456,10 @@ def fiber_records(args, label):
     print(f"{label}: fiber_conv shapes B'={Bp} O={O} P={P} E={E} TA={TA} K={E // TA} D={D} "
           f"C={C}, {n_valid}/{Bp * E} edge slots filled")
     records = [check_kernel(
-        "fiber_conv", fiber_conv, fiber_conv_plain, lambda: fiber_library(basis, w, x, src, fk),
-        args["fiber_conv"], O * n_valid * (2 * D * C + 2 * C) + mixing,
-        "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82",
+        "fiber_conv" + suffix, fiber_conv, fiber_conv_plain,
+        lambda: fiber_library(basis, w, x, src, fk), args["fiber_conv"],
+        O * n_valid * (2 * D * C + 2 * C) + mixing,
+        "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82", tol, peak,
     )]
     if "fiber_conv_bwd" in args:
         basis, w, x, src, fk, g, _ = args["fiber_conv_bwd"]
@@ -442,10 +468,11 @@ def fiber_records(args, label):
             out = fiber_library(leaves[0], leaves[1], leaves[2], src, leaves[3])
         # dbasis, dW and dx: three edge products, as the spatial conv's backward
         records.append(check_kernel(
-            "fiber_conv_bwd", fiber_conv_bwd, fiber_conv_bwd_plain,
-            lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["fiber_conv_bwd"],
-            O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
-            "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108",
+            "fiber_conv_bwd" + suffix, fiber_conv_bwd, fiber_conv_bwd_plain,
+            lambda: torch.autograd.grad(out, leaves, g.to(out.dtype), retain_graph=True),
+            args["fiber_conv_bwd"], O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
+            "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108", tol,
+            peak,
         ))
         del out, leaves
     return records
@@ -525,6 +552,121 @@ def convnext_records(args, label, tol, peak):
                                          12 * M * C * W, src, rep, tol, peak)
         records.append(bwd)
     return records
+
+
+@contextlib.contextmanager
+def basis_input(model, store: dict, key: str):
+    """Keeps in ``store[key]`` the invariants ``[B', O, E, d]`` that a
+    ``fuse_fiber`` backbone hands its basis MLP (its first call)."""
+    handle = model.model.basis_fn.register_forward_pre_hook(
+        lambda module, a: store.setdefault(key, a[0].detach()))
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def basis_library(attr, w1, w2, degree):
+    """The fused basis MLP as a chain of library calls in the compute type:
+    polynomial features, linear, tanh-GELU, linear, tanh-GELU."""
+    from arreau_tpu_torch.models.blocks import polynomial_features
+
+    F = torch.nn.functional
+    h = F.gelu(F.linear(polynomial_features(attr, degree), w1.t()), approximate="tanh")
+    return F.gelu(F.linear(h, w2.t()), approximate="tanh")
+
+
+def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float) -> list:
+    """#5 and #6 through ``BasisMLP(fused=True, use_bias=False)`` at the
+    canonical basis width (d = 6, degree 3, F = 258, H = TRAIN_HIDDEN, D =
+    256), its weights made with numpy from SEED and carried by the JAX-tree
+    loader: one forward and one backward at the training shape and one
+    forward at the serving shape, each launching its kernel once and no
+    plain version (counts set to 0 just before); then each kernel against
+    its plain version on the arguments it got, timed beside the library
+    chain (and autograd through it for #6). Returns the two records."""
+    from arreau_tpu_torch.interop.from_jax import basis_mlp_params_from_jax
+    from arreau_tpu_torch.kernels import fused_basis_mlp as fbm
+    from arreau_tpu_torch.models.blocks import BasisMLP
+
+    d, degree, H, D = 6, 3, TRAIN_HIDDEN, 256
+    F_ = d + d**2 + d**3
+    rng = np.random.default_rng(SEED)
+    tree = {"dense_in": {"kernel": rng.normal(size=(F_, H)) / math.sqrt(F_)},
+            "dense_out": {"kernel": rng.normal(size=(H, D)) / math.sqrt(H)}}
+    module = BasisMLP(d, H, D, degree, use_bias=False, fused=True)
+    basis_mlp_params_from_jax(module, tree)
+    module = module.to(attrs["train"].device)
+    cdt = None if dtype == torch.float32 else dtype
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    plain_calls = {"fused_basis_mlp_plain": 0, "fused_basis_mlp_bwd_plain": 0}
+    plain_fns = {name: getattr(fbm, name) for name in plain_calls}
+
+    def counted(name):
+        def call(*a):
+            plain_calls[name] += 1
+            return plain_fns[name](*a)
+        return call
+
+    captured, counts = {}, {}
+    try:
+        for name in plain_calls:
+            setattr(fbm, name, counted(name))
+        for shape in ("serve", "train"):
+            attr = attrs[shape]
+            g = torch.tensor(np.random.default_rng(SEED + 1).normal(size=(*attr.shape[:3], D)),
+                             dtype=dtype, device=attr.device)
+            reset_launch_counts()
+            with capturing() as args, torch.enable_grad():
+                out = module(attr, cdt)
+                if shape == "train":
+                    out.backward(g)
+            torch.cuda.synchronize()
+            counts[shape] = launch_counts()
+            captured[shape] = args
+            want = {name: 0 for name in counts[shape]}
+            want.update(fused_basis_mlp=1, fused_basis_mlp_bwd=int(shape == "train"))
+            print(f"{label} {shape} {tuple(attr.shape)}: launches {counts[shape]}, plain "
+                  f"versions called {plain_calls}")
+            if counts[shape] != want or any(plain_calls.values()) or out.dtype != dtype:
+                raise RuntimeError(f"BasisMLP(fused=True) launched {counts[shape]} and called "
+                                   f"{plain_calls} ({out.dtype}), not {want} and no plain version")
+            del out
+    finally:
+        for name, fn in plain_fns.items():
+            setattr(fbm, name, fn)
+    module.zero_grad(set_to_none=True)
+
+    records = {}
+    for shape, args in captured.items():
+        attr, w1, w2, _ = args["fused_basis_mlp"]
+        rows = attr.numel() // d
+        print(f"{label} {shape}: fused_basis_mlp rows={rows} d={d} F={F_} H={H} D={D}, "
+              f"{attr.dtype}")
+        records[shape] = check_kernel(
+            "fused_basis_mlp" + suffix, fbm.fused_basis_mlp, fbm.fused_basis_mlp_plain,
+            lambda: basis_library(attr, w1, w2, degree), args["fused_basis_mlp"],
+            2 * rows * (F_ * H + H * D), "arreau_tpu_torch/csrc/fused_basis_mlp.cu",
+            "arreau_tpu/ops/pallas_basis.py:108", tol, peak)
+    fwd = records["train"]
+    fwd["launches"] = counts["train"]["fused_basis_mlp"]
+    fwd["serve"] = {k: records["serve"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "max_abs_err")}
+    fwd["serve"]["launches"] = counts["serve"]["fused_basis_mlp"]
+
+    bargs = captured["train"]["fused_basis_mlp_bwd"]
+    attr, w1, w2, _, g = bargs
+    rows = attr.numel() // d
+    leaves = [t.detach().requires_grad_() for t in (w1, w2)]
+    with torch.enable_grad():
+        out = basis_library(attr, *leaves, degree)
+    bwd = check_kernel(
+        "fused_basis_mlp_bwd" + suffix, fbm.fused_basis_mlp_bwd, fbm.fused_basis_mlp_bwd_plain,
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), bargs,
+        2 * rows * (2 * F_ * H + 3 * H * D), "arreau_tpu_torch/csrc/fused_basis_mlp_bwd.cu",
+        "arreau_tpu/ops/pallas_basis.py:119", tol, peak)
+    bwd["launches"] = counts["train"]["fused_basis_mlp_bwd"]
+    return [fwd, bwd]
 
 
 def write_checkpoint(ckpt: Path, cfg, model, z_table) -> dict:
@@ -941,9 +1083,10 @@ def main() -> int:
         model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
         noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
+        basis_attrs = {}  # the basis MLP's invariants, for the fused basis kernels below
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
-            with capturing() as args:
+            with capturing() as args, basis_input(model, basis_attrs, "serve"):
                 model.predict_scores(*inputs)
             [serve_fiber] = fiber_records(args, f"fiber serving {BATCH}x{ATOMS}")
             fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
@@ -956,8 +1099,10 @@ def main() -> int:
         model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
         noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
-        with capturing() as args:
+        with capturing() as args, basis_input(model, basis_attrs, "train"):
             model.loss(batch, noise)[0].backward()
+        # plain tensors (the serving capture ran in inference mode)
+        basis_attrs = {k: v.clone() for k, v in basis_attrs.items()}
         with torch.no_grad():
             fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}")
         fiber_fwd["serve"] = {k: serve_fiber[k] for k in
@@ -1136,6 +1281,72 @@ def main() -> int:
         print(f"fuse_convnext sampler: {CRYSTALS} crystals in {wall:.2f} s wall, first batch "
               f"included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
         del sampler
+
+    # ---------------- the fused fiber conv path in bfloat16 ----------------
+    fiber_bf16_cfg = dataclasses.replace(bf16_cfg, fuse_fiber=True)
+    fiber_bf16_train_cfg = dataclasses.replace(bf16_train_cfg, fuse_fiber=True)
+
+    with Phase("fiber bf16 kernels"):
+        model = DiffusionModel(fiber_bf16_cfg, device=dev)
+        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+                                   cfg.num_atomic_states, "monoclinic", False, dev)
+        with torch.inference_mode():
+            inputs = first_step_inputs(model, noise)
+            with capturing() as args:
+                model.predict_scores(*inputs)
+            [serve_fiber16] = fiber_records(args, f"fiber bf16 serving {BATCH}x{ATOMS}", "_bf16",
+                                            **bf16)
+            fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
+            print(f"fuse_fiber bf16 forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 "
+                  f"runs), of which {L} x fiber_conv_bf16 = {L * serve_fiber16['ms']:.4f} ms")
+            del args, inputs, model
+
+        batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+        model = DiffusionModel(fiber_bf16_train_cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+                                train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        with torch.no_grad():
+            fiber16_fwd, fiber16_bwd = fiber_records(
+                args, f"fiber bf16 training {TRAIN_BATCH}x{bucket}", "_bf16", **bf16)
+        fiber16_fwd["serve"] = {k: serve_fiber16[k] for k in served}
+        records.update(fiber_conv_bf16=fiber16_fwd, fiber_conv_bwd_bf16=fiber16_bwd)
+        del args
+        model.model.zero_grad(set_to_none=True)
+
+    with Phase("fuse_fiber bf16 path"):
+        training_reference(dataclasses.replace(fiber_bf16_train_cfg, layer_scale=1.0), z_table,
+                           SEED + 2, BF16_LOSS_REL_TOL, BF16_GRAD_REL_TOL)
+        _, counts = step_time(model, batch, noise, "fuse_fiber bf16",
+                              {"fiber_conv": L, "fiber_conv_bwd": L},
+                              L * (fiber16_fwd["ms"] + fiber16_bwd["ms"]))
+        for name in ("fiber_conv", "fiber_conv_bwd"):
+            records[name + "_bf16"]["launches"] = counts[name]
+        del model, batch, noise
+        torch.cuda.empty_cache()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            sampler_model = DiffusionModel(fiber_bf16_cfg, device=dev)
+            sampler_model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+            meta = write_checkpoint(Path(tmp) / "ckpt", fiber_bf16_cfg, sampler_model, z_table)
+            del sampler_model
+            if not (meta["config"]["fuse_fiber"] and meta["config"]["compute_dtype"] == "bfloat16"):
+                raise RuntimeError("the fuse_fiber bf16 checkpoint's meta.json lost a field")
+            counts = sampler_path(Path(tmp) / "ckpt", Path(tmp) / "out", meta, z_table, card,
+                                  {"fiber_conv": L})
+            records["fiber_conv_bf16"]["launches_sampler"] = counts["fiber_conv"]
+
+    # ---------------- #5/#6 through BasisMLP(fused=True) ----------------
+    with Phase("fused basis kernels"):
+        for dtype, tol, peak in ((torch.float32, KERNEL_REL_TOL, FP32_FLOP_PER_S),
+                                 (torch.bfloat16, BF16_KERNEL_REL_TOL, BF16_FLOP_PER_S)):
+            for record in fused_basis_records(basis_attrs, dtype, f"fused basis {dtype}", tol,
+                                              peak):
+                records[record["name"]] = record
+        del basis_attrs
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

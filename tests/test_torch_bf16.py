@@ -313,7 +313,6 @@ def test_jax_fuse_convnext_bf16_params_load_into_port():
 
 
 @pytest.mark.parametrize("config,error", [
-    (dict(fuse_fiber=True, compute_dtype="bfloat16"), NotImplementedError),
     (dict(compute_dtype="float16"), ValueError),
 ])
 def test_unported_compute_settings_raise(config, error):

@@ -1,10 +1,10 @@
 """The port's CUDA kernels, forward and backward, against their plain
 PyTorch versions on the card, at ragged shapes (tiles that do not divide
 the receivers, channels, basis or hidden widths; empty neighbour slots),
-in float32 and (kernels #3, #4, #7, #8, #9, #10) in bfloat16, and the
-kernel branch's parameter gradients against the plain branch's, with and
-without ``fuse_fiber``, and in bfloat16 with and without
-``fuse_convnext``. Needs an NVIDIA GPU and nvcc; on
+in float32 and bfloat16, and the kernel branch's parameter gradients
+against the plain branch's, with and without ``fuse_fiber``, and in
+bfloat16 with and without ``fuse_convnext`` and with ``fuse_fiber``; and
+``BasisMLP(fused=True)`` through kernels #5/#6. Needs an NVIDIA GPU and nvcc; on
 a machine without CUDA every test here skips. This file imports no JAX, so
 it runs on the card's machine:
 
@@ -28,6 +28,12 @@ from arreau_tpu_torch.kernels.fiber_conv import (
     fiber_conv_bwd,
     fiber_conv_bwd_plain,
     fiber_conv_plain,
+)
+from arreau_tpu_torch.kernels.fused_basis_mlp import (
+    fused_basis_mlp,
+    fused_basis_mlp_bwd,
+    fused_basis_mlp_bwd_plain,
+    fused_basis_mlp_plain,
 )
 from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv,
@@ -294,6 +300,91 @@ def test_fiber_conv_bwd_kernel_matches_plain(Bp, O, P, K, TA, D, C):
         _assert_close(a, b, BWD_REL_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,P,K,TA,D,C", FIBER_SHAPES)
+def test_bf16_fiber_conv_kernels_match_plain(Bp, O, P, K, TA, D, C):
+    """#1 and #2 in bfloat16 (basis, W, x and Kf; y, x_sp and g float32),
+    with empty and out-of-range slots; dbasis and dx in bfloat16, dW and dKf
+    in the weights' type."""
+    dev = _device()
+    rng = np.random.default_rng(10)
+    args = _bf16(_fiber_args(rng, dev, Bp, O, P, K, TA, D, C))
+    g = torch.tensor(rng.normal(size=(Bp, P, TA, C)), dtype=torch.float32, device=dev)
+    before = (fiber_conv.launches, fiber_conv_bwd.launches)
+    got_y, got_x_sp = fiber_conv(*args, save_x_sp=True)
+    want_y, want_x_sp = fiber_conv_plain(*args, save_x_sp=True)
+    got = fiber_conv_bwd(*args, g, want_x_sp)
+    torch.cuda.synchronize()
+    assert (fiber_conv.launches, fiber_conv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    # float32 sums of bfloat16 values, nothing rounded in between: float32 tolerance
+    _assert_close(got_y, want_y)
+    _assert_close(got_x_sp, want_x_sp)
+    for a, b in zip(got, fiber_conv_bwd_plain(*args, g, want_x_sp)):
+        assert a.dtype == torch.bfloat16
+        _assert_close(a, b, BF16_REL_TOL)
+
+
+# ragged: E not a multiple of 64, d < 6, degree 1 to 3, H and D not multiples
+# of 64; and the canonical width (d = 6, degree 3, H = 200, D = 256)
+FUSED_BASIS_SHAPES = [(2, 3, 100, 6, 70, 37, 3), (1, 2, 33, 4, 20, 64, 2), (2, 1, 65, 5, 65, 10, 1),
+                      (1, 16, 1024, 6, 200, 256, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bp,O,E,d,H,D,degree", FUSED_BASIS_SHAPES)
+def test_fused_basis_mlp_kernels_match_plain(dtype, Bp, O, E, d, H, D, degree):
+    """#5 and #6 at ragged shapes, in float32 and bfloat16."""
+    dev = _device()
+    rng = np.random.default_rng(11)
+    F = sum(d**i for i in range(1, degree + 1))
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, device=dev).to(dtype)
+
+    args = (t(Bp, O, E, d), t(F, H, scale=0.2), t(H, D, scale=0.2), degree)
+    g = t(Bp, O, E, D)
+    before = (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches)
+    out = fused_basis_mlp(*args)
+    got = fused_basis_mlp_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    f32 = dtype == torch.float32
+    assert out.dtype == dtype
+    _assert_close(out, fused_basis_mlp_plain(*args), REL_TOL if f32 else BF16_REL_TOL)
+    for a, b in zip(got, fused_basis_mlp_bwd_plain(*args, g)):
+        assert a.dtype == torch.float32
+        _assert_close(a, b, BWD_REL_TOL if f32 else BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_fused_basis_module_launches_its_kernels(dtype):
+    """BasisMLP(fused=True, use_bias=False) on the card: one launch of #5 a
+    forward and of #6 a backward, weight gradients of its compute type's
+    precision against the plain chain's, no cotangent for the invariants."""
+    from arreau_tpu_torch.models.blocks import BasisMLP
+
+    dev = _device()
+    torch.manual_seed(0)
+    fused = BasisMLP(6, 40, 24, 3, use_bias=False, fused=True).to(dev)
+    plain = BasisMLP(6, 40, 24, 3, use_bias=False).to(dev)
+    plain.load_state_dict(fused.state_dict())
+    attr = torch.randn((2, 4, 100, 6), device=dev, requires_grad=True)
+    before = (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches)
+    out = fused(attr, dtype)
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert out.dtype == (dtype or torch.float32) and attr.grad.abs().max().item() == 0.0
+    (plain(attr.detach(), dtype).float() ** 2).sum().backward()
+    rel = BWD_REL_TOL if dtype is None else BF16_GRAD_REL_TOL
+    for a, b in zip(fused.parameters(), plain.parameters()):
+        _assert_close(a.grad, b.grad, rel)
+
+
 def _assert_kernel_branch_gradients_match_plain_branch(rel=BWD_REL_TOL, fuse_convnext=False,
                                                        **config):
     import dataclasses
@@ -368,6 +459,16 @@ def test_bf16_kernel_branch_parameter_gradients_match_plain_branch(fuse_convnext
 
 
 @pytest.mark.cuda
+def test_bf16_fuse_fiber_kernel_branch_parameter_gradients_match_plain_branch():
+    """compute_dtype="bfloat16" with fuse_fiber: bf16 #1/#2 against the plain
+    branch, on the card; two launches of each."""
+    before = (fiber_conv.launches, fiber_conv_bwd.launches)
+    _assert_kernel_branch_gradients_match_plain_branch(
+        BF16_GRAD_REL_TOL, fuse_fiber=True, compute_dtype="bfloat16")
+    assert (fiber_conv.launches - before[0], fiber_conv_bwd.launches - before[1]) == (2, 2)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back():
     dev = _device()
     x = torch.zeros((1, 1, 4, 8), device=dev)
@@ -390,6 +491,17 @@ def test_wrappers_raise_instead_of_falling_back():
         spatial_conv(conv[0].half(), *conv[1:])
     with pytest.raises(TypeError, match="like the basis"):
         spatial_conv(conv[0].bfloat16(), *conv[1:])
+    with pytest.raises(TypeError, match="like the basis"):
+        fiber_conv(torch.zeros((1, 1, 4, 2), device=dev).bfloat16(),
+                   torch.zeros((2, 8), device=dev), x, torch.zeros((1, 4), dtype=torch.int32,
+                                                                device=dev),
+                   torch.zeros((1, 2, 8), device=dev))
+    with pytest.raises(TypeError, match="like attr"):
+        fused_basis_mlp(torch.zeros((1, 1, 8, 2), device=dev).bfloat16(),
+                        torch.zeros((6, 3), device=dev), torch.zeros((3, 4), device=dev), 2)
+    with pytest.raises(ValueError, match="at most 8 invariants"):
+        fused_basis_mlp(torch.zeros((1, 1, 8, 9), device=dev), torch.zeros((9, 3), device=dev),
+                        torch.zeros((3, 4), device=dev), 1)
     with pytest.raises(TypeError, match="like attrT"):
         basis_h1(torch.zeros((1, 1, 2, 8), device=dev).bfloat16(),
                  torch.zeros((6, 3), device=dev), torch.zeros((3,), device=dev), 2)

@@ -153,7 +153,7 @@ def test_wrappers_check_their_inputs():
 
 
 def test_build_compiles_and_hashes_both_fiber_sources(tmp_path, monkeypatch):
-    """The one nvcc call takes csrc/fiber_conv.cu and csrc/fiber_conv_bwd.cu,
+    """The build takes csrc/fiber_conv.cu and csrc/fiber_conv_bwd.cu,
     and an edit of either changes the source hash, so a stale library is
     rebuilt."""
     import shutil
