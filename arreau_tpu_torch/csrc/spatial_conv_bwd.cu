@@ -8,39 +8,57 @@
 //   gxw[e,c]    = g[t,c] * x[src[e],c] * win[e]          (0 on an empty slot)
 //   dbasis[e,:] = gxw[e,:] @ W^T                          (contracts C, per edge)
 //   dW          = sum over b', o, e of basis[e,:]^T gxw[e,:] (contracts every edge)
-//   dx[s,c]    += kern[e,c] * win[e] * g[t,c]  for s = src[e] (scatter to senders)
+//   dx[s,c]     = sum over e with src[e] = s of kern[e,c] * win[e] * g[t,c]
 //
 // A sender outside [0, TA) is an empty slot: it is never read and adds
 // nothing. The window cotangent is not computed: the window is a function of
 // positions only, and the training path differentiates parameters (the JAX
 // package's window_grad = position_grads = False).
 //
-// Bound on the H100: three products of 2*B'*O*E*D*C float32 operations each
-// (161 GFLOP at the training shape, B'=32, O=16, E=1024, D=256, C=200)
-// against ~1.1 GB of traffic (basis in, dbasis out), so float32 arithmetic
-// bounds it. The three results reduce over different axes, and Hopper's
-// blocks run in no order, so where the TPU walked the o axis in sequence and
-// carried dW in VMEM the port launches one SIMT tile product per reduction:
+// Bound on the H100: three products of 2*B'*O*E*D*C operations (146 GFLOP
+// over the filled rows at the training shape B'=32, O=16, E=1024, D=256,
+// C=200) against ~0.5 GB (bfloat16) or ~1.1 GB (float32) of traffic: the
+// basis in, dbasis out. bfloat16 runs on the tensor cores (989 TFLOP/s):
+// bytes bound it. float32 runs as 3xTF32 (mma.cuh: three TF32 products
+// each, 495 / 3 = 165 TFLOP/s): operations bound it.
 //
-//   1. dbasis: a block owns 64 edges x 64 basis columns of one (b', o); its
-//      A operand gxw is built on the fly from g, the gathered x and the
-//      window, so gxw never reaches device memory.
-//   2. dx: a block owns one (b', o) and 64 channels, walks every edge tile,
-//      recomputes the per-edge kernel basis @ W in registers (as the forward
-//      does) and scatters kern * win * g into a [TA, 64] slice of dx held in
-//      shared memory with shared-memory atomics: no global atomics, and each
-//      dx element is written once. The atomics add in no fixed order, so dx
-//      may differ by an ulp from one call to the next.
-//   3. dW: split-K over all B'*O*E edge rows; each block sums basis^T gxw
-//      over one slice of rows into its own partial tile, and a second pass
-//      adds the partials in a fixed order (deterministic).
+// Design: each product is an mma.sync tile product (mma.cuh; TileProduct
+// below) over 128 x 128 output tiles, its operands copied into shared
+// memory by 16-byte cp.async, three stages deep in bfloat16 and two in
+// float32, so that the next tile's copies overlap this tile's products; each
+// stage's products are straight-line code (no branch between fragments).
+// Where a row length breaks 16-byte alignment (ragged D or C) the same
+// loaders copy element by element. The three results reduce over different
+// axes, and Hopper's blocks run in no order, so where the TPU walked the o
+// axis in sequence and carried dW in VMEM, the port launches, in order:
 //
-// Element type T (dtype.cuh) of basis, W, x, g, dbasis and dx: float32, or
-// bfloat16 on the compute_dtype="bfloat16" path. There the JAX kernel's
+//   0. gxw: the edge cotangent, made once into a scratch [B'*O*E, Cg] in T
+//      (Cg = C rounded up to 8, so rows stay 16-byte aligned). dbasis and dW
+//      read it as a plain row-major operand: building it inside each
+//      product would cost a gather and a division per element; the scratch
+//      costs ~0.2 GB (bfloat16) / 0.4 GB (float32) of traffic each way.
+//   1. dbasis = gxw @ W^T over all B'*O*E rows.
+//   2. dW: split-K over the rows; each block sums basis^T gxw over one slice
+//      into its own float32 partial tile, and a second pass adds the
+//      partials in a fixed order. No global atomics.
+//   3. dxc: kern = basis @ W per edge row, and in the product's epilogue the
+//      dx term dxc = round_T(kern * win * g[t]), written over gxw (which dW
+//      has read by then).
+//   4. dx: each sender's dx terms summed in ascending e, in float32. The
+//      wrapper lists each b's live edges by sender with a stable sort (src
+//      is shared over o), so a thread walks one sender's run. The TPU kernel
+//      sums the same terms as the one-hot product sel^T dxc
+//      (pallas_conv.py:376-377); on the tensor cores that product is 1/TA
+//      dense, and the run costs one read of dxc. Both are fixed orders: dx,
+//      like every output here, is the same bit for bit on every call.
+//
+// Element type T (dtype.cuh) of basis, W, x, g, gxw, dbasis and dx: float32,
+// or bfloat16 on the compute_dtype="bfloat16" path. There the JAX kernel's
 // rounding points hold (pallas_conv.py:331-390): gxw and kern * win * g are
 // rounded to T before their products (:371, :376), every product and sum is
-// float32, dbasis and dx are rounded once as they are stored, and the dW
-// partials stay float32 (the wrapper rounds the sum to W's type).
+// float32 (bf16 x bf16 is exact in float32), dbasis and dx are rounded once
+// as they are stored, and the dW partials stay float32 (the wrapper rounds
+// the sum to W's type).
 //
 // The fused fiber conv's backward (fiber_conv_bwd.cu, #2) calls the same
 // entry point with fiber_dx = 1: its cotangent g (type G) is float32 in both
@@ -50,260 +68,534 @@
 // product once (:376). In float32 both roundings are the identity, and the
 // flag is not read.
 
+#include <cstdint>
+
 #include "dtype.cuh"
+#include "mma.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using namespace arreau;
 
-// gxw[e, c] of one (b', o): the receiver cotangent times the sender's
-// features and the window, rounded to T; 0 on an empty slot.
-template <class T, class G>
-struct EdgeCotangent {
-    const G* g_bo;       // [TA, C]
-    const T* x_bo;       // [TA, C]
-    const int* src_b;    // [E]
-    const float* win_b;  // [E]
-    int TA, C;
+constexpr int GXW_THREADS = 256;
+constexpr int GXW_EDGES = 32;   // edge rows per block of the gxw pass
+constexpr int DX_THREADS = 128;  // channel pairs per block of the dx pass
+constexpr int DX_SENDERS = 8;    // senders per block of the dx pass
+constexpr int MIN_BLOCKS = 2;    // blocks per SM the tile products are compiled for
 
-    __device__ __forceinline__ float operator()(int e, int c) const {
-        const int s = src_b[e];
-        if (s < 0 || s >= TA) return 0.f;
-        return round_to<T>(to_float(g_bo[(size_t)(e % TA) * C + c]) *
-                           to_float(x_bo[(size_t)s * C + c]) * win_b[e]);
+// cp.async stages of a tile product, and the depth of each: three of 64 in
+// bfloat16 (half the barriers of 32-deep stages), two of 32 in float32: 110
+// and 74 KB at 128 x 128, so two blocks of 256 threads fit an SM
+template <class T>
+constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
+template <class T>
+constexpr int stage_depth() { return sizeof(T) == 2 ? 64 : 32; }
+
+// A k-contiguous shared row holds BK elements and a pad that keeps
+// ldmatrix rows (bf16: 144 bytes) and scalar tf32 reads (float: 36 words)
+// on distinct banks; an m/n-contiguous row holds BM or BN and 8 more.
+template <class T>
+constexpr int k_pad() { return sizeof(T) == 2 ? 8 : 4; }
+
+template <class T>
+struct Operand {
+    const T* p;  // the tile's origin
+    long long ld;
+    bool vec;    // rows 16-byte aligned: cp.async, else element copies
+};
+
+// ROWS x COLS elements from g (row stride ldg) into s (row stride LDS) by
+// THREADS threads; outside row_lim x col_lim zero-filled
+template <class T, int ROWS, int COLS, int LDS, int THREADS>
+__device__ __forceinline__ void load_tile(T* s, const T* g, long long ldg, int row_lim,
+                                          int col_lim, bool vec) {
+    constexpr int CH = 16 / sizeof(T);
+    constexpr int PER_ROW = COLS / CH;
+    static_assert(COLS % CH == 0, "a tile row is whole 16-byte chunks");
+    for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
+        const int r = i / PER_ROW, c = (i % PER_ROW) * CH;
+        T* dst = s + r * LDS + c;
+        if (vec) {
+            const int n = r < row_lim ? min(max(col_lim - c, 0), CH) : 0;
+            cp_async16(dst, n ? g + r * ldg + c : g, n * (int)sizeof(T));
+        } else {
+#pragma unroll
+            for (int j = 0; j < CH; ++j)
+                dst[j] = r < row_lim && c + j < col_lim ? g[r * ldg + c + j] : from_float<T>(0.f);
+        }
+    }
+}
+
+// Stores v0, v1 at out[0], out[1] (out[1] only where n + 1 < n_lim), as one
+// store when pair (the row stride and so the address is even).
+template <class T>
+__device__ __forceinline__ void store2(T* out, float v0, float v1, bool second, bool pair) {
+    if constexpr (sizeof(T) == 2) {
+        if (second && pair) {
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+            return;
+        }
+    } else {
+        if (second && pair) {
+            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+            return;
+        }
+    }
+    out[0] = from_float<T>(v0);
+    if (second) out[1] = from_float<T>(v1);
+}
+
+// (p[0], p[1]) as floats, p[1] only where second (0 otherwise); one load
+// when pair (the address is even)
+template <class T>
+__device__ __forceinline__ float2 load2(const T* p, bool second, bool pair) {
+    if (second && pair) {
+        if constexpr (sizeof(T) == 2)
+            return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+        else
+            return *reinterpret_cast<const float2*>(p);
+    }
+    return make_float2(to_float(p[0]), second ? to_float(p[1]) : 0.f);
+}
+
+// acc += A B for one block's BM x BN tile: WARPS_M x WARPS_N warps, each
+// MT m16 x NT n8 fragments. A warp's m16 rows are contiguous; its n8
+// columns are interleaved with the other WARPS_N warps' (warp w holds n8
+// tiles w, w + WARPS_N, ...). A (m, k) is a.p[m*ld + k] (A_K) or
+// a.p[k*ld + m]; B (k, n) is b.p[n*ld + k] (B_K) or b.p[k*ld + n]. Rows
+// m >= m_lim, columns n >= n_lim and depth k >= K read as zero; a warp whose
+// rows or columns all lie outside skips its products. Ends with every copy
+// landed and a barrier, so the caller may reuse shared memory.
+template <class T, bool A_K, bool B_K, int WARPS_M, int WARPS_N, int MT, int NT>
+struct TileProduct {
+    static constexpr int THREADS = WARPS_M * WARPS_N * 32;
+    static constexpr int BM = WARPS_M * MT * 16, BN = WARPS_N * NT * 8;
+    static constexpr int BK = stage_depth<T>();
+    static constexpr int LDA = A_K ? BK + k_pad<T>() : BM + 8;
+    static constexpr int LDB = B_K ? BK + k_pad<T>() : BN + 8;
+    static constexpr int A_SIZE = (A_K ? BM : BK) * LDA;
+    static constexpr int STAGE = A_SIZE + (B_K ? BN : BK) * LDB;
+    static constexpr int STAGES = stages<T>();
+    static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(T);
+    using F = Mma<T>;
+    using Acc = float[MT][NT][4];
+    static_assert(NT % 2 == 0, "B fragments load in pairs");
+
+    __device__ __forceinline__ static int warp_m0() {
+        return (threadIdx.x / 32 % WARPS_M) * MT * 16;
+    }
+    // column of this warp's n8 tile j
+    __device__ __forceinline__ static int warp_n(int j) {
+        return (j * WARPS_N + threadIdx.x / 32 / WARPS_M) * 8;
+    }
+
+    __device__ __forceinline__ static void load_stage(T* s, const Operand<T>& a,
+                                                      const Operand<T>& b, int k0, int K,
+                                                      int m_lim, int n_lim) {
+        if constexpr (A_K)
+            load_tile<T, BM, BK, LDA, THREADS>(s, a.p + k0, a.ld, m_lim, K - k0, a.vec);
+        else
+            load_tile<T, BK, BM, LDA, THREADS>(s, a.p + k0 * a.ld, a.ld, K - k0, m_lim, a.vec);
+        if constexpr (B_K)
+            load_tile<T, BN, BK, LDB, THREADS>(s + A_SIZE, b.p + k0, b.ld, n_lim, K - k0, b.vec);
+        else
+            load_tile<T, BK, BN, LDB, THREADS>(s + A_SIZE, b.p + k0 * b.ld, b.ld, K - k0, n_lim,
+                                               b.vec);
+    }
+
+    // every fragment of the stage, with no branch inside: the tile is
+    // zero-filled outside K, m_lim and n_lim, so the products there add 0,
+    // and straight-line code lets the compiler issue the next fragments'
+    // loads under this step's products
+    __device__ __forceinline__ static void compute_stage(const T* s, Acc& acc) {
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += F::K) {
+            typename F::B fb[NT];
+#pragma unroll
+            for (int j = 0; j < NT; j += 2)
+                F::template load_b2<B_K>(fb[j], fb[j + 1], s + A_SIZE, LDB, warp_n(j),
+                                         warp_n(j + 1), kk);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                typename F::A fa;
+                F::template load_a<A_K>(fa, s, LDA, warp_m0() + i * 16, kk);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) F::mma(acc[i][j], fa, fb[j]);
+            }
+        }
+    }
+
+    __device__ static void run(const Operand<T>& a, const Operand<T>& b, int K, int m_lim,
+                               int n_lim, T* smem, Acc& acc) {
+        const int nk = (K + BK - 1) / BK;
+        // warp-uniform: this warp's rows or columns all lie outside the output
+        const bool live = warp_m0() < m_lim && warp_n(0) < n_lim;
+#pragma unroll
+        for (int st = 0; st < STAGES - 1; ++st) {
+            if (st < nk) load_stage(smem + st * STAGE, a, b, st * BK, K, m_lim, n_lim);
+            cp_async_commit();
+        }
+        for (int kt = 0; kt < nk; ++kt) {
+            cp_async_wait<STAGES - 2>();
+            __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+            const int pf = kt + STAGES - 1;
+            if (pf < nk) load_stage(smem + (pf % STAGES) * STAGE, a, b, pf * BK, K, m_lim, n_lim);
+            cp_async_commit();
+            if (live) compute_stage(smem + (kt % STAGES) * STAGE, acc);
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+    }
+
+    // row(m) once for each of this thread's rows, then f(row(m), m, n,
+    // acc[m][n], acc[m][n + 1]) for its column pairs (n even)
+    template <class RowFn, class Fn>
+    __device__ __forceinline__ static void for_each_row(const Acc& acc, RowFn row, Fn f) {
+        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+        const int m0 = warp_m0();
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int m = m0 + i * 16 + g + h * 8;
+                const auto r = row(m);
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    f(r, m, warp_n(j) + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            }
+    }
+
+    // f(m, n, acc[m][n], acc[m][n + 1]) for every column pair of this thread
+    // (n even)
+    template <class Fn>
+    __device__ __forceinline__ static void for_each(const Acc& acc, Fn f) {
+        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+        const int m0 = warp_m0();
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    f(m0 + i * 16 + g + h * 8, warp_n(j) + 2 * t, acc[i][j][2 * h],
+                      acc[i][j][2 * h + 1]);
     }
 };
 
-template <class T, class G>
-__device__ __forceinline__ EdgeCotangent<T, G> edge_cotangent(const G* g, const T* x,
-                                                              const int* src, const float* win,
-                                                              int bo, int O, int TA, int E,
-                                                              int C) {
-    const int b = bo / O;
-    return {g + (size_t)bo * TA * C, x + (size_t)bo * TA * C, src + (size_t)b * E,
-            win + (size_t)b * E, TA, C};
+// the products' block tile: 128 x 128 outputs, 8 warps of 64 rows x 4
+// interleaved n8 tiles (larger warp tiles leave too few warps on an SM to
+// hide the fragment loads)
+template <class T, bool A_K, bool B_K>
+using WideTile = TileProduct<T, A_K, B_K, 2, 4, 4, 4>;
+
+template <class T>
+__device__ __forceinline__ T* shared_buffer() {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<T*>(smem_raw);
 }
 
-// 1. dbasis[b',o,e,d] = sum_c gxw[e,c] * W[d,c]
+// 0. gxw[b'o*E + e, c] = round_T(g[t,c] * x[src[e],c] * win[e]), 0 on an empty
+//    slot and in the row's pad c >= C: a warp per edge row, its lanes along c
 template <class T, class G>
-__global__ void __launch_bounds__(THREADS)
-dbasis_kernel(const T* __restrict__ w,        // [D, C]
-              const T* __restrict__ x,        // [B'*O, TA, C]
-              const int* __restrict__ src,    // [B', E]
-              const float* __restrict__ win,  // [B', E]
-              const G* __restrict__ g,        // [B'*O, TA, C]
-              T* __restrict__ dbasis,         // [B'*O, E, D]
-              int O, int TA, int E, int D, int C) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const int e0 = blockIdx.x * BM;
-    const int d0 = blockIdx.y * BN;
-    const int bo = blockIdx.z;
-    const EdgeCotangent<T, G> gxw = edge_cotangent(g, x, src, win, bo, O, TA, E, C);
-
-    float acc[TM][TN] = {};
-    tile_gemm<true, false>(
-        C, [&](int r, int c) { return e0 + r < E ? gxw(e0 + r, c) : 0.f; },
-        [&](int c, int n) { return d0 + n < D ? to_float(w[(size_t)(d0 + n) * C + c]) : 0.f; },
-        As, Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int e = e0 + ty * TM + i;
-        if (e >= E) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int d = d0 + tx * TN + j;
-            if (d < D) dbasis[((size_t)bo * E + e) * D + d] = from_float<T>(acc[i][j]);
-        }
+__global__ void __launch_bounds__(GXW_THREADS)
+gxw_kernel(const G* __restrict__ g,        // [B'*O, TA, C]
+           const T* __restrict__ x,        // [B'*O, TA, C]
+           const int* __restrict__ src,    // [B', E]
+           const float* __restrict__ win,  // [B', E]
+           T* __restrict__ gxw,            // [B'*O*E, Cg]
+           int O, int TA, int E, int C, int Cg) {
+    const int bo = blockIdx.y, b = bo / O, lane = threadIdx.x % 32;
+    const int e_end = min(E, (int)(blockIdx.x + 1) * GXW_EDGES);
+    for (int e = blockIdx.x * GXW_EDGES + threadIdx.x / 32; e < e_end; e += GXW_THREADS / 32) {
+        const int s = src[(size_t)b * E + e];
+        const bool live = s >= 0 && s < TA;
+        const float wv = win[(size_t)b * E + e];
+        const G* g_t = g + ((size_t)bo * TA + e % TA) * C;
+        const T* x_s = x + ((size_t)bo * TA + (live ? s : 0)) * C;
+        T* out = gxw + ((size_t)bo * E + e) * Cg;
+        for (int c = lane; c < Cg; c += 32)
+            out[c] = from_float<T>(live && c < C ? to_float(g_t[c]) * to_float(x_s[c]) * wv : 0.f);
     }
 }
 
-// 2. dx[b',o,s,c] = sum over edges e with src[e] = s of kern[e,c] * win[e] * g[t,c]
-//    (each term rounded to T; with FIBER, kern * win and g rounded apart first)
+// 1. dbasis[row, d] = sum_c gxw[row, c] * W[d, c]
+template <class T>
+__global__ void __launch_bounds__(WideTile<T, true, true>::THREADS, MIN_BLOCKS)
+dbasis_kernel(Operand<T> gxw, Operand<T> w, T* __restrict__ dbasis, long long rows, int D,
+              int C) {
+    using P = WideTile<T, true, true>;
+    const int n_tiles = (D + P::BN - 1) / P::BN;
+    const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
+    const int n0 = blockIdx.x % n_tiles * P::BN;
+    const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = D - n0;
+    typename P::Acc acc = {};
+    P::run({gxw.p + m0 * gxw.ld, gxw.ld, gxw.vec}, {w.p + (long long)n0 * w.ld, w.ld, w.vec}, C,
+           m_lim, n_lim, shared_buffer<T>(), acc);
+    T* out = dbasis + m0 * D + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m < m_lim && n < n_lim)
+            store2(out + (long long)m * D + n, v0, v1, n + 1 < n_lim, D % 2 == 0);
+    });
+}
+
+// 3. dxc[row, c] = the per-edge dx term of edge row (b', o, e), into the gxw
+//    scratch once dW has read it: kern = basis @ W on the tensor cores, then
+//    round_T(kern * win * g[t]) (with FIBER: kern * win and g rounded apart,
+//    then their product), 0 on an empty slot
 template <class T, class G, bool FIBER>
-__global__ void __launch_bounds__(THREADS)
-dx_kernel(const T* __restrict__ basis,      // [B'*O, E, D]
-          const T* __restrict__ w,          // [D, C]
-          const int* __restrict__ src,      // [B', E]
-          const float* __restrict__ win,    // [B', E]
-          const G* __restrict__ g,          // [B'*O, TA, C]
-          T* __restrict__ dx,               // [B'*O, TA, C]
-          int O, int K, int TA, int D, int C) {
-    extern __shared__ float s_dx[];  // [TA][BN]: this block's channel slice of dx
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    __shared__ int s_src[BM];
-    __shared__ float s_win[BM];
-
-    const int c0 = blockIdx.x * BN;
-    const int bo = blockIdx.y;
-    const int b = bo / O;
-    const int E = K * TA;
-    const T* basis_bo = basis + (size_t)bo * E * D;
-    const G* g_bo = g + (size_t)bo * TA * C;
-    const int* src_b = src + (size_t)b * E;
-    const float* win_b = win + (size_t)b * E;
-    const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);
-    const int ty = tid / (BN / TN);
-
-    for (int i = tid; i < TA * BN; i += THREADS) s_dx[i] = 0.f;
-    for (int k = 0; k < K; ++k) {
-        for (int t0 = 0; t0 < TA; t0 += BM) {
-            const int e0 = k * TA + t0;
-            if (tid < BM) {
-                const bool live = t0 + tid < TA;
-                s_src[tid] = live ? src_b[e0 + tid] : -1;
-                s_win[tid] = live ? win_b[e0 + tid] : 0.f;
-            }
-            float kern[TM][TN] = {};
-            // ends with a barrier: s_dx's zeros, s_src and s_win are visible after it
-            tile_gemm<true, true>(
-                D, [&](int r, int d) { return t0 + r < TA ? to_float(basis_bo[(size_t)(e0 + r) * D + d]) : 0.f; },
-                [&](int d, int n) { return c0 + n < C ? to_float(w[(size_t)d * C + c0 + n]) : 0.f; },
-                As, Bs, kern);
+__global__ void __launch_bounds__(WideTile<T, true, false>::THREADS, MIN_BLOCKS)
+dx_terms_kernel(Operand<T> basis,               // [B'*O*E, D]
+                Operand<T> w,                   // [D, C]
+                const int* __restrict__ src,    // [B', E]
+                const float* __restrict__ win,  // [B', E]
+                const G* __restrict__ g,        // [B'*O, TA, C]
+                T* __restrict__ dxc,            // [B'*O*E, Cg]
+                long long rows, int O, int TA, int E, int D, int C, int Cg) {
+    using P = WideTile<T, true, false>;
+    const int n_tiles = (C + P::BN - 1) / P::BN;
+    const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
+    const int n0 = blockIdx.x % n_tiles * P::BN;
+    const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = C - n0;
+    typename P::Acc acc = {};
+    P::run({basis.p + m0 * basis.ld, basis.ld, basis.vec}, {w.p + n0, w.ld, w.vec}, D, m_lim,
+           n_lim, shared_buffer<T>(), acc);
+    struct Row {
+        const G* g_t;  // g[t] at the block's first channel; null on an empty slot
+        float wv;
+        T* out;        // the row of dxc; null past the last row
+    };
+    P::for_each_row(
+        acc,
+        [&](int m) -> Row {
+            if (m >= m_lim) return {nullptr, 0.f, nullptr};
+            const long long row = m0 + m;
+            const long long bo = row / E;
+            const int e = (int)(row - bo * E), b = (int)(bo / O);
+            const int s = src[(size_t)b * E + e];
+            T* out = dxc + row * Cg + n0;
+            if (s < 0 || s >= TA) return {nullptr, 0.f, out};
+            return {g + ((size_t)bo * TA + e % TA) * C + n0, win[(size_t)b * E + e], out};
+        },
+        [&](const Row& r, int m, int n, float v0, float v1) {
+            if (r.out == nullptr || n >= n_lim) return;
+            const bool second = n + 1 < n_lim;
+            float d[2] = {0.f, 0.f};
+            if (r.g_t != nullptr) {
+                const float2 gp = load2(r.g_t + n, second, C % 2 == 0);
+                const float v[2] = {v0, v1}, gv[2] = {gp.x, gp.y};
 #pragma unroll
-            for (int i = 0; i < TM; ++i) {
-                const int r = ty * TM + i;
-                const int s = s_src[r];
-                if (s < 0 || s >= TA) continue;
-                const float wv = s_win[r];
-                const G* g_t = g_bo + (size_t)(t0 + r) * C;
-#pragma unroll
-                for (int j = 0; j < TN; ++j) {
-                    const int n = tx * TN + j;
-                    if (c0 + n >= C) continue;
+                for (int q = 0; q < 2; ++q) {
                     if constexpr (FIBER)
-                        atomicAdd(&s_dx[s * BN + n],
-                                  round_to<T>(round_to<T>(kern[i][j] * wv) *
-                                              round_to<T>(to_float(g_t[c0 + n]))));
+                        d[q] = round_to<T>(round_to<T>(v[q] * r.wv) * round_to<T>(gv[q]));
                     else
-                        atomicAdd(&s_dx[s * BN + n],
-                                  round_to<T>(kern[i][j] * wv * to_float(g_t[c0 + n])));
+                        d[q] = round_to<T>(v[q] * r.wv * gv[q]);
                 }
             }
-            __syncthreads();  // s_src / s_win are restaged for the next tile
+            store2(r.out + n, d[0], d[1], second, true);
+        });
+}
+
+// 4. dx[b',o,s,c] = sum over the edges e with src[e] = s, in ascending e, of
+//    dxc[e,c]: order [B', E] lists each b's live edges by sender, stably (so
+//    ascending e within a sender), and offsets [B', TA + 1] where each
+//    sender's run starts. A thread sums one channel pair of DX_SENDERS
+//    senders in float32, one after another: a fixed order, so dx is the same
+//    bit for bit on every call.
+template <class T>
+__global__ void __launch_bounds__(DX_THREADS)
+dx_kernel(const T* __restrict__ dxc,        // [B'*O*E, Cg]
+          const int* __restrict__ order,    // [B', E]
+          const int* __restrict__ offsets,  // [B', TA + 1]
+          T* __restrict__ dx,               // [B'*O, TA, C]
+          int O, int TA, int E, int C, int Cg) {
+    const int bo = blockIdx.z, b = bo / O;
+    const int c = 2 * (blockIdx.x * DX_THREADS + threadIdx.x);
+    if (c >= C) return;
+    const bool second = c + 1 < C;
+    const int* run = order + (size_t)b * E;
+    const T* rows = dxc + (size_t)bo * E * Cg + c;
+    const int s_end = min(TA, (int)(blockIdx.y + 1) * DX_SENDERS);
+    for (int s = blockIdx.y * DX_SENDERS; s < s_end; ++s) {
+        const int end = offsets[(size_t)b * (TA + 1) + s + 1];
+        float a0 = 0.f, a1 = 0.f;
+        for (int j = offsets[(size_t)b * (TA + 1) + s]; j < end; ++j) {
+            const T* v = rows + (size_t)run[j] * Cg;  // Cg is even: a pair is aligned
+            if constexpr (sizeof(T) == 2) {
+                const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
+                a0 += f.x, a1 += f.y;
+            } else {
+                const float2 f = *reinterpret_cast<const float2*>(v);
+                a0 += f.x, a1 += f.y;
+            }
         }
-    }
-    for (int i = tid; i < TA * BN; i += THREADS) {
-        const int t = i / BN, n = i % BN;
-        if (c0 + n < C) dx[((size_t)bo * TA + t) * C + c0 + n] = from_float<T>(s_dx[i]);
+        store2(dx + ((size_t)bo * TA + s) * C + c, a0, a1, second, C % 2 == 0);
     }
 }
 
-// 3. partial[split, d, c] = sum over this split's edge rows of basis[row, d] * gxw[row, c]
-template <class T, class G>
-__global__ void __launch_bounds__(THREADS)
-dw_partial_kernel(const T* __restrict__ basis,      // [B'*O*E, D]
-                  const T* __restrict__ x,          // [B'*O, TA, C]
-                  const int* __restrict__ src,      // [B', E]
-                  const float* __restrict__ win,    // [B', E]
-                  const G* __restrict__ g,          // [B'*O, TA, C]
-                  float* __restrict__ partial,      // [splits, D, C]
-                  int O, int TA, int E, int D, int C, long long rows, int rows_per_split) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const int d0 = blockIdx.x * BM;
-    const int c0 = blockIdx.y * BN;
-    const long long row0 = (long long)blockIdx.z * rows_per_split;
-    const long long left = rows - row0;
-    const int n_rows = left < rows_per_split ? (int)left : rows_per_split;
-
-    float acc[TM][TN] = {};
-    tile_gemm<false, true>(
-        n_rows,
-        [&](int m, int k) {
-            return d0 + m < D ? to_float(basis[(size_t)(row0 + k) * D + d0 + m]) : 0.f;
-        },
-        [&](int k, int n) {
-            if (c0 + n >= C) return 0.f;
-            const long long row = row0 + k;
-            const int bo = (int)(row / E);
-            return edge_cotangent(g, x, src, win, bo, O, TA, E, C)((int)(row - (long long)bo * E),
-                                                                   c0 + n);
-        },
-        As, Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
-    float* out = partial + (size_t)blockIdx.z * D * C;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int d = d0 + ty * TM + i;
-        if (d >= D) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int c = c0 + tx * TN + j;
-            if (c < C) out[(size_t)d * C + c] = acc[i][j];
-        }
-    }
+// 2. partial[split, d, c] = sum over this split's edge rows of basis[row, d] * gxw[row, c]
+template <class T>
+__global__ void __launch_bounds__(WideTile<T, false, false>::THREADS, MIN_BLOCKS)
+dw_partial_kernel(Operand<T> basis, Operand<T> gxw, float* __restrict__ partial, long long rows,
+                  int rows_per_split, int D, int C) {
+    using P = WideTile<T, false, false>;
+    const int n_tiles = (C + P::BN - 1) / P::BN;
+    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
+    const long long k0 = (long long)blockIdx.y * rows_per_split;
+    const int K = (int)min(rows - k0, (long long)rows_per_split);
+    typename P::Acc acc = {};
+    P::run({basis.p + k0 * basis.ld + m0, basis.ld, basis.vec},
+           {gxw.p + k0 * gxw.ld + n0, gxw.ld, gxw.vec}, K, D - m0, C - n0, shared_buffer<T>(),
+           acc);
+    float* out = partial + (size_t)blockIdx.y * D * C + (size_t)m0 * C + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < D && n0 + n < C)
+            store2(out + (size_t)m * C + n, v0, v1, n0 + n + 1 < C, C % 2 == 0);
+    });
 }
 
-// The three products and the second pass, for element type T, cotangent
-// type G and dx rounding FIBER.
+// d[m, n] = sum_k A[m, k] B[k, n] in float32 through the tile product: the
+// card test of mma.cuh's fragments in every operand layout
+template <class T, bool A_K, bool B_K>
+__global__ void __launch_bounds__(WideTile<T, A_K, B_K>::THREADS, MIN_BLOCKS)
+tile_product_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, int N, int K) {
+    using P = WideTile<T, A_K, B_K>;
+    const int m0 = blockIdx.y * P::BM, n0 = blockIdx.x * P::BN;
+    typename P::Acc acc = {};
+    P::run({a.p + (A_K ? (long long)m0 * a.ld : m0), a.ld, a.vec},
+           {b.p + (B_K ? (long long)n0 * b.ld : n0), b.ld, b.vec}, K, M - m0, N - n0,
+           shared_buffer<T>(), acc);
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < M && n0 + n < N)
+            store2(d + (size_t)(m0 + m) * N + n0 + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
+    });
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}
+
+template <class T>
+Operand<T> operand(const T* p, long long ld) {
+    const bool vec = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld * sizeof(T) % 16 == 0;
+    return {p, ld, vec};
+}
+
+// The passes and the split sum, for element type T, cotangent type G and dx
+// rounding FIBER. Every launch goes on the caller's stream, in this order:
+// dxc overwrites gxw after dW has read it.
 template <class T, class G, bool FIBER>
 int spatial_conv_bwd(const T* basis, const T* w, const T* x, const int* src, const float* win,
-                     const G* g, T* dbasis, float* dw, T* dx, float* partial, int Bp, int O, int K,
-                     int TA, int D, int C, int splits, int rows_per_split, cudaStream_t stream) {
-    const int E = K * TA;
-    cudaError_t err;
-    dbasis_kernel<T, G><<<dim3((E + BM - 1) / BM, (D + BN - 1) / BN, Bp * O), THREADS, 0,
-                          stream>>>(w, x, src, win, g, dbasis, O, TA, E, D, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    const size_t dx_smem = (size_t)TA * BN * sizeof(float);
-    if (dx_smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(dx_kernel<T, G, FIBER>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(dx_smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dx_kernel<T, G, FIBER><<<dim3((C + BN - 1) / BN, Bp * O), THREADS, dx_smem, stream>>>(
-        basis, w, src, win, g, dx, O, K, TA, D, C);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
+                     const int* order, const int* offsets, const G* g, T* dbasis, float* dw, T* dx,
+                     T* gxw, float* partial, int Bp,
+                     int O, int K, int TA, int D, int C, int splits, int rows_per_split,
+                     cudaStream_t stream) {
+    const int E = K * TA, Cg = (C + 7) / 8 * 8;
     const long long rows = (long long)Bp * O * E;
-    dw_partial_kernel<T, G><<<dim3((D + BM - 1) / BM, (C + BN - 1) / BN, splits), THREADS, 0,
-                              stream>>>(basis, x, src, win, g, partial, O, TA, E, D, C, rows,
-                                        rows_per_split);
+    cudaError_t err;
+    gxw_kernel<T, G><<<dim3((E + GXW_EDGES - 1) / GXW_EDGES, Bp * O), GXW_THREADS, 0, stream>>>(
+        g, x, src, win, gxw, O, TA, E, C, Cg);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
+    using DB = WideTile<T, true, true>;
+    const long long m_tiles = (rows + DB::BM - 1) / DB::BM;
+    if ((err = allow_smem(dbasis_kernel<T>, DB::SMEM)) != cudaSuccess) return static_cast<int>(err);
+    dbasis_kernel<T><<<(unsigned)(m_tiles * ((D + DB::BN - 1) / DB::BN)), DB::THREADS, DB::SMEM,
+                       stream>>>(operand(gxw, Cg), operand(w, C), dbasis, rows, D, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+    using DW = WideTile<T, false, false>;
+    if ((err = allow_smem(dw_partial_kernel<T>, DW::SMEM)) != cudaSuccess)
+        return static_cast<int>(err);
+    dw_partial_kernel<T><<<dim3(((D + DW::BM - 1) / DW::BM) * ((C + DW::BN - 1) / DW::BN), splits),
+                           DW::THREADS, DW::SMEM, stream>>>(operand(basis, D), operand(gxw, Cg),
+                                                            partial, rows, rows_per_split, D, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const long long n = (long long)D * C;
     sum_splits_kernel<<<sum_splits_blocks(n), THREADS, 0, stream>>>(partial, dw, splits, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+    using KX = WideTile<T, true, false>;
+    if ((err = allow_smem(dx_terms_kernel<T, G, FIBER>, KX::SMEM)) != cudaSuccess)
+        return static_cast<int>(err);
+    const long long kx_tiles = ((rows + KX::BM - 1) / KX::BM) * ((C + KX::BN - 1) / KX::BN);
+    dx_terms_kernel<T, G, FIBER><<<(unsigned)kx_tiles, KX::THREADS, KX::SMEM, stream>>>(
+        operand(basis, D), operand(w, C), src, win, g, gxw, rows, O, TA, E, D, C, Cg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+    dx_kernel<T><<<dim3((C + 2 * DX_THREADS - 1) / (2 * DX_THREADS),
+                        (TA + DX_SENDERS - 1) / DX_SENDERS, Bp * O),
+                   DX_THREADS, 0, stream>>>(gxw, order, offsets, dx, O, TA, E, C, Cg);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class T, bool A_K, bool B_K>
+int tile_product(const T* a, const T* b, float* d, int M, int N, int K, cudaStream_t stream) {
+    using P = WideTile<T, A_K, B_K>;
+    cudaError_t err = allow_smem(tile_product_kernel<T, A_K, B_K>, P::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_product_kernel<T, A_K, B_K><<<dim3((N + P::BN - 1) / P::BN, (M + P::BM - 1) / P::BM),
+                                       P::THREADS, P::SMEM, stream>>>(
+        operand(a, A_K ? K : M), operand(b, B_K ? K : N), d, M, N, K);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// basis, w, x, dbasis and dx are float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); win, partial and dw are float32. g is of the element type,
-// or float32 with fiber_dx = 1 (the fused fiber conv's backward, whose dx
-// terms then round as its JAX kernel's; see the header).
+// basis, w, x, dbasis, dx and the gxw scratch ([B'*O*K*TA, C rounded up to
+// 8]) are float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); win, partial and
+// dw are float32. order [B', K*TA] and offsets [B', TA + 1] (int32) list
+// each b's live edges by sender, stably, and where each sender's run starts
+// (kernels/spatial_conv.py:sender_order). g is of the element type, or
+// float32 with fiber_dx = 1 (the fused fiber conv's backward, whose dx terms
+// then round as its JAX kernel's; see the header).
 extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
-                                       const int* src, const float* win, const void* g,
-                                       void* dbasis, float* dw, void* dx, float* partial,
-                                       int Bp, int O, int K, int TA, int D, int C, int splits,
-                                       int rows_per_split, int is_bf16, int fiber_dx,
-                                       void* stream_ptr) {
+                                       const int* src, const float* win, const int* order,
+                                       const int* offsets, const void* g, void* dbasis, float* dw,
+                                       void* dx, void* gxw, float* partial, int Bp, int O, int K,
+                                       int TA, int D, int C, int splits, int rows_per_split,
+                                       int is_bf16, int fiber_dx, void* stream_ptr) {
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     if (!is_bf16)
         return spatial_conv_bwd<float, float, false>(
             static_cast<const float*>(basis), static_cast<const float*>(w),
-            static_cast<const float*>(x), src, win, static_cast<const float*>(g),
-            static_cast<float*>(dbasis), dw, static_cast<float*>(dx), partial, Bp, O, K, TA, D, C,
-            splits, rows_per_split, stream);
+            static_cast<const float*>(x), src, win, order, offsets, static_cast<const float*>(g),
+            static_cast<float*>(dbasis), dw, static_cast<float*>(dx), static_cast<float*>(gxw),
+            partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
     if (fiber_dx)
         return spatial_conv_bwd<bf16, float, true>(
             static_cast<const bf16*>(basis), static_cast<const bf16*>(w),
-            static_cast<const bf16*>(x), src, win, static_cast<const float*>(g),
-            static_cast<bf16*>(dbasis), dw, static_cast<bf16*>(dx), partial, Bp, O, K, TA, D, C,
-            splits, rows_per_split, stream);
+            static_cast<const bf16*>(x), src, win, order, offsets, static_cast<const float*>(g),
+            static_cast<bf16*>(dbasis), dw, static_cast<bf16*>(dx), static_cast<bf16*>(gxw),
+            partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
     return spatial_conv_bwd<bf16, bf16, false>(
         static_cast<const bf16*>(basis), static_cast<const bf16*>(w), static_cast<const bf16*>(x),
-        src, win, static_cast<const bf16*>(g), static_cast<bf16*>(dbasis), dw,
-        static_cast<bf16*>(dx), partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
+        src, win, order, offsets, static_cast<const bf16*>(g), static_cast<bf16*>(dbasis), dw,
+        static_cast<bf16*>(dx), static_cast<bf16*>(gxw), partial, Bp, O, K, TA, D, C, splits,
+        rows_per_split, stream);
+}
+
+// d [M, N] float32 = a @ b through mma.cuh: a is [M, K] (a_kmajor) or
+// [K, M], b is [N, K] (b_kmajor) or [K, N], both float32 (3xTF32) or
+// bfloat16 (is_bf16). The card tests hold it against a float64 product.
+extern "C" int arreau_tile_product(const void* a, const void* b, float* d, int M, int N, int K,
+                                   int a_kmajor, int b_kmajor, int is_bf16, void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    if (is_bf16) {
+        const bf16 *ta = static_cast<const bf16*>(a), *tb = static_cast<const bf16*>(b);
+        if (a_kmajor)
+            return b_kmajor ? tile_product<bf16, true, true>(ta, tb, d, M, N, K, stream)
+                            : tile_product<bf16, true, false>(ta, tb, d, M, N, K, stream);
+        return b_kmajor ? tile_product<bf16, false, true>(ta, tb, d, M, N, K, stream)
+                        : tile_product<bf16, false, false>(ta, tb, d, M, N, K, stream);
+    }
+    const float *ta = static_cast<const float*>(a), *tb = static_cast<const float*>(b);
+    if (a_kmajor)
+        return b_kmajor ? tile_product<float, true, true>(ta, tb, d, M, N, K, stream)
+                        : tile_product<float, true, false>(ta, tb, d, M, N, K, stream);
+    return b_kmajor ? tile_product<float, false, true>(ta, tb, d, M, N, K, stream)
+                    : tile_product<float, false, false>(ta, tb, d, M, N, K, stream);
 }

@@ -16,14 +16,15 @@ fiber kernel ``Kf`` pre-scaled by ``1/O``. The layouts are those of
 [B', E]`` int32 (a value outside ``[0, TA)``, -1 by convention, marks an
 empty slot) takes the place of the JAX package's one-hot ``sel``.
 
-On the H100 both directions are bound by float32 arithmetic (the per-edge
-kernel ``basis @ w``; the backward runs three products of the same size).
-The forward keeps the spatial conv and its ``[P, 16, 64]`` output tile in
-registers, so nothing per edge reaches device memory; when gradients are
-wanted it also stores the spatial conv ``x_sp [B', O, TA, C]`` as the
-backward's residual, where the TPU kernel recomputes it. The backward
-launches the fiber cotangent, the fiber-kernel gradient with a fixed-order
-second pass, and the spatial conv's own backward kernels. See the sources.
+On the H100 the forward is bound by float32 arithmetic (the per-edge
+kernel ``basis @ w``); the backward runs three products of the same size
+on the tensor cores. The forward keeps the spatial conv and its ``[P, 16,
+64]`` output tile in registers, so nothing per edge reaches device memory;
+when gradients are wanted it also stores the spatial conv ``x_sp [B', O,
+TA, C]`` as the backward's residual, where the TPU kernel recomputes it.
+The backward launches the fiber cotangent, the fiber-kernel gradient with
+a fixed-order second pass, and the spatial conv's own backward kernels
+(every output the same bit for bit on every call). See the sources.
 
 :func:`fiber_conv` and :func:`fiber_conv_bwd` launch their kernels for CUDA
 tensors and run :func:`fiber_conv_plain` / :func:`fiber_conv_bwd_plain` for
@@ -49,6 +50,8 @@ import torch
 
 from arreau_tpu_torch.kernels.spatial_conv import (
     DTYPES,
+    edge_cotangent_scratch,
+    sender_order,
     spatial_conv_bwd_plain,
     spatial_conv_plain,
 )
@@ -56,7 +59,7 @@ from arreau_tpu_torch.kernels.spatial_conv import (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
-_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 10 + (_P,)
+_BWD_ARGTYPES = (_P,) * 18 + (_I,) * 10 + (_P,)
 _SMEM_BYTES = 227 * 1024 - 1024  # a block's shared memory less the forward's static arrays
 _MAX_P = 16  # output orientations the kernels hold in registers (csrc/*.cu: MAX_P)
 
@@ -176,25 +179,25 @@ def fiber_conv_bwd(basis, w, x, src, fiber_kernel, g, x_sp):
 
     if Bp * O > 65535 or P > _MAX_P:
         raise ValueError(f"fiber_conv_bwd's kernels take B'*O <= 65535 and P <= {_MAX_P}")
-    if TA * 64 * 4 > 227 * 1024:
-        raise ValueError(f"TA = {TA} receivers exceed the dx kernel's shared memory")
     dev = basis.device
     splits, per_split = row_splits(Bp * O * E)
     ones = _unit_window(src)
+    order, offsets = sender_order(src, TA)
     g_o = torch.empty_like(x_sp)
     dfk_partial = torch.empty((Bp, O, P, C), dtype=torch.float32, device=dev)
     dw_partial = torch.empty((splits, D, C), dtype=torch.float32, device=dev)
+    gxw = edge_cotangent_scratch(basis, C)
     dbasis = torch.empty_like(basis)
     dw = torch.empty(w.shape, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dfk = torch.empty(fiber_kernel.shape, dtype=torch.float32, device=dev)
     fn = kernel_function("arreau_fiber_conv_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), fiber_kernel.data_ptr(),
-             g.data_ptr(), x_sp.data_ptr(), ones.data_ptr(), g_o.data_ptr(), dfk_partial.data_ptr(),
-             dw_partial.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), dfk.data_ptr(),
-             Bp, O, P, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16),
-             stream)
+    err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), order.data_ptr(),
+             offsets.data_ptr(), fiber_kernel.data_ptr(), g.data_ptr(), x_sp.data_ptr(),
+             ones.data_ptr(), g_o.data_ptr(), dfk_partial.data_ptr(), dw_partial.data_ptr(),
+             gxw.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), dfk.data_ptr(), Bp, O,
+             P, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16), stream)
     check("arreau_fiber_conv_bwd", err)
     fiber_conv_bwd.launches += 1
     return dbasis, dw.to(w.dtype), dx, dfk.to(fiber_kernel.dtype)

@@ -20,7 +20,9 @@ kernel in registers and reduces over k there (see the source). The
 backward (:func:`spatial_conv_bwd`) returns the cotangents of the basis, of
 ``w`` and of ``x``; the window's is not computed (it is a function of
 positions, which training does not differentiate: the JAX package's
-``window_grad = position_grads = False``), so ``win`` gets none.
+``window_grad = position_grads = False``), so ``win`` gets none. Its three
+products run on the tensor cores (``csrc/mma.cuh``; 3xTF32 in float32), and
+every output, dx included, is the same bit for bit on every call.
 
 basis, w and x are float32, or all bfloat16 on the ``compute_dtype=
 "bfloat16"`` path; the window stays float32. In bfloat16 the functions
@@ -44,7 +46,8 @@ import torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_BWD_ARGTYPES = (_P,) * 10 + (_I,) * 10 + (_P,)
+_BWD_ARGTYPES = (_P,) * 13 + (_I,) * 10 + (_P,)
+_TILE_ARGTYPES = (_P, _P, _P) + (_I,) * 6 + (_P,)
 DTYPES = (torch.float32, torch.bfloat16)  # the element types the kernels take
 
 
@@ -172,25 +175,83 @@ def spatial_conv_bwd(basis, w, x, src, win, g):
     TA, C = x.shape[2], x.shape[3]
     if Bp * O > 65535:
         raise ValueError(f"B'*O = {Bp * O} exceeds the kernels' grid limit")
-    if TA * 64 * 4 > 227 * 1024:
-        raise ValueError(f"TA = {TA} receivers exceed the dx kernel's shared memory")
     splits, per_split = row_splits(Bp * O * E)
+    order, offsets = sender_order(src, TA)
     dbasis = torch.empty_like(basis)
     dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     dx = torch.empty_like(x)
+    gxw = edge_cotangent_scratch(basis, C)
     partial = torch.empty((splits, D, C), dtype=torch.float32, device=basis.device)
     fn = kernel_function("arreau_spatial_conv_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(basis.device).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), win.data_ptr(),
-             g.data_ptr(), dbasis.data_ptr(), dw.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-             Bp, O, E // TA, TA, D, C, splits, per_split, int(basis.dtype == torch.bfloat16), 0,
-             stream)
+             order.data_ptr(), offsets.data_ptr(), g.data_ptr(), dbasis.data_ptr(), dw.data_ptr(),
+             dx.data_ptr(), gxw.data_ptr(), partial.data_ptr(), Bp, O, E // TA, TA, D, C, splits,
+             per_split, int(basis.dtype == torch.bfloat16), 0, stream)
     check("arreau_spatial_conv_bwd", err)
     spatial_conv_bwd.launches += 1
     return dbasis, dw.to(w.dtype), dx
 
 
 spatial_conv_bwd.launches = 0
+
+
+def sender_order(src, TA):
+    """(order ``[B', E]``, offsets ``[B', TA + 1]``), int32: each row's live
+    edges (``0 <= src < TA``) listed by sender, stably, so in ascending e
+    within a sender, then the empty slots; ``offsets[b, s]`` is where sender
+    s's run starts and ``offsets[b, TA]`` where the empty slots start. The
+    backward's dx sums each sender's run in this order."""
+    key = torch.where((src >= 0) & (src < TA), src, TA)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(TA + 1, dtype=key.dtype, device=src.device).expand(src.shape[0], -1)
+    offsets = torch.searchsorted(sorted_key, bounds.contiguous())
+    return order.to(torch.int32).contiguous(), offsets.to(torch.int32).contiguous()
+
+
+def edge_cotangent_scratch(basis, C):
+    """The backward's scratch for the edge cotangent ``gxw`` (and then for
+    the per-edge dx terms): one row per edge row of ``basis [B', O, E, D]``,
+    C rounded up to 8 elements so that every row starts 16-byte aligned; in
+    the basis's type."""
+    rows = basis.numel() // basis.shape[-1]
+    return torch.empty((rows, -(-C // 8) * 8), dtype=basis.dtype, device=basis.device)
+
+
+def tile_product(a, b):
+    """``a [M, K] @ b [K, N]`` in float32 through the backward's tensor-core
+    tile product (``csrc/mma.cuh``: bfloat16 fragments, or 3xTF32 for
+    float32), for the card test of its fragment layouts. ``a`` and ``b``
+    are each contiguous or the transpose of a contiguous tensor (which
+    selects the shared-memory layout), of one type. On the CPU: a float64
+    product rounded to float32."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"tile_product expects [M, K] @ [K, N], got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"tile_product takes two float32 or two bfloat16 tensors, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.device.type == "cpu":
+        return (a.double() @ b.double()).float()
+    if a.device.type != "cuda":
+        raise ValueError(f"tile_product runs on cuda or cpu, not {a.device}")
+    if not (a.is_contiguous() or a.t().is_contiguous()) or not (
+            b.is_contiguous() or b.t().is_contiguous()):
+        raise ValueError("tile_product takes contiguous operands or their transposes")
+    from arreau_tpu_torch.kernels.build import check, kernel_function
+
+    (M, K), N = a.shape, b.shape[1]
+    a_kmajor, b_kmajor = a.is_contiguous(), not b.is_contiguous()
+    d = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    fn = kernel_function("arreau_tile_product", _TILE_ARGTYPES)
+    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), M, N, K, int(a_kmajor), int(b_kmajor),
+             int(a.dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)
+    check("arreau_tile_product", err)
+    tile_product.launches += 1
+    return d
+
+
+tile_product.launches = 0
 
 
 class _SpatialConv(torch.autograd.Function):

@@ -58,6 +58,12 @@ Phases, each printing its elapsed seconds and raising on any failure:
    training step (256 x 16), each against its bfloat16 plain version
    (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
    rate.
+
+#4 and #2 are also called twice on their captured training-shape inputs,
+in both types (phases 6, 11, 14, 19): every output must repeat bit for bit.
+Their float32 bounds are taken at the 3xTF32 rate (TF32X3_FLOP_PER_S), the
+others' at the float32 SIMT or the bf16 tensor-core rate. Every step profile
+lists #4's and #2's inner launches by name and time.
 15. bf16 training reference: one bfloat16 training step, card kernel branch
    against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
    with ``fuse_convnext``.
@@ -120,6 +126,9 @@ import torch
 # work in bfloat16)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# float32 products on the TF32 tensor cores (495 TFLOP/s) as 3xTF32, three
+# TF32 products each: the rate the float32 #4 and #2 are designed for
+TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
 KERNEL_REL_TOL = 1e-4  # max |kernel - plain| / max |plain|: float32, other summation order
@@ -319,14 +328,23 @@ def conv_library(basis, w, x, src, win):
 
 
 def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
-                 tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
+                 tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S, repeat=False):
     """Hold ``kernel`` against ``plain`` on ``args`` (every output within
     ``tol`` of that output's scale; an output the plain version gives as
-    None the kernel must give as None), then time kernel, plain version and
-    library yardstick; returns the kernel's JSON record, its bound taken at
-    the ``peak`` operation rate."""
+    None the kernel must give as None; with ``repeat``, a second call's
+    outputs equal the first's bit for bit), then time kernel, plain version
+    and library yardstick; returns the kernel's JSON record, its bound taken
+    at the ``peak`` operation rate (a time below the bound fails)."""
     out_k, out_p = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
+    if repeat:
+        again = as_tuple(kernel(*args))
+        torch.cuda.synchronize()
+        same = [a is None or torch.equal(a, b) for a, b in zip(out_k, again)]
+        print(f"{name}: a second call's outputs equal the first's bit for bit: {same}")
+        if not all(same):
+            raise RuntimeError(f"{name} gave other bits on a second call")
+        del again
     err = 0.0
     for i, (a, b) in enumerate(zip(out_k, out_p)):
         if b is None:
@@ -346,7 +364,9 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
     ms, plain_ms, lib_ms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args)), cuda_ms(library)
     b_ms, b_by = bound_ms(nbytes(args, out_p), flops, peak)
     print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"bound {b_ms:.4f} ms ({b_by} at {peak / 1e12:.0f} TFLOP/s)")
+    if ms < b_ms:
+        raise RuntimeError(f"{name}: {ms:.4f} ms is below its bound {b_ms:.4f} ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
@@ -385,10 +405,11 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32
 
 
 def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
-                            peak=FP32_FLOP_PER_S):
+                            peak=FP32_FLOP_PER_S, conv_peak=None):
     """Records of the two backward kernels (#4, #7) on captured arguments;
     the library yardstick is autograd's backward through the library chain
-    of the same forward."""
+    of the same forward. #4's bound is taken at ``conv_peak`` (default
+    ``peak``), and #4 must repeat its outputs bit for bit."""
     from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd, basis_mlp_bwd_plain
     from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd, spatial_conv_bwd_plain
     from arreau_tpu_torch.models.blocks import gelu, polynomial_features
@@ -404,7 +425,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 5 * C),
         "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
-        peak,
+        conv_peak or peak, repeat=True,
     )
     del out, leaves
 
@@ -434,12 +455,15 @@ def fiber_library(basis, w, x, src, fiber_kernel):
     return torch.einsum("botc,opc->bptc", conv_library(basis, w, x, src, ones), fiber_kernel)
 
 
-def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
+def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S,
+                  bwd_peak=None):
     """Records of #1 (and of #2 where ``args`` holds its inputs: a training
     step, whose forward also stores the spatial conv for the backward) on
     captured arguments, named with ``suffix`` (``_bf16`` for the bfloat16
     instantiations); the backward's library yardstick is autograd's
-    backward through :func:`fiber_library`."""
+    backward through :func:`fiber_library`, its bound is taken at
+    ``bwd_peak`` (default ``peak``), and it must repeat its outputs bit for
+    bit."""
     from arreau_tpu_torch.kernels.fiber_conv import (
         fiber_conv,
         fiber_conv_bwd,
@@ -472,7 +496,7 @@ def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER
             lambda: torch.autograd.grad(out, leaves, g.to(out.dtype), retain_graph=True),
             args["fiber_conv_bwd"], O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
             "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108", tol,
-            peak,
+            bwd_peak or peak, repeat=True,
         ))
         del out, leaves
     return records
@@ -789,18 +813,34 @@ def fused_convnext_backbone(model):
     return PonitaFiberBundle(cfg).to(model.device).eval()
 
 
+# the launches inside #4 (spatial_conv_bwd.cu) and #2 (fiber_conv_bwd.cu),
+# by the kernel function names a profile shows; the split sum is shared with
+# every other split-K weight gradient (#7, #10, #6 and #2's dKf)
+BWD_INNER_KERNELS = {"::gxw_kernel<": "#4 gxw (edge cotangent)",
+                     "::dbasis_kernel<": "#4 dbasis",
+                     "::dw_partial_kernel<": "#4 dW split-K partials",
+                     "sum_splits_kernel": "split sum (#4 dW and every split-K pass)",
+                     "::dx_terms_kernel<": "#4 dxc (per-edge kernel and dx terms)",
+                     "::dx_kernel<": "#4 dx (each sender's run)",
+                     "::fiber_cotangent_kernel<": "#2 g_o",
+                     "::fiber_kernel_grad_partial": "#2 dKf partials"}
+
+
 def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
     """Where a training step's time goes: a torch.profiler trace of
-    ``steps`` steps, the device's busy share and its largest kernels."""
+    ``steps`` steps, the device's busy share, its largest kernels and each
+    of #4's and #2's inner launches."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             one_step()
         torch.cuda.synchronize()
     by_name: dict = {}
+    calls: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            calls[e.name] = calls.get(e.name, 0) + 1
     device_ms = sum(by_name.values()) / steps
     if device_ms > 0:
         print(f"device busy {device_ms:.4f} ms per step of {step_ms:.4f} ms "
@@ -808,6 +848,11 @@ def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
               f"{len(by_name)} distinct device activities; the largest, ms per step:")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print(f"  {ms / steps:9.4f}  {name[:110]}")
+        for key, label in BWD_INNER_KERNELS.items():
+            for name, ms in by_name.items():
+                if key in name:
+                    print(f"  inner launch {label}: {ms / steps:.4f} ms per step in "
+                          f"{calls[name] / steps:g} launches ({name[:80]})")
     else:
         print("device busy share: not measured (the profiler recorded no device activity)")
 
@@ -1031,7 +1076,8 @@ def main() -> int:
             model.loss(batch, noise)[0].backward()
         with torch.no_grad():
             conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}")
-            conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid)
+            conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid,
+                                                        conv_peak=TF32X3_FLOP_PER_S)
         records = {"spatial_conv": conv, "basis_h1": h1, "spatial_conv_bwd": conv_bwd,
                    "basis_mlp_bwd": mlp_bwd}
         del args
@@ -1104,7 +1150,8 @@ def main() -> int:
         # plain tensors (the serving capture ran in inference mode)
         basis_attrs = {k: v.clone() for k, v in basis_attrs.items()}
         with torch.no_grad():
-            fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}")
+            fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}",
+                                                 bwd_peak=TF32X3_FLOP_PER_S)
         fiber_fwd["serve"] = {k: serve_fiber[k] for k in
                               ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         records.update(fiber_conv=fiber_fwd, fiber_conv_bwd=fiber_bwd)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Bit-for-bit comparison of the float32 CUDA kernels of this checkout with
-those of another checkout of the port (an earlier commit), on one NVIDIA GPU.
+"""Comparison of the CUDA kernels of this checkout with those of another
+checkout of the port (an earlier commit), on one NVIDIA GPU.
 
 Run from the repository root, with the other checkout unpacked into a
 directory (for example ``git archive <commit> | tar -x -C other``):
@@ -12,13 +12,21 @@ Captures, with this checkout's model, the float32 inputs of #3
 of #3, #8, #4 ``spatial_conv_bwd`` and #7 ``basis_mlp_bwd`` in one training
 step (256 crystals x 16 atoms, hidden 200), and of #1 ``fiber_conv`` and #2
 ``fiber_conv_bwd`` in one ``fuse_fiber`` training step, as ``chip_smoke.py``
-does. Then it calls each kernel wrapper of this checkout twice and the
-other checkout's once on the same tensors (each checkout builds its own
-kernel library into its own ``build/``). Every output that is the same on
-both calls of this checkout must equal the other's bit for bit
-(``torch.equal``); an output that varies from call to call (a sum in no
-fixed order) is reported with both differences. Exits non-zero if an output
-that must be equal differs.
+does, and the same two training steps in bfloat16. Then it calls each
+kernel wrapper of this checkout twice and the other checkout's once on the
+same tensors (each checkout builds its own kernel library into its own
+``build/``). The rules:
+
+- every output of this checkout is the same on both calls (``torch.equal``):
+  no kernel sums in an order that changes from call to call;
+- #4 and #2 (``REDESIGNED``: tensor-core products in this build, SIMT in
+  the builds before it) are held within ``chip_smoke.KERNEL_REL_TOL`` of
+  the output's scale in float32 (``BF16_KERNEL_REL_TOL`` in
+  bfloat16), and both builds' wrappers are timed with CUDA events in this
+  process, this build's before and after the other's twice;
+- every other output equals the other build's bit for bit.
+
+Exits non-zero if a rule fails.
 """
 
 from __future__ import annotations
@@ -39,11 +47,13 @@ PACKAGE = "arreau_tpu_torch"
 MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
            "basis_h1": "basis_h1", "basis_mlp_bwd": "basis_mlp",
            "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv"}
+# kernels whose arithmetic differs from the builds before this one's
+REDESIGNED = ("spatial_conv_bwd", "fiber_conv_bwd")
 
 
 def captured_inputs(dev) -> dict:
     """{(path, kernel name): wrapper arguments} of the first call of each
-    float32 kernel on the three paths."""
+    kernel on the five paths."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import pack_dense_batch
     from arreau_tpu_torch.tasks.diffusion import (
@@ -68,8 +78,11 @@ def captured_inputs(dev) -> dict:
 
     batch = batch_to_device(pack_dense_batch(*smoke.training_chunk()), dev)
     train_cfg = dataclasses.replace(cfg, hidden_dim=smoke.TRAIN_HIDDEN, diffuse_angles=True)
+    bf16_cfg = dataclasses.replace(train_cfg, compute_dtype="bfloat16")
     for path, c in (("training", train_cfg),
-                    ("fuse_fiber training", dataclasses.replace(train_cfg, fuse_fiber=True))):
+                    ("fuse_fiber training", dataclasses.replace(train_cfg, fuse_fiber=True)),
+                    ("bf16 training", bf16_cfg),
+                    ("fuse_fiber bf16 training", dataclasses.replace(bf16_cfg, fuse_fiber=True))):
         model = DiffusionModel(c, device=dev)
         model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
         noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
@@ -82,15 +95,26 @@ def captured_inputs(dev) -> dict:
     return captured
 
 
+def wrapper(name: str):
+    """Kernel wrapper ``name`` of the package in ``sys.modules``."""
+    return getattr(importlib.import_module(f"{PACKAGE}.kernels.{MODULES[name]}"), name)
+
+
 def run_kernels(captured: dict) -> dict:
     """{key: output tuple} of the wrappers of the package in ``sys.modules``."""
     outputs = {}
     with torch.no_grad():
         for (path, name), args in captured.items():
-            module = importlib.import_module(f"{PACKAGE}.kernels.{MODULES[name]}")
-            outputs[path, name] = smoke.as_tuple(getattr(module, name)(*args))
+            outputs[path, name] = smoke.as_tuple(wrapper(name)(*args))
     torch.cuda.synchronize()
     return outputs
+
+
+def time_redesigned(captured: dict) -> dict:
+    """{key: ms per call} of the package's wrappers of the REDESIGNED kernels."""
+    with torch.no_grad():
+        return {(path, name): smoke.cuda_ms(lambda: wrapper(name)(*args))
+                for (path, name), args in captured.items() if name in REDESIGNED}
 
 
 @contextlib.contextmanager
@@ -146,25 +170,37 @@ def main(argv: list[str]) -> int:
     print(f"captured {len(captured)} kernel calls: {sorted(captured)}")
     ours = run_kernels(captured)
     again = differences(ours, run_kernels(captured))
+    ours_ms = time_redesigned(captured)
     with package_from(other):
         other_build = importlib.import_module(f"{PACKAGE}.kernels.build")
         print(f"{other}'s nvcc build: {other_build.build_library():.2f} s")
         theirs = differences(ours, run_kernels(captured))
-    same = True
+        theirs_ms = [time_redesigned(captured) for _ in range(2)]
+    ours_ms = [ours_ms, time_redesigned(captured)]
+    ok = True
     for (key, i), diff in theirs.items():
         a = ours[key][i]
         line = (f"{key[0]} {key[1]} output {i} {tuple(a.shape)} {a.dtype}: "
                 f"{'equal' if diff is None else f'differs by up to {diff:.3e}'} in {other.name}")
         if again[key, i] is not None:
-            # an output that varies between two calls of one build (sums in no
-            # fixed order) has no bits to hold the other build to
-            line += f"; varies run to run in this build, by up to {again[key, i]:.3e}"
+            line += f"; VARIES from call to call in this build, by up to {again[key, i]:.3e}"
+            ok = False
+        if key[1] in REDESIGNED:
+            tol = smoke.KERNEL_REL_TOL if a.dtype == torch.float32 else smoke.BF16_KERNEL_REL_TOL
+            rel = (diff or 0.0) / max(a.float().abs().max().item(), 1e-30)
+            line += f" (rel {rel:.3e}, tolerance {tol:g})"
+            ok &= rel <= tol
         else:
-            same &= diff is None
+            ok &= diff is None
         print(line)
-    print("every output that is the same on every call is equal bit for bit" if same
-          else "some outputs differ")
-    return 0 if same else 1
+    for key in ours_ms[0]:
+        mine = sum(t[key] for t in ours_ms) / 2
+        old = sum(t[key] for t in theirs_ms) / 2
+        print(f"{key[0]} {key[1]}: this build {ours_ms[0][key]:.4f} / {ours_ms[1][key]:.4f} ms, "
+              f"{other.name} {theirs_ms[0][key]:.4f} / {theirs_ms[1][key]:.4f} ms (CUDA events, "
+              f"{smoke.TIMED_RUNS} calls each): {old / mine:.2f}x")
+    print("every rule holds" if ok else "a rule failed")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -40,14 +40,20 @@ from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv_bwd,
     spatial_conv_bwd_plain,
     spatial_conv_plain,
+    tile_product,
 )
 
 # float32 sums in another order than the plain version's matmul
 REL_TOL = 1e-5
 # the backward kernels' weight gradients add every edge row (up to ~1e5
-# terms) in split partials, and dx adds with shared-memory atomics, in
-# another order than the plain version's matmuls and scatter
+# terms) in split partials, and dx adds each sender's terms in ascending e,
+# in another order than the plain version's matmuls and scatter (#4 and #2
+# in 3xTF32)
 BWD_REL_TOL = 1e-4
+# the tensor-core tile product against a float64 product: bfloat16 products
+# are exact in float32 and 3xTF32 keeps ~2^-22 of each product, so only
+# float32 summation error remains
+TILE_REL_TOL = 1e-5
 # bfloat16: kernel and plain version sum in float32 in other orders and
 # round at the same points, so a value next to a rounding boundary may round
 # the other way (one bf16 ulp, 2^-8) and carry: 1e-2 of each output's scale
@@ -125,11 +131,61 @@ def test_basis_h1_kernel_matches_plain(Bp, O, d, E, H, degree):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 120, 256, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_kmajor", [True, False])
+@pytest.mark.parametrize("b_kmajor", [True, False])
+@pytest.mark.parametrize("M,N,K", [(16, 8, 16), (200, 150, 77), (256, 256, 256)])
+def test_tile_product_fragments_match_float64(dtype, a_kmajor, b_kmajor, M, N, K):
+    """csrc/mma.cuh's fragments in all four operand layouts (k-contiguous or
+    not, ldmatrix or ldmatrix.trans in bfloat16), one MMA tile, ragged
+    tiles with element copies (K = 77), and whole tiles by cp.async: within
+    1e-5 of a float64 product's scale (bfloat16 in, 3xTF32 for float32)."""
+    dev = _device()
+    rng = np.random.default_rng(12)
+    a = torch.tensor(rng.normal(size=(M, K)), device=dev).to(dtype)
+    b = torch.tensor(rng.normal(size=(K, N)), device=dev).to(dtype)
+    # the layout the kernel reads: a [M, K] or the transpose of a [K, M]
+    a_in = a.contiguous() if a_kmajor else a.t().contiguous().t()
+    b_in = b.t().contiguous().t() if b_kmajor else b.contiguous()
+    before = tile_product.launches
+    got = tile_product(a_in, b_in)
+    torch.cuda.synchronize()
+    assert tile_product.launches == before + 1
+    want = a.double() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_repeat_bit_for_bit(dtype):
+    """#4 and #2 called twice on the same inputs give every output equal,
+    dx included (each sender's terms summed in a fixed order, no atomics)."""
+    dev = _device()
+    rng = np.random.default_rng(13)
+    Bp, O, P, K, TA, D, C = 2, 16, 16, 8, 120, 256, 200
+    *args, win = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    args = (*(_bf16(args) if dtype == torch.bfloat16 else args), win)
+    g = torch.tensor(rng.normal(size=(Bp, O, TA, C)), device=dev).to(dtype)
+    first, second = spatial_conv_bwd(*args, g), spatial_conv_bwd(*args, g)
+    fargs = _fiber_args(rng, dev, Bp, O, P, K, TA, D, C)
+    fargs = _bf16(fargs) if dtype == torch.bfloat16 else fargs
+    fg = torch.tensor(rng.normal(size=(Bp, P, TA, C)), dtype=torch.float32, device=dev)
+    x_sp = fiber_conv_plain(*fargs, save_x_sp=True)[1]
+    first += fiber_conv_bwd(*fargs, fg, x_sp)
+    second += fiber_conv_bwd(*fargs, fg, x_sp)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 120, 256, 200),
+                                            (2, 16, 8, 12, 256, 200), (1, 2, 1, 17, 24, 8)])
 def test_spatial_conv_bwd_kernel_matches_plain(Bp, O, K, TA, D, C):
-    """Ragged tiles (TA = 120 as at the 24-atom bucket, D and C not
-    multiples of 64), empty slots, and every receiver's senders colliding in
-    the dx scatter."""
+    """Ragged tiles (TA = 120 as at the 24-atom bucket, TA = 12 as at the
+    12-atom one, D and C not multiples of 64, K = 1, C = 8), empty slots, and
+    every receiver's senders colliding in dx."""
     dev = _device()
     rng = np.random.default_rng(2)
     args = _conv_args(rng, dev, Bp, O, K, TA, D, C)
@@ -165,7 +221,8 @@ def test_basis_mlp_bwd_kernel_matches_plain(Bp, O, d, E, H, D, n_g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 120, 256, 200)])
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 120, 256, 200),
+                                            (2, 16, 8, 12, 256, 200), (1, 2, 1, 17, 24, 8)])
 def test_bf16_spatial_conv_kernels_match_plain(Bp, O, K, TA, D, C):
     """#3 and #4 in bfloat16 (basis, W, x, g and the outputs; the window
     float32) at ragged shapes with empty and out-of-range slots."""

@@ -1,0 +1,146 @@
+"""The float32 backward of the spatial conv (#4, ``csrc/spatial_conv_bwd.cu``)
+runs its products on the tensor cores as 3xTF32: each operand splits into
+``big = cvt.rna.tf32(v)`` and ``small = cvt.rna.tf32(v - big)``, and every
+product sums ``small*big + big*small + big*big`` in float32. The card cannot
+be asked here, so this file emulates that arithmetic in numpy, on the
+kernel's own algorithm (the edge cotangent ``gxw``, dbasis = gxw W^T, dW =
+basis^T gxw, the per-edge kernel basis W and its dx terms ``dxc``, and dx as
+each sender's terms summed in ascending e, in the order the wrapper builds
+with :func:`sender_order`), and holds each output within 1e-5 of the float64
+plain version's scale: ten times inside the 1e-4 that the card's checks
+allow the kernel (``chip_smoke.KERNEL_REL_TOL``). It also holds that order:
+stable, and every live edge in it once.
+
+It also prints, without asserting, what 1-pass TF32 (``cvt.rna`` of each
+operand, one product) gives on the same inputs: the open question of
+whether the float32 path could take the JAX kernel's own 1-pass precision.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from arreau_tpu_torch.kernels.spatial_conv import sender_order, spatial_conv_bwd_plain
+
+SPLIT_REL_TOL = 1e-5
+
+
+def tf32_rna(a):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits cleared)."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(a):
+    big = tf32_rna(a)
+    return big, tf32_rna(a - big)
+
+
+def mm_3xtf32(a, b, depth=8):
+    """a @ b as the tensor cores compute it in 3xTF32: per 8-deep step,
+    acc += a_small b_big, then a_big b_small, then a_big b_big, each a
+    float32 sum of exact products."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], depth):
+        s = slice(k, k + depth)
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            acc += x[:, s] @ y[s]
+    return acc
+
+
+def mm_1xtf32(a, b):
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def emulated_bwd(basis, w, x, src, win, g, mm):
+    """(dbasis, dw, dx) by the kernel's algorithm in float32 numpy, its
+    products by ``mm``; dx as each sender's run of dx terms, summed in the
+    wrapper's order in float32."""
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    live = (src >= 0) & (src < TA)
+    idx = np.where(live, src, 0)
+    xj = np.take_along_axis(x, idx[:, None, :, None], axis=2)  # [B', O, E, C]
+    g_e = g[:, :, np.arange(E) % TA]  # row e = k*TA + t holds g[t]
+    win_e = win[:, None, :, None]
+    gxw = np.where(live[:, None, :, None], g_e * xj * win_e, np.float32(0)).astype(np.float32)
+    dbasis = mm(gxw.reshape(-1, C), np.ascontiguousarray(w.T)).reshape(Bp, O, E, D)
+    dw = mm(np.ascontiguousarray(basis.reshape(-1, D).T), gxw.reshape(-1, C))
+    kern = mm(basis.reshape(-1, D), w).reshape(Bp, O, E, C)
+    dxc = np.where(live[:, None, :, None], kern * win_e * g_e, np.float32(0)).astype(np.float32)
+    order, offsets = (t.numpy() for t in sender_order(torch.tensor(src), TA))
+    dx = np.zeros_like(x)
+    for b in range(Bp):
+        for s in range(TA):
+            for e in order[b, offsets[b, s]:offsets[b, s + 1]]:
+                dx[b, :, s] += dxc[b, :, e]  # float32, one term at a time
+    return dbasis, dw, dx
+
+
+@pytest.fixture(scope="module")
+def case():
+    """Seeded inputs at a small size (K*TA = 64 edges, D = 24, C = 20) with
+    empty and out-of-range slots; the float64 plain version's outputs; the
+    3xTF32 and 1-pass TF32 emulations."""
+    rng = np.random.default_rng(0)
+    Bp, O, K, TA, D, C = 2, 3, 4, 16, 24, 20
+    E = K * TA
+    src = rng.integers(0, TA, size=(Bp, E))
+    src[rng.random((Bp, E)) < 0.3] = -1
+    src[rng.random((Bp, E)) < 0.05] = TA + 2
+    f32 = np.float32
+    args = (rng.normal(size=(Bp, O, E, D)).astype(f32), (rng.normal(size=(D, C)) * 0.1).astype(f32),
+            rng.normal(size=(Bp, O, TA, C)).astype(f32), src.astype(np.int32),
+            rng.random((Bp, E)).astype(f32), rng.normal(size=(Bp, O, TA, C)).astype(f32))
+    t = [torch.tensor(a, dtype=torch.float64 if a.dtype == f32 else torch.int32) for a in args]
+    t[4] = t[4].double()
+    want = [v.numpy() for v in spatial_conv_bwd_plain(*t)]
+    split3 = emulated_bwd(*args, mm_3xtf32)
+    one_pass = emulated_bwd(*args, mm_1xtf32)
+    return want, split3, one_pass
+
+
+def test_tf32_rna_rounds_ten_bits_ties_away():
+    ulp = 2.0**-10
+    v = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4, 1 + 3 * ulp / 4, 3.0, 0.0],
+                 dtype=np.float32)
+    np.testing.assert_array_equal(tf32_rna(v), np.array([1 + ulp, -(1 + ulp), 1, 1 + ulp, 3, 0],
+                                                        dtype=np.float32))
+    big, small = split(np.float32(1 + 2.0**-15 + 2.0**-20))
+    assert big == np.float32(1) and small == np.float32(2.0**-15 + 2.0**-20)
+
+
+@pytest.mark.parametrize("i,name", [(0, "dbasis"), (1, "dw"), (2, "dx")])
+def test_3xtf32_products_keep_float32_precision(case, i, name):
+    want, split3, one_pass = case
+    scale = np.abs(want[i]).max()
+    rel3 = np.abs(split3[i] - want[i]).max() / scale
+    rel1 = np.abs(one_pass[i] - want[i]).max() / scale
+    print(f"{name}: 3xTF32 {rel3:.3e}, 1-pass TF32 {rel1:.3e} of the float64 scale")
+    assert rel3 <= SPLIT_REL_TOL, rel3
+
+
+@pytest.mark.parametrize("seed,TA,E", [(0, 16, 64), (1, 12, 96), (2, 17, 17), (3, 128, 1024)])
+def test_sender_order_is_stable_and_lists_every_live_edge_once(seed, TA, E):
+    """The order dx sums in: for each row, the live edges (0 <= src < TA)
+    grouped by sender in ascending e, each once, offsets marking every run
+    and the start of the empty slots; with -1 and out-of-range slots."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, TA, size=(3, E))
+    src[rng.random((3, E)) < 0.2] = -1
+    src[rng.random((3, E)) < 0.05] = TA + 1
+    order, offsets = sender_order(torch.tensor(src, dtype=torch.int32), TA)
+    assert order.dtype == offsets.dtype == torch.int32
+    assert tuple(order.shape) == (3, E) and tuple(offsets.shape) == (3, TA + 1)
+    for b in range(3):
+        row, off = order[b].numpy(), offsets[b].numpy()
+        assert off[0] == 0 and np.all(np.diff(off) >= 0)
+        assert sorted(row.tolist()) == list(range(E))  # a permutation: each edge once
+        for s in range(TA):
+            run = row[off[s]:off[s + 1]]
+            np.testing.assert_array_equal(run, np.flatnonzero(src[b] == s))  # ascending e
+        live = (src[b] >= 0) & (src[b] < TA)
+        assert off[TA] == live.sum()
+        assert not live[row[off[TA]:]].any()  # the empty slots come last
