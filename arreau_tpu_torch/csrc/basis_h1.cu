@@ -10,72 +10,79 @@
 // (arreau_tpu/models/blocks.py:70): F = d + d^2 + d^3 = 258 for d = 6.
 // GELU and the second Dense stay outside, as in the JAX package.
 //
-// Bound on the H100: 2*B'*O*E*F*H float32 operations (13.5 GFLOP at the
-// sampler's shape) against a 105 MB output write, so float32 arithmetic
-// bounds it. Design: the [E, F] feature tensor never reaches device memory.
-// A block owns 64 edges x 64 hidden units of one (b', o); it stages the
-// block's d x 64 invariants in shared memory once, then builds each 16-deep
-// slice of the 258 features in shared memory right before the tile product
-// consumes it, and adds the bias on the way out.
+// Bound on the H100: 2*B'*O*E*F*H operations (54 GFLOP at the training
+// shape, 524288 rows) against ~0.2 GB of output write (bfloat16; 0.4 GB in
+// float32). On the bfloat16 tensor cores (989 TFLOP/s) the write bounds it;
+// in float32 the product runs as 3xTF32 (mma.cuh, 495 / 3 = 165 TFLOP/s) and
+// the operations bound it. Design (basis_h1.cuh): one mma.sync tile product
+// over all B'*O*E rows, the features built in shared memory a K-stage at a
+// time from the block's staged invariants (with the model's d = 6, from
+// registers, the factors fixed at compile time) while the tensor cores work
+// on the stage before, W1 by cp.async, the bias added in the epilogue; the
+// [rows, F] features never reach device memory. Building them costs about
+// as much shared-memory traffic as the products' fragment loads, which is
+// what keeps the bfloat16 kernel near the library's addmm on materialised
+// features rather than near its bound.
 //
 // Element type T (dtype.cuh) of attrT, W1, b1 and h1_pre: float32, or
 // bfloat16 on the compute_dtype="bfloat16" path, with the JAX kernel's
 // rounding points (pallas_basis.py:86-105, :397-408): each feature is formed
-// in float32 from the T invariants and rounded to T before the product with
-// W1; poly @ W1 + b1 is summed in float32 and rounded once to T.
+// in float32 from the T invariants and rounded to T (an exact bf16 mma
+// operand) before the product with W1; poly @ W1 + b1 is summed in float32
+// and rounded once to T.
+//
+// arreau_tile_product_built runs run_built (tile_product.cuh) on two
+// matrices, A copied into the stage by the block itself: the card test of
+// the built operand's layouts.
 
-#include "dtype.cuh"
-#include "poly_features.cuh"
-#include "tile_gemm.cuh"
+#include "basis_h1.cuh"
 
 namespace {
 
-using namespace arreau;
+// d[m, n] = sum_k A[m, k] B[k, n] in float32 with A built by the block:
+// fetch stages A's K-slice by cp.async into a slot, build copies the slot
+// into the A tile element by element
+template <class T, bool A_K, bool B_K>
+__global__ void __launch_bounds__(WideTile<T, A_K, B_K>::THREADS)
+tile_product_built_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, int N,
+                          int K) {
+    using P = WideTile<T, A_K, B_K>;
+    const int m0 = blockIdx.y * P::BM, n0 = blockIdx.x * P::BN;
+    const int m_lim = M - m0, n_lim = N - n0;
+    T* slots = shared_buffer<T>() + P::BUILT_SMEM / sizeof(T);
+    const T* ap = a.p + (A_K ? (long long)m0 * a.ld : m0);
+    auto fetch = [&](int slot, int k0) {
+        T* s = slots + slot * P::A_SIZE;
+        if constexpr (A_K)
+            load_tile<T, P::BM, P::BK, P::LDA, P::THREADS>(s, ap + k0, a.ld, m_lim, K - k0, a.vec);
+        else
+            load_tile<T, P::BK, P::BM, P::LDA, P::THREADS>(s, ap + k0 * a.ld, a.ld, K - k0, m_lim,
+                                                           a.vec);
+    };
+    auto build = [&](T* sa, int slot, int) {
+        const T* s = slots + slot * P::A_SIZE;
+        for (int i = threadIdx.x; i < P::A_SIZE; i += P::THREADS) sa[i] = s[i];
+    };
+    typename P::Acc acc = {};
+    P::run_built(fetch, build, {b.p + (B_K ? (long long)n0 * b.ld : n0), b.ld, b.vec}, K, m_lim,
+                 n_lim, shared_buffer<T>(), acc);
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m < m_lim && n < n_lim)
+            store2(d + (size_t)(m0 + m) * N + n0 + n, v0, v1, n + 1 < n_lim, N % 2 == 0);
+    });
+}
 
-template <class T>
-__global__ void __launch_bounds__(THREADS)
-basis_h1_fwd_kernel(const T* __restrict__ attrT,  // [B'*O, d, E]
-                    const T* __restrict__ w1,     // [F, H]
-                    const T* __restrict__ b1,     // [H]
-                    T* __restrict__ out,          // [B'*O, E, H]
-                    int d, int E, int F, int H) {
-    __shared__ float s_attr[MAX_D][BM];
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-
-    const int e0 = blockIdx.x * BM;
-    const int h0 = blockIdx.y * BN;
-    const int bo = blockIdx.z;
-    const T* attr_bo = attrT + (size_t)bo * d * E;
-
-    const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);
-    const int ty = tid / (BN / TN);
-
-    for (int i = tid; i < d * BM; i += THREADS) {
-        const int r = i / BM, col = i % BM;
-        s_attr[r][col] = e0 + col < E ? to_float(attr_bo[(size_t)r * E + e0 + col]) : 0.f;
-    }
-    __syncthreads();
-
-    float acc[TM][TN] = {};
-    tile_gemm<false, true>(
-        F,
-        [&](int col, int f) {
-            return round_to<T>(poly_feature([&](int i) { return s_attr[i][col]; }, f, d));
-        },
-        [&](int f, int n) { return h0 + n < H ? to_float(w1[(size_t)f * H + h0 + n]) : 0.f; }, As,
-        Bs, acc);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int e = e0 + ty * TM + i;
-        if (e >= E) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int h = h0 + tx * TN + j;
-            if (h < H) out[((size_t)bo * E + e) * H + h] = from_float<T>(acc[i][j] + to_float(b1[h]));
-        }
-    }
+template <class T, bool A_K, bool B_K>
+int tile_product_built(const T* a, const T* b, float* d, int M, int N, int K,
+                       cudaStream_t stream) {
+    using P = WideTile<T, A_K, B_K>;
+    const size_t smem = P::BUILT_SMEM + (size_t)P::STAGES * P::A_SIZE * sizeof(T);
+    cudaError_t err = allow_smem(tile_product_built_kernel<T, A_K, B_K>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_product_built_kernel<T, A_K, B_K>
+        <<<dim3((N + P::BN - 1) / P::BN, (M + P::BM - 1) / P::BM), P::THREADS, smem, stream>>>(
+            operand(a, A_K ? K : M), operand(b, B_K ? K : N), d, M, N, K);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -84,11 +91,33 @@ basis_h1_fwd_kernel(const T* __restrict__ attrT,  // [B'*O, d, E]
 extern "C" int arreau_basis_h1_fwd(const void* attrT, const void* w1, const void* b1, void* out,
                                    int Bp, int O, int d, int E, int F, int H, int is_bf16,
                                    void* stream) {
-    const dim3 grid((E + BM - 1) / BM, (H + BN - 1) / BN, Bp * O);
+    const long long rows = (long long)Bp * O * E;
+    int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        basis_h1_fwd_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
-            static_cast<T*>(out), d, E, F, H);
+        status = launch_h1<T, false>(static_cast<const T*>(attrT), static_cast<const T*>(w1),
+                                     static_cast<const T*>(b1), static_cast<T*>(out), nullptr,
+                                     nullptr, rows, d, E, F, H, H,
+                                     static_cast<cudaStream_t>(stream));
     });
-    return static_cast<int>(cudaGetLastError());
+    return status;
+}
+
+// d [M, N] float32 = a @ b through run_built: a is [M, K] (a_kmajor) or
+// [K, M], b is [N, K] (b_kmajor) or [K, N], both float32 (3xTF32) or
+// bfloat16 (is_bf16). The card tests hold it against a float64 product.
+extern "C" int arreau_tile_product_built(const void* a, const void* b, float* d, int M, int N,
+                                         int K, int a_kmajor, int b_kmajor, int is_bf16,
+                                         void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int status = 0;
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        const T *ta = static_cast<const T*>(a), *tb = static_cast<const T*>(b);
+        if (a_kmajor)
+            status = b_kmajor ? tile_product_built<T, true, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_built<T, true, false>(ta, tb, d, M, N, K, stream);
+        else
+            status = b_kmajor ? tile_product_built<T, false, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_built<T, false, false>(ta, tb, d, M, N, K, stream);
+    });
+    return status;
 }

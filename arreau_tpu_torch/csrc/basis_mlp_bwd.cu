@@ -16,47 +16,58 @@
 // attribute cotangent is not computed: attributes derive from positions and
 // the lattice, which the training path does not differentiate.
 //
-// Bound on the H100: 2*rows*(2*F*H + 3*H*D) float32 operations (269 GFLOP at
-// the training shape, rows = B'*O*E = 524288, F=258, H=200, D=256) against
-// ~2.7 GB of cotangent reads, so float32 arithmetic bounds it. On the TPU one
-// grid step held a (b', o) block's whole chain in VMEM and carried the four
-// weight gradients across the sequential grid. A Hopper block has no such
-// room and blocks run in no order, so the chain runs as SIMT tile products
-// through device-memory scratch (h1_pre, dpre2: ~1 GB at the training
-// shape, a fraction of a millisecond of traffic against the arithmetic):
+// Bound on the H100: five products of 2*rows*(2*F*H + 3*H*D) operations
+// (269 GFLOP at the training shape, rows = B'*O*E = 524288, F=258, H=200,
+// D=256) against ~1.4 GB (bfloat16) or ~2.7 GB (float32) of cotangent
+// reads. On the bfloat16 tensor cores (989 TFLOP/s) the cotangent reads
+// bound it; in float32 the products run as 3xTF32 (mma.cuh, 495 / 3 = 165
+// TFLOP/s) and the operations bound it. On the TPU one grid step held a
+// (b', o) block's whole chain in VMEM and carried the four weight gradients
+// across the sequential grid. A Hopper block has no such room and blocks run
+// in no order, so the chain runs as five mma.sync tile products
+// (tile_product.cuh: cp.async stages, 128 x 128 tiles; 96 x 128 for dW1)
+// through device-memory scratch, each product's epilogue doing the
+// elementwise work, in order:
 //
-//   1. h1_pre by the forward's own kernel (csrc/basis_h1.cu), which builds
-//      the polynomial features in shared memory; poly never reaches memory.
-//   2. dpre2: the product gelu(h1_pre) @ W2 with GELU applied as A is
-//      staged; the epilogue reads each of the n_g cotangents once and sums
-//      them in registers (the sum of the cotangents is never stored).
-//   3. dW2|db2: split-K over the rows; A is [gelu(h1_pre) | 1], so the
-//      bias gradient is the extra row of the same product.
-//   4. dpre1: dpre2 @ W2^T times gelu'(h1_pre), written over h1_pre in
-//      place (each element is read and written by the same thread).
-//   5. dW1|db1: split-K with A = [poly | 1], the features rebuilt from the
-//      invariants as A is staged.
-//   Each split-K product ends in a second pass that adds the per-split
-//   partial tiles in a fixed order (deterministic).
-//
+//   1. h1_pre = poly @ W1 + b1, #8's product (basis_h1.cuh), the features
+//      built in shared memory. Its epilogue writes h1 = round(gelu(h1_pre))
+//      with a ones column (for db2) into a scratch [rows, Hg] (Hg = H + 1
+//      rounded up to 8: rows stay 16-byte aligned), round(gelu'(h1_pre))
+//      into a second, and the rows' invariants into a [rows, 8] scratch.
+//   2. dpre2 = h1 @ W2 (K = H); the epilogue adds b2, rounds, takes gelu',
+//      and multiplies by the n_g cotangents, each read once, several loads
+//      in flight at a time, and summed in order in registers (their sum is
+//      never stored).
+//   3. dW2|db2 = [h1 | 1]^T dpre2 (M = H + 1), split-K over the rows.
+//   4. dpre1 = dpre2 @ W2^T (K = D) times gelu'(h1_pre), written over h1
+//      (which step 3 has read by then).
+//   5. dW1|db1 = [poly | 1]^T dpre1 (M = F + 1), split-K, the features
+//      built into each stage from the stage's rows of invariants (fetched by
+//      cp.async a stage ahead); poly never reaches memory.
+//   The products' epilogues stage the accumulators in shared memory and
+//   read and write device memory in 16-byte row chunks. Each split-K product
+//   writes per-split float32 partial tiles, and a second pass adds them in a
+//   fixed order: every output is the same bit for bit on every call (no
+//   atomics). h1 is recomputed rather than saved by the forward: 54 GFLOP on
+//   the tensor cores against 0.2 (bfloat16) or 0.4 GB (float32) of residual
+//   held from forward to backward. With the model's six invariants (d = 6)
+//   the features are formed from registers (poly_features_part); any other
+//   d takes a slower builder that decodes each feature's factors.
+
 // Element type T (dtype.cuh) of the invariants, weights, biases, cotangents
-// and the h1_pre / dpre2 scratch: float32, or bfloat16 on the
-// compute_dtype="bfloat16" path, with the JAX kernel's rounding points
-// (pallas_basis.py:289-331): h1_pre and h2_pre are rounded to T, as are
-// gelu(h1_pre), gelu'(h1_pre) and gelu'(h2_pre) (the JAX kernel evaluates
-// them in T); the cotangents are summed in float32; dpre2 and dpre1 are
-// rounded to T before their products; the weight and bias gradients are
+// and the scratch: float32, or bfloat16 on the compute_dtype="bfloat16"
+// path, with the JAX kernel's rounding points (pallas_basis.py:289-331):
+// h1_pre and h2_pre are rounded to T, as are gelu(h1_pre), gelu'(h1_pre) and
+// gelu'(h2_pre) (the JAX kernel evaluates them in T); the cotangents are
+// summed in float32; dpre2 and dpre1 are rounded to T before their products;
+// every product sums in float32 and the weight and bias gradients are
 // float32 sums.
 
-#include <type_traits>
-
+#include "basis_h1.cuh"
 #include "dtype.cuh"
 #include "poly_features.cuh"
 #include "tile_gemm.cuh"
-
-extern "C" int arreau_basis_h1_fwd(const void* attrT, const void* w1, const void* b1, void* out,
-                                   int Bp, int O, int d, int E, int F, int H, int is_bf16,
-                                   void* stream);
+#include "tile_product.cuh"
 
 namespace {
 
@@ -68,147 +79,255 @@ template <class T>
 struct Cotangents {
     const T* g[MAX_G];
     int n;
+    bool vec;  // every g_i's rows are 16-byte aligned
 };
 
-// 2. dpre2[row, n] = (sum_i g_i[row, n]) * gelu'(gelu(h1_pre[row, :]) @ W2[:, n] + b2[n])
+// 2. dpre2[row, n] = round_T(sum_i g_i[row, n]
+//                             * round_T(gelu'(round_T(h1[row, :H] @ W2[:, n] + b2[n]))))
 template <class T>
-__global__ void __launch_bounds__(THREADS)
-dpre2_kernel(const T* __restrict__ h1_pre,  // [rows, H]
-             const T* __restrict__ w2,      // [H, D]
-             const T* __restrict__ b2,      // [D]
-             Cotangents<T> gs,              // n x [rows, D]
-             T* __restrict__ dpre2,         // [rows, D]
-             long long rows, int H, int D) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int n0 = blockIdx.y * BN;
-
-    float acc[TM][TN] = {};
-    tile_gemm<true, true>(
-        H,
-        [&](int r, int k) {
-            return row0 + r < rows ? round_to<T>(gelu(to_float(h1_pre[(size_t)(row0 + r) * H + k])))
-                                   : 0.f;
-        },
-        [&](int k, int n) { return n0 + n < D ? to_float(w2[(size_t)k * D + n0 + n]) : 0.f; }, As,
-        Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
+__global__ void __launch_bounds__(WideTile<T, true, false>::THREADS, MIN_BLOCKS)
+basis_dpre2_kernel(Operand<T> h1,              // [rows, Hg]
+                   Operand<T> w2,              // [H, D]
+                   const T* __restrict__ b2,   // [D]
+                   Cotangents<T> gs,           // n x [rows, D]
+                   T* __restrict__ dpre2,      // [rows, D]
+                   long long rows, int H, int D, bool b2_vec, bool out_vec) {
+    using P = WideTile<T, true, false>;
+    const int n_tiles = (D + P::BN - 1) / P::BN;
+    const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
+    const int n0 = blockIdx.x % n_tiles * P::BN;
+    const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = D - n0;
+    typename P::Acc acc = {};
+    P::run({h1.p + m0 * h1.ld, h1.ld, h1.vec}, {w2.p + n0, w2.ld, w2.vec}, H, m_lim, n_lim,
+           shared_buffer<T>(), acc);
+    float* s_acc = shared_buffer<float>();
+    P::stage_acc(acc, s_acc);
+    P::for_each_chunk([&](int m, int n) {
+        constexpr int CH = P::CHUNK;
+        if (m >= m_lim || n >= n_lim) return;
+        const int count = min(CH, n_lim - n);
+        const long long at = (m0 + m) * D + n0 + n;
+        // the cotangents summed in order, loaded G_BATCH at a time (32 floats
+        // of registers) so that their loads are in flight together
+        constexpr int G_BATCH = 32 / CH;
+        float g[CH], b[CH];
+        for (int q0 = 0; q0 < gs.n; q0 += G_BATCH) {
+            float gq[G_BATCH][CH];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-        if (row >= rows) continue;
+            for (int u = 0; u < G_BATCH; ++u)
+                if (q0 + u < gs.n) load_chunk(gq[u], gs.g[q0 + u] + at, count, gs.vec);
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int n = n0 + tx * TN + j;
-            if (n >= D) continue;
-            const size_t at = (size_t)row * D + n;
-            float g = to_float(gs.g[0][at]);
-            for (int q = 1; q < gs.n; ++q) g += to_float(gs.g[q][at]);
-            const float h2_pre = round_to<T>(acc[i][j] + to_float(b2[n]));
-            dpre2[at] = from_float<T>(g * round_to<T>(gelu_deriv(h2_pre)));
+            for (int u = 0; u < G_BATCH; ++u)
+                if (q0 + u < gs.n)
+#pragma unroll
+                    for (int j = 0; j < CH; ++j) g[j] = q0 + u == 0 ? gq[u][j] : g[j] + gq[u][j];
         }
-    }
+        load_chunk(b, b2 + n0 + n, count, b2_vec);
+        const float* a = s_acc + m * P::ACC_LD + n;
+#pragma unroll
+        for (int j = 0; j < CH; ++j) g[j] *= round_to<T>(gelu_deriv(round_to<T>(a[j] + b[j])));
+        store_chunk(dpre2 + at, g, count, out_vec);
+    });
 }
 
-// 4. dpre1[row, h] = (dpre2[row, :] @ W2[h, :]) * gelu'(h1_pre[row, h]), in place over h1_pre
+// 4. dpre1[row, h] = round_T((dpre2[row, :] @ W2[h, :]) * dg1[row, h]), into h1's scratch
 template <class T>
-__global__ void __launch_bounds__(THREADS)
-dpre1_kernel(const T* __restrict__ dpre2,  // [rows, D]
-             const T* __restrict__ w2,     // [H, D]
-             T* h1_pre_dpre1,              // [rows, H]: h1_pre in, dpre1 out
-             long long rows, int H, int D) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int h0 = blockIdx.y * BN;
-
-    float acc[TM][TN] = {};
-    tile_gemm<true, false>(
-        D,
-        [&](int r, int k) {
-            return row0 + r < rows ? to_float(dpre2[(size_t)(row0 + r) * D + k]) : 0.f;
-        },
-        [&](int k, int n) { return h0 + n < H ? to_float(w2[(size_t)(h0 + n) * D + k]) : 0.f; },
-        As, Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
+__global__ void __launch_bounds__(WideTile<T, true, true>::THREADS, MIN_BLOCKS)
+basis_dpre1_kernel(Operand<T> dpre2,           // [rows, D]
+                   Operand<T> w2,              // [H, D]
+                   const T* __restrict__ dg1,  // [rows, Hg]
+                   T* __restrict__ dpre1,      // [rows, Hg]
+                   long long rows, int H, int D, int Hg) {
+    using P = WideTile<T, true, true>;
+    const int n_tiles = (H + P::BN - 1) / P::BN;
+    const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
+    const int n0 = blockIdx.x % n_tiles * P::BN;
+    const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = H - n0;
+    typename P::Acc acc = {};
+    P::run({dpre2.p + m0 * dpre2.ld, dpre2.ld, dpre2.vec},
+           {w2.p + (long long)n0 * w2.ld, w2.ld, w2.vec}, D, m_lim, n_lim, shared_buffer<T>(),
+           acc);
+    float* s_acc = shared_buffer<float>();
+    P::stage_acc(acc, s_acc);
+    P::for_each_chunk([&](int m, int n) {
+        constexpr int CH = P::CHUNK;
+        if (m >= m_lim || n >= n_lim) return;
+        const int count = min(CH, n_lim - n);
+        const long long at = (m0 + m) * Hg + n0 + n;  // Hg is a multiple of 8: rows align
+        float v[CH];
+        load_chunk(v, dg1 + at, count, true);
+        const float* a = s_acc + m * P::ACC_LD + n;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-        if (row >= rows) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int h = h0 + tx * TN + j;
-            if (h >= H) continue;
-            const size_t at = (size_t)row * H + h;
-            h1_pre_dpre1[at] =
-                from_float<T>(acc[i][j] * round_to<T>(gelu_deriv(to_float(h1_pre_dpre1[at]))));
-        }
-    }
+        for (int j = 0; j < CH; ++j) v[j] *= a[j];
+        store_chunk(dpre1 + at, v, count, true);
+    });
 }
 
-// Features of a row for the weight gradients: gelu(h1_pre) (for dW2) ...
+// 3. partial[split, m, n] = sum over the split's rows of A[row, m] * B[row, n]
+//    with A = [h1 | 1] ([rows, Hg], M = H + 1) and B = dpre2 ([rows, D])
 template <class T>
-struct HiddenFeature {
-    const T* h1_pre;  // [rows, H]
-    int H;
-    __device__ __forceinline__ float operator()(long long row, int m) const {
-        return round_to<T>(gelu(to_float(h1_pre[(size_t)row * H + m])));
-    }
-};
+__global__ void __launch_bounds__(WideTile<T, false, false>::THREADS, MIN_BLOCKS)
+basis_dw2_partial_kernel(Operand<T> a, Operand<T> b, float* __restrict__ partial,
+                         long long rows, int rows_per_split, int M, int N) {
+    using P = WideTile<T, false, false>;
+    const int n_tiles = (N + P::BN - 1) / P::BN;
+    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
+    const long long k0 = (long long)blockIdx.y * rows_per_split;
+    const int K = (int)min(rows - k0, (long long)rows_per_split);
+    typename P::Acc acc = {};
+    P::run({a.p + k0 * a.ld + m0, a.ld, a.vec}, {b.p + k0 * b.ld + n0, b.ld, b.vec}, K, M - m0,
+           N - n0, shared_buffer<T>(), acc);
+    float* out = partial + (size_t)blockIdx.y * M * N + (size_t)m0 * N + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < M && n0 + n < N)
+            store2(out + (size_t)m * N + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
+    });
+}
 
-// ... and the polynomial features of the row's invariants (for dW1).
+// 5. partial[split, f, h] = sum over the split's rows of [poly | 1][row, f] * dpre1[row, h]
+//    (M = F + 1): A built into each stage from the stage's rows of invariants
+// dW1's block tile: 96 features x 128 hidden units (three tiles hold the
+// F + 1 = 259 features at 90% where 128-row tiles would hold them at 67%)
 template <class T>
-struct PolyFeature {
-    const T* attrT;  // [B'*O, d, E]
-    int d, E;
-    __device__ __forceinline__ float operator()(long long row, int f) const {
-        const long long bo = row / E;
-        const T* a = attrT + (size_t)bo * d * E + (row - bo * E);
-        return round_to<T>(poly_feature([&](int i) { return to_float(a[(size_t)i * E]); }, f, d));
-    }
-};
+using FeatureTile = TileProduct<T, false, false, 2, 4, 3, 4>;
+
+template <class T, int D>
+__global__ void __launch_bounds__(FeatureTile<T>::THREADS, MIN_BLOCKS)
+basis_dw1_partial_kernel(const T* __restrict__ xr,  // [rows, XR]
+                         Operand<T> dpre1,          // [rows, Hg]
+                         float* __restrict__ partial, long long rows, int rows_per_split, int d,
+                         int F, int H) {
+    using P = FeatureTile<T>;
+    __shared__ __align__(16) T s_inv[P::STAGES][P::BK][XR];
+    const int M = F + 1;
+    const int n_tiles = (H + P::BN - 1) / P::BN;
+    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
+    const long long k0 = (long long)blockIdx.y * rows_per_split;
+    const int K = (int)min(rows - k0, (long long)rows_per_split);
+    const T* split_xr = xr + k0 * XR;
+    auto fetch = [&](int slot, int kk) {
+        load_tile<T, P::BK, XR, XR, P::THREADS>(&s_inv[slot][0][0], split_xr + (long long)kk * XR,
+                                                XR, K - kk, XR, true);
+    };
+    auto build = [&](T* sa, int slot, int kk) {
+        if constexpr (D > 0) {
+            // each stage row's BM features in parts of W, one thread each (the
+            // part warp-uniform), formed in registers and stored as 16-byte
+            // chunks
+            constexpr int PER_ROW = P::THREADS / P::BK, W = P::BM / PER_ROW;
+            constexpr int F3 = D + D * D + D * D * D;
+            const int k = threadIdx.x % P::BK, q = threadIdx.x / P::BK;
+            float x[D];  // zero past the split
+#pragma unroll
+            for (int i = 0; i < D; ++i) x[i] = to_float(s_inv[slot][k][i]);
+            const float one = k < K - kk ? 1.f : 0.f;
+            T* dst = sa + k * P::LDA + q * W;
+            with_part<(F3 + P::BM) / P::BM * PER_ROW>(m0 / W + q, [&](auto p) {
+                float v[W];
+                poly_features_part<D, W, decltype(p)::value>(x, F, one, v);
+#pragma unroll
+                for (int j = 0; j < W; j += P::CHUNK) store_chunk(dst + j, v + j, P::CHUNK, true);
+            });
+        } else {
+            // any d: two adjacent columns at a time, their factors decoded
+            // each time (off the model's path)
+            for (int i = threadIdx.x; i < P::BM / 2 * P::BK; i += P::THREADS) {
+                const int mc = i % (P::BM / 2) * 2, k = i / (P::BM / 2), f = m0 + mc;
+                const PolyTerm t0 = poly_term(min(f, F - 1), d);
+                const PolyTerm t1 = poly_term(min(f + 1, F - 1), d);
+                // rows past the split have zero invariants, and no ones
+                const auto inv = [&](int j) { return to_float(s_inv[slot][k][j]); };
+                const float one = k < K - kk ? 1.f : 0.f;
+                store2(sa + k * P::LDA + mc, f < F ? poly_value(t0, inv) : f == F ? one : 0.f,
+                       f + 1 < F ? poly_value(t1, inv) : f + 1 == F ? one : 0.f, true, true);
+            }
+        }
+    };
+    typename P::Acc acc = {};
+    P::run_built(fetch, build, {dpre1.p + k0 * dpre1.ld + n0, dpre1.ld, dpre1.vec}, K, M - m0,
+                 H - n0, shared_buffer<T>(), acc);
+    float* out = partial + (size_t)blockIdx.y * M * H + (size_t)m0 * H + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < M && n0 + n < H)
+            store2(out + (size_t)m * H + n, v0, v1, n0 + n + 1 < H, H % 2 == 0);
+    });
+}
+
+template <class T, int D>
+cudaError_t launch_dw1(const T* xr, Operand<T> dpre1, float* partial, long long rows,
+                       int rows_per_split, int splits, int d, int F, int H, cudaStream_t stream) {
+    using P = FeatureTile<T>;
+    cudaError_t err = allow_smem(basis_dw1_partial_kernel<T, D>, P::BUILT_SMEM);
+    if (err != cudaSuccess) return err;
+    basis_dw1_partial_kernel<T, D>
+        <<<dim3(((F + 1 + P::BM - 1) / P::BM) * ((H + P::BN - 1) / P::BN), splits), P::THREADS,
+           P::BUILT_SMEM, stream>>>(xr, dpre1, partial, rows, rows_per_split, d, F, H);
+    return cudaGetLastError();
+}
+
+// with the model's d at compile time (model_d) or any d
+template <class T>
+cudaError_t launch_dw1(bool model_d, const T* xr, Operand<T> dpre1, float* partial,
+                       long long rows, int rows_per_split, int splits, int d, int F, int H,
+                       cudaStream_t stream) {
+    return model_d ? launch_dw1<T, MODEL_D>(xr, dpre1, partial, rows, rows_per_split, splits, d,
+                                            F, H, stream)
+                   : launch_dw1<T, 0>(xr, dpre1, partial, rows, rows_per_split, splits, d, F, H,
+                                      stream);
+}
 
 template <class T>
 int basis_mlp_bwd(const T* attrT, const T* w1, const T* b1, const T* w2, const T* b2,
-                  const void* const* gs, int n_g, T* h1_pre, T* dpre2, float* partial,
+                  const void* const* gs, int n_g, T* h1, T* dg1, T* dpre2, T* xr, float* partial,
                   float* dw1_ext, float* dw2_ext, int Bp, int O, int d, int E, int F, int H,
-                  int D, int splits, int rows_per_split, cudaStream_t stream) {
+                  int D, int Hg, int splits, int rows_per_split, cudaStream_t stream) {
     const long long rows = (long long)Bp * O * E;
-    const unsigned row_tiles = static_cast<unsigned>((rows + BM - 1) / BM);
-    int status;
-
-    status = arreau_basis_h1_fwd(attrT, w1, b1, h1_pre, Bp, O, d, E, F, H,
-                                 std::is_same<T, bf16>::value, stream);
+    cudaError_t err;
+    int status = launch_h1<T, true>(attrT, w1, b1, h1, dg1, xr, rows, d, E, F, H, Hg, stream);
     if (status != 0) return status;
 
     Cotangents<T> cots{};
-    for (int i = 0; i < n_g; ++i) cots.g[i] = static_cast<const T*>(gs[i]);
+    cots.vec = true;
+    for (int i = 0; i < n_g; ++i) {
+        cots.g[i] = static_cast<const T*>(gs[i]);
+        cots.vec &= rows_aligned(cots.g[i], D);
+    }
     cots.n = n_g;
-    dpre2_kernel<T><<<dim3(row_tiles, (D + BN - 1) / BN), THREADS, 0, stream>>>(
-        h1_pre, w2, b2, cots, dpre2, rows, H, D);
-    if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
+    using D2 = WideTile<T, true, false>;
+    const long long m_tiles = (rows + D2::BM - 1) / D2::BM;
+    const size_t d2_smem = D2::staged(D2::SMEM);
+    if ((err = allow_smem(basis_dpre2_kernel<T>, d2_smem)) != cudaSuccess)
+        return static_cast<int>(err);
+    basis_dpre2_kernel<T>
+        <<<(unsigned)(m_tiles * ((D + D2::BN - 1) / D2::BN)), D2::THREADS, d2_smem, stream>>>(
+            operand<T>(h1, Hg), operand(w2, D), b2, cots, dpre2, rows, H, D, rows_aligned(b2, 0),
+            rows_aligned(dpre2, D));
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    weight_grad_partial_kernel<<<dim3((H + 1 + BM - 1) / BM, (D + BN - 1) / BN, splits), THREADS,
-                                 0, stream>>>(HiddenFeature<T>{h1_pre, H}, dpre2, partial, rows, H,
-                                              D, rows_per_split);
-    if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
+    using WG = WideTile<T, false, false>;
+    if ((err = allow_smem(basis_dw2_partial_kernel<T>, WG::SMEM)) != cudaSuccess)
+        return static_cast<int>(err);
+    basis_dw2_partial_kernel<T>
+        <<<dim3(((H + 1 + WG::BM - 1) / WG::BM) * ((D + WG::BN - 1) / WG::BN), splits),
+           WG::THREADS, WG::SMEM, stream>>>(operand<T>(h1, Hg), operand<T>(dpre2, D), partial,
+                                            rows, rows_per_split, H + 1, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const long long n2 = (long long)(H + 1) * D;
     sum_splits_kernel<<<sum_splits_blocks(n2), THREADS, 0, stream>>>(partial, dw2_ext, splits, n2);
-    if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    dpre1_kernel<T><<<dim3(row_tiles, (H + BN - 1) / BN), THREADS, 0, stream>>>(dpre2, w2, h1_pre,
-                                                                                 rows, H, D);
-    if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
+    using D1 = WideTile<T, true, true>;
+    const size_t d1_smem = D1::staged(D1::SMEM);
+    if ((err = allow_smem(basis_dpre1_kernel<T>, d1_smem)) != cudaSuccess)
+        return static_cast<int>(err);
+    basis_dpre1_kernel<T>
+        <<<(unsigned)(m_tiles * ((H + D1::BN - 1) / D1::BN)), D1::THREADS, d1_smem, stream>>>(
+            operand<T>(dpre2, D), operand(w2, D), dg1, h1, rows, H, D, Hg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    weight_grad_partial_kernel<<<dim3((F + 1 + BM - 1) / BM, (H + BN - 1) / BN, splits), THREADS,
-                                 0, stream>>>(PolyFeature<T>{attrT, d, E}, h1_pre, partial, rows,
-                                              F, H, rows_per_split);
-    if ((status = static_cast<int>(cudaGetLastError())) != 0) return status;
+    if ((err = launch_dw1<T>(d == MODEL_D, xr, operand<T>(h1, Hg), partial, rows, rows_per_split,
+                             splits, d, F, H, stream)) != cudaSuccess)
+        return static_cast<int>(err);
     const long long n1 = (long long)(F + 1) * H;
     sum_splits_kernel<<<sum_splits_blocks(n1), THREADS, 0, stream>>>(partial, dw1_ext, splits, n1);
     return static_cast<int>(cudaGetLastError());
@@ -217,25 +336,27 @@ int basis_mlp_bwd(const T* attrT, const T* w1, const T* b1, const T* w2, const T
 }  // namespace
 
 // dw1_ext [F+1, H] = [dW1; db1], dw2_ext [H+1, D] = [dW2; db2] (float32).
-// Scratch: h1_pre [rows, H] (ends as dpre1), dpre2 [rows, D], partial
-// [splits * max((F+1)*H, (H+1)*D)] float32. gs is a host array of n_g
-// device pointers. attrT, the weights, biases, cotangents and the h1_pre /
-// dpre2 scratch are float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
+// Scratch: h1 and dg1 [rows, Hg] (Hg = H + 1 rounded up to 8; h1 ends as
+// dpre1), dpre2 [rows, D], xr [rows, 8], partial [splits * max((F+1)*H,
+// (H+1)*D)] float32. gs is a host array of n_g device pointers. attrT, the
+// weights, biases, cotangents and the scratch but partial are float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
 extern "C" int arreau_basis_mlp_bwd(const void* attrT, const void* w1, const void* b1,
                                     const void* w2, const void* b2, const void* const* gs,
-                                    int n_g, void* h1_pre, void* dpre2, float* partial,
-                                    float* dw1_ext, float* dw2_ext, int Bp, int O, int d, int E,
-                                    int F, int H, int D, int splits, int rows_per_split,
-                                    int is_bf16, void* stream_ptr) {
+                                    int n_g, void* h1, void* dg1, void* dpre2, void* xr,
+                                    float* partial, float* dw1_ext, float* dw2_ext, int Bp, int O,
+                                    int d, int E, int F, int H, int D, int splits,
+                                    int rows_per_split, int is_bf16, void* stream_ptr) {
     if (n_g < 1 || n_g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const int Hg = (H + 1 + 7) / 8 * 8;
     int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
         status = basis_mlp_bwd<T>(
             static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
-            static_cast<const T*>(w2), static_cast<const T*>(b2), gs, n_g,
-            static_cast<T*>(h1_pre), static_cast<T*>(dpre2), partial, dw1_ext, dw2_ext, Bp, O, d,
-            E, F, H, D, splits, rows_per_split, stream);
+            static_cast<const T*>(w2), static_cast<const T*>(b2), gs, n_g, static_cast<T*>(h1),
+            static_cast<T*>(dg1), static_cast<T*>(dpre2), static_cast<T*>(xr), partial, dw1_ext,
+            dw2_ext, Bp, O, d, E, F, H, D, Hg, splits, rows_per_split, stream);
     });
     return status;
 }

@@ -22,11 +22,12 @@
 // bytes bound it. float32 runs as 3xTF32 (mma.cuh: three TF32 products
 // each, 495 / 3 = 165 TFLOP/s): operations bound it.
 //
-// Design: each product is an mma.sync tile product (mma.cuh; TileProduct
-// below) over 128 x 128 output tiles, its operands copied into shared
-// memory by 16-byte cp.async, three stages deep in bfloat16 and two in
-// float32, so that the next tile's copies overlap this tile's products; each
-// stage's products are straight-line code (no branch between fragments).
+// Design: each product is an mma.sync tile product (mma.cuh; TileProduct in
+// tile_product.cuh, shared with #8/#7) over 128 x 128 output tiles, its
+// operands copied into shared memory by 16-byte cp.async, three stages deep
+// in bfloat16 and two in float32, so that the next tile's copies overlap
+// this tile's products; each stage's products are straight-line code (no
+// branch between fragments).
 // Where a row length breaks 16-byte alignment (ragged D or C) the same
 // loaders copy element by element. The three results reduce over different
 // axes, and Hopper's blocks run in no order, so where the TPU walked the o
@@ -73,6 +74,7 @@
 #include "dtype.cuh"
 #include "mma.cuh"
 #include "tile_gemm.cuh"
+#include "tile_product.cuh"
 
 namespace {
 
@@ -82,218 +84,6 @@ constexpr int GXW_THREADS = 256;
 constexpr int GXW_EDGES = 32;   // edge rows per block of the gxw pass
 constexpr int DX_THREADS = 128;  // channel pairs per block of the dx pass
 constexpr int DX_SENDERS = 8;    // senders per block of the dx pass
-constexpr int MIN_BLOCKS = 2;    // blocks per SM the tile products are compiled for
-
-// cp.async stages of a tile product, and the depth of each: three of 64 in
-// bfloat16 (half the barriers of 32-deep stages), two of 32 in float32: 110
-// and 74 KB at 128 x 128, so two blocks of 256 threads fit an SM
-template <class T>
-constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
-template <class T>
-constexpr int stage_depth() { return sizeof(T) == 2 ? 64 : 32; }
-
-// A k-contiguous shared row holds BK elements and a pad that keeps
-// ldmatrix rows (bf16: 144 bytes) and scalar tf32 reads (float: 36 words)
-// on distinct banks; an m/n-contiguous row holds BM or BN and 8 more.
-template <class T>
-constexpr int k_pad() { return sizeof(T) == 2 ? 8 : 4; }
-
-template <class T>
-struct Operand {
-    const T* p;  // the tile's origin
-    long long ld;
-    bool vec;    // rows 16-byte aligned: cp.async, else element copies
-};
-
-// ROWS x COLS elements from g (row stride ldg) into s (row stride LDS) by
-// THREADS threads; outside row_lim x col_lim zero-filled
-template <class T, int ROWS, int COLS, int LDS, int THREADS>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long ldg, int row_lim,
-                                          int col_lim, bool vec) {
-    constexpr int CH = 16 / sizeof(T);
-    constexpr int PER_ROW = COLS / CH;
-    static_assert(COLS % CH == 0, "a tile row is whole 16-byte chunks");
-    for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-        const int r = i / PER_ROW, c = (i % PER_ROW) * CH;
-        T* dst = s + r * LDS + c;
-        if (vec) {
-            const int n = r < row_lim ? min(max(col_lim - c, 0), CH) : 0;
-            cp_async16(dst, n ? g + r * ldg + c : g, n * (int)sizeof(T));
-        } else {
-#pragma unroll
-            for (int j = 0; j < CH; ++j)
-                dst[j] = r < row_lim && c + j < col_lim ? g[r * ldg + c + j] : from_float<T>(0.f);
-        }
-    }
-}
-
-// Stores v0, v1 at out[0], out[1] (out[1] only where n + 1 < n_lim), as one
-// store when pair (the row stride and so the address is even).
-template <class T>
-__device__ __forceinline__ void store2(T* out, float v0, float v1, bool second, bool pair) {
-    if constexpr (sizeof(T) == 2) {
-        if (second && pair) {
-            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
-            return;
-        }
-    } else {
-        if (second && pair) {
-            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
-            return;
-        }
-    }
-    out[0] = from_float<T>(v0);
-    if (second) out[1] = from_float<T>(v1);
-}
-
-// (p[0], p[1]) as floats, p[1] only where second (0 otherwise); one load
-// when pair (the address is even)
-template <class T>
-__device__ __forceinline__ float2 load2(const T* p, bool second, bool pair) {
-    if (second && pair) {
-        if constexpr (sizeof(T) == 2)
-            return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-        else
-            return *reinterpret_cast<const float2*>(p);
-    }
-    return make_float2(to_float(p[0]), second ? to_float(p[1]) : 0.f);
-}
-
-// acc += A B for one block's BM x BN tile: WARPS_M x WARPS_N warps, each
-// MT m16 x NT n8 fragments. A warp's m16 rows are contiguous; its n8
-// columns are interleaved with the other WARPS_N warps' (warp w holds n8
-// tiles w, w + WARPS_N, ...). A (m, k) is a.p[m*ld + k] (A_K) or
-// a.p[k*ld + m]; B (k, n) is b.p[n*ld + k] (B_K) or b.p[k*ld + n]. Rows
-// m >= m_lim, columns n >= n_lim and depth k >= K read as zero; a warp whose
-// rows or columns all lie outside skips its products. Ends with every copy
-// landed and a barrier, so the caller may reuse shared memory.
-template <class T, bool A_K, bool B_K, int WARPS_M, int WARPS_N, int MT, int NT>
-struct TileProduct {
-    static constexpr int THREADS = WARPS_M * WARPS_N * 32;
-    static constexpr int BM = WARPS_M * MT * 16, BN = WARPS_N * NT * 8;
-    static constexpr int BK = stage_depth<T>();
-    static constexpr int LDA = A_K ? BK + k_pad<T>() : BM + 8;
-    static constexpr int LDB = B_K ? BK + k_pad<T>() : BN + 8;
-    static constexpr int A_SIZE = (A_K ? BM : BK) * LDA;
-    static constexpr int STAGE = A_SIZE + (B_K ? BN : BK) * LDB;
-    static constexpr int STAGES = stages<T>();
-    static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(T);
-    using F = Mma<T>;
-    using Acc = float[MT][NT][4];
-    static_assert(NT % 2 == 0, "B fragments load in pairs");
-
-    __device__ __forceinline__ static int warp_m0() {
-        return (threadIdx.x / 32 % WARPS_M) * MT * 16;
-    }
-    // column of this warp's n8 tile j
-    __device__ __forceinline__ static int warp_n(int j) {
-        return (j * WARPS_N + threadIdx.x / 32 / WARPS_M) * 8;
-    }
-
-    __device__ __forceinline__ static void load_stage(T* s, const Operand<T>& a,
-                                                      const Operand<T>& b, int k0, int K,
-                                                      int m_lim, int n_lim) {
-        if constexpr (A_K)
-            load_tile<T, BM, BK, LDA, THREADS>(s, a.p + k0, a.ld, m_lim, K - k0, a.vec);
-        else
-            load_tile<T, BK, BM, LDA, THREADS>(s, a.p + k0 * a.ld, a.ld, K - k0, m_lim, a.vec);
-        if constexpr (B_K)
-            load_tile<T, BN, BK, LDB, THREADS>(s + A_SIZE, b.p + k0, b.ld, n_lim, K - k0, b.vec);
-        else
-            load_tile<T, BK, BN, LDB, THREADS>(s + A_SIZE, b.p + k0 * b.ld, b.ld, K - k0, n_lim,
-                                               b.vec);
-    }
-
-    // every fragment of the stage, with no branch inside: the tile is
-    // zero-filled outside K, m_lim and n_lim, so the products there add 0,
-    // and straight-line code lets the compiler issue the next fragments'
-    // loads under this step's products
-    __device__ __forceinline__ static void compute_stage(const T* s, Acc& acc) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += F::K) {
-            typename F::B fb[NT];
-#pragma unroll
-            for (int j = 0; j < NT; j += 2)
-                F::template load_b2<B_K>(fb[j], fb[j + 1], s + A_SIZE, LDB, warp_n(j),
-                                         warp_n(j + 1), kk);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-                typename F::A fa;
-                F::template load_a<A_K>(fa, s, LDA, warp_m0() + i * 16, kk);
-#pragma unroll
-                for (int j = 0; j < NT; ++j) F::mma(acc[i][j], fa, fb[j]);
-            }
-        }
-    }
-
-    __device__ static void run(const Operand<T>& a, const Operand<T>& b, int K, int m_lim,
-                               int n_lim, T* smem, Acc& acc) {
-        const int nk = (K + BK - 1) / BK;
-        // warp-uniform: this warp's rows or columns all lie outside the output
-        const bool live = warp_m0() < m_lim && warp_n(0) < n_lim;
-#pragma unroll
-        for (int st = 0; st < STAGES - 1; ++st) {
-            if (st < nk) load_stage(smem + st * STAGE, a, b, st * BK, K, m_lim, n_lim);
-            cp_async_commit();
-        }
-        for (int kt = 0; kt < nk; ++kt) {
-            cp_async_wait<STAGES - 2>();
-            __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-            const int pf = kt + STAGES - 1;
-            if (pf < nk) load_stage(smem + (pf % STAGES) * STAGE, a, b, pf * BK, K, m_lim, n_lim);
-            cp_async_commit();
-            if (live) compute_stage(smem + (kt % STAGES) * STAGE, acc);
-        }
-        cp_async_wait<0>();
-        __syncthreads();
-    }
-
-    // row(m) once for each of this thread's rows, then f(row(m), m, n,
-    // acc[m][n], acc[m][n + 1]) for its column pairs (n even)
-    template <class RowFn, class Fn>
-    __device__ __forceinline__ static void for_each_row(const Acc& acc, RowFn row, Fn f) {
-        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-        const int m0 = warp_m0();
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int m = m0 + i * 16 + g + h * 8;
-                const auto r = row(m);
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    f(r, m, warp_n(j) + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-            }
-    }
-
-    // f(m, n, acc[m][n], acc[m][n + 1]) for every column pair of this thread
-    // (n even)
-    template <class Fn>
-    __device__ __forceinline__ static void for_each(const Acc& acc, Fn f) {
-        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-        const int m0 = warp_m0();
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    f(m0 + i * 16 + g + h * 8, warp_n(j) + 2 * t, acc[i][j][2 * h],
-                      acc[i][j][2 * h + 1]);
-    }
-};
-
-// the products' block tile: 128 x 128 outputs, 8 warps of 64 rows x 4
-// interleaved n8 tiles (larger warp tiles leave too few warps on an SM to
-// hide the fragment loads)
-template <class T, bool A_K, bool B_K>
-using WideTile = TileProduct<T, A_K, B_K, 2, 4, 4, 4>;
-
-template <class T>
-__device__ __forceinline__ T* shared_buffer() {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    return reinterpret_cast<T*>(smem_raw);
-}
 
 // 0. gxw[b'o*E + e, c] = round_T(g[t,c] * x[src[e],c] * win[e]), 0 on an empty
 //    slot and in the row's pad c >= C: a warp per edge row, its lanes along c
@@ -469,19 +259,6 @@ tile_product_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, in
         if (m0 + m < M && n0 + n < N)
             store2(d + (size_t)(m0 + m) * N + n0 + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
     });
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-}
-
-template <class T>
-Operand<T> operand(const T* p, long long ld) {
-    const bool vec = reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld * sizeof(T) % 16 == 0;
-    return {p, ld, vec};
 }
 
 // The passes and the split sum, for element type T, cotangent type G and dx

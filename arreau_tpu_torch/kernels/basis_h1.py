@@ -10,10 +10,12 @@ where ``poly`` is the degree-``degree`` tensor-power feature vector of the
 d edge invariants (``models/blocks.py:polynomial_features``). GELU and the
 second Dense stay outside, as in the JAX package.
 
-On the H100 the function is bound by arithmetic (2*B'*O*E*F*H operations
-against one write of ``h1_pre``); the kernel builds the features slice by
-slice in shared memory, so the ``[E, F]`` feature tensor never reaches
-device memory (see the source).
+On the H100 the kernel is one tensor-core tile product (``mma.sync``;
+bfloat16, or 3xTF32 for float32) over all B'*O*E rows, bound by its
+output write in bfloat16 and by its 2*B'*O*E*F*H operations in float32.
+It builds the features in shared memory a K-stage at a time, so the
+``[E, F]`` feature tensor never reaches device memory (see the source;
+``csrc/basis_h1.cuh`` holds the product, which #7's backward shares).
 
 The inputs and ``h1_pre`` are float32, or all bfloat16 on the
 ``compute_dtype="bfloat16"`` path. In bfloat16 the features are formed in

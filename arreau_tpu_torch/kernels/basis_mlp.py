@@ -19,8 +19,10 @@ passes over a ``[B', O, E, D]`` tensor (537 MB at the training shape). The
 cost is memory: the ``n_out`` cotangents are alive together until the
 kernel runs.
 
-On the H100 the backward is bound by arithmetic (2*rows*(2*F*H + 3*H*D)
-operations against the cotangent reads); see the source for its design. It
+On the H100 the backward runs five tensor-core tile products
+(2*rows*(2*F*H + 3*H*D) operations) through device-memory scratch, each
+product's epilogue doing the elementwise work; in bfloat16 the cotangent
+reads bound it, in float32 (3xTF32) the operations; see the source. It
 returns (dw1, db1, dw2, db2) and no cotangent for the invariants: they
 derive from positions and the lattice, which training does not
 differentiate (the JAX package zeroes it).
@@ -48,8 +50,9 @@ from arreau_tpu_torch.kernels.basis_h1 import basis_h1, poly_features_t
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 5 + (_I,) * 10 + (_P,)
+_ARGTYPES = (_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 7 + (_I,) * 10 + (_P,)
 _MAX_G = 16  # cotangents one launch sums (csrc/basis_mlp_bwd.cu: MAX_G)
+_XR = 8  # row stride of the invariants' scratch (csrc/basis_h1.cuh: XR)
 _GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 _GELU_C1 = 0.044715
 
@@ -84,6 +87,14 @@ def basis_mlp_bwd_plain(attrT, w1, b1, w2, b2, degree: int, gs):
     dpre2 = rnd(g.reshape(-1, D) * dg2)
     dpre1 = rnd(torch.matmul(dpre2, w2.t()) * dg1)
     return poly.t() @ dpre1, dpre1.sum(dim=0), h1.t() @ dpre2, dpre2.sum(dim=0)
+
+
+def padded_hidden(H: int) -> int:
+    """Row length of the kernel's ``[rows, Hg]`` scratch: the H hidden
+    units and a ones column (db2's row of the dW2 product), rounded up to 8
+    elements so that every row starts 16-byte aligned
+    (``csrc/basis_mlp_bwd.cu``)."""
+    return -(-(H + 1) // 8) * 8
 
 
 def _check(attrT, w1, b1, w2, b2, gs):
@@ -129,8 +140,10 @@ def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
     rows = Bp * O * E
     splits, per_split = row_splits(rows)
     dev = attrT.device
-    h1_pre = torch.empty((rows, H), dtype=attrT.dtype, device=dev)
+    h1 = torch.empty((rows, padded_hidden(H)), dtype=attrT.dtype, device=dev)
+    dg1 = torch.empty_like(h1)
     dpre2 = torch.empty((rows, D), dtype=attrT.dtype, device=dev)
+    xr = torch.empty((rows, _XR), dtype=attrT.dtype, device=dev)
     partial = torch.empty(splits * max((F_ + 1) * H, (H + 1) * D), dtype=torch.float32, device=dev)
     dw1_ext = torch.empty((F_ + 1, H), dtype=torch.float32, device=dev)
     dw2_ext = torch.empty((H + 1, D), dtype=torch.float32, device=dev)
@@ -138,9 +151,9 @@ def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
     fn = kernel_function("arreau_basis_mlp_bwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-             pointers, len(gs), h1_pre.data_ptr(), dpre2.data_ptr(), partial.data_ptr(),
-             dw1_ext.data_ptr(), dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D, splits, per_split,
-             int(attrT.dtype == torch.bfloat16), stream)
+             pointers, len(gs), h1.data_ptr(), dg1.data_ptr(), dpre2.data_ptr(), xr.data_ptr(),
+             partial.data_ptr(), dw1_ext.data_ptr(), dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D,
+             splits, per_split, int(attrT.dtype == torch.bfloat16), stream)
     check("arreau_basis_mlp_bwd", err)
     basis_mlp_bwd.launches += 1
     return dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]

@@ -59,11 +59,12 @@ Phases, each printing its elapsed seconds and raising on any failure:
    (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
    rate.
 
-#4 and #2 are also called twice on their captured training-shape inputs,
-in both types (phases 6, 11, 14, 19): every output must repeat bit for bit.
-Their float32 bounds are taken at the 3xTF32 rate (TF32X3_FLOP_PER_S), the
-others' at the float32 SIMT or the bf16 tensor-core rate. Every step profile
-lists #4's and #2's inner launches by name and time.
+#4, #2, #8 and #7 (the tensor-core kernels) are also called twice on their
+captured inputs, in both types (phases 3, 6, 11, 14, 19): every output must
+repeat bit for bit. Their float32 bounds are taken at the 3xTF32 rate
+(TF32X3_FLOP_PER_S), the others' at the float32 SIMT rate; every bf16
+bound at the bf16 tensor-core rate. Every step profile lists #4's, #2's and
+#7's inner launches by name and time.
 15. bf16 training reference: one bfloat16 training step, card kernel branch
    against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
    with ``fuse_convnext``.
@@ -127,7 +128,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # float32 products on the TF32 tensor cores (495 TFLOP/s) as 3xTF32, three
-# TF32 products each: the rate the float32 #4 and #2 are designed for
+# TF32 products each: the rate the float32 #4, #2, #8 and #7 are designed for
 TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
@@ -372,9 +373,12 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S):
+def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S,
+                           h1_peak=None):
     """Records of the two forward kernels (#3, #8) on captured arguments,
-    named with ``suffix`` (``_bf16`` for the bfloat16 instantiations)."""
+    named with ``suffix`` (``_bf16`` for the bfloat16 instantiations). #8's
+    bound is taken at ``h1_peak`` (default ``peak``), and #8 must repeat its
+    output bit for bit."""
     from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
     from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
     from arreau_tpu_torch.models.blocks import polynomial_features
@@ -399,17 +403,19 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32
     h1 = check_kernel(
         "basis_h1" + suffix, basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
         args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
-        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak,
+        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol,
+        h1_peak or peak, repeat=True,
     )
     return conv, h1, n_valid
 
 
 def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
-                            peak=FP32_FLOP_PER_S, conv_peak=None):
+                            peak=TF32X3_FLOP_PER_S):
     """Records of the two backward kernels (#4, #7) on captured arguments;
     the library yardstick is autograd's backward through the library chain
-    of the same forward. #4's bound is taken at ``conv_peak`` (default
-    ``peak``), and #4 must repeat its outputs bit for bit."""
+    of the same forward. Both run on the tensor cores: their bounds are
+    taken at ``peak`` (3xTF32 in float32), and both must repeat their
+    outputs bit for bit."""
     from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd, basis_mlp_bwd_plain
     from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd, spatial_conv_bwd_plain
     from arreau_tpu_torch.models.blocks import gelu, polynomial_features
@@ -425,7 +431,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 5 * C),
         "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
-        conv_peak or peak, repeat=True,
+        peak, repeat=True,
     )
     del out, leaves
 
@@ -444,6 +450,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         lambda: torch.autograd.grad(lib_basis, leaves, reduce(torch.add, flat_gs), retain_graph=True),
         args["basis_mlp_bwd"], O * n_valid * 2 * (2 * F_ * H + 3 * H * w2.shape[1]),
         "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289", tol, peak,
+        repeat=True,
     )
     return conv_bwd, mlp_bwd
 
@@ -813,10 +820,16 @@ def fused_convnext_backbone(model):
     return PonitaFiberBundle(cfg).to(model.device).eval()
 
 
-# the launches inside #4 (spatial_conv_bwd.cu) and #2 (fiber_conv_bwd.cu),
-# by the kernel function names a profile shows; the split sum is shared with
-# every other split-K weight gradient (#7, #10, #6 and #2's dKf)
-BWD_INNER_KERNELS = {"::gxw_kernel<": "#4 gxw (edge cotangent)",
+# the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu) and
+# #7 (basis_mlp_bwd.cu), by the kernel function names a profile shows; the
+# split sum is shared with every other split-K weight gradient (#7, #10, #6
+# and #2's dKf), and the h1 product with #8 (basis_h1_kernel<T, false, d>)
+BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or #7's h1 product (basis_h1_kernel<T, true, d>)",
+                     "::basis_dpre2_kernel<": "#7 dpre2",
+                     "::basis_dw2_partial_kernel<": "#7 dW2 split-K partials",
+                     "::basis_dpre1_kernel<": "#7 dpre1",
+                     "::basis_dw1_partial_kernel<": "#7 dW1 split-K partials",
+                     "::gxw_kernel<": "#4 gxw (edge cotangent)",
                      "::dbasis_kernel<": "#4 dbasis",
                      "::dw_partial_kernel<": "#4 dW split-K partials",
                      "sum_splits_kernel": "split sum (#4 dW and every split-K pass)",
@@ -829,7 +842,7 @@ BWD_INNER_KERNELS = {"::gxw_kernel<": "#4 gxw (edge cotangent)",
 def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
     """Where a training step's time goes: a torch.profiler trace of
     ``steps`` steps, the device's busy share, its largest kernels and each
-    of #4's and #2's inner launches."""
+    of #4's, #2's and #7's inner launches."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -1008,7 +1021,8 @@ def main() -> int:
             inputs = first_step_inputs(model, noise)
             with capturing() as args:
                 model.predict_scores(*inputs)
-            serve_conv, serve_h1, _ = forward_kernel_records(args, f"serving {BATCH}x{ATOMS}")
+            serve_conv, serve_h1, _ = forward_kernel_records(args, f"serving {BATCH}x{ATOMS}",
+                                                             h1_peak=TF32X3_FLOP_PER_S)
             fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
             kernels_ms = cfg.num_layers * serve_conv["ms"] + serve_h1["ms"]
             print(f"forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 runs), of which "
@@ -1075,9 +1089,9 @@ def main() -> int:
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
         with torch.no_grad():
-            conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}")
-            conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid,
-                                                        conv_peak=TF32X3_FLOP_PER_S)
+            conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}",
+                                                       h1_peak=TF32X3_FLOP_PER_S)
+            conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid)
         records = {"spatial_conv": conv, "basis_h1": h1, "spatial_conv_bwd": conv_bwd,
                    "basis_mlp_bwd": mlp_bwd}
         del args

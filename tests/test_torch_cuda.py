@@ -158,9 +158,71 @@ def test_tile_product_fragments_match_float64(dtype, a_kmajor, b_kmajor, M, N, K
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_kmajor", [True, False])
+@pytest.mark.parametrize("b_kmajor", [True, False])
+@pytest.mark.parametrize("M,N,K", [(16, 8, 16), (200, 150, 77), (256, 256, 256)])
+def test_built_tile_product_matches_float64(dtype, a_kmajor, b_kmajor, M, N, K):
+    """The tile product whose A tile the block writes into shared memory
+    itself (``TileProduct::run_built``, the polynomial features of #8/#7):
+    A staged a K-slice at a time by cp.async into a slot and copied into the
+    A tile by the block's threads, in both A layouts, ragged (K = 77) and
+    whole tiles, within 1e-5 of a float64 product's scale."""
+    dev = _device()
+    rng = np.random.default_rng(14)
+    a = torch.tensor(rng.normal(size=(M, K)), device=dev).to(dtype)
+    b = torch.tensor(rng.normal(size=(K, N)), device=dev).to(dtype)
+    a_in = a.contiguous() if a_kmajor else a.t().contiguous().t()
+    b_in = b.t().contiguous().t() if b_kmajor else b.contiguous()
+    before = tile_product.launches
+    got = tile_product(a_in, b_in, built=True)
+    torch.cuda.synchronize()
+    assert tile_product.launches == before + 1
+    want = a.double() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
+def _basis_args(rng, dev, dtype, Bp, O, d, E, H, D, degree, n_g):
+    """(attrT, w1, b1, w2, b2, degree) and n_g cotangents of the basis MLP."""
+    F = sum(d**i for i in range(1, degree + 1))
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, device=dev).to(dtype)
+
+    args = (t(Bp, O, d, E), t(F, H, scale=0.1), t(H), t(H, D, scale=0.1), t(D), degree)
+    return args, [t(Bp, O, E, D) for _ in range(n_g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bp,O,d,E,H,D,degree,n_g", [
+    (2, 3, 6, 17, 33, 37, 1, 1), (2, 3, 5, 100, 70, 20, 2, 5), (1, 2, 6, 17, 70, 64, 3, 16),
+    (2, 3, 5, 100, 33, 37, 3, 5), (32, 16, 6, 1024, 200, 256, 3, 5)])
+def test_basis_kernels_match_plain_at_ragged_shapes(dtype, Bp, O, d, E, H, D, degree, n_g):
+    """#8 and #7 (tensor-core products, features built in shared memory)
+    against their plain versions: rows, H, D and F that fill no tile (F = 6
+    to 155), degrees 1-3, one to sixteen cotangents, and the canonical
+    training shape (524288 rows, F = 258, H = 200, D = 256, five layers)."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(15), dev, dtype, Bp, O, d, E, H, D, degree, n_g)
+    before = (basis_h1.launches, basis_mlp_bwd.launches)
+    h1 = basis_h1(*args[:3], degree)
+    got = basis_mlp_bwd(*args, gs)
+    torch.cuda.synchronize()
+    assert (basis_h1.launches, basis_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    fwd_tol, bwd_tol = (REL_TOL, BWD_REL_TOL) if dtype == torch.float32 else (BF16_REL_TOL,) * 2
+    _assert_close(h1, basis_h1_plain(*args[:3], degree), fwd_tol)
+    for a, b in zip(got, basis_mlp_bwd_plain(*args, gs)):
+        assert a.dtype == torch.float32
+        _assert_close(a, b, bwd_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_repeat_bit_for_bit(dtype):
-    """#4 and #2 called twice on the same inputs give every output equal,
-    dx included (each sender's terms summed in a fixed order, no atomics)."""
+    """#4, #2, #8 and #7 called twice on the same inputs give every output
+    equal, dx included (each sender's terms summed in a fixed order) and the
+    split-K weight gradients (partials added in split order; no atomics)."""
     dev = _device()
     rng = np.random.default_rng(13)
     Bp, O, P, K, TA, D, C = 2, 16, 16, 8, 120, 256, 200
@@ -174,6 +236,9 @@ def test_backward_kernels_repeat_bit_for_bit(dtype):
     x_sp = fiber_conv_plain(*fargs, save_x_sp=True)[1]
     first += fiber_conv_bwd(*fargs, fg, x_sp)
     second += fiber_conv_bwd(*fargs, fg, x_sp)
+    bargs, gs = _basis_args(rng, dev, dtype, 2, 16, 6, 960, 200, 256, 3, 5)
+    first += (basis_h1(*bargs[:3], 3), *basis_mlp_bwd(*bargs, gs))
+    second += (basis_h1(*bargs[:3], 3), *basis_mlp_bwd(*bargs, gs))
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(first, second)):
         assert torch.equal(a, b), i

@@ -14,12 +14,23 @@ stable, and every live edge in it once.
 It also prints, without asserting, what 1-pass TF32 (``cvt.rna`` of each
 operand, one product) gives on the same inputs: the open question of
 whether the float32 path could take the JAX kernel's own 1-pass precision.
+
+The same holds for the basis MLP's kernels, whose float32 products run as
+3xTF32 too: #8 (``csrc/basis_h1.cu``: h1_pre = poly @ W1 + b1, the bias
+added after the product) and #7's five products (``csrc/basis_mlp_bwd.cu``:
+h1 recomputed with its ones column in the padded scratch row, dpre2 from
+the summed cotangents, dW2|db2 and dW1|db1 as split-K products whose
+per-split partials are added in split order, dpre1 between them), each
+output within 1e-5 of the float64 plain version's scale.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from arreau_tpu_torch.kernels.basis_h1 import basis_h1_plain, poly_features_t
+from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd_plain, padded_hidden
+from arreau_tpu_torch.kernels.build import row_splits
 from arreau_tpu_torch.kernels.spatial_conv import sender_order, spatial_conv_bwd_plain
 
 SPLIT_REL_TOL = 1e-5
@@ -144,3 +155,90 @@ def test_sender_order_is_stable_and_lists_every_live_edge_once(seed, TA, E):
         live = (src[b] >= 0) & (src[b] < TA)
         assert off[TA] == live.sum()
         assert not live[row[off[TA]:]].any()  # the empty slots come last
+
+
+def gelu_and_deriv(x):
+    """Tanh-approximation GELU and its derivative in float32, as the
+    kernels' epilogues evaluate them."""
+    f32 = np.float32
+    t = np.tanh(f32(0.7978845608028654) * (x + f32(0.044715) * x * x * x)).astype(f32)
+    value = f32(0.5) * x * (f32(1) + t)
+    deriv = (f32(0.5) * (f32(1) + t)
+             + f32(0.5) * x * (f32(1) - t * t) * f32(0.7978845608028654)
+             * (f32(1) + f32(3 * 0.044715) * x * x))
+    return value.astype(f32), deriv.astype(f32)
+
+
+def emulated_basis_kernels(attrT, w1, b1, w2, b2, degree, gs, mm, rows_per_block):
+    """(h1_pre, dw1, db1, dw2, db2) by #8's and #7's algorithm in float32
+    numpy, products by ``mm``: the features formed in float32; h1_pre =
+    poly @ W1, then + b1; #7's scratch row [gelu(h1_pre) | 1 | 0 ...] of
+    ``padded_hidden(H)`` elements; dpre2 = (sum of the cotangents, in
+    order) * gelu'(h1 @ W2 + b2); dW2|db2 = [h1 | 1]^T dpre2 and dW1|db1 =
+    [poly | 1]^T dpre1 over each split of ``row_splits(rows,
+    rows_per_block)`` rows, the partials added in split order."""
+    f32 = np.float32
+    F_, H = w1.shape
+    D = w2.shape[1]
+    poly = poly_features_t(torch.tensor(attrT), degree).reshape(-1, F_).numpy()
+    h1_pre = mm(poly, w1) + b1
+    rows = poly.shape[0]
+    h1, dg1 = gelu_and_deriv(h1_pre)
+    scratch = np.zeros((rows, padded_hidden(H)), f32)
+    scratch[:, :H], scratch[:, H] = h1, 1
+    g = gs[0].reshape(rows, D)
+    for gi in gs[1:]:
+        g = g + gi.reshape(rows, D)
+    dpre2 = g * gelu_and_deriv(mm(scratch[:, :H], w2) + b2)[1]
+    dpre1 = mm(dpre2, np.ascontiguousarray(w2.T)) * dg1
+    poly_ext = np.concatenate([poly, np.ones((rows, 1), f32)], axis=1)
+    splits, per = row_splits(rows, rows_per_block)
+    dw2_ext = np.zeros((H + 1, D), f32)
+    dw1_ext = np.zeros((F_ + 1, H), f32)
+    for s in range(splits):
+        r = slice(s * per, min(rows, (s + 1) * per))
+        dw2_ext += mm(np.ascontiguousarray(scratch[r, :H + 1].T), dpre2[r])
+        dw1_ext += mm(np.ascontiguousarray(poly_ext[r].T), dpre1[r])
+    return h1_pre.astype(f32), dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]
+
+
+@pytest.fixture(scope="module")
+def basis_case():
+    """Seeded inputs at a small size (B'=2, O=3, E=40: 240 rows in four
+    splits; d=6, degree 3, F=258, H=24, D=20; three cotangents); the float64
+    plain versions' outputs; the 3xTF32 and 1-pass TF32 emulations."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    Bp, O, d, E, H, D, degree = 2, 3, 6, 40, 24, 20, 3
+    F_ = d + d * d + d ** 3
+    args = (rng.normal(size=(Bp, O, d, E)).astype(f32),
+            (rng.normal(size=(F_, H)) * 0.1).astype(f32), rng.normal(size=H).astype(f32),
+            (rng.normal(size=(H, D)) * 0.1).astype(f32), rng.normal(size=D).astype(f32))
+    gs = [rng.normal(size=(Bp, O, E, D)).astype(f32) for _ in range(3)]
+    t = [torch.tensor(a, dtype=torch.float64) for a in args]
+    want = (basis_h1_plain(*t[:3], degree).reshape(-1, H).numpy(),
+            *(v.numpy() for v in basis_mlp_bwd_plain(*t, degree,
+                                                     [torch.tensor(g, dtype=torch.float64)
+                                                      for g in gs])))
+    split3 = emulated_basis_kernels(*args, degree, gs, mm_3xtf32, 64)
+    one_pass = emulated_basis_kernels(*args, degree, gs, mm_1xtf32, 64)
+    return want, split3, one_pass
+
+
+@pytest.mark.parametrize("i,name", [(0, "h1_pre"), (1, "dw1"), (2, "db1"), (3, "dw2"),
+                                    (4, "db2")])
+def test_3xtf32_basis_products_keep_float32_precision(basis_case, i, name):
+    want, split3, one_pass = basis_case
+    scale = np.abs(want[i]).max()
+    rel3 = np.abs(split3[i] - want[i]).max() / scale
+    rel1 = np.abs(one_pass[i] - want[i]).max() / scale
+    print(f"{name}: 3xTF32 {rel3:.3e}, 1-pass TF32 {rel1:.3e} of the float64 scale")
+    assert rel3 <= SPLIT_REL_TOL, rel3
+
+
+@pytest.mark.parametrize("H,Hg", [(1, 8), (7, 8), (8, 16), (33, 40), (70, 72), (200, 208),
+                                  (256, 264)])
+def test_padded_hidden_keeps_a_ones_column_and_aligned_rows(H, Hg):
+    """#7's scratch row: the H hidden units and the ones column, rounded up
+    to 8 elements (16 bytes in bfloat16, 32 in float32)."""
+    assert padded_hidden(H) == Hg
