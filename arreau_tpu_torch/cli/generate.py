@@ -31,7 +31,7 @@ from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionConfig, DiffusionModel
 
 # flags of the JAX CLI whose paths wait for later slices of the port
-_LATER_SLICES = ("data_parallel", "gif", "visualize", "quality_ref")
+_LATER_SLICES = ("gif", "visualize", "quality_ref")
 
 
 def parse_bool(value: str) -> bool:
@@ -67,7 +67,10 @@ def parse_args(argv=None):
     p.add_argument("--clip_denoised", type=parse_bool, default=True,
                    help="clamp the lattice-length x0-prediction to the checkpoint's "
                         "length_stats envelope")
-    p.add_argument("--data_parallel", type=parse_bool, default=False, help="not ported yet")
+    p.add_argument("--data_parallel", type=parse_bool, default=True,
+                   help="data-parallel sampling (the JAX CLI's default): on one device, or "
+                        "on the CPU, it samples there, as the JAX CLI does; more than one "
+                        "visible CUDA device is not ported yet")
     p.add_argument("--gif", type=parse_bool, default=False, help="not ported yet")
     p.add_argument("--visualize", type=parse_bool, default=False, help="not ported yet")
     p.add_argument("--quality_ref", type=str, default=None, help="not ported yet")
@@ -115,6 +118,10 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    # the JAX CLI shards only over more than one device (its n_dev > 1)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError("--data_parallel over more than one CUDA device is not "
+                                  "ported yet; pass --data_parallel false")
 
     model, z_table, meta = load_model(args.checkpoint_dir, args.tag, args.use_ema, device)
     length_bounds = length_bounds_from_meta(meta) if args.clip_denoised else None

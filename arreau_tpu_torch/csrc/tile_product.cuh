@@ -2,9 +2,12 @@
 // BM x BN output tile as mma.sync fragments (mma.cuh), its operands staged
 // in shared memory by 16-byte cp.async, several stages deep, so that the
 // next tile's copies overlap this tile's products. Shared by #4/#2
-// (spatial_conv_bwd.cu) and #8/#7 (basis_h1.cuh, basis_mlp_bwd.cu).
+// (spatial_conv_bwd.cu), #8/#7 (basis_h1.cuh, basis_mlp_bwd.cu) and #3/#1
+// (conv_fwd.cuh).
 //
-// TileProduct::run copies both operands; TileProduct::run_built copies B and
+// TileProduct::run copies both operands; TileProduct::run_slots runs several
+// products that share B (a conv's neighbour slots) through one ring, with a
+// fold of each slot's product between them; TileProduct::run_built copies B and
 // lets the block build A in shared memory itself, one K-stage at a time, the
 // next stage's while the tensor cores work on this one's (the polynomial
 // features of #8/#7, which never reach device memory).
@@ -190,6 +193,50 @@ struct TileProduct {
             if (pf < nk) load_stage(smem + (pf % STAGES) * STAGE, a, b, pf * BK, K, m_lim, n_lim);
             cp_async_commit();
             if (live) compute_stage(smem + (kt % STAGES) * STAGE, acc);
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+    }
+
+    // As run, for `slots` products of depth K that share B, in one cp.async
+    // ring: slot s's A starts a_step elements after slot s - 1's (same ld).
+    // After slot s's last stage every thread calls fold(s, acc), acc holding
+    // slot s's product alone, and acc restarts at zero. The ring does not
+    // drain between slots: the next slot's first stages are in flight while
+    // this one folds. Copies the caller issues before the call land with
+    // the first stage (they join its commit group). Ends as run.
+    template <class Fold>
+    __device__ static void run_slots(const Operand<T>& a, long long a_step, int slots,
+                                     const Operand<T>& b, int K, int m_lim, int n_lim, T* smem,
+                                     Acc& acc, Fold fold) {
+        const int nk = (K + BK - 1) / BK, total = slots * nk;
+        const bool live = warp_m0() < m_lim && warp_n(0) < n_lim;
+        auto load = [&](int q) {
+            const int s = q / nk;
+            const Operand<T> as = {a.p + s * a_step, a.ld, a.vec};
+            load_stage(smem + (q % STAGES) * STAGE, as, b, (q - s * nk) * BK, K, m_lim, n_lim);
+        };
+#pragma unroll
+        for (int st = 0; st < STAGES - 1; ++st) {
+            if (st < total) load(st);
+            cp_async_commit();
+        }
+        for (int q = 0; q < total; ++q) {
+            cp_async_wait<STAGES - 2>();
+            __syncthreads();  // stage q has landed; every warp is done with stage q - 1
+            const int pf = q + STAGES - 1;
+            if (pf < total) load(pf);
+            cp_async_commit();
+            if (live) compute_stage(smem + (q % STAGES) * STAGE, acc);
+            if ((q + 1) % nk == 0) {
+                fold(q / nk, acc);
+#pragma unroll
+                for (int i = 0; i < MT; ++i)
+#pragma unroll
+                    for (int j = 0; j < NT; ++j)
+#pragma unroll
+                        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+            }
         }
         cp_async_wait<0>();
         __syncthreads();

@@ -1,5 +1,5 @@
 """Fused fiber-bundle convolution over super-crystal tiles (spatial conv,
-sum over the K neighbour slots and fiber mixing in one kernel), forward and
+sum over the K neighbour slots and fiber mixing in one call), forward and
 backward.
 
 Replaces the TPU kernels ``arreau_tpu/ops/pallas_conv.py:_fwd_kernel`` and
@@ -16,15 +16,18 @@ fiber kernel ``Kf`` pre-scaled by ``1/O``. The layouts are those of
 [B', E]`` int32 (a value outside ``[0, TA)``, -1 by convention, marks an
 empty slot) takes the place of the JAX package's one-hot ``sel``.
 
-On the H100 the forward is bound by float32 arithmetic (the per-edge
-kernel ``basis @ w``); the backward runs three products of the same size
-on the tensor cores. The forward keeps the spatial conv and its ``[P, 16,
-64]`` output tile in registers, so nothing per edge reaches device memory;
-when gradients are wanted it also stores the spatial conv ``x_sp [B', O,
-TA, C]`` as the backward's residual, where the TPU kernel recomputes it.
-The backward launches the fiber cotangent, the fiber-kernel gradient with
-a fixed-order second pass, and the spatial conv's own backward kernels
-(every output the same bit for bit on every call). See the sources.
+On the H100 the forward's per-edge kernel ``basis @ w`` runs on the
+tensor cores, through the spatial conv's forward mainloop
+(``csrc/conv_fwd.cuh``, 3xTF32 in float32), which folds the K slots in
+registers, so nothing per edge reaches device memory; it stores the
+float32 spatial conv ``x_sp [B', O, TA, C]``, and a second hand-written
+kernel mixes it over the orientations in ascending o. When gradients are
+wanted ``x_sp`` is the backward's residual (the TPU kernel recomputes it);
+otherwise it is scratch. The backward launches the fiber cotangent, the
+fiber-kernel gradient with a fixed-order second pass, and the spatial
+conv's own backward kernels, three products of the forward's size on the
+tensor cores. Every output of both is the same bit for bit on every call.
+See the sources.
 
 :func:`fiber_conv` and :func:`fiber_conv_bwd` launch their kernels for CUDA
 tensors and run :func:`fiber_conv_plain` / :func:`fiber_conv_bwd_plain` for
@@ -60,8 +63,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P,) * 7 + (_I,) * 8 + (_P,)
 _BWD_ARGTYPES = (_P,) * 18 + (_I,) * 10 + (_P,)
-_SMEM_BYTES = 227 * 1024 - 1024  # a block's shared memory less the forward's static arrays
-_MAX_P = 16  # output orientations the kernels hold in registers (csrc/*.cu: MAX_P)
+_MAX_P = 16  # orientations the kernels hold in registers (csrc/*.cu: MAX_P, MAX_O)
 
 
 def _unit_window(src):
@@ -135,19 +137,16 @@ def fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
     Bp, O, E, D = basis.shape
     TA, C = x.shape[2], x.shape[3]
     P = fiber_kernel.shape[1]
-    # the float32 W slice and two 16-row slot buffers in the element type
-    size = basis.element_size()
-    ld = -(-D // (16 // size)) * (16 // size)
-    smem = ld * (64 * 4 + 2 * 16 * size)
-    if smem > _SMEM_BYTES or P > _MAX_P or Bp > 65535:
-        raise ValueError(f"fiber_conv's kernel takes D <= {_SMEM_BYTES // (256 + 32 * size)}, "
-                         f"P <= {_MAX_P} and B' <= 65535, not D = {D}, P = {P}, B' = {Bp}")
+    if O > _MAX_P or P > _MAX_P or Bp * O > 65535:
+        raise ValueError(f"fiber_conv's kernels take O, P <= {_MAX_P} and B'*O <= 65535, not "
+                         f"O = {O}, P = {P}, B'*O = {Bp * O}")
     y = torch.empty((Bp, P, TA, C), dtype=torch.float32, device=basis.device)
-    x_sp = torch.empty(x.shape, dtype=torch.float32, device=x.device) if save_x_sp else None
+    # the spatial conv: the backward's residual, or scratch
+    x_sp = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     fn = kernel_function("arreau_fiber_conv_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(basis.device).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(),
-             fiber_kernel.data_ptr(), y.data_ptr(), x_sp.data_ptr() if save_x_sp else None,
+             fiber_kernel.data_ptr(), y.data_ptr(), x_sp.data_ptr(),
              Bp, O, P, E // TA, TA, D, C, int(basis.dtype == torch.bfloat16), stream)
     check("arreau_fiber_conv_fwd", err)
     fiber_conv.launches += 1

@@ -14,11 +14,14 @@ matrix ``sel [B', E, TA]`` (an MXU trick); here the layout code hands over
 ``src [B', E]`` int32, the tile-local sender; a value outside ``[0, TA)``
 (-1 by convention) marks an empty slot.
 
-On the H100 the function is bound by arithmetic (2*B'*O*E*D*C operations
-against one read of the basis); the kernel keeps the per-edge ``[E, C]``
-kernel in registers and reduces over k there (see the source). The
-backward (:func:`spatial_conv_bwd`) returns the cotangents of the basis, of
-``w`` and of ``x``; the window's is not computed (it is a function of
+On the H100 the per-edge kernel is 2*B'*O*E*D*C operations against one
+read of the basis: bytes bound it in bfloat16, operations in float32. The
+forward runs it on the tensor cores (``csrc/conv_fwd.cuh``: one
+``mma.sync`` tile product per neighbour slot, 3xTF32 in float32), folds
+each slot into the output in registers in ascending k, so the ``[E, C]``
+per-edge kernel never reaches device memory, and repeats its output bit
+for bit. The backward (:func:`spatial_conv_bwd`) returns the cotangents of
+the basis, of ``w`` and of ``x``; the window's is not computed (it is a function of
 positions, which training does not differentiate: the JAX package's
 ``window_grad = position_grads = False``), so ``win`` gets none. Its three
 products run on the tensor cores (``csrc/mma.cuh``; 3xTF32 in float32), and

@@ -168,7 +168,7 @@ class FiberBundleConv(nn.Module):
     neighbour list: the spatial step (per-edge kernel from the basis,
     gathered senders, sum over the K slots) then the dense orientation
     mixing ``x[.., o, c] K[o, p, c] / O``. With ``fuse_fiber`` the kernel
-    layout runs both steps in one kernel (``fused_fiber_conv``)."""
+    layout runs both steps in one call (``fused_fiber_conv``)."""
 
     def __init__(self, basis_dim: int, channels: int, fuse_fiber: bool = False):
         super().__init__()

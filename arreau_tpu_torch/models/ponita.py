@@ -81,7 +81,7 @@ class PonitaConfig:
     expected_degree: float = 8.0
     # None = kernel branch on CUDA, plain branch on CPU; True/False = force
     use_kernels: Optional[bool] = None
-    # kernel branch: the spatial conv and the fiber mixing in one kernel
+    # kernel branch: the spatial conv and the fiber mixing in one call (#1)
     fuse_fiber: bool = False
     # True = biases on both basis Dense layers, "in" = dense_in only, False = none
     basis_bias: "bool | str" = True

@@ -59,12 +59,12 @@ Phases, each printing its elapsed seconds and raising on any failure:
    (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
    rate.
 
-#4, #2, #8 and #7 (the tensor-core kernels) are also called twice on their
-captured inputs, in both types (phases 3, 6, 11, 14, 19): every output must
-repeat bit for bit. Their float32 bounds are taken at the 3xTF32 rate
-(TF32X3_FLOP_PER_S), the others' at the float32 SIMT rate; every bf16
-bound at the bf16 tensor-core rate. Every step profile lists #4's, #2's and
-#7's inner launches by name and time.
+#3, #1, #4, #2, #8 and #7 (the tensor-core kernels) are also called twice
+on their captured inputs, in both types (phases 3, 6, 11, 14, 19): every
+output must repeat bit for bit. Their float32 bounds are taken at the
+3xTF32 rate (TF32X3_FLOP_PER_S), the others' at the float32 SIMT rate;
+every bf16 bound at the bf16 tensor-core rate. Every step profile lists
+#4's, #2's and #7's inner launches by name and time.
 15. bf16 training reference: one bfloat16 training step, card kernel branch
    against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
    with ``fuse_convnext``.
@@ -128,7 +128,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # float32 products on the TF32 tensor cores (495 TFLOP/s) as 3xTF32, three
-# TF32 products each: the rate the float32 #4, #2, #8 and #7 are designed for
+# TF32 products each: the rate the float32 tensor-core kernels (#3, #1, #4,
+# #2, #8, #7) are designed for
 TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
@@ -373,12 +374,11 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S,
-                           h1_peak=None):
+def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32X3_FLOP_PER_S):
     """Records of the two forward kernels (#3, #8) on captured arguments,
-    named with ``suffix`` (``_bf16`` for the bfloat16 instantiations). #8's
-    bound is taken at ``h1_peak`` (default ``peak``), and #8 must repeat its
-    output bit for bit."""
+    named with ``suffix`` (``_bf16`` for the bfloat16 instantiations). Both
+    run on the tensor cores: their bounds are taken at ``peak`` (3xTF32 in
+    float32), and both must repeat their outputs bit for bit."""
     from arreau_tpu_torch.kernels.basis_h1 import basis_h1, basis_h1_plain
     from arreau_tpu_torch.kernels.spatial_conv import spatial_conv, spatial_conv_plain
     from arreau_tpu_torch.models.blocks import polynomial_features
@@ -394,6 +394,7 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32
         lambda: conv_library(basis, w, x, src, win), args["spatial_conv"],
         O * n_valid * (2 * D * C + 3 * C),
         "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak,
+        repeat=True,
     )
     attrT, w1, b1, degree = args["basis_h1"]
     d = attrT.shape[2]
@@ -403,8 +404,8 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32
     h1 = check_kernel(
         "basis_h1" + suffix, basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
         args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
-        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol,
-        h1_peak or peak, repeat=True,
+        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak,
+        repeat=True,
     )
     return conv, h1, n_valid
 
@@ -462,15 +463,14 @@ def fiber_library(basis, w, x, src, fiber_kernel):
     return torch.einsum("botc,opc->bptc", conv_library(basis, w, x, src, ones), fiber_kernel)
 
 
-def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S,
-                  bwd_peak=None):
+def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32X3_FLOP_PER_S):
     """Records of #1 (and of #2 where ``args`` holds its inputs: a training
     step, whose forward also stores the spatial conv for the backward) on
     captured arguments, named with ``suffix`` (``_bf16`` for the bfloat16
     instantiations); the backward's library yardstick is autograd's
-    backward through :func:`fiber_library`, its bound is taken at
-    ``bwd_peak`` (default ``peak``), and it must repeat its outputs bit for
-    bit."""
+    backward through :func:`fiber_library`. Both run their products on the
+    tensor cores: their bounds are taken at ``peak`` (3xTF32 in float32),
+    and both must repeat their outputs bit for bit."""
     from arreau_tpu_torch.kernels.fiber_conv import (
         fiber_conv,
         fiber_conv_bwd,
@@ -491,6 +491,7 @@ def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER
         lambda: fiber_library(basis, w, x, src, fk), args["fiber_conv"],
         O * n_valid * (2 * D * C + 2 * C) + mixing,
         "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82", tol, peak,
+        repeat=True,
     )]
     if "fiber_conv_bwd" in args:
         basis, w, x, src, fk, g, _ = args["fiber_conv_bwd"]
@@ -503,7 +504,7 @@ def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER
             lambda: torch.autograd.grad(out, leaves, g.to(out.dtype), retain_graph=True),
             args["fiber_conv_bwd"], O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
             "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108", tol,
-            bwd_peak or peak, repeat=True,
+            peak, repeat=True,
         ))
         del out, leaves
     return records
@@ -1021,8 +1022,7 @@ def main() -> int:
             inputs = first_step_inputs(model, noise)
             with capturing() as args:
                 model.predict_scores(*inputs)
-            serve_conv, serve_h1, _ = forward_kernel_records(args, f"serving {BATCH}x{ATOMS}",
-                                                             h1_peak=TF32X3_FLOP_PER_S)
+            serve_conv, serve_h1, _ = forward_kernel_records(args, f"serving {BATCH}x{ATOMS}")
             fwd_ms = cuda_ms(lambda: model.predict_scores(*inputs), runs=10)
             kernels_ms = cfg.num_layers * serve_conv["ms"] + serve_h1["ms"]
             print(f"forward at {BATCH}x{ATOMS}: {fwd_ms:.4f} ms (CUDA events, 10 runs), of which "
@@ -1089,8 +1089,7 @@ def main() -> int:
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
         with torch.no_grad():
-            conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}",
-                                                       h1_peak=TF32X3_FLOP_PER_S)
+            conv, h1, n_valid = forward_kernel_records(args, f"training {TRAIN_BATCH}x{bucket}")
             conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid)
         records = {"spatial_conv": conv, "basis_h1": h1, "spatial_conv_bwd": conv_bwd,
                    "basis_mlp_bwd": mlp_bwd}
@@ -1164,8 +1163,7 @@ def main() -> int:
         # plain tensors (the serving capture ran in inference mode)
         basis_attrs = {k: v.clone() for k, v in basis_attrs.items()}
         with torch.no_grad():
-            fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}",
-                                                 bwd_peak=TF32X3_FLOP_PER_S)
+            fiber_fwd, fiber_bwd = fiber_records(args, f"fiber training {TRAIN_BATCH}x{bucket}")
         fiber_fwd["serve"] = {k: serve_fiber[k] for k in
                               ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         records.update(fiber_conv=fiber_fwd, fiber_conv_bwd=fiber_bwd)

@@ -446,6 +446,51 @@ def test_bf16_fiber_conv_kernels_match_plain(Bp, O, P, K, TA, D, C):
         _assert_close(a, b, BF16_REL_TOL)
 
 
+# the forward convs #3 and #1 on the tensor cores: receivers that fill no
+# whole tile (TA = 12, 17, 40) or several (480: x read from device memory,
+# its rows do not fit in shared memory), one, eight or 40 neighbour slots
+# (more than a block stages at once), D and C not multiples of the tiles,
+# P != O; and the canonical width
+FORWARD_CONV_SHAPES = [(2, 3, 3, 1, 12, 24, 8), (2, 3, 5, 8, 17, 37, 70),
+                       (2, 3, 3, 4, 40, 37, 70), (2, 4, 4, 8, 128, 256, 200),
+                       (1, 2, 2, 1, 480, 37, 70), (1, 2, 2, 40, 12, 24, 8),
+                       (1, 16, 16, 8, 128, 256, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bp,O,P,K,TA,D,C", FORWARD_CONV_SHAPES)
+def test_forward_conv_kernels_match_plain_and_repeat(dtype, Bp, O, P, K, TA, D, C):
+    """#3 and #1 against their plain versions (float32 within REL_TOL, bf16
+    within BF16_REL_TOL for #3's rounded output; #1's float32 outputs of
+    bf16 operands within REL_TOL), with -1 and out-of-range slots; every
+    output the same bit for bit on a second call; one launch a call; #1's
+    x_sp is the spatial conv with a unit window."""
+    dev = _device()
+    rng = np.random.default_rng(17)
+    *args, win = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    fk = torch.tensor(rng.normal(size=(O, P, C)) * 0.3 / O, dtype=torch.float32, device=dev)
+    if dtype == torch.bfloat16:
+        args, fk = _bf16(args), fk.to(dtype)
+    before = (spatial_conv.launches, fiber_conv.launches)
+    out = [spatial_conv(*args, win), spatial_conv(*args, win)]
+    fib = [fiber_conv(*args, fk, save_x_sp=True), fiber_conv(*args, fk, save_x_sp=True)]
+    torch.cuda.synchronize()
+    assert (spatial_conv.launches, fiber_conv.launches) == (before[0] + 2, before[1] + 2)
+    assert out[0].dtype == dtype and torch.equal(out[0], out[1])
+    assert all(torch.equal(a, b) for a, b in zip(*fib))
+    _assert_close(out[0], spatial_conv_plain(*args, win),
+                  REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
+    want_y, want_x_sp = fiber_conv_plain(*args, fk, save_x_sp=True)
+    y, x_sp = fib[0]
+    assert y.dtype == x_sp.dtype == torch.float32
+    _assert_close(y, want_y)
+    _assert_close(x_sp, want_x_sp)
+    ones = torch.ones_like(win)
+    _assert_close(x_sp, spatial_conv_plain(*(a.float() if a.is_floating_point() else a
+                                             for a in args), ones))
+
+
 # ragged: E not a multiple of 64, d < 6, degree 1 to 3, H and D not multiples
 # of 64; and the canonical width (d = 6, degree 3, H = 200, D = 256)
 FUSED_BASIS_SHAPES = [(2, 3, 100, 6, 70, 37, 3), (1, 2, 33, 4, 20, 64, 2), (2, 1, 65, 5, 65, 10, 1),

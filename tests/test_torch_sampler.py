@@ -191,7 +191,28 @@ def test_generate_cli_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--gif", "true"], ["--visualize", "true"],
-                                  ["--data_parallel", "true"], ["--quality_ref", "synthetic"]])
+                                  ["--quality_ref", "synthetic"]])
 def test_generate_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         generate.main(["--device", "cpu", *flag])
+
+
+def test_generate_data_parallel_on_one_device_samples_as_without(tmp_path):
+    """``--data_parallel true`` (the JAX CLI's default) on one device samples
+    there, as the JAX CLI does when it sees one device: the same crystals
+    as ``--data_parallel false`` under one seed."""
+    jmodel, params = jax_model_and_params()
+    write_checkpoint(tmp_path / "ckpt", jmodel, params,
+                     fourier_w=np.asarray(jmodel.fourier_w).tolist())
+    results = {}
+    for flag in ("true", "false"):
+        out = tmp_path / f"out_{flag}"
+        generate.main(["--checkpoint_dir", str(tmp_path / "ckpt"), "--device", "cpu",
+                       "--num_crystals", "3", "--batch_size", "3", "--num_atoms_per_sample", "4",
+                       "--sample_steps", "3", "--seed", "7", "--data_parallel", flag,
+                       "--out_dir", str(out)])
+        results[flag] = np.load(out / "crystals.npz")
+    assert results["true"].files == results["false"].files
+    for name in results["true"].files:
+        np.testing.assert_array_equal(results["true"][name], results["false"][name], err_msg=name)
+    assert results["true"]["num_atoms"].sum() == 12

@@ -22,6 +22,15 @@ h1 recomputed with its ones column in the padded scratch row, dpre2 from
 the summed cotangents, dW2|db2 and dW1|db1 as split-K products whose
 per-split partials are added in split order, dpre1 between them), each
 output within 1e-5 of the float64 plain version's scale.
+
+And for the forward convs, whose per-edge kernels run as 3xTF32 too: #3
+(``csrc/spatial_conv.cu`` through ``csrc/conv_fwd.cuh``: each neighbour
+slot's D-deep product basis rows @ W, folded into the output with the
+float32 window and the sender's features in ascending k, empty slots
+skipped) and #1 (``csrc/fiber_conv.cu``: the same fold without a window
+into the float32 ``x_sp``, then the fiber mixing summed over o in ascending
+order), each output within 1e-5 of the float64 plain version's scale, at a
+small ragged shape and at the canonical width cut to one super-crystal.
 """
 
 import numpy as np
@@ -31,7 +40,12 @@ import torch
 from arreau_tpu_torch.kernels.basis_h1 import basis_h1_plain, poly_features_t
 from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd_plain, padded_hidden
 from arreau_tpu_torch.kernels.build import row_splits
-from arreau_tpu_torch.kernels.spatial_conv import sender_order, spatial_conv_bwd_plain
+from arreau_tpu_torch.kernels.fiber_conv import fiber_conv_plain
+from arreau_tpu_torch.kernels.spatial_conv import (
+    sender_order,
+    spatial_conv_bwd_plain,
+    spatial_conv_plain,
+)
 
 SPLIT_REL_TOL = 1e-5
 
@@ -242,3 +256,76 @@ def test_padded_hidden_keeps_a_ones_column_and_aligned_rows(H, Hg):
     """#7's scratch row: the H hidden units and the ones column, rounded up
     to 8 elements (16 bytes in bfloat16, 32 in float32)."""
     assert padded_hidden(H) == Hg
+
+
+def emulated_conv_fwd(basis, w, x, src, win, mm):
+    """The forward conv as ``csrc/conv_fwd.cuh`` computes it, in float32
+    numpy: slot k's product (basis rows k*TA .. k*TA + TA) @ W by ``mm``,
+    then out += win * acc * x[src] for the live slots, in ascending k;
+    ``win`` None weighs every slot 1 (#1's spatial conv)."""
+    Bp, O, E, D = basis.shape
+    TA, C = x.shape[2], x.shape[3]
+    out = np.zeros(x.shape, np.float32)
+    for b in range(Bp):
+        for k in range(E // TA):
+            rows = slice(k * TA, (k + 1) * TA)
+            acc = mm(basis[b, :, rows].reshape(-1, D), w).reshape(O, TA, C)
+            s = src[b, rows]
+            live = (s >= 0) & (s < TA)
+            wv = np.ones(TA, np.float32) if win is None else win[b, rows]
+            xj = x[b][:, np.where(live, s, 0)]  # [O, TA, C]
+            out[b] += np.where(live[None, :, None], wv[None, :, None] * acc * xj, np.float32(0))
+    return out
+
+
+def emulated_fiber_fwd(basis, w, x, src, fk, mm):
+    """(y, x_sp) as #1 computes them: the windowless fold into float32
+    x_sp, then y[p] = sum over o of Kf[o, p] * x_sp[o], ascending o."""
+    x_sp = emulated_conv_fwd(basis, w, x, src, None, mm)
+    y = np.zeros((x.shape[0], fk.shape[1], *x.shape[2:]), np.float32)
+    for o in range(fk.shape[0]):
+        y += fk[o][None, :, None, :] * x_sp[:, o][:, None]
+    return y, x_sp
+
+
+@pytest.fixture(scope="module", params=[(2, 3, 5, 3, 17, 37, 70), (1, 16, 16, 8, 128, 256, 200)],
+                ids=["ragged", "canonical"])
+def conv_case(request):
+    """Seeded inputs (B', O, P, K, TA, D, C: a ragged shape, and the canonical
+    width cut to one super-crystal) with -1 and out-of-range slots; the
+    float64 plain versions' outputs (#3 out, #1 y and x_sp); the 3xTF32 and
+    1-pass TF32 emulations."""
+    Bp, O, P, K, TA, D, C = request.param
+    rng = np.random.default_rng(11)
+    E = K * TA
+    f32 = np.float32
+    src = rng.integers(0, TA, size=(Bp, E))
+    src[rng.random((Bp, E)) < 0.1] = -1
+    src[rng.random((Bp, E)) < 0.03] = TA + 2
+    src = src.astype(np.int32)
+    basis = rng.normal(size=(Bp, O, E, D)).astype(f32)
+    w = (rng.normal(size=(D, C)) * 0.1).astype(f32)
+    x = rng.normal(size=(Bp, O, TA, C)).astype(f32)
+    win = rng.random((Bp, E)).astype(f32)
+    fk = (rng.normal(size=(O, P, C)) * 0.3 / O).astype(f32)
+    t = [torch.tensor(a, dtype=torch.float64) for a in (basis, w, x)]
+    ts = torch.tensor(src)
+    want = (spatial_conv_plain(*t, ts, torch.tensor(win, dtype=torch.float64)).numpy(),
+            *(v.numpy() for v in fiber_conv_plain(*t, ts, torch.tensor(fk, dtype=torch.float64),
+                                                  save_x_sp=True)))
+    emulated = {}
+    for name, mm in (("3xTF32", mm_3xtf32), ("1-pass TF32", mm_1xtf32)):
+        emulated[name] = (emulated_conv_fwd(basis, w, x, src, win, mm),
+                          *emulated_fiber_fwd(basis, w, x, src, fk, mm))
+    return want, emulated
+
+
+@pytest.mark.parametrize("i,name", [(0, "spatial_conv out"), (1, "fiber_conv y"),
+                                    (2, "fiber_conv x_sp")])
+def test_3xtf32_forward_convs_keep_float32_precision(conv_case, i, name):
+    want, emulated = conv_case
+    scale = np.abs(want[i]).max()
+    rel = {k: np.abs(v[i] - want[i]).max() / scale for k, v in emulated.items()}
+    print(f"{name}: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items())
+          + " of the float64 scale")
+    assert rel["3xTF32"] <= SPLIT_REL_TOL, rel
