@@ -15,14 +15,20 @@
 //
 // Bound on the H100: 2*M*(2*C*W + C*R) operations (42.4 GFLOP at the
 // training shape, M = 65536 rows, C = 200, W = 800, R = 19) against ~110 MB
-// of traffic (xc, res and out, r), so arithmetic bounds it: 0.043 ms at
-// the 989 TFLOP/s of the bf16 tensor cores. Design: rows are independent,
-// so a block owns 64 rows and their whole channel width (convnext_rows.cuh):
-// LayerNorm into shared memory, then the hidden width in chunks of 64, each
-// chunk's activations formed in shared memory and folded into m's float32
-// accumulator at once, so neither pre1 nor h reaches device memory. The two
-// products run as float32 SIMT tile products (the tensor cores are left to
-// a later change). The readout takes out from shared memory in the epilogue.
+// of traffic (xc, res and out, r), so arithmetic bounds it: 0.043 ms at the
+// 989 TFLOP/s of the bf16 tensor cores, 0.26 ms at float32's 3xTF32 rate.
+// Design: rows are independent, so a block owns 128 (bfloat16) or 64 rows
+// and their whole channel width (convnext_rows.cuh): LayerNorm into shared
+// memory, then both products on the tensor cores, the hidden width in
+// chunks whose activations are formed in shared memory and folded at once
+// into m's float32 accumulators in registers, so neither pre1 nor h reaches
+// device memory. The epilogue forms out from m in 16-byte row chunks and
+// the float32 readout, about 1% of the work, runs on the CUDA cores from
+// out in shared memory.
+//
+// arreau_tile_product_staged runs TileProduct::product (tile_product.cuh)
+// on two matrices, at the row blocks' odd count of n8 tiles a warp: the card
+// test of that entry of the mainloop.
 
 #include "convnext_rows.cuh"
 
@@ -30,49 +36,98 @@ namespace {
 
 using namespace arreau;
 
-template <class T>
-__global__ void __launch_bounds__(THREADS)
+template <class T, int CN>
+__global__ void __launch_bounds__(ROW_THREADS, 1)
 convnext_fwd_kernel(ConvNextArgs<T> a, T* __restrict__ out, float* __restrict__ r_out) {
-    extern __shared__ __align__(16) float smem[];
-    const int CP = padded_channels(a.C);
-    const RowSmem sm = carve_row_smem(smem, CP);
-    const long long row0 = (long long)blockIdx.x * RB;
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int ct = CP / 16;
+    using B = RowBlock<T, CN>;
+    const typename B::Smem s = B::carve();
+    const long long row0 = (long long)blockIdx.x * B::RB;
+    const int nch = B::chunks(a.W);
 
-    layer_norm_rows<T>(a, row0, CP, sm.ylT, nullptr, nullptr, nullptr);
-    float acc[TM][CT_MAX] = {};
-    mlp_rows<T>(a, row0, CP, sm, acc, nullptr);
-
-    float (*outT)[AS_LD] = sm.ylT;  // ylT is free after mlp_rows: out, k-major, for the readout
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int r = ty * TM + i;
+    B::fetch_chunk(a, s, 0, nch, nch);  // W's first chunk arrives during LayerNorm
+    B::layer_norm(a, row0, s, nullptr, nullptr, 0);
+    typename B::WideAcc m_acc = {};
+    B::forward_chunks(a, row0, s, nch, nch, m_acc, nullptr, nullptr, 0);
+    B::store_m(a, m_acc, s);
+    __syncthreads();  // m is in sA
+    B::for_each_chunk([&](int r, int c0) {
         const long long row = row0 + r;
-#pragma unroll
-        for (int j = 0; j < CT_MAX; ++j) {
-            if (j >= ct) continue;
-            const int c = tx + 16 * j;
-            float o = 0.f;
-            if (row < a.M && c < a.C) {
-                float m;
-                o = residual_out(a, row, c, acc[i][j], &m);
-                out[(size_t)row * a.C + c] = from_float<T>(o);
-            }
-            outT[c][r] = o;
-        }
-    }
+        if (row >= a.M || c0 >= a.C) return;
+        const int count = min(B::CH, a.C - c0);
+        T* sa = s.a + r * B::LD_A + c0;
+        float m[B::CH], o[B::CH];
+        load_chunk(m, sa, B::CH, true);
+        B::residual_out(a, row, c0, count, m, o);
+        store_chunk(out + row * a.C + c0, o, count, a.rows_vec);
+        store_chunk(sa, o, B::CH, true);  // out over m, for the readout
+    });
     if (r_out == nullptr) return;
     __syncthreads();
-    for (int idx = tid; idx < RB * a.R; idx += THREADS) {
-        const int r = idx % RB, q = idx / RB;
+    // r[row, q]: consecutive threads on consecutive q of a row, so that a
+    // warp reads out from shared memory by broadcast and Wr's rows coalesced
+    for (int i = threadIdx.x; i < B::RB * a.R; i += ROW_THREADS) {
+        const int r = i / a.R, q = i - r * a.R;
         const long long row = row0 + r;
-        if (row >= a.M) continue;
-        float s = 0.f;
-        for (int c = 0; c < a.C; ++c) s += outT[c][r] * a.wr[(size_t)c * a.R + q];
-        r_out[(size_t)row * a.R + q] = s + a.br[q];
+        if (row >= a.M) break;
+        const T* o = s.a + r * B::LD_A;
+        float v = 0.f;
+        for (int c = 0; c < a.C; ++c) v += to_float(o[c]) * a.wr[c * a.R + q];
+        r_out[row * a.R + q] = v + a.br[q];
     }
+}
+
+template <class T, int CN>
+cudaError_t launch_fwd(const ConvNextArgs<T>& a, T* out, float* r, cudaStream_t stream) {
+    using B = RowBlock<T, CN>;
+    const cudaError_t err = allow_smem(convnext_fwd_kernel<T, CN>, B::SMEM);
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = static_cast<unsigned>((a.M + B::RB - 1) / B::RB);
+    convnext_fwd_kernel<T, CN><<<blocks, ROW_THREADS, B::SMEM, stream>>>(a, out, r);
+    return cudaGetLastError();
+}
+
+// d [M, N] = A B in float32 through TileProduct::product on 64 x 208 tiles
+// (8 warps of 16 rows x 13 n8 tiles, the row blocks' odd count), the
+// block staging A's and B's K-slices itself
+template <class T, bool A_K, bool B_K>
+using StagedTile = TileProduct<T, A_K, B_K, 4, 2, 1, 13>;
+
+template <class T, bool A_K, bool B_K>
+__global__ void __launch_bounds__(ROW_THREADS)
+tile_product_staged_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, int N,
+                           int K) {
+    using P = StagedTile<T, A_K, B_K>;
+    const int m0 = blockIdx.y * P::BM, n0 = blockIdx.x * P::BN;
+    const int m_lim = M - m0, n_lim = N - n0;
+    const Operand<T> at = {a.p + (A_K ? (long long)m0 * a.ld : m0), a.ld, a.vec};
+    const Operand<T> bt = {b.p + (B_K ? (long long)n0 * b.ld : n0), b.ld, b.vec};
+    T* s = shared_buffer<T>();
+    typename P::Acc acc = {};
+    for (int k0 = 0; k0 < K; k0 += P::BK) {
+        P::load_stage(s, at, bt, k0, K, m_lim, n_lim);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        P::template product<P::BK>(s, P::LDA, s + P::A_SIZE, P::LDB, acc);  // zero past K
+        __syncthreads();
+    }
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m < m_lim && n < n_lim)
+            store2(d + (size_t)(m0 + m) * N + n0 + n, v0, v1, n + 1 < n_lim, N % 2 == 0);
+    });
+}
+
+template <class T, bool A_K, bool B_K>
+int tile_product_staged(const T* a, const T* b, float* d, int M, int N, int K,
+                        cudaStream_t stream) {
+    using P = StagedTile<T, A_K, B_K>;
+    const size_t smem = (size_t)P::STAGE * sizeof(T);
+    cudaError_t err = allow_smem(tile_product_staged_kernel<T, A_K, B_K>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_product_staged_kernel<T, A_K, B_K>
+        <<<dim3((N + P::BN - 1) / P::BN, (M + P::BM - 1) / P::BM), P::THREADS, smem, stream>>>(
+            operand(a, A_K ? K : M), operand(b, B_K ? K : N), d, M, N, K);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -87,32 +142,38 @@ extern "C" int arreau_convnext_mlp_fwd(const float* xc, const void* res, const f
                                        const float* wr, const float* br, void* out, float* r,
                                        int M, int C, int W, int R, int is_bf16,
                                        void* stream_ptr) {
-    if (C < 1 || C > 16 * CT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    if (C < 1 || C > MAX_CHANNELS) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const size_t smem = row_block_smem_floats(padded_channels(C)) * sizeof(float);
-    const unsigned blocks = static_cast<unsigned>((M + RB - 1) / RB);
     cudaError_t err = cudaSuccess;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        err = cudaFuncSetAttribute(convnext_fwd_kernel<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        const ConvNextArgs<T> a{xc,
-                                static_cast<const T*>(res),
-                                ln_s,
-                                ln_b,
-                                static_cast<const T*>(w1),
-                                static_cast<const T*>(b1),
-                                static_cast<const T*>(w2),
-                                static_cast<const T*>(b2),
-                                gamma,
-                                wr,
-                                br,
-                                M,
-                                C,
-                                W,
-                                wr != nullptr ? R : 0};
-        convnext_fwd_kernel<T><<<blocks, THREADS, smem, stream>>>(a, static_cast<T*>(out), r);
+        const bool rows_vec = rows_aligned(static_cast<const T*>(res), C) &&
+                              rows_aligned(static_cast<const T*>(out), C);
+        const ConvNextArgs<T> a =
+            convnext_args<T>(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R,
+                             rows_vec);
+        err = C <= MODEL_CN ? launch_fwd<T, MODEL_CN>(a, static_cast<T*>(out), r, stream)
+                            : launch_fwd<T, MAX_CHANNELS>(a, static_cast<T*>(out), r, stream);
     });
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err);
+}
+
+// d [M, N] float32 = a @ b through TileProduct::product: a is [M, K]
+// (a_kmajor) or [K, M], b is [N, K] (b_kmajor) or [K, N], both float32
+// (3xTF32) or bfloat16 (is_bf16). The card tests hold it against a float64
+// product.
+extern "C" int arreau_tile_product_staged(const void* a, const void* b, float* d, int M, int N,
+                                          int K, int a_kmajor, int b_kmajor, int is_bf16,
+                                          void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int status = 0;
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        const T *ta = static_cast<const T*>(a), *tb = static_cast<const T*>(b);
+        if (a_kmajor)
+            status = b_kmajor ? tile_product_staged<T, true, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_staged<T, true, false>(ta, tb, d, M, N, K, stream);
+        else
+            status = b_kmajor ? tile_product_staged<T, false, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_staged<T, false, false>(ta, tb, d, M, N, K, stream);
+    });
+    return status;
 }

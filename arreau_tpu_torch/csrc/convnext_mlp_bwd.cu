@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_convnext.py:_bwd_kernel (the
 // VJP of fused_convnext_mlp, reached through _bwd). The forward is recomputed
-// (convnext_mlp.cu); with g_out and g_r the cotangents of out and r:
+// (convnext_mlp.cu), as the JAX VJP saves only the inputs; with g_out and
+// g_r the cotangents of out and r:
 //
 //   g_total = g_out + g_r @ Wr^T               dWr = out^T g_r, dbr = sum g_r
 //   dgamma  = sum_rows g_total * m             dres = g_total (stored in T)
@@ -19,29 +20,38 @@
 // summed in float32 and rounded to T; dpre1 = dh * gelu'(pre1) is rounded to
 // T; dyln, dxc and every parameter gradient are float32.
 //
-// Bound on the H100: about three times the forward's products, 2*M*(6*C*W
-// + 2*C*R) operations (127 GFLOP at the training shape), so arithmetic
-// bounds it: 0.13 ms at the bf16 tensor cores' rate. On the TPU each grid
-// step held a (b', o) block and carried the parameter gradients across the
-// sequential o axis. Hopper's blocks run in no order, and per-block partials
-// of dW1 and dW2 would take about 1.3 GB, so the backward runs as a chain of
-// launches through device-memory scratch (pre1 [M, W], yl, dm and out [M, C]
-// in T: ~210 MB in bf16 at the training shape):
+// Bound on the H100: three times the forward's products, 2*M*(6*C*W +
+// 2*C*R) operations (127 GFLOP at the training shape), so arithmetic bounds
+// it: 0.13 ms at the bf16 tensor cores' rate, 0.77 ms at float32's 3xTF32
+// rate. On the TPU each grid step held a (b', o) block and carried the
+// parameter gradients across the sequential o axis. Hopper's blocks run in
+// no order and per-block partials of dW1 and dW2 would take about 1.3 GB, so
+// the weight gradients are split-K products over device-memory scratch
+// written by a rows pass. Every product of width C or W runs on the tensor
+// cores (mma.sync, tile_product.cuh; 3xTF32 in float32):
 //
-//   1. rows: a block recomputes the forward of its 64 rows (convnext_rows.cuh),
-//      writing yl, pre1, the row statistics, out and, in the epilogue,
-//      g_total, dres, dm and its partial column sums of g_total * m.
-//   2. [dW2; db2]: split-K over the rows with A = [gelu(pre1) | 1].
-//   3. dpre1: the tile product dm @ W2^T, times gelu'(pre1), over pre1 in
-//      place.
-//   4. [dW1; db1]: split-K with A = [yl | 1].
-//   5. dxc: a block takes dyln = dpre1 @ W1^T for its 64 rows at full width,
-//      so the LayerNorm VJP's row sums stay in the block (warp shuffles), and
-//      writes its partial column sums of dyln * xhat and dyln.
-//   6. [dWr; dbr]: split-K with A = [out | 1] and the cotangent g_r.
-//   7. the per-split and per-block partials are added in a fixed order.
-// No atomics: every sum has a fixed order, so the gradients are
-// deterministic.
+//   1. rows (convnext_rows.cuh): a block of 128 (bfloat16) or 64 rows
+//      recomputes the forward (both products on the tensor cores, chunk by
+//      chunk), writing yl and h, each with a ones column, and pre1. From m
+//      it forms g_total (g_r @ Wr^T from Wr^T and g_r staged in shared
+//      memory), dres and dm, keeps out in shared memory for its partial of
+//      [dWr; dbr] = [out | 1]^T g_r (R = 19 columns: float32 on the CUDA
+//      cores, about 1% of the work) and takes its column sums of g_total *
+//      m. Then, with dm back in shared memory, chunk by chunk again (each
+//      stage brings the chunk's pre1 with W's slices): dh = dm @ W2[chunk]^T,
+//      dpre1 = round(round(dh) * gelu'(pre1)) (written over pre1 and into
+//      shared memory) and dyln += dpre1 @ W1[:, chunk]^T, held in registers
+//      at full width; last the LayerNorm VJP, whose row sums stay in the
+//      block (a warp a row), writing dxc and the block's column sums of
+//      dyln * xhat and dyln.
+//   2. [dW2; db2]: split-K over the rows with A = [h | 1], B = dm.
+//   3. [dW1; db1]: split-K with A = [yl | 1], B = dpre1.
+//   4. the per-split and per-block partials are added in a fixed order (the
+//      row blocks' across a block's warps, sum_blocks_kernel).
+// No atomics: every sum has a fixed order, so the gradients are the same bit
+// for bit on every call.
+
+#include <type_traits>
 
 #include "convnext_rows.cuh"
 
@@ -49,250 +59,314 @@ namespace {
 
 using namespace arreau;
 
-// 1. The forward of 64 rows and the row-wise part of the backward.
-template <class T>
-__global__ void __launch_bounds__(THREADS)
+// 1. The forward of a row block and the row-wise part of the backward.
+template <class T, int CN>
+__global__ void __launch_bounds__(ROW_THREADS, 1)
 convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
-                         const float* __restrict__ g_r, T* __restrict__ dres,
-                         T* __restrict__ yl_s, T* __restrict__ pre1_s, T* __restrict__ dm_s,
-                         T* __restrict__ out_s, float* __restrict__ stats,
-                         float* __restrict__ colpart) {
-    extern __shared__ __align__(16) float smem[];
-    const int CP = padded_channels(a.C);
-    const RowSmem sm = carve_row_smem(smem, CP);
-    const long long row0 = (long long)blockIdx.x * RB;
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int ct = CP / 16;
+                         const float* __restrict__ g_r, float* __restrict__ dxc,
+                         T* __restrict__ dres, T* __restrict__ yl_ext, int Cg,
+                         T* pre1,  // [M, W]: pre1, then dpre1
+                         bool pre1_vec, T* __restrict__ h_ext, int Wg, T* __restrict__ dm_out,
+                         bool dm_vec, float* __restrict__ colpart) {
+    using B = RowBlock<T, CN>;
+    constexpr int CH = B::CH;
+    const typename B::Smem s = B::carve();
+    const long long row0 = (long long)blockIdx.x * B::RB;
+    const int nch = B::chunks(a.W), total = 2 * nch;  // the ring walks the chunks twice
+    float* part = colpart + (size_t)blockIdx.x * 3 * a.C;
 
-    layer_norm_rows<T>(a, row0, CP, sm.ylT, stats, stats + a.M, yl_s);
-    float acc[TM][CT_MAX] = {};
-    mlp_rows<T>(a, row0, CP, sm, acc, pre1_s);
+    B::fetch_chunk(a, s, 0, nch, nch);
+    B::layer_norm(a, row0, s, s.stats, yl_ext, Cg);
+    // h's ones column (db2 in the [dW2; db2] product) and zero padding
+    for (int i = threadIdx.x; i < B::RB * (Wg - a.W); i += ROW_THREADS) {
+        const long long row = row0 + i / (Wg - a.W);
+        const int c = a.W + i % (Wg - a.W);
+        if (row < a.M) h_ext[row * Wg + c] = from_float<T>(c == a.W ? 1.f : 0.f);
+    }
+    typename B::WideAcc acc = {};
+    B::forward_chunks(a, row0, s, nch, nch, acc, pre1, h_ext, Wg);
+    B::store_m(a, acc, s);
+    __syncthreads();  // m is in sA; every warp is done with sH and the stages
+    // over the stages: Wr^T [R][CN] (zero past C) and the block's rows of
+    // g_r [RB][RP] (zero past M and R; RP = R rounded up to 4), for g_r @
+    // Wr^T and [dWr; dbr]
+    const int RP = (a.R + 3) / 4 * 4;
+    float* wrt = reinterpret_cast<float*>(s.stage);
+    float* grs = wrt + a.R * CN;
+    if (a.wr != nullptr) {
+        for (int i = threadIdx.x; i < a.R * CN; i += ROW_THREADS) {
+            const int q = i / CN, c = i - q * CN;
+            wrt[i] = c < a.C ? a.wr[c * a.R + q] : 0.f;
+        }
+        for (int i = threadIdx.x; i < B::RB * RP; i += ROW_THREADS) {
+            const int r = i / RP, q = i - r * RP;
+            grs[i] = row0 + r < a.M && q < a.R ? g_r[(row0 + r) * a.R + q] : 0.f;
+        }
+        __syncthreads();
+    }
 
+    // g_total, dres, dm, out (into sA over m, for [dWr; dbr]), and the
+    // thread's column sums of g_total * m over its rows
+    float dg[CH] = {};
+    B::for_each_chunk([&](int r, int c0) {
+        const long long row = row0 + r;
+        if (row >= a.M || c0 >= a.C) return;
+        T* sa = s.a + r * B::LD_A + c0;
+        const int count = min(CH, a.C - c0);
+        const long long at = row * a.C + c0;
+        float m[CH], g[CH], dm[CH] = {};
+        load_chunk(m, sa, CH, true);
+        load_chunk(g, g_out + at, count, a.rows_vec);
+        if (a.wr != nullptr) {
+            float o[CH], gr[CH] = {};
+            B::residual_out(a, row, c0, count, m, o);
+            store_chunk(sa, o, CH, true);
+            for (int q = 0; q < a.R; ++q) {
+                const float gq = grs[r * RP + q];
+                const float* wq = wrt + q * CN + c0;  // 16-byte aligned: CN, c0 multiples of 4
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-#pragma unroll
-        for (int j = 0; j < CT_MAX; ++j) {
-            if (j >= ct) continue;
-            const int c = tx + 16 * j;
-            float dg = 0.f;
-            if (row < a.M && c < a.C) {
-                const size_t at = (size_t)row * a.C + c;
-                float m;
-                const float o = residual_out(a, row, c, acc[i][j], &m);
-                float g = to_float(g_out[at]);
-                if (a.wr != nullptr) {
-                    out_s[at] = from_float<T>(o);
-                    float gr = 0.f;
-                    for (int q = 0; q < a.R; ++q)
-                        gr += g_r[(size_t)row * a.R + q] * a.wr[(size_t)c * a.R + q];
-                    g += gr;
+                for (int j = 0; j < CH; j += 4) {
+                    const float4 w = *reinterpret_cast<const float4*>(wq + j);
+                    gr[j] += gq * w.x, gr[j + 1] += gq * w.y;
+                    gr[j + 2] += gq * w.z, gr[j + 3] += gq * w.w;
                 }
-                dres[at] = from_float<T>(g);
-                dm_s[at] = from_float<T>(g * a.gamma[c]);
-                dg = g * m;
             }
-            acc[i][j] = dg;
+#pragma unroll
+            for (int j = 0; j < CH; ++j) g[j] += gr[j];
         }
-    }
-    // ylT is free after mlp_rows: it holds the column sums' staging
-    column_sums(acc, CP, a.C, &sm.ylT[0][0], colpart + (size_t)blockIdx.x * 3 * a.C);
-}
-
-// A of [dW2; db2]: h = gelu(pre1) rounded to T.
-template <class T>
-struct HiddenOfPre {
-    const T* pre1;  // [M, W]
-    int W;
-    __device__ __forceinline__ float operator()(long long row, int m) const {
-        return round_to<T>(gelu(to_float(pre1[(size_t)row * W + m])));
-    }
-};
-
-// A of [dW1; db1] (yl) and of [dWr; dbr] (out): a stored [M, C] tensor.
-template <class T>
-struct RowFeature {
-    const T* v;  // [M, C]
-    int C;
-    __device__ __forceinline__ float operator()(long long row, int m) const {
-        return to_float(v[(size_t)row * C + m]);
-    }
-};
-
-// 3. dpre1[row, w] = round(round(dm[row, :] @ W2[w, :]) * gelu'(pre1[row, w])), over pre1
-template <class T>
-__global__ void __launch_bounds__(THREADS)
-dpre1_kernel(const T* __restrict__ dm,  // [M, C]
-             const T* __restrict__ w2,  // [W, C]
-             T* pre1_dpre1,             // [M, W]: pre1 in, dpre1 out
-             long long M, int C, int W) {
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int w0 = blockIdx.y * BN;
-
-    float acc[TM][TN] = {};
-    tile_gemm<true, false>(
-        C, [&](int r, int k) { return row0 + r < M ? to_float(dm[(size_t)(row0 + r) * C + k]) : 0.f; },
-        [&](int k, int n) { return w0 + n < W ? to_float(w2[(size_t)(w0 + n) * C + k]) : 0.f; },
-        As, Bs, acc);
-
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-        if (row >= M) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int w = w0 + tx * TN + j;
-            if (w >= W) continue;
-            const size_t at = (size_t)row * W + w;
-            pre1_dpre1[at] =
-                from_float<T>(round_to<T>(acc[i][j]) * gelu_deriv(to_float(pre1_dpre1[at])));
+        for (int j = 0; j < CH; ++j) {
+            if (j >= count) continue;
+            dm[j] = round_to<T>(g[j] * a.gamma[c0 + j]);
+            dg[j] += g[j] * m[j];
         }
+        store_chunk(dres + at, g, count, a.rows_vec);
+        store_chunk(dm_out + at, dm, count, a.rows_vec);
+    });
+    float* red = reinterpret_cast<float*>(s.h);  // [RG][CN]: the row groups' column sums
+    if (threadIdx.x < B::PER_ROW * B::RG) {
+        const int c0 = threadIdx.x % B::PER_ROW * CH, rg = threadIdx.x / B::PER_ROW;
+#pragma unroll
+        for (int j = 0; j < CH; ++j) red[rg * CN + c0 + j] = dg[j];
     }
-}
-
-// 5. dxc of 64 rows from dyln = dpre1 @ W1^T, and the block's partial column
-//    sums of dyln * xhat (dln_s) and dyln (dln_b).
-template <class T>
-__global__ void __launch_bounds__(THREADS)
-dxc_kernel(const float* __restrict__ xc,     // [M, C]
-           const float* __restrict__ ln_s,   // [C]
-           const T* __restrict__ dpre1,      // [M, W]
-           const T* __restrict__ w1,         // [C, W]
-           const float* __restrict__ stats,  // [2, M]: mean, 1/std
-           float* __restrict__ dxc,          // [M, C]
-           float* __restrict__ colpart,      // [blocks, 3, C]
-           long long M, int C, int W) {
-    extern __shared__ __align__(16) float smem[];
-    const int CP = padded_channels(C);
-    float (*As)[AS_LD] = reinterpret_cast<float (*)[AS_LD]>(smem);
-    float* Bw = smem + BK * AS_LD;
-    float* red = Bw + BK * CP;
-    const long long row0 = (long long)blockIdx.x * RB;
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int ct = CP / 16;
-
-    float acc[TM][CT_MAX] = {};  // dyln: 0 on rows >= M and columns >= C
-    rows_product(
-        W,
-        CP, [&](int r, int k) { return row0 + r < M ? to_float(dpre1[(size_t)(row0 + r) * W + k]) : 0.f; },
-        [&](int k, int c) { return c < C ? to_float(w1[(size_t)c * W + k]) : 0.f; }, As, Bw, acc);
-    float* part = colpart + (size_t)blockIdx.x * 3 * C;
-    column_sums(acc, CP, C, red, part + 2 * C);  // dln_b
-
-    float mu[TM], rstd[TM], s1[TM], s2[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-        const bool live = row < M;
-        mu[i] = live ? stats[row] : 0.f;
-        rstd[i] = live ? stats[M + row] : 0.f;
-        s1[i] = s2[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < CT_MAX; ++j) {
-            const int c = tx + 16 * j;
-            if (j >= ct || !live || c >= C) continue;
-            const float xhat = (xc[(size_t)row * C + c] - mu[i]) * rstd[i];
-            const float dxhat = acc[i][j] * ln_s[c];
-            s1[i] += dxhat;
-            s2[i] += dxhat * xhat;
-        }
-        // the row's 16 threads are lanes of one half-warp
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
-            s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], off);
-            s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], off);
-        }
+    __syncthreads();
+    for (int c = threadIdx.x; c < a.C; c += ROW_THREADS) {
+        float v = 0.f;
+        for (int q = 0; q < B::RG; ++q) v += red[q * CN + c];
+        part[c] = v;  // dgamma
     }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long row = row0 + ty * TM + i;
-        const bool live = row < M;
-#pragma unroll
-        for (int j = 0; j < CT_MAX; ++j) {
-            const int c = tx + 16 * j;
-            if (j >= ct) continue;
-            float v = 0.f;
-            if (live && c < C) {
-                const float xhat = (xc[(size_t)row * C + c] - mu[i]) * rstd[i];
-                const float dxhat = acc[i][j] * ln_s[c];
-                dxc[(size_t)row * C + c] =
-                    rstd[i] * (dxhat - s1[i] / C - xhat * (s2[i] / C));
-                v = acc[i][j] * xhat;
+    // [dWr; dbr]'s partial over the block's rows, [out | 1]^T g_r from sA
+    // and the staged g_r: a thread a channel c and four readout columns from
+    // q0, the rows in ascending order
+    if (a.wr != nullptr) {
+        float* rpart =
+            colpart + (size_t)gridDim.x * 3 * a.C + (size_t)blockIdx.x * (a.C + 1) * a.R;
+        const int rows = (int)min((long long)B::RB, a.M - row0), groups = RP / 4;
+        for (int i = threadIdx.x; i < (a.C + 1) * groups; i += ROW_THREADS) {
+            const int c = i / groups, q0 = (i - c * groups) * 4;
+            float v[4] = {};
+#pragma unroll 4
+            for (int r = 0; r < rows; ++r) {
+                const float o = c < a.C ? to_float(s.a[r * B::LD_A + c]) : 1.f;
+                const float4 gq = *reinterpret_cast<const float4*>(grs + r * RP + q0);
+                v[0] += o * gq.x, v[1] += o * gq.y, v[2] += o * gq.z, v[3] += o * gq.w;
             }
-            acc[i][j] = v;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                if (q0 + k < a.R) rpart[c * a.R + q0 + k] = v[k];
         }
     }
-    column_sums(acc, CP, C, red, part + C);  // dln_s
+    __syncthreads();  // every warp is done with sA and the stages
+    // dm into sA (zero past M and C), with loop 2's first stage
+    load_tile<T, B::RB, CN, B::LD_A, ROW_THREADS>(s.a, dm_out + row0 * a.C, a.C,
+                                                  (int)min((long long)B::RB, a.M - row0), a.C,
+                                                  dm_vec);
+    B::fetch_chunk(a, s, nch, nch, total, row0, pre1, pre1_vec);
+
+    // dpre1 and dyln, chunk by chunk; the ring's stages nch.. hold the chunks again
+    typename B::WideAcc dyln = {};
+    for (int j = 0; j < nch; ++j) {
+        const int q = nch + j;
+        cp_async_wait<0>();
+        // stage q has landed; dm is in sA; every warp is done with sH and
+        // with stage q - 1
+        __syncthreads();
+        B::fetch_chunk(a, s, q + 1, nch, total, row0, pre1, pre1_vec);
+        const T* w1s = s.stage + q % 2 * B::STAGE;
+        const T* sp = s.pre1 + q % 2 * B::RB * B::LD_P;  // the chunk's pre1
+        const int w0 = j * B::WC;
+        typename B::ChunkAcc dh = {};
+        B::template Chunk<true>::template product<CN>(s.a, B::LD_A, w1s + CN * B::LD_W1,
+                                                      B::LD_W2, dh);
+        B::chunk_pairs([&](int i, int hh, int jj, int m, int n) {
+            const int w = w0 + n;
+            const long long row = row0 + m;
+            const bool live = row < a.M && w < a.W, second = live && w + 1 < a.W;
+            const float2 p = load2(sp + m * B::LD_P + n, true, true);
+            const float d0 =
+                live ? round_to<T>(round_to<T>(dh[i][jj][2 * hh]) * gelu_deriv(p.x)) : 0.f;
+            const float d1 =
+                second ? round_to<T>(round_to<T>(dh[i][jj][2 * hh + 1]) * gelu_deriv(p.y)) : 0.f;
+            store2(s.h + m * B::LD_H + n, d0, d1, true, true);
+            if (live) store2(pre1 + row * a.W + w, d0, d1, second, a.W % 2 == 0);
+        });
+        __syncthreads();  // the chunk's dpre1 is in sH
+        B::template Wide<true>::template product<B::WC>(s.h, B::LD_H, w1s, B::LD_W1, dyln);
+    }
+
+    // the LayerNorm VJP: dyln staged over the stages, then a warp a row
+    __syncthreads();  // every warp is done with the stages and sA
+    float* dy = reinterpret_cast<float*>(s.stage);
+    B::template Wide<true>::for_each(dyln, [&](int m, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(dy + m * B::LD_ACC + c) = make_float2(v0, v1);
+    });
+    __syncthreads();
+    constexpr int PER_LANE = (CN + 31) / 32;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    float cs[PER_LANE] = {}, cb[PER_LANE] = {};  // column sums of dyln * xhat and dyln
+    for (int r = warp; r < B::RB; r += ROW_WARPS) {
+        const long long row = row0 + r;
+        if (row >= a.M) break;
+        const float mu = s.stats[r], rstd = s.stats[B::RB + r];
+        const float* xr = a.xc + row * a.C;
+        float xh[PER_LANE], dxh[PER_LANE], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < PER_LANE; ++k) {
+            const int c = lane + 32 * k;
+            xh[k] = dxh[k] = 0.f;
+            if (c >= a.C) continue;
+            const float d = dy[r * B::LD_ACC + c];
+            xh[k] = (xr[c] - mu) * rstd;
+            dxh[k] = d * a.ln_s[c];
+            s1 += dxh[k];
+            s2 += dxh[k] * xh[k];
+            cs[k] += d * xh[k];
+            cb[k] += d;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+#pragma unroll
+        for (int k = 0; k < PER_LANE; ++k) {
+            const int c = lane + 32 * k;
+            if (c < a.C) dxc[row * a.C + c] = rstd * (dxh[k] - s1 / a.C - xh[k] * (s2 / a.C));
+        }
+    }
+    float* wred = reinterpret_cast<float*>(s.a);  // [warps][2][CN]
+#pragma unroll
+    for (int k = 0; k < PER_LANE; ++k) {
+        const int c = lane + 32 * k;
+        if (c < CN) {
+            wred[(2 * warp) * CN + c] = cs[k];
+            wred[(2 * warp + 1) * CN + c] = cb[k];
+        }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < a.C; c += ROW_THREADS) {
+        float vs = 0.f, vb = 0.f;
+        for (int w = 0; w < ROW_WARPS; ++w) {
+            vs += wred[(2 * w) * CN + c];
+            vb += wred[(2 * w + 1) * CN + c];
+        }
+        part[a.C + c] = vs;      // dln_s
+        part[2 * a.C + c] = vb;  // dln_b
+    }
 }
 
+// 2./3. partial[split, m, n] = sum over the split's rows of A[row, m] *
+// B[row, n], A [rows, a.ld] and B [rows, b.ld] (m and n contiguous): [dW2;
+// db2] with A = [h | 1] (M = W + 1) and B = dm, [dW1; db1] with A = [yl | 1]
+// (M = C + 1) and B = dpre1
 template <class T>
+__global__ void __launch_bounds__(WideTile<T, false, false>::THREADS, MIN_BLOCKS)
+convnext_wgrad_partial_kernel(Operand<T> a, Operand<T> b, float* __restrict__ partial,
+                              long long rows, int rows_per_split, int M, int N) {
+    using P = WideTile<T, false, false>;
+    const int n_tiles = (N + P::BN - 1) / P::BN;
+    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
+    const long long k0 = (long long)blockIdx.y * rows_per_split;
+    const int K = (int)min(rows - k0, (long long)rows_per_split);
+    typename P::Acc acc = {};
+    P::run({a.p + k0 * a.ld + m0, a.ld, a.vec}, {b.p + k0 * b.ld + n0, b.ld, b.vec}, K, M - m0,
+           N - n0, shared_buffer<T>(), acc);
+    float* out = partial + (size_t)blockIdx.y * M * N + (size_t)m0 * N + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < M && n0 + n < N)
+            store2(out + (size_t)m * N + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
+    });
+}
+
+// [partial] = split-K partials of A^T B over the rows, then their fixed-order sum into out
+template <class T>
+cudaError_t weight_grad(Operand<T> a, Operand<T> b, float* partial, float* out, long long rows,
+                        int M, int N, int splits, int rows_per_split, cudaStream_t stream) {
+    using P = WideTile<T, false, false>;
+    cudaError_t err = allow_smem(convnext_wgrad_partial_kernel<T>, P::SMEM);
+    if (err != cudaSuccess) return err;
+    convnext_wgrad_partial_kernel<T>
+        <<<dim3(((M + P::BM - 1) / P::BM) * ((N + P::BN - 1) / P::BN), splits), P::THREADS,
+           P::SMEM, stream>>>(a, b, partial, rows, rows_per_split, M, N);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long n = (long long)M * N;
+    sum_splits_kernel<<<sum_splits_blocks(n), THREADS, 0, stream>>>(partial, out, splits, n);
+    return cudaGetLastError();
+}
+
+// out[i] = sum over the row blocks b of part[b * n + i], for many blocks and
+// few outputs: a warp's lanes take 32 consecutive outputs, its 8 warps every
+// 8th block (each in ascending order), and the warps' sums are added in warp
+// order
+__global__ void __launch_bounds__(ROW_THREADS)
+sum_blocks_kernel(const float* __restrict__ part, float* __restrict__ out, int blocks,
+                  long long n) {
+    __shared__ float warp_sum[ROW_WARPS][32];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const long long i = blockIdx.x * 32LL + lane;
+    float v = 0.f;
+    if (i < n)
+        for (int b = warp; b < blocks; b += ROW_WARPS) v += part[b * n + i];
+    warp_sum[warp][lane] = v;
+    __syncthreads();
+    if (warp == 0 && i < n) {
+        float total = 0.f;
+        for (int w = 0; w < ROW_WARPS; ++w) total += warp_sum[w][lane];
+        out[i] = total;
+    }
+}
+
+template <class T, int CN>
 int convnext_mlp_bwd(const ConvNextArgs<T>& a, const T* g_out, const float* g_r, float* dxc,
                      T* dres, float* dw1_ext, float* dw2_ext, float* dwr_ext, float* colsum,
-                     T* yl_s, T* pre1_s, T* dm_s, T* out_s, float* stats, float* colpart,
+                     T* yl_s, T* pre1_s, T* h_s, T* dm_s, float* colpart,
                      float* partial, int splits, int rows_per_split, cudaStream_t stream) {
-    const int CP = padded_channels(a.C);
-    const unsigned blocks = static_cast<unsigned>((a.M + RB - 1) / RB);
-    cudaError_t err;
-
-    const size_t rows_smem = row_block_smem_floats(CP) * sizeof(float);
-    err = cudaFuncSetAttribute(convnext_bwd_rows_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(rows_smem));
+    using B = RowBlock<T, CN>;
+    const int Cg = (a.C + 1 + 7) / 8 * 8, Wg = (a.W + 1 + 7) / 8 * 8;  // rows stay 16-byte aligned
+    const unsigned blocks = static_cast<unsigned>((a.M + B::RB - 1) / B::RB);
+    cudaError_t err = allow_smem(convnext_bwd_rows_kernel<T, CN>, B::BWD_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    convnext_bwd_rows_kernel<T><<<blocks, THREADS, rows_smem, stream>>>(
-        a, g_out, g_r, dres, yl_s, pre1_s, dm_s, out_s, stats, colpart);
+    convnext_bwd_rows_kernel<T, CN><<<blocks, ROW_THREADS, B::BWD_SMEM, stream>>>(
+        a, g_out, g_r, dxc, dres, yl_s, Cg, pre1_s, rows_aligned(pre1_s, a.W), h_s, Wg, dm_s,
+        rows_aligned(dm_s, a.C), colpart);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    weight_grad_partial_kernel<<<dim3((a.W + 1 + BM - 1) / BM, (a.C + BN - 1) / BN, splits),
-                                 THREADS, 0, stream>>>(HiddenOfPre<T>{pre1_s, a.W}, dm_s, partial,
-                                                       a.M, a.W, a.C, rows_per_split);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const long long n2 = (long long)(a.W + 1) * a.C;
-    sum_splits_kernel<<<sum_splits_blocks(n2), THREADS, 0, stream>>>(partial, dw2_ext, splits, n2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    dpre1_kernel<T><<<dim3(blocks, (a.W + BN - 1) / BN), THREADS, 0, stream>>>(dm_s, a.w2, pre1_s,
-                                                                                a.M, a.C, a.W);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    weight_grad_partial_kernel<<<dim3((a.C + 1 + BM - 1) / BM, (a.W + BN - 1) / BN, splits),
-                                 THREADS, 0, stream>>>(RowFeature<T>{yl_s, a.C}, pre1_s, partial,
-                                                       a.M, a.C, a.W, rows_per_split);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const long long n1 = (long long)(a.C + 1) * a.W;
-    sum_splits_kernel<<<sum_splits_blocks(n1), THREADS, 0, stream>>>(partial, dw1_ext, splits, n1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-    const size_t dxc_smem = ((size_t)BK * AS_LD + 2 * (size_t)BK * CP) * sizeof(float);
-    if (dxc_smem > 48 * 1024) {
-        err = cudaFuncSetAttribute(dxc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(dxc_smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dxc_kernel<T><<<blocks, THREADS, dxc_smem, stream>>>(a.xc, a.ln_s, pre1_s, a.w1, stats, dxc,
-                                                        colpart, a.M, a.C, a.W);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if ((err = weight_grad<T>(operand<T>(h_s, Wg), operand<T>(dm_s, a.C), partial, dw2_ext, a.M,
+                              a.W + 1, a.C, splits, rows_per_split, stream)) != cudaSuccess)
+        return static_cast<int>(err);
+    if ((err = weight_grad<T>(operand<T>(yl_s, Cg), operand<T>(pre1_s, a.W), partial, dw1_ext,
+                              a.M, a.C + 1, a.W, splits, rows_per_split, stream)) != cudaSuccess)
+        return static_cast<int>(err);
 
     if (a.wr != nullptr) {
-        weight_grad_partial_kernel<<<dim3((a.C + 1 + BM - 1) / BM, (a.R + BN - 1) / BN, splits),
-                                     THREADS, 0, stream>>>(RowFeature<T>{out_s, a.C}, g_r,
-                                                           partial, a.M, a.C, a.R,
-                                                           rows_per_split);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
         const long long nr = (long long)(a.C + 1) * a.R;
-        sum_splits_kernel<<<sum_splits_blocks(nr), THREADS, 0, stream>>>(partial, dwr_ext, splits,
-                                                                          nr);
+        sum_blocks_kernel<<<(unsigned)((nr + 31) / 32), ROW_THREADS, 0, stream>>>(
+            colpart + (size_t)blocks * 3 * a.C, dwr_ext, static_cast<int>(blocks), nr);
         if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     const long long nc = 3LL * a.C;
-    sum_splits_kernel<<<sum_splits_blocks(nc), THREADS, 0, stream>>>(colpart, colsum,
-                                                                      static_cast<int>(blocks), nc);
+    sum_blocks_kernel<<<(unsigned)((nc + 31) / 32), ROW_THREADS, 0, stream>>>(
+        colpart, colsum, static_cast<int>(blocks), nc);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,41 +376,40 @@ int convnext_mlp_bwd(const ConvNextArgs<T>& a, const T* g_out, const float* g_r,
 // (float32; null without a readout). Outputs: dxc [M, C] float32, dres
 // [M, C] T, dw1_ext [C+1, W] = [dW1; db1], dw2_ext [W+1, C] = [dW2; db2],
 // dwr_ext [C+1, R] = [dWr; dbr] (unused without a readout) and colsum [3, C]
-// = (dgamma, dln_s, dln_b), all float32. Scratch: yl, dm and out [M, C] in T
-// (out unused without a readout), pre1 [M, W] in T, stats [2, M], colpart
-// [ceil(M/64), 3, C] and partial [splits * max((W+1)*C, (C+1)*W, (C+1)*R)]
-// float32.
+// = (dgamma, dln_s, dln_b), all float32. Scratch in T: yl_s [M, Cg] and h_s
+// [M, Wg] (Cg, Wg = C + 1, W + 1 rounded up to 8), pre1_s [M, W] and dm_s
+// [M, C]; float32: colpart [at least ceil(M/64) * (3*C + (C+1)*R)] (the row
+// blocks' column sums, then their [dWr; dbr] partials) and partial [splits *
+// max((W+1)*C, (C+1)*W)]. R <= MAX_READOUT.
 extern "C" int arreau_convnext_mlp_bwd(
     const float* xc, const void* res, const float* ln_s, const float* ln_b, const void* w1,
     const void* b1, const void* w2, const void* b2, const float* gamma, const float* wr,
     const float* br, const void* g_out, const float* g_r, float* dxc, void* dres, float* dw1_ext,
-    float* dw2_ext, float* dwr_ext, float* colsum, void* yl_s, void* pre1_s, void* dm_s,
-    void* out_s, float* stats, float* colpart, float* partial, int M, int C, int W, int R,
+    float* dw2_ext, float* dwr_ext, float* colsum, void* yl_s, void* pre1_s, void* h_s,
+    void* dm_s, float* colpart, float* partial, int M, int C, int W, int R,
     int splits, int rows_per_split, int is_bf16, void* stream_ptr) {
-    if (C < 1 || C > 16 * CT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    if (C < 1 || C > MAX_CHANNELS || (wr != nullptr && (R < 1 || R > MAX_READOUT)))
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        const ConvNextArgs<T> a{xc,
-                                static_cast<const T*>(res),
-                                ln_s,
-                                ln_b,
-                                static_cast<const T*>(w1),
-                                static_cast<const T*>(b1),
-                                static_cast<const T*>(w2),
-                                static_cast<const T*>(b2),
-                                gamma,
-                                wr,
-                                br,
-                                M,
-                                C,
-                                W,
-                                wr != nullptr ? R : 0};
-        status = convnext_mlp_bwd<T>(a, static_cast<const T*>(g_out), g_r, dxc,
-                                     static_cast<T*>(dres), dw1_ext, dw2_ext, dwr_ext, colsum,
-                                     static_cast<T*>(yl_s), static_cast<T*>(pre1_s),
-                                     static_cast<T*>(dm_s), static_cast<T*>(out_s), stats,
-                                     colpart, partial, splits, rows_per_split, stream);
+        const bool rows_vec =
+            rows_aligned(static_cast<const T*>(res), C) &&
+            rows_aligned(static_cast<const T*>(g_out), C) &&
+            rows_aligned(static_cast<const T*>(dres), C) &&
+            rows_aligned(static_cast<const T*>(dm_s), C);
+        const ConvNextArgs<T> a =
+            convnext_args<T>(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R,
+                             rows_vec);
+        const auto run = [&](auto cn) {
+            return convnext_mlp_bwd<T, decltype(cn)::value>(
+                a, static_cast<const T*>(g_out), g_r, dxc, static_cast<T*>(dres), dw1_ext,
+                dw2_ext, dwr_ext, colsum, static_cast<T*>(yl_s), static_cast<T*>(pre1_s),
+                static_cast<T*>(h_s), static_cast<T*>(dm_s), colpart,
+                partial, splits, rows_per_split, stream);
+        };
+        status = C <= MODEL_CN ? run(std::integral_constant<int, MODEL_CN>{})
+                               : run(std::integral_constant<int, MAX_CHANNELS>{});
     });
     return status;
 }

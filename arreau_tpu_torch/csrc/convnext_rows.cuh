@@ -1,18 +1,26 @@
-// Row blocks of the fused ConvNext MLP (csrc/convnext_mlp.cu, #9, and
-// csrc/convnext_mlp_bwd.cu, #10): the pieces both kernels run on a block of
-// 64 rows (one row = one (b', o, t) position, C channels wide).
+// Row blocks of the fused ConvNext MLP (csrc/convnext_mlp.cu, #9, and the
+// rows pass of csrc/convnext_mlp_bwd.cu, #10): a block owns RB rows (one
+// row = one (b', o, t) position) and every one of their C <= 256 channels,
+// which LayerNorm and its VJP need whole.
 //
-// A block of 256 threads owns 64 rows and every one of their C <= 256
-// channels. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + i
-// (i < 4) and, in a full-width product, the columns tx + 16*j (j < C/16
-// rounded up), so neighbouring threads touch neighbouring channels; in a
-// 64-wide chunk product it owns the 4 x 4 sub-tile of tile_fma.
+// The widened activations never reach device memory in the forward: the
+// LayerNorm output yl sits in shared memory (sA, rounded to T) as the A
+// operand of pre1 = yl @ W1 + b1, which runs on the tensor cores
+// (TileProduct::product: mma.sync in bfloat16, or 3xTF32 in float32) one
+// chunk of WC hidden units at a time. The chunk's epilogue adds b1, rounds,
+// applies gelu and writes h into shared memory (sH) as the A operand of
+// m += h @ W2[chunk, :], whose float32 accumulators stay in registers across
+// the chunks. The chunks' slices of W1 ([C, WC]) and W2 ([WC, C]) arrive by
+// cp.async in two alternating stages, the next chunk's while the tensor
+// cores work on this one's.
 //
-// The forward of a row block keeps the MLP's widened activations out of
-// device memory: the LayerNorm output yl stays in shared memory (k-major,
-// as tile_fma's A operand), the hidden width W is walked in chunks of 64,
-// each chunk's h = gelu(yl @ W1 + b1) is formed in shared memory and
-// folded at once into the float32 accumulator of m = h @ W2.
+// Shapes: 8 warps, 4 along the rows and 2 along the columns. A block holds
+// CN = 208 columns (any C <= 208: the model's C = 200 is 26 n8 tiles, 4%
+// padding where 256-wide tiles would pad 22%) or CN = 256 (C <= 256), and
+// RB = 128 rows in bfloat16 at CN = 208 (a warp 32 rows x 13 n8 tiles: 104
+// float32 accumulators a thread), else 64 rows. The products over the
+// channels are CN deep (zero past C), fixed at compile time, as is the
+// chunk depth WC, so that every product unrolls.
 //
 // Rounding points (pallas_convnext.py:_forward_block): LayerNorm in float32
 // with the fast variance and eps 1e-5; yl rounded to T; pre1 = yl @ W1 + b1
@@ -24,13 +32,16 @@
 
 #include "dtype.cuh"
 #include "tile_gemm.cuh"
+#include "tile_product.cuh"
 
 namespace arreau {
 
-constexpr int RB = BM;        // rows per block
-constexpr int CT_MAX = 16;    // full-width columns per thread: C <= 16 * CT_MAX
-constexpr int WC = BN;        // hidden units per chunk
 constexpr float CONVNEXT_LN_EPS = 1e-5f;
+constexpr int ROW_THREADS = 256;
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int MAX_CHANNELS = 256;
+constexpr int MODEL_CN = 208;  // the block width of C <= 208 (the model's C = 200)
+constexpr int MAX_READOUT = 64;  // readout columns #10 takes (Wr^T in shared memory)
 
 template <class T>
 struct ConvNextArgs {
@@ -47,193 +58,259 @@ struct ConvNextArgs {
     const float* br;     // [R]
     long long M;
     int C, W, R;
+    bool rows_vec;        // the [M, C] tensors in T have 16-byte aligned rows
+    bool w1_vec, w2_vec;  // W1's and W2's rows are 16-byte aligned (cp.async)
 };
 
-// Columns of a full-width product: C rounded up to a multiple of 16.
-__host__ __device__ inline int padded_channels(int C) { return (C + 15) / 16 * 16; }
-
-// Shared memory of a forward row block, in floats, carved from dynamic
-// shared memory in this order.
-__host__ __device__ inline size_t row_block_smem_floats(int CP) {
-    return (size_t)CP * AS_LD + BK * BN + WC * AS_LD + BK * AS_LD + (size_t)BK * CP;
+// The C entry points' arguments as ConvNextArgs; R is 0 without a readout.
+// rows_vec: whether every [M, C] tensor in T the caller reads or writes in
+// 16-byte chunks has 16-byte aligned rows.
+template <class T>
+ConvNextArgs<T> convnext_args(const float* xc, const void* res, const float* ln_s,
+                              const float* ln_b, const void* w1, const void* b1, const void* w2,
+                              const void* b2, const float* gamma, const float* wr,
+                              const float* br, int M, int C, int W, int R, bool rows_vec) {
+    ConvNextArgs<T> a;
+    a.xc = xc, a.res = static_cast<const T*>(res), a.ln_s = ln_s, a.ln_b = ln_b;
+    a.w1 = static_cast<const T*>(w1), a.b1 = static_cast<const T*>(b1);
+    a.w2 = static_cast<const T*>(w2), a.b2 = static_cast<const T*>(b2);
+    a.gamma = gamma, a.wr = wr, a.br = br;
+    a.M = M, a.C = C, a.W = W, a.R = wr != nullptr ? R : 0;
+    a.rows_vec = rows_vec;
+    a.w1_vec = rows_aligned(a.w1, W), a.w2_vec = rows_aligned(a.w2, C);
+    return a;
 }
 
-struct RowSmem {
-    float (*ylT)[AS_LD];  // [CP][AS_LD] the block's LayerNorm output, k-major
-    float (*Bs)[BN];      // [BK][BN] a slice of W1's chunk
-    float (*hT)[AS_LD];   // [WC][AS_LD] the chunk's h, k-major
-    float (*As)[AS_LD];   // [BK][AS_LD] the A slice of rows_product
-    float* Bw;            // [BK][CP] the B slice of rows_product
+template <class T, int CN>
+struct RowBlock {
+    static_assert(CN % 16 == 0 && CN <= MAX_CHANNELS, "whole k16 steps, at most 256 channels");
+    static constexpr int MT = sizeof(T) == 2 && CN <= MODEL_CN ? 2 : 1;  // m16 tiles a warp
+    static constexpr int RB = 4 * 16 * MT;                               // rows a block
+    // hidden units a chunk (16 in float32 at CN = 256, so that #10's shared
+    // memory fits)
+    static constexpr int WC = sizeof(T) == 2 ? 64 : CN <= MODEL_CN ? 32 : 16;
+    static constexpr int NTC = WC / 16, NTW = CN / 16;  // n8 tiles a warp: chunk, full width
+    // [RB, WC] (a chunk of pre1; of dh in #10) and [RB, CN] (m; dyln in #10)
+    // products; B_K: B stored [n][k] (else [k][n]). The accumulator layouts
+    // of both B layouts agree.
+    template <bool B_K>
+    using Chunk = TileProduct<T, true, B_K, 4, 2, MT, NTC>;
+    template <bool B_K>
+    using Wide = TileProduct<T, true, B_K, 4, 2, MT, NTW>;
+    using ChunkAcc = typename Chunk<false>::Acc;
+    using WideAcc = typename Wide<false>::Acc;
+    static_assert(Chunk<false>::THREADS == ROW_THREADS, "8 warps");
+
+    // Shared memory, in this order: sA [RB][LD_A] (yl; then m, out or dm),
+    // sH [RB][LD_H] (a chunk's h; dpre1 in #10), two stages of [CN][LD_W1]
+    // (W1's chunk) and [WC][LD_W2] (W2's chunk), #10's row statistics and
+    // its two slots of [RB][LD_P] (a chunk of pre1, arriving with the stage).
+    // Strides keep ldmatrix rows (bfloat16) or tf32 reads (float) on
+    // distinct banks and rows 16-byte aligned.
+    static constexpr int LD_A = CN + k_pad<T>();
+    static constexpr int LD_H = WC + k_pad<T>();
+    static constexpr int LD_W1 = WC + 8;
+    static constexpr int LD_W2 = CN + 8;
+    static constexpr int STAGE = CN * LD_W1 + WC * LD_W2;
+    static constexpr int LD_P = WC + 8;
+    static constexpr int LD_ACC = CN + 8;  // float [RB][LD_ACC] staged over the stages
+    static constexpr size_t A_BYTES = (size_t)RB * LD_A * sizeof(T);
+    static constexpr size_t H_BYTES = (size_t)RB * LD_H * sizeof(T);
+    static constexpr size_t STAGE_BYTES = 2 * (size_t)STAGE * sizeof(T);
+    static constexpr size_t SMEM = A_BYTES + H_BYTES + STAGE_BYTES + 2 * RB * sizeof(float);
+    static constexpr size_t BWD_SMEM = SMEM + 2 * (size_t)RB * LD_P * sizeof(T);
+    // 16-byte chunks of a row; for_each_chunk's row groups
+    static constexpr int CH = 16 / sizeof(T), PER_ROW = CN / CH, RG = ROW_THREADS / PER_ROW;
+    static_assert(BWD_SMEM <= 232448, "a block's shared memory");
+    static_assert((size_t)MAX_READOUT * (CN + RB) * sizeof(float) <= STAGE_BYTES,
+                  "Wr^T and the rows of g_r over the stages");
+    static_assert((size_t)RB * LD_ACC * sizeof(float) <= STAGE_BYTES, "staged accumulators");
+    static_assert((size_t)RG * CN * sizeof(float) <= H_BYTES, "column sums of the row groups");
+    static_assert((size_t)2 * ROW_WARPS * CN * sizeof(float) <= A_BYTES, "column sums of warps");
+
+    struct Smem {
+        T* a;
+        T* h;
+        T* stage;
+        float* stats;  // [2][RB]: each row's mean and 1/std
+        T* pre1;       // two [RB][LD_P] slots (#10)
+    };
+    __device__ __forceinline__ static Smem carve() {
+        unsigned char* p = shared_buffer<unsigned char>();
+        unsigned char* stats = p + A_BYTES + H_BYTES + STAGE_BYTES;
+        return {reinterpret_cast<T*>(p), reinterpret_cast<T*>(p + A_BYTES),
+                reinterpret_cast<T*>(p + A_BYTES + H_BYTES), reinterpret_cast<float*>(stats),
+                reinterpret_cast<T*>(stats + 2 * RB * sizeof(float))};
+    }
+
+    __host__ __device__ static int chunks(int W) { return (W + WC - 1) / WC; }
+
+    // Starts the copies of stage q of the ring (chunk q % nch's slices of W1
+    // and W2, zero outside C and W; with pre1, also the block's rows of that
+    // chunk of pre1 [M, W] into slot q % 2) if q < total, and commits.
+    __device__ __forceinline__ static void fetch_chunk(const ConvNextArgs<T>& a, const Smem& s,
+                                                       int q, int nch, int total,
+                                                       long long row0 = 0,
+                                                       const T* pre1 = nullptr,
+                                                       bool pre1_vec = false) {
+        if (q < total) {
+            const int w0 = q % nch * WC;
+            T* st = s.stage + q % 2 * STAGE;
+            load_tile<T, CN, WC, LD_W1, ROW_THREADS>(st, a.w1 + w0, a.W, a.C, a.W - w0, a.w1_vec);
+            load_tile<T, WC, CN, LD_W2, ROW_THREADS>(st + CN * LD_W1, a.w2 + (long long)w0 * a.C,
+                                                     a.C, a.W - w0, a.C, a.w2_vec);
+            if (pre1 != nullptr)
+                load_tile<T, RB, WC, LD_P, ROW_THREADS>(
+                    s.pre1 + q % 2 * RB * LD_P, pre1 + row0 * a.W + w0, a.W,
+                    (int)min(a.M - row0, (long long)RB), a.W - w0, pre1_vec);
+        }
+        cp_async_commit();
+    }
+
+    // LayerNorm of the block's rows into sA (rounded to T; zero on rows >= M
+    // and columns >= C), a warp a row, the lanes over the channels. Where
+    // given, each row's mean and 1/std go to stats, and yl with a ones
+    // column and zero padding to yl_ext [M, Cg].
+    __device__ static void layer_norm(const ConvNextArgs<T>& a, long long row0, const Smem& s,
+                                      float* stats, T* yl_ext, int Cg) {
+        constexpr int PER_LANE = (CN + 31) / 32;
+        const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+        for (int r = warp; r < RB; r += ROW_WARPS) {
+            const long long row = row0 + r;
+            T* ya = s.a + r * LD_A;
+            if (row >= a.M) {  // warp-uniform
+                for (int c = lane; c < CN; c += 32) ya[c] = from_float<T>(0.f);
+                continue;
+            }
+            const float* xr = a.xc + row * a.C;
+            float x[PER_LANE], sum = 0.f, sq = 0.f;
+#pragma unroll
+            for (int k = 0; k < PER_LANE; ++k) {
+                const int c = lane + 32 * k;
+                x[k] = c < a.C ? xr[c] : 0.f;
+                sum += x[k];
+                sq += x[k] * x[k];
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+                sq += __shfl_xor_sync(0xffffffffu, sq, off);
+            }
+            const float mu = sum / a.C;
+            const float rstd = rsqrtf(fmaxf(sq / a.C - mu * mu, 0.f) + CONVNEXT_LN_EPS);
+#pragma unroll
+            for (int k = 0; k < PER_LANE; ++k) {
+                const int c = lane + 32 * k;
+                if (c < CN)
+                    ya[c] = from_float<T>(
+                        c < a.C ? (x[k] - mu) * rstd * a.ln_s[c] + a.ln_b[c] : 0.f);
+            }
+            if (yl_ext != nullptr)  // each lane reads back the columns it wrote
+                for (int c = lane; c < Cg; c += 32)
+                    yl_ext[row * Cg + c] = c < a.C ? ya[c] : from_float<T>(c == a.C ? 1.f : 0.f);
+            if (stats != nullptr && lane == 0) {
+                stats[r] = mu;
+                stats[RB + r] = rstd;
+            }
+        }
+    }
+
+    // f(i, hh, jj, m, n) for each column pair (m, n..n+1) of this thread's
+    // chunk accumulators acc[i][jj][2*hh..2*hh+1]
+    template <class Fn>
+    __device__ __forceinline__ static void chunk_pairs(Fn f) {
+        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int jj = 0; jj < NTC; ++jj)
+                    f(i, hh, jj, Chunk<false>::warp_m0() + i * 16 + g + hh * 8,
+                      Chunk<false>::warp_n(jj) + 2 * t);
+    }
+
+    // m_acc += h @ W2 over the hidden chunks (b2 not added), h =
+    // round(gelu(round(yl @ W1 + b1))) from yl in sA; ring stage q holds
+    // chunk q (the caller fetched stage 0). Where given, pre1 [M, W] (from the
+    // accumulators) and h [M, Wg] (from sH, 16 bytes a thread) are written
+    // out. Ends with every warp past its last read of sA
+    // (the last chunk's barrier), possibly still in its last h @ W2.
+    __device__ static void forward_chunks(const ConvNextArgs<T>& a, long long row0,
+                                          const Smem& s, int nch, int total, WideAcc& m_acc,
+                                          T* pre1_out, T* h_out, int Wg) {
+        for (int j = 0; j < nch; ++j) {
+            cp_async_wait<0>();
+            __syncthreads();  // stage j has landed; every warp is done with sH and stage j - 1
+            fetch_chunk(a, s, j + 1, nch, total);
+            const T* w1s = s.stage + j % 2 * STAGE;
+            ChunkAcc acc = {};
+            Chunk<false>::template product<CN>(s.a, LD_A, w1s, LD_W1, acc);
+            const int w0 = j * WC;
+            chunk_pairs([&](int i, int hh, int jj, int m, int n) {
+                const int w = w0 + n;
+                const bool live = w < a.W, second = w + 1 < a.W;
+                const float p0 = live ? round_to<T>(acc[i][jj][2 * hh] + to_float(a.b1[w])) : 0.f;
+                const float p1 =
+                    second ? round_to<T>(acc[i][jj][2 * hh + 1] + to_float(a.b1[w + 1])) : 0.f;
+                const float h0 = live ? round_to<T>(gelu(p0)) : 0.f;
+                const float h1 = second ? round_to<T>(gelu(p1)) : 0.f;
+                store2(s.h + m * LD_H + n, h0, h1, true, true);
+                const long long row = row0 + m;
+                if (pre1_out != nullptr && live && row < a.M)
+                    store2(pre1_out + row * a.W + w, p0, p1, second, a.W % 2 == 0);
+            });
+            __syncthreads();  // the chunk's h is in sH
+            if (h_out != nullptr)  // h to device memory in 16-byte row chunks
+                for (int i = threadIdx.x; i < RB * (WC / CH); i += ROW_THREADS) {
+                    const int m = i / (WC / CH), n = i % (WC / CH) * CH, w = w0 + n;
+                    const long long row = row0 + m;
+                    if (row >= a.M || w >= a.W) continue;
+                    const T* src = s.h + m * LD_H + n;
+                    T* dst = h_out + row * Wg + w;  // 16-byte aligned: Wg a multiple of 8
+                    if (w + CH <= a.W)
+                        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+                    else
+                        for (int j = 0; j < a.W - w; ++j) dst[j] = src[j];
+                }
+            Wide<false>::template product<WC>(s.h, LD_H, w1s + CN * LD_W1, LD_W2, m_acc);
+        }
+    }
+
+    // sA = m = round(m_acc + b2), zero in columns >= C. Call after
+    // forward_chunks: no warp reads sA any more.
+    __device__ static void store_m(const ConvNextArgs<T>& a, const WideAcc& m_acc, const Smem& s) {
+        Wide<false>::for_each(m_acc, [&](int m, int c, float v0, float v1) {
+            const float m0 = c < a.C ? round_to<T>(v0 + to_float(a.b2[c])) : 0.f;
+            const float m1 = c + 1 < a.C ? round_to<T>(v1 + to_float(a.b2[c + 1])) : 0.f;
+            store2(s.a + m * LD_A + c, m0, m1, true, true);
+        });
+    }
+
+    // f(r, c0) for every 16-byte chunk (CH columns from c0) of the block's
+    // [RB, CN] tile: each thread takes one column chunk and the rows rg, rg +
+    // RG, ... in ascending order, so that it can carry column sums over its
+    // rows; consecutive threads take consecutive chunks of a row
+    template <class Fn>
+    __device__ __forceinline__ static void for_each_chunk(Fn f) {
+        if (threadIdx.x >= PER_ROW * RG) return;
+        const int c0 = threadIdx.x % PER_ROW * CH;
+        for (int r = threadIdx.x / PER_ROW; r < RB; r += RG) f(r, c0);
+    }
+
+    // out = round(res + round(round(gamma) * m)) for the `count` channels of
+    // a chunk from c0 (0 past them)
+    __device__ __forceinline__ static void residual_out(const ConvNextArgs<T>& a, long long row,
+                                                        int c0, int count, const float* m,
+                                                        float* out) {
+        float r[CH];
+        load_chunk(r, a.res + row * a.C + c0, count, a.rows_vec);
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+            out[j] = j < count
+                         ? round_to<T>(r[j] + round_to<T>(round_to<T>(a.gamma[c0 + j]) * m[j]))
+                         : 0.f;
+    }
 };
-
-__device__ inline RowSmem carve_row_smem(float* base, int CP) {
-    RowSmem s;
-    s.ylT = reinterpret_cast<float (*)[AS_LD]>(base);
-    base += (size_t)CP * AS_LD;
-    s.Bs = reinterpret_cast<float (*)[BN]>(base);
-    base += BK * BN;
-    s.hT = reinterpret_cast<float (*)[AS_LD]>(base);
-    base += WC * AS_LD;
-    s.As = reinterpret_cast<float (*)[AS_LD]>(base);
-    base += BK * AS_LD;
-    s.Bw = base;
-    return s;
-}
-
-// acc[i][j] += sum_{k < K} A(r, k) * B(k, c) for the block's rows r = ty*4 + i
-// and columns c = tx + 16*j < CP, staged BK deep (A transposed into As, B
-// into Bw; load_b returns 0 for c >= C). Ends with a __syncthreads().
-template <class LoadA, class LoadB>
-__device__ __forceinline__ void rows_product(int K, int CP, LoadA load_a, LoadB load_b,
-                                             float (*As)[AS_LD], float* Bw,
-                                             float acc[TM][CT_MAX]) {
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int ct = CP / 16;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int i = tid; i < RB * BK; i += THREADS) {
-            const int r = i / BK, kk = i % BK;
-            As[kk][r] = k0 + kk < K ? load_a(r, k0 + kk) : 0.f;
-        }
-        for (int i = tid; i < BK * CP; i += THREADS) {
-            const int kk = i / CP, c = i % CP;
-            Bw[i] = k0 + kk < K ? load_b(k0 + kk, c) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 2
-        for (int kk = 0; kk < BK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-            const float av[TM] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-            for (int j = 0; j < CT_MAX; ++j) {
-                if (j < ct) {
-                    const float b = Bw[kk * CP + tx + 16 * j];
-#pragma unroll
-                    for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(av[i], b, acc[i][j]);
-                }
-            }
-        }
-        __syncthreads();
-    }
-}
-
-// out[c] = sum over the block's rows of v[i][j] (c = tx + 16*j < C), added in
-// a fixed order through red [16][CP] of shared memory.
-__device__ __forceinline__ void column_sums(const float v[TM][CT_MAX], int CP, int C, float* red,
-                                            float* out) {
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int ct = CP / 16;
-#pragma unroll
-    for (int j = 0; j < CT_MAX; ++j)
-        if (j < ct) red[ty * CP + tx + 16 * j] = v[0][j] + v[1][j] + v[2][j] + v[3][j];
-    __syncthreads();
-    for (int c = tid; c < C; c += THREADS) {
-        float s = 0.f;
-        for (int q = 0; q < 16; ++q) s += red[q * CP + c];
-        out[c] = s;
-    }
-    __syncthreads();
-}
-
-// LayerNorm of the block's rows into ylT (rounded to T; 0 on rows >= M and
-// columns >= C), four threads a row. Where given, each row's mean and 1/std
-// go to mean_out / rstd_out and yl to yl_out [M, C]. Ends with a barrier.
-template <class T>
-__device__ __forceinline__ void layer_norm_rows(const ConvNextArgs<T>& a, long long row0, int CP,
-                                                float (*ylT)[AS_LD], float* mean_out,
-                                                float* rstd_out, T* yl_out) {
-    const int tid = threadIdx.x;
-    const int r = tid / 4, q = tid % 4;
-    const long long row = row0 + r;
-    const bool live = row < a.M;
-    const float* xr = a.xc + (size_t)row * a.C;
-    float s = 0.f, ss = 0.f;
-    if (live) {
-        for (int c = q; c < a.C; c += 4) {
-            const float v = xr[c];
-            s += v;
-            ss += v * v;
-        }
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-    const float mu = s / a.C;
-    const float rstd = rsqrtf(fmaxf(ss / a.C - mu * mu, 0.f) + CONVNEXT_LN_EPS);
-    for (int c = q; c < CP; c += 4) {
-        float y = 0.f;
-        if (live && c < a.C) {
-            y = round_to<T>((xr[c] - mu) * rstd * a.ln_s[c] + a.ln_b[c]);
-            if (yl_out != nullptr) yl_out[(size_t)row * a.C + c] = from_float<T>(y);
-        }
-        ylT[c][r] = y;
-    }
-    if (live && q == 0 && mean_out != nullptr) {
-        mean_out[row] = mu;
-        rstd_out[row] = rstd;
-    }
-    __syncthreads();
-}
-
-// acc[i][j] += m[r, c] = sum_w h[r, w] * W2[w, c] over every hidden chunk
-// (without b2), h = gelu(pre1) and pre1 = yl @ W1 + b1 at the rounding points
-// above; where given, pre1 [M, W] is written out. Reads ylT; ends with a
-// barrier, after which ylT is free.
-template <class T>
-__device__ __forceinline__ void mlp_rows(const ConvNextArgs<T>& a, long long row0, int CP,
-                                         const RowSmem& sm, float acc[TM][CT_MAX], T* pre1_out) {
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    for (int w0 = 0; w0 < a.W; w0 += WC) {
-        float h_acc[TM][TN] = {};
-        for (int k0 = 0; k0 < CP; k0 += BK) {
-            for (int i = tid; i < BK * BN; i += THREADS) {
-                const int kk = i / BN, n = i % BN;
-                const int k = k0 + kk, w = w0 + n;
-                sm.Bs[kk][n] = (k < a.C && w < a.W) ? to_float(a.w1[(size_t)k * a.W + w]) : 0.f;
-            }
-            __syncthreads();
-            tile_fma(sm.ylT + k0, sm.Bs, ty, tx, h_acc);
-            __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const int r = ty * TM + i;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int n = tx * TN + j, w = w0 + n;
-                float h = 0.f;
-                if (w < a.W) {
-                    const float pre = round_to<T>(h_acc[i][j] + to_float(a.b1[w]));
-                    if (pre1_out != nullptr && row0 + r < a.M)
-                        pre1_out[(size_t)(row0 + r) * a.W + w] = from_float<T>(pre);
-                    h = round_to<T>(gelu(pre));
-                }
-                sm.hT[n][r] = h;
-            }
-        }
-        __syncthreads();
-        rows_product(
-            WC, CP, [&](int r, int k) { return sm.hT[k][r]; },
-            [&](int k, int c) {
-                const int w = w0 + k;
-                return (w < a.W && c < a.C) ? to_float(a.w2[(size_t)w * a.C + c]) : 0.f;
-            },
-            sm.As, sm.Bw, acc);
-    }
-}
-
-// out = res + gamma * (m + b2) at the rounding points above, for one row and
-// channel, given the float32 sum m.
-template <class T>
-__device__ __forceinline__ float residual_out(const ConvNextArgs<T>& a, long long row, int c,
-                                              float m_sum, float* m_out) {
-    const float m = round_to<T>(m_sum + to_float(a.b2[c]));
-    *m_out = m;
-    return round_to<T>(to_float(a.res[(size_t)row * a.C + c]) +
-                       round_to<T>(round_to<T>(a.gamma[c]) * m));
-}
 
 }  // namespace arreau

@@ -56,6 +56,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) 
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(smem_addr(p)));
 }
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p)));
+}
 
 __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
                                                const uint32_t b[2]) {
@@ -119,6 +129,15 @@ struct Mma<bf16> {
         else
             ldmatrix_x4_trans(q, s + (k0 + r + (mat % 2) * 8) * ld + n);
         b0.r[0] = q[0], b0.r[1] = q[1], b1.r[0] = q[2], b1.r[1] = q[3];
+    }
+    // B's 16 x 8 fragment at (k0, n0) alone (lanes 16-31 give no address)
+    template <bool KMAJOR>
+    __device__ __forceinline__ static void load_b(B& b, const bf16* s, int ld, int n0, int k0) {
+        const int lane = threadIdx.x % 32, r = lane % 8, half = lane / 8 % 2;
+        if constexpr (KMAJOR)
+            ldmatrix_x2(b.r, s + (n0 + r) * ld + k0 + half * 8);
+        else
+            ldmatrix_x2_trans(b.r, s + (k0 + r + half * 8) * ld + n0);
     }
     __device__ __forceinline__ static void mma(float d[4], const A& a, const B& b) {
         mma_bf16_16816(d, a.r, b.r);

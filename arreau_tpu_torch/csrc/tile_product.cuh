@@ -2,15 +2,17 @@
 // BM x BN output tile as mma.sync fragments (mma.cuh), its operands staged
 // in shared memory by 16-byte cp.async, several stages deep, so that the
 // next tile's copies overlap this tile's products. Shared by #4/#2
-// (spatial_conv_bwd.cu), #8/#7 (basis_h1.cuh, basis_mlp_bwd.cu) and #3/#1
-// (conv_fwd.cuh).
+// (spatial_conv_bwd.cu), #8/#7 (basis_h1.cuh, basis_mlp_bwd.cu), #3/#1
+// (conv_fwd.cuh) and #9/#10 (convnext_rows.cuh, convnext_mlp_bwd.cu).
 //
 // TileProduct::run copies both operands; TileProduct::run_slots runs several
 // products that share B (a conv's neighbour slots) through one ring, with a
 // fold of each slot's product between them; TileProduct::run_built copies B and
 // lets the block build A in shared memory itself, one K-stage at a time, the
 // next stage's while the tensor cores work on this one's (the polynomial
-// features of #8/#7, which never reach device memory).
+// features of #8/#7, which never reach device memory); TileProduct::product
+// runs the fragments alone on tiles a block stages itself (#9/#10's row
+// blocks, which keep whole rows in shared memory).
 #pragma once
 
 #include <cstdint>
@@ -121,7 +123,6 @@ struct TileProduct {
     static constexpr size_t BUILT_SMEM = ((size_t)STAGES * B_SIZE + 2 * A_SIZE) * sizeof(T);
     using F = Mma<T>;
     using Acc = float[MT][NT][4];
-    static_assert(NT % 2 == 0, "B fragments load in pairs");
 
     __device__ __forceinline__ static int warp_m0() {
         return (threadIdx.x / 32 % WARPS_M) * MT * 16;
@@ -156,6 +157,7 @@ struct TileProduct {
     // ragged stage), only the product steps that reach into it.
     __device__ __forceinline__ static void compute_tiles(const T* sa, const T* sb, Acc& acc,
                                                          int depth = BK) {
+        static_assert(NT % 2 == 0, "B fragments load in pairs");
 #pragma unroll
         for (int kk = 0; kk < BK; kk += F::K) {
             if (kk >= depth) break;
@@ -167,6 +169,37 @@ struct TileProduct {
             for (int i = 0; i < MT; ++i) {
                 typename F::A fa;
                 F::template load_a<A_K>(fa, sa, LDA, warp_m0() + i * 16, kk);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) F::mma(acc[i][j], fa, fb[j]);
+            }
+        }
+    }
+    // acc += A B over depth K (a multiple of F::K, fixed at compile time so
+    // that the steps unroll and the next step's fragments load under this
+    // step's products) from tiles the caller keeps in shared memory itself,
+    // at row strides lda and ldb (layouts A_K and B_K as in run; zero where
+    // they lie outside the product): the row blocks of #9/#10
+    // (convnext_rows.cuh). NT may be odd: the last n8 tile's fragment then
+    // loads alone.
+    template <int K>
+    __device__ __forceinline__ static void product(const T* sa, int lda, const T* sb, int ldb,
+                                                   Acc& acc) {
+        static_assert(K % F::K == 0, "whole mma steps");
+#pragma unroll
+        for (int kk = 0; kk < K; kk += F::K) {
+            typename F::B fb[NT];
+#pragma unroll
+            for (int j = 0; j < NT; j += 2) {
+                if (j + 1 < NT)
+                    F::template load_b2<B_K>(fb[j], fb[j + 1], sb, ldb, warp_n(j), warp_n(j + 1),
+                                             kk);
+                else
+                    F::template load_b<B_K>(fb[j], sb, ldb, warp_n(j), kk);
+            }
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                typename F::A fa;
+                F::template load_a<A_K>(fa, sa, lda, warp_m0() + i * 16, kk);
 #pragma unroll
                 for (int j = 0; j < NT; ++j) F::mma(acc[i][j], fa, fb[j]);
             }

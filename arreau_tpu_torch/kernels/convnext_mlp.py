@@ -24,8 +24,9 @@ parameter gradient in float32 (the Function casts each to its input's type,
 as the JAX VJP's ``.astype``) and ``dres`` in ``cdt``.
 
 On the H100 both directions are bound by arithmetic (2*M*(2*C*W + C*R)
-operations forward, about three times that backward); see the sources for
-the designs. :func:`convnext_mlp` and :func:`convnext_mlp_bwd` launch their
+operations forward, about three times that backward), and every product of
+width C or W runs on the tensor cores (bfloat16, or 3xTF32 in float32); see
+the sources for the designs. :func:`convnext_mlp` and :func:`convnext_mlp_bwd` launch their
 kernels for CUDA tensors and run the plain versions for CPU tensors; they
 never fall back.
 """
@@ -36,14 +37,16 @@ import ctypes
 
 import torch
 
-from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv
+from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv, padded_hidden
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P,) * 13 + (_I,) * 5 + (_P,)
-_BWD_ARGTYPES = (_P,) * 26 + (_I,) * 7 + (_P,)
+_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 7 + (_P,)
 DTYPES = (torch.float32, torch.bfloat16)  # the compute types the kernels take
-MAX_C = 256  # channels a row block holds (csrc/convnext_rows.cuh: 16 * CT_MAX)
+MAX_C = 256  # channels a row block holds (csrc/convnext_rows.cuh: MAX_CHANNELS)
+MAX_R = 64  # readout columns the backward kernel takes (csrc/convnext_rows.cuh: MAX_READOUT)
+MIN_ROW_BLOCK = 64  # the fewest rows a row block of #10 holds (its partials' count)
 LN_EPS = 1e-5
 
 
@@ -205,6 +208,9 @@ def convnext_mlp_bwd(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, 
         return convnext_mlp_bwd_plain(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br,
                                       g_out, g_r)
     _cuda_ready("convnext_mlp_bwd", tensors + [g_out] + ([g_r] if g_r is not None else []))
+    if wr is not None and wr.shape[1] > MAX_R:
+        raise ValueError(f"convnext_mlp_bwd's CUDA kernels take at most {MAX_R} readout columns, "
+                         f"got {wr.shape[1]}")
     from arreau_tpu_torch.kernels.build import check, kernel_function, row_splits
 
     C, W = w1.shape
@@ -212,26 +218,26 @@ def convnext_mlp_bwd(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, 
     R = wr.shape[1] if wr is not None else 0
     dev, cdt = xc.device, res.dtype
     f32 = dict(dtype=torch.float32, device=dev)
+    scratch = lambda *shape: torch.empty(shape, dtype=cdt, device=dev)  # noqa: E731
     splits, per_split = row_splits(M)
-    blocks = -(-M // 64)
     dxc = torch.empty_like(xc)
     dres = torch.empty_like(res)
     dw1_ext = torch.empty((C + 1, W), **f32)
     dw2_ext = torch.empty((W + 1, C), **f32)
     dwr_ext = torch.empty((C + 1, max(R, 1)), **f32)
     colsum = torch.empty((3, C), **f32)
-    yl_s = torch.empty((M, C), dtype=cdt, device=dev)
-    pre1_s = torch.empty((M, W), dtype=cdt, device=dev)
-    dm_s = torch.empty((M, C), dtype=cdt, device=dev)
-    out_s = torch.empty((M, C), dtype=cdt, device=dev) if R else None
-    stats = torch.empty((2, M), **f32)
-    colpart = torch.empty((blocks, 3, C), **f32)
-    partial = torch.empty(splits * max((W + 1) * C, (C + 1) * W, (C + 1) * R), **f32)
+    # yl and h with a ones column (the bias gradients), rows 16-byte aligned;
+    # pre1, then dpre1 over it
+    yl_s, h_s = scratch(M, padded_hidden(C)), scratch(M, padded_hidden(W))
+    pre1_s, dm_s = scratch(M, W), scratch(M, C)
+    # each row block's column sums (dgamma, dln_s, dln_b), then its [dWr; dbr]
+    colpart = torch.empty(-(-M // MIN_ROW_BLOCK) * (3 * C + (C + 1) * R), **f32)
+    partial = torch.empty(splits * max((W + 1) * C, (C + 1) * W), **f32)
     fn = kernel_function("arreau_convnext_mlp_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, g_r,
                                  dxc, dres, dw1_ext, dw2_ext, dwr_ext, colsum, yl_s, pre1_s,
-                                 dm_s, out_s, stats, colpart, partial)),
+                                 h_s, dm_s, colpart, partial)),
              M, C, W, R, splits, per_split, int(cdt == torch.bfloat16), stream)
     check("arreau_convnext_mlp_bwd", err)
     convnext_mlp_bwd.launches += 1

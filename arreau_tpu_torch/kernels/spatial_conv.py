@@ -221,15 +221,19 @@ def edge_cotangent_scratch(basis, C):
     return torch.empty((rows, -(-C // 8) * 8), dtype=basis.dtype, device=basis.device)
 
 
-def tile_product(a, b, built: bool = False):
+def tile_product(a, b, built: bool = False, staged: bool = False):
     """``a [M, K] @ b [K, N]`` in float32 through the backward's tensor-core
     tile product (``csrc/mma.cuh``: bfloat16 fragments, or 3xTF32 for
     float32), for the card test of its fragment layouts; with ``built``,
     through its variant whose A tile the block writes into shared memory
-    itself (``TileProduct::run_built``, the polynomial features of #8/#7).
-    ``a`` and ``b`` are each contiguous or the transpose of a contiguous
-    tensor (which selects the shared-memory layout), of one type. On the
-    CPU: a float64 product rounded to float32."""
+    itself (``TileProduct::run_built``, the polynomial features of #8/#7);
+    with ``staged``, through ``TileProduct::product`` on tiles the block
+    stages itself, 13 n8 tiles a warp (#9/#10's row blocks). ``a`` and ``b``
+    are each contiguous or the transpose of a contiguous tensor (which
+    selects the shared-memory layout), of one type. On the CPU: a float64
+    product rounded to float32."""
+    if built and staged:
+        raise ValueError("tile_product takes built or staged, not both")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tile_product expects [M, K] @ [K, N], got {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -248,7 +252,8 @@ def tile_product(a, b, built: bool = False):
     (M, K), N = a.shape, b.shape[1]
     a_kmajor, b_kmajor = a.is_contiguous(), not b.is_contiguous()
     d = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    name = "arreau_tile_product_built" if built else "arreau_tile_product"
+    name = ("arreau_tile_product_built" if built else
+            "arreau_tile_product_staged" if staged else "arreau_tile_product")
     fn = kernel_function(name, _TILE_ARGTYPES)
     err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), M, N, K, int(a_kmajor), int(b_kmajor),
              int(a.dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)

@@ -59,12 +59,13 @@ Phases, each printing its elapsed seconds and raising on any failure:
    (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
    rate.
 
-#3, #1, #4, #2, #8 and #7 (the tensor-core kernels) are also called twice
-on their captured inputs, in both types (phases 3, 6, 11, 14, 19): every
-output must repeat bit for bit. Their float32 bounds are taken at the
-3xTF32 rate (TF32X3_FLOP_PER_S), the others' at the float32 SIMT rate;
-every bf16 bound at the bf16 tensor-core rate. Every step profile lists
-#4's, #2's and #7's inner launches by name and time.
+#3, #1, #4, #2, #8, #7, #9 and #10 (the tensor-core kernels) are also
+called twice on their captured inputs, in both types (phases 3, 6, 11, 14,
+17, 19): every output must repeat bit for bit. Their float32 bounds are
+taken at the 3xTF32 rate (TF32X3_FLOP_PER_S), the others' (#5, #6) at the
+float32 SIMT rate; every bf16 bound at the bf16 tensor-core rate. Every
+step profile lists #4's, #2's, #7's and #10's inner launches by name and
+time.
 15. bf16 training reference: one bfloat16 training step, card kernel branch
    against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
    with ``fuse_convnext``.
@@ -129,7 +130,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # float32 products on the TF32 tensor cores (495 TFLOP/s) as 3xTF32, three
 # TF32 products each: the rate the float32 tensor-core kernels (#3, #1, #4,
-# #2, #8, #7) are designed for
+# #2, #8, #7, #9, #10) are designed for
 TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
@@ -526,7 +527,9 @@ def convnext_records(args, label, tol, peak):
     """Records of #9 (and of #10 where ``args`` holds its inputs: a training
     step) on captured arguments, each with its no-readout call checked and
     timed beside it; the backward's library yardstick is autograd's backward
-    through :func:`convnext_library`."""
+    through :func:`convnext_library`. Both run their products on the tensor
+    cores: their bounds are taken at ``peak`` (3xTF32 in float32), and every
+    call must repeat its outputs bit for bit."""
     from arreau_tpu_torch.kernels.convnext_mlp import (
         convnext_mlp,
         convnext_mlp_bwd,
@@ -551,11 +554,11 @@ def convnext_records(args, label, tol, peak):
     src, rep = "arreau_tpu_torch/csrc/convnext_mlp.cu", "arreau_tpu/ops/pallas_convnext.py:61"
     fwd = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
                        lambda: convnext_library(*fargs), fargs, 2 * M * (2 * C * W + C * R),
-                       src, rep, tol, peak)
+                       src, rep, tol, peak, repeat=True)
     bare = fargs[:9] + (None, None)
     fwd["no_readout"] = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
                                      lambda: convnext_library(*bare), bare, 4 * M * C * W, src,
-                                     rep, tol, peak)
+                                     rep, tol, peak, repeat=True)
     records = [fwd]
     if "convnext_mlp_bwd" in args:
         bargs = args["convnext_mlp_bwd"]
@@ -574,14 +577,14 @@ def convnext_records(args, label, tol, peak):
 
         bwd = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd, convnext_mlp_bwd_plain,
                            library_bwd(bargs), bargs, 2 * M * (6 * C * W + 2 * C * R), src, rep,
-                           tol, peak)
+                           tol, peak, repeat=True)
         # without the readout, the cotangent the readout adds to out's
         # (the captured layer is the last: its out feeds only its readout)
         g_nr = (bargs[11].float() + bargs[12] @ bargs[9].t()).to(bargs[11].dtype)
         bare = bargs[:9] + (None, None, g_nr, None)
         bwd["no_readout"] = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd,
                                          convnext_mlp_bwd_plain, library_bwd(bare), bare,
-                                         12 * M * C * W, src, rep, tol, peak)
+                                         12 * M * C * W, src, rep, tol, peak, repeat=True)
         records.append(bwd)
     return records
 
@@ -821,10 +824,11 @@ def fused_convnext_backbone(model):
     return PonitaFiberBundle(cfg).to(model.device).eval()
 
 
-# the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu) and
-# #7 (basis_mlp_bwd.cu), by the kernel function names a profile shows; the
-# split sum is shared with every other split-K weight gradient (#7, #10, #6
-# and #2's dKf), and the h1 product with #8 (basis_h1_kernel<T, false, d>)
+# the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu), #7
+# (basis_mlp_bwd.cu) and #10 (convnext_mlp_bwd.cu), by the kernel function
+# names a profile shows; the split sum is shared with every other split-K
+# weight gradient (#7, #10, #6 and #2's dKf), and the h1 product with #8
+# (basis_h1_kernel<T, false, d>)
 BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or #7's h1 product (basis_h1_kernel<T, true, d>)",
                      "::basis_dpre2_kernel<": "#7 dpre2",
                      "::basis_dw2_partial_kernel<": "#7 dW2 split-K partials",
@@ -837,13 +841,17 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or #7's h1 product (basis_h1_ker
                      "::dx_terms_kernel<": "#4 dxc (per-edge kernel and dx terms)",
                      "::dx_kernel<": "#4 dx (each sender's run)",
                      "::fiber_cotangent_kernel<": "#2 g_o",
-                     "::fiber_kernel_grad_partial": "#2 dKf partials"}
+                     "::fiber_kernel_grad_partial": "#2 dKf partials",
+                     "::convnext_bwd_rows_kernel<": "#10 rows (forward, dm, dpre1, dyln, dxc)",
+                     "::convnext_wgrad_partial_kernel<": "#10 [dW2; db2] and [dW1; db1] split-K "
+                                                         "partials",
+                     "::sum_blocks_kernel": "#10 sums of the row blocks' partials"}
 
 
 def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
     """Where a training step's time goes: a torch.profiler trace of
     ``steps`` steps, the device's busy share, its largest kernels and each
-    of #4's, #2's and #7's inner launches."""
+    of #4's, #2's, #7's and #10's inner launches."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -1292,7 +1300,7 @@ def main() -> int:
                         for k, v in args.items() if k.startswith("convnext")}
             cn_fwd32, cn_bwd32 = convnext_records(
                 f32_args, f"convnext float32 {TRAIN_BATCH}x{bucket}", KERNEL_REL_TOL,
-                FP32_FLOP_PER_S)
+                TF32X3_FLOP_PER_S)
         cn_fwd["serve"] = {k: serve_cn[k] for k in served}
         cn_fwd["float32"] = {k: cn_fwd32[k] for k in served}
         cn_bwd["float32"] = {k: cn_bwd32[k] for k in served}

@@ -12,18 +12,23 @@ Captures, with this checkout's model, the float32 inputs of #3
 of #3, #8, #4 ``spatial_conv_bwd`` and #7 ``basis_mlp_bwd`` in one training
 step (256 crystals x 16 atoms, hidden 200), and of #1 ``fiber_conv`` and #2
 ``fiber_conv_bwd`` in one ``fuse_fiber`` training step, as ``chip_smoke.py``
-does, and the same two training steps in bfloat16. Then it calls each
-kernel wrapper of this checkout twice and the other checkout's once on the
-same tensors (each checkout builds its own kernel library into its own
-``build/``). The rules:
+does, and the same two training steps in bfloat16; and, on the
+``fuse_convnext`` path in bfloat16 with layer scale 1 (as ``chip_smoke.py``),
+the inputs of #9 ``convnext_mlp`` in one sampler forward and of #9 and #10
+``convnext_mlp_bwd`` in one training step, and the latter cast to float32.
+Then it calls each kernel wrapper of this checkout twice and the other
+checkout's once on the same tensors (each checkout builds its own kernel
+library into its own ``build/``). The rules:
 
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
-- #3 and #1 (``REDESIGNED``: tensor-core products in this build, SIMT in
+- #9 and #10 (``REDESIGNED``: tensor-core products in this build, SIMT in
   the builds before it) are held within ``chip_smoke.KERNEL_REL_TOL`` of
-  the output's scale in float32 (``BF16_KERNEL_REL_TOL`` in
-  bfloat16), and both builds' wrappers are timed with CUDA events in this
-  process, this build's before and after the other's twice;
+  each output's scale in their float32 instantiation and
+  ``BF16_KERNEL_REL_TOL`` in their bfloat16 one (whose float32 outputs
+  follow bfloat16 roundings too, as ``chip_smoke.py`` holds them), and both
+  builds' wrappers are timed with CUDA events in this process, this build's
+  before and after the other's twice;
 - every other output equals the other build's bit for bit.
 
 Exits non-zero if a rule fails.
@@ -46,14 +51,15 @@ PACKAGE = "arreau_tpu_torch"
 # kernel wrapper -> the module of the port's kernels that defines it
 MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
            "basis_h1": "basis_h1", "basis_mlp_bwd": "basis_mlp",
-           "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv"}
+           "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv",
+           "convnext_mlp": "convnext_mlp", "convnext_mlp_bwd": "convnext_mlp"}
 # kernels whose arithmetic differs from the builds before this one's
-REDESIGNED = ("spatial_conv", "fiber_conv")
+REDESIGNED = ("convnext_mlp", "convnext_mlp_bwd")
 
 
 def captured_inputs(dev) -> dict:
     """{(path, kernel name): wrapper arguments} of the first call of each
-    kernel on the five paths."""
+    kernel on the eight paths."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import pack_dense_batch
     from arreau_tpu_torch.tasks.diffusion import (
@@ -92,6 +98,33 @@ def captured_inputs(dev) -> dict:
             model.loss(batch, noise)[0].backward()
         captured.update({(path, name): a for name, a in args.items()})
         del model
+
+    # fuse_convnext in bfloat16, layer scale 1 (so that the MLP weighs in out)
+    cn_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", layer_scale=1.0)
+    model = DiffusionModel(cn_cfg, device=dev)
+    model.model = smoke.fused_convnext_backbone(model)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(smoke.SEED))
+    noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(smoke.SEED), 1, smoke.BATCH,
+                               smoke.ATOMS, cfg.num_atomic_states, "monoclinic", False, dev)
+    with torch.inference_mode():
+        inputs = smoke.first_step_inputs(model, noise)
+        with smoke.capturing() as args:
+            model.predict_scores(*inputs)
+    captured.update({("fuse_convnext serving", name): a for name, a in args.items()
+                     if name.startswith("convnext")})
+    model = DiffusionModel(dataclasses.replace(bf16_cfg, layer_scale=1.0), device=dev)
+    model.model = smoke.fused_convnext_backbone(model)
+    model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
+    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
+                            *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
+                            True, dev)
+    with smoke.capturing() as args:
+        model.loss(batch, noise)[0].backward()
+    for name, a in args.items():
+        if name.startswith("convnext"):
+            captured["fuse_convnext bf16 training", name] = a
+            captured["fuse_convnext float32 training", name] = tuple(
+                t.detach().float() if torch.is_tensor(t) else t for t in a)
     return captured
 
 
@@ -142,6 +175,11 @@ def differences(want: dict, got: dict) -> dict:
     diffs = {}
     for key, outs in want.items():
         for i, (a, b) in enumerate(zip(outs, got[key])):
+            if a is None or b is None:  # an output without a readout
+                if (a is None) != (b is None):
+                    raise RuntimeError(f"{key} output {i}: None in one build only")
+                diffs[key, i] = None
+                continue
             equal = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
             diffs[key, i] = None if equal else (a.float() - b.float()).abs().max().item()
     return diffs
@@ -180,13 +218,16 @@ def main(argv: list[str]) -> int:
     ok = True
     for (key, i), diff in theirs.items():
         a = ours[key][i]
+        if a is None:
+            continue
         line = (f"{key[0]} {key[1]} output {i} {tuple(a.shape)} {a.dtype}: "
                 f"{'equal' if diff is None else f'differs by up to {diff:.3e}'} in {other.name}")
         if again[key, i] is not None:
             line += f"; VARIES from call to call in this build, by up to {again[key, i]:.3e}"
             ok = False
         if key[1] in REDESIGNED:
-            tol = smoke.KERNEL_REL_TOL if a.dtype == torch.float32 else smoke.BF16_KERNEL_REL_TOL
+            bf16 = any(torch.is_tensor(t) and t.dtype == torch.bfloat16 for t in captured[key])
+            tol = smoke.BF16_KERNEL_REL_TOL if bf16 else smoke.KERNEL_REL_TOL
             rel = (diff or 0.0) / max(a.float().abs().max().item(), 1e-30)
             line += f" (rel {rel:.3e}, tolerance {tol:g})"
             ok &= rel <= tol

@@ -182,6 +182,31 @@ def test_built_tile_product_matches_float64(dtype, a_kmajor, b_kmajor, M, N, K):
     assert err <= TILE_REL_TOL * want.abs().max().item(), err
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_kmajor", [True, False])
+@pytest.mark.parametrize("b_kmajor", [True, False])
+@pytest.mark.parametrize("M,N,K", [(16, 8, 16), (200, 150, 77), (130, 420, 200)])
+def test_staged_tile_product_matches_float64(dtype, a_kmajor, b_kmajor, M, N, K):
+    """``TileProduct::product`` on tiles the block stages itself, as #9/#10's
+    row blocks run it: 13 n8 tiles a warp (an odd count, the last B fragment
+    loaded alone), both layouts of each operand, ragged depth (K = 77) and
+    several 64 x 208 tiles, within 1e-5 of a float64 product's scale."""
+    dev = _device()
+    rng = np.random.default_rng(16)
+    a = torch.tensor(rng.normal(size=(M, K)), device=dev).to(dtype)
+    b = torch.tensor(rng.normal(size=(K, N)), device=dev).to(dtype)
+    a_in = a.contiguous() if a_kmajor else a.t().contiguous().t()
+    b_in = b.t().contiguous().t() if b_kmajor else b.contiguous()
+    before = tile_product.launches
+    got = tile_product(a_in, b_in, staged=True)
+    torch.cuda.synchronize()
+    assert tile_product.launches == before + 1
+    want = a.double() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
 def _basis_args(rng, dev, dtype, Bp, O, d, E, H, D, degree, n_g):
     """(attrT, w1, b1, w2, b2, degree) and n_g cotangents of the basis MLP."""
     F = sum(d**i for i in range(1, degree + 1))
@@ -220,9 +245,10 @@ def test_basis_kernels_match_plain_at_ragged_shapes(dtype, Bp, O, d, E, H, D, de
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_repeat_bit_for_bit(dtype):
-    """#4, #2, #8 and #7 called twice on the same inputs give every output
-    equal, dx included (each sender's terms summed in a fixed order) and the
-    split-K weight gradients (partials added in split order; no atomics)."""
+    """#4, #2, #8, #7, #9 and #10 called twice on the same inputs give every
+    output equal, dx included (each sender's terms summed in a fixed order)
+    and the split-K weight gradients and column sums (partials added in split
+    and block order; no atomics)."""
     dev = _device()
     rng = np.random.default_rng(13)
     Bp, O, P, K, TA, D, C = 2, 16, 16, 8, 120, 256, 200
@@ -239,6 +265,9 @@ def test_backward_kernels_repeat_bit_for_bit(dtype):
     bargs, gs = _basis_args(rng, dev, dtype, 2, 16, 6, 960, 200, 256, 3, 5)
     first += (basis_h1(*bargs[:3], 3), *basis_mlp_bwd(*bargs, gs))
     second += (basis_h1(*bargs[:3], 3), *basis_mlp_bwd(*bargs, gs))
+    *cargs, g_out, g_r = _convnext_args(rng, dev, dtype, 2, 16, 120, 200, 800, 19)
+    first += (*convnext_mlp(*cargs), *convnext_mlp_bwd(*cargs, g_out, g_r))
+    second += (*convnext_mlp(*cargs), *convnext_mlp_bwd(*cargs, g_out, g_r))
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(first, second)):
         assert torch.equal(a, b), i
@@ -348,13 +377,22 @@ def _convnext_args(rng, dev, dtype, Bp, O, TA, C, W, R):
             t(Bp, O, TA, R) if R else None)
 
 
+# rows (B' * O * TA) 1, 63, 65 and 129 (either side of the 64- and 128-row
+# blocks), C 8 / 70 / 200 / 256 (both block widths, 208 and 256), W 32 / 150
+# / 800 / 1024 (chunks ragged and whole), R 1 / 5 / 19 / 32 and 0 (no
+# readout), and the canonical training shape (65536 rows)
+CONVNEXT_SHAPES = [(1, 1, 1, 8, 32, 1), (1, 1, 63, 70, 150, 19), (1, 1, 65, 200, 800, 0),
+                   (1, 1, 129, 256, 1024, 32), (1, 3, 43, 8, 1024, 0), (1, 1, 63, 256, 32, 1),
+                   (1, 1, 65, 200, 150, 32), (2, 3, 40, 70, 150, 5), (2, 16, 120, 200, 800, 19),
+                   (2, 3, 40, 70, 150, 0), (32, 16, 128, 200, 800, 19)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Bp,O,TA,C,W,R", [(2, 3, 40, 70, 150, 5), (2, 16, 120, 200, 800, 19),
-                                           (2, 3, 40, 70, 150, 0)])
+@pytest.mark.parametrize("Bp,O,TA,C,W,R", CONVNEXT_SHAPES)
 def test_convnext_mlp_kernels_match_plain(dtype, Bp, O, TA, C, W, R):
     """#9 and #10 with and without the readout (R = 0); rows, C and W not
-    multiples of the kernels' 64-wide tiles."""
+    multiples of the kernels' row blocks, channel widths and hidden chunks."""
     dev = _device()
     *args, g_out, g_r = _convnext_args(np.random.default_rng(9), dev, dtype, Bp, O, TA, C, W, R)
     before = (convnext_mlp.launches, convnext_mlp_bwd.launches)
@@ -672,7 +710,7 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(TypeError, match="like attrT"):
         basis_h1(torch.zeros((1, 1, 2, 8), device=dev).bfloat16(),
                  torch.zeros((6, 3), device=dev), torch.zeros((3,), device=dev), 2)
-    # the fused ConvNext MLP: a wrong type, non-contiguous, too wide
+    # the fused ConvNext MLP: a wrong type, non-contiguous, too wide, too wide a readout
     *cn, g_out, g_r = _convnext_args(np.random.default_rng(0), dev, torch.bfloat16,
                                      1, 1, 8, 16, 64, 3)
     with pytest.raises(TypeError, match="compute type"):
@@ -686,3 +724,7 @@ def test_wrappers_raise_instead_of_falling_back():
     wide = _convnext_args(np.random.default_rng(0), dev, torch.bfloat16, 1, 1, 8, 264, 64, 3)
     with pytest.raises(ValueError, match="at most 256 channels"):
         convnext_mlp(*wide[:11])
+    *cn, g_out, g_r = _convnext_args(np.random.default_rng(0), dev, torch.bfloat16,
+                                     1, 1, 8, 16, 64, 65)
+    with pytest.raises(ValueError, match="at most 64 readout columns"):
+        convnext_mlp_bwd(*cn, g_out, g_r)

@@ -31,6 +31,19 @@ skipped) and #1 (``csrc/fiber_conv.cu``: the same fold without a window
 into the float32 ``x_sp``, then the fiber mixing summed over o in ascending
 order), each output within 1e-5 of the float64 plain version's scale, at a
 small ragged shape and at the canonical width cut to one super-crystal.
+
+And for the fused ConvNext MLP, whose float32 products of width C or W run
+as 3xTF32 too: #9 (``csrc/convnext_mlp.cu``: pre1 = yl @ W1 over the
+channels zero-padded to the row block's width, h = gelu(pre1 + b1), m = the
+sum over the hidden chunks of h @ W2, out and the float32 readout summed in
+channel order) and #10 (``csrc/convnext_mlp_bwd.cu``: g_total with g_r @
+Wr^T summed in readout order, dh = dm @ W2^T, dyln = dpre1 @ W1^T, the
+LayerNorm VJP from each row's two sums, [dW2; db2] and [dW1; db1] as
+split-K products with a ones column whose per-split partials are added in
+split order, [dWr; dbr] and the column sums as per-row-block partials added
+in the fixed order of ``sum_blocks_kernel``), every output within 1e-5 of
+the float64 plain versions' scale, at a ragged shape and at the canonical
+width cut to a few hundred rows.
 """
 
 import numpy as np
@@ -40,6 +53,11 @@ import torch
 from arreau_tpu_torch.kernels.basis_h1 import basis_h1_plain, poly_features_t
 from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd_plain, padded_hidden
 from arreau_tpu_torch.kernels.build import row_splits
+from arreau_tpu_torch.kernels.convnext_mlp import (
+    MIN_ROW_BLOCK,
+    convnext_mlp_bwd_plain,
+    convnext_mlp_plain,
+)
 from arreau_tpu_torch.kernels.fiber_conv import fiber_conv_plain
 from arreau_tpu_torch.kernels.spatial_conv import (
     sender_order,
@@ -326,6 +344,134 @@ def test_3xtf32_forward_convs_keep_float32_precision(conv_case, i, name):
     want, emulated = conv_case
     scale = np.abs(want[i]).max()
     rel = {k: np.abs(v[i] - want[i]).max() / scale for k, v in emulated.items()}
+    print(f"{name}: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items())
+          + " of the float64 scale")
+    assert rel["3xTF32"] <= SPLIT_REL_TOL, rel
+
+
+def emulated_convnext(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, g_r, mm,
+                      rows_per_split):
+    """#9's (out, r) and #10's (dxc, dres, dln_s, dln_b, dw1, db1, dw2, db2,
+    dgamma, dwr, dbr) by the kernels' float32 algorithm in numpy, their
+    products of width C or W by ``mm``: LayerNorm with the fast variance;
+    pre1 and dh over the channels zero-padded to 208 (the model's row-block
+    width); m and dyln summed chunk after chunk of 32 hidden units (float32's
+    chunk), in order; the readout and g_r @ Wr^T on the CUDA cores in order;
+    [dW2; db2] = [h | 1]^T dm and [dW1; db1] = [yl | 1]^T dpre1 over each
+    split of ``rows_per_split`` rows, added in split order; [dWr; dbr] and
+    the column sums over each row block of MIN_ROW_BLOCK rows (float32's
+    row block), added as :func:`sum_blocks`."""
+    f32 = np.float32
+    M, C = xc.shape
+    W, R = w1.shape[1], wr.shape[1]
+    CN, WC = 208, 32
+
+    def pad(a, axis):  # zero-padded to the row block's width CN
+        width = [(0, 0), (0, 0)]
+        width[axis] = (0, CN - a.shape[axis])
+        return np.pad(a, width)
+
+    mu = xc.mean(axis=1, dtype=f32, keepdims=True)
+    var = np.maximum((xc * xc).mean(axis=1, dtype=f32, keepdims=True) - mu * mu, f32(0))
+    rstd = (f32(1) / np.sqrt(var + f32(1e-5))).astype(f32)
+    xhat = (xc - mu) * rstd
+    yl = xhat * ln_s + ln_b
+    pre1 = mm(pad(yl, 1), pad(w1, 0)) + b1
+    h, dgelu = gelu_and_deriv(pre1)
+    m = np.zeros((M, C), f32)
+    for w0 in range(0, W, WC):
+        m += mm(h[:, w0:w0 + WC], w2[w0:w0 + WC])
+    m = m + b2
+    out = res + gamma * m
+    r = np.zeros((M, R), f32)
+    for c in range(C):
+        r += out[:, c:c + 1] * wr[c]
+    r += br
+    gr = np.zeros((M, C), f32)
+    for q in range(R):
+        gr += g_r[:, q:q + 1] * wr[:, q]
+    g = g_out + gr
+    dm = g * gamma
+    dpre1 = mm(pad(dm, 1), pad(w2, 1).T.copy()) * dgelu
+    dyln = np.zeros((M, CN), f32)
+    for w0 in range(0, W, WC):
+        dyln += mm(dpre1[:, w0:w0 + WC], pad(w1[:, w0:w0 + WC], 0).T.copy())
+    dyln = dyln[:, :C]
+    dxhat = dyln * ln_s
+    s1 = dxhat.sum(axis=1, dtype=f32, keepdims=True)
+    s2 = (dxhat * xhat).sum(axis=1, dtype=f32, keepdims=True)
+    dxc = rstd * (dxhat - s1 / f32(C) - xhat * (s2 / f32(C)))
+    ones = np.ones((M, 1), f32)
+    h_ext, yl_ext, out_ext = (np.concatenate([v, ones], axis=1) for v in (h, yl, out))
+    dw2_ext = np.zeros((W + 1, C), f32)
+    dw1_ext = np.zeros((C + 1, W), f32)
+    for k0 in range(0, M, rows_per_split):
+        rows = slice(k0, k0 + rows_per_split)
+        dw2_ext += mm(h_ext[rows].T.copy(), dm[rows])
+        dw1_ext += mm(yl_ext[rows].T.copy(), dpre1[rows])
+    dwr_parts, col_parts = [], []
+    for r0 in range(0, M, MIN_ROW_BLOCK):
+        part = np.zeros((C + 1, R), f32)
+        for i in range(r0, min(M, r0 + MIN_ROW_BLOCK)):  # the block's rows in order
+            part += out_ext[i][:, None] * g_r[i]
+        dwr_parts.append(part)
+        rows = slice(r0, r0 + MIN_ROW_BLOCK)
+        col_parts.append(np.stack([(g * m)[rows].sum(axis=0, dtype=f32),
+                                   (dyln * xhat)[rows].sum(axis=0, dtype=f32),
+                                   dyln[rows].sum(axis=0, dtype=f32)]))
+    dwr_ext, cols = sum_blocks(dwr_parts), sum_blocks(col_parts)
+    return ((out, r), (dxc, g, cols[1], cols[2], dw1_ext[:C], dw1_ext[C], dw2_ext[:W],
+                       dw2_ext[W], cols[0], dwr_ext[:C], dwr_ext[C]))
+
+
+def sum_blocks(parts, warps=8):
+    """The row blocks' partials added as ``sum_blocks_kernel`` adds them:
+    each of ``warps`` sums every ``warps``-th block in ascending order, then
+    the warps' sums in warp order, in float32."""
+    warp_sums = [np.zeros_like(parts[0]) for _ in range(warps)]
+    for b, part in enumerate(parts):
+        warp_sums[b % warps] += part
+    total = np.zeros_like(parts[0])
+    for v in warp_sums:
+        total += v
+    return total
+
+
+@pytest.fixture(scope="module", params=[(201, 70, 150, 5), (300, 200, 800, 19)],
+                ids=["ragged", "canonical"])
+def convnext_case(request):
+    """Seeded inputs (rows not a multiple of the row blocks; C, W, R: a
+    ragged shape, and the canonical width), the float64 plain versions'
+    outputs and the 3xTF32 and 1-pass TF32 emulations."""
+    M, C, W, R = request.param
+    rng = np.random.default_rng(17)
+    f32 = np.float32
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return (rng.normal(size=shape) * scale + shift).astype(f32)
+
+    args = (t(M, C, scale=2.0, shift=0.5), t(M, C), t(C, scale=0.1, shift=1.0), t(C, scale=0.1),
+            t(C, W, scale=0.1), t(W, scale=0.1), t(W, C, scale=0.05), t(C, scale=0.1),
+            t(C, scale=0.5, shift=1.0), t(C, R, scale=0.1), t(R, scale=0.1), t(M, C), t(M, R))
+    t64 = [torch.tensor(a, dtype=torch.float64) for a in args]
+    want = ([v.numpy() for v in convnext_mlp_plain(*t64[:11])],
+            [v.numpy() for v in convnext_mlp_bwd_plain(*t64)])
+    per_split = row_splits(M, 64)[1]
+    emulated = {name: emulated_convnext(*args, mm, per_split)
+                for name, mm in (("3xTF32", mm_3xtf32), ("1-pass TF32", mm_1xtf32))}
+    return want, emulated
+
+
+CONVNEXT_OUTPUTS = [(0, 0, "out"), (0, 1, "r")] + [
+    (1, i, name) for i, name in enumerate(("dxc", "dres", "dln_s", "dln_b", "dw1", "db1", "dw2",
+                                           "db2", "dgamma", "dwr", "dbr"))]
+
+
+@pytest.mark.parametrize("d,i,name", CONVNEXT_OUTPUTS)
+def test_3xtf32_convnext_keeps_float32_precision(convnext_case, d, i, name):
+    want, emulated = convnext_case
+    scale = np.abs(want[d][i]).max()
+    rel = {k: np.abs(v[d][i] - want[d][i]).max() / scale for k, v in emulated.items()}
     print(f"{name}: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items())
           + " of the float64 scale")
     assert rel["3xTF32"] <= SPLIT_REL_TOL, rel
