@@ -94,10 +94,10 @@ extern "C" int arreau_basis_h1_fwd(const void* attrT, const void* w1, const void
     const long long rows = (long long)Bp * O * E;
     int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        status = launch_h1<T, false>(static_cast<const T*>(attrT), static_cast<const T*>(w1),
-                                     static_cast<const T*>(b1), static_cast<T*>(out), nullptr,
-                                     nullptr, rows, d, E, F, H, H,
-                                     static_cast<cudaStream_t>(stream));
+        status = launch_h1<T, H1Out::PRE>(
+            static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
+            static_cast<T*>(out), nullptr, nullptr, rows, d, E, F, H, H,
+            static_cast<cudaStream_t>(stream));
     });
     return status;
 }

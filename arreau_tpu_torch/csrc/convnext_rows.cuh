@@ -31,7 +31,7 @@
 #pragma once
 
 #include "dtype.cuh"
-#include "tile_gemm.cuh"
+#include "common.cuh"
 #include "tile_product.cuh"
 
 namespace arreau {

@@ -51,7 +51,7 @@
 // dKf are float32 sums (the wrapper rounds them to the weights' type).
 
 #include "dtype.cuh"
-#include "tile_gemm.cuh"
+#include "common.cuh"
 
 extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
                                        const int* src, const float* win, const int* order,

@@ -14,22 +14,30 @@
 //
 // Bound on the H100: 2*rows*(F*H + H*D) operations (107.8 GFLOP at the
 // training shape, rows = 524288, F=258, H=200, D=256) against the output
-// write (537 MB float32, 268 MB bfloat16): arithmetic bounds it (1.61 ms at
-// the float32 SIMT rate, 0.11 ms at the bf16 tensor-core rate).
+// write (268 MB bfloat16, 537 MB float32): arithmetic bounds it, 0.11 ms on
+// the bfloat16 tensor cores (989 TFLOP/s), 0.65 ms in float32 as 3xTF32
+// (mma.cuh, 495 / 3 = 165 TFLOP/s).
 //
 // Design. On the TPU one grid cell held a (b', o) block's whole chain in
-// VMEM. Here a block owns 64 rows and every column of H and D: it stages the
-// rows' invariants in shared memory, builds each 16-deep slice of the F
-// features in shared memory as the first tile product consumes it (as
-// basis_h1.cu does), and keeps the rows' [64, H] hidden activations in
-// shared memory (51 KB at H = 200): neither the features nor h reach device
-// memory, and the only traffic is the invariants in and the basis out. The
-// first product walks H in 64-wide chunks, each chunk's epilogue writing
-// round_T(gelu(round_T(acc))) into the hidden buffer; after a barrier the
-// second product walks D in 64-wide chunks with A staged from that buffer,
-// and each output element is written once.
+// VMEM. Here the chain runs as two mma.sync tile products over all rows
+// (WideTile, tile_product.cuh: 128 x 128 tiles, cp.async stages):
 //
-// Element type T (dtype.cuh) of attr, W1, W2 and the output: float32, or
+//   1. h = round_T(gelu(round_T(poly @ W1))): #8's product (basis_h1.cuh,
+//      HIDDEN), the features built in shared memory a K-stage at a time
+//      from the block's staged invariants (from registers with the model's
+//      d = 6), so they never reach device memory; the epilogue writes h into
+//      a [rows, Hp] scratch in T (Hp = H rounded up to 8: 16-byte rows).
+//   2. basis = round_T(gelu(round_T(h @ W2))): h and W2 staged by cp.async;
+//      the epilogue stages the accumulators in shared memory and writes each
+//      output element once, in 16-byte row chunks.
+//
+// The scratch costs one write and one read of h (210 MB bfloat16 at the
+// training shape, ~0.13 ms of the card's memory rate); a block that kept
+// its rows' h in shared memory between the two products (#9's row blocks,
+// convnext_rows.cuh) would save it, but those products run at well below
+// the 128 x 128 tiles' rate.
+//
+// Element type T (dtype.cuh) of attr, W1, W2, h and the output: float32, or
 // bfloat16 under BasisMLP's bfloat16 compute type, with the JAX kernel's
 // rounding points (pallas_basis.py:77-83, :108-116): each feature is formed
 // in float32 from the T invariants and rounded once to T; both products sum
@@ -37,103 +45,76 @@
 // float32 from the rounded value and rounded once (the JAX kernel evaluates
 // it in T step by step).
 
+#include "basis_h1.cuh"
+#include "common.cuh"
 #include "dtype.cuh"
-#include "poly_features.cuh"
-#include "tile_gemm.cuh"
+#include "tile_product.cuh"
 
 namespace {
 
 using namespace arreau;
 
+// 2. out[row, n] = round_T(gelu(round_T(h[row, :H] @ W2[:, n])))
 template <class T>
-__global__ void __launch_bounds__(THREADS)
-fused_basis_mlp_fwd_kernel(const T* __restrict__ attr,  // [rows, d]
-                           const T* __restrict__ w1,    // [F, H]
-                           const T* __restrict__ w2,    // [H, D]
-                           T* __restrict__ out,         // [rows, D]
-                           long long rows, int d, int F, int H, int D) {
-    extern __shared__ float s_h[];  // [BM][H]: the block's hidden activations
-    __shared__ float s_attr[MAX_D][BM];
-    __shared__ __align__(16) float As[BK][AS_LD];
-    __shared__ __align__(16) float Bs[BK][BN];
-
-    const long long row0 = (long long)blockIdx.x * BM;
-    const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);
-    const int ty = tid / (BN / TN);
-
-    for (int i = tid; i < BM * d; i += THREADS) {
-        const int r = i / d, j = i % d;  // neighbouring threads, neighbouring addresses
-        s_attr[j][r] = row0 + r < rows ? to_float(attr[(size_t)row0 * d + i]) : 0.f;
-    }
-    __syncthreads();
-
-    for (int h0 = 0; h0 < H; h0 += BN) {
-        float acc[TM][TN] = {};
-        tile_gemm<false, true>(
-            F,
-            [&](int r, int f) {
-                return round_to<T>(poly_feature([&](int i) { return s_attr[i][r]; }, f, d));
-            },
-            [&](int f, int n) { return h0 + n < H ? to_float(w1[(size_t)f * H + h0 + n]) : 0.f; },
-            As, Bs, acc);
+__global__ void __launch_bounds__(WideTile<T, true, false>::THREADS, MIN_BLOCKS)
+basis_out_kernel(Operand<T> h,          // [rows, Hp]
+                 Operand<T> w2,         // [H, D]
+                 T* __restrict__ out,   // [rows, D]
+                 long long rows, int H, int D, bool out_vec) {
+    using P = WideTile<T, true, false>;
+    const int n_tiles = (D + P::BN - 1) / P::BN;
+    const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
+    const int n0 = blockIdx.x % n_tiles * P::BN;
+    const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = D - n0;
+    typename P::Acc acc = {};
+    P::run({h.p + m0 * h.ld, h.ld, h.vec}, {w2.p + n0, w2.ld, w2.vec}, H, m_lim, n_lim,
+           shared_buffer<T>(), acc);
+    float* s_acc = shared_buffer<float>();
+    P::stage_acc(acc, s_acc);
+    P::for_each_chunk([&](int m, int n) {
+        constexpr int CH = P::CHUNK;
+        if (m >= m_lim || n >= n_lim) return;
+        const float* a = s_acc + m * P::ACC_LD + n;
+        float v[CH];
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int h = h0 + tx * TN + j;
-                if (h < H) s_h[(ty * TM + i) * H + h] = round_to<T>(gelu(round_to<T>(acc[i][j])));
-            }
-    }
-    __syncthreads();  // every hidden activation is in s_h
-
-    for (int n0 = 0; n0 < D; n0 += BN) {
-        float acc[TM][TN] = {};
-        tile_gemm<true, true>(
-            H, [&](int r, int k) { return s_h[r * H + k]; },
-            [&](int k, int n) { return n0 + n < D ? to_float(w2[(size_t)k * D + n0 + n]) : 0.f; },
-            As, Bs, acc);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const long long row = row0 + ty * TM + i;
-            if (row >= rows) continue;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int n = n0 + tx * TN + j;
-                if (n < D) out[(size_t)row * D + n] = from_float<T>(gelu(round_to<T>(acc[i][j])));
-            }
-        }
-    }
+        for (int j = 0; j < CH; ++j) v[j] = gelu(round_to<T>(a[j]));
+        store_chunk(out + (m0 + m) * D + n0 + n, v, min(CH, n_lim - n), out_vec);
+    });
 }
 
 template <class T>
-int launch(const T* attr, const T* w1, const T* w2, T* out, long long rows, int d, int F, int H,
-           int D, cudaStream_t stream) {
-    const size_t smem = (size_t)BM * H * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(fused_basis_mlp_fwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int fused_basis_mlp(const T* attr, const T* w1, const T* w2, T* h, T* out, long long rows, int d,
+                    int F, int H, int D, cudaStream_t stream) {
+    const int Hp = (H + 7) / 8 * 8;
+    int status = launch_h1<T, H1Out::HIDDEN, true>(attr, w1, nullptr, h, nullptr, nullptr, rows,
+                                                    d, 1, F, H, Hp, stream);
+    if (status != 0) return status;
+    using P = WideTile<T, true, false>;
+    const size_t smem = P::staged(P::SMEM);
+    cudaError_t err = allow_smem(basis_out_kernel<T>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned blocks = static_cast<unsigned>((rows + BM - 1) / BM);
-    fused_basis_mlp_fwd_kernel<T><<<blocks, THREADS, smem, stream>>>(attr, w1, w2, out, rows, d,
-                                                                      F, H, D);
+    const long long blocks = (rows + P::BM - 1) / P::BM * ((D + P::BN - 1) / P::BN);
+    basis_out_kernel<T><<<(unsigned)blocks, P::THREADS, smem, stream>>>(
+        operand<T>(h, Hp), operand(w2, D), out, rows, H, D, rows_aligned(out, D));
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// attr [B', O, E, d], w1 [F, H], w2 [H, D] and out [B', O, E, D] are float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
+// attr [B', O, E, d], w1 [F, H], w2 [H, D], the scratch h [rows, Hp] (Hp = H
+// rounded up to 8) and out [B', O, E, D] are float32 (is_bf16 = 0) or
+// bfloat16 (is_bf16 = 1).
 extern "C" int arreau_fused_basis_mlp_fwd(const void* attr, const void* w1, const void* w2,
-                                          void* out, int Bp, int O, int E, int d, int F, int H,
-                                          int D, int is_bf16, void* stream_ptr) {
+                                          void* h, void* out, int Bp, int O, int E, int d, int F,
+                                          int H, int D, int is_bf16, void* stream_ptr) {
     if (d > MAX_D) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const long long rows = (long long)Bp * O * E;
     int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        status = launch<T>(static_cast<const T*>(attr), static_cast<const T*>(w1),
-                           static_cast<const T*>(w2), static_cast<T*>(out), rows, d, F, H, D,
-                           stream);
+        status = fused_basis_mlp<T>(static_cast<const T*>(attr), static_cast<const T*>(w1),
+                                    static_cast<const T*>(w2), static_cast<T*>(h),
+                                    static_cast<T*>(out), rows, d, F, H, D, stream);
     });
     return status;
 }

@@ -73,7 +73,7 @@
 
 #include "dtype.cuh"
 #include "mma.cuh"
-#include "tile_gemm.cuh"
+#include "common.cuh"
 #include "tile_product.cuh"
 
 namespace {

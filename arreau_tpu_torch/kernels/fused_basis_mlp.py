@@ -19,10 +19,14 @@ differentiate, and the JAX VJP returns zeros for them (so does
 
 On the H100 both directions are bound by arithmetic (2*rows*(F*H + H*D)
 operations forward, 2*rows*(2*F*H + 3*H*D) backward, against one write of
-the basis or one read of its cotangent). The forward keeps the features
-and the hidden activations in shared memory; the backward runs its tile
-products through device-memory scratch with split-K weight gradients and a
-fixed-order second pass. See the sources.
+the basis or one read of its cotangent) and run their products on the
+tensor cores (``mma.sync``: bfloat16, or 3xTF32 for float32). The forward
+is two tile products: ``poly @ w1`` with the features built in shared
+memory (#8's product, ``csrc/basis_h1.cuh``), its epilogue writing the
+hidden activations to a scratch in the compute type, then ``h @ w2``. The
+backward is #7's chain of five products (``csrc/basis_mlp_bwd.cuh``)
+without biases: the forward recomputed, device-memory scratch between the
+products, split-K weight gradients added in a fixed order. See the sources.
 
 attr, w1, w2 (and the cotangent) are float32, or all bfloat16 under a
 bfloat16 compute type, with the JAX kernel's rounding points: the features
@@ -51,11 +55,15 @@ from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 4 + (_I,) * 8 + (_P,)
-_BWD_ARGTYPES = (_P,) * 9 + (_I,) * 10 + (_P,)
-# the forward keeps a block's [64, H] float32 hidden activations in shared
-# memory beside its ~10.5 KB of static arrays
-_MAX_H = (227 * 1024 - 11 * 1024) // (64 * 4)
+_ARGTYPES = (_P,) * 5 + (_I,) * 8 + (_P,)
+_BWD_ARGTYPES = (_P,) * 11 + (_I,) * 10 + (_P,)
+_XR = 8  # row stride of the backward's invariant scratch (csrc/basis_h1.cuh: XR)
+
+
+def padded_rows(n: int) -> int:
+    """Row length of an ``[rows, n]`` scratch in the compute type: n rounded
+    up to 8 elements, so that every row starts 16-byte aligned."""
+    return -(-n // 8) * 8
 
 
 def poly_features(attr, degree: int):
@@ -138,15 +146,15 @@ def fused_basis_mlp(attr, w1, w2, degree: int):
     Bp, O, E, d = attr.shape
     F_, H = w1.shape
     D = w2.shape[1]
-    if H > _MAX_H:
-        raise ValueError(f"fused_basis_mlp's kernel holds at most {_MAX_H} hidden units, got {H}")
     from arreau_tpu_torch.kernels.build import check, kernel_function
 
-    out = torch.empty((Bp, O, E, D), dtype=attr.dtype, device=attr.device)
+    dev = attr.device
+    h = torch.empty((Bp * O * E, padded_rows(H)), dtype=attr.dtype, device=dev)
+    out = torch.empty((Bp, O, E, D), dtype=attr.dtype, device=dev)
     fn = kernel_function("arreau_fused_basis_mlp_fwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(attr.device).cuda_stream
-    err = fn(attr.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), Bp, O, E, d, F_, H, D,
-             int(attr.dtype == torch.bfloat16), stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(attr.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(), out.data_ptr(), Bp, O,
+             E, d, F_, H, D, int(attr.dtype == torch.bfloat16), stream)
     check("arreau_fused_basis_mlp_fwd", err)
     fused_basis_mlp.launches += 1
     return out
@@ -172,20 +180,23 @@ def fused_basis_mlp_bwd(attr, w1, w2, degree: int, g):
 
     rows = Bp * O * E
     splits, per_split = row_splits(rows)
-    dev = attr.device
-    h_pre = torch.empty((rows, H), dtype=attr.dtype, device=dev)
-    db_pre = torch.empty((rows, D), dtype=attr.dtype, device=dev)
-    partial = torch.empty(splits * max((F_ + 1) * H, (H + 1) * D), dtype=torch.float32, device=dev)
-    dw1_ext = torch.empty((F_ + 1, H), dtype=torch.float32, device=dev)
-    dw2_ext = torch.empty((H + 1, D), dtype=torch.float32, device=dev)
+    dev, dt = attr.device, attr.dtype
+    h1 = torch.empty((rows, padded_rows(H)), dtype=dt, device=dev)
+    dg1 = torch.empty_like(h1)
+    dpre2 = torch.empty((rows, D), dtype=dt, device=dev)
+    xr = torch.empty((rows, _XR), dtype=dt, device=dev)
+    partial = torch.empty(splits * max(F_ * H, H * D), dtype=torch.float32, device=dev)
+    dw1 = torch.empty((F_, H), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((H, D), dtype=torch.float32, device=dev)
     fn = kernel_function("arreau_fused_basis_mlp_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(attr.data_ptr(), w1.data_ptr(), w2.data_ptr(), g.data_ptr(), h_pre.data_ptr(),
-             db_pre.data_ptr(), partial.data_ptr(), dw1_ext.data_ptr(), dw2_ext.data_ptr(),
-             Bp, O, E, d, F_, H, D, splits, per_split, int(attr.dtype == torch.bfloat16), stream)
+    err = fn(attr.data_ptr(), w1.data_ptr(), w2.data_ptr(), g.data_ptr(), h1.data_ptr(),
+             dg1.data_ptr(), dpre2.data_ptr(), xr.data_ptr(), partial.data_ptr(), dw1.data_ptr(),
+             dw2.data_ptr(), Bp, O, E, d, F_, H, D, splits, per_split,
+             int(dt == torch.bfloat16), stream)
     check("arreau_fused_basis_mlp_bwd", err)
     fused_basis_mlp_bwd.launches += 1
-    return dw1_ext[:F_], dw2_ext[:H]
+    return dw1, dw2
 
 
 fused_basis_mlp_bwd.launches = 0

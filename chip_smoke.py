@@ -59,13 +59,12 @@ Phases, each printing its elapsed seconds and raising on any failure:
    (1e-2 of each output's scale), timed; bounds at the bf16 tensor-core
    rate.
 
-#3, #1, #4, #2, #8, #7, #9 and #10 (the tensor-core kernels) are also
-called twice on their captured inputs, in both types (phases 3, 6, 11, 14,
-17, 19): every output must repeat bit for bit. Their float32 bounds are
-taken at the 3xTF32 rate (TF32X3_FLOP_PER_S), the others' (#5, #6) at the
-float32 SIMT rate; every bf16 bound at the bf16 tensor-core rate. Every
-step profile lists #4's, #2's, #7's and #10's inner launches by name and
-time.
+Every kernel (all ten run their products on the tensor cores) is also
+called twice on its captured inputs, in both types (phases 3, 6, 11, 14,
+17, 19, 21): every output must repeat bit for bit. Every float32 bound is
+taken at the 3xTF32 rate (TF32X3_FLOP_PER_S), every bf16 bound at the bf16
+tensor-core rate. Every step profile lists #4's, #2's, #7's and #10's
+inner launches by name and time.
 15. bf16 training reference: one bfloat16 training step, card kernel branch
    against CPU plain branch (loss terms 5e-3, gradients 5e-2), without and
    with ``fuse_convnext``.
@@ -93,7 +92,8 @@ time.
    canonical basis width, weights from numpy, on the invariants phase 11
    captured (training and serving shapes), float32 and bfloat16: one
    launch of #5 a forward and of #6 a backward and no plain version, then
-   each kernel against its plain version, timed beside the library chain.
+   each kernel against its plain version and a second call of its own,
+   timed beside the library chain.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -123,14 +123,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
-# tensor cores, and the dense bfloat16 tensor cores (the bound of the same
-# work in bfloat16)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
+# bfloat16 tensor cores (the bound of the same work in bfloat16)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 # float32 products on the TF32 tensor cores (495 TFLOP/s) as 3xTF32, three
-# TF32 products each: the rate the float32 tensor-core kernels (#3, #1, #4,
-# #2, #8, #7, #9, #10) are designed for
+# TF32 products each: the rate every float32 kernel of the port is designed
+# for (all ten run their products on the tensor cores)
 TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 TIMED_RUNS = 20
@@ -198,7 +196,7 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
     return start.elapsed_time(end) / runs
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -330,24 +328,22 @@ def conv_library(basis, w, x, src, win):
     return msg.view(Bp, O, E // TA, TA, C).sum(dim=2)
 
 
-def check_kernel(name, kernel, plain, library, args, flops, source, replaces,
-                 tol=KERNEL_REL_TOL, peak=FP32_FLOP_PER_S, repeat=False):
+def check_kernel(name, kernel, plain, library, args, flops, source, replaces, tol, peak):
     """Hold ``kernel`` against ``plain`` on ``args`` (every output within
     ``tol`` of that output's scale; an output the plain version gives as
-    None the kernel must give as None; with ``repeat``, a second call's
-    outputs equal the first's bit for bit), then time kernel, plain version
-    and library yardstick; returns the kernel's JSON record, its bound taken
-    at the ``peak`` operation rate (a time below the bound fails)."""
+    None the kernel must give as None; a second call's outputs equal the
+    first's bit for bit), then time kernel, plain version and library
+    yardstick; returns the kernel's JSON record, its bound taken at the
+    ``peak`` operation rate (a time below the bound fails)."""
     out_k, out_p = as_tuple(kernel(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
-    if repeat:
-        again = as_tuple(kernel(*args))
-        torch.cuda.synchronize()
-        same = [a is None or torch.equal(a, b) for a, b in zip(out_k, again)]
-        print(f"{name}: a second call's outputs equal the first's bit for bit: {same}")
-        if not all(same):
-            raise RuntimeError(f"{name} gave other bits on a second call")
-        del again
+    again = as_tuple(kernel(*args))
+    torch.cuda.synchronize()
+    same = [a is None or torch.equal(a, b) for a, b in zip(out_k, again)]
+    print(f"{name}: a second call's outputs equal the first's bit for bit: {same}")
+    if not all(same):
+        raise RuntimeError(f"{name} gave other bits on a second call")
+    del again
     err = 0.0
     for i, (a, b) in enumerate(zip(out_k, out_p)):
         if b is None:
@@ -394,8 +390,7 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32
         "spatial_conv" + suffix, spatial_conv, spatial_conv_plain,
         lambda: conv_library(basis, w, x, src, win), args["spatial_conv"],
         O * n_valid * (2 * D * C + 3 * C),
-        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak,
-        repeat=True,
+        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak
     )
     attrT, w1, b1, degree = args["basis_h1"]
     d = attrT.shape[2]
@@ -405,8 +400,7 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32
     h1 = check_kernel(
         "basis_h1" + suffix, basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
         args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
-        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak,
-        repeat=True,
+        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak
     )
     return conv, h1, n_valid
 
@@ -433,7 +427,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 5 * C),
         "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
-        peak, repeat=True,
+        peak
     )
     del out, leaves
 
@@ -451,8 +445,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         "basis_mlp_bwd" + suffix, basis_mlp_bwd, basis_mlp_bwd_plain,
         lambda: torch.autograd.grad(lib_basis, leaves, reduce(torch.add, flat_gs), retain_graph=True),
         args["basis_mlp_bwd"], O * n_valid * 2 * (2 * F_ * H + 3 * H * w2.shape[1]),
-        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289", tol, peak,
-        repeat=True,
+        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289", tol, peak
     )
     return conv_bwd, mlp_bwd
 
@@ -491,8 +484,7 @@ def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32X3_FLOP_P
         "fiber_conv" + suffix, fiber_conv, fiber_conv_plain,
         lambda: fiber_library(basis, w, x, src, fk), args["fiber_conv"],
         O * n_valid * (2 * D * C + 2 * C) + mixing,
-        "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82", tol, peak,
-        repeat=True,
+        "arreau_tpu_torch/csrc/fiber_conv.cu", "arreau_tpu/ops/pallas_conv.py:82", tol, peak
     )]
     if "fiber_conv_bwd" in args:
         basis, w, x, src, fk, g, _ = args["fiber_conv_bwd"]
@@ -505,7 +497,7 @@ def fiber_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32X3_FLOP_P
             lambda: torch.autograd.grad(out, leaves, g.to(out.dtype), retain_graph=True),
             args["fiber_conv_bwd"], O * n_valid * (6 * D * C + 5 * C) + 2 * mixing,
             "arreau_tpu_torch/csrc/fiber_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:108", tol,
-            peak, repeat=True,
+            peak
         ))
         del out, leaves
     return records
@@ -554,11 +546,11 @@ def convnext_records(args, label, tol, peak):
     src, rep = "arreau_tpu_torch/csrc/convnext_mlp.cu", "arreau_tpu/ops/pallas_convnext.py:61"
     fwd = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
                        lambda: convnext_library(*fargs), fargs, 2 * M * (2 * C * W + C * R),
-                       src, rep, tol, peak, repeat=True)
+                       src, rep, tol, peak)
     bare = fargs[:9] + (None, None)
     fwd["no_readout"] = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
                                      lambda: convnext_library(*bare), bare, 4 * M * C * W, src,
-                                     rep, tol, peak, repeat=True)
+                                     rep, tol, peak)
     records = [fwd]
     if "convnext_mlp_bwd" in args:
         bargs = args["convnext_mlp_bwd"]
@@ -577,14 +569,14 @@ def convnext_records(args, label, tol, peak):
 
         bwd = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd, convnext_mlp_bwd_plain,
                            library_bwd(bargs), bargs, 2 * M * (6 * C * W + 2 * C * R), src, rep,
-                           tol, peak, repeat=True)
+                           tol, peak)
         # without the readout, the cotangent the readout adds to out's
         # (the captured layer is the last: its out feeds only its readout)
         g_nr = (bargs[11].float() + bargs[12] @ bargs[9].t()).to(bargs[11].dtype)
         bare = bargs[:9] + (None, None, g_nr, None)
         bwd["no_readout"] = check_kernel("convnext_mlp_bwd", convnext_mlp_bwd,
                                          convnext_mlp_bwd_plain, library_bwd(bare), bare,
-                                         12 * M * C * W, src, rep, tol, peak, repeat=True)
+                                         12 * M * C * W, src, rep, tol, peak)
         records.append(bwd)
     return records
 
@@ -611,20 +603,23 @@ def basis_library(attr, w1, w2, degree):
     return F.gelu(F.linear(h, w2.t()), approximate="tanh")
 
 
-def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float) -> list:
+FUSED_BASIS = dict(d=6, degree=3, H=TRAIN_HIDDEN, D=256)  # the canonical basis width
+
+
+def fused_basis_calls(attrs: dict, dtype, label: str) -> tuple[dict, dict]:
     """#5 and #6 through ``BasisMLP(fused=True, use_bias=False)`` at the
     canonical basis width (d = 6, degree 3, F = 258, H = TRAIN_HIDDEN, D =
     256), its weights made with numpy from SEED and carried by the JAX-tree
-    loader: one forward and one backward at the training shape and one
-    forward at the serving shape, each launching its kernel once and no
-    plain version (counts set to 0 just before); then each kernel against
-    its plain version on the arguments it got, timed beside the library
-    chain (and autograd through it for #6). Returns the two records."""
+    loader, in ``dtype``: one forward at the serving shape and one forward
+    and backward at the training shape (``attrs["serve"|"train"]``), each
+    launching its kernel once and no plain version (counts set to 0 just
+    before; raises otherwise). Returns ({shape: {kernel: the arguments of
+    its call}}, {shape: launch counts})."""
     from arreau_tpu_torch.interop.from_jax import basis_mlp_params_from_jax
     from arreau_tpu_torch.kernels import fused_basis_mlp as fbm
     from arreau_tpu_torch.models.blocks import BasisMLP
 
-    d, degree, H, D = 6, 3, TRAIN_HIDDEN, 256
+    d, degree, H, D = (FUSED_BASIS[k] for k in ("d", "degree", "H", "D"))
     F_ = d + d**2 + d**3
     rng = np.random.default_rng(SEED)
     tree = {"dense_in": {"kernel": rng.normal(size=(F_, H)) / math.sqrt(F_)},
@@ -633,7 +628,6 @@ def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float)
     basis_mlp_params_from_jax(module, tree)
     module = module.to(attrs["train"].device)
     cdt = None if dtype == torch.float32 else dtype
-    suffix = "" if dtype == torch.float32 else "_bf16"
     plain_calls = {"fused_basis_mlp_plain": 0, "fused_basis_mlp_bwd_plain": 0}
     plain_fns = {name: getattr(fbm, name) for name in plain_calls}
 
@@ -671,7 +665,20 @@ def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float)
         for name, fn in plain_fns.items():
             setattr(fbm, name, fn)
     module.zero_grad(set_to_none=True)
+    return captured, counts
 
+
+def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float) -> list:
+    """#5 and #6 on the calls of :func:`fused_basis_calls`: each kernel
+    against its plain version on the arguments it got, timed beside the
+    library chain (and autograd through it for #6). Returns the two
+    records."""
+    from arreau_tpu_torch.kernels import fused_basis_mlp as fbm
+
+    d, degree, H, D = (FUSED_BASIS[k] for k in ("d", "degree", "H", "D"))
+    F_ = d + d**2 + d**3
+    captured, counts = fused_basis_calls(attrs, dtype, label)
+    suffix = "" if dtype == torch.float32 else "_bf16"
     records = {}
     for shape, args in captured.items():
         attr, w1, w2, _ = args["fused_basis_mlp"]
@@ -701,6 +708,11 @@ def fused_basis_records(attrs: dict, dtype, label: str, tol: float, peak: float)
         2 * rows * (2 * F_ * H + 3 * H * D), "arreau_tpu_torch/csrc/fused_basis_mlp_bwd.cu",
         "arreau_tpu/ops/pallas_basis.py:119", tol, peak)
     bwd["launches"] = counts["train"]["fused_basis_mlp_bwd"]
+    with torch.no_grad():  # ten calls: the trace may miss the first launches
+        profile_step(lambda: fbm.fused_basis_mlp(*captured["train"]["fused_basis_mlp"]),
+                     fwd["ms"], 10, "fused_basis_mlp" + suffix)
+        profile_step(lambda: fbm.fused_basis_mlp_bwd(*bargs), bwd["ms"], 10,
+                     "fused_basis_mlp_bwd" + suffix)
     return [fwd, bwd]
 
 
@@ -825,15 +837,17 @@ def fused_convnext_backbone(model):
 
 
 # the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu), #7
-# (basis_mlp_bwd.cu) and #10 (convnext_mlp_bwd.cu), by the kernel function
-# names a profile shows; the split sum is shared with every other split-K
-# weight gradient (#7, #10, #6 and #2's dKf), and the h1 product with #8
-# (basis_h1_kernel<T, false, d>)
-BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or #7's h1 product (basis_h1_kernel<T, true, d>)",
-                     "::basis_dpre2_kernel<": "#7 dpre2",
-                     "::basis_dw2_partial_kernel<": "#7 dW2 split-K partials",
-                     "::basis_dpre1_kernel<": "#7 dpre1",
-                     "::basis_dw1_partial_kernel<": "#7 dW1 split-K partials",
+# and #6 (basis_mlp_bwd.cuh), #10 (convnext_mlp_bwd.cu) and #5
+# (fused_basis_mlp.cu), by the kernel function names a profile shows; the
+# split sum is shared with every other split-K weight gradient (#7, #10, #6
+# and #2's dKf), and the h1 product with #8 (basis_h1_kernel<T, H1Out, ...>)
+BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or the h1 product of #7, #5 or #6 "
+                                          "(H1Out 0: #8, 1: #7/#6, 2: #5)",
+                     "::basis_out_kernel<": "#5 gelu(h @ W2)",
+                     "::basis_dpre2_kernel<": "#7 dpre2 (#6: db_pre)",
+                     "::basis_dw2_partial_kernel<": "#7/#6 dW2 split-K partials",
+                     "::basis_dpre1_kernel<": "#7 dpre1 (#6: dh_pre)",
+                     "::basis_dw1_partial_kernel<": "#7/#6 dW1 split-K partials",
                      "::gxw_kernel<": "#4 gxw (edge cotangent)",
                      "::dbasis_kernel<": "#4 dbasis",
                      "::dw_partial_kernel<": "#4 dW split-K partials",
@@ -848,10 +862,12 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or #7's h1 product (basis_h1_ker
                      "::sum_blocks_kernel": "#10 sums of the row blocks' partials"}
 
 
-def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
-    """Where a training step's time goes: a torch.profiler trace of
-    ``steps`` steps, the device's busy share, its largest kernels and each
-    of #4's, #2's, #7's and #10's inner launches."""
+def profile_step(one_step, step_ms: float, steps: int = 3, what: str = "step") -> None:
+    """Where a training step's (or, ``what``, a kernel call's) time goes: a
+    torch.profiler trace of ``steps`` calls, the device's busy share, its
+    largest kernels and each of #4's, #2's, #7's, #10's, #5's and #6's inner
+    launches. A trace of a few short calls can miss the first launches (the
+    device trace starts late), which lowers the busy share it reads."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -865,16 +881,18 @@ def profile_step(one_step, step_ms: float, steps: int = 3) -> None:
             calls[e.name] = calls.get(e.name, 0) + 1
     device_ms = sum(by_name.values()) / steps
     if device_ms > 0:
-        print(f"device busy {device_ms:.4f} ms per step of {step_ms:.4f} ms "
+        print(f"device busy {device_ms:.4f} ms per {what} of {step_ms:.4f} ms "
               f"(busy share {device_ms / step_ms:.1%}, idle share {1 - device_ms / step_ms:.1%}); "
-              f"{len(by_name)} distinct device activities; the largest, ms per step:")
+              f"{len(by_name)} distinct device activities; the largest, ms per {what}:")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print(f"  {ms / steps:9.4f}  {name[:110]}")
         for key, label in BWD_INNER_KERNELS.items():
             for name, ms in by_name.items():
                 if key in name:
-                    print(f"  inner launch {label}: {ms / steps:.4f} ms per step in "
-                          f"{calls[name] / steps:g} launches ({name[:80]})")
+                    # per launch too: the trace may miss a short call's first launches
+                    print(f"  inner launch {label}: {ms / steps:.4f} ms per {what} in "
+                          f"{calls[name] / steps:g} launches, {ms / calls[name]:.4f} ms a "
+                          f"launch ({name[:80]})")
     else:
         print("device busy share: not measured (the profiler recorded no device activity)")
 
@@ -1408,7 +1426,7 @@ def main() -> int:
 
     # ---------------- #5/#6 through BasisMLP(fused=True) ----------------
     with Phase("fused basis kernels"):
-        for dtype, tol, peak in ((torch.float32, KERNEL_REL_TOL, FP32_FLOP_PER_S),
+        for dtype, tol, peak in ((torch.float32, KERNEL_REL_TOL, TF32X3_FLOP_PER_S),
                                  (torch.bfloat16, BF16_KERNEL_REL_TOL, BF16_FLOP_PER_S)):
             for record in fused_basis_records(basis_attrs, dtype, f"fused basis {dtype}", tol,
                                               peak):

@@ -15,20 +15,25 @@ step (256 crystals x 16 atoms, hidden 200), and of #1 ``fiber_conv`` and #2
 does, and the same two training steps in bfloat16; and, on the
 ``fuse_convnext`` path in bfloat16 with layer scale 1 (as ``chip_smoke.py``),
 the inputs of #9 ``convnext_mlp`` in one sampler forward and of #9 and #10
-``convnext_mlp_bwd`` in one training step, and the latter cast to float32.
-Then it calls each kernel wrapper of this checkout twice and the other
-checkout's once on the same tensors (each checkout builds its own kernel
-library into its own ``build/``). The rules:
+``convnext_mlp_bwd`` in one training step, and the latter cast to float32;
+and, through ``BasisMLP(fused=True, use_bias=False)`` on the invariants a
+``fuse_fiber`` sampler forward and training step hand their basis MLP (as
+``chip_smoke.py:fused_basis_calls``), the inputs of #5 ``fused_basis_mlp``
+at both shapes and of #6 ``fused_basis_mlp_bwd`` at the training shape, in
+float32 and bfloat16. Then it calls each kernel wrapper of this checkout
+twice and the other checkout's once on the same tensors (each checkout
+builds its own kernel library into its own ``build/``). The rules:
 
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
-- #9 and #10 (``REDESIGNED``: tensor-core products in this build, SIMT in
-  the builds before it) are held within ``chip_smoke.KERNEL_REL_TOL`` of
-  each output's scale in their float32 instantiation and
-  ``BF16_KERNEL_REL_TOL`` in their bfloat16 one (whose float32 outputs
-  follow bfloat16 roundings too, as ``chip_smoke.py`` holds them), and both
-  builds' wrappers are timed with CUDA events in this process, this build's
-  before and after the other's twice;
+- the kernels whose arithmetic this build changed (``REDESIGNED``: #5 and
+  #6, tensor-core products in this build, SIMT in the builds before it)
+  are held within ``chip_smoke.KERNEL_REL_TOL`` of each output's scale in
+  their float32 instantiation and ``BF16_KERNEL_REL_TOL`` in their bfloat16
+  one (whose float32 outputs follow bfloat16 roundings too, as
+  ``chip_smoke.py`` holds them), and both builds' wrappers are timed with
+  CUDA events in this process, this build's before and after the other's
+  twice;
 - every other output equals the other build's bit for bit.
 
 Exits non-zero if a rule fails.
@@ -52,14 +57,15 @@ PACKAGE = "arreau_tpu_torch"
 MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
            "basis_h1": "basis_h1", "basis_mlp_bwd": "basis_mlp",
            "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv",
-           "convnext_mlp": "convnext_mlp", "convnext_mlp_bwd": "convnext_mlp"}
+           "convnext_mlp": "convnext_mlp", "convnext_mlp_bwd": "convnext_mlp",
+           "fused_basis_mlp": "fused_basis_mlp", "fused_basis_mlp_bwd": "fused_basis_mlp"}
 # kernels whose arithmetic differs from the builds before this one's
-REDESIGNED = ("convnext_mlp", "convnext_mlp_bwd")
+REDESIGNED = ("fused_basis_mlp", "fused_basis_mlp_bwd")
 
 
 def captured_inputs(dev) -> dict:
     """{(path, kernel name): wrapper arguments} of the first call of each
-    kernel on the eight paths."""
+    kernel on the eight paths, and of #5/#6's calls in both types."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import pack_dense_batch
     from arreau_tpu_torch.tasks.diffusion import (
@@ -81,6 +87,12 @@ def captured_inputs(dev) -> dict:
         with smoke.capturing() as args:
             model.predict_scores(*inputs)
     captured.update({("serving", name): a for name, a in args.items()})
+    # the invariants a fuse_fiber backbone hands its basis MLP, for #5/#6
+    basis_attrs = {}
+    model = DiffusionModel(dataclasses.replace(cfg, fuse_fiber=True), device=dev)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(smoke.SEED))
+    with torch.inference_mode(), smoke.basis_input(model, basis_attrs, "serve"):
+        model.predict_scores(*smoke.first_step_inputs(model, noise))
 
     batch = batch_to_device(pack_dense_batch(*smoke.training_chunk()), dev)
     train_cfg = dataclasses.replace(cfg, hidden_dim=smoke.TRAIN_HIDDEN, diffuse_angles=True)
@@ -94,10 +106,18 @@ def captured_inputs(dev) -> dict:
         noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
                                 *batch.atom_types.shape, c.num_atomic_states, c.num_timesteps,
                                 True, dev)
-        with smoke.capturing() as args:
+        with smoke.capturing() as args, smoke.basis_input(model, basis_attrs, "train"):
             model.loss(batch, noise)[0].backward()
         captured.update({(path, name): a for name, a in args.items()})
         del model
+    # plain tensors (the serving capture ran in inference mode); the first
+    # fuse_fiber step's, float32
+    basis_attrs = {k: v.clone() for k, v in basis_attrs.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        calls, _ = smoke.fused_basis_calls(basis_attrs, dtype, f"fused basis {dtype}")
+        for shape, args in calls.items():
+            captured.update({(f"fused basis {dtype} {shape}", name): a
+                             for name, a in args.items()})
 
     # fuse_convnext in bfloat16, layer scale 1 (so that the MLP weighs in out)
     cn_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", layer_scale=1.0)

@@ -529,9 +529,15 @@ def test_forward_conv_kernels_match_plain_and_repeat(dtype, Bp, O, P, K, TA, D, 
                                              for a in args), ones))
 
 
-# ragged: E not a multiple of 64, d < 6, degree 1 to 3, H and D not multiples
-# of 64; and the canonical width (d = 6, degree 3, H = 200, D = 256)
+# ragged: rows not a multiple of the 128-row tile, d < 6, degree 1 to 3, H
+# and D not multiples of 8 (rows that do not align to 16 bytes); the
+# canonical width (H = 200, D = 256) with d = 3 (features decoded at run
+# time) and d = 6 (fixed at compile time) at ragged E, with one split of
+# the weight gradients and with several, the last one short; and the
+# canonical shape cut to one b'
 FUSED_BASIS_SHAPES = [(2, 3, 100, 6, 70, 37, 3), (1, 2, 33, 4, 20, 64, 2), (2, 1, 65, 5, 65, 10, 1),
+                      (2, 3, 100, 3, 200, 256, 3), (1, 5, 333, 6, 200, 256, 3),
+                      (3, 2, 77, 3, 200, 256, 2), (2, 5, 1001, 6, 200, 256, 3),
                       (1, 16, 1024, 6, 200, 256, 3)]
 
 
@@ -539,7 +545,9 @@ FUSED_BASIS_SHAPES = [(2, 3, 100, 6, 70, 37, 3), (1, 2, 33, 4, 20, 64, 2), (2, 1
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bp,O,E,d,H,D,degree", FUSED_BASIS_SHAPES)
 def test_fused_basis_mlp_kernels_match_plain(dtype, Bp, O, E, d, H, D, degree):
-    """#5 and #6 at ragged shapes, in float32 and bfloat16."""
+    """#5 and #6 (tensor-core products) at ragged shapes, in float32 and
+    bfloat16, against their plain versions; every output the same bit for
+    bit on a second call; one launch a call."""
     dev = _device()
     rng = np.random.default_rng(11)
     F = sum(d**i for i in range(1, degree + 1))
@@ -550,15 +558,17 @@ def test_fused_basis_mlp_kernels_match_plain(dtype, Bp, O, E, d, H, D, degree):
     args = (t(Bp, O, E, d), t(F, H, scale=0.2), t(H, D, scale=0.2), degree)
     g = t(Bp, O, E, D)
     before = (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches)
-    out = fused_basis_mlp(*args)
-    got = fused_basis_mlp_bwd(*args, g)
+    out = [fused_basis_mlp(*args), fused_basis_mlp(*args)]
+    got = [fused_basis_mlp_bwd(*args, g), fused_basis_mlp_bwd(*args, g)]
     torch.cuda.synchronize()
-    assert (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches) == (before[0] + 1,
-                                                                        before[1] + 1)
+    assert (fused_basis_mlp.launches, fused_basis_mlp_bwd.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert torch.equal(out[0], out[1])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
     f32 = dtype == torch.float32
-    assert out.dtype == dtype
-    _assert_close(out, fused_basis_mlp_plain(*args), REL_TOL if f32 else BF16_REL_TOL)
-    for a, b in zip(got, fused_basis_mlp_bwd_plain(*args, g)):
+    assert out[0].dtype == dtype
+    _assert_close(out[0], fused_basis_mlp_plain(*args), REL_TOL if f32 else BF16_REL_TOL)
+    for a, b in zip(got[0], fused_basis_mlp_bwd_plain(*args, g)):
         assert a.dtype == torch.float32
         _assert_close(a, b, BWD_REL_TOL if f32 else BF16_REL_TOL)
 

@@ -44,6 +44,15 @@ split order, [dWr; dbr] and the column sums as per-row-block partials added
 in the fixed order of ``sum_blocks_kernel``), every output within 1e-5 of
 the float64 plain versions' scale, at a ragged shape and at the canonical
 width cut to a few hundred rows.
+
+And for the fused basis MLP, whose products run as 3xTF32 in float32 too:
+#5 (``csrc/fused_basis_mlp.cu``: h = gelu(poly @ W1) into a scratch, then
+gelu(h @ W2)) and #6 (``csrc/fused_basis_mlp_bwd.cu``: #7's chain without
+biases, one cotangent, dh rounded before its product with gelu'(h_pre),
+dW2 and dW1 as split-K products whose per-split partials are added in split
+order), every output within 1e-5 of the float64 plain versions' scale; and
+the same algorithm in bfloat16 (exact products summed in float32, rounded
+at the kernels' points) against the bfloat16 plain versions.
 """
 
 import numpy as np
@@ -59,6 +68,11 @@ from arreau_tpu_torch.kernels.convnext_mlp import (
     convnext_mlp_plain,
 )
 from arreau_tpu_torch.kernels.fiber_conv import fiber_conv_plain
+from arreau_tpu_torch.kernels.fused_basis_mlp import (
+    fused_basis_mlp_bwd_plain,
+    fused_basis_mlp_plain,
+)
+from arreau_tpu_torch.models.blocks import polynomial_features
 from arreau_tpu_torch.kernels.spatial_conv import (
     sender_order,
     spatial_conv_bwd_plain,
@@ -66,6 +80,7 @@ from arreau_tpu_torch.kernels.spatial_conv import (
 )
 
 SPLIT_REL_TOL = 1e-5
+BF16_REL_TOL = 1e-2  # the card's checks of a bfloat16 kernel (chip_smoke.BF16_KERNEL_REL_TOL)
 
 
 def tf32_rna(a):
@@ -475,3 +490,124 @@ def test_3xtf32_convnext_keeps_float32_precision(convnext_case, d, i, name):
     print(f"{name}: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items())
           + " of the float64 scale")
     assert rel["3xTF32"] <= SPLIT_REL_TOL, rel
+
+
+def bf16_rne(a):
+    """float32 rounded to bfloat16 (8 mantissa bits, to nearest even) and
+    back, as ``round_to<bf16>`` and PyTorch's conversion round."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def mm_bf16(a, b, depth=16):
+    """a @ b of bfloat16-valued operands as the tensor cores compute it: per
+    16-deep step, exact products added to a float32 sum."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], depth):
+        acc += a[:, k:k + depth] @ b[k:k + depth]
+    return acc
+
+
+def emulated_fused_basis(attr, w1, w2, degree, g, mm, rnd, rows_per_block):
+    """(basis, dw1, dw2) by #5's and #6's algorithm in float32 numpy,
+    products by ``mm``, ``rnd`` the rounding to the compute type: the
+    features formed in float32 and rounded; #5's h = rnd(gelu(rnd(poly @
+    W1))) into its scratch, basis = rnd(gelu(rnd(h @ W2))); #6 recomputes
+    the forward, db_pre = rnd(g * rnd(gelu'(b_pre))), dh = rnd(db_pre @
+    W2^T) (the rounding #7 does not have), dh_pre = rnd(dh * rnd(gelu'(h_pre))),
+    and dW2 = h^T db_pre and dW1 = poly^T dh_pre over each split of
+    ``row_splits(rows, rows_per_block)`` rows, the partials added in split
+    order (no bias rows)."""
+    f32 = np.float32
+    F_, H = w1.shape
+    D = w2.shape[1]
+    poly = rnd(polynomial_features(torch.tensor(attr), degree).reshape(-1, F_).numpy())
+    h_pre = rnd(mm(poly, w1))
+    h, dg1 = (rnd(v) for v in gelu_and_deriv(h_pre))
+    b_pre = rnd(mm(h, w2))
+    basis, dg2 = (rnd(v) for v in gelu_and_deriv(b_pre))
+    rows = poly.shape[0]
+    db_pre = rnd(g.reshape(rows, D) * dg2)
+    dh_pre = rnd(rnd(mm(db_pre, np.ascontiguousarray(w2.T))) * dg1)
+    splits, per = row_splits(rows, rows_per_block)
+    dw1, dw2 = np.zeros((F_, H), f32), np.zeros((H, D), f32)
+    for s in range(splits):
+        r = slice(s * per, min(rows, (s + 1) * per))
+        dw2 += mm(np.ascontiguousarray(h[r].T), db_pre[r])
+        dw1 += mm(np.ascontiguousarray(poly[r].T), dh_pre[r])
+    return basis.reshape(*attr.shape[:3], D), dw1, dw2
+
+
+FUSED_OUTPUTS = [(0, "basis"), (1, "dw1"), (2, "dw2")]
+
+
+@pytest.fixture(scope="module", params=[(2, 3, 40, 6, 24, 20, 3), (1, 2, 100, 6, 200, 256, 3),
+                                        (2, 1, 70, 3, 200, 256, 2)],
+                ids=["small", "canonical", "d3"])
+def fused_case(request):
+    """Seeded inputs (B', O, E, d, H, D, degree: 240 rows in four splits,
+    the canonical width cut to 200 rows in four, and d = 3 at degree 2),
+    the float64 plain versions' outputs and the 3xTF32 and 1-pass TF32
+    emulations; the bfloat16 plain versions' outputs on the inputs rounded
+    to bfloat16, and the bfloat16 emulation."""
+    Bp, O, E, d, H, D, degree = request.param
+    rng = np.random.default_rng(23)
+    f32 = np.float32
+    F_ = sum(d**i for i in range(1, degree + 1))
+    args = (rng.normal(size=(Bp, O, E, d)).astype(f32),
+            (rng.normal(size=(F_, H)) * 0.2).astype(f32),
+            (rng.normal(size=(H, D)) * 0.2).astype(f32))
+    g = rng.normal(size=(Bp, O, E, D)).astype(f32)
+
+    def plain(arrays, dtype):
+        t = [torch.tensor(a).to(dtype) for a in arrays]
+        outs = (fused_basis_mlp_plain(*t[:3], degree),
+                *fused_basis_mlp_bwd_plain(*t[:3], degree, t[3]))
+        return [v.double().numpy() for v in outs]
+
+    want = plain((*args, g), torch.float64)
+    per_split = row_splits(Bp * O * E, 64)[1]
+    emulated = {name: emulated_fused_basis(*args, degree, g, mm, lambda v: v, per_split)
+                for name, mm in (("3xTF32", mm_3xtf32), ("1-pass TF32", mm_1xtf32))}
+    args16 = [bf16_rne(a) for a in (*args, g)]
+    want16 = plain(args16, torch.bfloat16)
+    emulated16 = emulated_fused_basis(*args16[:3], degree, args16[3], mm_bf16, bf16_rne, per_split)
+    return want, emulated, want16, emulated16
+
+
+@pytest.mark.parametrize("i,name", FUSED_OUTPUTS)
+def test_3xtf32_fused_basis_keeps_float32_precision(fused_case, i, name):
+    """#5's and #6's float32 arithmetic (3xTF32 products, split-K partials
+    in split order) within SPLIT_REL_TOL of the float64 plain versions'
+    scale."""
+    want, emulated, _, _ = fused_case
+    scale = np.abs(want[i]).max()
+    rel = {k: np.abs(v[i] - want[i]).max() / scale for k, v in emulated.items()}
+    print(f"{name}: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items())
+          + " of the float64 scale")
+    assert rel["3xTF32"] <= SPLIT_REL_TOL, rel
+
+
+@pytest.mark.parametrize("i,name", FUSED_OUTPUTS)
+def test_bf16_fused_basis_rounds_where_the_plain_version_rounds(fused_case, i, name):
+    """#5's and #6's bfloat16 arithmetic (exact products summed in float32,
+    rounded at the kernels' points, dh included) against the bfloat16 plain
+    versions: within the card's bfloat16 tolerance, 1e-2 of each output's
+    scale (a value next to a rounding boundary may round the other way).
+    That tolerance does not tell dh's rounding apart: without it dw1 lands
+    at ~2e-3-4e-3 of its scale, with it at ~2e-4."""
+    _, _, want16, emulated16 = fused_case
+    scale = np.abs(want16[i]).max()
+    rel = np.abs(emulated16[i] - want16[i]).max() / scale
+    print(f"{name}: bfloat16 emulation {rel:.3e} of the bfloat16 plain version's scale")
+    assert rel <= BF16_REL_TOL, rel
+
+
+def test_bf16_rne_matches_torch():
+    rng = np.random.default_rng(3)
+    scales = 10.0 ** rng.integers(-8, 8, 1000)
+    v = np.concatenate([(rng.normal(size=1000) * scales).astype(np.float32),
+                        np.float32([1 + 2**-8, 1 + 3 * 2**-8, -(1 + 2**-8), 0.0])])
+    want = torch.tensor(v).bfloat16().float().numpy()
+    np.testing.assert_array_equal(bf16_rne(v), want)
