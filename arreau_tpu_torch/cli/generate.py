@@ -2,14 +2,20 @@
 
 Reads a checkpoint directory as the JAX CLI does: ``<checkpoint_dir>/meta.json``
 (the JAX package's schema: ``config``, ``z_table_zs``, optional
-``fourier_w`` and ``length_stats``) and the parameters of one tag
+``fourier_w`` and ``length_stats``; and the port's optional
+``readout_bf16_operands``, set for a checkpoint trained on a TPU, see
+``models/ponita.py``) and the parameters of one tag
 (``--tag``, default ``last``): ``<checkpoint_dir>/<tag>/ema_params.npz``
 when ``--use_ema`` (the default) and that file exists, else
 ``<checkpoint_dir>/<tag>/params.npz`` (the parameter tree, flat and
 ``'/'``-joined, see ``interop/from_jax.py``). It runs the reverse sampler in
 batches on ``--device`` (default ``cuda``; it never falls back to the CPU)
 and writes ``crystals.npz``. A ``meta.json`` config with ``fuse_fiber``
-set serves through the fused fiber conv kernels.
+set serves through the fused fiber conv kernels. ``--quality_ref
+synthetic[:size[:seed]]`` adds the sample-quality report against that
+synthetic training set (``inference/quality.py``), printed and written to
+``quality.json``; ``--num_atoms_dist ref`` draws each crystal's atom count
+from that set's histogram.
 
     python -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt --tag best \\
         --batch_size 128 --num_atoms_per_sample 8 --num_crystals 256 \\
@@ -23,6 +29,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from arreau_tpu_torch.data.atoms import AtomicNumberTable
@@ -31,7 +38,7 @@ from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionConfig, DiffusionModel
 
 # flags of the JAX CLI whose paths wait for later slices of the port
-_LATER_SLICES = ("gif", "visualize", "quality_ref")
+_LATER_SLICES = ("gif", "visualize")
 
 
 def parse_bool(value: str) -> bool:
@@ -73,8 +80,52 @@ def parse_args(argv=None):
                         "visible CUDA device is not ported yet")
     p.add_argument("--gif", type=parse_bool, default=False, help="not ported yet")
     p.add_argument("--visualize", type=parse_bool, default=False, help="not ported yet")
-    p.add_argument("--quality_ref", type=str, default=None, help="not ported yet")
+    p.add_argument("--quality_ref", type=str, default=None,
+                   help="training-data reference for the sample-quality report: "
+                        "'synthetic[:size[:seed]]' regenerates the synthetic training set "
+                        "(an HDF5 path is not ported); writes <out_dir>/quality.json")
+    p.add_argument("--num_atoms_dist", choices=["fixed", "ref"], default="fixed",
+                   help="per-crystal atom counts: 'fixed' = num_atoms_per_sample each; 'ref' = "
+                        "drawn from the --quality_ref histogram, capped at "
+                        "num_atoms_per_sample (the pad size)")
     return p.parse_args(argv)
+
+
+def reference_dataset(quality_ref: str):
+    """The training set ``--quality_ref`` names: ``synthetic[:size[:seed]]``
+    (default size 2000, seed 0)."""
+    if not quality_ref.startswith("synthetic"):
+        raise NotImplementedError(
+            f"--quality_ref {quality_ref}: an HDF5 training set is not ported (the port reads "
+            "no HDF5); pass synthetic[:size[:seed]]")
+    from arreau_tpu_torch.data.synthetic import synthetic_packed
+
+    parts = quality_ref.split(":")
+    size = int(parts[1]) if len(parts) > 1 else 2000
+    seed = int(parts[2]) if len(parts) > 2 else 0
+    return synthetic_packed(size, seed=seed)
+
+
+def quality_from_results(result, z_table, ds) -> dict:
+    """The sample-quality report of ``result`` against the training set
+    ``ds`` (``reference_dataset``; the JAX CLI's report, key for key)."""
+    from arreau_tpu_torch.inference.quality import dataset_reference_stats, quality_report
+
+    ref = dataset_reference_stats(ds.packed, ds.type_indices, len(ds.z_table))
+    return quality_report(
+        gen_frac=result.frac_x,
+        gen_types=z_table.zs_to_indices(result.atomic_numbers),
+        gen_lattices=result.lattice,
+        gen_idx_start=result.idx_start,
+        gen_num_atoms=result.num_atoms,
+        ref_lengths=ref["lengths"],
+        ref_angles=ref["angles"],
+        num_types=len(z_table),
+        ref_type_mi=ref["type_mi"],
+        ref_coord_hist=ref["coord_hist"],
+        ref_mean_num_atoms=ref["mean_num_atoms"],
+        ref_fingerprints=ref["fingerprints"],
+    ) | {"ref_min_dist_violation_rate": ref["min_dist_violation_rate"]}
 
 
 def params_path(checkpoint_dir: str, tag: str, use_ema: bool) -> str:
@@ -92,7 +143,8 @@ def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device):
     with open(os.path.join(checkpoint_dir, "meta.json")) as f:
         meta = json.load(f)
     model = DiffusionModel(DiffusionConfig(**meta["config"]), device=device,
-                           fourier_w=meta.get("fourier_w"))
+                           fourier_w=meta.get("fourier_w"),
+                           readout_bf16_operands=meta.get("readout_bf16_operands", False))
     path = params_path(checkpoint_dir, tag, use_ema)
     params_from_jax(model, load_params_npz(path))
     print(f"loaded {path}")
@@ -115,6 +167,10 @@ def main(argv=None):
     for flag in _LATER_SLICES:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.num_atoms_dist == "ref" and not args.quality_ref:
+        raise SystemExit("--num_atoms_dist ref requires --quality_ref")
+    # an unported reference fails here, before any sampling
+    reference = reference_dataset(args.quality_ref) if args.quality_ref else None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
@@ -135,6 +191,17 @@ def main(argv=None):
         constant_atoms = idx.expand(args.batch_size, len(symbols))
         args.num_atoms_per_sample = len(symbols)
 
+    # size-matched generation: per-crystal atom counts drawn from the
+    # reference's histogram, capped at the pad size, as the JAX CLI draws them
+    draw_counts = None
+    if args.num_atoms_dist == "ref":
+        ref_counts = np.minimum(np.asarray(reference.packed.num_atoms), args.num_atoms_per_sample)
+        rng_counts = np.random.default_rng(args.seed + 1)
+
+        def draw_counts():
+            return torch.as_tensor(rng_counts.choice(ref_counts, size=args.batch_size),
+                                   dtype=torch.long, device=device)
+
     T = model.config.num_timesteps
     strided = args.sample_steps is not None and args.sample_steps < T - 1
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -147,6 +214,7 @@ def main(argv=None):
             constant_atoms=constant_atoms, length_bounds=length_bounds,
             type_temperature=args.type_temperature, sample_steps=args.sample_steps,
             ddim_eta=args.ddim_eta,
+            num_atoms=draw_counts() if draw_counts is not None else None,
         )
         take = min(args.batch_size, remaining)
         results.append(from_dense_batch(CrystalBatch(*(t[:take] for t in batch_out)), z_table))
@@ -167,6 +235,16 @@ def main(argv=None):
     out_path = os.path.join(args.out_dir, "crystals.npz")
     save_sample_results(out_path, result)
     print(f"saved {result.num_crystals} crystals to {out_path}")
+
+    if args.quality_ref:
+        report = quality_from_results(result, z_table, reference)
+        print("sample quality vs training data:")
+        for k, v in report.items():
+            print(f"  {k}: {v:.4f}")
+        qpath = os.path.join(args.out_dir, "quality.json")
+        with open(qpath, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"wrote {qpath}")
     return result
 
 

@@ -15,7 +15,7 @@ module names follow it, so one rule maps every name:
 ``arreau_tpu/interop/torch_import.py`` documents the same table read the
 other way.) The fixed Fourier frequencies travel beside the tree.
 
-``save_params_npz`` / ``load_params_npz`` store a tree as one flat npz with
+``save_params_npz`` / ``load_params_npz`` store a tree as one flat compressed npz with
 ``'/'``-joined keys, in the JAX layout, so either package can read it.
 """
 
@@ -114,7 +114,7 @@ def params_to_jax(module: PonitaFiberBundle) -> dict:
 
 
 def save_params_npz(path: str, tree) -> None:
-    np.savez(path, **_flatten(tree))
+    np.savez_compressed(path, **_flatten(tree))
 
 
 def load_params_npz(path: str) -> dict:

@@ -33,6 +33,13 @@ function, and lets ``fuse_convnext`` run in float32. With ``fuse_convnext``
 and a compute type, the kernel branch runs each layer's ConvNext MLP tail
 and its readout in the ``fused_convnext_mlp`` kernels (#9/#10); the
 parameters are the same.
+
+``readout_bf16_operands`` computes the readout, the network's one float32
+product under ``compute_dtype="bfloat16"``, as a TPU computes the JAX
+package's ``jnp.dot(xcat, wcat)`` at DEFAULT precision: both operands
+rounded to bfloat16, the sums in float32. On a CPU JAX computes it in
+float32, the port's default. A checkpoint trained on a TPU learned its
+readout weights under that rounding and is served with it.
 """
 
 from __future__ import annotations
@@ -94,6 +101,9 @@ class PonitaConfig:
     # kernel branch with a compute type: the ConvNext MLP tail and the
     # layer's readout in one kernel pair (fused_convnext_mlp)
     fuse_convnext: bool = False
+    # the readout product from bfloat16 operands with float32 sums, as a TPU
+    # computes the JAX package's float32 readout at DEFAULT precision
+    readout_bf16_operands: bool = False
 
     @property
     def output_dim(self) -> int:
@@ -165,6 +175,9 @@ class PonitaFiberBundle(nn.Module):
         cfg = self.config = config
         if cfg.position_grads:
             raise NotImplementedError("position_grads waits for the point-cloud slice of the port")
+        if cfg.readout_bf16_operands and cfg.fuse_convnext:
+            raise NotImplementedError("readout_bf16_operands with fuse_convnext: the fused "
+                                      "kernels compute their readout from float32 weights")
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
@@ -290,6 +303,9 @@ class PonitaFiberBundle(nn.Module):
             # is a float32 product (JAX's type promotion)
             xcat = torch.cat([xi for xi, _ in xs], dim=-1).float()
             wcat = torch.cat([lin.weight for _, lin in xs], dim=1)
+            if cfg.readout_bf16_operands:
+                xcat = xcat.to(torch.bfloat16).float()
+                wcat = wcat.to(torch.bfloat16).float()
             readout = (xcat @ wcat.t() + sum(lin.bias for _, lin in xs)) / len(xs)
         if use_kernels:
             out = readout.shape[-1]

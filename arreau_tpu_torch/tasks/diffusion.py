@@ -14,7 +14,7 @@ tests can feed the port and the JAX package the same numbers.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -243,7 +243,7 @@ class DiffusionModel:
     """The backbone, schedules and fixed constants on one device."""
 
     def __init__(self, config: DiffusionConfig, device="cuda",
-                 fourier_w: Optional[np.ndarray] = None):
+                 fourier_w: Optional[np.ndarray] = None, readout_bf16_operands: bool = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -255,7 +255,10 @@ class DiffusionModel:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.config = config
         self.device = device
-        self.model = PonitaFiberBundle(config.ponita_config()).to(device).eval()
+        # readout_bf16_operands: the backbone's readout as a TPU computes it
+        # (models/ponita.py); a property of the checkpoint, not of the JAX config
+        self.model = PonitaFiberBundle(replace(
+            config.ponita_config(), readout_bf16_operands=readout_bf16_operands)).to(device).eval()
         T = config.num_timesteps
         self.ve = make_ve_schedule(T, POS_SIGMA_MIN, POS_SIGMA_MAX, device=device)
         self.vp = make_vp_schedule(T, power=LATTICE_POWER, clipmax=LATTICE_CLIPMAX, device=device)

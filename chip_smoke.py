@@ -4,7 +4,9 @@ the training path, on the default conv path, on the fused fiber conv path
 (``fuse_fiber``), in bfloat16 (``compute_dtype="bfloat16"``), on the
 fused ConvNext path (``fuse_convnext``, bfloat16) and on the fused fiber
 conv path in bfloat16, and ``BasisMLP(fused=True)``, every CUDA kernel
-against its plain PyTorch version.
+against its plain PyTorch version; and the trained flagship checkpoint,
+served with the JAX flagship report's command, its sample quality held to a
+gate.
 
 Run from the repository root, with no arguments:
 
@@ -94,6 +96,19 @@ inner launches by name and time.
    launch of #5 a forward and of #6 a backward and no plain version, then
    each kernel against its plain version and a second call of its own,
    timed beside the library chain.
+22. trained flagship: the generate CLI on the trained flagship checkpoint
+   (``ported_ckpt/ang_on``, the JAX package's ``out/r4/ckpt_ang_on`` tag
+   ``best`` converted by ``convert_jax_checkpoint.py``; bfloat16,
+   ``diffuse_angles``, its readout from bfloat16 operands as on the TPU it
+   was trained on) with the JAX flagship report's command: 500
+   crystals in batches of 100 x 8 atoms, 100 strided steps, no length
+   clamp, the quality report against ``synthetic:20000:0``. Checks that
+   every forward launched the bfloat16 #3 once per layer and the bfloat16
+   #8 once and no other kernel, prints the shape, the warm crystals/min
+   over batches 2-5 and the call's wall time, the report's 18 values
+   beside the JAX report's; then the process_results CLI on those crystals
+   on the card, which must lower the mean soft-sphere energy; and raises if
+   a value left its gate (FLAGSHIP_GATE).
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -151,6 +166,43 @@ FIBER_LOSS_REL_TOL = 1e-5
 GRAD_REL_TOL = 1e-3
 BATCH, ATOMS, CRYSTALS, STEPS, SEED = 128, 8, 256, 50, 0
 TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_STEPS = 256, 200, 35  # 35 steps = 5 epochs of the synthetic set
+# the trained flagship: the JAX package's checkpoint out/r4/ckpt_ang_on (tag
+# best; bfloat16, diffuse_angles) converted by convert_jax_checkpoint.py, and
+# the command of the JAX package's flagship quality report
+FLAGSHIP = Path(__file__).resolve().parent / "ported_ckpt" / "ang_on"
+FLAGSHIP_BATCH, FLAGSHIP_CRYSTALS, FLAGSHIP_STEPS = 100, 500, 100
+FLAGSHIP_ARGS = [
+    "--tag", "best", "--use_ema", "false", "--num_crystals", str(FLAGSHIP_CRYSTALS),
+    "--batch_size", str(FLAGSHIP_BATCH), "--num_atoms_per_sample", str(ATOMS),
+    "--clip_denoised", "false", "--sample_steps", str(FLAGSHIP_STEPS),
+    "--quality_ref", "synthetic:20000:0", "--seed", str(SEED), "--device", "cuda",
+]
+# that report (out/r4/q_ang_s100/quality.json: the JAX package on a TPU in
+# bfloat16, threefry noise), for comparison; the port's noise differs, so
+# distributions and not values agree
+JAX_FLAGSHIP_QUALITY = {
+    "w1_lengths": 0.28462230018028467, "w1_angles_deg": 5.893216259985447,
+    "gen_length_mean": 5.506813536726705, "gen_length_std": 1.8370363995707106,
+    "ref_length_mean": 5.489797486362468, "length_in_range_frac": 0.9733333333333334,
+    "min_dist_violation_rate": 0.124, "type_geometry_mi": 1.5466350093255676,
+    "ref_type_geometry_mi": 2.0794279876374215, "coordination_tv_dist": 0.13523183556405355,
+    "gen_mean_coordination": 3.4037499999999996, "ref_mean_coordination": 3.8286806883365196,
+    "gen_mean_num_atoms": 8.0, "ref_mean_num_atoms": 12.97975, "coordination_comparable": 1.0,
+    "uniqueness_frac": 1.0, "novelty_frac": 1.0, "ref_min_dist_violation_rate": 0.284,
+}
+# the quality gate, fixed from the JAX records alone: each band lies between
+# the flagship (two JAX chains of the checkpoint: S=100 and the full chain)
+# and the angles-fixed checkpoint (W1 lengths 1.448, W1 angles 15.99,
+# violations 0.412, MI 0.656, mean length 4.12), so a wrong weight map, a lost
+# angle diffusion or a broken bf16 path lands outside
+FLAGSHIP_GATE = {  # field: (least, most)
+    "w1_lengths": (None, 0.45),
+    "w1_angles_deg": (None, 8.0),
+    "min_dist_violation_rate": (None, 0.20),
+    "type_geometry_mi": (1.25, None),
+    "gen_length_mean": (5.51 - 0.30, 5.51 + 0.30),
+    "uniqueness_frac": (0.95, None),
+}
 
 
 class Phase:
@@ -282,14 +334,18 @@ def reset_launch_counts() -> None:
 
 class Recorder:
     """Stands in for a kernel wrapper: keeps the arguments of its first call
-    and passes every call on. Its ``launches`` is the wrapper's (a wrapper
-    counts through its module-level name, which is this object meanwhile)."""
+    (and, given ``dtypes``, the element type of every call's first
+    argument) and passes every call on. Its ``launches`` is the wrapper's
+    (a wrapper counts through its module-level name, which is this object
+    meanwhile)."""
 
-    def __init__(self, fn, captured: dict, name: str):
-        self.fn, self.captured, self.name = fn, captured, name
+    def __init__(self, fn, captured: dict, name: str, dtypes: dict | None = None):
+        self.fn, self.captured, self.name, self.dtypes = fn, captured, name, dtypes
 
     def __call__(self, *args):
         self.captured.setdefault(self.name, args)
+        if self.dtypes is not None:
+            self.dtypes.setdefault(self.name, set()).add(args[0].dtype)
         return self.fn(*args)
 
     @property
@@ -302,12 +358,13 @@ class Recorder:
 
 
 @contextlib.contextmanager
-def capturing():
-    """Records the arguments of the first call of each kernel wrapper."""
+def capturing(dtypes: dict | None = None):
+    """Records the arguments of the first call of each kernel wrapper (and
+    into ``dtypes`` the element types each was called with)."""
     captured = {}
     originals = wrappers()
     for name, (mod, attr) in kernel_sites().items():
-        setattr(mod, attr, Recorder(originals[name], captured, name))
+        setattr(mod, attr, Recorder(originals[name], captured, name, dtypes))
     try:
         yield captured
     finally:
@@ -763,6 +820,100 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
                    ATOMS, generate.length_bounds_from_meta(meta))
     print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
           f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
+    return counts
+
+
+def mean_soft_sphere_energy(result) -> float:
+    """The mean over crystals of the soft-sphere energy that process_results
+    relaxes, on the card."""
+    from arreau_tpu_torch.cli.process_results import densify
+    from arreau_tpu_torch.inference.relax import _soft_sphere_energy
+
+    frac, mask = densify(result)
+    dev = torch.device("cuda")
+    return _soft_sphere_energy(torch.as_tensor(frac, dtype=torch.float32, device=dev),
+                               torch.as_tensor(result.lattice, dtype=torch.float32, device=dev),
+                               torch.as_tensor(mask, device=dev)).mean().item()
+
+
+def flagship_path(out_dir: Path, card: str) -> dict:
+    """The generate CLI on the trained flagship checkpoint with the flagship
+    command (FLAGSHIP_ARGS): checks that every forward launched the bfloat16
+    #3 once per layer and the bfloat16 #8 once and no other kernel (counts
+    set to 0 just before), the crystals, and the quality report against the
+    gate; then the process_results CLI on its crystals on the card, which
+    must lower the mean soft-sphere energy and keep every coordinate in
+    [0, 1). Raises after the relaxation if the report left the gate.
+    Returns the launch counts."""
+    from arreau_tpu_torch.cli import generate, process_results
+    from arreau_tpu_torch.data.atoms import AtomicNumberTable
+    from arreau_tpu_torch.inference.io import load_sample_results
+    from arreau_tpu_torch.tasks.diffusion import strided_levels
+
+    meta = json.loads((FLAGSHIP / "meta.json").read_text())
+    if (meta["config"]["compute_dtype"] != "bfloat16" or not meta["config"]["diffuse_angles"]
+            or meta.get("readout_bf16_operands") is not True):
+        raise RuntimeError("the flagship checkpoint's meta.json lost its compute_dtype, "
+                           "diffuse_angles or readout_bf16_operands")
+    dtypes, tee = {}, Tee(sys.stdout)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with capturing(dtypes) as args, contextlib.redirect_stdout(tee):
+        generate.main(["--checkpoint_dir", str(FLAGSHIP), *FLAGSHIP_ARGS,
+                       "--out_dir", str(out_dir)])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    forwards = math.ceil(FLAGSHIP_CRYSTALS / FLAGSHIP_BATCH) * (
+        len(strided_levels(meta["config"]["num_timesteps"], FLAGSHIP_STEPS)) - 1)
+    L = meta["config"]["num_layers"]
+    want = {name: {"spatial_conv": L, "basis_h1": 1}.get(name, 0) * forwards for name in counts}
+    print(f"forwards {forwards}: launches {counts}; element types {dtypes}")
+    if counts != want:
+        raise RuntimeError(f"the flagship path launched {counts}, not {want}")
+    if dtypes != {"spatial_conv": {torch.bfloat16}, "basis_h1": {torch.bfloat16}}:
+        raise RuntimeError(f"the flagship path's kernels ran in {dtypes}, not bfloat16 alone")
+    basis, _, x = args["spatial_conv"][:3]
+    print(f"shape at {FLAGSHIP_BATCH} x {ATOMS}: B'={basis.shape[0]} TA={x.shape[2]} "
+          f"E={basis.shape[2]} (O={basis.shape[1]}, D={basis.shape[3]}, C={x.shape[3]})")
+    del args
+    crystal_checks(load_sample_results(str(out_dir / "crystals.npz")),
+                   AtomicNumberTable(meta["z_table_zs"]), FLAGSHIP_CRYSTALS, ATOMS, (0.0, math.inf))
+    rate = re.search(r"sampler throughput: ([0-9.]+) crystals/min", tee.buf.getvalue())
+    if rate is None:
+        raise RuntimeError("the generate CLI printed no throughput")
+    print(f"flagship: {FLAGSHIP_CRYSTALS} crystals, {float(rate.group(1)):.0f} crystals/min warm "
+          f"over batches 2-{FLAGSHIP_CRYSTALS // FLAGSHIP_BATCH}; {wall:.2f} s wall for the whole "
+          f"call (checkpoint load, first batch and quality report included) on {card}")
+
+    report = json.loads((out_dir / "quality.json").read_text())
+    if list(report) != list(JAX_FLAGSHIP_QUALITY):
+        raise RuntimeError(f"the quality report's keys {list(report)} are not the JAX report's")
+    failed = []
+    print(f"{'field':<28} {'port':>12} {'JAX':>12}  gate")
+    for key, jax_value in JAX_FLAGSHIP_QUALITY.items():
+        value = report[key]
+        lo, hi = FLAGSHIP_GATE.get(key, (None, None))
+        ok = math.isfinite(value) and (lo is None or value >= lo) and (hi is None or value <= hi)
+        gate = " and ".join(f"{op} {bound:g}" for op, bound in ((">=", lo), ("<=", hi))
+                            if bound is not None)
+        if not ok:
+            failed.append(key)
+        print(f"{key:<28} {value:>12.6f} {jax_value:>12.6f}  {gate}{'' if ok else '  FAILED'}")
+
+    # the relaxation runs whatever the gate said, so that one run shows both
+    t0 = time.perf_counter()
+    process_results.main(["--in_path", str(out_dir / "crystals.npz"), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    relaxed = load_sample_results(str(out_dir / "crystals_relaxed.npz"))
+    e0, e1 = (mean_soft_sphere_energy(r) for r in (load_sample_results(
+        str(out_dir / "crystals.npz")), relaxed))
+    in_cell = bool(np.all((relaxed.frac_x >= 0) & (relaxed.frac_x < 1)))
+    print(f"process_results: mean soft-sphere energy {e0:.6f} -> {e1:.6f}, coordinates in "
+          f"[0, 1): {in_cell}, {seconds:.2f} s wall (200 steps, {relaxed.num_crystals} crystals)")
+    if not (e1 < e0 and in_cell and relaxed.num_crystals == FLAGSHIP_CRYSTALS):
+        raise RuntimeError("process_results did not relax the flagship's crystals")
+    if failed:
+        raise RuntimeError(f"the flagship's quality left its gate: {failed}")
     return counts
 
 
@@ -1432,6 +1583,12 @@ def main() -> int:
                                               peak):
                 records[record["name"]] = record
         del basis_attrs
+
+    # ---------------- the trained flagship checkpoint ----------------
+    with Phase("trained flagship"), tempfile.TemporaryDirectory() as tmp:
+        counts = flagship_path(Path(tmp), card)
+        for name in ("spatial_conv", "basis_h1"):
+            records[name + "_bf16"]["launches_flagship"] = counts[name]
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -738,3 +738,52 @@ def test_wrappers_raise_instead_of_falling_back():
                                      1, 1, 8, 16, 64, 65)
     with pytest.raises(ValueError, match="at most 64 readout columns"):
         convnext_mlp_bwd(*cn, g_out, g_r)
+
+
+@pytest.mark.cuda
+def test_relax_and_quality_report_on_the_card_match_the_cpu():
+    """``relax_soft_sphere`` on the card against the same call on the CPU
+    (64 crystals of 2..8 atoms in overlapping cells, float32, 50 steps):
+    coordinates within 1e-4 on the circle, the energy history within 1e-4
+    of its scale; then ``quality_report`` of both relaxed sets against one
+    synthetic reference: every value within 1e-4, a rate within one
+    crystal (a pair distance or a fingerprint at a threshold may tip)."""
+    from arreau_tpu_torch.cli.generate import quality_from_results, reference_dataset
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.data.synthetic import random_lattices
+    from arreau_tpu_torch.inference.io import SampleResult
+    from arreau_tpu_torch.inference.relax import relax_soft_sphere
+
+    dev = _device()
+    rng = np.random.default_rng(5)
+    B, A = 64, 8
+    counts = rng.integers(2, A + 1, size=B)
+    mask = np.arange(A)[None, :] < counts[:, None]
+    frac = rng.uniform(size=(B, A, 3)).astype(np.float32)
+    lattice = (0.6 * random_lattices(rng, B)).astype(np.float32)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        runs[where.type] = relax_soft_sphere(
+            torch.tensor(frac, device=where), torch.tensor(lattice, device=where),
+            torch.tensor(mask, device=where), steps=50)
+    got, want = runs["cuda"], runs["cpu"]
+    d = (got.frac_x.cpu().double() - want.frac_x.double()).abs() % 1.0
+    assert torch.minimum(d, 1.0 - d)[torch.tensor(mask)].max().item() <= 1e-4
+    scale = want.energy_history.abs().max().item()
+    assert scale > 0
+    assert (got.energy_history.cpu() - want.energy_history).abs().max().item() <= 1e-4 * scale
+
+    z_table = synthetic_z_table()
+    types = rng.integers(0, len(z_table) - 1, size=int(counts.sum()))
+    idx_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    reference, reports = reference_dataset("synthetic:100:0"), {}
+    for where, run in runs.items():
+        relaxed = run.frac_x.cpu().numpy().astype(np.float64)
+        result = SampleResult(np.concatenate([relaxed[i][mask[i]] for i in range(B)]),
+                              z_table.indices_to_zs(types), lattice.astype(np.float64), idx_start,
+                              counts.astype(np.int64))
+        reports[where] = quality_from_results(result, z_table, reference)
+    assert reports["cuda"].keys() == reports["cpu"].keys()
+    for key, value in reports["cpu"].items():
+        tol = 1.0 / B if key.endswith(("_rate", "_frac")) else 1e-4 * max(abs(value), 1.0)
+        assert abs(reports["cuda"][key] - value) <= tol, key

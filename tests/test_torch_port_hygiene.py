@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``arreau_tpu_torch``, and
 not ``chip_smoke.py`` or ``compare_builds.py``, imports JAX, flax, orbax,
-optax, h5py or the JAX package, and the port's entry point never falls back
-to the CPU on its own."""
+optax, h5py, the JAX package, the checkpoint converter or the JAX readout
+witness, and the port's entry points never fall back
+to the CPU on their own."""
 
 import ast
 import subprocess
@@ -13,7 +14,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "arreau_tpu_torch"
-FORBIDDEN = ("jax", "flax", "orbax", "optax", "h5py", "arreau_tpu")
+# convert_jax_checkpoint.py and jax_tpu_readout.py import the JAX package: they
+# stand beside the port
+FORBIDDEN = ("jax", "flax", "orbax", "optax", "h5py", "arreau_tpu", "convert_jax_checkpoint",
+             "jax_tpu_readout")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_builds.py"]
 
 
@@ -64,3 +68,12 @@ def test_generate_on_cuda_raises_without_cuda():
         generate.main(["--device", "cuda", "--num_crystals", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate.main(["--num_crystals", "1"])  # cuda is the default device
+
+
+def test_process_results_on_cuda_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the CUDA path runs instead of raising")
+    from arreau_tpu_torch.cli import process_results
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        process_results.main(["--in_path", "crystals.npz"])  # cuda is the default device
