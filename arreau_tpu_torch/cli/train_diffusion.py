@@ -214,7 +214,7 @@ def main(argv=None):
         pending = []
         for host in loaders[split]:
             batch = batch_to_device(host, device)
-            pending.append(eval_step(model, batch, noise_for(batch), ema))
+            pending.append(eval_step(model, batch, noise_for(batch), ema=ema))
         acc = MeanMetrics()
         for m in gather_metrics(pending):
             weighted_update(acc, m)

@@ -2,7 +2,8 @@
 
 A parameter tree of the JAX package is nested dicts of arrays (the flax
 variables ``{"params": {...}}``, or the bare ``params`` dict). The port's
-module names follow it, so one rule maps every name:
+module names follow it, so one rule maps every name, of the Ponita
+backbone of every task and of the EGNN baseline:
 
   params/basis_fn/dense_in/kernel   [F, H] -> basis_fn.dense_in.weight (transposed)
   params/layer_{i}/conv/kernel      [D, C] -> layers.{i}.conv.kernel   (as is: a bare param)
@@ -27,7 +28,6 @@ import numpy as np
 import torch
 
 from arreau_tpu_torch.models.blocks import BasisMLP
-from arreau_tpu_torch.models.ponita import PonitaFiberBundle
 
 
 def _jax_name(torch_name: str) -> tuple[str, bool]:
@@ -85,11 +85,12 @@ def _load(module, tree) -> None:
 
 
 def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None:
-    """Load a JAX parameter tree into ``model`` (a ``DiffusionModel`` or a
-    bare ``PonitaFiberBundle``); every parameter must be matched. With a
+    """Load a JAX parameter tree into ``model`` (a task: ``DiffusionModel``,
+    ``NBodyModel``, ``MnistModel``, ``EGNNNBody``; or a bare module such as
+    ``PonitaFiberBundle``); every parameter must be matched. With a
     ``DiffusionModel`` and ``fourier_w`` given, the frequencies are carried
     too."""
-    _load(model if isinstance(model, PonitaFiberBundle) else model.model, tree)
+    _load(model if isinstance(model, torch.nn.Module) else model.model, tree)
     if fourier_w is not None:
         model.fourier_w = torch.as_tensor(
             np.asarray(fourier_w, dtype=np.float32), device=model.fourier_w.device
@@ -103,7 +104,14 @@ def basis_mlp_params_from_jax(module: BasisMLP, tree) -> None:
     _load(module, tree)
 
 
-def params_to_jax(module: PonitaFiberBundle) -> dict:
+def egnn_params_from_jax(model, tree) -> None:
+    """Load a JAX ``EGNN`` parameter tree (``embed``, ``layer_{i}/edge_1``,
+    ``edge_2``, ``coord``, ``vel_gate``, ``node_1``, ``node_2``) into the
+    port's ``EGNN`` or ``EGNNNBody``; the names map by the same rule."""
+    params_from_jax(model, tree)
+
+
+def params_to_jax(module: torch.nn.Module) -> dict:
     """The port's parameters as a JAX-layout tree ``{"params": {...}}``."""
     flat = {}
     for name, param in module.state_dict().items():

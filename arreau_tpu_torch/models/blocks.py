@@ -44,6 +44,15 @@ from arreau_tpu_torch.kernels.spatial_conv import fused_spatial_conv
 LN_EPS = 1e-5
 
 
+def pin_precision() -> None:
+    """float32 products stay float32 on the card (no TF32 rounding), and
+    bfloat16 products sum in float32 (cuBLAS may otherwise reduce partial
+    sums in bfloat16; the JAX package accumulates in float32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
@@ -78,7 +87,8 @@ def scalar_to_sphere(scalar: torch.Tensor, num_ori: int) -> torch.Tensor:
 
 
 def vec_to_sphere(vec: torch.Tensor, ori_grid: torch.Tensor) -> torch.Tensor:
-    """``[..., V, 3] x [O, 3] -> [..., O, V]`` inner products."""
+    """``[..., V, D] x [O, D] -> [..., O, V]`` inner products (D = 3 or 2;
+    V = 0 gives an empty signal)."""
     return torch.einsum("...vd,od->...ov", vec, ori_grid)
 
 
@@ -88,7 +98,7 @@ def sphere_to_scalar(signal: torch.Tensor) -> torch.Tensor:
 
 
 def sphere_to_vec(signal: torch.Tensor, ori_grid: torch.Tensor) -> torch.Tensor:
-    """Signal-weighted grid average: ``[..., O, V] -> [..., V, 3]``."""
+    """Signal-weighted grid average: ``[..., O, V] -> [..., V, D]``."""
     return torch.einsum("...ov,od->...vd", signal, ori_grid) / ori_grid.shape[-2]
 
 

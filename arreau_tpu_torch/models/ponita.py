@@ -1,11 +1,17 @@
-"""PonitaFiberBundle: the SE(3)-equivariant backbone on an R^3 x S^2 grid;
-counterpart of ``arreau_tpu/models/ponita.py``.
+"""PonitaFiberBundle: the SE(3)-equivariant backbone on an R^3 x S^2 grid
+(or SE(2) on R^2 x S^1, given a 2-D grid); counterpart of
+``arreau_tpu/models/ponita.py``.
 
 Scalar and vector features are lifted onto the orientation grid, per-edge
 invariants feed the polynomial-basis kernel MLPs, ``num_layers`` ConvNext
 blocks around the fiber-bundle conv exchange messages, and the per-layer
 readouts are averaged and split into node-scalar, node-vector and
-global-scalar heads.
+global-scalar heads. The invariants are the two spatial ones per edge and
+orientation, then ``num_edge_scalar_features`` more: 4 appends the
+diffusion task's ``lattice_edge_scalars``, 0 none (the N-body and MNIST
+tasks, d = 2). ``radius=None`` windows nothing. The JAX package's
+``output_dim_global_vec`` and edge readouts are not ported: no task of
+the port sets them.
 
 On CUDA the backbone takes the kernel branch (the JAX package's
 ``use_pallas`` branch): super-crystals of ``pick_tile(B, A, 128)``
@@ -80,11 +86,14 @@ class PonitaConfig:
     widening_factor: int = 4
     layer_scale: Optional[float] = 1e-6
     multiple_readouts: bool = True
-    radius: float = 5.0
+    radius: Optional[float] = 5.0  # None: no window
     num_ori: int = 16
     output_dim_scalar: int = 0
     output_dim_vec: int = 0
     output_dim_global_scalar: int = 0
+    # per-edge scalar invariants after the two spatial ones: 4 = the diffusion
+    # task's [dist, 3 lattice cosines], 0 = none
+    num_edge_scalar_features: int = 4
     expected_degree: float = 8.0
     # None = kernel branch on CUDA, plain branch on CPU; True/False = force
     use_kernels: Optional[bool] = None
@@ -112,16 +121,16 @@ class PonitaConfig:
 
 class FiberBundleInputs(NamedTuple):
     scalar: torch.Tensor  # [B, A, F_s]
-    vec: torch.Tensor  # [B, A, V, 3]
+    vec: torch.Tensor  # [B, A, V, D], V may be 0
     neighbors: NeighborList
     atom_mask: torch.Tensor  # [B, A]
-    lattice: torch.Tensor  # [B, 3, 3]
-    ori_grid: torch.Tensor  # [O, 3]
+    lattice: torch.Tensor  # [B, 3, 3]; read only with num_edge_scalar_features > 0
+    ori_grid: torch.Tensor  # [O, D], D = 3 (S^2) or 2 (S^1)
 
 
 class PonitaOutputs(NamedTuple):
     node_scalar: torch.Tensor  # [B, A, out_s]
-    node_vec: torch.Tensor  # [B, A, out_v, 3]
+    node_vec: torch.Tensor  # [B, A, out_v, D]
     global_scalar: torch.Tensor  # [B, out_gs]
 
 
@@ -148,11 +157,19 @@ def tile_senders(src: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tens
 def fiber_bundle_invariants(neighbors: NeighborList, ori_grid: torch.Tensor):
     """(spatial ``[B, A, K, O, 2]``, fiber ``[O, O, 1]``, dists ``[B, A,
     K]``): the parallel and orthogonal components of each edge direction
-    against each grid orientation, and the grid's pairwise inner products."""
+    against each grid orientation, and the grid's pairwise inner products.
+    On a 2-D grid (S^1) the orthogonal component keeps its sign,
+    ``-dir_x ori_y + dir_y ori_x`` (SO(2) sees chirality); on S^2 it is the
+    norm of the rejection, with an eps under the root for a finite gradient
+    on empty (zero-direction) slots."""
     direction = neighbors.direction
     inv1 = torch.einsum("bakd,od->bako", direction, ori_grid)[..., None]
-    rej = direction[..., None, :] - inv1 * ori_grid
-    inv2 = torch.sqrt(torch.sum(rej**2, dim=-1, keepdim=True) + _EPS**2)
+    if ori_grid.shape[-1] == 2:
+        inv2 = (-direction[..., None, 0] * ori_grid[:, 1]
+                + direction[..., None, 1] * ori_grid[:, 0])[..., None]
+    else:
+        rej = direction[..., None, :] - inv1 * ori_grid
+        inv2 = torch.sqrt(torch.sum(rej**2, dim=-1, keepdim=True) + _EPS**2)
     spatial = torch.cat([inv1, inv2], dim=-1)
     fiber = torch.einsum("od,pd->op", ori_grid, ori_grid)[..., None]
     return spatial, fiber, neighbors.dist
@@ -184,9 +201,9 @@ class PonitaFiberBundle(nn.Module):
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         bb_in = cfg.basis_bias is True or cfg.basis_bias == "in"
         bb_out = cfg.basis_bias is True
-        # invariants per edge and orientation: 2 spatial + 4 lattice_edge_scalars
-        self.basis_fn = BasisMLP(6, cfg.hidden_dim, cfg.basis_dim, cfg.degree,
-                                 use_bias=bb_in, out_bias=bb_out)
+        # invariants per edge and orientation: 2 spatial + the edge scalars
+        self.basis_fn = BasisMLP(2 + cfg.num_edge_scalar_features, cfg.hidden_dim,
+                                 cfg.basis_dim, cfg.degree, use_bias=bb_in, out_bias=bb_out)
         self.fiber_basis_fn = BasisMLP(1, cfg.hidden_dim, cfg.basis_dim, cfg.degree,
                                        use_bias=bb_in, out_bias=bb_out)
         self.x_embedder = nn.Linear(cfg.input_dim_scalar + cfg.input_dim_vec, cfg.hidden_dim,
@@ -239,14 +256,18 @@ class PonitaFiberBundle(nn.Module):
             use_kernels = inputs.scalar.device.type == "cuda"
 
         # ---- lift features to the sphere ----
-        x = torch.cat(
-            [scalar_to_sphere(inputs.scalar, num_ori), vec_to_sphere(inputs.vec, ori_grid)], dim=-1
-        )  # [B, A, O, F]
+        lifted = [scalar_to_sphere(inputs.scalar, num_ori)]
+        if inputs.vec is not None and inputs.vec.shape[-2] > 0:
+            lifted.append(vec_to_sphere(inputs.vec, ori_grid))
+        x = torch.cat(lifted, dim=-1)  # [B, A, O, F]
 
         # ---- invariants and kernel bases ----
         spatial_attr, fiber_attr, dists = fiber_bundle_invariants(nb, ori_grid)
-        edge_scalars = scalar_to_sphere(lattice_edge_scalars(nb, inputs.lattice), num_ori)
-        attr = torch.cat([spatial_attr, edge_scalars], dim=-1)
+        if cfg.num_edge_scalar_features > 0:
+            edge_scalars = scalar_to_sphere(lattice_edge_scalars(nb, inputs.lattice), num_ori)
+            attr = torch.cat([spatial_attr, edge_scalars], dim=-1)
+        else:
+            attr = spatial_attr
         window = polynomial_cutoff(dists, cfg.radius)  # [B, A, K]
         B, A, K, O, d = attr.shape
 
@@ -301,8 +322,8 @@ class PonitaFiberBundle(nn.Module):
             # mean over layers of x_i W_i^T + b_i, as one matmul over the
             # concatenated layers; a bfloat16 xcat times the float32 weights
             # is a float32 product (JAX's type promotion)
-            xcat = torch.cat([xi for xi, _ in xs], dim=-1).float()
             wcat = torch.cat([lin.weight for _, lin in xs], dim=1)
+            xcat = torch.cat([xi for xi, _ in xs], dim=-1).to(wcat.dtype)
             if cfg.readout_bf16_operands:
                 xcat = xcat.to(torch.bfloat16).float()
                 wcat = wcat.to(torch.bfloat16).float()

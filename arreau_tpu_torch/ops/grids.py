@@ -1,4 +1,5 @@
-"""Orientation grids on S^2, carried as constants.
+"""Orientation grids on S^2, carried as constants; the uniform S^1 grid and
+random rotations (SO(3), SO(2)) drawn from a ``torch.Generator``.
 
 The JAX package computes its grid once per process by a repulsion
 optimisation seeded from ``jax.random`` (``arreau_tpu/ops/grids.py``,
@@ -10,7 +11,10 @@ the tests use.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 # fmt: off
 _GRIDS_S2 = {
@@ -59,3 +63,40 @@ def cached_grid_s2(n: int) -> np.ndarray:
             f"no carried S^2 grid for num_ori={n}; supported: {sorted(_GRIDS_S2)}"
         )
     return np.asarray(_GRIDS_S2[n], dtype=np.float64)
+
+
+def uniform_grid_s1(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Exact uniform grid on the circle, ``[n, 2]`` (cos, sin) pairs at
+    angles ``2 pi i / n``."""
+    angles = torch.linspace(0.0, 2 * math.pi - 2 * math.pi / n, n, dtype=torch.float64)
+    return torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1).to(dtype=dtype,
+                                                                          device=device)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion ``[..., 4]`` (w, x, y, z) -> rotation matrix ``[..., 3, 3]``."""
+    w, x, y, z = q.unbind(-1)
+    rows = (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def random_so3_matrix(generator: torch.Generator, shape: tuple = (),
+                      dtype=torch.float32) -> torch.Tensor:
+    """Uniform random SO(3) matrices ``[*shape, 3, 3]`` from normalised
+    normal quaternions drawn from ``generator`` (on its device)."""
+    q = torch.randn((*shape, 4), generator=generator, dtype=dtype, device=generator.device)
+    return quat_to_matrix(q / torch.linalg.norm(q, dim=-1, keepdim=True))
+
+
+def random_so2_matrix(generator: torch.Generator, shape: tuple = (),
+                      dtype=torch.float32) -> torch.Tensor:
+    """Uniform random SO(2) matrices ``[*shape, 2, 2]``, the angle drawn
+    from ``generator`` uniform on [0, 2 pi)."""
+    theta = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
+    theta = theta * (2 * math.pi)
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)

@@ -41,6 +41,7 @@ from arreau_tpu_torch.diffusion.vp import (
     vp_forward,
     vp_reverse_given_x0,
 )
+from arreau_tpu_torch.models.blocks import pin_precision
 from arreau_tpu_torch.models.ponita import FiberBundleInputs, PonitaConfig, PonitaFiberBundle
 from arreau_tpu_torch.ops.fourier import default_fourier_weights, gaussian_fourier_features
 from arreau_tpu_torch.ops.grids import cached_grid_s2
@@ -247,12 +248,7 @@ class DiffusionModel:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
-        # float32 products stay float32 on the card (no TF32 rounding), and
-        # bfloat16 products sum in float32 (cuBLAS may otherwise reduce
-        # partial sums in bfloat16; the JAX package accumulates in float32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        pin_precision()
         self.config = config
         self.device = device
         # readout_bf16_operands: the backbone's readout as a TPU computes it

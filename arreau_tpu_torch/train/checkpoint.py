@@ -1,8 +1,11 @@
 """Checkpoints of the port: parameters in the JAX layout beside the
 training state; counterpart of ``arreau_tpu/train/checkpoint.py`` (which
-writes orbax checkpoints the card's machine cannot read).
+writes orbax checkpoints the card's machine cannot read). A checkpoint
+holds a task's ``.model`` module (``DiffusionModel``, ``NBodyModel``,
+``EGNNNBody``, ``MnistModel``).
 
-``<directory>/meta.json`` describes the run (:func:`diffusion_meta`). Each
+``<directory>/meta.json`` describes the run (:func:`diffusion_meta`, or the
+task CLIs' ``{"config": <their arguments>}``). Each
 tag (``last``, ``best``, ``best-<step>``) is a directory of its own, which
 ``arreau_tpu_torch.cli.generate --checkpoint_dir <directory> --tag <tag>``
 reads (its EMA weights by default, as the JAX CLI):
@@ -35,7 +38,6 @@ from arreau_tpu_torch.interop.from_jax import (
     params_to_jax,
     save_params_npz,
 )
-from arreau_tpu_torch.tasks.diffusion import DiffusionModel
 from arreau_tpu_torch.train.optim import AdamW
 from arreau_tpu_torch.train.state import EMA
 
@@ -70,7 +72,7 @@ class CheckpointManager:
         with open(os.path.join(self.directory, "meta.json")) as f:
             return json.load(f)
 
-    def save(self, tag: str, model: DiffusionModel, optimizer: AdamW,
+    def save(self, tag: str, model, optimizer: AdamW,
              ema: Optional[EMA] = None) -> None:
         target = self.path(tag)
         tmp = target + ".tmp"
@@ -87,11 +89,12 @@ class CheckpointManager:
         shutil.rmtree(target, ignore_errors=True)
         os.replace(tmp, target)
 
-    def restore(self, tag: str, model: DiffusionModel, optimizer: AdamW,
+    def restore(self, tag: str, model, optimizer: AdamW,
                 ema: Optional[EMA] = None) -> int:
         """Load a tag's parameters, optimizer state and EMA; returns its step."""
         params_from_jax(model, load_params_npz(os.path.join(self.path(tag), "params.npz")))
-        state = torch.load(os.path.join(self.path(tag), "state.pt"), map_location=model.device,
+        device = next(model.model.parameters()).device
+        state = torch.load(os.path.join(self.path(tag), "state.pt"), map_location=device,
                            weights_only=True)
         optimizer.load_state_dict(state["optimizer"])
         if ema is not None and state["ema"] is not None:
@@ -111,7 +114,7 @@ class CheckpointManager:
         ranked = self.load_scores()["ranked"]
         return float(ranked[0][0]) if ranked else float("inf")
 
-    def save_ranked(self, score: float, step: int, model: DiffusionModel, optimizer: AdamW,
+    def save_ranked(self, score: float, step: int, model, optimizer: AdamW,
                     ema: Optional[EMA] = None, keep: int = 3) -> bool:
         """Keep the ``keep`` lowest scores as ``best-<step>`` and the lowest
         as ``best``; returns whether this one entered."""

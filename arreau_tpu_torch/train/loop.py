@@ -1,9 +1,12 @@
 """One training step and one evaluation step; counterpart of
-``arreau_tpu/train/loop.py``. A training step is the loss (noise, PBC
-graph, backbone, losses), its backward through the kernels' backward
-passes, the clipped AdamW update and the EMA update. Metrics come back as
-tensors on the device: the caller gathers them once at the end of an epoch,
-as the JAX loop does, so no step waits on the host."""
+``arreau_tpu/train/loop.py``. ``model`` is a task (``DiffusionModel``,
+``NBodyModel``, ``EGNNNBody``, ``MnistModel``): its ``.model`` is the
+module that carries the parameters, and ``model.loss(batch, *loss_args)``
+returns ``(loss, metrics)``. A training step is that loss, its backward
+(through the kernels' backward passes on the kernel branch), the clipped
+AdamW update and the EMA update. Metrics come back as tensors on the
+device: the caller gathers them once at the end of an epoch, as the JAX
+loop does, so no step waits on the host."""
 
 from __future__ import annotations
 
@@ -11,18 +14,16 @@ from typing import Optional
 
 import torch
 
-from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionModel, LossNoise
 from arreau_tpu_torch.train.optim import AdamW
 from arreau_tpu_torch.train.state import EMA
 
 
-def train_step(model: DiffusionModel, optimizer: AdamW, ema: Optional[EMA], batch: CrystalBatch,
-               noise: LossNoise) -> dict:
+def train_step(model, optimizer: AdamW, ema: Optional[EMA], batch, *loss_args) -> dict:
     """Update the model's parameters (and the EMA) from one batch; returns
     the loss metrics and ``grad_norm`` (before clipping)."""
     for p in model.model.parameters():
         p.grad = None
-    loss, metrics = model.loss(batch, noise)
+    loss, metrics = model.loss(batch, *loss_args)
     loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = optimizer.step()
@@ -32,13 +33,12 @@ def train_step(model: DiffusionModel, optimizer: AdamW, ema: Optional[EMA], batc
 
 
 @torch.no_grad()
-def eval_step(model: DiffusionModel, batch: CrystalBatch, noise: LossNoise,
-              ema: Optional[EMA] = None) -> dict:
+def eval_step(model, batch, *loss_args, ema: Optional[EMA] = None) -> dict:
     """The loss metrics of one batch, with the EMA weights when given."""
     if ema is None:
-        return model.loss(batch, noise)[1]
+        return model.loss(batch, *loss_args)[1]
     with ema.swapped_in(model.model):
-        return model.loss(batch, noise)[1]
+        return model.loss(batch, *loss_args)[1]
 
 
 def gather_metrics(pending: list) -> list:

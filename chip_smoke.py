@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the sampler and
-the training path, on the default conv path, on the fused fiber conv path
-(``fuse_fiber``), in bfloat16 (``compute_dtype="bfloat16"``), on the
-fused ConvNext path (``fuse_convnext``, bfloat16) and on the fused fiber
-conv path in bfloat16, and ``BasisMLP(fused=True)``, every CUDA kernel
-against its plain PyTorch version; and the trained flagship checkpoint,
-served with the JAX flagship report's command, its sample quality held to a
-gate.
+the training path of the crystal-diffusion model, on the default conv
+path, on the fused fiber conv path (``fuse_fiber``), in bfloat16
+(``compute_dtype="bfloat16"``), on the fused ConvNext path
+(``fuse_convnext``, bfloat16) and on the fused fiber conv path in
+bfloat16, and ``BasisMLP(fused=True)``, every CUDA kernel against its
+plain PyTorch version; the trained flagship checkpoint, served with the
+JAX flagship report's command, its sample quality held to a gate; and the
+N-body and MNIST-superpixels backbone tasks through their training CLIs,
+N-body's valid MSE held to a gate.
 
 Run from the repository root, with no arguments:
 
@@ -109,13 +111,28 @@ inner launches by name and time.
    beside the JAX report's; then the process_results CLI on those crystals
    on the card, which must lower the mean soft-sphere energy; and raises if
    a value left its gate (FLAGSHIP_GATE).
+23. backbone tasks: nbody: the N-body training CLI with the JAX Makefile's
+   ``train-nbody`` recipe cut at 1200 steps (40 epochs; the dataset
+   simulated on the card into a temporary directory): every step launched
+   5 of #3 and #4 and 1 of #8 and #7 and nothing else, and the valid MSE
+   at epoch 39 is within NBODY_GATE_MSE; then #3/#8/#4/#7 captured in one
+   full-width step (B'=4, TA=125, d=2) against their plain versions
+   (``*_nbody`` records), one batch card kernel branch against CPU plain
+   branch (forward, loss, every gradient), the step's time and profile;
+   then 60 steps of ``--model egnn`` (no kernel; the loss finite and
+   falling).
+24. backbone tasks: mnist: the MNIST training CLI at full width on 960
+   synthetic digits for 40 steps (4/4/1/1 launches a step, the loss finite
+   and falling), the four kernels at its shapes (B'=96, TA=75, C=64,
+   ``*_mnist`` records), one batch card against CPU, the step's time.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
 sampler paths; bfloat16 instantiations as entries of their own, named
 ``*_bf16``; #9/#10 in bfloat16, their float32 instantiation, serving
 shape and no-readout call beside; #5/#6 ``fused_basis_mlp*`` with the
-launches of phase 21) and the result
+launches of phase 21; ``*_nbody`` and ``*_mnist`` with the launches of
+their CLI runs) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -1122,14 +1139,16 @@ def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> d
 def step_time(model, batch, noise, label: str, want_step: dict, kernels_ms: float) -> float:
     """One training step's launches (``want_step`` and no other kernel), its
     time at ``batch`` (CUDA events) and where it goes (profile_step);
-    returns the step's milliseconds."""
+    returns the step's milliseconds. ``noise`` is the diffusion loss's
+    (None for a task whose loss takes the batch alone)."""
     from arreau_tpu_torch.train.loop import train_step
     from arreau_tpu_torch.train.optim import AdamW
 
     optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+    loss_args = () if noise is None else (noise,)
 
     def one_step():
-        train_step(model, optimizer, None, batch, noise)
+        train_step(model, optimizer, None, batch, *loss_args)
 
     reset_launch_counts()
     one_step()
@@ -1143,11 +1162,220 @@ def step_time(model, batch, noise, label: str, want_step: dict, kernels_ms: floa
     steps = 1 + 3 + 5  # the counted step, cuda_ms's warm-up and timed steps
     if counts != {name: n * steps for name, n in want.items()}:
         raise RuntimeError(f"{steps} {label} steps launched {counts}")
-    print(f"{label} training step at {tuple(batch.atom_types.shape)}: {step_ms:.4f} ms (CUDA "
+    print(f"{label} training step at {tuple(batch[0].shape[:2])}: {step_ms:.4f} ms (CUDA "
           f"events, 5 steps), of which the kernels' launches {kernels_ms:.4f} ms "
           f"({kernels_ms / step_ms:.1%})")
     profile_step(one_step, step_ms)
     return step_ms, counts
+
+
+# ---------------- the backbone tasks: N-body and MNIST superpixels ----------------
+
+# the JAX package's Makefile recipe train-nbody (10000 epochs, valid every 20,
+# batch 100, lr 1e-3) cut at 40 epochs of 30 steps
+NBODY_ARGS = ["--epochs", "10000", "--val_interval", "20", "--batch_size", "100", "--lr", "1e-3",
+              "--max_steps", "1200"]
+NBODY_GATE_EPOCH = 39
+# the gate on the valid MSE at epoch 39, fixed from the JAX records alone:
+# between the JAX Ponita run of that recipe (0.006759, out/r2/nbody_lr1e3.log)
+# and the JAX EGNN baseline at the same epoch (0.011975, out/r2/nbody_egnn2.log)
+NBODY_GATE_MSE = 0.0100
+EGNN_STEPS = 60
+# the backbone tasks' gradient check: each parameter within GRAD_REL_TOL of
+# the larger of its own largest gradient and this share of the largest of all
+TASK_GRAD_FLOOR = 1e-4
+# 960 synthetic digits: 768 train (8 steps of 96), one batch each of valid and test
+MNIST_ARGS = ["--synthetic_size", "960", "--max_steps", "40", "--val_interval", "5"]
+# one step of either task: the spatial conv and its backward once a layer,
+# the basis MLP's first layer and backward once (N-body 5 layers, MNIST 4)
+NBODY_STEP = {"spatial_conv": 5, "spatial_conv_bwd": 5, "basis_h1": 1, "basis_mlp_bwd": 1}
+MNIST_STEP = {"spatial_conv": 4, "spatial_conv_bwd": 4, "basis_h1": 1, "basis_mlp_bwd": 1}
+
+
+def task_cli(cli, argv: list, want_step: dict, label: str) -> tuple[str, dict, list]:
+    """A task's training CLI (``cli.main(argv)``), every step counted:
+    returns (its standard output, the launch counts of the whole run,
+    evaluation forwards included, and each step's metrics). Raises if a
+    step launched other than ``want_step`` (counts set to 0 just before)."""
+    per_step, step_metrics = [], []
+    step = cli.train_step
+
+    def counted_step(*a, **kw):
+        before = launch_counts()
+        metrics = step(*a, **kw)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        step_metrics.append(metrics)
+        return metrics
+
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        cli.train_step = counted_step
+        with contextlib.redirect_stdout(tee):
+            cli.main([*argv, "--device", "cuda"])
+    finally:
+        cli.train_step = step
+    counts = launch_counts()
+    want = {name: want_step.get(name, 0) for name in counts}
+    bad = [i for i, c in enumerate(per_step) if c != want]
+    print(f"{label}: {len(per_step)} steps in {time.perf_counter() - t0:.2f} s wall (data, "
+          f"evaluation and checkpoints included); launches per step "
+          f"{per_step[0] if per_step else None}; in the whole run {counts}")
+    if bad:
+        raise RuntimeError(f"{label}: steps {bad[:5]} did not launch {want}")
+    return tee.buf.getvalue(), counts, step_metrics
+
+
+def falling_losses(step_metrics: list, label: str, window: int = 10) -> None:
+    """Every step's loss finite, and the mean of the last ``window`` below
+    that of the first."""
+    losses = torch.stack([m["loss"] for m in step_metrics]).float().cpu()
+    first, last = losses[:window].mean().item(), losses[-window:].mean().item()
+    print(f"{label}: loss over the first {window} steps {first:.6f}, over the last {last:.6f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        raise RuntimeError(f"{label}: the loss is not finite and falling")
+
+
+def branch_reference(card, cpu, batch, outputs, label: str) -> None:
+    """One batch through ``card`` (a task on the card: the kernel branch)
+    and ``cpu`` (the same task on the CPU's plain branch, given the card
+    model's parameters), both on the neighbour list the CPU built: the
+    forward (``outputs(model, batch, inputs)``) within KERNEL_REL_TOL of its
+    scale, the loss within KERNEL_REL_TOL, every parameter gradient within
+    GRAD_REL_TOL of its largest entry."""
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    dev = card.device
+    batch_cpu = type(batch)(*(t.cpu() for t in batch))
+    inputs_cpu = cpu.build_inputs(batch_cpu)
+    inputs = inputs_cpu._replace(
+        neighbors=type(inputs_cpu.neighbors)(*(t.to(dev) for t in inputs_cpu.neighbors)),
+        **{f: getattr(inputs_cpu, f).to(dev)
+           for f in ("scalar", "vec", "atom_mask", "lattice", "ori_grid")})
+    with torch.no_grad():
+        got, want = outputs(card, batch, inputs).cpu(), outputs(cpu, batch_cpu, inputs_cpu)
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"{label} forward: kernel branch (cuda) vs plain branch (cpu): max_abs_err {err:.3e}, "
+          f"max |plain| {scale:.3e} (tolerance {KERNEL_REL_TOL:g} rel)")
+    if not err <= KERNEL_REL_TOL * scale:
+        raise RuntimeError(f"{label}: the kernel branch's forward disagrees with the plain branch")
+    for model in (card, cpu):
+        model.model.zero_grad(set_to_none=True)
+    got_loss = card.loss(batch, inputs)[0]
+    want_loss = cpu.loss(batch_cpu, inputs_cpu)[0]
+    got_loss.backward()
+    want_loss.backward()
+    err = abs(got_loss.item() - want_loss.item())
+    print(f"{label} loss: card {got_loss.item():.8f}, cpu {want_loss.item():.8f}, rel "
+          f"{err / abs(want_loss.item()):.3e} (tolerance {KERNEL_REL_TOL:g})")
+    if not err <= KERNEL_REL_TOL * abs(want_loss.item()):
+        raise RuntimeError(f"{label}: the card's loss disagrees with the CPU's")
+    worst = 0.0
+    want_grads = dict(cpu.model.named_parameters())
+    largest = max(p.grad.abs().max().item() for p in want_grads.values())
+    for name, p in card.model.named_parameters():
+        want = want_grads[name].grad
+        err, scale = (p.grad.cpu() - want).abs().max().item(), want.abs().max().item()
+        # a bias every orientation shares reaches a vector head only through
+        # the grid's mean direction: its gradient cancels to ~0, so hold it to
+        # a floor of TASK_GRAD_FLOOR of the largest gradient
+        if not (scale > 0 and err <= GRAD_REL_TOL * max(scale, TASK_GRAD_FLOOR * largest)):
+            raise RuntimeError(f"{label}: gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
+                               f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel, floor "
+                               f"{TASK_GRAD_FLOOR:g} of {largest:.3e})")
+        worst = max(worst, err / max(scale, TASK_GRAD_FLOOR * largest))
+    print(f"{label}: {len(want_grads)} parameter gradients, worst max_abs_err / max(max |cpu|, "
+          f"{TASK_GRAD_FLOOR:g} x largest) {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
+    for model in (card, cpu):
+        model.model.zero_grad(set_to_none=True)
+
+
+def task_kernels(model, batch, label: str, suffix: str) -> dict:
+    """Records of #3, #8, #4 and #7 on the inputs of one training step of
+    ``model`` at ``batch``, named with ``suffix``."""
+    with capturing() as args:
+        model.loss(batch)[0].backward()
+    model.model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        conv, h1, n_valid = forward_kernel_records(args, label, suffix)
+        conv_bwd, mlp_bwd = backward_kernel_records(args, n_valid, suffix)
+    return {r["name"]: r for r in (conv, h1, conv_bwd, mlp_bwd)}
+
+
+def nbody_phase(tmp: Path, card: str, records: dict) -> None:
+    """The N-body task: the quality run through the training CLI (gated),
+    its kernels at its shapes, the kernel branch against the plain branch,
+    the step time, then the EGNN baseline."""
+    from arreau_tpu_torch.cli import train_nbody
+    from arreau_tpu_torch.data.nbody import load_nbody_split
+    from arreau_tpu_torch.tasks.nbody import NBodyBatch, NBodyConfig, NBodyModel
+
+    data_dir, dev = tmp / "nbody", torch.device("cuda")
+    out, counts, _ = task_cli(train_nbody, [*NBODY_ARGS, "--data_dir", str(data_dir),
+                                            "--checkpoint_dir", str(tmp / "ckpt_nbody")],
+                              NBODY_STEP, "nbody")
+    valid = re.search(rf"epoch {NBODY_GATE_EPOCH} \| valid MSE ([0-9.]+)", out)
+    test = re.search(r"test MSE ([0-9.naninf]+)", out)
+    if valid is None or test is None:
+        raise RuntimeError("the N-body CLI printed no valid MSE at the gate's epoch or no test MSE")
+    valid_mse, test_mse = float(valid.group(1)), float(test.group(1))
+    print(f"nbody quality: valid MSE at epoch {NBODY_GATE_EPOCH} {valid_mse:.6f} (gate <= "
+          f"{NBODY_GATE_MSE}; JAX Ponita 0.006759, JAX EGNN 0.011975), test MSE {test_mse:.6f} "
+          f"on {card}")
+    if not valid_mse <= NBODY_GATE_MSE or not math.isfinite(test_mse):
+        raise RuntimeError(f"N-body valid MSE {valid_mse} left its gate {NBODY_GATE_MSE}")
+
+    ex = load_nbody_split(str(data_dir), "train", max_samples=100)
+    batch = NBodyBatch(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                         for a in (ex.loc0, ex.vel0, ex.charges, ex.loc_end)))
+    model = NBodyModel(NBodyConfig(), dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    nbody = task_kernels(model, batch, "nbody 100x5", "_nbody")
+    for name, record in nbody.items():
+        record["launches"] = counts[name.removesuffix("_nbody")]
+    records.update(nbody)
+    branch_reference(model, NBodyModel(NBodyConfig(use_pallas=False), "cpu"), batch,
+                     lambda m, b, i: m.predict_positions(b, i), "nbody")
+    kernels_ms = sum(nbody[k + "_nbody"]["ms"] * n for k, n in NBODY_STEP.items())
+    step_time(model, batch, None, "nbody", NBODY_STEP, kernels_ms)
+    del model
+
+    _, counts, metrics = task_cli(train_nbody, [
+        "--model", "egnn", "--hidden_dim", "64", "--layers", "4", "--max_steps", str(EGNN_STEPS),
+        "--data_dir", str(data_dir), "--checkpoint_dir", str(tmp / "ckpt_egnn")], {}, "egnn")
+    if len(metrics) != EGNN_STEPS:
+        raise RuntimeError(f"egnn: {len(metrics)} steps, not {EGNN_STEPS}")
+    falling_losses(metrics, "egnn")
+
+
+def mnist_phase(tmp: Path, card: str, records: dict) -> None:
+    """The MNIST-superpixels task: the training CLI at full width for 40
+    steps (loss finite and falling), its kernels at its shapes, the kernel
+    branch against the plain branch, the step time."""
+    from arreau_tpu_torch.cli import train_mnist
+    from arreau_tpu_torch.data.mnist import synthetic_superpixels
+    from arreau_tpu_torch.tasks.mnist import Mnist2DBatch, MnistConfig, MnistModel
+
+    dev = torch.device("cuda")
+    _, counts, metrics = task_cli(train_mnist, [*MNIST_ARGS, "--checkpoint_dir",
+                                                str(tmp / "ckpt_mnist")], MNIST_STEP, "mnist")
+    falling_losses(metrics, "mnist", window=8)
+
+    ex = synthetic_superpixels(96, seed=SEED + 1)
+    batch = Mnist2DBatch(torch.as_tensor(ex.pos, device=dev), torch.as_tensor(ex.value, device=dev),
+                         torch.as_tensor(ex.mask, device=dev),
+                         torch.as_tensor(ex.label, dtype=torch.long, device=dev))
+    model = MnistModel(MnistConfig(), dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    mnist = task_kernels(model, batch, "mnist 96x75", "_mnist")
+    for name, record in mnist.items():
+        record["launches"] = counts[name.removesuffix("_mnist")]
+    records.update(mnist)
+    branch_reference(model, MnistModel(MnistConfig(use_pallas=False), "cpu"), batch,
+                     lambda m, b, i: m.logits(b, i), "mnist")
+    kernels_ms = sum(mnist[k + "_mnist"]["ms"] * n for k, n in MNIST_STEP.items())
+    step_time(model, batch, None, "mnist", MNIST_STEP, kernels_ms)
 
 
 def main() -> int:
@@ -1589,6 +1817,12 @@ def main() -> int:
         counts = flagship_path(Path(tmp), card)
         for name in ("spatial_conv", "basis_h1"):
             records[name + "_bf16"]["launches_flagship"] = counts[name]
+
+    # ---------------- the backbone tasks ----------------
+    with Phase("backbone tasks: nbody"), tempfile.TemporaryDirectory() as tmp:
+        nbody_phase(Path(tmp), card, records)
+    with Phase("backbone tasks: mnist"), tempfile.TemporaryDirectory() as tmp:
+        mnist_phase(Path(tmp), card, records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

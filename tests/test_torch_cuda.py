@@ -222,12 +222,15 @@ def _basis_args(rng, dev, dtype, Bp, O, d, E, H, D, degree, n_g):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bp,O,d,E,H,D,degree,n_g", [
     (2, 3, 6, 17, 33, 37, 1, 1), (2, 3, 5, 100, 70, 20, 2, 5), (1, 2, 6, 17, 70, 64, 3, 16),
-    (2, 3, 5, 100, 33, 37, 3, 5), (32, 16, 6, 1024, 200, 256, 3, 5)])
+    (2, 3, 5, 100, 33, 37, 3, 5), (32, 16, 6, 1024, 200, 256, 3, 5),
+    (4, 16, 2, 625, 128, 256, 3, 5), (96, 10, 2, 600, 64, 128, 3, 4)])
 def test_basis_kernels_match_plain_at_ragged_shapes(dtype, Bp, O, d, E, H, D, degree, n_g):
     """#8 and #7 (tensor-core products, features built in shared memory)
     against their plain versions: rows, H, D and F that fill no tile (F = 6
-    to 155), degrees 1-3, one to sixteen cotangents, and the canonical
-    training shape (524288 rows, F = 258, H = 200, D = 256, five layers)."""
+    to 155), degrees 1-3, one to sixteen cotangents, the canonical
+    training shape (524288 rows, F = 258, H = 200, D = 256, five layers),
+    and the N-body and MNIST tasks' shapes (d = 2: F = 14, less than one
+    K-stage, through the runtime-decoded feature builder)."""
     dev = _device()
     args, gs = _basis_args(np.random.default_rng(15), dev, dtype, Bp, O, d, E, H, D, degree, n_g)
     before = (basis_h1.launches, basis_mlp_bwd.launches)
@@ -240,6 +243,59 @@ def test_basis_kernels_match_plain_at_ragged_shapes(dtype, Bp, O, d, E, H, D, de
     for a, b in zip(got, basis_mlp_bwd_plain(*args, gs)):
         assert a.dtype == torch.float32
         _assert_close(a, b, bwd_tol)
+
+
+# the backbone tasks' default-path shapes (float32): B', O, K, TA, D, C, H
+# and the basis MLP's cotangents (one per layer); both have d = 2 invariants
+# (F = 14) and no window (N-body: radius None, a window of ones)
+TASK_SHAPES = {"nbody": (4, 16, 5, 125, 256, 128, 128, 5), "mnist": (96, 10, 8, 75, 128, 64, 64, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", sorted(TASK_SHAPES))
+def test_task_shape_kernels_match_plain_and_repeat(task):
+    """#3, #4, #8 and #7 at the N-body and MNIST training shapes against
+    their plain versions, each called twice with equal bits: N-body's
+    fully connected systems of 5 fill every slot (TA = 125: 25 systems a
+    super-crystal), MNIST's Sparsify mask leaves most slots empty (TA = 75,
+    C = 64 one partial column tile)."""
+    dev = _device()
+    rng = np.random.default_rng(17)
+    Bp, O, K, TA, D, C, H, n_g = TASK_SHAPES[task]
+    E = K * TA
+    t, k = np.arange(TA)[None, :], np.arange(K)[:, None]
+    if task == "nbody":
+        src = np.broadcast_to(((t // 5) * 5 + (t + k) % 5).reshape(-1), (Bp, E)).copy()
+        win = np.ones((Bp, E))
+    else:
+        src = rng.integers(0, TA, size=(Bp, E))
+        src[rng.random((Bp, E)) < 0.85] = -1
+        win = rng.random((Bp, E))
+
+    def f32(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
+
+    conv = (f32(Bp, O, E, D), f32(D, C, scale=0.1), f32(Bp, O, TA, C),
+            torch.tensor(src, dtype=torch.int32, device=dev),
+            torch.tensor(win, dtype=torch.float32, device=dev))
+    g = f32(Bp, O, TA, C)
+    args, gs = _basis_args(rng, dev, torch.float32, Bp, O, 2, E, H, D, 3, n_g)
+    calls = (("spatial_conv", spatial_conv, spatial_conv_plain, conv, REL_TOL),
+             ("spatial_conv_bwd", spatial_conv_bwd, spatial_conv_bwd_plain, (*conv, g),
+              BWD_REL_TOL),
+             ("basis_h1", basis_h1, basis_h1_plain, args[:3] + (3,), REL_TOL),
+             ("basis_mlp_bwd", basis_mlp_bwd, basis_mlp_bwd_plain, (*args, gs), BWD_REL_TOL))
+    for name, kernel, plain, a, tol in calls:
+        before = kernel.launches
+        first, second = kernel(*a), kernel(*a)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2, name
+        first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+        want = plain(*a)
+        for i, (x, y, w) in enumerate(zip(first, second, want if isinstance(want, tuple)
+                                          else (want,))):
+            assert torch.equal(x, y), (name, i)
+            _assert_close(x, w, tol)
 
 
 @pytest.mark.cuda
