@@ -56,9 +56,10 @@
 extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
                                        const int* src, const float* win, const int* order,
                                        const int* offsets, const void* g, void* dbasis, float* dw,
-                                       void* dx, void* gxw, float* partial, int Bp, int O, int K,
-                                       int TA, int D, int C, int splits, int rows_per_split,
-                                       int is_bf16, int fiber_dx, void* stream_ptr);
+                                       void* dx, void* gxw, float* partial, float* dwin,
+                                       float* dwin_partial, int Bp, int O, int K, int TA, int D,
+                                       int C, int splits, int rows_per_split, int is_bf16,
+                                       int fiber_dx, void* stream_ptr);
 
 namespace {
 
@@ -162,6 +163,7 @@ extern "C" int arreau_fiber_conv_bwd(const void* basis, const void* w, const voi
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
 
     return arreau_spatial_conv_bwd(basis, w, x, src, ones, order, offsets, g_o, dbasis, dw, dx,
-                                   gxw, dw_partial, Bp, O, K, TA, D, C, splits, rows_per_split,
-                                   is_bf16, /*fiber_dx=*/1, stream_ptr);
+                                   gxw, dw_partial, /*dwin=*/nullptr, /*dwin_partial=*/nullptr, Bp,
+                                   O, K, TA, D, C, splits, rows_per_split, is_bf16,
+                                   /*fiber_dx=*/1, stream_ptr);
 }

@@ -10,6 +10,8 @@ backbone of every task and of the EGNN baseline:
   params/layer_{i}/norm/scale              -> layers.{i}.norm.weight
   params/layer_{i}/layer_scale             -> layers.{i}.layer_scale
   params/readout_{i}/kernel         [C, O] -> readouts.{i}.weight      (transposed)
+  params/conv_{i}/kernel/kernel     [D, C] -> convs.{i}.kernel.weight  (transposed; the
+                                              point-cloud model's per-layer conv)
   .../bias                                 -> .../bias
 
 (Dense kernels are ``[in, out]`` in flax and ``[out, in]`` in ``nn.Linear``;
@@ -37,6 +39,8 @@ def _jax_name(torch_name: str) -> tuple[str, bool]:
         parts[:2] = [f"layer_{parts[1]}"]
     elif parts[0] == "readouts":
         parts[:2] = [f"readout_{parts[1]}"]
+    elif parts[0] == "convs":
+        parts[:2] = [f"conv_{parts[1]}"]
     transpose = False
     if parts[-1] == "weight":
         if parts[-2] == "norm":
@@ -86,7 +90,8 @@ def _load(module, tree) -> None:
 
 def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None:
     """Load a JAX parameter tree into ``model`` (a task: ``DiffusionModel``,
-    ``NBodyModel``, ``MnistModel``, ``EGNNNBody``; or a bare module such as
+    ``NBodyModel``, ``MnistModel``, ``EGNNNBody``, ``QM9Model``,
+    ``MD17Model``; or a bare module such as
     ``PonitaFiberBundle``); every parameter must be matched. With a
     ``DiffusionModel`` and ``fourier_w`` given, the frequencies are carried
     too."""
@@ -108,6 +113,16 @@ def egnn_params_from_jax(model, tree) -> None:
     """Load a JAX ``EGNN`` parameter tree (``embed``, ``layer_{i}/edge_1``,
     ``edge_2``, ``coord``, ``vel_gate``, ``node_1``, ``node_2``) into the
     port's ``EGNN`` or ``EGNNNBody``; the names map by the same rule."""
+    params_from_jax(model, tree)
+
+
+def point_cloud_params_from_jax(model, tree) -> None:
+    """Load a JAX ``PonitaPointCloud`` parameter tree (``x_embedder``,
+    ``conv_{i}/basis_fn``, ``conv_{i}/kernel``, ``conv_{i}/bias``,
+    ``layer_{i}/{norm,linear_1,linear_2}``, ``readout_{i}``: the names
+    ``model.init`` gives, each conv in the parent's scope) into the port's
+    ``PonitaPointCloud``, ``QM9Model`` or ``MD17Model``; the names map by
+    the same rule."""
     params_from_jax(model, tree)
 
 

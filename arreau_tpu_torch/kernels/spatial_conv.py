@@ -21,11 +21,17 @@ forward runs it on the tensor cores (``csrc/conv_fwd.cuh``: one
 each slot into the output in registers in ascending k, so the ``[E, C]``
 per-edge kernel never reaches device memory, and repeats its output bit
 for bit. The backward (:func:`spatial_conv_bwd`) returns the cotangents of
-the basis, of ``w`` and of ``x``; the window's is not computed (it is a function of
-positions, which training does not differentiate: the JAX package's
-``window_grad = position_grads = False``), so ``win`` gets none. Its three
-products run on the tensor cores (``csrc/mma.cuh``; 3xTF32 in float32), and
-every output, dx included, is the same bit for bit on every call.
+the basis, of ``w`` and of ``x``, and with ``window_grad`` that of the window,
+
+    dwin[b',e] = sum_o sum_c (basis[b',o,e,:] @ w)[c] * g[b',o,t,c] * x[b',o,src[b',e],c]
+
+(0 on an empty slot), which the model needs only where something
+differentiates through positions (the JAX package's ``window_grad =
+position_grads``: forces, relaxation); without it ``win`` gets none, the
+JAX VJP's symbolic zero. Its three products run on the tensor cores
+(``csrc/mma.cuh``; 3xTF32 in float32), ``dwin`` is summed in the epilogue of
+the third (the per-edge kernel is formed there anyway), and every output,
+dx and dwin included, is the same bit for bit on every call.
 
 basis, w and x are float32, or all bfloat16 on the ``compute_dtype=
 "bfloat16"`` path; the window stays float32. In bfloat16 the functions
@@ -33,7 +39,9 @@ follow the JAX kernels' cast points: products and sums in float32, the
 output (``out_dtype``) and the backward's dbasis and dx stored in
 bfloat16, the backward's ``gxw`` and ``kern * win * g`` rounded to
 bfloat16 before their products, and dW summed in float32 and returned in
-``w``'s type (as the JAX VJP's ``.astype(w.dtype)``).
+``w``'s type (as the JAX VJP's ``.astype(w.dtype)``); ``dwin`` is float32,
+from the per-edge kernel accumulated in float32 and ``g`` and ``x`` upcast,
+nothing rounded before its sum (``pallas_conv.py:369-370``).
 
 :func:`spatial_conv` and :func:`spatial_conv_bwd` launch their kernels for
 CUDA tensors and run :func:`spatial_conv_plain` / :func:`spatial_conv_bwd_plain`
@@ -49,9 +57,10 @@ import torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_BWD_ARGTYPES = (_P,) * 13 + (_I,) * 10 + (_P,)
+_BWD_ARGTYPES = (_P,) * 15 + (_I,) * 10 + (_P,)
 _TILE_ARGTYPES = (_P, _P, _P) + (_I,) * 6 + (_P,)
 DTYPES = (torch.float32, torch.bfloat16)  # the element types the kernels take
+_DX_TILE_N = 128  # columns of #4's per-edge kernel a block forms (csrc/tile_product.cuh: WideTile)
 
 
 def spatial_conv_plain(basis, w, x, src, win):
@@ -71,14 +80,16 @@ def spatial_conv_plain(basis, w, x, src, win):
     return msg.reshape(Bp, O, E // TA, TA, C).sum(dim=2).to(dt)
 
 
-def spatial_conv_bwd_plain(basis, w, x, src, win, g, fiber: bool = False):
-    """Plain PyTorch version of the backward: (dbasis, dw, dx) for the
-    cotangent ``g [B', O, TA, C]`` of :func:`spatial_conv_plain`'s output;
-    float32 arithmetic, rounded to the basis's type where the JAX kernel
-    rounds. With ``fiber`` (the fused fiber conv's backward, whose ``g`` is
-    float32), each dx term rounds ``kern * win`` and ``g`` apart before their
-    product, as ``pallas_conv.py:158`` does, where #4 rounds the product
-    once (:376)."""
+def spatial_conv_bwd_plain(basis, w, x, src, win, g, window_grad: bool = False,
+                           fiber: bool = False):
+    """Plain PyTorch version of the backward: (dbasis, dw, dx), and with
+    ``window_grad`` dwin ``[B', E]`` float32 after them, for the cotangent
+    ``g [B', O, TA, C]`` of :func:`spatial_conv_plain`'s output; float32
+    arithmetic, rounded to the basis's type where the JAX kernel rounds
+    (dwin nowhere). With ``fiber`` (the fused fiber conv's backward, whose
+    ``g`` is float32), each dx term rounds ``kern * win`` and ``g`` apart
+    before their product, as ``pallas_conv.py:158`` does, where #4 rounds the
+    product once (:376)."""
     dt, wt = basis.dtype, torch.promote_types(basis.dtype, torch.float32)
 
     def rnd(v):
@@ -95,10 +106,17 @@ def spatial_conv_bwd_plain(basis, w, x, src, win, g, fiber: bool = False):
     gxw = rnd(torch.where(live, g_e * torch.gather(x, 2, idx), 0.0) * win_e)
     dbasis = torch.matmul(gxw, w.t())
     dw = torch.einsum("boed,boec->dc", basis, gxw)
-    kern = torch.matmul(basis, w) * win_e
+    kern_e = torch.matmul(basis, w)
+    kern = kern_e * win_e
     dxc = rnd(torch.where(live, rnd(kern) * rnd(g_e) if fiber else kern * g_e, 0.0))
     dx = torch.zeros_like(x).scatter_add_(2, idx, dxc)
-    return dbasis.to(dt), dw.to(dt), dx.to(dt)
+    if not window_grad:
+        return dbasis.to(dt), dw.to(dt), dx.to(dt)
+    # sum over c for each (b', o, e), then over o, as the JAX kernel adds
+    # one o block after another (pallas_conv.py:369-370)
+    gx = torch.where(live, g_e * torch.gather(x, 2, idx), 0.0)
+    dwin = (kern_e * gx).sum(dim=-1).sum(dim=1)
+    return dbasis.to(dt), dw.to(dt), dx.to(dt), dwin.to(win.dtype)
 
 
 def _check(basis, w, x, src, win):
@@ -158,8 +176,9 @@ def spatial_conv(basis, w, x, src, win):
 spatial_conv.launches = 0
 
 
-def spatial_conv_bwd(basis, w, x, src, win, g):
-    """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``): the
+def spatial_conv_bwd(basis, w, x, src, win, g, window_grad: bool = False):
+    """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``), and
+    with ``window_grad`` dwin ``[B', E]`` (float32) after them: the
     cotangents of :func:`spatial_conv`'s inputs for the output cotangent
     ``g [B', O, TA, C]`` (the basis's type); see the module docstring."""
     _check(basis, w, x, src, win)
@@ -167,7 +186,7 @@ def spatial_conv_bwd(basis, w, x, src, win, g):
         raise ValueError(f"g must be {basis.dtype} {tuple(x.shape)} on {x.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
     if basis.device.type == "cpu":
-        return spatial_conv_bwd_plain(basis, w, x, src, win, g)
+        return spatial_conv_bwd_plain(basis, w, x, src, win, g, window_grad)
     if basis.device.type != "cuda":
         raise ValueError(f"spatial_conv_bwd runs on cuda or cpu, not {basis.device}")
     if not all(t.is_contiguous() for t in (basis, w, x, src, win, g)):
@@ -185,15 +204,25 @@ def spatial_conv_bwd(basis, w, x, src, win, g):
     dx = torch.empty_like(x)
     gxw = edge_cotangent_scratch(basis, C)
     partial = torch.empty((splits, D, C), dtype=torch.float32, device=basis.device)
+    dwin = dwin_partial = None
+    if window_grad:
+        # one float32 partial per column tile of the per-edge kernel and edge row
+        dwin = torch.empty((Bp, E), dtype=torch.float32, device=basis.device)
+        dwin_partial = torch.empty((-(-C // _DX_TILE_N), Bp * O * E), dtype=torch.float32,
+                                   device=basis.device)
     fn = kernel_function("arreau_spatial_conv_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(basis.device).cuda_stream
     err = fn(basis.data_ptr(), w.data_ptr(), x.data_ptr(), src.data_ptr(), win.data_ptr(),
              order.data_ptr(), offsets.data_ptr(), g.data_ptr(), dbasis.data_ptr(), dw.data_ptr(),
-             dx.data_ptr(), gxw.data_ptr(), partial.data_ptr(), Bp, O, E // TA, TA, D, C, splits,
-             per_split, int(basis.dtype == torch.bfloat16), 0, stream)
+             dx.data_ptr(), gxw.data_ptr(), partial.data_ptr(),
+             None if dwin is None else dwin.data_ptr(),
+             None if dwin_partial is None else dwin_partial.data_ptr(), Bp, O, E // TA, TA, D, C,
+             splits, per_split, int(basis.dtype == torch.bfloat16), 0, stream)
     check("arreau_spatial_conv_bwd", err)
     spatial_conv_bwd.launches += 1
-    return dbasis, dw.to(w.dtype), dx
+    if dwin is None:
+        return dbasis, dw.to(w.dtype), dx
+    return dbasis, dw.to(w.dtype), dx, dwin
 
 
 spatial_conv_bwd.launches = 0
@@ -267,19 +296,27 @@ tile_product.launches = 0
 
 class _SpatialConv(torch.autograd.Function):
     """``fused_spatial_conv``'s custom VJP: :func:`spatial_conv` forward,
-    :func:`spatial_conv_bwd` backward; ``src`` and ``win`` get no cotangent."""
+    :func:`spatial_conv_bwd` backward; ``src`` gets no cotangent, and ``win``
+    one only with ``window_grad``."""
 
     @staticmethod
-    def forward(ctx, basis, w, x, src, win):
+    def forward(ctx, basis, w, x, src, win, window_grad):
         ctx.save_for_backward(basis, w, x, src, win)
+        ctx.window_grad = window_grad
         return spatial_conv(basis, w, x, src, win)
 
     @staticmethod
     def backward(ctx, g):
-        dbasis, dw, dx = spatial_conv_bwd(*ctx.saved_tensors, g.contiguous())
-        return dbasis, dw, dx, None, None
+        if not ctx.window_grad:
+            dbasis, dw, dx = spatial_conv_bwd(*ctx.saved_tensors, g.contiguous())
+            return dbasis, dw, dx, None, None, None
+        dbasis, dw, dx, dwin = spatial_conv_bwd(*ctx.saved_tensors, g.contiguous(), True)
+        return dbasis, dw, dx, None, dwin, None
 
 
-def fused_spatial_conv(basis, w, x, src, win):
-    """Differentiable :func:`spatial_conv` (cotangents for basis, w and x)."""
-    return _SpatialConv.apply(basis, w, x, src, win)
+def fused_spatial_conv(basis, w, x, src, win, window_grad: bool = False):
+    """Differentiable :func:`spatial_conv`: cotangents for basis, w and x,
+    and with ``window_grad`` for ``win`` (the JAX entry's flag; the model
+    passes ``position_grads``). Without it ``win`` gets none, the JAX VJP's
+    symbolic zero."""
+    return _SpatialConv.apply(basis, w, x, src, win, window_grad)

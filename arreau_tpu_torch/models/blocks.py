@@ -188,14 +188,17 @@ class FiberBundleConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, kernel_basis, fiber_kernel_basis, src, edge_mask, window=None,
-                kernel_layout: bool = False, dtype: Optional[torch.dtype] = None):
+                kernel_layout: bool = False, dtype: Optional[torch.dtype] = None,
+                position_grads: bool = False):
         """Plain layout: ``x [B, A, O, C]``, windowed ``kernel_basis [B, A,
         K, O, D]``, ``src``/``edge_mask [B, A, K]``. Kernel layout: ``x [B',
         O, TA, C]``, ``kernel_basis [B', O, E, D]``, tile-local ``src [B',
         E]`` int32 (-1 = empty slot), ``window [B', E]`` (``None`` with
-        ``fuse_fiber``: the window is folded into the basis). With a compute
-        ``dtype`` the spatial step runs in it and the fiber mixing takes its
-        operands with float32 sums; the output is float32."""
+        ``fuse_fiber``: the window is folded into the basis), which gets a
+        cotangent with ``position_grads`` (the spatial conv's
+        ``window_grad``). With a compute ``dtype`` the spatial step runs in it
+        and the fiber mixing takes its operands with float32 sums; the output
+        is float32."""
         w = self.kernel if dtype is None else self.kernel.to(dtype)
         fiber_kernel = dense(self.fiber_kernel, fiber_kernel_basis, dtype)  # [O, P, C]
         num_ori = fiber_kernel.shape[0]
@@ -205,7 +208,8 @@ class FiberBundleConv(nn.Module):
                                  fiber_kernel / num_ori)
             return y + self.bias
         if kernel_layout:
-            x_sp = fused_spatial_conv(kernel_basis, w, x.to(w.dtype).contiguous(), src, window)
+            x_sp = fused_spatial_conv(kernel_basis, w, x.to(w.dtype).contiguous(), src, window,
+                                      window_grad=position_grads)
             y = torch.einsum("botc,opc->bptc", x_sp.float(), fiber_kernel.float()) / num_ori
             return y + self.bias
         kernel = torch.einsum("bakod,dc->bakoc", kernel_basis.to(w.dtype), w)
@@ -243,13 +247,13 @@ class ConvNextBlock(nn.Module):
 
     def forward(self, x, kernel_basis, fiber_kernel_basis, src, edge_mask, window=None,
                 kernel_layout: bool = False, dtype: Optional[torch.dtype] = None,
-                readout: Optional[nn.Linear] = None):
+                readout: Optional[nn.Linear] = None, position_grads: bool = False):
         """``(x_out, r)``: ``r`` is the layer's readout ``x_out @ W + b``
         computed by the fused kernel (float32), or None where the caller
         applies ``readout`` itself (every path but the fused one)."""
         residual = x
         x = self.conv(x, kernel_basis, fiber_kernel_basis, src, edge_mask, window, kernel_layout,
-                      dtype)
+                      dtype, position_grads)
         if self.fuse_convnext and kernel_layout and dtype is not None:
             C = x.shape[-1]
             gamma = (self.layer_scale if self.layer_scale is not None

@@ -22,9 +22,17 @@ With ``fuse_fiber=True`` the basis MLP is the plain chain on ``[B', O, E,
 d]`` invariants, windowed outside the kernel and shared by every layer, and
 each layer's conv is the ``fiber_conv`` / ``fiber_conv_bwd`` Function. On
 the CPU the backbone takes the plain branch. ``use_kernels`` forces either; the
-kernel branch on CPU tensors runs the kernels' plain versions. Parameter
-gradients only: the kernel branch gives no cotangent for positions or the
-lattice (``position_grads`` is not ported).
+kernel branch on CPU tensors runs the kernels' plain versions.
+
+``position_grads`` is for a caller that differentiates through positions
+(forces, relaxation), as the JAX package's: on the kernel branch the basis
+MLP is then the plain chain on ``[B', O, E, d]`` invariants, one basis for
+every layer (``basis_mlp_bwd``, #7, gives the invariants no cotangent), and
+the spatial conv's backward also returns the window's cotangent
+(``spatial_conv_bwd`` with ``window_grad``); with ``fuse_fiber`` nothing
+changes (the window is folded into the basis, whose gradient autograd and
+``fiber_conv_bwd`` carry). The plain branch differentiates through
+positions either way.
 
 ``compute_dtype="bfloat16"`` runs the backbone in bfloat16 at the JAX
 package's cast points: the lift, the invariants, the LayerNorm statistics
@@ -101,7 +109,9 @@ class PonitaConfig:
     fuse_fiber: bool = False
     # True = biases on both basis Dense layers, "in" = dense_in only, False = none
     basis_bias: "bool | str" = True
-    # differentiate through positions (window and attribute cotangents): not ported
+    # something differentiates through positions (window and attribute
+    # cotangents): the kernel branch takes the plain basis MLP and the
+    # spatial conv's window cotangent
     position_grads: bool = False
     # None = float32; "bfloat16" runs the Dense layers, convs and the residual
     # stream in bfloat16 (parameters, LayerNorm statistics and readouts stay
@@ -190,8 +200,6 @@ class PonitaFiberBundle(nn.Module):
     def __init__(self, config: PonitaConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.position_grads:
-            raise NotImplementedError("position_grads waits for the point-cloud slice of the port")
         if cfg.readout_bf16_operands and cfg.fuse_convnext:
             raise NotImplementedError("readout_bf16_operands with fuse_convnext: the fused "
                                       "kernels compute their readout from float32 weights")
@@ -278,15 +286,20 @@ class PonitaFiberBundle(nn.Module):
             attr = attr.reshape(Bp, tile, A, K, O, d)
             # window [B, A, K] -> k-major rows [B', E], e = k*TA + t*A + a
             win = window.reshape(Bp, tile, A, K).permute(0, 3, 1, 2).reshape(Bp, E)
-            if cfg.fuse_fiber:
-                # [B', O, E, d] invariants through the plain basis MLP, windowed
-                # here, one basis for every layer
+            if cfg.fuse_fiber or cfg.position_grads:
+                # [B', O, E, d] invariants through the plain basis MLP, one
+                # basis for every layer; windowed here with fuse_fiber, in the
+                # spatial conv otherwise
                 attr = attr.permute(0, 4, 3, 1, 2, 5).reshape(Bp, O, E, d)
                 if cdt is not None:
                     attr = attr.to(cdt)
                 basis = self.basis_fn(attr, cdt)
-                kernel_bases = (basis * win[:, None, :, None].to(basis.dtype),) * len(self.layers)
-                conv_window = None
+                if cfg.fuse_fiber:
+                    basis = basis * win[:, None, :, None].to(basis.dtype)
+                    conv_window = None
+                else:
+                    conv_window = win.contiguous()
+                kernel_bases = (basis,) * len(self.layers)
             else:
                 # lane-major [B', O, d, E], cast to the compute type before the
                 # transpose as the JAX package does
@@ -310,7 +323,8 @@ class PonitaFiberBundle(nn.Module):
         for i, layer in enumerate(self.layers):
             readout_i = self.readouts[str(i)] if str(i) in self.readouts else None
             x, r = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask, conv_window,
-                         kernel_layout=use_kernels, dtype=cdt, readout=readout_i)
+                         kernel_layout=use_kernels, dtype=cdt, readout=readout_i,
+                         position_grads=cfg.position_grads)
             if r is not None:
                 fused.append(r)
             elif readout_i is not None:

@@ -1,6 +1,7 @@
 """One training step and one evaluation step; counterpart of
 ``arreau_tpu/train/loop.py``. ``model`` is a task (``DiffusionModel``,
-``NBodyModel``, ``EGNNNBody``, ``MnistModel``): its ``.model`` is the
+``NBodyModel``, ``EGNNNBody``, ``MnistModel``, ``QM9Model``, ``MD17Model``):
+its ``.model`` is the
 module that carries the parameters, and ``model.loss(batch, *loss_args)``
 returns ``(loss, metrics)``. A training step is that loss, its backward
 (through the kernels' backward passes on the kernel branch), the clipped
@@ -34,7 +35,11 @@ def train_step(model, optimizer: AdamW, ema: Optional[EMA], batch, *loss_args) -
 
 @torch.no_grad()
 def eval_step(model, batch, *loss_args, ema: Optional[EMA] = None) -> dict:
-    """The loss metrics of one batch, with the EMA weights when given."""
+    """The loss metrics of one batch, with the EMA weights when given, under
+    ``no_grad``. A task whose metrics need a gradient (MD17's forces,
+    -dE/dpos) takes it inside its own ``torch.enable_grad()`` block and
+    returns detached values; every other task's evaluation records no
+    graph."""
     if ema is None:
         return model.loss(batch, *loss_args)[1]
     with ema.swapped_in(model.model):

@@ -6,9 +6,11 @@ path, on the fused fiber conv path (``fuse_fiber``), in bfloat16
 (``fuse_convnext``, bfloat16) and on the fused fiber conv path in
 bfloat16, and ``BasisMLP(fused=True)``, every CUDA kernel against its
 plain PyTorch version; the trained flagship checkpoint, served with the
-JAX flagship report's command, its sample quality held to a gate; and the
+JAX flagship report's command, its sample quality held to a gate; the
 N-body and MNIST-superpixels backbone tasks through their training CLIs,
-N-body's valid MSE held to a gate.
+N-body's valid MSE held to a gate; gradients through atom positions
+(``position_grads``: #4's window cotangent); and the QM9 and MD17
+point-cloud tasks through their training CLIs.
 
 Run from the repository root, with no arguments:
 
@@ -125,6 +127,22 @@ inner launches by name and time.
    synthetic digits for 40 steps (4/4/1/1 launches a step, the loss finite
    and falling), the four kernels at its shapes (B'=96, TA=75, C=64,
    ``*_mnist`` records), one batch card against CPU, the step's time.
+25. position gradients: the diffusion backbone built with
+   ``position_grads=True`` at the training shape (256 x 16, hidden 200),
+   float32 and bfloat16: #4 with its window cotangent captured in one
+   training step against its plain version and a second call of its own,
+   timed (``spatial_conv_bwd_dwin*`` records); the step's launches (5 of #3
+   and of #4, nothing else), time, profile and peak memory; the gradient of
+   a scalar of the scores with respect to the fractional coordinates and
+   lattice lengths on 32 crystals of 8 atoms, card kernel branch against CPU
+   plain branch on one graph topology (1e-3 of scale float32, 5e-2 bf16).
+26. backbone tasks: qm9: the QM9 training CLI on its synthetic defaults
+   (2000 molecules, batch 96, full width) for 48 steps: no kernel launch,
+   the loss finite and falling; 8 molecules card against CPU (loss and
+   every parameter gradient); a step's time, profile and peak memory.
+27. backbone tasks: md17: the same for the MD17 CLI (1200 molecules, batch
+   16, lambda_F 500, 40 steps), the forces card against CPU too, and the
+   gradients those of a double backward.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -132,7 +150,8 @@ sampler paths; bfloat16 instantiations as entries of their own, named
 ``*_bf16``; #9/#10 in bfloat16, their float32 instantiation, serving
 shape and no-readout call beside; #5/#6 ``fused_basis_mlp*`` with the
 launches of phase 21; ``*_nbody`` and ``*_mnist`` with the launches of
-their CLI runs) and the result
+their CLI runs; ``spatial_conv_bwd_dwin*`` with the launches of phase 25's
+steps) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -1020,7 +1039,9 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or the h1 product of #7, #5 or #
                      "::dbasis_kernel<": "#4 dbasis",
                      "::dw_partial_kernel<": "#4 dW split-K partials",
                      "sum_splits_kernel": "split sum (#4 dW and every split-K pass)",
-                     "::dx_terms_kernel<": "#4 dxc (per-edge kernel and dx terms)",
+                     "::dx_terms_kernel<": "#4 dxc (per-edge kernel and dx terms; with dwin "
+                                           "its partials too)",
+                     "::dwin_sum_kernel": "#4 dwin (partials summed over o and column tiles)",
                      "::dx_kernel<": "#4 dx (each sender's run)",
                      "::fiber_cotangent_kernel<": "#2 g_o",
                      "::fiber_kernel_grad_partial": "#2 dKf partials",
@@ -1376,6 +1397,296 @@ def mnist_phase(tmp: Path, card: str, records: dict) -> None:
                      lambda m, b, i: m.logits(b, i), "mnist")
     kernels_ms = sum(mnist[k + "_mnist"]["ms"] * n for k, n in MNIST_STEP.items())
     step_time(model, batch, None, "mnist", MNIST_STEP, kernels_ms)
+
+
+# ---------------- gradients through positions: position_grads, #4's dwin ----------------
+
+# a position-gradient step of the diffusion backbone: #3 and #4 (with the
+# window cotangent) once a layer, neither #8 nor #7 (the plain basis MLP)
+POSITION_STEP = {"spatial_conv": 5, "spatial_conv_bwd": 5}
+
+
+def position_grads_backbone(model):
+    """A backbone like ``model``'s with ``position_grads=True``: how a caller
+    that differentiates through positions builds it (DiffusionConfig has no
+    such field, in either package)."""
+    from arreau_tpu_torch.models.ponita import PonitaFiberBundle
+
+    cfg = dataclasses.replace(model.model.config, position_grads=True)
+    return PonitaFiberBundle(cfg).to(model.device)
+
+
+def fixed_topology_graph(graph):
+    """A stand-in for ``pbc_neighbor_list``: ``graph``'s senders, images and
+    slot mask, the lengths and directions recomputed from the caller's
+    positions and lattice (differentiable in both; an eps-free square root
+    only on filled slots), so that two devices differentiate one graph."""
+    from arreau_tpu_torch.ops.pbc import SUPERCELLS, NeighborList
+
+    def build(cart, lattice, atom_mask, radius, max_neighbors):
+        dev, (B, A, K) = cart.device, graph.src.shape
+        src, image, mask = (t.to(dev) for t in (graph.src, graph.image, graph.mask))
+        offsets = torch.einsum("ci,bij->bcj", torch.as_tensor(SUPERCELLS, dtype=cart.dtype,
+                                                              device=dev), lattice)
+        sender = torch.gather(cart, 1, src.reshape(B, A * K, 1).expand(B, A * K, 3))
+        shift = torch.gather(offsets, 1, image.reshape(B, A * K, 1).expand(B, A * K, 3))
+        direction = (sender + shift).reshape(B, A, K, 3) - cart[:, :, None, :]
+        direction = torch.where(mask[..., None], direction, 0.0)
+        sq = torch.where(mask, torch.sum(direction**2, dim=-1), 1.0)
+        return NeighborList(src, image, torch.where(mask, torch.sqrt(sq), 0.0), direction, mask)
+
+    return build
+
+
+def window_cotangent_record(args, n_valid, suffix, tol, peak) -> dict:
+    """#4 with its window cotangent (the captured call, ``window_grad``
+    True) against its plain version, timed; the library yardstick is
+    autograd's backward through the library chain with respect to the basis,
+    w, x and the window."""
+    from arreau_tpu_torch.kernels.spatial_conv import spatial_conv_bwd, spatial_conv_bwd_plain
+
+    basis, w, x, src, win, g, window_grad = args["spatial_conv_bwd"]
+    if window_grad is not True:
+        raise RuntimeError("the position_grads path called #4 without its window cotangent")
+    O, D, C = basis.shape[1], basis.shape[3], x.shape[3]
+    leaves = [t.detach().requires_grad_() for t in (basis, w, x, win)]
+    with torch.enable_grad():
+        out = conv_library(leaves[0], leaves[1], leaves[2], src, leaves[3])
+    return check_kernel(
+        "spatial_conv_bwd_dwin" + suffix, spatial_conv_bwd, spatial_conv_bwd_plain,
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
+        O * n_valid * (6 * D * C + 8 * C),
+        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
+        peak)
+
+
+def position_reference(ref_cfg, seed: int, tol: float) -> None:
+    """The gradient of a scalar of the scores with respect to the fractional
+    coordinates and the lattice lengths, at full width on 32 crystals of 8
+    atoms: the card's kernel branch with ``position_grads`` (5 #3 and 5 #4
+    with the window cotangent, nothing else) against the CPU's plain
+    branch, one graph topology (``fixed_topology_graph``), each gradient
+    within ``tol`` of its largest entry."""
+    from arreau_tpu_torch.tasks import diffusion
+    from arreau_tpu_torch.tasks.diffusion import DiffusionModel
+
+    dev, B = torch.device("cuda"), 32
+    g = torch.Generator().manual_seed(seed)
+    lengths = 3.0 + 5.0 * torch.rand((B, 3), generator=g)
+    angles = torch.deg2rad(75.0 + 30.0 * torch.rand((B, 3), generator=g))
+    frac = torch.rand((B, ATOMS, 3), generator=g)
+    types = torch.nn.functional.one_hot(
+        torch.randint(0, ref_cfg.num_atomic_states - 1, (B, ATOMS), generator=g),
+        ref_cfg.num_atomic_states).float()
+    t = torch.randint(1, ref_cfg.num_timesteps + 1, (B,), generator=g)
+    num_atoms, mask = torch.full((B,), ATOMS), torch.ones((B, ATOMS), dtype=torch.bool)
+    model = DiffusionModel(ref_cfg, device=dev)
+    model.model = position_grads_backbone(model)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
+    plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    weights = None
+    build_graph = diffusion.pbc_neighbor_list
+    graphs, grads = [], {}
+    try:
+        diffusion.pbc_neighbor_list = lambda *a: graphs.append(build_graph(*a)) or graphs[-1]
+        with torch.no_grad():
+            plain._build_inputs(frac, types, t, num_atoms, lengths, angles, mask)
+        diffusion.pbc_neighbor_list = fixed_topology_graph(graphs[0])
+        for name, m, d in (("cpu", plain, "cpu"), ("cuda", model, dev)):
+            leaves = (frac.to(d).requires_grad_(), lengths.to(d).requires_grad_())
+            reset_launch_counts()
+            outs = m.predict_scores(leaves[0], types.to(d), t.to(d), num_atoms.to(d), leaves[1],
+                                    angles.to(d), mask.to(d))
+            if weights is None:
+                wg = torch.Generator().manual_seed(seed + 1)
+                weights = [torch.randn(o.shape, generator=wg) for o in outs]
+            s = sum((o * w.to(d)).sum() for o, w in zip(outs, weights))
+            grads[name] = [x.cpu() for x in torch.autograd.grad(s, leaves)]
+            counts = launch_counts()
+    finally:
+        diffusion.pbc_neighbor_list = build_graph
+    want = {name: POSITION_STEP.get(name, 0) for name in counts}
+    if counts != want:
+        raise RuntimeError(f"a position-gradient forward and backward launched {counts}, not {want}")
+    for label, got, ref in zip(("d/d frac", "d/d lengths"), grads["cuda"], grads["cpu"]):
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        print(f"{label}: kernel branch (cuda) vs plain branch (cpu), {B}x{ATOMS}: max_abs_err "
+              f"{err:.3e}, max |cpu| {scale:.3e}, rel {err / scale:.3e} (tolerance {tol:g})")
+        if not (scale > 0 and err <= tol * scale):
+            raise RuntimeError(f"{label}: the card's position gradient disagrees with the CPU's")
+    print(f"{graphs[0].mask.sum().item()} edges; launches of the card's forward and backward "
+          f"{counts}")
+
+
+def position_phase(dataset, chunk, bucket, train_cfg, card: str, records: dict) -> None:
+    """The diffusion backbone with ``position_grads`` at the training shape,
+    float32 and bfloat16: #4 with its window cotangent (and #3) captured in
+    one training step, held against their plain versions and timed; the
+    step's launches, time and profile; then the position gradient of the
+    scores, card against CPU (``position_reference``)."""
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.tasks.diffusion import DiffusionModel, batch_to_device, draw_loss_noise
+
+    dev = torch.device("cuda")
+    batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+    for dtype, suffix, tol, peak, ref_tol in (
+            (None, "", KERNEL_REL_TOL, TF32X3_FLOP_PER_S, GRAD_REL_TOL),
+            ("bfloat16", "_bf16", BF16_KERNEL_REL_TOL, BF16_FLOP_PER_S, BF16_GRAD_REL_TOL)):
+        cfg = dataclasses.replace(train_cfg, compute_dtype=dtype)
+        model = DiffusionModel(cfg, device=dev)
+        model.model = position_grads_backbone(model)
+        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+                                *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
+                                True, dev)
+        with capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        model.model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            basis, _, x, src = args["spatial_conv"][:4]
+            TA = x.shape[2]
+            n_valid = int(((src >= 0) & (src < TA)).sum())
+            print(f"position_grads {dtype or 'float32'} {TRAIN_BATCH}x{bucket}: B'={basis.shape[0]} "
+                  f"O={basis.shape[1]} E={basis.shape[2]} TA={TA} D={basis.shape[3]} "
+                  f"C={x.shape[3]}, {n_valid} edge slots filled")
+            record = window_cotangent_record(args, n_valid, suffix, tol, peak)
+        del args
+        kernels_ms = 5 * (record["ms"] + records["spatial_conv" + suffix]["ms"])
+        torch.cuda.reset_peak_memory_stats()
+        _, counts = step_time(model, batch, noise, f"position_grads {dtype or 'float32'}",
+                              POSITION_STEP, kernels_ms)
+        print(f"peak device memory of the position_grads steps: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
+        record["launches"] = counts["spatial_conv_bwd"]
+        records[record["name"]] = record
+        del model, noise
+        torch.cuda.empty_cache()
+        position_reference(dataclasses.replace(cfg, layer_scale=1.0), SEED + 3, ref_tol)
+
+
+# ---------------- the backbone tasks: QM9 and MD17 (no kernel) ----------------
+
+# the JAX CLIs' synthetic defaults (QM9: 2000 molecules, batch 96; MD17: 1200,
+# batch 16, lambda_F 500; both hidden 128, basis 256, 5 layers, K 8) with the
+# gate runs' 300 epochs, cut at 48 steps (3 epochs) and 40 steps (epoch 0)
+QM9_ARGS = ["--epochs", "300", "--max_steps", "48", "--val_interval", "1"]
+MD17_ARGS = ["--epochs", "300", "--max_steps", "40", "--val_interval", "1"]
+POINT_CLOUD_BATCH = 8  # molecules of the card-against-CPU comparison
+
+
+def fixed_radius_graph(graph):
+    """A stand-in for ``radius_neighbor_list``: ``graph``'s senders and slot
+    mask, the lengths and directions recomputed from the caller's positions
+    (differentiable, finite on empty slots), so that two devices
+    differentiate one graph."""
+    from arreau_tpu_torch.ops.pbc import NeighborList
+
+    def build(pos, mask, radius, max_neighbors, loop=True):
+        dev, (B, N, K) = pos.device, graph.src.shape
+        src, slot = graph.src.to(dev), graph.mask.to(dev)
+        sender = torch.gather(pos, 1, src.reshape(B, N * K, 1).expand(B, N * K, pos.shape[-1]))
+        direction = sender.reshape(B, N, K, -1) - pos[:, :, None, :]
+        direction = torch.where(slot[..., None], direction, 0.0)
+        sq = torch.where(slot, torch.sum(direction**2, dim=-1), 1.0)
+        return NeighborList(src, torch.zeros_like(src), torch.where(slot, torch.sqrt(sq), 0.0),
+                            direction, slot)
+
+    return build
+
+
+def point_cloud_reference(card, cpu, batch, label: str, forces: bool) -> None:
+    """One batch through ``card`` (a QM9 or MD17 task on the card) and
+    ``cpu`` (the same on the CPU, given the card's parameters), one graph
+    topology (``fixed_radius_graph`` of the CPU's): the loss within
+    KERNEL_REL_TOL, every parameter gradient within GRAD_REL_TOL of the
+    larger of its largest entry and TASK_GRAD_FLOOR of the largest of all;
+    with ``forces``, the forces (-dE/dpos, outside a graph) within
+    GRAD_REL_TOL of their scale, and the gradients those of a double
+    backward."""
+    from arreau_tpu_torch.tasks import qm9
+
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    batch_cpu = type(batch)(*(t.cpu() for t in batch))
+    build_graph = qm9.radius_neighbor_list
+    graph = build_graph(batch_cpu.pos, batch_cpu.mask, cpu.config.radius or 1000.0,
+                        cpu.config.max_neighbors, loop=False)
+    try:
+        qm9.radius_neighbor_list = fixed_radius_graph(graph)
+        if forces:
+            with torch.no_grad():
+                (_, got), (_, want) = (card.predict_energy_and_force(batch),
+                                       cpu.predict_energy_and_force(batch_cpu))
+            err, scale = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+            print(f"{label} forces: card vs cpu, max_abs_err {err:.3e}, max |cpu| {scale:.3e} "
+                  f"(tolerance {GRAD_REL_TOL:g} rel)")
+            if not err <= GRAD_REL_TOL * scale:
+                raise RuntimeError(f"{label}: the card's forces disagree with the CPU's")
+        for model in (card, cpu):
+            model.model.zero_grad(set_to_none=True)
+        got_loss, want_loss = card.loss(batch)[0], cpu.loss(batch_cpu)[0]
+        got_loss.backward()
+        want_loss.backward()
+    finally:
+        qm9.radius_neighbor_list = build_graph
+    err = abs(got_loss.item() - want_loss.item())
+    print(f"{label} loss: card {got_loss.item():.8f}, cpu {want_loss.item():.8f}, rel "
+          f"{err / abs(want_loss.item()):.3e} (tolerance {KERNEL_REL_TOL:g})")
+    if not err <= KERNEL_REL_TOL * abs(want_loss.item()):
+        raise RuntimeError(f"{label}: the card's loss disagrees with the CPU's")
+    want_grads = dict(cpu.model.named_parameters())
+    largest = max(p.grad.abs().max().item() for p in want_grads.values())
+    worst = 0.0
+    for name, p in card.model.named_parameters():
+        want = want_grads[name].grad
+        err, scale = (p.grad.cpu() - want).abs().max().item(), want.abs().max().item()
+        bound = max(scale, TASK_GRAD_FLOOR * largest)
+        if not err <= GRAD_REL_TOL * bound:
+            raise RuntimeError(f"{label}: gradient of {name}: max_abs_err {err:.3e}, max |cpu| "
+                               f"{scale:.3e} (tolerance {GRAD_REL_TOL:g} rel)")
+        worst = max(worst, err / bound)
+    print(f"{label}: {len(want_grads)} parameter gradients, worst max_abs_err / max(max |cpu|, "
+          f"{TASK_GRAD_FLOOR:g} x largest) {worst:.3e} (tolerance {GRAD_REL_TOL:g})")
+    for model in (card, cpu):
+        model.model.zero_grad(set_to_none=True)
+
+
+def point_cloud_phase(tmp: Path, card: str, task: str) -> None:
+    """QM9 or MD17 (``task``): the training CLI at full width on its
+    synthetic defaults, cut short (no kernel launches, the loss finite and
+    falling); one batch card against CPU; a step's time, profile and peak
+    device memory at the CLI's batch."""
+    from arreau_tpu_torch.cli import train_md17, train_qm9
+    from arreau_tpu_torch.data.molecules import synthetic_molecules
+    from arreau_tpu_torch.tasks.md17 import MD17Batch, MD17Config, MD17Model
+    from arreau_tpu_torch.tasks.qm9 import MoleculeBatch, QM9Config, QM9Model
+
+    dev = torch.device("cuda")
+    md17 = task == "md17"
+    cli, argv = (train_md17, MD17_ARGS) if md17 else (train_qm9, QM9_ARGS)
+    out, _, metrics = task_cli(cli, [*argv, "--checkpoint_dir", str(tmp / f"ckpt_{task}")], {},
+                               task)
+    falling_losses(metrics, task, window=8)
+    rate = re.search(r"train throughput: ([0-9.]+) steps/s", out)
+    print(f"{task} CLI: " + (f"{rate.group(1)} steps/s warm on {card}" if rate else
+                             "no warm epoch (the run ends inside epoch 0)"))
+
+    data = synthetic_molecules(1200 if md17 else 2000, seed=SEED, with_forces=md17)
+    B = 16 if md17 else 96
+    fields = (data.pos, data.one_hot, data.mask, data.y) + ((data.forces,) if md17 else ())
+    batch = (MD17Batch if md17 else MoleculeBatch)(*(
+        torch.as_tensor(a[:B], dtype=None if a.dtype == bool else torch.float32, device=dev)
+        for a in fields))
+    shift, scale = float(np.mean(data.y)), float(np.std(data.y))
+    Model, Config = (MD17Model, MD17Config) if md17 else (QM9Model, QM9Config)
+    model = Model(Config(input_dim=data.one_hot.shape[-1]), shift, scale, dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    small = type(batch)(*(t[:POINT_CLOUD_BATCH] for t in batch))
+    point_cloud_reference(model, Model(model.config, shift, scale, "cpu"), small, task, md17)
+    torch.cuda.reset_peak_memory_stats()
+    step_time(model, batch, None, task, {}, 0.0)
+    print(f"{task} peak device memory of the steps at batch {B}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
 
 
 def main() -> int:
@@ -1823,6 +2134,14 @@ def main() -> int:
         nbody_phase(Path(tmp), card, records)
     with Phase("backbone tasks: mnist"), tempfile.TemporaryDirectory() as tmp:
         mnist_phase(Path(tmp), card, records)
+
+    # ---------------- gradients through positions ----------------
+    with Phase("position gradients"):
+        position_phase(dataset, chunk, bucket, train_cfg, card, records)
+    with Phase("backbone tasks: qm9"), tempfile.TemporaryDirectory() as tmp:
+        point_cloud_phase(Path(tmp), card, "qm9")
+    with Phase("backbone tasks: md17"), tempfile.TemporaryDirectory() as tmp:
+        point_cloud_phase(Path(tmp), card, "md17")
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,21 +20,25 @@ and, through ``BasisMLP(fused=True, use_bias=False)`` on the invariants a
 ``fuse_fiber`` sampler forward and training step hand their basis MLP (as
 ``chip_smoke.py:fused_basis_calls``), the inputs of #5 ``fused_basis_mlp``
 at both shapes and of #6 ``fused_basis_mlp_bwd`` at the training shape, in
-float32 and bfloat16. Then it calls each kernel wrapper of this checkout
-twice and the other checkout's once on the same tensors (each checkout
-builds its own kernel library into its own ``build/``). The rules:
+float32 and bfloat16; and the inputs of #3 and of #4 with its window
+cotangent (``window_grad``) in one training step of a backbone built with
+``position_grads=True``, float32 and bfloat16 (``NEW_CALLS``: the other
+build's #4 has no window cotangent). Then it calls each kernel wrapper of
+this checkout twice and the other checkout's once on the same tensors
+(each checkout builds its own kernel library into its own ``build/``),
+the new calls in this build alone. The rules:
 
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
-- the kernels whose arithmetic this build changed (``REDESIGNED``: #5 and
-  #6, tensor-core products in this build, SIMT in the builds before it)
-  are held within ``chip_smoke.KERNEL_REL_TOL`` of each output's scale in
-  their float32 instantiation and ``BF16_KERNEL_REL_TOL`` in their bfloat16
-  one (whose float32 outputs follow bfloat16 roundings too, as
-  ``chip_smoke.py`` holds them), and both builds' wrappers are timed with
-  CUDA events in this process, this build's before and after the other's
-  twice;
-- every other output equals the other build's bit for bit.
+- the kernels whose arithmetic this build changed (``REDESIGNED``; none in
+  this build) are held within ``chip_smoke.KERNEL_REL_TOL`` of each
+  output's scale in their float32 instantiation and ``BF16_KERNEL_REL_TOL``
+  in their bfloat16 one (whose float32 outputs follow bfloat16 roundings
+  too, as ``chip_smoke.py`` holds them);
+- every other output equals the other build's bit for bit;
+- the wrappers of ``REDESIGNED`` and ``TIMED`` (#4, whose source this build
+  changed) are timed with CUDA events in this process on the calls both
+  builds take, this build's before and after the other's twice.
 
 Exits non-zero if a rule fails.
 """
@@ -59,8 +63,17 @@ MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
            "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv",
            "convnext_mlp": "convnext_mlp", "convnext_mlp_bwd": "convnext_mlp",
            "fused_basis_mlp": "fused_basis_mlp", "fused_basis_mlp_bwd": "fused_basis_mlp"}
-# kernels whose arithmetic differs from the builds before this one's
-REDESIGNED = ("fused_basis_mlp", "fused_basis_mlp_bwd")
+# kernels whose arithmetic differs from the builds before this one's (held
+# to a tolerance), and kernels whose source changed without a change of
+# arithmetic (held bit for bit); both timed in both builds
+REDESIGNED = ()
+TIMED = ("spatial_conv_bwd",)
+
+
+def new_call(key, args) -> bool:
+    """A call the other build's wrapper does not take: #4 with its window
+    cotangent (a seventh argument, ``window_grad``)."""
+    return key[1] == "spatial_conv_bwd" and len(args) == 7
 
 
 def captured_inputs(dev) -> dict:
@@ -145,6 +158,21 @@ def captured_inputs(dev) -> dict:
             captured["fuse_convnext bf16 training", name] = a
             captured["fuse_convnext float32 training", name] = tuple(
                 t.detach().float() if torch.is_tensor(t) else t for t in a)
+
+    # position_grads: #3, and #4 with the window cotangent (the backbone built
+    # with the flag, as a caller that differentiates through positions does)
+    for path, c in (("position_grads training", train_cfg),
+                    ("position_grads bf16 training", bf16_cfg)):
+        model = DiffusionModel(c, device=dev)
+        model.model = smoke.position_grads_backbone(model)
+        model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
+                                *batch.atom_types.shape, c.num_atomic_states, c.num_timesteps,
+                                True, dev)
+        with smoke.capturing() as args:
+            model.loss(batch, noise)[0].backward()
+        captured.update({(path, name): a for name, a in args.items()})
+        del model
     return captured
 
 
@@ -164,10 +192,11 @@ def run_kernels(captured: dict) -> dict:
 
 
 def time_redesigned(captured: dict) -> dict:
-    """{key: ms per call} of the package's wrappers of the REDESIGNED kernels."""
+    """{key: ms per call} of the package's wrappers of the REDESIGNED and
+    TIMED kernels."""
     with torch.no_grad():
         return {(path, name): smoke.cuda_ms(lambda: wrapper(name)(*args))
-                for (path, name), args in captured.items() if name in REDESIGNED}
+                for (path, name), args in captured.items() if name in REDESIGNED + TIMED}
 
 
 @contextlib.contextmanager
@@ -228,14 +257,24 @@ def main(argv: list[str]) -> int:
     print(f"captured {len(captured)} kernel calls: {sorted(captured)}")
     ours = run_kernels(captured)
     again = differences(ours, run_kernels(captured))
-    ours_ms = time_redesigned(captured)
+    shared = {k: a for k, a in captured.items() if not new_call(k, a)}
+    ours_ms = time_redesigned(shared)
     with package_from(other):
         other_build = importlib.import_module(f"{PACKAGE}.kernels.build")
         print(f"{other}'s nvcc build: {other_build.build_library():.2f} s")
-        theirs = differences(ours, run_kernels(captured))
-        theirs_ms = [time_redesigned(captured) for _ in range(2)]
-    ours_ms = [ours_ms, time_redesigned(captured)]
+        theirs = differences({k: ours[k] for k in shared}, run_kernels(shared))
+        theirs_ms = [time_redesigned(shared) for _ in range(2)]
+    ours_ms = [ours_ms, time_redesigned(shared)]
     ok = True
+    for key, args in captured.items():
+        if not new_call(key, args):
+            continue
+        for i, a in enumerate(ours[key]):
+            varies = again[key, i]
+            print(f"{key[0]} {key[1]} output {i} {tuple(a.shape)} {a.dtype}: new in this build; "
+                  + ("repeats bit for bit" if varies is None
+                     else f"VARIES from call to call, by up to {varies:.3e}"))
+            ok &= varies is None
     for (key, i), diff in theirs.items():
         a = ours[key][i]
         if a is None:

@@ -349,6 +349,93 @@ def test_spatial_conv_bwd_kernel_matches_plain(Bp, O, K, TA, D, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", [(2, 3, 4, 40, 37, 70), (2, 16, 8, 12, 256, 200),
+                                            (1, 2, 1, 17, 24, 8), (2, 5, 3, 30, 40, 130),
+                                            (32, 16, 8, 128, 256, 200)])
+def test_spatial_conv_bwd_window_cotangent_matches_plain_and_repeats(dtype, Bp, O, K, TA, D, C):
+    """#4 with ``window_grad``: dwin (float32) and the other three outputs
+    against the plain version, at ragged shapes (one or two column tiles of
+    the per-edge kernel, C = 8 and 130, empty and out-of-range slots, zero
+    windows) and at the training shape (B'=32, O=16, E=1024, TA=128, D=256,
+    C=200), float32 and bfloat16; every output the same bit for bit on a
+    second call, and the three without ``window_grad`` equal to those with."""
+    dev = _device()
+    rng = np.random.default_rng(17)
+    *args, win = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    win[:, ::7] = 0.0  # edges at the cutoff
+    args = (*(_bf16(args) if dtype == torch.bfloat16 else args), win)
+    g = torch.tensor(rng.normal(size=(Bp, O, TA, C)), device=dev).to(dtype)
+    before = spatial_conv_bwd.launches
+    first = spatial_conv_bwd(*args, g, True)
+    second = spatial_conv_bwd(*args, g, True)
+    without = spatial_conv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert spatial_conv_bwd.launches == before + 3
+    assert len(first) == 4 and len(without) == 3
+    assert first[3].dtype == torch.float32 and first[3].shape == (Bp, K * TA)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+    for i, (a, b) in enumerate(zip(first, without)):
+        assert torch.equal(a, b), i
+    tol = BF16_REL_TOL if dtype == torch.bfloat16 else BWD_REL_TOL
+    want = spatial_conv_bwd_plain(*args, g, True)
+    for i, (a, b) in enumerate(zip(first, want)):
+        _assert_close(a, b, BWD_REL_TOL if i == 3 else tol)
+    live = (args[3] >= 0) & (args[3] < TA)
+    assert (first[3][~live] == 0).all()
+
+
+@pytest.mark.cuda
+def test_position_grads_kernel_branch_position_gradients_match_plain_branch():
+    """``position_grads=True``: a scalar of the scores differentiated with
+    respect to the fractional coordinates and the lattice lengths, on the
+    kernel branch (#3, and #4 with the window cotangent, no #8/#7) against
+    the plain branch, both on the card (one neighbour list); 2 + 2 launches."""
+    import dataclasses
+
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.kernels import basis_mlp as bm
+    from arreau_tpu_torch.models.ponita import PonitaFiberBundle
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    dev = _device()
+    rng = np.random.default_rng(5)
+    B, A = 12, 5
+    cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()), num_timesteps=50,
+                          hidden_dim=32, basis_dim=24, num_layers=2, num_ori=4,
+                          max_neighbors=27 * A, layer_scale=1.0)
+    models = {k: DiffusionModel(dataclasses.replace(cfg, use_pallas=k), device=dev)
+              for k in (True, False)}
+    models[True].model = PonitaFiberBundle(dataclasses.replace(
+        models[True].model.config, position_grads=True)).to(dev)
+    models[True].model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    models[False].model.load_state_dict(models[True].model.state_dict())
+    frac = torch.tensor(rng.random((B, A, 3)), dtype=torch.float32, device=dev)
+    lengths = torch.tensor(3.0 + 3.0 * rng.random((B, 3)), dtype=torch.float32, device=dev)
+    rest = (torch.nn.functional.one_hot(torch.tensor(rng.integers(0, 8, (B, A)), device=dev),
+                                        cfg.num_atomic_states).float(),
+            torch.tensor(rng.integers(1, 50, B), device=dev), torch.full((B,), A, device=dev))
+    grads = {}
+    before = (spatial_conv.launches, spatial_conv_bwd.launches, bm.basis_h1.launches,
+              bm.basis_mlp_bwd.launches)
+    for k, model in models.items():
+        leaves = (frac.clone().requires_grad_(), lengths.clone().requires_grad_())
+        outs = model.predict_scores(leaves[0], *rest, leaves[1],
+                                    torch.full((B, 3), np.pi / 2, device=dev),
+                                    torch.ones((B, A), dtype=torch.bool, device=dev))
+        s = sum((o * torch.linspace(-1, 1, o.numel(), device=dev).view_as(o)).sum() for o in outs)
+        grads[k] = torch.autograd.grad(s, leaves)
+    torch.cuda.synchronize()
+    after = (spatial_conv.launches, spatial_conv_bwd.launches, bm.basis_h1.launches,
+             bm.basis_mlp_bwd.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 0, 0)
+    for got, want in zip(grads[True], grads[False]):
+        assert want.abs().max().item() > 0
+        _assert_close(got, want, 1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Bp,O,d,E,H,D,n_g", [(2, 3, 6, 100, 70, 37, 3), (2, 16, 6, 960, 200, 256, 5),
                                               (1, 2, 5, 64, 33, 20, 1)])
 def test_basis_mlp_bwd_kernel_matches_plain(Bp, O, d, E, H, D, n_g):

@@ -316,8 +316,25 @@ def test_train_cli_on_cuda_raises_without_cuda(tmp_path):
         train_diffusion.main([*args, "--checkpoint_dir", str(tmp_path)])
 
 
-def test_position_grads_is_not_ported():
-    from arreau_tpu_torch.models.ponita import PonitaConfig, PonitaFiberBundle
+def test_position_grads_builds_and_differentiates():
+    """``position_grads=True`` builds (DiffusionConfig has no such field, in
+    either package: the backbone is built with it), and a diffusion loss on
+    the kernel branch (the kernels' plain versions on the CPU)
+    differentiates through the positions: the window cotangent reaches
+    them."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match="position_grads"):
-        PonitaFiberBundle(PonitaConfig(input_dim_scalar=4, input_dim_vec=1, position_grads=True))
+    from arreau_tpu_torch.models.ponita import PonitaFiberBundle
+
+    jmodel, host, params = _jax_setup(False)
+    model = _port_model(jmodel, params, True)
+    model.model = PonitaFiberBundle(dataclasses.replace(model.model.config, position_grads=True))
+    params_from_jax(model, params)
+    batch = batch_to_device(host, "cpu")
+    frac = batch.frac_x.clone().requires_grad_()
+    noise = draw_loss_noise(torch.Generator().manual_seed(0), *host.atom_types.shape,
+                            jmodel.config.num_atomic_states, jmodel.config.num_timesteps, False,
+                            "cpu")
+    loss, _ = model.loss(batch._replace(frac_x=frac), noise)
+    (grad,) = torch.autograd.grad(loss, frac)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
