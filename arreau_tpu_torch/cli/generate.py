@@ -15,7 +15,12 @@ set serves through the fused fiber conv kernels. ``--quality_ref
 synthetic[:size[:seed]]`` adds the sample-quality report against that
 synthetic training set (``inference/quality.py``), printed and written to
 ``quality.json``; ``--num_atoms_dist ref`` draws each crystal's atom count
-from that set's histogram.
+from that set's histogram. ``--gif`` samples the last batch with snapshots
+every ``--snapshot_every`` steps (the dense chain only), renders them under
+``sampling_steps/`` and writes ``sampling.gif``; ``--visualize`` renders the
+first four crystals (``crystal_{i}.png``); ``--show_bonds`` draws bonds in
+both. The renders need matplotlib and PIL (``inference/visualize.py``),
+checked before any sampling.
 
     python -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt --tag best \\
         --batch_size 128 --num_atoms_per_sample 8 --num_crystals 256 \\
@@ -36,9 +41,6 @@ from arreau_tpu_torch.data.atoms import AtomicNumberTable
 from arreau_tpu_torch.inference.io import concat_results, from_dense_batch, save_sample_results
 from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionConfig, DiffusionModel
-
-# flags of the JAX CLI whose paths wait for later slices of the port
-_LATER_SLICES = ("gif", "visualize")
 
 
 def parse_bool(value: str) -> bool:
@@ -78,8 +80,12 @@ def parse_args(argv=None):
                    help="data-parallel sampling (the JAX CLI's default): on one device, or "
                         "on the CPU, it samples there, as the JAX CLI does; more than one "
                         "visible CUDA device is not ported yet")
-    p.add_argument("--gif", type=parse_bool, default=False, help="not ported yet")
-    p.add_argument("--visualize", type=parse_bool, default=False, help="not ported yet")
+    p.add_argument("--visualize", type=parse_bool, default=False,
+                   help="render the first four crystals to crystal_{i}.png (matplotlib, PIL)")
+    p.add_argument("--show_bonds", type=parse_bool, default=False)
+    p.add_argument("--gif", type=parse_bool, default=False,
+                   help="render the sampling trajectory of the last batch as a GIF")
+    p.add_argument("--snapshot_every", type=int, default=10)
     p.add_argument("--quality_ref", type=str, default=None,
                    help="training-data reference for the sample-quality report: "
                         "'synthetic[:size[:seed]]' regenerates the synthetic training set "
@@ -164,9 +170,11 @@ def length_bounds_from_meta(meta: dict):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in _LATER_SLICES:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.gif or args.visualize:
+        # the renders need matplotlib and PIL: fail here, not after sampling
+        from arreau_tpu_torch.inference.visualize import require_renderers
+
+        require_renderers()
     if args.num_atoms_dist == "ref" and not args.quality_ref:
         raise SystemExit("--num_atoms_dist ref requires --quality_ref")
     # an unported reference fails here, before any sampling
@@ -204,18 +212,26 @@ def main(argv=None):
 
     T = model.config.num_timesteps
     strided = args.sample_steps is not None and args.sample_steps < T - 1
+    if args.gif and strided:
+        print("gif snapshots are not supported with --sample_steps; disabling gif")
+        args.gif = False
     generator = torch.Generator(device=device).manual_seed(args.seed)
     results = []
+    snapshots = None
     remaining = args.num_crystals
     t_gen0, n_timed = None, 0  # the throughput clock starts after the first batch
     while remaining > 0:
-        batch_out = model.sample(
-            args.batch_size, args.num_atoms_per_sample, generator=generator,
-            constant_atoms=constant_atoms, length_bounds=length_bounds,
-            type_temperature=args.type_temperature, sample_steps=args.sample_steps,
-            ddim_eta=args.ddim_eta,
-            num_atoms=draw_counts() if draw_counts is not None else None,
-        )
+        kwargs = dict(generator=generator, constant_atoms=constant_atoms,
+                      length_bounds=length_bounds, type_temperature=args.type_temperature,
+                      num_atoms=draw_counts() if draw_counts is not None else None)
+        if args.gif and remaining <= args.batch_size:
+            # the last batch: the dense chain with snapshots for the GIF
+            batch_out, snapshots = model.sample(args.batch_size, args.num_atoms_per_sample,
+                                                snapshot_every=args.snapshot_every, **kwargs)
+        else:
+            batch_out = model.sample(args.batch_size, args.num_atoms_per_sample,
+                                     sample_steps=args.sample_steps, ddim_eta=args.ddim_eta,
+                                     **kwargs)
         take = min(args.batch_size, remaining)
         results.append(from_dense_batch(CrystalBatch(*(t[:take] for t in batch_out)), z_table))
         remaining -= take
@@ -231,6 +247,18 @@ def main(argv=None):
         print(f"sampler throughput: {n_timed / dt * 60:.0f} crystals/min "
               f"({n_steps} reverse steps, warm, {name})")
 
+    if snapshots:
+        from arreau_tpu_torch.inference.visualize import generate_gif, vis_crystal_during_sampling
+
+        snap_dir = os.path.join(args.out_dir, "sampling_steps")
+        for timestep, snap in snapshots:
+            vis_crystal_during_sampling(
+                z_table, snap.atom_types[0].cpu().numpy(), snap.lattice[0].cpu().numpy(),
+                snap.frac_x[0].cpu().numpy(), os.path.join(snap_dir, f"step_{timestep}"),
+                args.show_bonds)
+        generate_gif(snap_dir, os.path.join(args.out_dir, "sampling.gif"), prefix="step")
+        print(f"wrote {args.out_dir}/sampling.gif")
+
     result = concat_results(results)
     out_path = os.path.join(args.out_dir, "crystals.npz")
     save_sample_results(out_path, result)
@@ -245,6 +273,15 @@ def main(argv=None):
         with open(qpath, "w") as f:
             json.dump(report, f, indent=2)
         print(f"wrote {qpath}")
+
+    if args.visualize:
+        from arreau_tpu_torch.inference.visualize import plot_crystal
+
+        for i in range(min(result.num_crystals, 4)):
+            frac, zs, lat = result.crystal(i)
+            plot_crystal(frac, zs, lat, os.path.join(args.out_dir, f"crystal_{i}.png"),
+                         show_bonds=args.show_bonds)
+        print(f"rendered PNGs under {args.out_dir}")
     return result
 
 

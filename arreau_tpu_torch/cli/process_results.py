@@ -4,7 +4,9 @@
 Loads ``crystals.npz`` (the generate CLI's file), relaxes every crystal at
 once with the soft-sphere relaxation (``inference/relax.py``) on
 ``--device`` (default ``cuda``; it never falls back to the CPU) and writes
-``crystals_relaxed.npz`` beside it (or ``--out_path``).
+``crystals_relaxed.npz`` beside it (or ``--out_path``); ``--visualize``
+renders the first four relaxed crystals to ``relaxed_{i}.png`` beside the
+output file (matplotlib and PIL, checked before any work).
 
     python -m arreau_tpu_torch.cli.process_results --in_path out/crystals.npz
 """
@@ -12,6 +14,7 @@ once with the soft-sphere relaxation (``inference/relax.py``) on
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -30,7 +33,8 @@ def parse_args(argv=None):
     p.add_argument("--sigma", type=float, default=1.5)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises where CUDA is unavailable")
-    p.add_argument("--visualize", type=parse_bool, default=False, help="not ported yet")
+    p.add_argument("--visualize", type=parse_bool, default=False,
+                   help="render the first four relaxed crystals (matplotlib, PIL)")
     p.add_argument("--use_mace", type=parse_bool, default=False,
                    help="not ported: needs the mace-torch and ase packages")
     return p.parse_args(argv)
@@ -54,7 +58,9 @@ def main(argv=None):
         raise NotImplementedError("--use_mace needs the mace-torch and ase packages, which the "
                                   "port does not carry")
     if args.visualize:
-        raise NotImplementedError("--visualize is not ported yet")
+        from arreau_tpu_torch.inference.visualize import require_renderers
+
+        require_renderers()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
@@ -85,6 +91,14 @@ def main(argv=None):
     out_path = args.out_path or args.in_path.replace(".npz", "_relaxed.npz")
     save_sample_results(out_path, out)
     print(f"saved {out_path}")
+
+    if args.visualize:
+        from arreau_tpu_torch.inference.visualize import plot_crystal
+
+        out_dir = os.path.dirname(os.path.abspath(out_path))
+        for i in range(min(B, 4)):
+            f, zs, lat = out.crystal(i)
+            plot_crystal(f, zs, lat, os.path.join(out_dir, f"relaxed_{i}.png"))
     return out
 
 

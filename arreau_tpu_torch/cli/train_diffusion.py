@@ -9,13 +9,19 @@ test pass with the best checkpoint. Runs on ``--device`` (default
 ``cuda``; it never falls back to the CPU). Checkpoints are the port's own
 (``train/checkpoint.py``): ``arreau_tpu_torch.cli.generate
 --checkpoint_dir <checkpoint_dir> --tag best`` samples from one (its EMA
-weights when ``--ema`` kept them).
+weights when ``--ema`` kept them). Batches are collated and copied to the
+device in a thread, two ahead of the step (``utils.prefetch_to_device``);
+the noise is drawn on the main thread. ``--log`` logs to wandb where it
+imports (else stdout only, as the JAX CLI); ``--profiler torch`` writes a
+``torch.profiler`` Chrome trace of the first timed epoch (epoch 1) under
+``profile_results/``.
 
     python -m arreau_tpu_torch.cli.train_diffusion --dataset synthetic \\
         --batch_size 256 --hidden_dim 200 --max_steps 100
 
 Only ``--dataset synthetic`` is ported (the Alexandria shards are HDF5,
-which the card's machine cannot read); the flags of later slices raise.
+which the card's machine cannot read), and ``--model_parallel`` only as 1:
+both raise otherwise.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from arreau_tpu_torch.train.metrics import (
 )
 from arreau_tpu_torch.train.optim import AdamW, cosine_warmup_schedule
 from arreau_tpu_torch.train.state import EMA
+from arreau_tpu_torch.utils import prefetch_to_device
 
 
 def _parse_basis_bias(value: str):
@@ -72,7 +79,8 @@ def parse_args(argv=None):
                         "equal node budget")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--weight_decay", type=float, default=1e-10)
-    p.add_argument("--log", type=parse_bool, default=False, help="wandb logging: not ported")
+    p.add_argument("--log", type=parse_bool, default=False,
+                   help="wandb logging (stdout only where wandb does not import)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model_parallel", type=int, default=1, help="not ported: must be 1")
     p.add_argument("--val_interval", type=int, default=5)
@@ -102,7 +110,9 @@ def parse_args(argv=None):
     p.add_argument("--angle_loss_weight", type=float, default=1.0)
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--experiment_name", type=str, default=None)
-    p.add_argument("--profiler", type=str, default=None, help="not ported")
+    p.add_argument("--profiler", type=str, default=None, choices=[None, "torch"],
+                   help="'torch' writes a torch.profiler trace of the first timed epoch under "
+                        "profile_results/")
     p.add_argument("--ema", type=float, default=None, help="EMA decay (e.g. 0.99); default off")
     p.add_argument("--synthetic_size", type=int, default=2000)
     p.add_argument("--resume", type=parse_bool, default=True,
@@ -124,9 +134,7 @@ def parse_args(argv=None):
 
 def _check_ported(args) -> None:
     later = {
-        "log": args.log,
         "model_parallel": args.model_parallel != 1,
-        "profiler": args.profiler is not None,
         "dataset": args.dataset != "synthetic",
     }
     for flag, used in later.items():
@@ -145,6 +153,36 @@ def _losses(m: dict) -> str:
     angle = f" angle {m['loss_angle']:.4f}" if "loss_angle" in m else ""
     return (f"{m.get('loss', float('nan')):.4f} (coord {m.get('loss_coord', 0):.4f} "
             f"type {m.get('loss_type', 0):.4f} lattice {m.get('loss_lattice', 0):.4f}{angle})")
+
+
+def start_profiler(device) -> torch.profiler.profile:
+    """A started ``torch.profiler`` over the host and, on CUDA, the device."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, device, seconds: float) -> None:
+    """Stop ``profiler`` after ``seconds`` of wall time (device work waited
+    for) and write its Chrome trace under ``profile_results/`` (numbered
+    after the files there); on CUDA print the device's idle share of that
+    time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs("profile_results", exist_ok=True)
+    path = os.path.join("profile_results",
+                        f"trace_epoch1_{len(os.listdir('profile_results'))}.json")
+    profiler.export_chrome_trace(path)
+    print(f"profiler: wrote {path}")
+    if device.type == "cuda":
+        busy = sum(e.time_range.elapsed_us() for e in profiler.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        print(f"profiler: device busy {busy:.4f} s of {seconds:.4f} s "
+              f"(idle share {1 - busy / seconds:.1%})")
 
 
 def main(argv=None):
@@ -210,15 +248,29 @@ def main(argv=None):
         return draw_loss_noise(generator, B, A, cfg.num_atomic_states, cfg.num_timesteps,
                                cfg.diffuse_angles, device)
 
+    def device_batches(split: str):
+        """The split's batches, collated and copied to the device in a thread
+        two ahead of the consumer."""
+        return prefetch_to_device(loaders[split], batch_to_device, device, depth=2)
+
     def evaluate(split: str) -> dict:
         pending = []
-        for host in loaders[split]:
-            batch = batch_to_device(host, device)
+        for batch in device_batches(split):
             pending.append(eval_step(model, batch, noise_for(batch), ema=ema))
         acc = MeanMetrics()
         for m in gather_metrics(pending):
             weighted_update(acc, m)
         return exact_loss(acc.compute(), args.angle_loss_weight)
+
+    wandb_run = None
+    if args.log:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project="arreau-tpu", name=args.experiment_name,
+                                   config=vars(args))
+        except ImportError:
+            print("wandb not available; logging to stdout only")
 
     timer = EpochTimer()
     jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
@@ -231,10 +283,12 @@ def main(argv=None):
         if done:
             break
         timer.epoch_start()
+        profiler = None
+        if args.profiler == "torch" and epoch == 1:
+            profiler = start_profiler(device)
         pending = []
         t_loop = time.perf_counter()
-        for host in loaders["train"]:
-            batch = batch_to_device(host, device)
+        for batch in device_batches("train"):
             if args.train_augm:
                 normals = torch.randn((batch.lattice.shape[0], 4), generator=generator,
                                       device=device)
@@ -254,16 +308,23 @@ def main(argv=None):
         for m in gather_metrics(pending):  # waits for the epoch's steps
             weighted_update(train_metrics, m)
         warm_seconds += time.perf_counter() - t_loop
+        if profiler is not None:
+            stop_profiler(profiler, device, time.perf_counter() - t_loop)
         dt = timer.epoch_end()
         tm = exact_loss(train_metrics.compute(), args.angle_loss_weight)
         lr_now = schedule(optimizer.count)
         print(f"epoch {epoch} | train loss {_losses(tm)} | lr {lr_now:.2e} | {dt:.1f}s")
+        if wandb_run:
+            wandb_run.log({"epoch": epoch, "lr": lr_now,
+                           **{f"train/{k}": v for k, v in tm.items()}})
         jlog.log({"epoch": epoch, "step": optimizer.count, "lr": lr_now, "epoch_s": dt,
                   **{f"train/{k}": v for k, v in tm.items()}})
 
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             v = evaluate("valid")
             print(f"epoch {epoch} | valid loss {_losses(v)}")
+            if wandb_run:
+                wandb_run.log({f"valid/{k}": val for k, val in v.items()})
             jlog.log({"epoch": epoch, "step": optimizer.count,
                       **{f"valid/{k}": val for k, val in v.items()}})
             ckpt.save("last", model, optimizer, ema)
@@ -279,6 +340,9 @@ def main(argv=None):
         ckpt.restore("best", model, optimizer, ema)
     t = evaluate("test")
     print(f"test loss {_losses(t)}")
+    if wandb_run:
+        wandb_run.log({f"test/{k}": val for k, val in t.items()})
+        wandb_run.finish()
     jlog.log({"step": optimizer.count, **{f"test/{k}": val for k, val in t.items()}})
     return t.get("loss")
 

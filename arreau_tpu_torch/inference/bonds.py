@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
-# covalent radii (angstrom) of ``arreau_tpu/inference/visualize.py``; fallback 1.4
+# covalent radii (angstrom) of ``arreau_tpu/inference/visualize.py``, for the bonds
+# and the renders (``inference/visualize.py``); fallback 1.4
 _COVALENT_RADII = {
     1: 0.31, 3: 1.28, 6: 0.76, 7: 0.71, 8: 0.66, 9: 0.57, 11: 1.66, 12: 1.41,
     13: 1.21, 14: 1.11, 15: 1.07, 16: 1.05, 17: 1.02, 19: 2.03, 20: 1.76,

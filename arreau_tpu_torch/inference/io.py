@@ -24,6 +24,12 @@ class SampleResult:
     idx_start: Optional[np.ndarray] = None  # [num_crystals]
     num_atoms: Optional[np.ndarray] = None  # [num_crystals]
 
+    def crystal(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(frac coords, atomic numbers, lattice) of crystal i."""
+        s = int(self.idx_start[i])
+        e = s + int(self.num_atoms[i])
+        return self.frac_x[s:e], self.atomic_numbers[s:e], self.lattice[i]
+
     @property
     def num_crystals(self) -> int:
         return len(self.num_atoms)

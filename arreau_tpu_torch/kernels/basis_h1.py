@@ -108,3 +108,20 @@ def basis_h1(attrT, w1, b1, degree: int):
 
 
 basis_h1.launches = 0
+
+
+@torch.library.custom_op("arreau_tpu_torch::basis_h1", mutates_args=(),
+                         schema="(Tensor attrT, Tensor w1, Tensor b1, int degree) -> Tensor")
+def basis_h1_op(attrT, w1, b1, degree):
+    """:func:`basis_h1` as the operator ``torch.ops.arreau_tpu_torch.basis_h1``,
+    which ``torch.export`` keeps as one node (a fake tensor has no
+    ``data_ptr``); the wrapper is looked up in this module when the operator
+    runs. Its outputs are contiguous, as the kernel's are (see
+    :func:`~arreau_tpu_torch.kernels.spatial_conv.spatial_conv_op`)."""
+    return basis_h1(attrT, w1, b1, degree).contiguous()
+
+
+@basis_h1_op.register_fake
+def _(attrT, w1, b1, degree):
+    Bp, O, _, E = attrT.shape
+    return attrT.new_empty((Bp, O, E, w1.shape[1]))

@@ -7,9 +7,10 @@ Counterpart of ``arreau_tpu/ops/pallas_basis.py:_basis_mlp_multi_p`` (a
     basis = gelu(gelu(poly(attrT) @ w1 + b1) @ w2 + b2)
 
 runs its first layer in the ``basis_h1`` kernel (``csrc/basis_h1.cu``, TPU
-kernel ``_h1_fwd``) and its second Dense as a plain matmul (the JAX package
-leaves that one to XLA); the backward is the hand-written CUDA kernel
-``csrc/basis_mlp_bwd.cu``, which replaces ``_multi_bwd_kernel``.
+kernel ``_h1_fwd``), through its operator, and its second Dense as a plain
+matmul (the JAX package leaves that one to XLA); the backward is the
+hand-written CUDA kernel ``csrc/basis_mlp_bwd.cu``, which replaces
+``_multi_bwd_kernel``.
 
 :func:`basis_mlp_multi` returns ``n_out`` aliases of the basis, one per conv
 layer, so the backward receives the layers' cotangents apart and the kernel
@@ -46,7 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from arreau_tpu_torch.kernels.basis_h1 import basis_h1, poly_features_t
+from arreau_tpu_torch.kernels.basis_h1 import poly_features_t
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -168,7 +169,8 @@ class _BasisMLPMulti(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrT, w1, b1, w2, b2, degree, n_out):
-        h1 = F.gelu(basis_h1(attrT, w1, b1, degree), approximate="tanh")
+        h1 = F.gelu(torch.ops.arreau_tpu_torch.basis_h1(attrT, w1, b1, degree),
+                    approximate="tanh")
         basis = F.gelu(torch.matmul(h1, w2) + b2, approximate="tanh")
         ctx.save_for_backward(attrT, w1, b1, w2, b2)
         ctx.degree = degree

@@ -190,6 +190,28 @@ def convnext_mlp(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr=None, br=None):
 convnext_mlp.launches = 0
 
 
+@torch.library.custom_op(
+    "arreau_tpu_torch::convnext_mlp", mutates_args=(),
+    schema="(Tensor xc, Tensor res, Tensor ln_s, Tensor ln_b, Tensor w1, Tensor b1, Tensor w2, "
+           "Tensor b2, Tensor gamma, Tensor? wr, Tensor? br) -> (Tensor, Tensor)")
+def convnext_mlp_op(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br):
+    """:func:`convnext_mlp` as the operator
+    ``torch.ops.arreau_tpu_torch.convnext_mlp``, which ``torch.export`` keeps
+    as one node (a fake tensor has no ``data_ptr``): (out, r), r with 0
+    columns without a readout; the wrapper is looked up in this module when
+    the operator runs. Its outputs are contiguous, as the kernel's are (see
+    :func:`~arreau_tpu_torch.kernels.spatial_conv.spatial_conv_op`)."""
+    out, r = convnext_mlp(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br)
+    r = r if r is not None else xc.new_empty((*xc.shape[:-1], 0))
+    return out.contiguous(), r.contiguous()
+
+
+@convnext_mlp_op.register_fake
+def _(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br):
+    R = wr.shape[1] if wr is not None else 0
+    return torch.empty_like(res), xc.new_empty((*xc.shape[:-1], R), dtype=torch.float32)
+
+
 def convnext_mlp_bwd(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, g_r):
     """(dxc, dres, dln_s, dln_b, dw1, db1, dw2, db2, dgamma, dwr, dbr) for the
     cotangents ``g_out`` (``res``'s type and shape) and ``g_r`` (float32, None
@@ -251,14 +273,16 @@ convnext_mlp_bwd.launches = 0
 
 
 class _ConvNextMLP(torch.autograd.Function):
-    """``fused_convnext_mlp``'s custom VJP: :func:`convnext_mlp` forward,
-    :func:`convnext_mlp_bwd` backward; every input gets its cotangent."""
+    """``fused_convnext_mlp``'s custom VJP: :func:`convnext_mlp` forward
+    through its operator, :func:`convnext_mlp_bwd` backward; every input
+    gets its cotangent."""
 
     @staticmethod
     def forward(ctx, xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br):
         ctx.save_for_backward(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br)
-        out, r = convnext_mlp(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br)
-        return (out, r) if r is not None else out
+        out, r = torch.ops.arreau_tpu_torch.convnext_mlp(xc, res, ln_s, ln_b, w1, b1, w2, b2,
+                                                         gamma, wr, br)
+        return (out, r) if wr is not None else out
 
     @staticmethod
     def backward(ctx, g_out, g_r=None):

@@ -156,6 +156,29 @@ def fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp: bool = False):
 fiber_conv.launches = 0
 
 
+@torch.library.custom_op(
+    "arreau_tpu_torch::fiber_conv", mutates_args=(),
+    schema="(Tensor basis, Tensor w, Tensor x, Tensor src, Tensor fiber_kernel, bool save_x_sp)"
+           " -> (Tensor, Tensor)")
+def fiber_conv_op(basis, w, x, src, fiber_kernel, save_x_sp):
+    """:func:`fiber_conv` as the operator ``torch.ops.arreau_tpu_torch.fiber_conv``,
+    which ``torch.export`` keeps as one node (a fake tensor has no
+    ``data_ptr``): (y, x_sp) with ``save_x_sp``, else (y, an empty tensor);
+    the wrapper is looked up in this module when the operator runs. Its
+    outputs are contiguous, as the kernel's are (see
+    :func:`~arreau_tpu_torch.kernels.spatial_conv.spatial_conv_op`)."""
+    out = fiber_conv(basis, w, x, src, fiber_kernel, save_x_sp)
+    y, x_sp = out if save_x_sp else (out, out.new_empty(0))
+    return y.contiguous(), x_sp.contiguous()
+
+
+@fiber_conv_op.register_fake
+def _(basis, w, x, src, fiber_kernel, save_x_sp):
+    Bp, _, TA, C = x.shape
+    y = x.new_empty((Bp, fiber_kernel.shape[1], TA, C), dtype=torch.float32)
+    return y, x.new_empty(x.shape if save_x_sp else (0,), dtype=torch.float32)
+
+
 def fiber_conv_bwd(basis, w, x, src, fiber_kernel, g, x_sp):
     """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``,
     dfiber_kernel ``[O, P, C]``): the cotangents of :func:`fiber_conv`'s
@@ -206,17 +229,16 @@ fiber_conv_bwd.launches = 0
 
 
 class _FiberConv(torch.autograd.Function):
-    """``fused_fiber_conv``'s custom VJP: :func:`fiber_conv` forward (#1),
-    :func:`fiber_conv_bwd` backward (#2); ``src`` gets no cotangent. With
-    ``save`` the forward keeps the spatial conv for the backward."""
+    """``fused_fiber_conv``'s custom VJP: :func:`fiber_conv` forward (#1)
+    through its operator, :func:`fiber_conv_bwd` backward (#2); ``src`` gets
+    no cotangent. With ``save`` the forward keeps the spatial conv for the
+    backward."""
 
     @staticmethod
     def forward(ctx, basis, w, x, src, fiber_kernel, save):
-        out = fiber_conv(basis, w, x, src, fiber_kernel, save)
-        if not save:
-            return out
-        y, x_sp = out
-        ctx.save_for_backward(basis, w, x, src, fiber_kernel, x_sp)
+        y, x_sp = torch.ops.arreau_tpu_torch.fiber_conv(basis, w, x, src, fiber_kernel, save)
+        if save:
+            ctx.save_for_backward(basis, w, x, src, fiber_kernel, x_sp)
         return y
 
     @staticmethod

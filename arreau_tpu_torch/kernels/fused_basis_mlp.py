@@ -163,6 +163,23 @@ def fused_basis_mlp(attr, w1, w2, degree: int):
 fused_basis_mlp.launches = 0
 
 
+@torch.library.custom_op("arreau_tpu_torch::fused_basis_mlp", mutates_args=(),
+                         schema="(Tensor attr, Tensor w1, Tensor w2, int degree) -> Tensor")
+def fused_basis_mlp_op(attr, w1, w2, degree):
+    """:func:`fused_basis_mlp` as the operator
+    ``torch.ops.arreau_tpu_torch.fused_basis_mlp``, which ``torch.export``
+    keeps as one node (a fake tensor has no ``data_ptr``); the wrapper is
+    looked up in this module when the operator runs. Its outputs are
+    contiguous, as the kernel's are (see
+    :func:`~arreau_tpu_torch.kernels.spatial_conv.spatial_conv_op`)."""
+    return fused_basis_mlp(attr, w1, w2, degree).contiguous()
+
+
+@fused_basis_mlp_op.register_fake
+def _(attr, w1, w2, degree):
+    return attr.new_empty((*attr.shape[:3], w2.shape[1]))
+
+
 def fused_basis_mlp_bwd(attr, w1, w2, degree: int, g):
     """(dw1 ``[F, H]``, dw2 ``[H, D]``), float32, for the cotangent ``g [B',
     O, E, D]`` of :func:`fused_basis_mlp`'s output (``attr``'s type)."""
@@ -204,13 +221,14 @@ fused_basis_mlp_bwd.launches = 0
 
 class _FusedBasisMLP(torch.autograd.Function):
     """``fused_basis_mlp``'s custom VJP: :func:`fused_basis_mlp` forward
-    (#5), :func:`fused_basis_mlp_bwd` backward (#6); zeros for ``attr``."""
+    (#5) through its operator, :func:`fused_basis_mlp_bwd` backward (#6);
+    zeros for ``attr``."""
 
     @staticmethod
     def forward(ctx, attr, w1, w2, degree):
         ctx.save_for_backward(attr, w1, w2)
         ctx.degree = degree
-        return fused_basis_mlp(attr, w1, w2, degree)
+        return torch.ops.arreau_tpu_torch.fused_basis_mlp(attr, w1, w2, degree)
 
     @staticmethod
     def backward(ctx, g):

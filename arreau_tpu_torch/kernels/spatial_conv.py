@@ -176,6 +176,24 @@ def spatial_conv(basis, w, x, src, win):
 spatial_conv.launches = 0
 
 
+@torch.library.custom_op(
+    "arreau_tpu_torch::spatial_conv", mutates_args=(),
+    schema="(Tensor basis, Tensor w, Tensor x, Tensor src, Tensor win) -> Tensor")
+def spatial_conv_op(basis, w, x, src, win):
+    """:func:`spatial_conv` as the operator
+    ``torch.ops.arreau_tpu_torch.spatial_conv``, which ``torch.export``
+    keeps as one node (a fake tensor has no ``data_ptr``); the wrapper is
+    looked up in this module when the operator runs. Its outputs are
+    contiguous, as the kernel's are, so that their fake (``torch.export``'s)
+    and real layouts agree on either device."""
+    return spatial_conv(basis, w, x, src, win).contiguous()
+
+
+@spatial_conv_op.register_fake
+def _(basis, w, x, src, win):
+    return basis.new_empty(x.shape)
+
+
 def spatial_conv_bwd(basis, w, x, src, win, g, window_grad: bool = False):
     """(dbasis ``[B', O, E, D]``, dw ``[D, C]``, dx ``[B', O, TA, C]``), and
     with ``window_grad`` dwin ``[B', E]`` (float32) after them: the
@@ -295,15 +313,15 @@ tile_product.launches = 0
 
 
 class _SpatialConv(torch.autograd.Function):
-    """``fused_spatial_conv``'s custom VJP: :func:`spatial_conv` forward,
-    :func:`spatial_conv_bwd` backward; ``src`` gets no cotangent, and ``win``
-    one only with ``window_grad``."""
+    """``fused_spatial_conv``'s custom VJP: :func:`spatial_conv` forward
+    through its operator, :func:`spatial_conv_bwd` backward; ``src`` gets no
+    cotangent, and ``win`` one only with ``window_grad``."""
 
     @staticmethod
     def forward(ctx, basis, w, x, src, win, window_grad):
         ctx.save_for_backward(basis, w, x, src, win)
         ctx.window_grad = window_grad
-        return spatial_conv(basis, w, x, src, win)
+        return torch.ops.arreau_tpu_torch.spatial_conv(basis, w, x, src, win)
 
     @staticmethod
     def backward(ctx, g):

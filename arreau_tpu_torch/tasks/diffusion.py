@@ -75,12 +75,17 @@ class CrystalBatch(NamedTuple):
     atom_mask: torch.Tensor
 
 
-def batch_to_device(batch: CrystalBatch, device) -> CrystalBatch:
+def batch_to_device(batch: CrystalBatch, device, non_blocking: bool = False) -> CrystalBatch:
     """A batch of numpy arrays (the loader's) as tensors on ``device``:
-    float32 coordinates and lattices, int64 types and counts, bool mask."""
+    float32 coordinates and lattices, int64 types and counts, bool mask.
+    With ``non_blocking`` (a CUDA device) each is converted on the host,
+    pinned and copied asynchronously on the current stream."""
     dtypes = (torch.float32, torch.long, torch.float32, torch.long, torch.bool)
-    return CrystalBatch(*(torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
-                          for a, dt in zip(batch, dtypes)))
+    if not non_blocking:
+        return CrystalBatch(*(torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+                              for a, dt in zip(batch, dtypes)))
+    return CrystalBatch(*(torch.as_tensor(np.asarray(a)).to(dtype=dt).pin_memory()
+                          .to(device=device, non_blocking=True) for a, dt in zip(batch, dtypes)))
 
 
 def rotate_batch(rotations: torch.Tensor, batch: CrystalBatch) -> CrystalBatch:
@@ -373,11 +378,9 @@ class DiffusionModel:
     # ---------------- sampler ----------------
 
     def sample(self, num_samples: int, num_atoms_per_sample: int,
-               generator: Optional[torch.Generator] = None, **kwargs) -> CrystalBatch:
+               generator: Optional[torch.Generator] = None, **kwargs):
         """Generate ``num_samples`` crystals; keyword arguments as
-        :meth:`_sample_impl`. Snapshot (GIF) mode waits for a later slice."""
-        if kwargs.pop("snapshot_every", None) is not None:
-            raise NotImplementedError("snapshot sampling waits for a later slice")
+        :meth:`_sample_impl` (with ``snapshot_every``, ``(batch, snapshots)``)."""
         with torch.inference_mode():
             return self._sample_impl(num_samples, num_atoms_per_sample, generator=generator,
                                      **kwargs)
@@ -395,11 +398,19 @@ class DiffusionModel:
         num_atoms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         noise: Optional[SamplerNoise] = None,
-    ) -> CrystalBatch:
+        snapshot_every: Optional[int] = None,
+    ):
         """Full reverse diffusion. ``sample_steps`` below ``T-1`` runs the
         strided chain over :func:`strided_levels`, else the dense chain.
         ``noise`` injects every random number; without it they are drawn
-        from ``generator``."""
+        from ``generator``.
+
+        With ``snapshot_every`` (the dense chain only, as the JAX package's)
+        returns ``(batch, [(timestep, batch), ...])``: the state after every
+        ``snapshot_every`` steps and at the chain's end, labelled ``T - 1 -
+        steps done`` (T = 1000, every 10: 989, 979, ..., 9, 0), each decoded
+        as the final batch is. The chain's arithmetic is the same, so the
+        final batch equals the one without snapshots bit for bit."""
         cfg = self.config
         dev = self.device
         B, A, C = num_samples, num_atoms_per_sample, cfg.num_atomic_states
@@ -407,6 +418,8 @@ class DiffusionModel:
         if sample_steps is not None and sample_steps < 1:
             raise ValueError(f"sample_steps must be >= 1, got {sample_steps}")
         strided = sample_steps is not None and sample_steps < total
+        if strided and snapshot_every is not None:
+            raise ValueError("snapshots are not supported with strided sampling")
         ts = strided_levels(cfg.num_timesteps, sample_steps) if strided else None
         num_steps = ts.size - 1 if strided else total
         if noise is None:
@@ -438,6 +451,13 @@ class DiffusionModel:
             pred_enc = torch.clamp(pred_global[:, 3:9], -1.0, 1.0) if cfg.diffuse_angles else None
             return pred_eps, logits, pred_lengths, pred_enc
 
+        def batch_of(frac, types, lengths, ang_enc):
+            ang = _decode_angles_safe(ang_enc) if cfg.diffuse_angles else angles
+            return CrystalBatch(frac_x=frac, atom_types=types,
+                                lattice=lattice_from_params(lengths, ang), num_atoms=num_atoms,
+                                atom_mask=atom_mask)
+
+        snapshots = []
         if strided:
             q_strided_T = make_strided_transitions(cfg.num_timesteps, C, ts, cfg.mask_prob, device=dev)
         for k in range(num_steps):
@@ -468,7 +488,10 @@ class DiffusionModel:
                                           t[:, None].expand(B, A), temperature=type_temperature)
             if constant_atoms is not None:
                 types = constant_atoms
+            done = k + 1
+            if snapshot_every is not None and (done % snapshot_every == 0 or done == num_steps):
+                snapshots.append((cfg.num_timesteps - 1 - done, batch_of(frac, types, lengths,
+                                                                         ang_enc)))
 
-        ang = _decode_angles_safe(ang_enc) if cfg.diffuse_angles else angles
-        return CrystalBatch(frac_x=frac, atom_types=types, lattice=lattice_from_params(lengths, ang),
-                            num_atoms=num_atoms, atom_mask=atom_mask)
+        batch = batch_of(frac, types, lengths, ang_enc)
+        return batch if snapshot_every is None else (batch, snapshots)

@@ -9,8 +9,11 @@ plain PyTorch version; the trained flagship checkpoint, served with the
 JAX flagship report's command, its sample quality held to a gate; the
 N-body and MNIST-superpixels backbone tasks through their training CLIs,
 N-body's valid MSE held to a gate; gradients through atom positions
-(``position_grads``: #4's window cotangent); and the QM9 and MD17
-point-cloud tasks through their training CLIs.
+(``position_grads``: #4's window cotangent); the QM9 and MD17
+point-cloud tasks through their training CLIs; and the sampler's and
+trainer's remaining surface: snapshot sampling, the renders, the serving
+export (#3/#8 as PyTorch operators in a ``torch.export`` program) and the
+training CLI's ``--log`` and ``--profiler torch``.
 
 Run from the repository root, with no arguments:
 
@@ -143,6 +146,26 @@ inner launches by name and time.
 27. backbone tasks: md17: the same for the MD17 CLI (1200 molecules, batch
    16, lambda_F 500, 40 steps), the forces card against CPU too, and the
    gradients those of a double backward.
+28. snapshot sampling: the trained flagship's dense chain (999 steps) on
+   16 x 8 with a snapshot every 10 steps: 100 snapshots labelled 989, 979,
+   ..., 9, 0, 5 bf16 #3 and 1 bf16 #8 a forward and nothing else, the final
+   batch equal bit for bit to the chain without snapshots; its seconds.
+29. renders: where matplotlib and PIL import, generate ``--gif --visualize
+   --show_bonds`` on the flagship (16 x 8): ``sampling.gif``, its 100
+   frames and the crystals' PNGs; where either does not, generate ``--gif``
+   raises its ImportError before any kernel launch. It prints which ran.
+30. serving export: export_sampler on the flagship at 100 x 8, 20 strided
+   steps, fixed and ``variable_num_atoms``: no launch in the export; the
+   artifact (``load_exported``, ``call(0)``) launches 20 x (5 #3 + 1 #8)
+   and nothing else and gives the in-process sampler's crystals from the
+   same seed (types equal, frac and lattice within 1e-6; bit for bit
+   reported); export seconds, artifact bytes, crystals/min of the artifact
+   against the in-process sampler over 3 warm calls.
+31. training CLI leftovers: the training CLI at batch 256, hidden 200, two
+   epochs, ``--log true --profiler torch``: the notice of a missing wandb,
+   a non-empty Chrome trace of epoch 1 naming the port's kernels, steps/s
+   and the device's idle share beside the 35-step phase's steps/s (both
+   prefetch their batches).
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -151,7 +174,8 @@ sampler paths; bfloat16 instantiations as entries of their own, named
 shape and no-readout call beside; #5/#6 ``fused_basis_mlp*`` with the
 launches of phase 21; ``*_nbody`` and ``*_mnist`` with the launches of
 their CLI runs; ``spatial_conv_bwd_dwin*`` with the launches of phase 25's
-steps) and the result
+steps; ``spatial_conv_bf16`` and ``basis_h1_bf16`` also with those of
+phases 28 and 30) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -207,6 +231,11 @@ TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_STEPS = 256, 200, 35  # 35 steps = 5 epochs of 
 # the command of the JAX package's flagship quality report
 FLAGSHIP = Path(__file__).resolve().parent / "ported_ckpt" / "ang_on"
 FLAGSHIP_BATCH, FLAGSHIP_CRYSTALS, FLAGSHIP_STEPS = 100, 500, 100
+# snapshot sampling (the flagship's dense chain, 16 crystals, a snapshot every
+# 10 steps) and the serving export (the flagship's shape, 20 strided steps)
+SNAPSHOT_BATCH, SNAPSHOT_EVERY, EXPORT_STEPS, EXPORT_TIMED_CALLS = 16, 10, 20, 3
+# the training CLI's steps/s by its extra arguments (training_path)
+CLI_RATES: dict = {}
 FLAGSHIP_ARGS = [
     "--tag", "best", "--use_ema", "false", "--num_crystals", str(FLAGSHIP_CRYSTALS),
     "--batch_size", str(FLAGSHIP_BATCH), "--num_atoms_per_sample", str(ATOMS),
@@ -333,9 +362,11 @@ def first_step_inputs(model, noise):
 
 
 def kernel_sites():
-    """{kernel name: (module, attribute)} where the port's autograd
-    Functions look each kernel wrapper up when they run."""
+    """{kernel name: (module, attribute)} where the port looks each kernel
+    wrapper up when it runs: the forwards' operators and the backwards'
+    autograd Functions, eager or in a program ``torch.export`` saved."""
     from arreau_tpu_torch.kernels import (
+        basis_h1,
         basis_mlp,
         convnext_mlp,
         fiber_conv,
@@ -345,7 +376,7 @@ def kernel_sites():
 
     return {"spatial_conv": (spatial_conv, "spatial_conv"),
             "spatial_conv_bwd": (spatial_conv, "spatial_conv_bwd"),
-            "basis_h1": (basis_mlp, "basis_h1"),
+            "basis_h1": (basis_h1, "basis_h1"),
             "basis_mlp_bwd": (basis_mlp, "basis_mlp_bwd"),
             "fiber_conv": (fiber_conv, "fiber_conv"),
             "fiber_conv_bwd": (fiber_conv, "fiber_conv_bwd"),
@@ -1151,6 +1182,7 @@ def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> d
     rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
     if rate is None:
         raise RuntimeError("the training CLI printed no throughput")
+    CLI_RATES[" ".join(extra_args)] = float(rate.group(1))
     print(f"training path {' '.join(extra_args)}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, "
           f"hidden {TRAIN_HIDDEN} in {wall:.2f} s wall (build of the data, evaluation and "
           f"checkpoints included); {float(rate.group(1)):.3f} steps/s warm on {card}")
@@ -1689,6 +1721,291 @@ def point_cloud_phase(tmp: Path, card: str, task: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}")
 
 
+def flagship_model():
+    """(model, z-table, meta) of the trained flagship on the card, its raw
+    weights (the flagship command's ``--use_ema false``)."""
+    from arreau_tpu_torch.cli import generate
+
+    return generate.load_model(str(FLAGSHIP), "best", False, "cuda")
+
+
+def flagship_launches(forwards: int, L: int) -> dict:
+    """5 bf16 #3 and 1 bf16 #8 a forward of the flagship, no other kernel."""
+    return {name: {"spatial_conv": L, "basis_h1": 1}.get(name, 0) * forwards
+            for name in launch_counts()}
+
+
+def snapshot_labels(num_timesteps: int) -> list:
+    """The labels of the dense chain's snapshots every SNAPSHOT_EVERY steps:
+    T - 1 - steps done (T = 1000: 989, 979, ..., 9, 0)."""
+    return list(range(num_timesteps - 1 - SNAPSHOT_EVERY, 0, -SNAPSHOT_EVERY)) + [0]
+
+
+def snapshot_phase(card: str, records: dict) -> None:
+    """The flagship's dense chain (999 steps) on SNAPSHOT_BATCH x ATOMS with a
+    snapshot every SNAPSHOT_EVERY steps from seed SEED: 100 snapshots labelled
+    989, ..., 9, 0; bf16 #3 and #8 alone, once a layer / once a forward; the
+    final batch equal bit for bit to the chain without snapshots."""
+    from arreau_tpu_torch.inference.io import from_dense_batch
+
+    model, z_table, _ = flagship_model()
+    cfg = model.config
+    T, L = cfg.num_timesteps, cfg.num_layers
+    dtypes = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with capturing(dtypes):
+        batch, snaps = model.sample(SNAPSHOT_BATCH, ATOMS, snapshot_every=SNAPSHOT_EVERY,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, want = launch_counts(), flagship_launches(T - 1, L)
+    print(f"snapshot chain: {T - 1} forwards, launches {counts}; element types {dtypes}")
+    if counts != want:
+        raise RuntimeError(f"the snapshot chain launched {counts}, not {want}")
+    if dtypes != {"spatial_conv": {torch.bfloat16}, "basis_h1": {torch.bfloat16}}:
+        raise RuntimeError(f"the snapshot chain's kernels ran in {dtypes}, not bfloat16 alone")
+    labels, want_labels = [t for t, _ in snaps], snapshot_labels(T)
+    print(f"{len(snaps)} snapshots labelled {labels[:3]} ... {labels[-3:]}")
+    if labels != want_labels:
+        raise RuntimeError(f"snapshot labels {labels}, not {want_labels}")
+    t0 = time.perf_counter()
+    plain = model.sample(SNAPSHOT_BATCH, ATOMS,
+                         generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    same = {name: torch.equal(getattr(batch, name), getattr(plain, name))
+            for name in plain._fields}
+    print(f"final batch equals the chain without snapshots bit for bit: {same}")
+    if not all(same.values()):
+        raise RuntimeError("snapshot sampling changed the chain's result")
+    for _, snap in snaps:
+        if not (torch.isfinite(snap.frac_x).all() and torch.isfinite(snap.lattice).all()):
+            raise RuntimeError("a snapshot is not finite")
+    crystal_checks(from_dense_batch(batch, z_table), z_table, SNAPSHOT_BATCH, ATOMS,
+                   (0.0, math.inf))
+    print(f"snapshot sampling: {SNAPSHOT_BATCH} x {ATOMS}, {T - 1} steps, {seconds:.2f} s with "
+          f"snapshots, {plain_seconds:.2f} s without, on {card}")
+    for name in ("spatial_conv", "basis_h1"):
+        records[name + "_bf16"]["launches_snapshots"] = counts[name]
+
+
+def renders_phase(tmp: Path, card: str) -> None:
+    """generate ``--gif --visualize --show_bonds`` on the flagship
+    (SNAPSHOT_BATCH x ATOMS) where matplotlib and PIL import: the GIF, its
+    frames and the crystals' PNGs exist; where either does not, generate
+    ``--gif`` raises its ImportError before any kernel launch."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.inference.visualize import require_renderers
+
+    argv = ["--checkpoint_dir", str(FLAGSHIP), "--tag", "best", "--use_ema", "false",
+            "--num_crystals", str(SNAPSHOT_BATCH), "--batch_size", str(SNAPSHOT_BATCH),
+            "--num_atoms_per_sample", str(ATOMS), "--clip_denoised", "false",
+            "--seed", str(SEED), "--device", "cuda", "--out_dir", str(tmp),
+            "--gif", "true", "--visualize", "true", "--show_bonds", "true"]
+    try:
+        require_renderers()
+        missing = None
+    except ImportError as e:
+        missing = e
+    reset_launch_counts()
+    if missing is not None:
+        print(f"renders: branch 'no renderer' ({missing}); generate --gif must raise it before "
+              "any kernel launch")
+        try:
+            generate.main(argv)
+        except ImportError as e:
+            print(f"generate raised ImportError: {e}")
+        else:
+            raise RuntimeError("generate --gif ran without matplotlib or PIL")
+        counts = launch_counts()
+        print(f"launches {counts}")
+        if any(counts.values()):
+            raise RuntimeError("generate launched kernels before raising its ImportError")
+        return
+    print("renders: branch 'render' (matplotlib and PIL import)")
+    t0 = time.perf_counter()
+    generate.main(argv)
+    seconds = time.perf_counter() - t0
+    labels = snapshot_labels(json.loads((FLAGSHIP / "meta.json").read_text())["config"][
+        "num_timesteps"])
+    want = (["sampling.gif"] + [f"crystal_{i}.png" for i in range(4)]
+            + [f"sampling_steps/step_{t}.png" for t in labels])
+    found = [w for w in want if (tmp / w).is_file() and (tmp / w).stat().st_size > 0]
+    frames = len(list((tmp / "sampling_steps").glob("step_*.png")))
+    print(f"rendered in {seconds:.2f} s: {len(found)} of the {len(want)} files (sampling.gif, "
+          f"4 crystals, {len(labels)} frames); {frames} frames in sampling_steps/")
+    if found != want or frames != len(labels):
+        raise RuntimeError("generate --gif --visualize did not write its files")
+
+
+def dispatched_ops(fn) -> dict:
+    """{ATen operator: calls} dispatched while ``fn()`` runs (the host's
+    work a call, operator by operator)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.calls
+
+
+def export_phase(tmp: Path, card: str, records: dict, steps: int = EXPORT_STEPS,
+                 variants: tuple = (False, True)) -> None:
+    """export_sampler on the flagship at FLAGSHIP_BATCH x ATOMS, ``steps``
+    strided steps, fixed and ``variable_num_atoms``: the export launches no
+    kernel; ``load_exported`` and ``call(SEED)`` launch 5 bf16 #3 and 1 bf16
+    #8 a step and nothing else, and give the in-process sampler's crystals
+    from the same seed (types equal, frac and lattice within 1e-6; bit for
+    bit is reported); export seconds, artifact bytes and crystals/min of
+    the artifact against the in-process sampler over EXPORT_TIMED_CALLS warm
+    calls. The JAX export's serving point, S = 100, by hand: ``python3 -c
+    'import chip_smoke as s, pathlib, tempfile; s.export_phase(pathlib.Path(
+    tempfile.mkdtemp()), "", {}, steps=100, variants=(False,))'``."""
+    from arreau_tpu_torch.cli import export_sampler, generate
+    from arreau_tpu_torch.inference.export import load_exported
+
+    model, _, meta = flagship_model()
+    bounds = generate.length_bounds_from_meta(meta)
+    L = model.config.num_layers
+    B = FLAGSHIP_BATCH
+    for variable in variants:
+        label = "variable_num_atoms" if variable else "fixed"
+        out = tmp / f"sampler_{label}.pt2"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sidecar = export_sampler.main([
+            "--checkpoint_dir", str(FLAGSHIP), "--tag", "best", "--use_ema", "false",
+            "--batch_size", str(B), "--num_atoms_per_sample", str(ATOMS),
+            "--sample_steps", str(steps), "--variable_num_atoms", str(variable).lower(),
+            "--out", str(out), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        traced = launch_counts()
+        if any(traced.values()):
+            raise RuntimeError(f"the export launched kernels: {traced}")
+        t0 = time.perf_counter()
+        call, _ = load_exported(str(out))
+        load_s = time.perf_counter() - t0
+        counts_arg = None
+        if variable:
+            counts_arg = torch.as_tensor(np.random.default_rng(SEED).integers(1, ATOMS + 1, B),
+                                         device="cuda")
+        S = sidecar["noise_steps"]
+
+        def artifact():
+            return call(SEED, counts_arg) if variable else call(SEED)
+
+        def in_process():
+            generator = torch.Generator(device="cuda").manual_seed(SEED)
+            return model.sample(B, ATOMS, generator=generator, sample_steps=steps,
+                                length_bounds=bounds, num_atoms=counts_arg)
+
+        reset_launch_counts()
+        got = artifact()
+        torch.cuda.synchronize()
+        counts, want = launch_counts(), flagship_launches(S, L)
+        print(f"{label} artifact: {S} steps, launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"the artifact launched {counts}, not {want}")
+        ref = in_process()
+        types_equal = torch.equal(got[1], ref.atom_types)
+        errs = [(a.double() - b.double()).abs().max().item()
+                for a, b in ((got[0], ref.frac_x), (got[2], ref.lattice))]
+        bits = all(torch.equal(a, b)
+                   for a, b in zip(got, (ref.frac_x, ref.atom_types, ref.lattice)))
+        print(f"{label} artifact against the in-process sampler, seed {SEED}: types equal "
+              f"{types_equal}, max |frac diff| {errs[0]:.3e}, max |lattice diff| {errs[1]:.3e} "
+              f"(tolerance 1e-6), bit for bit {bits}")
+        if not (types_equal and max(errs) <= 1e-6):
+            raise RuntimeError(f"the {label} artifact disagrees with the in-process sampler")
+        if not variable:
+            ops = {"artifact": dispatched_ops(artifact), "in-process": dispatched_ops(in_process)}
+            n = {k: sum(v.values()) for k, v in ops.items()}
+            diff = sorted(set(ops["artifact"]) | set(ops["in-process"]),
+                          key=lambda op: -abs(ops["artifact"][op] - ops["in-process"][op]))
+            print(f"ATen operators dispatched a call: artifact {n['artifact']}, in-process "
+                  f"{n['in-process']} ({n['artifact'] / n['in-process']:.3f}x); the largest "
+                  "differences (artifact, in-process): " + ", ".join(
+                      f"{op} {ops['artifact'][op]}/{ops['in-process'][op]}" for op in diff[:8]))
+        rates = {}
+        for name, fn in (("artifact", artifact), ("in-process", in_process)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXPORT_TIMED_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            rates[name] = EXPORT_TIMED_CALLS * B / (time.perf_counter() - t0) * 60
+        print(f"{label} export: {sidecar['export_seconds']:.2f} s in torch.export ({wall:.2f} s "
+              f"for the CLI, checkpoint load and save included), artifact {sidecar['bytes']} "
+              f"bytes, load {load_s:.2f} s; {rates['artifact']:.0f} crystals/min from the "
+              f"artifact, {rates['in-process']:.0f} in-process ({EXPORT_TIMED_CALLS} warm calls "
+              f"of {B} x {ATOMS}, {S} steps) on {card}")
+        if not variable:
+            for name in ("spatial_conv", "basis_h1"):
+                records.setdefault(name + "_bf16", {})["launches_export"] = counts[name]
+
+
+def training_leftovers_phase(tmp: Path, card: str) -> None:
+    """The training CLI at batch TRAIN_BATCH, hidden TRAIN_HIDDEN for two
+    epochs with ``--log true --profiler torch`` in ``tmp``: the notice of a
+    missing wandb (or its run, offline), a non-empty Chrome trace of epoch 1
+    under ``profile_results/`` naming the forward and backward kernels, and
+    the steps/s and the device's idle share of epoch 1 beside the 35-step
+    CLI phase's steps/s (both prefetching)."""
+    import os
+
+    from arreau_tpu_torch.cli import train_diffusion
+
+    os.environ["WANDB_MODE"] = "offline"  # a wandb run (the card's machine has wandb) stays local
+    tee = Tee(sys.stdout)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp), contextlib.redirect_stdout(tee):
+        loss = train_diffusion.main([
+            "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+            "--hidden_dim", str(TRAIN_HIDDEN), "--epochs", "2", "--warmup", "0",
+            "--val_interval", "1", "--seed", str(SEED), "--checkpoint_dir", str(tmp / "ckpt"),
+            "--device", "cuda", "--log", "true", "--profiler", "torch"])
+    wall = time.perf_counter() - t0
+    out = tee.buf.getvalue()
+    wandb = "wandb not available; logging to stdout only" in out
+    print(f"--log: {'the notice (no wandb)' if wandb else 'a wandb run, offline'}")
+    if not wandb and "wandb" not in sys.modules:
+        raise RuntimeError("--log printed no notice and started no wandb run")
+    traces = sorted((tmp / "profile_results").glob("*.json"))
+    if len(traces) != 1 or traces[0].stat().st_size == 0:
+        raise RuntimeError(f"--profiler torch wrote {traces}, not one trace")
+    text = traces[0].read_text()
+    named = {k: k in text for k in ("spatial_conv_fwd_kernel", "basis_h1_kernel", "gxw_kernel",
+                                    "basis_dpre2_kernel")}
+    print(f"trace {traces[0].name}: {traces[0].stat().st_size} bytes; kernels named {named}")
+    if not all(named.values()):
+        raise RuntimeError("the trace does not name the port's kernels")
+    rate = re.search(r"train throughput: ([0-9.]+) steps/s", out)
+    idle = re.search(r"idle share ([0-9.]+)%", out)
+    if rate is None or idle is None or not math.isfinite(loss):
+        raise RuntimeError("the training CLI printed no throughput or idle share")
+    counts = launch_counts()
+    if not all(counts[k] > 0 for k in ("spatial_conv", "basis_h1", "spatial_conv_bwd",
+                                        "basis_mlp_bwd")):
+        raise RuntimeError(f"the training CLI missed a kernel: {counts}")
+    print(f"training CLI with --log --profiler torch: {float(rate.group(1)):.3f} steps/s warm "
+          f"(epoch 1 profiled), device idle share {idle.group(1)}% of epoch 1, {wall:.2f} s wall; "
+          f"the 35-step CLI phase: {CLI_RATES.get('', float('nan')):.3f} steps/s (both prefetch) "
+          f"on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -2142,6 +2459,16 @@ def main() -> int:
         point_cloud_phase(Path(tmp), card, "qm9")
     with Phase("backbone tasks: md17"), tempfile.TemporaryDirectory() as tmp:
         point_cloud_phase(Path(tmp), card, "md17")
+
+    # ---------------- the sampler's and the trainer's remaining surface ----------------
+    with Phase("snapshot sampling"):
+        snapshot_phase(card, records)
+    with Phase("renders"), tempfile.TemporaryDirectory() as tmp:
+        renders_phase(Path(tmp), card)
+    with Phase("serving export"), tempfile.TemporaryDirectory() as tmp:
+        export_phase(Path(tmp), card, records)
+    with Phase("training CLI leftovers"), tempfile.TemporaryDirectory() as tmp:
+        training_leftovers_phase(Path(tmp), card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

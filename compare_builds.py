@@ -36,9 +36,13 @@ the new calls in this build alone. The rules:
   in their bfloat16 one (whose float32 outputs follow bfloat16 roundings
   too, as ``chip_smoke.py`` holds them);
 - every other output equals the other build's bit for bit;
-- the wrappers of ``REDESIGNED`` and ``TIMED`` (#4, whose source this build
-  changed) are timed with CUDA events in this process on the calls both
-  builds take, this build's before and after the other's twice.
+- the wrappers of ``REDESIGNED`` and ``TIMED`` (none in this build) are
+  timed with CUDA events in this process on the calls both builds take,
+  this build's before and after the other's twice; so are the kernels the
+  port now calls through their PyTorch operators (``OPERATORS``, #3 and
+  #8, on the sampler's path): this build's operator
+  (``torch.ops.arreau_tpu_torch.*``) against the other build's wrapper,
+  with the host's microseconds a call beside (the dispatcher's cost).
 
 Exits non-zero if a rule fails.
 """
@@ -50,6 +54,7 @@ import dataclasses
 import importlib
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -67,7 +72,12 @@ MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
 # to a tolerance), and kernels whose source changed without a change of
 # arithmetic (held bit for bit); both timed in both builds
 REDESIGNED = ()
-TIMED = ("spatial_conv_bwd",)
+TIMED = ()
+# forward kernels the port calls through their PyTorch operators since the
+# operators were registered: timed through the operator in this build and
+# through the wrapper in the other
+OPERATORS = ("spatial_conv", "basis_h1")
+HOST_CALLS = 50
 
 
 def new_call(key, args) -> bool:
@@ -191,12 +201,33 @@ def run_kernels(captured: dict) -> dict:
     return outputs
 
 
-def time_redesigned(captured: dict) -> dict:
-    """{key: ms per call} of the package's wrappers of the REDESIGNED and
-    TIMED kernels."""
+def host_us(fn, args) -> float:
+    """Host microseconds a call of ``fn`` takes to return (launches queue
+    behind each other; the device is waited for after)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn(*args)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / HOST_CALLS * 1e6
+
+
+def time_redesigned(captured: dict, through_operators: bool) -> dict:
+    """{key: (ms per call, host microseconds per call)} of the package's
+    wrappers of the REDESIGNED and TIMED kernels and of the OPERATORS
+    kernels (through their operators with ``through_operators``)."""
+    times = {}
     with torch.no_grad():
-        return {(path, name): smoke.cuda_ms(lambda: wrapper(name)(*args))
-                for (path, name), args in captured.items() if name in REDESIGNED + TIMED}
+        for (path, name), args in captured.items():
+            if name not in REDESIGNED + TIMED + OPERATORS:
+                continue
+            fn = wrapper(name)
+            if name in OPERATORS and through_operators:
+                fn = getattr(torch.ops.arreau_tpu_torch, name)
+            times[path, name] = (smoke.cuda_ms(lambda: fn(*args)), host_us(fn, args))
+    return times
 
 
 @contextlib.contextmanager
@@ -258,13 +289,13 @@ def main(argv: list[str]) -> int:
     ours = run_kernels(captured)
     again = differences(ours, run_kernels(captured))
     shared = {k: a for k, a in captured.items() if not new_call(k, a)}
-    ours_ms = time_redesigned(shared)
+    ours_ms = time_redesigned(shared, True)
     with package_from(other):
         other_build = importlib.import_module(f"{PACKAGE}.kernels.build")
         print(f"{other}'s nvcc build: {other_build.build_library():.2f} s")
         theirs = differences({k: ours[k] for k in shared}, run_kernels(shared))
-        theirs_ms = [time_redesigned(shared) for _ in range(2)]
-    ours_ms = [ours_ms, time_redesigned(shared)]
+        theirs_ms = [time_redesigned(shared, False) for _ in range(2)]
+    ours_ms = [ours_ms, time_redesigned(shared, True)]
     ok = True
     for key, args in captured.items():
         if not new_call(key, args):
@@ -294,11 +325,15 @@ def main(argv: list[str]) -> int:
             ok &= diff is None
         print(line)
     for key in ours_ms[0]:
-        mine = sum(t[key] for t in ours_ms) / 2
-        old = sum(t[key] for t in theirs_ms) / 2
-        print(f"{key[0]} {key[1]}: this build {ours_ms[0][key]:.4f} / {ours_ms[1][key]:.4f} ms, "
-              f"{other.name} {theirs_ms[0][key]:.4f} / {theirs_ms[1][key]:.4f} ms (CUDA events, "
-              f"{smoke.TIMED_RUNS} calls each): {old / mine:.2f}x")
+        mine = sum(t[key][0] for t in ours_ms) / 2
+        old = sum(t[key][0] for t in theirs_ms) / 2
+        how = "operator" if key[1] in OPERATORS else "wrapper"
+        print(f"{key[0]} {key[1]}: this build's {how} {ours_ms[0][key][0]:.4f} / "
+              f"{ours_ms[1][key][0]:.4f} ms, {other.name}'s wrapper {theirs_ms[0][key][0]:.4f} / "
+              f"{theirs_ms[1][key][0]:.4f} ms (CUDA events, {smoke.TIMED_RUNS} calls each): "
+              f"{old / mine:.2f}x; host {ours_ms[0][key][1]:.1f} / {ours_ms[1][key][1]:.1f} us a "
+              f"call against {theirs_ms[0][key][1]:.1f} / {theirs_ms[1][key][1]:.1f} "
+              f"({HOST_CALLS} calls)")
     print("every rule holds" if ok else "a rule failed")
     return 0 if ok else 1
 

@@ -417,7 +417,7 @@ def test_position_grads_kernel_branch_position_gradients_match_plain_branch():
                                         cfg.num_atomic_states).float(),
             torch.tensor(rng.integers(1, 50, B), device=dev), torch.full((B,), A, device=dev))
     grads = {}
-    before = (spatial_conv.launches, spatial_conv_bwd.launches, bm.basis_h1.launches,
+    before = (spatial_conv.launches, spatial_conv_bwd.launches, basis_h1.launches,
               bm.basis_mlp_bwd.launches)
     for k, model in models.items():
         leaves = (frac.clone().requires_grad_(), lengths.clone().requires_grad_())
@@ -427,7 +427,7 @@ def test_position_grads_kernel_branch_position_gradients_match_plain_branch():
         s = sum((o * torch.linspace(-1, 1, o.numel(), device=dev).view_as(o)).sum() for o in outs)
         grads[k] = torch.autograd.grad(s, leaves)
     torch.cuda.synchronize()
-    after = (spatial_conv.launches, spatial_conv_bwd.launches, bm.basis_h1.launches,
+    after = (spatial_conv.launches, spatial_conv_bwd.launches, basis_h1.launches,
              bm.basis_mlp_bwd.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 0, 0)
     for got, want in zip(grads[True], grads[False]):
@@ -930,3 +930,117 @@ def test_relax_and_quality_report_on_the_card_match_the_cpu():
     for key, value in reports["cpu"].items():
         tol = 1.0 / B if key.endswith(("_rate", "_frac")) else 1e-4 * max(abs(value), 1.0)
         assert abs(reports["cuda"][key] - value) <= tol, key
+
+
+def _op_args(rng, dev, name, dtype, variant):
+    """Arguments of the forward operator ``name`` at a ragged shape on ``dev``."""
+    Bp, O, K, TA, D, C, d, H = 2, 3, 4, 40, 37, 70, 6, 33
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=dt, device=dev)
+
+    f32 = torch.float32
+    basis, w, x, src, win = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    if name == "spatial_conv":
+        return basis.to(dtype), w.to(dtype), x.to(dtype), src, win
+    if name == "fiber_conv":
+        return basis.to(dtype), w.to(dtype), x.to(dtype), src, t(O, O, C, scale=0.3), variant
+    if name == "basis_h1":
+        return t(Bp, O, d, K * TA), t(d + d * d + d ** 3, H, scale=0.1), t(H, scale=0.1), 3
+    if name == "fused_basis_mlp":
+        return t(Bp, O, K * TA, d), t(d + d * d, H, scale=0.1), t(H, D, scale=0.1), 2
+    W = 4 * C
+    readout = (t(C, 13, scale=0.1, dt=f32), t(13, scale=0.1, dt=f32)) if variant else (None, None)
+    return (t(Bp, O, TA, C, dt=f32), t(Bp, O, TA, C), 1.0 + t(C, scale=0.1, dt=f32),
+            t(C, scale=0.1, dt=f32), t(C, W, scale=0.1), t(W, scale=0.1), t(W, C, scale=0.1),
+            t(C, scale=0.1), t(C, dt=f32), *readout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,variant", [
+    ("spatial_conv", None), ("basis_h1", None), ("fiber_conv", True), ("fiber_conv", False),
+    ("convnext_mlp", True), ("convnext_mlp", False), ("fused_basis_mlp", None)])
+def test_operator_launches_its_wrapper_and_matches_plain(name, variant, dtype):
+    """Each forward operator on the card: one launch of its wrapper's kernel,
+    the wrapper's outputs bit for bit (the saved spatial conv of #1 and the
+    readout of #9 too; an empty tensor where the wrapper gives none), the
+    plain version's within the kernel tests' tolerances, and
+    ``torch.library.opcheck``."""
+    from arreau_tpu_torch.kernels import (
+        basis_h1 as h1_mod,
+        convnext_mlp as cn_mod,
+        fiber_conv as fc_mod,
+        fused_basis_mlp as fb_mod,
+        spatial_conv as sc_mod,
+    )
+
+    dev = _device()
+    mod = {"spatial_conv": sc_mod, "basis_h1": h1_mod, "fiber_conv": fc_mod,
+           "convnext_mlp": cn_mod, "fused_basis_mlp": fb_mod}[name]
+    wrapper, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    args = _op_args(np.random.default_rng(3), dev, name, dtype, variant)
+    op = getattr(torch.ops.arreau_tpu_torch, name)
+    before = wrapper.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = wrapper(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    ref = plain(*args)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for i, a in enumerate(got):
+        b = want[i] if i < len(want) else None
+        if b is None:
+            assert a.numel() == 0, i
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a, b), i
+        _assert_close(a, ref[i], BF16_REL_TOL if dtype == torch.bfloat16 else BWD_REL_TOL)
+    result = torch.library.opcheck(op.default, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variable_num_atoms", [False, True])
+def test_exported_sampler_matches_eager_on_the_card(tmp_path, variable_num_atoms):
+    """A small model exported on the card (strided chain of 4 steps, the
+    kernel branch): the program holds #3/#8 as operators, and ``call(seed)``
+    repeats ``DiffusionModel.sample`` from the same seed bit for bit with 2
+    launches of #3 and 1 of #8 a step and none in the export."""
+    import dataclasses
+    import json
+
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.inference.export import export_sampler, load_exported
+    from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    dev = _device()
+    zt = synthetic_z_table()
+    cfg = DiffusionConfig(num_atomic_states=len(zt), num_timesteps=50, hidden_dim=16,
+                          basis_dim=8, num_layers=2, num_ori=4)
+    model = DiffusionModel(cfg, device=dev)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    (tmp_path / "best").mkdir()
+    (tmp_path / "meta.json").write_text(json.dumps({
+        "config": dataclasses.asdict(cfg), "z_table_zs": [int(z) for z in zt.zs],
+        "length_stats": {"min": 3.0, "max": 8.0}}))
+    save_params_npz(str(tmp_path / "best" / "params.npz"), params_to_jax(model.model))
+    out = str(tmp_path / "sampler.pt2")
+    launches = (spatial_conv.launches, basis_h1.launches)
+    export_sampler(str(tmp_path), out, batch_size=6, num_atoms_per_sample=5, sample_steps=4,
+                   variable_num_atoms=variable_num_atoms, device=dev)
+    assert (spatial_conv.launches, basis_h1.launches) == launches
+    call, sidecar = load_exported(out)
+    assert sidecar["platforms"] == ["cuda"]
+    counts = torch.tensor([5, 2, 3, 5, 1, 4], device=dev) if variable_num_atoms else None
+    got = call(11, counts) if variable_num_atoms else call(11)
+    torch.cuda.synchronize()
+    S = sidecar["noise_steps"]
+    assert (spatial_conv.launches - launches[0], basis_h1.launches - launches[1]) == (2 * S, S)
+    want = model.sample(6, 5, generator=torch.Generator(device=dev).manual_seed(11),
+                        sample_steps=4, length_bounds=(0.5, 10.5), num_atoms=counts)
+    for a, b in zip(got, (want.frac_x, want.atom_types, want.lattice)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -26,7 +26,7 @@ from arreau_tpu.ops.pallas_conv import make_gather_matrix
 from arreau_tpu.ops.pbc import NeighborList as JNeighborList
 from arreau_tpu.ops.radius import radius_neighbor_list as j_radius_neighbor_list
 from arreau_tpu_torch.interop.from_jax import params_from_jax
-from arreau_tpu_torch.kernels import basis_mlp, spatial_conv
+from arreau_tpu_torch.kernels import basis_h1, basis_mlp, spatial_conv
 from arreau_tpu_torch.kernels.spatial_conv import (
     fused_spatial_conv,
     spatial_conv_bwd_plain,
@@ -234,7 +234,7 @@ def test_backbone_position_gradients_match_jax_pallas_branch(use_kernels, fuse_f
     params, want, nl = _jax_position_grad(host, fuse_fiber, seed=2)
     counted = {}
     for mod, name in ((spatial_conv, "spatial_conv"), (spatial_conv, "spatial_conv_bwd"),
-                      (basis_mlp, "basis_h1"), (basis_mlp, "basis_mlp_bwd")):
+                      (basis_h1, "basis_h1"), (basis_mlp, "basis_mlp_bwd")):
         counted[name] = _Counted(getattr(mod, name))
         monkeypatch.setattr(mod, name, counted[name])
     got = _port_position_grad(host, params, nl, use_kernels=use_kernels, fuse_fiber=fuse_fiber)

@@ -111,7 +111,7 @@ def test_process_results_matches_jax(tmp_path, capsys):
     assert e1 < e0 and abs(e0 - j_e0) <= 1e-4 and abs(e1 - j_e1) <= 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--use_mace", "true"], ["--visualize", "true"]])
+@pytest.mark.parametrize("flag", [["--use_mace", "true"]])
 def test_process_results_unported_flags_raise(flag, tmp_path):
     save_sample_results(str(tmp_path / "crystals.npz"), _flat_result())
     with pytest.raises(NotImplementedError, match=flag[0]):

@@ -191,12 +191,6 @@ def test_generate_cli_on_cpu(tmp_path, capsys):
     np.testing.assert_array_equal(pinned.atomic_numbers, [6, 8, 8, 6, 8, 8])
 
 
-@pytest.mark.parametrize("flag", [["--gif", "true"], ["--visualize", "true"]])
-def test_generate_flags_of_later_slices_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        generate.main(["--device", "cpu", *flag])
-
-
 def test_generate_data_parallel_on_one_device_samples_as_without(tmp_path):
     """``--data_parallel true`` (the JAX CLI's default) on one device samples
     there, as the JAX CLI does when it sees one device: the same crystals
