@@ -19,9 +19,12 @@ imports (else stdout only, as the JAX CLI); ``--profiler torch`` writes a
     python -m arreau_tpu_torch.cli.train_diffusion --dataset synthetic \\
         --batch_size 256 --hidden_dim 200 --max_steps 100
 
-Only ``--dataset synthetic`` is ported (the Alexandria shards are HDF5,
-which the card's machine cannot read), and ``--model_parallel`` only as 1:
-both raise otherwise.
+``--dataset synthetic`` and ``--dataset eval-equivariance`` are ported; the
+latter trains on one crystal and validates on its 90-degree rotation with
+the timestep pinned at ``EVAL_EQUIVARIANCE_TIMESTEP``
+(``exploration/verify_equivariance.py``). The Alexandria shards are HDF5,
+which the card's machine cannot read, and ``--model_parallel`` is ported
+only as 1: both raise otherwise.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def parse_args(argv=None):
                    help="random SO(3) rotation augmentation of the lattice")
     p.add_argument("--dataset", type=str, default="alexandria",
                    choices=["alexandria", "alexandria-dev", "eval-equivariance", "synthetic"],
-                   help="only synthetic is ported")
+                   help="synthetic and eval-equivariance are ported")
     p.add_argument("--data_dir", type=str, default="datasets/alexandria_hdf5")
     p.add_argument("--radius", type=float, default=5.0)
     p.add_argument("--max_neighbors", type=int, default=8)
@@ -132,10 +135,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+EVAL_EQUIVARIANCE_TIMESTEP = 5
+
+
 def _check_ported(args) -> None:
     later = {
         "model_parallel": args.model_parallel != 1,
-        "dataset": args.dataset != "synthetic",
+        "dataset": args.dataset not in ("synthetic", "eval-equivariance"),
     }
     for flag, used in later.items():
         if used:
@@ -143,10 +149,14 @@ def _check_ported(args) -> None:
 
 
 def build_datasets(args):
-    """(dataset, split indices, z-table) of the synthetic dataset."""
+    """(dataset, split indices, z-table, pinned timestep or None)."""
+    if args.dataset == "eval-equivariance":
+        from arreau_tpu_torch.exploration.verify_equivariance import build_equivariance_datasets
+
+        return build_equivariance_datasets(args.data_dir)
     ds = synthetic_packed(args.synthetic_size, seed=args.seed)
     splits = random_split(len(ds), [0.7, 0.15, 0.15], args.seed)
-    return ds, {"train": splits[0], "valid": splits[1], "test": splits[2]}, ds.z_table
+    return ds, {"train": splits[0], "valid": splits[1], "test": splits[2]}, ds.z_table, None
 
 
 def _losses(m: dict) -> str:
@@ -193,7 +203,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
     torch.autograd.set_detect_anomaly(args.debug_nans)
 
-    dataset, splits, z_table = build_datasets(args)
+    dataset, splits, z_table, fixed_t = build_datasets(args)
     cfg = DiffusionConfig(
         num_atomic_states=len(z_table),
         num_timesteps=args.num_timesteps,
@@ -246,7 +256,7 @@ def main(argv=None):
     def noise_for(batch):
         B, A = batch.atom_types.shape
         return draw_loss_noise(generator, B, A, cfg.num_atomic_states, cfg.num_timesteps,
-                               cfg.diffuse_angles, device)
+                               cfg.diffuse_angles, device, timestep=fixed_t)
 
     def device_batches(split: str):
         """The split's batches, collated and copied to the device in a thread

@@ -40,6 +40,14 @@ class PackedCrystals:
     def num_atoms(self) -> np.ndarray:
         return np.diff(self.offsets)
 
+    def concat(self, other: "PackedCrystals") -> "PackedCrystals":
+        return PackedCrystals(
+            atomic_numbers=np.concatenate([self.atomic_numbers, other.atomic_numbers]),
+            frac_coords=np.concatenate([self.frac_coords, other.frac_coords]),
+            offsets=np.concatenate([self.offsets, self.offsets[-1] + other.offsets[1:]]),
+            lattices=np.concatenate([self.lattices, other.lattices]),
+        )
+
 
 class CrystalDataset:
     """Packed arrays, the z-table, and the atoms' z-table indices."""
@@ -48,6 +56,13 @@ class CrystalDataset:
         self.packed = packed
         self.z_table = z_table or table_from_zs(np.unique(packed.atomic_numbers).tolist())
         self.type_indices = self.z_table.zs_to_indices(packed.atomic_numbers)
+
+    @classmethod
+    def from_packed(cls, packed: PackedCrystals,
+                    z_table: Optional[AtomicNumberTable] = None) -> "CrystalDataset":
+        """The JAX package's constructor name; without ``z_table`` the table
+        is the crystals' own Zs and MASK."""
+        return cls(packed, z_table)
 
     def __len__(self) -> int:
         return len(self.packed)

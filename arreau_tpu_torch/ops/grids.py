@@ -88,8 +88,7 @@ def random_so3_matrix(generator: torch.Generator, shape: tuple = (),
                       dtype=torch.float32) -> torch.Tensor:
     """Uniform random SO(3) matrices ``[*shape, 3, 3]`` from normalised
     normal quaternions drawn from ``generator`` (on its device)."""
-    q = torch.randn((*shape, 4), generator=generator, dtype=dtype, device=generator.device)
-    return quat_to_matrix(q / torch.linalg.norm(q, dim=-1, keepdim=True))
+    return quat_to_matrix(random_quat(generator, shape, dtype))
 
 
 def random_so2_matrix(generator: torch.Generator, shape: tuple = (),
@@ -100,3 +99,10 @@ def random_so2_matrix(generator: torch.Generator, shape: tuple = (),
     theta = theta * (2 * math.pi)
     c, s = torch.cos(theta), torch.sin(theta)
     return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def random_quat(generator: torch.Generator, shape: tuple = (), dtype=torch.float32) -> torch.Tensor:
+    """Uniform random unit quaternions ``[*shape, 4]`` (w, x, y, z):
+    normalised normals drawn from ``generator`` (on its device)."""
+    q = torch.randn((*shape, 4), generator=generator, dtype=dtype, device=generator.device)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

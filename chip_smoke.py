@@ -13,7 +13,9 @@ N-body's valid MSE held to a gate; gradients through atom positions
 point-cloud tasks through their training CLIs; and the sampler's and
 trainer's remaining surface: snapshot sampling, the renders, the serving
 export (#3/#8 as PyTorch operators in a ``torch.export`` program) and the
-training CLI's ``--log`` and ``--profiler torch``.
+training CLI's ``--log`` and ``--profiler torch``; and a reference
+Lightning checkpoint imported and served, the conv-kernel calibration, the
+equivariance check, the sampler diagnosis and the EDA tools.
 
 Run from the repository root, with no arguments:
 
@@ -166,6 +168,43 @@ inner launches by name and time.
    a non-empty Chrome trace of epoch 1 naming the port's kernels, steps/s
    and the device's idle share beside the 35-step phase's steps/s (both
    prefetch their batches).
+32. reference import: the seeded full-width model (``DiffusionConfig``
+   defaults) written as a Lightning-shaped ``.ckpt`` under the reference's
+   key names (with the hyper-parameter namespace and an object whose class
+   does not import), converted by ``python -m
+   arreau_tpu_torch.cli.import_checkpoint`` in a subprocess, then generate
+   on the result (256 crystals, 128 x 8, 50 steps): the imported weights
+   (``params.npz`` and ``ema_params.npz``) equal the source's bit for bit,
+   5 #3 and 1 #8 a forward and nothing else, and the crystals equal bit for
+   bit those of generate on the source weights from the same seed; the
+   import's seconds and both runs' warm crystals/min.
+33. calibration: ``calibrate_conv_kernels`` on one noisy batch's backbone
+   inputs at the training cell (256 x 16, hidden 200, float32, layer scale
+   1), on the card
+   (5 #3 and 1 #8, nothing else) and on the CPU's plain branch with the
+   same weights and neighbour list: stds and rescaled kernels within
+   KERNEL_REL_TOL; each layer's std before and after.
+34. equivariance check: (a) the port's ``verify_equivariance.main()``, the
+   JAX tool's command (40 epochs, hidden 32, 2 layers, 8 orientations):
+   2 #3, 2 #4, 1 #8 and 1 #7 a training step and nothing else, 2 #3 and 1
+   #8 an evaluation forward and each of the comparison's 128 forwards; (b)
+   ``compare_components`` on the trained flagship (bf16, 64 shared draws,
+   5 bf16 #3 and 1 bf16 #8 a forward); both tables beside the JAX TPU log's
+   (``JAX_EQUIVARIANCE_TPU``), the gaps printed, not gated; 4 draws of each
+   on the card against the CPU's plain branch on one topology, every loss
+   term (float32: KERNEL_REL_TOL of the term; bf16: BF16_DRAW_REL_TOL of
+   the draw's total loss).
+35. sampler diagnosis: ``diagnose_sampler`` on the flagship at 64 x 8, the
+   dense chain's 999 steps recorded every 25: 5 bf16 #3 and 1 bf16 #8 a step
+   and nothing else, every record finite and written; its first 3 steps on
+   the card against the CPU's plain branch with the same noise on one
+   topology (BF16_DRAW_REL_TOL of scale); the JSON's path and the chain's
+   seconds.
+36. EDA tools: ``dataset_stats`` on 2000 synthetic crystals,
+   ``vp_prior_check`` (its gate must print PASS), ``lattice_eda`` (its
+   statistics, then the renderer branch taken) and ``view_crystals
+   generated`` on phase 32's ``crystals.npz`` (its ImportError before any
+   work where the card has no matplotlib).
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -175,7 +214,8 @@ shape and no-readout call beside; #5/#6 ``fused_basis_mlp*`` with the
 launches of phase 21; ``*_nbody`` and ``*_mnist`` with the launches of
 their CLI runs; ``spatial_conv_bwd_dwin*`` with the launches of phase 25's
 steps; ``spatial_conv_bf16`` and ``basis_h1_bf16`` also with those of
-phases 28 and 30) and the result
+phases 28, 30, 34 and 35; ``spatial_conv`` and ``basis_h1`` with those of
+phases 32 and 33, and those two with #4/#7 with phase 34's) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -884,7 +924,7 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
     if counts != want:
         raise RuntimeError(f"the sampler path launched {counts}, not {want}")
     crystal_checks(load_sample_results(str(out_dir / "crystals.npz")), z_table, CRYSTALS,
-                   ATOMS, generate.length_bounds_from_meta(meta))
+                   ATOMS, generate.length_bounds_from_meta(meta) or (0.0, math.inf))
     print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
           f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
     return counts
@@ -984,6 +1024,31 @@ def flagship_path(out_dir: Path, card: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def shared_graphs(graphs: list, replay_on=None):
+    """Record every PBC neighbour list the diffusion model builds into
+    ``graphs``, or, with ``replay_on`` (a device), hand them back in order on
+    that device: a card run and a CPU run on one topology."""
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.tasks import diffusion
+
+    build = diffusion.pbc_neighbor_list
+    replay = iter(graphs)
+
+    def record(*a):
+        graphs.append(build(*a))
+        return graphs[-1]
+
+    def replayed(*a):
+        return NeighborList(*(x.to(replay_on) for x in next(replay)))
+
+    diffusion.pbc_neighbor_list = record if replay_on is None else replayed
+    try:
+        yield
+    finally:
+        diffusion.pbc_neighbor_list = build
+
+
 def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float,
                        grad_rel_tol: float = GRAD_REL_TOL, fuse_convnext: bool = False) -> None:
     """One training step's loss terms and every parameter gradient at full
@@ -991,8 +1056,6 @@ def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float,
     ``fuse_convnext``: its backbone built so) against the CPU's plain
     branch, both given the neighbour list the CPU built."""
     from arreau_tpu_torch.data.synthetic import make_synthetic_batch
-    from arreau_tpu_torch.ops.pbc import NeighborList
-    from arreau_tpu_torch.tasks import diffusion
     from arreau_tpu_torch.tasks.diffusion import (
         DiffusionModel,
         LossNoise,
@@ -1012,18 +1075,14 @@ def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float,
     noise = draw_loss_noise(torch.Generator().manual_seed(seed), B, ATOMS,
                             ref_cfg.num_atomic_states, ref_cfg.num_timesteps, True, "cpu")
     graphs = []
-    build_graph = diffusion.pbc_neighbor_list
-    try:
-        diffusion.pbc_neighbor_list = lambda *a: graphs.append(build_graph(*a)) or graphs[-1]
+    with shared_graphs(graphs):
         want_loss, want_m = plain.loss(batch_to_device(host, "cpu"), noise)
         want_loss.backward()
-        diffusion.pbc_neighbor_list = lambda *a: NeighborList(*(x.to(dev) for x in graphs[0]))
-        card_noise = LossNoise(**{f.name: getattr(noise, f.name).to(dev)
-                                  for f in dataclasses.fields(noise)})
+    card_noise = LossNoise(**{f.name: getattr(noise, f.name).to(dev)
+                              for f in dataclasses.fields(noise)})
+    with shared_graphs(graphs, replay_on=dev):
         got_loss, got_m = model.loss(batch_to_device(host, dev), card_noise)
         got_loss.backward()
-    finally:
-        diffusion.pbc_neighbor_list = build_graph
     for name, value in want_m.items():
         err, scale = abs(got_m[name].item() - value.item()), abs(value.item())
         print(f"{name}: card {got_m[name].item():.6f}, cpu {value.item():.6f}, "
@@ -2006,6 +2065,517 @@ def training_leftovers_phase(tmp: Path, card: str) -> None:
           f"on {card}")
 
 
+# ---------------- fifteenth slice: import, calibration, exploration tools ----------------
+
+# the JAX package's equivariance check on a TPU (out/r5/equivariance_tpu.log:
+# the same command's tiny model, 64 shared draws at timestep 5): (original,
+# rotated, gap) per loss term
+JAX_EQUIVARIANCE_TPU = {"loss_coord": (0.0019, 0.0019, "0.00%"),
+                        "loss_type": (1.9483, 1.9483, "0.00%"),
+                        "loss_lattice": (0.0317, 0.0317, "0.00%"),
+                        "loss_angle": (0.2586, 0.2586, "0.00%"),
+                        "loss": (2.2404, 2.2404, "0.00%")}
+EQUIV_STEP = {"spatial_conv": 2, "spatial_conv_bwd": 2, "basis_h1": 1, "basis_mlp_bwd": 1}
+EQUIV_FORWARD = {"spatial_conv": 2, "basis_h1": 1}
+EQUIV_REFERENCE_DRAWS = 4
+# one bf16 forward of one crystal (or a few sampler steps), card kernel
+# branch against CPU plain branch: the two round at different points (5e-2
+# of scale, the bf16 gradient tolerance)
+BF16_DRAW_REL_TOL = 5e-2
+DIAG_BATCH, DIAG_EVERY, DIAG_REFERENCE_STEPS = 64, 25, 3
+
+
+def reference_state_dict(model, z_table) -> dict:
+    """The port model's weights under the reference's (Lightning
+    PONITA_DIFFUSION) key names: the table of ``interop/torch_import.py``
+    read backwards, every ``nn.Linear`` weight as ``[out, in]``; with the
+    buffers the importer drops (``callibrated``) and zero-width edge
+    readouts."""
+    from arreau_tpu_torch.interop.from_jax import _flatten, params_to_jax
+
+    flat = {k: torch.from_numpy(v) for k, v in _flatten(params_to_jax(model.model)).items()}
+
+    def put(ours: str, theirs: str, transpose: bool):
+        value = flat.pop(f"params/{ours}")
+        sd[theirs] = value.t().contiguous() if transpose else value
+
+    sd: dict = {"z_table_zs": torch.tensor([int(z) for z in z_table.zs]),
+                "t_emb.gaussian_fourier_proj_w": model.fourier_w.detach().cpu().clone()}
+    for ours, theirs in (("basis_fn", "model.basis_fn"), ("fiber_basis_fn", "model.fiber_basis_fn")):
+        for dense, index in (("dense_in", 1), ("dense_out", 3)):
+            put(f"{ours}/{dense}/kernel", f"{theirs}.{index}.weight", True)
+            put(f"{ours}/{dense}/bias", f"{theirs}.{index}.bias", False)
+    put("x_embedder/kernel", "model.x_embedder.weight", True)
+    cfg = model.config
+    for i in range(cfg.num_layers):
+        t = f"model.interaction_layers.{i}"
+        put(f"layer_{i}/conv/kernel", f"{t}.conv.kernel.weight", True)
+        put(f"layer_{i}/conv/fiber_kernel/kernel", f"{t}.conv.fiber_kernel.weight", True)
+        put(f"layer_{i}/conv/bias", f"{t}.conv.bias", False)
+        sd[f"{t}.conv.callibrated"] = torch.tensor(True)
+        put(f"layer_{i}/norm/scale", f"{t}.norm.weight", False)
+        put(f"layer_{i}/norm/bias", f"{t}.norm.bias", False)
+        for lin in ("linear_1", "linear_2"):
+            put(f"layer_{i}/{lin}/kernel", f"{t}.{lin}.weight", True)
+            put(f"layer_{i}/{lin}/bias", f"{t}.{lin}.bias", False)
+        put(f"layer_{i}/layer_scale", f"{t}.layer_scale", False)
+        put(f"readout_{i}/kernel", f"model.read_out_layers.{i}.weight", True)
+        put(f"readout_{i}/bias", f"model.read_out_layers.{i}.bias", False)
+        sd[f"model.edge_readout_layers.{i}.weight"] = torch.zeros((0, cfg.hidden_dim + 4))
+        sd[f"model.edge_readout_layers.{i}.bias"] = torch.zeros((0,))
+    if flat:
+        raise RuntimeError(f"weights without a reference name: {sorted(flat)}")
+    return sd
+
+
+def write_reference_ckpt(path: Path, model, z_table) -> None:
+    """A Lightning-shaped ``.ckpt`` of ``model``: the state_dict under the
+    reference's names, the hyper-parameter namespace, and an object whose
+    class does not import when the file is loaded (as the reference's
+    ``AtomicNumberTable``)."""
+    import argparse
+    import types
+
+    cfg = model.config
+    args = argparse.Namespace(hidden_dim=cfg.hidden_dim, basis_dim=cfg.basis_dim,
+                              layers=cfg.num_layers, num_ori=cfg.num_ori, degree=cfg.degree,
+                              num_timesteps=cfg.num_timesteps, radius=cfg.radius,
+                              max_neighbors=cfg.max_neighbors,
+                              widening_factor=cfg.widening_factor, layer_scale=cfg.layer_scale,
+                              multiple_readouts=cfg.multiple_readouts, lr=1e-3, epochs=10)
+    name = "reference_only_pkg"
+    fake = types.ModuleType(name)
+
+    class AtomicNumberTable:
+        def __init__(self, zs):
+            self.zs = zs
+
+    AtomicNumberTable.__module__, AtomicNumberTable.__qualname__ = name, "AtomicNumberTable"
+    fake.AtomicNumberTable = AtomicNumberTable
+    sys.modules[name] = fake
+    try:
+        torch.save({"state_dict": reference_state_dict(model, z_table),
+                    "hyper_parameters": {"args": args,
+                                         "z_table": AtomicNumberTable(list(z_table.zs))},
+                    "epoch": 3, "global_step": 123}, str(path))
+    finally:
+        del sys.modules[name]  # the class no longer imports: the loader must stub it
+
+
+def import_phase(tmp: Path, card: str, records: dict) -> None:
+    """A reference ``.ckpt`` of the seeded full-width model through the
+    import CLI (a subprocess, as a user runs it) and generate on the result:
+    the imported weights equal the source's bit for bit, every forward
+    launches L #3 and one #8 and nothing else, and the crystals equal bit for
+    bit those generate gives on the source weights (a checkpoint with the
+    same meta) from the same seed."""
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.interop.from_jax import (
+        _flatten,
+        load_params_npz,
+        params_to_jax,
+        save_params_npz,
+    )
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    z_table = synthetic_z_table()
+    cfg = DiffusionConfig(num_atomic_states=len(z_table))
+    model = DiffusionModel(cfg, device="cuda")
+    model.model.init_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    ckpt = tmp / "reference.ckpt"
+    write_reference_ckpt(ckpt, model, z_table)
+    print(f"reference checkpoint {ckpt.name}: {ckpt.stat().st_size} bytes "
+          f"(hidden {cfg.hidden_dim}, basis {cfg.basis_dim}, {cfg.num_layers} layers, "
+          f"{cfg.num_ori} orientations)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "arreau_tpu_torch.cli.import_checkpoint",
+                           "--ckpt", str(ckpt), "--out_dir", str(tmp / "imported")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    print(proc.stdout.strip())
+    if proc.returncode != 0:
+        raise RuntimeError(f"import_checkpoint failed:\n{proc.stderr[-4000:]}")
+    print(f"import: {seconds:.2f} s wall for the CLI process (interpreter and torch start "
+          f"included), on the host")
+    source = _flatten(params_to_jax(model.model))
+    meta = json.loads((tmp / "imported" / "meta.json").read_text())
+    for name in ("params.npz", "ema_params.npz"):
+        imported = _flatten(load_params_npz(str(tmp / "imported" / "best" / name)))
+        same = imported.keys() == source.keys() and all(
+            np.array_equal(imported[k], v) for k, v in source.items())
+        print(f"imported {name} equals the source weights bit for bit: {same}")
+        if not same:
+            raise RuntimeError(f"the imported {name} is not the source model's")
+
+    # the source weights, served with the imported checkpoint's meta
+    (tmp / "source" / "best").mkdir(parents=True)
+    (tmp / "source" / "meta.json").write_text(json.dumps(meta))
+    save_params_npz(str(tmp / "source" / "best" / "params.npz"), params_to_jax(model.model))
+    del model
+    L = cfg.num_layers
+    results = {}
+    for name in ("imported", "source"):
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            counts = sampler_path(tmp / name, tmp / f"out_{name}", meta, z_table, card,
+                                  {"spatial_conv": L, "basis_h1": 1}, tag="best")
+        if name == "imported":
+            for kernel in ("spatial_conv", "basis_h1"):
+                records[kernel]["launches_import"] = counts[kernel]
+        rate = re.search(r"sampler throughput: ([0-9.]+) crystals/min", tee.buf.getvalue())
+        results[name] = np.load(str(tmp / f"out_{name}" / "crystals.npz"))
+        print(f"{name}: {float(rate.group(1)) if rate else float('nan'):.0f} crystals/min warm "
+              f"on {card}")
+    same = {k: np.array_equal(results["imported"][k], results["source"][k])
+            for k in results["source"].files}
+    print(f"imported checkpoint's crystals equal the source weights' bit for bit: {same}")
+    if not all(same.values()):
+        raise RuntimeError("the imported checkpoint samples other crystals than its source")
+
+
+def calibration_phase(card: str, records: dict) -> None:
+    """``calibrate_conv_kernels`` on one noisy training batch's backbone
+    inputs (the training cell), on the card through the kernels (L #3, one
+    #8, nothing else) and on the CPU's plain branch with the same weights
+    and the same neighbour list: the stds within KERNEL_REL_TOL of each
+    other, the rescaled kernels within KERNEL_REL_TOL of their scale."""
+    import copy
+
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.models.calibrate import calibrate_conv_kernels
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.tasks.diffusion import (
+        DiffusionConfig,
+        DiffusionModel,
+        batch_to_device,
+        draw_loss_noise,
+    )
+
+    dev = torch.device("cuda")
+    # layer scale 1 (not the init's 1e-6), so that each layer's conv weighs in
+    # its output's std and a rescale moves the layers after it
+    cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()), hidden_dim=TRAIN_HIDDEN,
+                          diffuse_angles=True, layer_scale=1.0)
+    dataset, chunk, bucket = training_chunk()
+    batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+    model = DiffusionModel(cfg, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+                            *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
+                            True, dev)
+    captured = []
+    handle = model.model.register_forward_pre_hook(lambda m, args: captured.append(args[0]))
+    with torch.no_grad():
+        model.loss(batch, noise)
+    handle.remove()
+    inputs = captured[0]
+    plain = DiffusionModel(dataclasses.replace(cfg, use_pallas=False), device="cpu")
+    plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    cpu_inputs = inputs._replace(
+        neighbors=NeighborList(*(a.cpu() for a in inputs.neighbors)),
+        **{f: getattr(inputs, f).cpu() for f in ("scalar", "vec", "atom_mask", "lattice",
+                                                  "ori_grid")})
+    print(f"training cell {TRAIN_BATCH} x {bucket}: neighbours "
+          f"{tuple(inputs.neighbors.mask.shape)}, scalar features {tuple(inputs.scalar.shape)}, "
+          f"{int(inputs.neighbors.mask.sum())} edges")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stds = calibrate_conv_kernels(model.model, inputs)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    L = cfg.num_layers
+    want = {name: {"spatial_conv": L, "basis_h1": 1}.get(name, 0) for name in counts}
+    print(f"calibration on the card: {card_s:.3f} s, launches {counts}")
+    if counts != want:
+        raise RuntimeError(f"the calibration probe launched {counts}, not {want}")
+    for kernel in ("spatial_conv", "basis_h1"):
+        records[kernel]["launches_calibration"] = counts[kernel]
+    t0 = time.perf_counter()
+    want_stds = calibrate_conv_kernels(plain.model, cpu_inputs)
+    print(f"calibration on the CPU (plain branch): {time.perf_counter() - t0:.3f} s")
+    after = calibrate_conv_kernels(copy.deepcopy(model.model), inputs)
+    print(f"{'layer':<10} {'std (card)':>14} {'std (cpu)':>14} {'after (card)':>14}")
+    for name, std in stds.items():
+        print(f"{name:<10} {std:>14.8f} {want_stds[name]:>14.8f} {after[name]:>14.8f}")
+        if not abs(std - want_stds[name]) <= KERNEL_REL_TOL * abs(want_stds[name]):
+            raise RuntimeError(f"{name}: the card's std disagrees with the CPU's")
+    got = dict(model.model.named_parameters())
+    for name, p in plain.model.named_parameters():
+        err = (got[name].detach().cpu() - p.detach()).abs().max().item()
+        scale = p.detach().abs().max().item()
+        if not err <= KERNEL_REL_TOL * scale:
+            raise RuntimeError(f"{name}: card {err:.3e} from the CPU (scale {scale:.3e})")
+    print(f"rescaled kernels and every other parameter: card within {KERNEL_REL_TOL:g} of the "
+          f"CPU's scale, on {card}")
+
+
+def component_reference(ckpt: Path, tol: float, label: str, of_total: bool) -> None:
+    """The first EQUIV_REFERENCE_DRAWS draws (seed 0) of the equivariance
+    comparison on the card (the checkpoint's kernel branch) against the
+    CPU's plain branch, per crystal, on the CPU's neighbour lists: every
+    loss term within ``tol`` of max(|term|, 1e-3), or with ``of_total`` of
+    the draw's total loss. bf16 takes ``of_total``: a term that is the
+    square of a small residual (the trained flagship's lattice term, ~4e-4)
+    carries its prediction's rounding magnified by prediction over residual,
+    and the coordinate scores of a nearly clean crystal (t = 5) cancel over
+    the orientations; the two branches round at different points."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.exploration import verify_equivariance as ve
+    from arreau_tpu_torch.tasks.diffusion import LossNoise, batch_to_device, draw_loss_noise
+
+    card = generate.load_model(str(ckpt), "best", False, "cuda")[0]
+    cpu = generate.load_model(str(ckpt), "best", False, "cpu")[0]
+    cfg = card.config
+    ds = ve.build_equivariance_datasets("datasets/alexandria_hdf5")[0]
+    max_atoms = int(ds.packed.num_atoms.max())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws = [draw_loss_noise(gen, 1, max_atoms, cfg.num_atomic_states, cfg.num_timesteps,
+                             cfg.diffuse_angles, "cuda", ve.EVAL_EQUIVARIANCE_TIMESTEP)
+             for _ in range(EQUIV_REFERENCE_DRAWS)]
+    cpu_draws = [LossNoise(**{f.name: None if getattr(n, f.name) is None
+                              else getattr(n, f.name).cpu() for f in dataclasses.fields(n)})
+                 for n in draws]
+    worst = {}
+    for idx in (0, 1):
+        host = pack_dense_batch(ds, np.array([idx]), max_atoms)
+        graphs: list = []
+        with shared_graphs(graphs):
+            want = ve.component_draws(cpu, batch_to_device(host, "cpu"), cpu_draws)
+        with shared_graphs(graphs, replay_on=torch.device("cuda")):
+            got = ve.component_draws(card, batch_to_device(host, "cuda"), draws)
+        for k in ve.COMPONENTS:
+            if k not in want:
+                continue
+            a, b = got[k].cpu(), want[k]
+            err = (a - b).abs()
+            scale = want["loss"].abs() if of_total else torch.clamp(b.abs(), min=1e-3)
+            worst[k] = max(worst.get(k, 0.0), (err / scale).max().item())
+            if not bool((err <= tol * scale).all()):
+                raise RuntimeError(f"{label}, crystal {idx}, {k}: card {a.tolist()} against "
+                                   f"cpu {b.tolist()} (tolerance {tol:g})")
+    print(f"{label}: {len(draws)} draws x 2 crystals, card against the CPU's plain branch on one "
+          f"topology, each term's worst error over "
+          f"{'the total loss' if of_total else 'max(|term|, 1e-3)'} (tolerance {tol:g}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def equivariance_table(label: str, orig: dict, rot: dict) -> None:
+    print(f"{label}: {'component':<14}{'original':>12}{'rotated':>12}{'rel gap':>10}   "
+          f"JAX on a TPU (out/r5/equivariance_tpu.log)")
+    for comp, (ja, jb, jgap) in JAX_EQUIVARIANCE_TPU.items():
+        if comp not in orig:
+            continue
+        a, b = orig[comp], rot[comp]
+        gap = abs(a - b) / max(abs(a), 1e-9)
+        print(f"{label}: {comp:<14}{a:>12.6f}{b:>12.6f}{gap:>10.2e}   {ja:.4f} {jb:.4f} {jgap}")
+
+
+def equivariance_phase(tmp: Path, card: str, records: dict) -> None:
+    """(a) The port's ``verify_equivariance.main()`` (the JAX tool's command:
+    40 epochs, hidden 32, 2 layers, 8 orientations) on the card: every
+    training step launches EQUIV_STEP and no other kernel, every validation
+    forward EQUIV_FORWARD, the comparison 128 forwards of EQUIV_FORWARD;
+    (b) ``compare_components`` on the trained flagship (bf16,
+    ``diffuse_angles``), 64 shared draws. Each beside the JAX TPU log; the
+    first EQUIV_REFERENCE_DRAWS draws of each, card against CPU. The gaps are
+    printed, not gated."""
+    from arreau_tpu_torch.cli import train_diffusion
+    from arreau_tpu_torch.exploration import verify_equivariance as ve
+
+    per_step, per_eval, after_training = [], [], {}
+    steps = {"train_step": train_diffusion.train_step, "eval_step": train_diffusion.eval_step}
+    train_main = ve.train_main
+
+    def counted(name, record):
+        def call(*a, **kw):
+            before = launch_counts()
+            out = steps[name](*a, **kw)
+            after = launch_counts()
+            record.append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    def counted_train_main(argv):
+        out = train_main(argv)
+        after_training.update(launch_counts())
+        return out
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        train_diffusion.train_step = counted("train_step", per_step)
+        train_diffusion.eval_step = counted("eval_step", per_eval)
+        ve.train_main = counted_train_main
+        with contextlib.chdir(tmp):
+            orig, rot = ve.main(["--device", "cuda"])
+    finally:
+        train_diffusion.train_step = steps["train_step"]
+        train_diffusion.eval_step = steps["eval_step"]
+        ve.train_main = train_main
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want_step = {k: EQUIV_STEP.get(k, 0) for k in counts}
+    want_eval = {k: EQUIV_FORWARD.get(k, 0) for k in counts}
+    comparison = {k: counts[k] - after_training[k] for k in counts}
+    want_comparison = {k: 2 * 64 * EQUIV_FORWARD.get(k, 0) for k in counts}
+    print(f"eval-equivariance: {len(per_step)} training steps, {len(per_eval)} evaluation "
+          f"forwards, {wall:.2f} s wall (training, checkpoints and the comparison); launches per "
+          f"step {per_step[0]}, per evaluation forward {per_eval[0]}, in the comparison "
+          f"{comparison}")
+    if len(per_step) != 40 or any(c != want_step for c in per_step):
+        raise RuntimeError(f"a training step did not launch {want_step}")
+    if not per_eval or any(c != want_eval for c in per_eval):
+        raise RuntimeError(f"an evaluation forward did not launch {want_eval}")
+    if comparison != want_comparison:
+        raise RuntimeError(f"the comparison launched {comparison}, not {want_comparison}")
+    for kernel in EQUIV_STEP:
+        records[kernel]["launches_equivariance"] = counts[kernel]
+    equivariance_table("(a) eval-equivariance", orig, rot)
+    component_reference(tmp / ve.CKPT_DIR, KERNEL_REL_TOL, "(a) float32", of_total=False)
+
+    reset_launch_counts()
+    dtypes = {}
+    t0 = time.perf_counter()
+    with capturing(dtypes):
+        orig, rot = ve.compare_components(str(FLAGSHIP), device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    meta = json.loads((FLAGSHIP / "meta.json").read_text())["config"]
+    counts, want = launch_counts(), flagship_launches(2 * 64, meta["num_layers"])
+    print(f"(b) flagship: 128 forwards in {seconds:.2f} s, launches {counts}, types {dtypes}")
+    if counts != want or dtypes != {"spatial_conv": {torch.bfloat16},
+                                    "basis_h1": {torch.bfloat16}}:
+        raise RuntimeError(f"the flagship comparison launched {counts} in {dtypes}, not {want}")
+    for kernel in EQUIV_FORWARD:
+        records[kernel + "_bf16"]["launches_equivariance"] = counts[kernel]
+    equivariance_table("(b) flagship", orig, rot)
+    component_reference(FLAGSHIP, BF16_DRAW_REL_TOL, "(b) bf16 flagship", of_total=True)
+
+
+def diagnosis_phase(tmp: Path, card: str, records: dict) -> None:
+    """``diagnose_sampler`` on the flagship at DIAG_BATCH x ATOMS, the dense
+    chain's 999 steps recorded every DIAG_EVERY: 5 bf16 #3 and 1 bf16 #8 a
+    step and nothing else, every record finite; then its first
+    DIAG_REFERENCE_STEPS steps on the card against the CPU's plain branch
+    with the same injected noise on one topology (5e-2 of scale)."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.exploration import diagnose_sampler as ds
+    from arreau_tpu_torch.tasks.diffusion import SamplerNoise, draw_sampler_noise
+
+    out = tmp / "diag_sampler.json"
+    dtypes = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with capturing(dtypes):
+        chain = ds.main(["--checkpoint_dir", str(FLAGSHIP), "--num_samples", str(DIAG_BATCH),
+                           "--num_atoms_per_sample", str(ATOMS), "--record_every",
+                           str(DIAG_EVERY), "--out", str(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    meta = json.loads((FLAGSHIP / "meta.json").read_text())["config"]
+    T, L = meta["num_timesteps"], meta["num_layers"]
+    counts, want = launch_counts(), flagship_launches(T - 1, L)
+    print(f"diagnosis: {T - 1} steps at {DIAG_BATCH} x {ATOMS} in {seconds:.2f} s (checkpoint "
+          f"load and reference set included) on {card}; launches {counts}; types {dtypes}")
+    if counts != want or dtypes != {"spatial_conv": {torch.bfloat16},
+                                    "basis_h1": {torch.bfloat16}}:
+        raise RuntimeError(f"the diagnosis launched {counts} in {dtypes}, not {want}")
+    for kernel in ("spatial_conv", "basis_h1"):
+        records[kernel + "_bf16"]["launches_diagnosis"] = counts[kernel]
+    saved = json.loads(out.read_text())
+    finite = all(math.isfinite(v) for r in saved["records"] for v in r.values())
+    print(f"{out.name}: {len(saved['records'])} records (t = {saved['records'][0]['t']} ... "
+          f"{saved['records'][-1]['t']}), all finite: {finite}; last {chain[-1]}")
+    if not finite or saved["records"] != chain or len(chain) != (T - 1) // DIAG_EVERY + 2:
+        raise RuntimeError("the diagnosis records are not finite, complete and written")
+
+    card_model = generate.load_model(str(FLAGSHIP), "best", False, "cuda")[0]
+    cpu_model = generate.load_model(str(FLAGSHIP), "best", False, "cpu")[0]
+    noise = draw_sampler_noise(torch.Generator(device="cuda").manual_seed(SEED),
+                               DIAG_REFERENCE_STEPS, DIAG_BATCH, ATOMS, meta["num_atomic_states"],
+                               "monoclinic", meta["diffuse_angles"], "cuda")
+    cpu_noise = SamplerNoise(**{f.name: None if getattr(noise, f.name) is None
+                                else getattr(noise, f.name).cpu()
+                                for f in dataclasses.fields(noise)})
+    l0 = ds.reference_lengths("synthetic:20000:0")
+    graphs: list = []
+    with shared_graphs(graphs):
+        _, want_state = ds.diagnose(cpu_model, cpu_noise, *l0, DIAG_EVERY, DIAG_REFERENCE_STEPS,
+                                    verbose=False)
+    with shared_graphs(graphs, replay_on=torch.device("cuda")):
+        _, got_state = ds.diagnose(card_model, noise, *l0, DIAG_EVERY, DIAG_REFERENCE_STEPS,
+                                   verbose=False)
+    for name in ("lengths", "ang_enc", "pred_x0", "frac"):
+        a, b = got_state[name].float().cpu(), want_state[name].float()
+        d = (a - b).abs()
+        if name == "frac":  # on the circle: 0 and 1 - ulp are neighbours
+            d = torch.minimum(d, 1 - d)
+        err, scale = d.max().item(), b.abs().max().item()
+        print(f"first {DIAG_REFERENCE_STEPS} steps, {name}: card against cpu max_abs_err "
+              f"{err:.3e}, scale {scale:.3e} (tolerance {BF16_DRAW_REL_TOL:g} of scale)")
+        if not err <= BF16_DRAW_REL_TOL * scale:
+            raise RuntimeError(f"the diagnosis' {name} on the card disagrees with the CPU's")
+    agree = (got_state["types"].cpu() == want_state["types"]).float().mean().item()
+    print(f"first {DIAG_REFERENCE_STEPS} steps, types: {agree:.4f} of the atoms agree")
+    if agree < 0.9:
+        raise RuntimeError("the diagnosis' types on the card disagree with the CPU's")
+
+
+def eda_phase(tmp: Path, crystals: Path, card: str) -> None:
+    """dataset_stats on 2000 synthetic crystals; vp_prior_check (its own gate
+    must print PASS); lattice_eda (its statistics, then the renderer branch
+    it took); view_crystals ``generated`` on ``crystals``: its ImportError
+    before any work where the renderers do not import, else its PNG."""
+    from arreau_tpu_torch.exploration import (
+        dataset_stats,
+        lattice_eda,
+        view_crystals,
+        vp_prior_check,
+    )
+    from arreau_tpu_torch.inference.visualize import require_renderers
+
+    stats = dataset_stats.main(["--synthetic_size", "2000"])
+    if stats["num_crystals"] != 2000:
+        raise RuntimeError("dataset_stats did not count 2000 crystals")
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        ok = vp_prior_check.main(["--out_dir", str(tmp / "eda"), "--device", "cuda"])
+        lattice_eda.main(["--out_dir", str(tmp / "eda"), "--device", "cuda"])
+    text = tee.buf.getvalue()
+    if not ok or "PASS" not in text.splitlines():
+        raise RuntimeError("vp_prior_check: the terminal marginal FAILED its N(0, 1) check")
+    branch = "plots skipped" if "plots skipped" in text else "rendered"
+    print(f"vp_prior_check: PASS; lattice_eda: branch '{branch}'")
+    try:
+        require_renderers()
+        missing = None
+    except ImportError as e:
+        missing = e
+    out = tmp / "crystal_vis"
+    argv = ["generated", "--crystal_file", str(crystals), "--index", "0", "1",
+            "--out_dir", str(out)]
+    if missing is None:
+        view_crystals.main(argv)
+        if not (out / "generated_1.png").is_file():
+            raise RuntimeError("view_crystals wrote no PNG")
+        print("view_crystals: rendered generated_0.png and generated_1.png")
+        return
+    try:
+        view_crystals.main(argv)
+    except ImportError as e:
+        print(f"view_crystals: ImportError before any work ({e})")
+    else:
+        raise RuntimeError("view_crystals ran without matplotlib or PIL")
+    if out.exists():
+        raise RuntimeError("view_crystals did work before its ImportError")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -2469,6 +3039,22 @@ def main() -> int:
         export_phase(Path(tmp), card, records)
     with Phase("training CLI leftovers"), tempfile.TemporaryDirectory() as tmp:
         training_leftovers_phase(Path(tmp), card)
+
+    # ---------------- reference import, calibration and the exploration tools ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("import", "equivariance", "diagnosis", "eda"):
+            (tmp / sub).mkdir()
+        with Phase("reference import"):
+            import_phase(tmp / "import", card, records)
+        with Phase("calibration"):
+            calibration_phase(card, records)
+        with Phase("equivariance check"):
+            equivariance_phase(tmp / "equivariance", card, records)
+        with Phase("sampler diagnosis"):
+            diagnosis_phase(tmp / "diagnosis", card, records)
+        with Phase("EDA tools"):
+            eda_phase(tmp / "eda", tmp / "import" / "out_imported" / "crystals.npz", card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1044,3 +1044,130 @@ def test_exported_sampler_matches_eager_on_the_card(tmp_path, variable_num_atoms
                         sample_steps=4, length_bounds=(0.5, 10.5), num_atoms=counts)
     for a, b in zip(got, (want.frac_x, want.atom_types, want.lattice)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def _tiny_diffusion(dev, **config):
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    zt = synthetic_z_table()
+    cfg = DiffusionConfig(num_atomic_states=len(zt), num_timesteps=50, hidden_dim=16,
+                          basis_dim=8, num_layers=2, num_ori=4, **config)
+    model = DiffusionModel(cfg, device=dev)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    return model, zt
+
+
+@pytest.mark.cuda
+def test_calibration_on_the_card_launches_the_forward_kernels_and_matches_the_cpu():
+    """``calibrate_conv_kernels`` on the card: one launch of #3 a layer and
+    one of #8 (the probe forward), stds and rescaled kernels as the CPU's
+    plain branch on the same inputs and neighbour list."""
+    import dataclasses
+
+    from arreau_tpu_torch.data.synthetic import make_synthetic_batch
+    from arreau_tpu_torch.models.calibrate import calibrate_conv_kernels
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.tasks.diffusion import DiffusionModel, batch_to_device, draw_loss_noise
+
+    dev = _device()
+    model, zt = _tiny_diffusion(dev, layer_scale=1.0)
+    cfg = model.config
+    batch = batch_to_device(make_synthetic_batch(np.random.default_rng(0), zt, 12, 6), dev)
+    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(0), 12, 6,
+                            cfg.num_atomic_states, cfg.num_timesteps, False, dev)
+    captured = []
+    handle = model.model.register_forward_pre_hook(lambda m, a: captured.append(a[0]))
+    with torch.no_grad():
+        model.loss(batch, noise)
+    handle.remove()
+    plain = DiffusionModel(dataclasses.replace(cfg, use_pallas=False), device="cpu")
+    plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    inputs = captured[0]
+    cpu_inputs = inputs._replace(
+        neighbors=NeighborList(*(a.cpu() for a in inputs.neighbors)),
+        **{f: getattr(inputs, f).cpu() for f in ("scalar", "vec", "atom_mask", "lattice",
+                                                  "ori_grid")})
+    before = (spatial_conv.launches, basis_h1.launches)
+    stds = calibrate_conv_kernels(model.model, inputs)
+    assert (spatial_conv.launches - before[0], basis_h1.launches - before[1]) == (2, 1)
+    want = calibrate_conv_kernels(plain.model, cpu_inputs)
+    for name, std in want.items():
+        assert abs(stds[name] - std) <= 1e-4 * std, name
+    for (name, a), b in zip(model.model.named_parameters(), plain.model.parameters()):
+        assert (a.detach().cpu() - b.detach()).abs().max() <= 1e-4 * b.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_imported_reference_checkpoint_serves_on_the_card(tmp_path):
+    """A Lightning-shaped checkpoint of a seeded model (``chip_smoke``'s
+    writer), imported, then generate on the card: 2 launches of #3 and 1 of
+    #8 a forward, and the crystals of the source weights from the same seed,
+    bit for bit."""
+    import json
+
+    import chip_smoke
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
+    from arreau_tpu_torch.interop.torch_import import convert_reference_checkpoint
+
+    dev = _device()
+    model, zt = _tiny_diffusion(dev)
+    chip_smoke.write_reference_ckpt(tmp_path / "ref.ckpt", model, zt)
+    meta = convert_reference_checkpoint(str(tmp_path / "ref.ckpt"), str(tmp_path / "imported"))
+    (tmp_path / "source" / "best").mkdir(parents=True)
+    (tmp_path / "source" / "meta.json").write_text(json.dumps(meta))
+    save_params_npz(str(tmp_path / "source" / "best" / "params.npz"), params_to_jax(model.model))
+    results = []
+    for name in ("imported", "source"):
+        before = (spatial_conv.launches, basis_h1.launches)
+        results.append(generate.main([
+            "--checkpoint_dir", str(tmp_path / name), "--tag", "best", "--num_crystals", "6",
+            "--batch_size", "6", "--num_atoms_per_sample", "5", "--sample_steps", "4",
+            "--out_dir", str(tmp_path / f"out_{name}")]))
+        assert (spatial_conv.launches - before[0], basis_h1.launches - before[1]) == (8, 4)
+    for field in ("frac_x", "atomic_numbers", "lattice"):
+        assert np.array_equal(getattr(results[0], field), getattr(results[1], field))
+
+
+@pytest.mark.cuda
+def test_eval_equivariance_and_diagnosis_launch_their_kernels(tmp_path):
+    """``train_diffusion --dataset eval-equivariance`` on the card: 2 #3, 2 #4,
+    1 #8 and 1 #7 a training step; then ``diagnose`` over 3 steps of its
+    checkpoint: 2 #3 and 1 #8 a step, finite records."""
+    from arreau_tpu_torch.cli import generate, train_diffusion
+    from arreau_tpu_torch.exploration import diagnose_sampler
+    from arreau_tpu_torch.tasks.diffusion import draw_sampler_noise
+
+    dev = _device()
+    kernels = (spatial_conv, spatial_conv_bwd, basis_h1, basis_mlp_bwd)
+    per_step = []
+    step = train_diffusion.train_step
+
+    def counted(*a, **kw):
+        before = [k.launches for k in kernels]
+        out = step(*a, **kw)
+        per_step.append(tuple(k.launches - b for k, b in zip(kernels, before)))
+        return out
+
+    train_diffusion.train_step = counted
+    try:
+        train_diffusion.main([
+            "--dataset", "eval-equivariance", "--data_dir", str(tmp_path), "--epochs", "3",
+            "--val_interval", "1", "--num_timesteps", "300", "--batch_size", "4",
+            "--hidden_dim", "16", "--basis_dim", "8", "--layers", "2", "--num_ori", "8",
+            "--checkpoint_dir", str(tmp_path / "ckpt")])
+    finally:
+        train_diffusion.train_step = step
+    assert per_step == [(2, 2, 1, 1)] * 3
+    model = generate.load_model(str(tmp_path / "ckpt"), "best", False, dev)[0]
+    cfg = model.config
+    noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(0), 3, 4, 8,
+                               cfg.num_atomic_states, "monoclinic", cfg.diffuse_angles, dev)
+    before = (spatial_conv.launches, basis_h1.launches)
+    records, state = diagnose_sampler.diagnose(model, noise, 5.5, 2.0, record_every=1,
+                                               num_steps=3)
+    assert (spatial_conv.launches - before[0], basis_h1.launches - before[1]) == (6, 3)
+    assert [r["t"] for r in records] == [298, 297, 296]
+    assert all(np.isfinite(v) for r in records for v in r.values())
+    assert torch.isfinite(state["lengths"]).all()
