@@ -1,11 +1,29 @@
 """argparse value parsers shared by the task CLIs; a copy of
 ``arreau_tpu/cli/common.py``: ``True``/``False``/``None``/floats accepted,
 anything else an argparse error (where ``type=eval`` would take any
-expression)."""
+expression). And the task CLIs' data-parallel set-up."""
 
 from __future__ import annotations
 
 import argparse
+
+from arreau_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+
+def data_parallel_setup(device, batch_size: int):
+    """``(mesh, say)`` of a task CLI: under torchrun the ranks form a
+    ``("data",)`` mesh (a no-op in one process), each takes rows ``r::n`` of
+    every global batch of ``batch_size`` (which the ranks must divide), and
+    ``say`` prints on rank 0 alone."""
+    maybe_initialize_distributed(device)
+    mesh = make_mesh()
+    if batch_size % mesh.data_size:
+        raise ValueError(f"--batch_size {batch_size} not divisible by {mesh.data_size} data ranks")
+    return mesh, (print if mesh.is_main else silent)
+
+
+def silent(*args, **kwargs) -> None:
+    """``print`` on the ranks that do not print."""
 
 
 def parse_bool(value: str) -> bool:

@@ -22,6 +22,16 @@ first four crystals (``crystal_{i}.png``); ``--show_bonds`` draws bonds in
 both. The renders need matplotlib and PIL (``inference/visualize.py``),
 checked before any sampling.
 
+``--data_parallel`` (the default) under torchrun samples every batch over
+the ranks (``parallel/mesh.py``): each rank draws the whole batch's noise
+from the shared seed and samples its rows ``r::n``; rank 0 gathers the
+crystals and alone writes and prints. A batch the ranks do not divide is
+sampled whole on every rank (the JAX CLI's message). One process with more
+than one visible card raises: the port runs a process per card.
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt --batch_size 128 ...
+
     python -m arreau_tpu_torch.cli.generate --checkpoint_dir ckpt --tag best \\
         --batch_size 128 --num_atoms_per_sample 8 --num_crystals 256 \\
         --sample_steps 50 --out_dir out
@@ -37,9 +47,17 @@ import time
 import numpy as np
 import torch
 
+from arreau_tpu_torch.cli.common import silent
 from arreau_tpu_torch.data.atoms import AtomicNumberTable
 from arreau_tpu_torch.inference.io import concat_results, from_dense_batch, save_sample_results
 from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
+from arreau_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_rows,
+    make_mesh,
+    maybe_initialize_distributed,
+    shard_rows,
+)
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionConfig, DiffusionModel
 
 
@@ -77,9 +95,8 @@ def parse_args(argv=None):
                    help="clamp the lattice-length x0-prediction to the checkpoint's "
                         "length_stats envelope")
     p.add_argument("--data_parallel", type=parse_bool, default=True,
-                   help="data-parallel sampling (the JAX CLI's default): on one device, or "
-                        "on the CPU, it samples there, as the JAX CLI does; more than one "
-                        "visible CUDA device is not ported yet")
+                   help="data-parallel sampling over the ranks of a torchrun launch (the JAX "
+                        "CLI's default); one process samples on its one device")
     p.add_argument("--visualize", type=parse_bool, default=False,
                    help="render the first four crystals to crystal_{i}.png (matplotlib, PIL)")
     p.add_argument("--show_bonds", type=parse_bool, default=False)
@@ -143,7 +160,7 @@ def params_path(checkpoint_dir: str, tag: str, use_ema: bool) -> str:
     return os.path.join(checkpoint_dir, tag, "params.npz")
 
 
-def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device):
+def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device, say=print):
     """(model, z_table, meta) from ``<checkpoint_dir>/meta.json`` and the
     parameters :func:`params_path` picks."""
     with open(os.path.join(checkpoint_dir, "meta.json")) as f:
@@ -153,7 +170,7 @@ def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device):
                            readout_bf16_operands=meta.get("readout_bf16_operands", False))
     path = params_path(checkpoint_dir, tag, use_ema)
     params_from_jax(model, load_params_npz(path))
-    print(f"loaded {path}")
+    say(f"loaded {path}")
     return model, AtomicNumberTable(meta["z_table_zs"]), meta
 
 
@@ -182,15 +199,31 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    _, world = maybe_initialize_distributed(device)
+    if args.data_parallel and world == 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"--data_parallel over {torch.cuda.device_count()} visible CUDA devices in one "
+            "process: launch one process per card with `python -m torch.distributed.run "
+            "--nproc_per_node N -m arreau_tpu_torch.cli.generate ...`, or pass "
+            "--data_parallel false")
+    mesh = make_mesh()
+    main = mesh.is_main  # rank 0 alone prints and writes
+    say = print if main else silent
     # the JAX CLI shards only over more than one device (its n_dev > 1)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data_parallel over more than one CUDA device is not "
-                                  "ported yet; pass --data_parallel false")
+    if not args.data_parallel or mesh.data_size == 1:
+        mesh = Mesh()
+    elif args.batch_size % mesh.data_size:
+        say(f"batch_size {args.batch_size} not divisible by {mesh.data_size} devices; "
+            "sampling on one device (pad batch_size to enable DP)")
+        mesh = Mesh()
+    else:
+        say(f"data-parallel sampling over {mesh.data_size} devices")
 
-    model, z_table, meta = load_model(args.checkpoint_dir, args.tag, args.use_ema, device)
+    model, z_table, meta = load_model(args.checkpoint_dir, args.tag, args.use_ema, device,
+                                      say)
     length_bounds = length_bounds_from_meta(meta) if args.clip_denoised else None
     if args.clip_denoised and length_bounds is None:
-        print("checkpoint has no length_stats; clip_denoised disabled")
+        say("checkpoint has no length_stats; clip_denoised disabled")
 
     constant_atoms = None
     if args.constant_atomic_symbols:
@@ -213,25 +246,33 @@ def main(argv=None):
     T = model.config.num_timesteps
     strided = args.sample_steps is not None and args.sample_steps < T - 1
     if args.gif and strided:
-        print("gif snapshots are not supported with --sample_steps; disabling gif")
+        say("gif snapshots are not supported with --sample_steps; disabling gif")
         args.gif = False
     generator = torch.Generator(device=device).manual_seed(args.seed)
     results = []
     snapshots = None
     remaining = args.num_crystals
     t_gen0, n_timed = None, 0  # the throughput clock starts after the first batch
+    local_batch = args.batch_size // mesh.data_size
     while remaining > 0:
-        kwargs = dict(generator=generator, constant_atoms=constant_atoms,
+        num_atoms = draw_counts() if draw_counts is not None else None
+        gif = args.gif and remaining <= args.batch_size
+        kwargs = dict(constant_atoms=None if constant_atoms is None
+                      else shard_rows(constant_atoms, mesh),
                       length_bounds=length_bounds, type_temperature=args.type_temperature,
-                      num_atoms=draw_counts() if draw_counts is not None else None)
-        if args.gif and remaining <= args.batch_size:
+                      num_atoms=None if num_atoms is None else shard_rows(num_atoms, mesh),
+                      # the whole batch's noise from the shared generator, this rank's rows
+                      noise=model.draw_noise(generator, args.batch_size, args.num_atoms_per_sample,
+                                             None if gif else args.sample_steps).rows(mesh))
+        if gif:
             # the last batch: the dense chain with snapshots for the GIF
-            batch_out, snapshots = model.sample(args.batch_size, args.num_atoms_per_sample,
+            batch_out, snapshots = model.sample(local_batch, args.num_atoms_per_sample,
                                                 snapshot_every=args.snapshot_every, **kwargs)
         else:
-            batch_out = model.sample(args.batch_size, args.num_atoms_per_sample,
+            batch_out = model.sample(local_batch, args.num_atoms_per_sample,
                                      sample_steps=args.sample_steps, ddim_eta=args.ddim_eta,
                                      **kwargs)
+        batch_out = CrystalBatch(*(gather_rows(t, mesh) for t in batch_out))
         take = min(args.batch_size, remaining)
         results.append(from_dense_batch(CrystalBatch(*(t[:take] for t in batch_out)), z_table))
         remaining -= take
@@ -239,13 +280,16 @@ def main(argv=None):
             t_gen0 = time.perf_counter()
         else:
             n_timed += take
-        print(f"generated {args.num_crystals - remaining}/{args.num_crystals}")
+        say(f"generated {args.num_crystals - remaining}/{args.num_crystals}")
     if n_timed > 0:
         dt = time.perf_counter() - t_gen0
         n_steps = args.sample_steps if strided else T
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-        print(f"sampler throughput: {n_timed / dt * 60:.0f} crystals/min "
-              f"({n_steps} reverse steps, warm, {name})")
+        say(f"sampler throughput: {n_timed / dt * 60:.0f} crystals/min "
+            f"({n_steps} reverse steps, warm, {name})")
+    result = concat_results(results)
+    if not main:
+        return result
 
     if snapshots:
         from arreau_tpu_torch.inference.visualize import generate_gif, vis_crystal_during_sampling
@@ -259,7 +303,6 @@ def main(argv=None):
         generate_gif(snap_dir, os.path.join(args.out_dir, "sampling.gif"), prefix="step")
         print(f"wrote {args.out_dir}/sampling.gif")
 
-    result = concat_results(results)
     out_path = os.path.join(args.out_dir, "crystals.npz")
     save_sample_results(out_path, result)
     print(f"saved {result.num_crystals} crystals to {out_path}")

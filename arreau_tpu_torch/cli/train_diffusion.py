@@ -23,8 +23,20 @@ imports (else stdout only, as the JAX CLI); ``--profiler torch`` writes a
 latter trains on one crystal and validates on its 90-degree rotation with
 the timestep pinned at ``EVAL_EQUIVARIANCE_TIMESTEP``
 (``exploration/verify_equivariance.py``). The Alexandria shards are HDF5,
-which the card's machine cannot read, and ``--model_parallel`` is ported
-only as 1: both raise otherwise.
+which the card's machine cannot read: ``--dataset alexandria`` raises.
+
+Data and tensor parallelism (``parallel/mesh.py``), one process per card:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m arreau_tpu_torch.cli.train_diffusion --model_parallel 2 ...
+
+runs a ``(data 2, model 2)`` mesh: each data rank loads its stride of every
+globally decided batch (batch sizes a multiple of the data ranks), draws
+the global batch's noise and takes its rows; the kernel-basis and ConvNext
+MLPs are split over the model ranks. NCCL where each rank has a card of
+its own, gloo where ranks share one or run on the CPU (``--device cpu``).
+Rank 0 alone prints, logs, profiles and writes checkpoints (in the one-card
+layout); every rank resumes from them.
 """
 
 from __future__ import annotations
@@ -36,10 +48,17 @@ import time
 import numpy as np
 import torch
 
+from arreau_tpu_torch.cli.common import silent
 from arreau_tpu_torch.cli.generate import parse_bool
 from arreau_tpu_torch.data.crystal import DEFAULT_BUCKETS, BucketedLoader, random_split
 from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.ops.lattice import rotations_from_normals
+from arreau_tpu_torch.parallel.mesh import (
+    make_mesh,
+    maybe_initialize_distributed,
+    shard_rows,
+    shard_state,
+)
 from arreau_tpu_torch.tasks.diffusion import (
     DiffusionConfig,
     DiffusionModel,
@@ -85,7 +104,8 @@ def parse_args(argv=None):
     p.add_argument("--log", type=parse_bool, default=False,
                    help="wandb logging (stdout only where wandb does not import)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--model_parallel", type=int, default=1, help="not ported: must be 1")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel ranks per data rank (under torchrun)")
     p.add_argument("--val_interval", type=int, default=5)
     p.add_argument("--max_steps", type=int, default=None, help="optional hard step cap")
     p.add_argument("--train_augm", type=parse_bool, default=False,
@@ -139,13 +159,8 @@ EVAL_EQUIVARIANCE_TIMESTEP = 5
 
 
 def _check_ported(args) -> None:
-    later = {
-        "model_parallel": args.model_parallel != 1,
-        "dataset": args.dataset not in ("synthetic", "eval-equivariance"),
-    }
-    for flag, used in later.items():
-        if used:
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.dataset not in ("synthetic", "eval-equivariance"):
+        raise NotImplementedError("--dataset is not ported yet")
 
 
 def build_datasets(args):
@@ -202,6 +217,11 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
     torch.autograd.set_detect_anomaly(args.debug_nans)
+    # torchrun: join the process group (a no-op in one process); the mesh
+    # raises where the ranks do not divide by --model_parallel
+    maybe_initialize_distributed(device)
+    mesh = make_mesh(model_size=args.model_parallel)
+    say = print if mesh.is_main else silent
 
     dataset, splits, z_table, fixed_t = build_datasets(args)
     cfg = DiffusionConfig(
@@ -226,9 +246,12 @@ def main(argv=None):
     )
     model = DiffusionModel(cfg, device=device)
     buckets = tuple(int(b) for b in args.buckets.split(",")) if args.buckets else DEFAULT_BUCKETS
+    # global batch sizes a multiple of the data ranks; each data rank takes
+    # its stride of every chunk (the JAX CLI's node_budget and batch_multiple)
     loaders = {
         split: BucketedLoader(dataset, idx, node_budget=args.batch_size * 16, buckets=buckets,
-                              seed=args.seed + i)
+                              seed=args.seed + i, batch_multiple=mesh.data_size,
+                              host_index=mesh.data_rank, num_hosts=mesh.data_size)
         for i, (split, idx) in enumerate(splits.items())
     }
     steps_per_epoch = max(loaders["train"].num_batches(), 1)
@@ -236,27 +259,32 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model.init(generator, batch_to_device(next(iter(loaders["train"])), device))
     n_params = sum(p.numel() for p in model.model.parameters())
+    shard_state(model, mesh)  # before the optimizer and the EMA: they follow the shards
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"model: {n_params / 1e6:.2f}M params | device: {name} | "
-          f"steps/epoch: {steps_per_epoch} | z-table: {len(z_table)} classes")
+    ranks = (f" | mesh: data {mesh.data_size} x model {mesh.model_size}"
+             if mesh.distributed else "")
+    say(f"model: {n_params / 1e6:.2f}M params | device: {name} | "
+        f"steps/epoch: {steps_per_epoch} | z-table: {len(z_table)} classes{ranks}")
 
     schedule = cosine_warmup_schedule(args.lr, args.warmup, args.epochs, steps_per_epoch)
-    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5)
+    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
     ema = EMA(model.model, args.ema) if args.ema is not None else None
 
     train_lengths = np.linalg.norm(dataset.packed.lattices[np.asarray(splits["train"], int)], axis=-1)
     length_stats = {"min": train_lengths.min(), "max": train_lengths.max(),
                     "mean": train_lengths.mean(), "std": train_lengths.std()}
     ckpt = CheckpointManager(args.checkpoint_dir,
-                             diffusion_meta(cfg, z_table, length_stats, model.fourier_w))
+                             diffusion_meta(cfg, z_table, length_stats, model.fourier_w), mesh)
     if args.resume and ckpt.has("last"):
         step = ckpt.restore("last", model, optimizer, ema)
-        print(f"resumed from {ckpt.path('last')} at step {step}")
+        say(f"resumed from {ckpt.path('last')} at step {step}")
 
     def noise_for(batch):
+        """The global batch's noise (every rank draws it), this rank's rows."""
         B, A = batch.atom_types.shape
-        return draw_loss_noise(generator, B, A, cfg.num_atomic_states, cfg.num_timesteps,
-                               cfg.diffuse_angles, device, timestep=fixed_t)
+        return draw_loss_noise(generator, B * mesh.data_size, A, cfg.num_atomic_states,
+                               cfg.num_timesteps, cfg.diffuse_angles, device,
+                               timestep=fixed_t).rows(mesh)
 
     def device_batches(split: str):
         """The split's batches, collated and copied to the device in a thread
@@ -273,7 +301,7 @@ def main(argv=None):
         return exact_loss(acc.compute(), args.angle_loss_weight)
 
     wandb_run = None
-    if args.log:
+    if args.log and mesh.is_main:
         try:
             import wandb
 
@@ -283,7 +311,8 @@ def main(argv=None):
             print("wandb not available; logging to stdout only")
 
     timer = EpochTimer()
-    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
+    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl") if mesh.is_main
+                       else None)
     global_step = optimizer.count
     done = args.max_steps is not None and global_step >= args.max_steps
     # throughput: the training loops' wall time (collation, noise, steps,
@@ -294,15 +323,15 @@ def main(argv=None):
             break
         timer.epoch_start()
         profiler = None
-        if args.profiler == "torch" and epoch == 1:
+        if args.profiler == "torch" and epoch == 1 and mesh.is_main:
             profiler = start_profiler(device)
         pending = []
         t_loop = time.perf_counter()
         for batch in device_batches("train"):
             if args.train_augm:
-                normals = torch.randn((batch.lattice.shape[0], 4), generator=generator,
-                                      device=device)
-                batch = rotate_batch(rotations_from_normals(normals), batch)
+                normals = torch.randn((batch.lattice.shape[0] * mesh.data_size, 4),
+                                      generator=generator, device=device)
+                batch = rotate_batch(rotations_from_normals(shard_rows(normals, mesh)), batch)
             pending.append(train_step(model, optimizer, ema, batch, noise_for(batch)))
             global_step += 1
             if first:
@@ -323,7 +352,7 @@ def main(argv=None):
         dt = timer.epoch_end()
         tm = exact_loss(train_metrics.compute(), args.angle_loss_weight)
         lr_now = schedule(optimizer.count)
-        print(f"epoch {epoch} | train loss {_losses(tm)} | lr {lr_now:.2e} | {dt:.1f}s")
+        say(f"epoch {epoch} | train loss {_losses(tm)} | lr {lr_now:.2e} | {dt:.1f}s")
         if wandb_run:
             wandb_run.log({"epoch": epoch, "lr": lr_now,
                            **{f"train/{k}": v for k, v in tm.items()}})
@@ -332,7 +361,7 @@ def main(argv=None):
 
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             v = evaluate("valid")
-            print(f"epoch {epoch} | valid loss {_losses(v)}")
+            say(f"epoch {epoch} | valid loss {_losses(v)}")
             if wandb_run:
                 wandb_run.log({f"valid/{k}": val for k, val in v.items()})
             jlog.log({"epoch": epoch, "step": optimizer.count,
@@ -342,14 +371,14 @@ def main(argv=None):
         if done:
             ckpt.save("last", model, optimizer, ema)
     if warm_steps > 0:
-        print(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
-              f"steps, {name})")
-    print(timer.summary())
+        say(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
+            f"steps, {name})")
+    say(timer.summary())
 
     if ckpt.has("best"):
         ckpt.restore("best", model, optimizer, ema)
     t = evaluate("test")
-    print(f"test loss {_losses(t)}")
+    say(f"test loss {_losses(t)}")
     if wandb_run:
         wandb_run.log({f"test/{k}": val for k, val in t.items()})
         wandb_run.finish()

@@ -12,6 +12,15 @@ by the force MAE), and a test pass on ``best`` averaged over
 never falls back to the CPU).
 
     python -m arreau_tpu_torch.cli.train_md17 --epochs 300
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+arreau_tpu_torch.cli.train_md17 ...``) the ranks train data-parallel
+(``parallel/mesh.py``): every rank draws the same global batch and
+augmentation from the shared seed and takes rows ``r::n`` of it; the loss
+is a plain mean over shards of equal size (the energy MSE over frames, the force MSE
+over real atoms, frames of one molecule having the same atoms; the forces
+are ``torch.autograd.grad`` inside each rank), so the ranks average
+their gradients and metrics; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -23,13 +32,14 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
 from arreau_tpu_torch.data.molecules import (
     MoleculeExamples,
     load_rmd17_npz,
     synthetic_molecules,
 )
 from arreau_tpu_torch.ops.grids import random_so3_matrix
+from arreau_tpu_torch.parallel.mesh import data_mean, shard_batch, shard_rows, shard_state
 from arreau_tpu_torch.tasks.md17 import (
     KCAL_TO_MEV,
     MD17Batch,
@@ -83,6 +93,7 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    mesh, say = data_parallel_setup(device, args.batch_size)
 
     if args.npz:
         data = load_rmd17_npz(args.npz)
@@ -91,7 +102,7 @@ def main(argv=None):
         data = MoleculeExamples(data.pos, data.one_hot, data.mask, data.y * KCAL_TO_MEV,
                                 data.forces * KCAL_TO_MEV)
     else:
-        print("no --npz given; using synthetic molecules with analytic forces")
+        say("no --npz given; using synthetic molecules with analytic forces")
         data = synthetic_molecules(args.synthetic_size, seed=args.seed, with_forces=True)
 
     rng = np.random.default_rng(args.seed)
@@ -101,7 +112,7 @@ def main(argv=None):
     te = perm[args.train_size + args.val_size:]
     shift = float(np.mean(data.y[tr]))
     scale = float(np.sqrt(np.mean(data.forces[tr] ** 2)))
-    print(f"md17 shift {shift:.3f} scale {scale:.3f}")
+    say(f"md17 shift {shift:.3f} scale {scale:.3f}")
 
     cfg = MD17Config(
         input_dim=data.one_hot.shape[-1],
@@ -137,18 +148,20 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model.init(generator, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
+    shard_state(model, mesh)
     steps_per_epoch = max(len(tr) // bs, 1)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"md17 model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
-    print(f"device: {name}")
+    say(f"md17 model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
+    say(f"device: {name}")
 
     schedule = cosine_warmup_schedule(args.lr, args.warmup, args.epochs, steps_per_epoch)
-    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5)
+    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
     ema = EMA(model.model, 0.99)
     ckpt = CheckpointManager(args.checkpoint_dir,
-                             {"config": vars(args), "shift": shift, "scale": scale})
+                             {"config": vars(args), "shift": shift, "scale": scale}, mesh)
     timer = EpochTimer()
-    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
+    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl") if mesh.is_main
+                       else None)
 
     best = float("inf")
     global_step = 0
@@ -160,7 +173,7 @@ def main(argv=None):
         for batch in batches(tr, True):
             if args.train_augm:
                 batch = rotate_md17_batch(random_so3_matrix(generator, (bs,)), batch)
-            pending.append(train_step(model, optimizer, ema, batch))
+            pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:
                 break
@@ -172,16 +185,17 @@ def main(argv=None):
             warm_seconds += time.perf_counter() - t_loop
             warm_steps += len(pending)
         dt = timer.epoch_end()
-        print(f"epoch {epoch} | train E-MAE {t.get('mae_energy', 0):.4f} "
-              f"F-MAE {t.get('mae_force', 0):.4f} | {dt:.1f}s", flush=True)
+        say(f"epoch {epoch} | train E-MAE {t.get('mae_energy', 0):.4f} "
+            f"F-MAE {t.get('mae_force', 0):.4f} | {dt:.1f}s", flush=True)
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             vm = MeanMetrics()
-            for m in gather_metrics([eval_step(model, b, ema=ema) for b in batches(va, False)]):
+            for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
+                                     for b in batches(va, False)]):
                 vm.update(m)
             v = vm.compute()
             vf = v.get("mae_force", float("nan"))
-            print(f"epoch {epoch} | valid E-MAE {v.get('mae_energy', 0):.4f} F-MAE {vf:.4f}",
-                  flush=True)
+            say(f"epoch {epoch} | valid E-MAE {v.get('mae_energy', 0):.4f} F-MAE {vf:.4f}",
+                flush=True)
             jlog.log({"epoch": epoch, "step": global_step,
                       "valid/mae_energy": v.get("mae_energy"), "valid/mae_force": vf})
             ckpt.save("last", model, optimizer, ema)
@@ -192,9 +206,9 @@ def main(argv=None):
             break
 
     if warm_steps > 0:
-        print(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
-              f"steps, {name})")
-    print(timer.summary())
+        say(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
+            f"steps, {name})")
+    say(timer.summary())
 
     # test with rotation-repeat averaging, on the EMA weights
     if ckpt.has("best"):
@@ -203,13 +217,15 @@ def main(argv=None):
     with ema.swapped_in(model.model), torch.no_grad():
         for batch in batches(te, False):
             rotations = random_so3_matrix(generator, (args.repeats, bs))
-            results = model.test_repeats(batch, rotations)
-            e_maes.append([float(r[0]) for r in results])
-            f_maes.append([float(r[1]) for r in results])
+            results = model.test_repeats(shard_batch(batch, mesh), shard_rows(rotations, mesh, 1))
+            # [repeats, 2] energy and force MAEs, averaged over equal shards
+            maes = data_mean({"mae": torch.stack([torch.stack(r) for r in results])}, mesh)["mae"]
+            e_maes.append([float(r[0]) for r in maes])
+            f_maes.append([float(r[1]) for r in maes])
     if e_maes:
         e_avg, f_avg = np.mean(e_maes, axis=0), np.mean(f_maes, axis=0)
         for r in range(args.repeats):
-            print(f"test MAE x{r + 1}: energy {e_avg[r]:.4f} force {f_avg[r]:.4f}")
+            say(f"test MAE x{r + 1}: energy {e_avg[r]:.4f} force {f_avg[r]:.4f}")
         jlog.log({"step": global_step, "test/mae_energy": float(e_avg[-1]),
                   "test/mae_force": float(f_avg[-1])})
         return float(f_avg[-1])

@@ -11,6 +11,14 @@ test pass on ``best``. Runs on ``--device`` (default ``cuda``; it never
 falls back to the CPU).
 
     python -m arreau_tpu_torch.cli.train_mnist --synthetic_size 4000 --epochs 50
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+arreau_tpu_torch.cli.train_mnist ...``) the ranks train data-parallel
+(``parallel/mesh.py``): every rank draws the same global batch and
+augmentation from the shared seed and takes rows ``r::n`` of it; the loss
+is a plain mean over shards of equal size (the cross-entropy over
+images), so the ranks average their gradients and metrics; rank 0 alone
+prints and writes.
 """
 
 from __future__ import annotations
@@ -22,9 +30,10 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
 from arreau_tpu_torch.data.mnist import load_mnist_superpixels, synthetic_superpixels
 from arreau_tpu_torch.ops.grids import random_so2_matrix
+from arreau_tpu_torch.parallel.mesh import shard_batch, shard_state
 from arreau_tpu_torch.tasks.mnist import (
     Mnist2DBatch,
     MnistConfig,
@@ -89,6 +98,7 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    mesh, say = data_parallel_setup(device, args.batch_size)
 
     data = {split: Mnist2DBatch(
         pos=torch.as_tensor(ex.pos, dtype=torch.float32, device=device),
@@ -123,22 +133,25 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model.init(generator, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
+    shard_state(model, mesh)
     steps_per_epoch = max(len(data["train"].label) // bs, 1)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"mnist model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
-    print(f"device: {name}")
+    say(f"mnist model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
+    say(f"device: {name}")
 
     schedule = cosine_warmup_schedule(args.lr, max(args.warmup, 1e-6), args.epochs,
                                       steps_per_epoch)
-    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5)
+    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
     ema = EMA(model.model, 0.99)
-    ckpt = CheckpointManager(args.checkpoint_dir, {"config": vars(args)})
+    ckpt = CheckpointManager(args.checkpoint_dir, {"config": vars(args)}, mesh)
     timer = EpochTimer()
-    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
+    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl") if mesh.is_main
+                       else None)
 
     def evaluate(split: str) -> dict:
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, b, ema=ema) for b in batches(split, False)]):
+        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
+                                 for b in batches(split, False)]):
             acc.update(m)
         return acc.compute()
 
@@ -152,7 +165,7 @@ def main(argv=None):
         for batch in batches("train", True):
             if args.train_augm:
                 batch = rotate_mnist_batch(random_so2_matrix(generator, (len(batch.pos),)), batch)
-            pending.append(train_step(model, optimizer, ema, batch))
+            pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:
                 break
@@ -164,11 +177,11 @@ def main(argv=None):
             warm_seconds += time.perf_counter() - t_loop
             warm_steps += len(pending)
         dt = timer.epoch_end()
-        print(f"epoch {epoch} | train acc {t.get('accuracy', 0):.4f} "
-              f"nll {t.get('loss', 0):.4f} | {dt:.1f}s", flush=True)
+        say(f"epoch {epoch} | train acc {t.get('accuracy', 0):.4f} "
+            f"nll {t.get('loss', 0):.4f} | {dt:.1f}s", flush=True)
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             v = evaluate("valid").get("accuracy", 0.0)
-            print(f"epoch {epoch} | valid acc {v:.4f}", flush=True)
+            say(f"epoch {epoch} | valid acc {v:.4f}", flush=True)
             jlog.log({"epoch": epoch, "step": global_step, "valid/acc": v})
             ckpt.save("last", model, optimizer, ema)
             if v > best:
@@ -178,13 +191,13 @@ def main(argv=None):
             break
 
     if warm_steps > 0:
-        print(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
-              f"steps, {name})")
-    print(timer.summary())
+        say(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
+            f"steps, {name})")
+    say(timer.summary())
     if ckpt.has("best"):
         ckpt.restore("best", model, optimizer, ema)
     acc = evaluate("test").get("accuracy", float("nan"))
-    print(f"test accuracy {acc:.4f}")
+    say(f"test accuracy {acc:.4f}")
     jlog.log({"step": global_step, "test/acc": acc})
     return acc
 

@@ -14,6 +14,14 @@ JAX package's dispatch on a TPU, and every epoch here is the per-batch loop.
 
     python -m arreau_tpu_torch.cli.train_nbody --epochs 10000 --val_interval 20 \\
         --batch_size 100 --lr 1e-3
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+arreau_tpu_torch.cli.train_nbody ...``) the ranks train data-parallel
+(``parallel/mesh.py``): every rank draws the same global batch and
+augmentation from the shared seed and takes rows ``r::n`` of it; the loss
+is a plain mean over shards of equal size (the MSE over systems and coordinates; the
+dataset is simulated by rank 0, then read by the others), so the ranks average
+their gradients and metrics; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -25,10 +33,16 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import parse_bool, parse_opt_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import (
+    data_parallel_setup,
+    parse_bool,
+    parse_opt_bool,
+    parse_opt_float,
+)
 from arreau_tpu_torch.data.nbody import load_or_generate
 from arreau_tpu_torch.models.egnn import EGNNConfig, EGNNNBody
 from arreau_tpu_torch.ops.grids import random_so3_matrix
+from arreau_tpu_torch.parallel.mesh import main_first, shard_batch, shard_state
 from arreau_tpu_torch.tasks.nbody import (
     NBodyBatch,
     NBodyConfig,
@@ -100,13 +114,15 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    mesh, say = data_parallel_setup(device, args.batch_size)
 
     splits = {}
     for split in ("train", "valid", "test"):
-        ex = load_or_generate(
-            args.data_dir, split, num_train=max(args.generate_train, args.max_training_samples),
-            dataset_name=args.dataset, seed=43, device=device,
-            max_samples=args.max_training_samples if split == "train" else None)
+        with main_first(mesh):  # rank 0 simulates a missing dataset
+            ex = load_or_generate(
+                args.data_dir, split, num_train=max(args.generate_train, args.max_training_samples),
+                dataset_name=args.dataset, seed=43, device=device,
+                max_samples=args.max_training_samples if split == "train" else None)
         splits[split] = [torch.as_tensor(a, dtype=torch.float32, device=device)
                          for a in (ex.loc0, ex.vel0, ex.charges, ex.loc_end)]
     model = build_model(args, device)
@@ -124,21 +140,24 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model.init(generator, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
+    shard_state(model, mesh)
     steps_per_epoch = max(len(splits["train"][0]) // bs, 1)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"nbody model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
-    print(f"device: {name}")
+    say(f"nbody model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
+    say(f"device: {name}")
 
     schedule = cosine_warmup_schedule(args.lr, args.warmup, args.epochs, steps_per_epoch)
-    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5)
+    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
     ema = EMA(model.model, 0.99)
-    ckpt = CheckpointManager(args.checkpoint_dir, {"config": vars(args)})
+    ckpt = CheckpointManager(args.checkpoint_dir, {"config": vars(args)}, mesh)
     timer = EpochTimer()
-    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
+    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl") if mesh.is_main
+                       else None)
 
     def evaluate(split: str) -> float:
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, b, ema=ema) for b in batches(split, False)]):
+        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
+                                 for b in batches(split, False)]):
             acc.update(m)
         return acc.compute().get("mse", float("nan"))
 
@@ -153,7 +172,7 @@ def main(argv=None):
         for batch in batches("train", True):
             if args.train_augm:
                 batch = rotate_nbody_batch(random_so3_matrix(generator, (len(batch.pos),)), batch)
-            pending.append(train_step(model, optimizer, ema, batch))
+            pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:
                 break
@@ -166,12 +185,12 @@ def main(argv=None):
             warm_steps += len(pending)
         dt = timer.epoch_end()
         if epoch % log_every == 0 or epoch == args.epochs - 1:
-            print(f"epoch {epoch} | train MSE {t.get('mse', float('nan')):.6f} | {dt:.1f}s",
-                  flush=True)
+            say(f"epoch {epoch} | train MSE {t.get('mse', float('nan')):.6f} | {dt:.1f}s",
+                flush=True)
 
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             v = evaluate("valid")
-            print(f"epoch {epoch} | valid MSE {v:.6f}", flush=True)
+            say(f"epoch {epoch} | valid MSE {v:.6f}", flush=True)
             jlog.log({"epoch": epoch, "step": global_step, "train/mse": t.get("mse"),
                       "epoch_s": dt, "valid/mse": v})
             ckpt.save("last", model, optimizer, ema)
@@ -182,13 +201,13 @@ def main(argv=None):
             break
 
     if warm_steps > 0:
-        print(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
-              f"steps, {name})")
-    print(timer.summary())
+        say(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
+            f"steps, {name})")
+    say(timer.summary())
     if ckpt.has("best"):
         ckpt.restore("best", model, optimizer, ema)
     test_mse = evaluate("test")
-    print(f"test MSE {test_mse:.6f}")
+    say(f"test MSE {test_mse:.6f}")
     jlog.log({"step": global_step, "test/mse": test_mse})
     return test_mse
 

@@ -10,6 +10,13 @@ a final test pass on ``best``. Runs on ``--device`` (default ``cuda``; it
 never falls back to the CPU).
 
     python -m arreau_tpu_torch.cli.train_qm9 --epochs 300
+
+Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
+arreau_tpu_torch.cli.train_qm9 ...``) the ranks train data-parallel
+(``parallel/mesh.py``): every rank draws the same global batch and
+augmentation from the shared seed and takes rows ``r::n`` of it; the loss
+is a plain mean over shards of equal size (the MAE over molecules), so the ranks average
+their gradients and metrics; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
 from arreau_tpu_torch.data.molecules import dimenet_split, load_qm9_xyz_dir, synthetic_molecules
 from arreau_tpu_torch.ops.grids import random_so3_matrix
+from arreau_tpu_torch.parallel.mesh import shard_batch, shard_state
 from arreau_tpu_torch.tasks.qm9 import MoleculeBatch, QM9Config, QM9Model, rotate_molecule_batch
 from arreau_tpu_torch.train.checkpoint import CheckpointManager
 from arreau_tpu_torch.train.loop import eval_step, gather_metrics, train_step
@@ -68,16 +76,17 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")
+    mesh, say = data_parallel_setup(device, args.batch_size)
 
     if args.root:
         data = load_qm9_xyz_dir(args.root, args.target)
     else:
-        print("no --root given; using synthetic molecules")
+        say("no --root given; using synthetic molecules")
         data = synthetic_molecules(args.synthetic_size, seed=args.seed)
     tr, va, te = dimenet_split(len(data))
     shift = float(np.mean(data.y[tr]))
     scale = float(np.std(data.y[tr]))
-    print(f"target {args.target}: shift {shift:.4f} scale {scale:.4f}")
+    say(f"target {args.target}: shift {shift:.4f} scale {scale:.4f}")
 
     cfg = QM9Config(
         input_dim=data.one_hot.shape[-1],
@@ -113,22 +122,25 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model.init(generator, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
+    shard_state(model, mesh)
     steps_per_epoch = max(len(tr) // bs, 1)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"qm9 model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
-    print(f"device: {name}")
+    say(f"qm9 model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
+    say(f"device: {name}")
 
     schedule = cosine_warmup_schedule(args.lr, args.warmup, args.epochs, steps_per_epoch)
-    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5)
+    optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
     ema = EMA(model.model, 0.99)
     ckpt = CheckpointManager(args.checkpoint_dir,
-                             {"config": vars(args), "shift": shift, "scale": scale})
+                             {"config": vars(args), "shift": shift, "scale": scale}, mesh)
     timer = EpochTimer()
-    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl"))
+    jlog = JsonlLogger(os.path.join(args.checkpoint_dir, "metrics.jsonl") if mesh.is_main
+                       else None)
 
     def evaluate(idx) -> float:
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, b, ema=ema) for b in batches(idx, False)]):
+        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
+                                 for b in batches(idx, False)]):
             acc.update(m)
         return acc.compute().get("mae", float("nan"))
 
@@ -142,7 +154,7 @@ def main(argv=None):
         for batch in batches(tr, True):
             if args.train_augm:
                 batch = rotate_molecule_batch(random_so3_matrix(generator, (bs,)), batch)
-            pending.append(train_step(model, optimizer, ema, batch))
+            pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:
                 break
@@ -154,11 +166,11 @@ def main(argv=None):
             warm_seconds += time.perf_counter() - t_loop
             warm_steps += len(pending)
         dt = timer.epoch_end()
-        print(f"epoch {epoch} | train MAE {t.get('mae', float('nan')):.6f} | {dt:.1f}s",
-              flush=True)
+        say(f"epoch {epoch} | train MAE {t.get('mae', float('nan')):.6f} | {dt:.1f}s",
+            flush=True)
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             v = evaluate(va)
-            print(f"epoch {epoch} | valid MAE {v:.6f}", flush=True)
+            say(f"epoch {epoch} | valid MAE {v:.6f}", flush=True)
             jlog.log({"epoch": epoch, "step": global_step, "valid/mae": v})
             ckpt.save("last", model, optimizer, ema)
             if v < best:
@@ -168,13 +180,13 @@ def main(argv=None):
             break
 
     if warm_steps > 0:
-        print(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
-              f"steps, {name})")
-    print(timer.summary())
+        say(f"train throughput: {warm_steps / warm_seconds:.3f} steps/s ({warm_steps} warm "
+            f"steps, {name})")
+    say(timer.summary())
     if ckpt.has("best"):
         ckpt.restore("best", model, optimizer, ema)
     test_mae = evaluate(te)
-    print(f"test MAE {test_mae:.6f}")
+    say(f"test MAE {test_mae:.6f}")
     jlog.log({"step": global_step, "test/mae": test_mae})
     return test_mae
 

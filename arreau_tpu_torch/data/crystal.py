@@ -5,10 +5,14 @@ Crystals are stored columnar (:class:`PackedCrystals`), assigned to the
 smallest size bucket that fits, and emitted as dense ``[B, A_bucket]``
 :class:`CrystalBatch`es of numpy arrays with masks. Each bucket's batch
 size comes from a node budget, and for one seed the loader yields the same
-batches in the same order as the JAX package's. Reading HDF5 shards (the
-JAX package's ``read_h5``) is not ported: the card's machine has no
-``h5py``. The collator is the JAX package's numpy one; its optional C++
-collator (host code) is not ported.
+batches in the same order as the JAX package's. Under data parallelism
+each rank is a host of the JAX loader's multi-host contract: the chunks are
+decided globally from the shared seed and rank ``host_index`` of
+``num_hosts`` takes rows ``host_index::num_hosts`` of each, so every rank
+runs the same sequence of shapes. Reading HDF5 shards (the JAX package's
+``read_h5``) is not ported: the card's machine has no ``h5py``. Batches are
+collated by the C++ collator (``arreau_tpu_torch/native``); the numpy
+:func:`collate_dense` is its plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from arreau_tpu_torch import native
 from arreau_tpu_torch.data.atoms import AtomicNumberTable, table_from_zs
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch
 
@@ -91,7 +96,7 @@ def collate_dense(type_indices, frac_coords, offsets, lattices, idx, max_atoms: 
                   dtype=np.float32) -> CrystalBatch:
     """One dense padded batch of the crystals ``idx``; an index of -1 is a
     padding slot: an empty example with the identity lattice (which keeps
-    the lattice codecs finite)."""
+    the lattice codecs finite). The plain version of the C++ collator."""
     B = len(idx)
     frac = np.zeros((B, max_atoms, 3), dtype)
     types = np.zeros((B, max_atoms), np.int32)
@@ -116,16 +121,25 @@ def collate_dense(type_indices, frac_coords, offsets, lattices, idx, max_atoms: 
 
 def pack_dense_batch(dataset: CrystalDataset, idx: np.ndarray, max_atoms: int,
                      dtype=np.float32) -> CrystalBatch:
+    """The crystals ``idx`` (-1: a padding example) as one dense batch,
+    collated by the C++ collator."""
     packed = dataset.packed
-    return collate_dense(dataset.type_indices, packed.frac_coords, packed.offsets,
-                         packed.lattices, np.asarray(idx, np.int64), max_atoms, dtype)
+    return CrystalBatch(*native.collate_dense(dataset.type_indices, packed.frac_coords,
+                                              packed.offsets, packed.lattices, idx, max_atoms,
+                                              dtype))
 
 
 class BucketedLoader:
     """Shuffled size-bucketed batch iterator: each bucket's batch size is
     ``node_budget // bucket``, rounded down to a multiple of
     ``batch_multiple``; a bucket's last short chunk is padded with empty
-    examples (or dropped); chunks come in a shuffled order each epoch."""
+    examples (or dropped); chunks come in a shuffled order each epoch.
+
+    Multi-host (one host per data rank): the chunks and their order are
+    decided over the whole index set from the shared seed, the batch
+    sizes are global and a multiple of ``num_hosts``, and host
+    ``host_index`` yields rows ``host_index::num_hosts`` of each chunk:
+    disjoint crystals, the same shapes on every host."""
 
     def __init__(
         self,
@@ -137,12 +151,18 @@ class BucketedLoader:
         dtype=np.float32,
         batch_multiple: int = 1,
         drop_remainder: bool = False,
+        host_index: int = 0,
+        num_hosts: int = 1,
     ):
+        if not 0 <= host_index < num_hosts:
+            raise ValueError(f"host_index {host_index} not in [0, {num_hosts})")
         self.dataset = dataset
         self.node_budget = node_budget
         self.buckets = tuple(buckets)
         self.dtype = dtype
-        self.batch_multiple = batch_multiple
+        self.batch_multiple = max(batch_multiple, num_hosts)
+        self.host_index = host_index
+        self.num_hosts = num_hosts
         self.drop_remainder = drop_remainder
         self._rng = np.random.default_rng(seed)
         num_atoms = dataset.packed.num_atoms
@@ -152,6 +172,7 @@ class BucketedLoader:
         self.by_bucket = {b: np.asarray(v, np.int64) for b, v in assign.items() if v}
 
     def batch_size_for(self, bucket: int) -> int:
+        """The global batch size of ``bucket`` (all hosts together)."""
         bs = max(self.node_budget // bucket, 1)
         m = self.batch_multiple
         if m > 1:
@@ -159,8 +180,8 @@ class BucketedLoader:
         return bs
 
     def chunks(self) -> list[tuple[int, np.ndarray]]:
-        """One epoch's (bucket, crystal indices) in order; draws from the
-        loader's generator, as iterating does."""
+        """One epoch's global (bucket, crystal indices) in order; draws from
+        the loader's generator, as iterating does."""
         chunks = []
         for bucket in self.buckets:
             if bucket not in self.by_bucket:
@@ -179,7 +200,8 @@ class BucketedLoader:
 
     def __iter__(self) -> Iterator[CrystalBatch]:
         for bucket, chunk in self.chunks():
-            yield pack_dense_batch(self.dataset, chunk, bucket, self.dtype)
+            local = chunk[self.host_index :: self.num_hosts]
+            yield pack_dense_batch(self.dataset, local, bucket, self.dtype)
 
     def num_batches(self) -> int:
         total = 0

@@ -12,7 +12,7 @@ turned into gumbel noise here.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -151,23 +151,29 @@ def q_posterior_logits(tables: D3PMTables, x0: torch.Tensor, xt: torch.Tensor,
     return _q_posterior_logits_from_onehotish(tables, x0, xt, t)
 
 
-def _vb_kl(dist1: torch.Tensor, dist2: torch.Tensor, atom_mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean of KL(softmax(dist1) || softmax(dist2)) over real atoms,
-    with the reference's eps added to the logits."""
+def _vb_kl(dist1: torch.Tensor, dist2: torch.Tensor, atom_mask: torch.Tensor,
+           denom: torch.Tensor) -> torch.Tensor:
+    """Masked sum of KL(softmax(dist1) || softmax(dist2)) over real atoms
+    over ``denom``, with the reference's eps added to the logits."""
     kl = torch.softmax(dist1 + EPS, dim=-1) * (
         torch.log_softmax(dist1 + EPS, dim=-1) - torch.log_softmax(dist2 + EPS, dim=-1)
     )
-    denom = torch.clamp(atom_mask.sum(), min=1)
     return torch.where(atom_mask, kl.sum(dim=-1), 0.0).sum() / denom
 
 
 def d3pm_loss(tables: D3PMTables, x0: torch.Tensor, predicted_x0_logits: torch.Tensor,
-              xt: torch.Tensor, t: torch.Tensor, atom_mask: torch.Tensor) -> torch.Tensor:
+              xt: torch.Tensor, t: torch.Tensor, atom_mask: torch.Tensor,
+              num_atoms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hybrid loss: ``hybrid_loss_coeff`` x VB-KL + cross-entropy against
-    x0, both masked means over real atoms."""
+    x0, both masked means over real atoms. ``num_atoms``, the real-atom
+    count to divide by, defaults to this batch's (at least 1); under data
+    parallelism it is the global batch's, and the loss is this rank's part
+    of the global mean."""
+    if num_atoms is None:
+        num_atoms = torch.clamp(atom_mask.sum(), min=1)
     vb = _vb_kl(q_posterior_logits(tables, x0, xt, t),
-                q_posterior_logits(tables, predicted_x0_logits, xt, t), atom_mask)
+                q_posterior_logits(tables, predicted_x0_logits, xt, t), atom_mask, num_atoms)
     logp = torch.log_softmax(predicted_x0_logits, dim=-1)
     ce = -torch.gather(logp, -1, x0.long()[..., None])[..., 0]
-    ce = torch.where(atom_mask, ce, 0.0).sum() / torch.clamp(atom_mask.sum(), min=1)
+    ce = torch.where(atom_mask, ce, 0.0).sum() / num_atoms
     return tables.hybrid_loss_coeff * vb + ce

@@ -126,10 +126,12 @@ def point_cloud_params_from_jax(model, tree) -> None:
     params_from_jax(model, tree)
 
 
-def params_to_jax(module: torch.nn.Module) -> dict:
-    """The port's parameters as a JAX-layout tree ``{"params": {...}}``."""
+def params_to_jax(module) -> dict:
+    """The port's parameters as a JAX-layout tree ``{"params": {...}}``;
+    ``module`` is a module or its ``state_dict()``."""
     flat = {}
-    for name, param in module.state_dict().items():
+    state = module if isinstance(module, dict) else module.state_dict()
+    for name, param in state.items():
         key, transpose = _jax_name(name)
         value = param.detach().float().cpu()
         flat[key] = (value.t() if transpose else value).contiguous().numpy()

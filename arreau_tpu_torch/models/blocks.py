@@ -25,6 +25,15 @@ bfloat16 operands the port upcasts the operands and multiplies in float32
 (bfloat16 products are exact in float32). With ``fuse_convnext`` the
 kernel layout runs the ConvNext MLP tail and its readout in one kernel pair
 (``kernels/convnext_mlp.py``).
+
+Under tensor parallelism (``parallel/mesh.py``: ``shard_state`` sets a
+module's ``tp`` to the mesh) a ``BasisMLP`` or ``ConvNextBlock`` holds its
+shards of the split pair (``dense_in``/``linear_1`` by output features,
+``dense_out``/``linear_2`` by input features). The plain chain then runs
+the local column product, GELU and the local row product, sums the
+partial products over the model group and adds the whole bias; a CUDA
+kernel gets the weights gathered whole at its boundary, as JAX's
+``shard_map`` gathers them.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from arreau_tpu_torch.kernels.convnext_mlp import fused_convnext_mlp
 from arreau_tpu_torch.kernels.fiber_conv import fused_fiber_conv
 from arreau_tpu_torch.kernels.fused_basis_mlp import fused_basis_mlp_fn
 from arreau_tpu_torch.kernels.spatial_conv import fused_spatial_conv
+from arreau_tpu_torch.parallel.mesh import copy_to_model, gather_from_model, reduce_from_model
 
 LN_EPS = 1e-5
 
@@ -65,6 +75,32 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = Non
         return linear(x)
     y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
     return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
+def row_parallel_dense(linear: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype], tp):
+    """:func:`dense` of a layer split by input features over ``tp``'s model
+    group: the local partial products in float32 (bfloat16 operands are
+    exact in it), summed over the group, rounded to ``dtype`` and then the
+    whole bias added, as :func:`dense` adds it."""
+    if dtype is None:
+        y = reduce_from_model(F.linear(x, linear.weight), tp)
+    else:
+        y = torch.matmul(x.to(dtype).float(), linear.weight.to(dtype).float().t())
+        y = reduce_from_model(y, tp).to(dtype)
+    return y if linear.bias is None else y + linear.bias.to(y.dtype)
+
+
+def whole_weight(linear: nn.Linear, dim: int, tp) -> torch.Tensor:
+    """``linear.weight`` as one card holds it: gathered over the model group
+    under tensor parallelism (``dim`` its split dimension)."""
+    return linear.weight if tp is None else gather_from_model(linear.weight, dim, tp)
+
+
+def whole_bias(linear: nn.Linear, tp) -> Optional[torch.Tensor]:
+    """A column-split layer's bias, whole (None without a bias)."""
+    if linear.bias is None or tp is None:
+        return linear.bias
+    return gather_from_model(linear.bias, 0, tp)
 
 
 def polynomial_features(x: torch.Tensor, degree: int) -> torch.Tensor:
@@ -127,7 +163,10 @@ class BasisMLP(nn.Module):
     ``attr`` and both weights are cast to the compute type (``dtype``, else
     the weights' float32), the output is in it, and ``attr`` gets a zero
     cotangent. Otherwise, as in the JAX package, the plain chain runs. The
-    parameters are the same either way."""
+    parameters are the same either way. ``tp``: the mesh under tensor
+    parallelism (module docstring), else None."""
+
+    tp = None
 
     def __init__(self, input_dim: int, hidden_dim: int, basis_dim: int, degree: int,
                  use_bias: bool = True, out_bias: Optional[bool] = None, fused: bool = False):
@@ -146,11 +185,15 @@ class BasisMLP(nn.Module):
         if (self.fused and self.dense_in.bias is None and self.dense_out.bias is None
                 and attr.dim() == 4 and self.degree <= 3):
             cdt = dtype or self.dense_in.weight.dtype
-            return fused_basis_mlp_fn(attr.to(cdt).contiguous(),
-                                      self.dense_in.weight.t().to(cdt).contiguous(),
-                                      self.dense_out.weight.t().to(cdt).contiguous(), self.degree)
-        h = gelu(dense(self.dense_in, polynomial_features(attr, self.degree), dtype))
-        return gelu(dense(self.dense_out, h, dtype))
+            w_in = whole_weight(self.dense_in, 0, self.tp)
+            w_out = whole_weight(self.dense_out, 1, self.tp)
+            return fused_basis_mlp_fn(attr.to(cdt).contiguous(), w_in.t().to(cdt).contiguous(),
+                                      w_out.t().to(cdt).contiguous(), self.degree)
+        feats = polynomial_features(attr, self.degree)
+        if self.tp is None:
+            return gelu(dense(self.dense_out, gelu(dense(self.dense_in, feats, dtype)), dtype))
+        h = gelu(dense(self.dense_in, copy_to_model(feats, self.tp), dtype))
+        return gelu(row_parallel_dense(self.dense_out, h, dtype, self.tp))
 
     def forward_kernel_layout(self, attrT: torch.Tensor, n_out: int) -> tuple[torch.Tensor, ...]:
         """The same function from lane-major ``attrT [B', O, d, E]`` to
@@ -161,16 +204,19 @@ class BasisMLP(nn.Module):
         ``attrT``'s type (float32 or bfloat16)."""
         dt = attrT.dtype
 
-        def weight(linear: nn.Linear) -> torch.Tensor:
-            return linear.weight.t().to(dt).contiguous()
+        def weight(linear: nn.Linear, dim: int) -> torch.Tensor:
+            return whole_weight(linear, dim, self.tp).t().to(dt).contiguous()
 
-        def bias(linear: nn.Linear) -> torch.Tensor:
-            if linear.bias is not None:
-                return linear.bias.to(dt)
-            return torch.zeros(linear.out_features, dtype=dt, device=linear.weight.device)
+        def bias(linear: nn.Linear, b: Optional[torch.Tensor], width: int) -> torch.Tensor:
+            if b is not None:
+                return b.to(dt)
+            return torch.zeros(width, dtype=dt, device=linear.weight.device)
 
-        return basis_mlp_multi(attrT, weight(self.dense_in), bias(self.dense_in),
-                               weight(self.dense_out), bias(self.dense_out), self.degree, n_out)
+        w_in, w_out = weight(self.dense_in, 0), weight(self.dense_out, 1)
+        return basis_mlp_multi(attrT, w_in, bias(self.dense_in, whole_bias(self.dense_in, self.tp),
+                                                 w_in.shape[1]),
+                               w_out, bias(self.dense_out, self.dense_out.bias, w_out.shape[1]),
+                               self.degree, n_out)
 
 
 class FiberBundleConv(nn.Module):
@@ -228,7 +274,10 @@ class ConvNextBlock(nn.Module):
     statistics are float32, its output and the MLP are in ``dtype``, and the
     residual stream stays in ``dtype``. With ``fuse_convnext`` and a compute
     type, the kernel layout runs the tail (and the layer's readout) as
-    ``fused_convnext_mlp``."""
+    ``fused_convnext_mlp``. ``tp``: the mesh under tensor parallelism
+    (module docstring), else None."""
+
+    tp = None
 
     def __init__(self, basis_dim: int, channels: int, widening_factor: int = 4,
                  layer_scale_init: Optional[float] = 1e-6, fuse_fiber: bool = False,
@@ -259,16 +308,22 @@ class ConvNextBlock(nn.Module):
             gamma = (self.layer_scale if self.layer_scale is not None
                      else torch.ones(C, dtype=torch.float32, device=x.device))
             wr = readout.weight.t().contiguous() if readout is not None else None
+            w1 = whole_weight(self.linear_1, 0, self.tp)
+            w2 = whole_weight(self.linear_2, 1, self.tp)
             return fused_convnext_mlp(
                 x.float().contiguous(), residual.to(dtype).contiguous(), self.norm.weight,
-                self.norm.bias, self.linear_1.weight.t().to(dtype).contiguous(),
-                self.linear_1.bias.to(dtype), self.linear_2.weight.t().to(dtype).contiguous(),
+                self.norm.bias, w1.t().to(dtype).contiguous(),
+                whole_bias(self.linear_1, self.tp).to(dtype), w2.t().to(dtype).contiguous(),
                 self.linear_2.bias.to(dtype), gamma, wr,
                 readout.bias if readout is not None else None)
         x = self.norm(x.float())
         if dtype is not None:
             x = x.to(dtype)
-        x = dense(self.linear_2, gelu(dense(self.linear_1, x, dtype)), dtype)
+        if self.tp is None:
+            x = dense(self.linear_2, gelu(dense(self.linear_1, x, dtype)), dtype)
+        else:
+            h = gelu(dense(self.linear_1, copy_to_model(x, self.tp), dtype))
+            x = row_parallel_dense(self.linear_2, h, dtype, self.tp)
         if self.layer_scale is not None:
             x = self.layer_scale.to(x.dtype) * x
         return residual + x, None

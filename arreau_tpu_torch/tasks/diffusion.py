@@ -10,6 +10,14 @@ DDIM-family chain over ``sample_steps`` levels. Every random number the
 loss or the sampler uses is drawn up front into a :class:`LossNoise` or
 :class:`SamplerNoise` (from a ``torch.Generator``), or handed in, so the
 tests can feed the port and the JAX package the same numbers.
+
+Under data parallelism (``parallel/mesh.py``) a rank holds rows ``r::n``
+of the global batch: its noise is drawn for the global batch and sliced
+(``LossNoise.rows``, ``SamplerNoise.rows``), and the loss divides by the
+global batch's real-atom and real-crystal counts (all-reduced), so the
+ranks' losses sum to the one-process loss of the global batch and their
+gradients are summed (``global_denominators``); the metrics are the
+global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from arreau_tpu_torch.ops.lattice import (
     sample_bravais_angles,
 )
 from arreau_tpu_torch.ops.pbc import pbc_neighbor_list
+from arreau_tpu_torch.parallel.mesh import data_sum, shard_rows
 
 POS_SIGMA_MIN = 0.001
 POS_SIGMA_MAX = 1.0
@@ -186,6 +195,14 @@ class SamplerNoise:
     pos: torch.Tensor
     types: torch.Tensor
 
+    def rows(self, mesh) -> "SamplerNoise":
+        """The data rank's rows of noise drawn for the global batch (the
+        per-step fields are ``[S, B, ...]``)."""
+        return SamplerNoise(*(None if x is None else shard_rows(x, mesh, dim)
+                              for x, dim in zip((self.angles, self.ang_enc0, self.lengths0,
+                                                 self.frac0, self.lattice, self.angle, self.pos,
+                                                 self.types), (0, 0, 0, 0, 1, 1, 1, 1))))
+
 
 def draw_sampler_noise(generator: torch.Generator, num_steps: int, B: int, A: int, C: int,
                        lattice_type: str, diffuse_angles: bool, device) -> SamplerNoise:
@@ -224,6 +241,11 @@ class LossNoise:
     lattice: torch.Tensor
     angle: Optional[torch.Tensor]
 
+    def rows(self, mesh) -> "LossNoise":
+        """The data rank's rows of noise drawn for the global batch."""
+        return LossNoise(*(None if x is None else shard_rows(x, mesh)
+                           for x in (self.t, self.pos, self.types, self.lattice, self.angle)))
+
 
 def draw_loss_noise(generator: torch.Generator, B: int, A: int, C: int, num_timesteps: int,
                     diffuse_angles: bool, device, timestep: Optional[int] = None) -> LossNoise:
@@ -246,7 +268,12 @@ def _decode_angles_safe(enc: torch.Tensor) -> torch.Tensor:
 
 
 class DiffusionModel:
-    """The backbone, schedules and fixed constants on one device."""
+    """The backbone, schedules and fixed constants on one device; ``mesh``
+    (``parallel.mesh.shard_state``) places it in a data/model mesh."""
+
+    # the loss divides by counts of the global batch: gradients sum over ranks
+    global_denominators = True
+    mesh = None
 
     def __init__(self, config: DiffusionConfig, device="cuda",
                  fourier_w: Optional[np.ndarray] = None, readout_bf16_operands: bool = False):
@@ -350,14 +377,15 @@ class DiffusionModel:
 
         diff = torch.abs(pred_eps - target_eps) % 1.0
         wrapped = torch.minimum(diff, 1.0 - diff)
-        n_valid = torch.clamp(batch.atom_mask.sum(), min=1)
+        # the global batch's counts under data parallelism
+        n_valid = torch.clamp(data_sum(batch.atom_mask.sum(), self.mesh), min=1)
         error_coord = torch.where(batch.atom_mask, torch.sum(wrapped**2, dim=-1), 0.0).sum() / n_valid
 
         error_type = d3pm_loss(self.d3pm, batch.atom_types, logits, noisy_types, t_atom,
-                               batch.atom_mask)
+                               batch.atom_mask, n_valid)
 
         example_mask = batch.atom_mask.any(dim=-1)
-        n_examples = torch.clamp(example_mask.sum(), min=1)
+        n_examples = torch.clamp(data_sum(example_mask.sum(), self.mesh), min=1)
         target_lengths = lengths / torch.clamp(batch.num_atoms, min=1).to(lengths.dtype)[:, None]
         sq = torch.mean((pred_global[:, :3] - target_lengths) ** 2, dim=-1)
         error_lattice = torch.where(example_mask, sq, 0.0).sum() / n_examples
@@ -371,11 +399,31 @@ class DiffusionModel:
             metrics["loss_angle"] = torch.where(example_mask, sq_ang, 0.0).sum() / n_examples
             total = total + cfg.angle_loss_weight * metrics["loss_angle"]
         metrics["loss"] = total
+        if self.mesh is not None and self.mesh.data_size > 1:
+            # the parts of the global means, summed: the global batch's metrics
+            keys = list(metrics)
+            metrics = dict(zip(keys, data_sum(torch.stack([metrics[k].detach() for k in keys]),
+                                              self.mesh)))
         metrics["num_crystals"] = n_examples.to(torch.float32)
         metrics["num_atoms"] = n_valid.to(torch.float32)
         return total, metrics
 
     # ---------------- sampler ----------------
+
+    def draw_noise(self, generator: torch.Generator, num_samples: int, num_atoms_per_sample: int,
+                   sample_steps: Optional[int] = None,
+                   lattice_type: str = "monoclinic") -> SamplerNoise:
+        """The :class:`SamplerNoise` :meth:`sample` draws from ``generator``
+        for these arguments (the dense chain's T-1 steps, or the strided
+        chain's)."""
+        total = self.config.num_timesteps - 1
+        if sample_steps is not None and sample_steps < total:
+            num_steps = strided_levels(self.config.num_timesteps, sample_steps).size - 1
+        else:
+            num_steps = total
+        return draw_sampler_noise(generator, num_steps, num_samples, num_atoms_per_sample,
+                                  self.config.num_atomic_states, lattice_type,
+                                  self.config.diffuse_angles, self.device)
 
     def sample(self, num_samples: int, num_atoms_per_sample: int,
                generator: Optional[torch.Generator] = None, **kwargs):
@@ -423,8 +471,7 @@ class DiffusionModel:
         ts = strided_levels(cfg.num_timesteps, sample_steps) if strided else None
         num_steps = ts.size - 1 if strided else total
         if noise is None:
-            noise = draw_sampler_noise(generator, num_steps, B, A, C, lattice_type,
-                                       cfg.diffuse_angles, dev)
+            noise = self.draw_noise(generator, B, A, sample_steps, lattice_type)
 
         angles = noise.angles
         frac, lengths, ang_enc = noise.frac0, noise.lengths0, noise.ang_enc0

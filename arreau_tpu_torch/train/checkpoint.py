@@ -20,6 +20,15 @@ A save writes a temporary directory and then renames it over the tag. The
 ``keep`` lowest validation losses are kept as ``best-<step>`` (their scores
 in ``scores.json``, which also carries the best score across resumes), and
 ``best`` is the lowest.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank calls every method, in
+the same order: rank 0 alone writes ``meta.json``, the tags, ``scores.json``
+and the evictions, decides a ranked save and broadcasts the decision (the
+JAX package's ``_is_primary`` and ``_broadcast_decision``); the others wait
+for it. Under tensor parallelism the shards of the parameters, of AdamW's
+moments and of the EMA are gathered before a save, so a checkpoint has the
+one-card layout whatever the topology that wrote it, and a restore cuts
+them again.
 """
 
 from __future__ import annotations
@@ -37,6 +46,14 @@ from arreau_tpu_torch.interop.from_jax import (
     params_from_jax,
     params_to_jax,
     save_params_npz,
+)
+from arreau_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_from_main,
+    sharded_state,
+    state_shardings,
+    whole_parameters,
+    whole_state,
 )
 from arreau_tpu_torch.train.optim import AdamW
 from arreau_tpu_torch.train.state import EMA
@@ -56,11 +73,15 @@ def diffusion_meta(config, z_table, length_stats: Optional[dict] = None,
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, meta: Optional[dict] = None):
+    def __init__(self, directory: str, meta: Optional[dict] = None, mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
-        if meta is not None:
-            self._write_json("meta.json", meta)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        if self.main:
+            os.makedirs(self.directory, exist_ok=True)
+            if meta is not None:
+                self._write_json("meta.json", meta)
+        barrier(mesh)
 
     def path(self, tag: str) -> str:
         return os.path.join(self.directory, tag)
@@ -74,31 +95,47 @@ class CheckpointManager:
 
     def save(self, tag: str, model, optimizer: AdamW,
              ema: Optional[EMA] = None) -> None:
-        target = self.path(tag)
-        tmp = target + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        shutil.copyfile(os.path.join(self.directory, "meta.json"), os.path.join(tmp, "meta.json"))
-        save_params_npz(os.path.join(tmp, "params.npz"), params_to_jax(model.model))
-        if ema is not None:
-            with ema.swapped_in(model.model):
-                save_params_npz(os.path.join(tmp, "ema_params.npz"), params_to_jax(model.model))
-        torch.save({"step": optimizer.count, "optimizer": optimizer.state_dict(),
-                    "ema": ema.state_dict() if ema is not None else None},
-                   os.path.join(tmp, "state.pt"))
-        shutil.rmtree(target, ignore_errors=True)
-        os.replace(tmp, target)
+        plan = state_shardings(model.model)
+        params = whole_state(model.model.state_dict(), plan, self.mesh)
+        ema_params = whole_state(ema.params, plan, self.mesh) if ema is not None else None
+        opt = optimizer.state_dict()
+        opt = {**opt, "mu": whole_state(opt["mu"], plan, self.mesh),
+               "nu": whole_state(opt["nu"], plan, self.mesh)}
+        if self.main:
+            target = self.path(tag)
+            tmp = target + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            shutil.copyfile(os.path.join(self.directory, "meta.json"),
+                            os.path.join(tmp, "meta.json"))
+            save_params_npz(os.path.join(tmp, "params.npz"), params_to_jax(params))
+            if ema is not None:
+                save_params_npz(os.path.join(tmp, "ema_params.npz"),
+                                params_to_jax({**params, **ema_params}))
+            torch.save({"step": optimizer.count, "optimizer": opt,
+                        "ema": {**ema.state_dict(), "params": ema_params}
+                        if ema is not None else None},
+                       os.path.join(tmp, "state.pt"))
+            shutil.rmtree(target, ignore_errors=True)
+            os.replace(tmp, target)
+        barrier(self.mesh)
 
     def restore(self, tag: str, model, optimizer: AdamW,
                 ema: Optional[EMA] = None) -> int:
-        """Load a tag's parameters, optimizer state and EMA; returns its step."""
-        params_from_jax(model, load_params_npz(os.path.join(self.path(tag), "params.npz")))
+        """Load a tag's parameters, optimizer state and EMA (cut to this
+        rank's shards under tensor parallelism); returns its step."""
+        with whole_parameters(model.model, self.mesh):
+            params_from_jax(model, load_params_npz(os.path.join(self.path(tag), "params.npz")))
         device = next(model.model.parameters()).device
         state = torch.load(os.path.join(self.path(tag), "state.pt"), map_location=device,
                            weights_only=True)
-        optimizer.load_state_dict(state["optimizer"])
+        plan = state_shardings(model.model)
+        opt = state["optimizer"]
+        optimizer.load_state_dict({**opt, "mu": sharded_state(opt["mu"], plan, self.mesh),
+                                   "nu": sharded_state(opt["nu"], plan, self.mesh)})
         if ema is not None and state["ema"] is not None:
-            ema.load_state_dict(state["ema"])
+            ema.load_state_dict({**state["ema"],
+                                 "params": sharded_state(state["ema"]["params"], plan, self.mesh)})
         return int(state["step"])
 
     # ---- ranked retention
@@ -117,18 +154,26 @@ class CheckpointManager:
     def save_ranked(self, score: float, step: int, model, optimizer: AdamW,
                     ema: Optional[EMA] = None, keep: int = 3) -> bool:
         """Keep the ``keep`` lowest scores as ``best-<step>`` and the lowest
-        as ``best``; returns whether this one entered."""
-        ranked = [(float(s), t) for s, t in self.load_scores()["ranked"]]
-        if len(ranked) >= keep and score >= ranked[-1][0]:
+        as ``best``; returns whether this one entered. Rank 0 decides."""
+        ranked = None
+        if self.main:
+            ranked = [(float(s), t) for s, t in self.load_scores()["ranked"]]
+            if len(ranked) >= keep and score >= ranked[-1][0]:
+                ranked = None
+            else:
+                ranked = sorted(ranked + [(float(score), f"best-{step}")], key=lambda st: st[0])
+        ranked = broadcast_from_main(ranked, self.mesh)
+        if ranked is None:
             return False
         tag = f"best-{step}"
-        ranked = sorted(ranked + [(float(score), tag)], key=lambda st: st[0])
         self.save(tag, model, optimizer, ema)
         if ranked[0][1] == tag:
             self.save("best", model, optimizer, ema)
-        for _, old in ranked[keep:]:
-            shutil.rmtree(self.path(old), ignore_errors=True)
-        self._write_json("scores.json", {"ranked": [[s, t] for s, t in ranked[:keep]]})
+        if self.main:
+            for _, old in ranked[keep:]:
+                shutil.rmtree(self.path(old), ignore_errors=True)
+            self._write_json("scores.json", {"ranked": [[s, t] for s, t in ranked[:keep]]})
+        barrier(self.mesh)
         return True
 
     def _write_json(self, name: str, obj: dict) -> None:

@@ -7,7 +7,15 @@ returns ``(loss, metrics)``. A training step is that loss, its backward
 (through the kernels' backward passes on the kernel branch), the clipped
 AdamW update and the EMA update. Metrics come back as tensors on the
 device: the caller gathers them once at the end of an epoch, as the JAX
-loop does, so no step waits on the host."""
+loop does, so no step waits on the host.
+
+Under data parallelism (the task's ``mesh``, ``parallel/mesh.py``) the
+gradients are all-reduced over the data group after ``backward``, in one
+flat bucket: summed for a task whose loss divides by the global batch's
+counts (``global_denominators``: the diffusion loss, whose metrics are
+already global), averaged for a plain mean over shards of equal size (the
+backbone tasks, whose metrics are averaged too). Split parameters under
+tensor parallelism are reduced with the ranks that hold the same shard."""
 
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from arreau_tpu_torch.parallel.mesh import data_mean, data_parallel, reduce_gradients
 from arreau_tpu_torch.train.optim import AdamW
 from arreau_tpu_torch.train.state import EMA
 
@@ -27,6 +36,12 @@ def train_step(model, optimizer: AdamW, ema: Optional[EMA], batch, *loss_args) -
     loss, metrics = model.loss(batch, *loss_args)
     loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
+    mesh = getattr(model, "mesh", None)
+    if data_parallel(mesh):
+        global_loss = getattr(model, "global_denominators", False)
+        reduce_gradients(model.model, mesh, mean=not global_loss)
+        if not global_loss:
+            metrics = data_mean(metrics, mesh)
     metrics["grad_norm"] = optimizer.step()
     if ema is not None:
         ema.update(model.model)
@@ -41,9 +56,13 @@ def eval_step(model, batch, *loss_args, ema: Optional[EMA] = None) -> dict:
     returns detached values; every other task's evaluation records no
     graph."""
     if ema is None:
-        return model.loss(batch, *loss_args)[1]
-    with ema.swapped_in(model.model):
-        return model.loss(batch, *loss_args)[1]
+        metrics = model.loss(batch, *loss_args)[1]
+    else:
+        with ema.swapped_in(model.model):
+            metrics = model.loss(batch, *loss_args)[1]
+    if getattr(model, "global_denominators", False):
+        return metrics
+    return data_mean(metrics, getattr(model, "mesh", None))
 
 
 def gather_metrics(pending: list) -> list:

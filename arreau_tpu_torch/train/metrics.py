@@ -1,5 +1,10 @@
 """Metric accumulation, epoch timing and the metrics log; counterpart of
-``arreau_tpu/train/metrics.py`` (one process: no host index)."""
+``arreau_tpu/train/metrics.py``. Under data parallelism every rank's step
+metrics are already the global batch's (``train/loop.py``; the diffusion
+loss's ``num_atoms``/``num_crystals`` are global counts), so
+:func:`weighted_update` gives every rank the exact epoch means, as XLA's
+fully reduced scalars do; the CLIs give rank 0 alone a log path (the JAX
+logger's process 0)."""
 
 from __future__ import annotations
 

@@ -16,7 +16,11 @@ adamw(mask=...))``), step for step:
 - ``p <- p - lr(count) * update``, the schedule read at the count before
   the increment, as optax's ``scale_by_learning_rate`` does.
 
-The clip happens on the device with no host synchronisation.
+The clip happens on the device with no host synchronisation. Under tensor
+parallelism (``mesh`` with a model group) the norm is that of the whole
+parameters, as optax's over JAX's global arrays: the squares of the split
+gradients are summed over the model group, the replicated ones counted
+once.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from arreau_tpu_torch.parallel.mesh import model_sum, state_shardings
 
 
 def cosine_warmup_schedule(base_lr: float, warmup_epochs: float, max_epochs: float,
@@ -59,8 +65,10 @@ class AdamW:
 
     def __init__(self, module: nn.Module, schedule: Callable[[int], float],
                  weight_decay: float = 1e-10, grad_clip: Optional[float] = 0.5,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, mesh=None):
         self.params = dict(module.named_parameters())
+        self.mesh = mesh
+        self.split = state_shardings(module) if mesh is not None and mesh.model_size > 1 else {}
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -76,7 +84,13 @@ class AdamW:
         gradient norm before clipping (a device scalar)."""
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.params.items()}
-        norm = global_norm(grads.values())
+        if self.split:
+            sq = model_sum(sum(torch.sum(g * g) for n, g in grads.items() if n in self.split),
+                           self.mesh)
+            norm = torch.sqrt(sum(torch.sum(g * g) for n, g in grads.items()
+                                  if n not in self.split) + sq)
+        else:
+            norm = global_norm(grads.values())
         if self.grad_clip is not None:
             keep = norm < self.grad_clip
             grads = {n: torch.where(keep, g, (g / norm) * self.grad_clip) for n, g in grads.items()}

@@ -1,7 +1,9 @@
 """Exponential moving average of the parameters; counterpart of the EMA in
 ``arreau_tpu/train/state.py`` (``ema = d * ema + (1 - d) * w`` after every
 optimizer step). The average is updated in place under ``no_grad``;
-:meth:`EMA.swapped_in` evaluates a module with the averaged weights."""
+:meth:`EMA.swapped_in` evaluates a module with the averaged weights. Built
+after ``parallel.mesh.shard_state``, the shadows are this rank's shards of
+the split parameters (the JAX EMA follows the parameters' shardings)."""
 
 from __future__ import annotations
 

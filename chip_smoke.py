@@ -15,7 +15,9 @@ trainer's remaining surface: snapshot sampling, the renders, the serving
 export (#3/#8 as PyTorch operators in a ``torch.export`` program) and the
 training CLI's ``--log`` and ``--profiler torch``; and a reference
 Lightning checkpoint imported and served, the conv-kernel calibration, the
-equivariance check, the sampler diagnosis and the EDA tools.
+equivariance check, the sampler diagnosis and the EDA tools; and data and
+tensor parallelism (``arreau_tpu_torch/parallel``) on the one card: NCCL at
+world size 1, and gloo ranks sharing the card.
 
 Run from the repository root, with no arguments:
 
@@ -205,6 +207,25 @@ inner launches by name and time.
    statistics, then the renderer branch taken) and ``view_crystals
    generated`` on phase 32's ``crystals.npz`` (its ImportError before any
    work where the card has no matplotlib).
+37. NCCL, world size 1: the training CLI at the training cell (256 x 16,
+   hidden 200, basis 256, 5 layers, 16 orientations, ``diffuse_angles``,
+   10 steps) under ``python -m torch.distributed.run --nproc_per_node 1``
+   (NCCL) and without the launcher, same seed: every step's metrics bit
+   for bit.
+38. DP on one card: 2 gloo ranks sharing the card (the script launches
+   itself as the ranks, ``chip_smoke.py --rank dp DIR``), data 2: one
+   training step at the training cell (256 crystals globally, 128 a rank),
+   float32 and bfloat16, against the one-process card step on the same
+   batch and noise (loss terms 1e-5 relative; gradients and parameters
+   after the step 1e-3 of scale, bf16 5e-2); 5/1/5/1 launches of
+   #3/#8/#4/#7 on each rank; each rank's step milliseconds; then generate
+   ``--data_parallel true`` on 2 ranks at 128 x 8, S = 50, against one
+   process (integer fields equal, coordinates and lattices within 1e-4).
+39. TP on one card: 4 gloo ranks, data 2 x model 2: a float32 step on the
+   default branch and a bfloat16 ``fuse_convnext`` step (#9/#10 on weights
+   gathered whole) against the one-process card step (the same gates; the
+   bf16 loss terms 1e-3), the local shape of a split weight, the launches
+   and step milliseconds of each rank.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -215,7 +236,9 @@ launches of phase 21; ``*_nbody`` and ``*_mnist`` with the launches of
 their CLI runs; ``spatial_conv_bwd_dwin*`` with the launches of phase 25's
 steps; ``spatial_conv_bf16`` and ``basis_h1_bf16`` also with those of
 phases 28, 30, 34 and 35; ``spatial_conv`` and ``basis_h1`` with those of
-phases 32 and 33, and those two with #4/#7 with phase 34's) and the result
+phases 32 and 33, and those two with #4/#7 with phase 34's; #3/#8/#4/#7
+with ``launches_dp`` and ``launches_tp``, one count a rank, of phases 38
+and 39, and #9/#10 with phase 39's) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -2576,6 +2599,353 @@ def eda_phase(tmp: Path, crystals: Path, card: str) -> None:
         raise RuntimeError("view_crystals did work before its ImportError")
 
 
+# ---------------- data and tensor parallelism on one card ----------------
+
+# the training cell (256 x 16, hidden 200, basis 256, 5 layers, 16
+# orientations, diffuse_angles) through the training CLI, 10 steps
+PARALLEL_CLI_ARGS = [
+    "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH), "--hidden_dim", str(TRAIN_HIDDEN),
+    "--basis_dim", "256", "--layers", "5", "--num_ori", "16", "--diffuse_angles", "true",
+    "--warmup", "0", "--max_steps", "10", "--seed", str(SEED), "--device", "cuda",
+]
+# a step over ranks against the one-process step on the same batch and noise:
+# loss terms (relative), gradients and parameters after the step (each within
+# this share of its largest entry)
+DP_LOSS_REL_TOL = 1e-5
+DP_PARAM_REL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# under TP in bfloat16 the plain branch's row-split products (the fiber
+# basis MLP, every ConvNext layer off fuse_convnext) are float32 partial sums
+# over the model ranks, rounded to bfloat16 once summed, where one card
+# rounds its own float32 accumulation: a sum next to a rounding boundary
+# takes the neighbouring bfloat16 (one ulp, 2^-8) and the loss terms move
+# ~1e-5 (measured on an H100: 2.75e-05 on loss_coord, PERF.md §6)
+TP_BF16_LOSS_REL_TOL = 1e-3
+# AdamW's first update is lr * g / (|g| + eps): the sign of g wherever |g| >>
+# eps, so an entry whose gradient is at its roundoff (either sign, on one
+# process as on several) moves by 2 lr either way; the parameter gate reads
+# the entries whose one-process gradient exceeds this share of its tensor's
+# largest (the gradients themselves are gated whole)
+PARAM_GRAD_FLOOR = 1e-4
+# generate --data_parallel over 2 ranks against one process (50 strided steps)
+DP_SAMPLER_ATOL = 1e-4
+PARALLEL_TIMEOUT = 600
+DEFAULT_STEP = {"spatial_conv": 5, "basis_h1": 1, "spatial_conv_bwd": 5, "basis_mlp_bwd": 1}
+CONVNEXT_STEP = {**DEFAULT_STEP, "convnext_mlp": 5, "convnext_mlp_bwd": 5}
+
+
+def run_ranks(n: int, task: str, out: Path) -> float:
+    """``chip_smoke.py --rank task out`` on ``n`` ranks through
+    ``python -m torch.distributed.run`` (its process group and every rank
+    stopped at the end or at PARALLEL_TIMEOUT); returns the wall seconds.
+    The ranks talk over the loopback device."""
+    import os
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "localhost", "--master_port", str(port),
+           str(Path(__file__).resolve()), "--rank", task, str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, env=env,
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=PARALLEL_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise RuntimeError(f"{n} ranks of '{task}' exited with {rc}")
+    return time.perf_counter() - t0
+
+
+def recorded_training(argv: list) -> list:
+    """The training CLI's per-step metrics ({name: float}) on ``argv``."""
+    from arreau_tpu_torch.cli import train_diffusion
+
+    steps, step = [], train_diffusion.train_step
+
+    def recording(*a, **kw):
+        metrics = step(*a, **kw)
+        steps.append(metrics)
+        return metrics
+
+    train_diffusion.train_step = recording
+    try:
+        train_diffusion.main(argv)
+    finally:
+        train_diffusion.train_step = step
+    return [{k: v.item() for k, v in m.items()} for m in steps]
+
+
+def parallel_step(mesh, compute_dtype, fuse_convnext: bool) -> dict:
+    """One training step of the training cell's model (layer scale 1, so the
+    layers weigh in the gradients) on the 256 x 16 chunk, on ``mesh``: the
+    rank's rows and its rows of the whole batch's noise, the parameters
+    split under TP. Returns the loss metrics, the step's launches, the
+    gradients and parameters after the step gathered whole (on the host),
+    the local shape of one split weight and the mean of 3 more steps'
+    milliseconds (host clock around a synchronised step)."""
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.parallel.mesh import shard_batch, shard_state, state_shardings, whole_state
+    from arreau_tpu_torch.tasks.diffusion import (
+        DiffusionConfig,
+        DiffusionModel,
+        batch_to_device,
+        draw_loss_noise,
+    )
+    from arreau_tpu_torch.train.loop import train_step
+    from arreau_tpu_torch.train.optim import AdamW
+
+    dev = torch.device("cuda")
+    cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()), hidden_dim=TRAIN_HIDDEN,
+                          diffuse_angles=True, layer_scale=1.0, compute_dtype=compute_dtype)
+    model = DiffusionModel(cfg, device=dev)
+    if fuse_convnext:
+        model.model = fused_convnext_backbone(model)
+    model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED + 3))
+    dataset, chunk, bucket = training_chunk()
+    batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED + 3),
+                            *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
+                            True, dev)
+    shard_state(model, mesh)
+    optimizer = AdamW(model.model, lambda count: 1e-3, mesh=mesh)
+    batch, noise = shard_batch(batch, mesh), noise.rows(mesh)
+    reset_launch_counts()
+    metrics = train_step(model, optimizer, None, batch, noise)
+    counts = launch_counts()
+    plan = state_shardings(model.model)
+    named = dict(model.model.named_parameters())
+    # host copies now: the timed steps below update the parameters in place
+    grads = {n: g.cpu().clone()
+             for n, g in whole_state({n: p.grad for n, p in named.items()}, plan, mesh).items()}
+    params = {n: p.cpu().clone()
+              for n, p in whole_state({n: p.detach() for n, p in named.items()}, plan,
+                                      mesh).items()}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, optimizer, None, batch, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "launches": counts,
+            "grads": grads, "params": params,
+            "split": tuple(named["layers.0.linear_1.weight"].shape),
+            "whole": tuple(params["layers.0.linear_1.weight"].shape),
+            "rows": int(batch.atom_types.shape[0]), "step_ms": sum(times) / len(times)}
+
+
+def rank_main(task: str, out: Path) -> int:
+    """One rank of a parallel phase (``chip_smoke.py --rank task out`` under
+    torchrun): ``nccl1`` the training CLI's per-step metrics; ``dp`` (2
+    ranks, data 2) a float32 and a bfloat16 step, then generate
+    ``--data_parallel``; ``tp`` (4 ranks, data 2 x model 2) a float32 step
+    and a bfloat16 ``fuse_convnext`` step. Each rank writes its results
+    under ``out``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+    if task == "nccl1":
+        steps = recorded_training([*PARALLEL_CLI_ARGS, "--checkpoint_dir", str(out / "ck_nccl")])
+        rank = dist.get_rank()
+        torch.save({"steps": steps, "backend": dist.get_backend(), "world": dist.get_world_size()},
+                   out / f"nccl1_rank{rank}.pt")
+        dist.destroy_process_group()
+        return 0
+    rank, _ = maybe_initialize_distributed("cuda")
+    mesh = make_mesh(model_size=2 if task == "tp" else 1)
+    cases = ((("float32", None, False), ("bfloat16", "bfloat16", False)) if task == "dp"
+             else (("float32", None, False), ("bfloat16", "bfloat16", True)))
+    results = {"backend": dist.get_backend(),
+               "mesh": [mesh.data_size, mesh.model_size, mesh.data_rank, mesh.model_rank]}
+    for label, dtype, fuse in cases:
+        results[label] = parallel_step(mesh, dtype, fuse)
+        torch.cuda.empty_cache()
+    if task == "dp":
+        reset_launch_counts()
+        generate.main(json.loads((out / "generate_args.json").read_text()))
+        results["generate_launches"] = launch_counts()
+    torch.save(results, out / f"{task}_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def step_gate(label: str, got: dict, want: dict, tol: float, want_launches: dict,
+              loss_tol: float = DP_LOSS_REL_TOL) -> None:
+    """A rank's step against the one-process step: loss terms within
+    ``loss_tol``, grad_norm, every gradient and the parameters after the
+    step (PARAM_GRAD_FLOOR) within ``tol`` of scale, the launches
+    ``want_launches`` and no other kernel."""
+    launches = {k: v for k, v in got["launches"].items() if v}
+    if launches != want_launches:
+        raise RuntimeError(f"{label}: launched {launches}, not {want_launches}")
+    for name, value in want["metrics"].items():
+        rel = abs(got["metrics"][name] - value) / max(abs(value), 1e-12)
+        limit = tol if name == "grad_norm" else loss_tol
+        if not rel <= limit:
+            raise RuntimeError(f"{label}: {name} {got['metrics'][name]!r} against one process's "
+                               f"{value!r} (rel {rel:.3e}, tolerance {limit:g})")
+    worst, unresolved = {}, 0
+    for what in ("grads", "params"):
+        worst[what] = 0.0
+        for name, w in want[what].items():
+            diff = (got[what][name] - w).abs()
+            if what == "params":
+                g = want["grads"][name].abs()
+                resolved = g > PARAM_GRAD_FLOOR * g.max()
+                unresolved += int((~resolved).sum())
+                diff = diff[resolved]
+            err = (diff.max().item() if diff.numel() else 0.0) / w.abs().max().item()
+            if not err <= tol:
+                raise RuntimeError(f"{label}: {what} {name} off by {err:.3e} of scale "
+                                   f"(tolerance {tol:g})")
+            worst[what] = max(worst[what], err)
+    print(f"{label}: loss {got['metrics']['loss']:.6f} (one process {want['metrics']['loss']:.6f});"
+          f" worst gradient {worst['grads']:.3e}, parameter {worst['params']:.3e} of scale "
+          f"(tolerance {tol:g}; {unresolved} entries with gradients below {PARAM_GRAD_FLOOR:g} of "
+          f"their tensor's not read); launches {launches}")
+
+
+def nccl_phase(tmp: Path, card: str) -> None:
+    """The training CLI under ``torch.distributed.run --nproc_per_node 1``
+    (NCCL, world size 1) against the CLI without the launcher, same seed:
+    every step's metrics bit for bit."""
+    wall = run_ranks(1, "nccl1", tmp)
+    got = torch.load(tmp / "nccl1_rank0.pt", weights_only=False)
+    if got["backend"] != "nccl" or got["world"] != 1:
+        raise RuntimeError(f"the launcher's run took backend {got['backend']}, world "
+                           f"{got['world']}, not nccl over 1 rank")
+    want = recorded_training([*PARALLEL_CLI_ARGS, "--checkpoint_dir", str(tmp / "ck_plain")])
+    print(f"{len(got['steps'])} steps under torchrun (nccl, {wall:.2f} s wall with the "
+          f"launcher) and {len(want)} without; losses {[m['loss'] for m in want]}")
+    if len(got["steps"]) != len(want) or len(want) != 10:
+        raise RuntimeError("the two runs took different numbers of steps")
+    for i, (a, b) in enumerate(zip(got["steps"], want)):
+        differ = {k: (a[k], b[k]) for k in b if a[k] != b[k]}
+        if differ:
+            raise RuntimeError(f"step {i}: under torchrun {differ} (launcher, plain): not bit "
+                               "for bit")
+    print(f"every step's metrics bit for bit with and without the launcher on {card}")
+
+
+def dp_phase(tmp: Path, card: str, records: dict) -> None:
+    """2 gloo ranks sharing the card (data 2): a float32 and a bfloat16 step
+    at the training cell (256 crystals globally, 128 a rank) against the
+    one-process card step; then generate ``--data_parallel true`` on 2 ranks
+    at 128 x 8, S = 50, against one process."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.parallel.mesh import Mesh
+    from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+
+    z_table = synthetic_z_table()
+    cfg = DiffusionConfig(num_atomic_states=len(z_table))
+    model = DiffusionModel(cfg, device="cuda")
+    model.model.init_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    write_checkpoint(tmp / "ckpt", cfg, model, z_table)
+    del model
+    gen = ["--checkpoint_dir", str(tmp / "ckpt"), "--batch_size", str(BATCH),
+           "--num_atoms_per_sample", str(ATOMS), "--num_crystals", str(BATCH), "--sample_steps",
+           str(STEPS), "--seed", str(SEED), "--device", "cuda", "--data_parallel", "true"]
+    (tmp / "generate_args.json").write_text(json.dumps([*gen, "--out_dir", str(tmp / "gen_dp")]))
+    torch.cuda.empty_cache()
+    wall = run_ranks(2, "dp", tmp)
+    ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False) for r in range(2)]
+    print(f"2 ranks, backend {ranks[0]['backend']}, {wall:.2f} s wall")
+    if ranks[0]["backend"] != "gloo":
+        raise RuntimeError("two ranks on one card must take gloo")
+    for label, dtype in (("float32", None), ("bfloat16", "bfloat16")):
+        want = parallel_step(Mesh(), dtype, False)
+        print(f"one process, {label}: {want['step_ms']:.4f} ms a step at {TRAIN_BATCH}x16 on {card}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            step_gate(f"DP rank {r}/2 {label} ({got['rows']} crystals)", got, want,
+                      DP_PARAM_REL_TOL[label], DEFAULT_STEP)
+            print(f"DP rank {r}/2 {label}: {got['step_ms']:.4f} ms a step (host clock, gloo "
+                  f"through the host, 2 ranks sharing {card})")
+        torch.cuda.empty_cache()
+    suffix = {"float32": "", "bfloat16": "_bf16"}
+    for name in DEFAULT_STEP:
+        for label in ("float32", "bfloat16"):
+            records[name + suffix[label]]["launches_dp"] = [r[label]["launches"][name]
+                                                            for r in ranks]
+    forwards = len(strided_levels_of(cfg.num_timesteps)) - 1
+    for r, res in enumerate(ranks):
+        counts = {k: v for k, v in res["generate_launches"].items() if v}
+        want = {"spatial_conv": 5 * forwards, "basis_h1": forwards}
+        if counts != want:
+            raise RuntimeError(f"DP generate rank {r}: launched {counts}, not {want}")
+    print(f"DP generate: each rank launched 5 spatial_conv and 1 basis_h1 in each of "
+          f"{forwards} forwards")
+    generate.main([*gen, "--out_dir", str(tmp / "gen_one")])
+    got, want = (np.load(tmp / d / "crystals.npz") for d in ("gen_dp", "gen_one"))
+    gaps = {}
+    for name in want.files:
+        if want[name].dtype.kind == "f":
+            gaps[name] = float(np.abs(got[name] - want[name]).max())
+        elif not np.array_equal(got[name], want[name]):
+            raise RuntimeError(f"DP generate: {name} differs from one process")
+    print(f"DP generate (2 ranks, {BATCH}x{ATOMS}, S={STEPS}) against one process: integer "
+          f"fields equal, largest gaps {gaps} (tolerance {DP_SAMPLER_ATOL:g})")
+    if not all(v <= DP_SAMPLER_ATOL for v in gaps.values()):
+        raise RuntimeError("DP generate left the tolerance")
+
+
+def strided_levels_of(num_timesteps: int):
+    from arreau_tpu_torch.tasks.diffusion import strided_levels
+
+    return strided_levels(num_timesteps, STEPS)
+
+
+def tp_phase(tmp: Path, card: str, records: dict) -> None:
+    """4 gloo ranks sharing the card (data 2 x model 2): a float32 step on
+    the default branch and a bfloat16 ``fuse_convnext`` step (#9/#10 on
+    gathered weights) against the one-process card step (bfloat16 loss
+    terms to TP_BF16_LOSS_REL_TOL); prints the local shape of a split
+    weight."""
+    from arreau_tpu_torch.parallel.mesh import Mesh
+
+    torch.cuda.empty_cache()
+    wall = run_ranks(4, "tp", tmp)
+    ranks = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in range(4)]
+    print(f"4 ranks, backend {ranks[0]['backend']}, meshes {[r['mesh'] for r in ranks]}, "
+          f"{wall:.2f} s wall")
+    for label, dtype, fuse, want_launches in (("float32", None, False, DEFAULT_STEP),
+                                              ("bfloat16", "bfloat16", True, CONVNEXT_STEP)):
+        want = parallel_step(Mesh(), dtype, fuse)
+        what = "fuse_convnext " if fuse else ""
+        print(f"one process, {what}{label}: {want['step_ms']:.4f} ms a step on {card}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            if got["split"][0] * 2 != got["whole"][0]:
+                raise RuntimeError(f"TP rank {r}: linear_1 holds {got['split']} of {got['whole']}")
+            step_gate(f"TP rank {r} (data {res['mesh'][2]}, model {res['mesh'][3]}) {what}{label}",
+                      got, want, DP_PARAM_REL_TOL[label], want_launches,
+                      TP_BF16_LOSS_REL_TOL if dtype else DP_LOSS_REL_TOL)
+            print(f"TP rank {r} {what}{label}: layers.0.linear_1.weight holds {got['split']} of "
+                  f"{got['whole']}; {got['step_ms']:.4f} ms a step (host clock, 4 ranks sharing "
+                  f"{card})")
+        torch.cuda.empty_cache()
+    for name in DEFAULT_STEP:
+        records[name]["launches_tp"] = [r["float32"]["launches"][name] for r in ranks]
+    for name in CONVNEXT_STEP:
+        key = name if name.startswith("convnext") else name + "_bf16"
+        records[key]["launches_tp"] = [r["bfloat16"]["launches"][name] for r in ranks]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3056,6 +3426,16 @@ def main() -> int:
         with Phase("EDA tools"):
             eda_phase(tmp / "eda", tmp / "import" / "out_imported" / "crystals.npz", card)
 
+    # ---------------- data and tensor parallelism on the one card ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with Phase("NCCL, world size 1"):
+            nccl_phase(tmp, card)
+        with Phase("DP on one card"):
+            dp_phase(tmp, card, records)
+        with Phase("TP on one card"):
+            tp_phase(tmp, card, records)
+
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3063,4 +3443,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2], Path(sys.argv[3])))
     sys.exit(main())

@@ -301,9 +301,15 @@ def test_generate_samples_ema_weights_by_default(tmp_path, capsys):
     assert not (np.array_equal(a.frac_x, b.frac_x) and np.array_equal(a.lattice, b.lattice))
 
 
-@pytest.mark.parametrize("flag", [["--model_parallel", "2"], ["--dataset", "alexandria"]])
-def test_train_cli_later_slices_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag[0]):
+@pytest.mark.parametrize("flag, error, match", [
+    (["--model_parallel", "2"], ValueError, "1 devices not divisible by model_size=2"),
+    (["--dataset", "alexandria"], NotImplementedError, "--dataset"),
+], ids=["flag0", "flag1"])
+def test_train_cli_later_slices_raise(flag, error, match, tmp_path):
+    """``--model_parallel 2`` in one process (world size 1) raises the JAX
+    package's divisibility error; the Alexandria shards (HDF5) stay
+    unported."""
+    with pytest.raises(error, match=match):
         train_diffusion.main([*TINY_ARGS, "--checkpoint_dir", str(tmp_path), *flag])
 
 
