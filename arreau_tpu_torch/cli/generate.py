@@ -10,12 +10,12 @@ when ``--use_ema`` (the default) and that file exists, else
 ``<checkpoint_dir>/<tag>/params.npz`` (the parameter tree, flat and
 ``'/'``-joined, see ``interop/from_jax.py``). It runs the reverse sampler in
 batches on ``--device`` (default ``cuda``; it never falls back to the CPU)
-and writes ``crystals.npz``. A ``meta.json`` config with ``fuse_fiber``
-set serves through the fused fiber conv kernels. ``--quality_ref
-synthetic[:size[:seed]]`` adds the sample-quality report against that
-synthetic training set (``inference/quality.py``), printed and written to
-``quality.json``; ``--num_atoms_dist ref`` draws each crystal's atom count
-from that set's histogram. ``--gif`` samples the last batch with snapshots
+and writes ``crystals.h5`` (``inference/io.py``). A ``meta.json`` config with ``fuse_fiber``
+set serves through the fused fiber conv kernels. ``--quality_ref`` (a
+packed HDF5 shard, or ``synthetic[:size[:seed]]``) adds the sample-quality
+report against that training set (``inference/quality.py``), printed and
+written to ``quality.json``; ``--num_atoms_dist ref`` draws each crystal's
+atom count from that set's histogram. ``--gif`` samples the last batch with snapshots
 every ``--snapshot_every`` steps (the dense chain only), renders them under
 ``sampling_steps/`` and writes ``sampling.gif``; ``--visualize`` renders the
 first four crystals (``crystal_{i}.png``); ``--show_bonds`` draws bonds in
@@ -40,6 +40,7 @@ than one visible card raises: the port runs a process per card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -49,6 +50,7 @@ import torch
 
 from arreau_tpu_torch.cli.common import silent
 from arreau_tpu_torch.data.atoms import AtomicNumberTable
+from arreau_tpu_torch.data.crystal import CrystalDataset
 from arreau_tpu_torch.inference.io import concat_results, from_dense_batch, save_sample_results
 from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
 from arreau_tpu_torch.parallel.mesh import (
@@ -104,9 +106,9 @@ def parse_args(argv=None):
                    help="render the sampling trajectory of the last batch as a GIF")
     p.add_argument("--snapshot_every", type=int, default=10)
     p.add_argument("--quality_ref", type=str, default=None,
-                   help="training-data reference for the sample-quality report: "
-                        "'synthetic[:size[:seed]]' regenerates the synthetic training set "
-                        "(an HDF5 path is not ported); writes <out_dir>/quality.json")
+                   help="training-data reference for the sample-quality report: a packed "
+                        "HDF5 path, or 'synthetic[:size[:seed]]' to regenerate the synthetic "
+                        "training set; writes <out_dir>/quality.json")
     p.add_argument("--num_atoms_dist", choices=["fixed", "ref"], default="fixed",
                    help="per-crystal atom counts: 'fixed' = num_atoms_per_sample each; 'ref' = "
                         "drawn from the --quality_ref histogram, capped at "
@@ -115,12 +117,10 @@ def parse_args(argv=None):
 
 
 def reference_dataset(quality_ref: str):
-    """The training set ``--quality_ref`` names: ``synthetic[:size[:seed]]``
-    (default size 2000, seed 0)."""
+    """The training set ``--quality_ref`` names: an HDF5 shard (its z-table
+    its own Zs), or ``synthetic[:size[:seed]]`` (default size 2000, seed 0)."""
     if not quality_ref.startswith("synthetic"):
-        raise NotImplementedError(
-            f"--quality_ref {quality_ref}: an HDF5 training set is not ported (the port reads "
-            "no HDF5); pass synthetic[:size[:seed]]")
+        return CrystalDataset([quality_ref])
     from arreau_tpu_torch.data.synthetic import synthetic_packed
 
     parts = quality_ref.split(":")
@@ -129,12 +129,22 @@ def reference_dataset(quality_ref: str):
     return synthetic_packed(size, seed=seed)
 
 
+@functools.lru_cache(maxsize=1)
+def reference_stats(ds) -> dict:
+    """``dataset_reference_stats`` of the training set ``ds``, kept for the
+    last set asked for: they take most of a report's time, and a caller
+    may report several results against one set."""
+    from arreau_tpu_torch.inference.quality import dataset_reference_stats
+
+    return dataset_reference_stats(ds.packed, ds.type_indices, len(ds.z_table))
+
+
 def quality_from_results(result, z_table, ds) -> dict:
     """The sample-quality report of ``result`` against the training set
     ``ds`` (``reference_dataset``; the JAX CLI's report, key for key)."""
-    from arreau_tpu_torch.inference.quality import dataset_reference_stats, quality_report
+    from arreau_tpu_torch.inference.quality import quality_report
 
-    ref = dataset_reference_stats(ds.packed, ds.type_indices, len(ds.z_table))
+    ref = reference_stats(ds)
     return quality_report(
         gen_frac=result.frac_x,
         gen_types=z_table.zs_to_indices(result.atomic_numbers),
@@ -194,7 +204,7 @@ def main(argv=None):
         require_renderers()
     if args.num_atoms_dist == "ref" and not args.quality_ref:
         raise SystemExit("--num_atoms_dist ref requires --quality_ref")
-    # an unported reference fails here, before any sampling
+    # a missing or unreadable reference fails here, before any sampling
     reference = reference_dataset(args.quality_ref) if args.quality_ref else None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -303,7 +313,7 @@ def main(argv=None):
         generate_gif(snap_dir, os.path.join(args.out_dir, "sampling.gif"), prefix="step")
         print(f"wrote {args.out_dir}/sampling.gif")
 
-    out_path = os.path.join(args.out_dir, "crystals.npz")
+    out_path = os.path.join(args.out_dir, "crystals.h5")
     save_sample_results(out_path, result)
     print(f"saved {result.num_crystals} crystals to {out_path}")
 

@@ -1,14 +1,15 @@
 """Post-processing CLI for generated crystals; counterpart of
 ``arreau_tpu/cli/process_results.py``.
 
-Loads ``crystals.npz`` (the generate CLI's file), relaxes every crystal at
-once with the soft-sphere relaxation (``inference/relax.py``) on
-``--device`` (default ``cuda``; it never falls back to the CPU) and writes
-``crystals_relaxed.npz`` beside it (or ``--out_path``); ``--visualize``
+Loads ``crystals.h5`` (the generate CLI's file; an ``.npz`` of an earlier
+version of the port also reads), relaxes every crystal at once with the
+soft-sphere relaxation (``inference/relax.py``) on ``--device`` (default
+``cuda``; it never falls back to the CPU) and writes
+``crystals_relaxed.h5`` beside it (or ``--out_path``); ``--visualize``
 renders the first four relaxed crystals to ``relaxed_{i}.png`` beside the
 output file (matplotlib and PIL, checked before any work).
 
-    python -m arreau_tpu_torch.cli.process_results --in_path out/crystals.npz
+    python -m arreau_tpu_torch.cli.process_results --in_path out/crystals.h5
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from arreau_tpu_torch.inference.relax import relax_soft_sphere
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Relax generated crystals")
-    p.add_argument("--in_path", type=str, default="out/crystals.npz")
+    p.add_argument("--in_path", type=str, default="out/crystals.h5")
     p.add_argument("--out_path", type=str, default=None)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--lr", type=float, default=0.02)
@@ -88,7 +89,7 @@ def main(argv=None):
         idx_start=result.idx_start,
         num_atoms=result.num_atoms,
     )
-    out_path = args.out_path or args.in_path.replace(".npz", "_relaxed.npz")
+    out_path = args.out_path or os.path.splitext(args.in_path)[0] + "_relaxed.h5"
     save_sample_results(out_path, out)
     print(f"saved {out_path}")
 

@@ -19,11 +19,14 @@ imports (else stdout only, as the JAX CLI); ``--profiler torch`` writes a
     python -m arreau_tpu_torch.cli.train_diffusion --dataset synthetic \\
         --batch_size 256 --hidden_dim 200 --max_steps 100
 
-``--dataset synthetic`` and ``--dataset eval-equivariance`` are ported; the
-latter trains on one crystal and validates on its 90-degree rotation with
-the timestep pinned at ``EVAL_EQUIVARIANCE_TIMESTEP``
-(``exploration/verify_equivariance.py``). The Alexandria shards are HDF5,
-which the card's machine cannot read: ``--dataset alexandria`` raises.
+``--dataset alexandria`` (the default) reads every
+``alexandria_ps_0*.h5`` shard under ``--data_dir`` (``data/prep.py`` makes
+them; ``data/hdf5.py`` reads them, no ``h5py``), ``alexandria-dev`` the
+take-10 shard alone (train, valid and test alike), ``synthetic`` the
+synthetic training distribution, and ``eval-equivariance`` trains on one
+crystal of the take-10 shard (or a synthetic one where there is none) and
+validates on its 90-degree rotation with the timestep pinned at
+``EVAL_EQUIVARIANCE_TIMESTEP`` (``exploration/verify_equivariance.py``).
 
 Data and tensor parallelism (``parallel/mesh.py``), one process per card:
 
@@ -50,7 +53,13 @@ import torch
 
 from arreau_tpu_torch.cli.common import silent
 from arreau_tpu_torch.cli.generate import parse_bool
-from arreau_tpu_torch.data.crystal import DEFAULT_BUCKETS, BucketedLoader, random_split
+from arreau_tpu_torch.data.crystal import (
+    DEFAULT_BUCKETS,
+    BucketedLoader,
+    CrystalDataset,
+    alexandria_shards,
+    random_split,
+)
 from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.ops.lattice import rotations_from_normals
 from arreau_tpu_torch.parallel.mesh import (
@@ -111,8 +120,7 @@ def parse_args(argv=None):
     p.add_argument("--train_augm", type=parse_bool, default=False,
                    help="random SO(3) rotation augmentation of the lattice")
     p.add_argument("--dataset", type=str, default="alexandria",
-                   choices=["alexandria", "alexandria-dev", "eval-equivariance", "synthetic"],
-                   help="synthetic and eval-equivariance are ported")
+                   choices=["alexandria", "alexandria-dev", "eval-equivariance", "synthetic"])
     p.add_argument("--data_dir", type=str, default="datasets/alexandria_hdf5")
     p.add_argument("--radius", type=float, default=5.0)
     p.add_argument("--max_neighbors", type=int, default=8)
@@ -158,18 +166,26 @@ def parse_args(argv=None):
 EVAL_EQUIVARIANCE_TIMESTEP = 5
 
 
-def _check_ported(args) -> None:
-    if args.dataset not in ("synthetic", "eval-equivariance"):
-        raise NotImplementedError("--dataset is not ported yet")
-
-
 def build_datasets(args):
     """(dataset, split indices, z-table, pinned timestep or None)."""
+    if args.dataset == "synthetic":
+        ds = synthetic_packed(args.synthetic_size, seed=args.seed)
+        splits = random_split(len(ds), [0.7, 0.15, 0.15], args.seed)
+        return ds, {"train": splits[0], "valid": splits[1], "test": splits[2]}, ds.z_table, None
+    if args.dataset == "alexandria-dev":
+        ds = CrystalDataset([os.path.join(args.data_dir, "alexandria_ps_000_take10.h5")])
+        idx = np.arange(len(ds))
+        return ds, {"train": idx, "valid": idx, "test": idx}, ds.z_table, None
     if args.dataset == "eval-equivariance":
         from arreau_tpu_torch.exploration.verify_equivariance import build_equivariance_datasets
 
         return build_equivariance_datasets(args.data_dir)
-    ds = synthetic_packed(args.synthetic_size, seed=args.seed)
+    paths = alexandria_shards(args.data_dir)
+    if not paths:
+        raise FileNotFoundError(
+            f"no alexandria shards under {args.data_dir}; run arreau_tpu_torch/data/prep.py "
+            "or use --dataset synthetic")
+    ds = CrystalDataset(paths)
     splits = random_split(len(ds), [0.7, 0.15, 0.15], args.seed)
     return ds, {"train": splits[0], "valid": splits[1], "test": splits[2]}, ds.z_table, None
 
@@ -212,7 +228,6 @@ def stop_profiler(profiler, device, seconds: float) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but CUDA is not available; pass --device cpu")

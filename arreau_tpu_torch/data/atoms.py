@@ -41,6 +41,12 @@ def symbol_to_z(symbol: str) -> int:
     return _SYMBOL_TO_Z[symbol]
 
 
+def z_to_symbol(z: int) -> str:
+    if z == MASK_ATOMIC_NUMBER:
+        return "MASK"
+    return ELEMENT_SYMBOLS[z]
+
+
 class AtomicNumberTable:
     """Sorted atomic numbers (MASK last by value 2001) with O(1) converters."""
 

@@ -9,14 +9,18 @@ batches in the same order as the JAX package's. Under data parallelism
 each rank is a host of the JAX loader's multi-host contract: the chunks are
 decided globally from the shared seed and rank ``host_index`` of
 ``num_hosts`` takes rows ``host_index::num_hosts`` of each, so every rank
-runs the same sequence of shapes. Reading HDF5 shards (the JAX package's
-``read_h5``) is not ported: the card's machine has no ``h5py``. Batches are
+runs the same sequence of shapes. Shards are HDF5 files, read and written
+by ``data/hdf5.py`` (no ``h5py``): the packed columnar layout
+(``atomic_numbers``, ``frac_coords``, ``offsets``, ``lattice_matrix``) and,
+for reading, the reference's dataset-per-crystal layout. Batches are
 collated by the C++ collator (``arreau_tpu_torch/native``); the numpy
 :func:`collate_dense` is its plain version.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
 
@@ -24,6 +28,7 @@ import numpy as np
 
 from arreau_tpu_torch import native
 from arreau_tpu_torch.data.atoms import AtomicNumberTable, table_from_zs
+from arreau_tpu_torch.data.hdf5 import read_datasets, write_datasets
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch
 
 DEFAULT_BUCKETS = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
@@ -54,10 +59,58 @@ class PackedCrystals:
         )
 
 
-class CrystalDataset:
-    """Packed arrays, the z-table, and the atoms' z-table indices."""
+def write_packed_h5(path: str, packed: PackedCrystals) -> None:
+    """Write a packed shard: four datasets and ``attrs["layout"] =
+    "packed-v1"``, as the JAX package's ``write_packed_h5``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_datasets(path, {"atomic_numbers": packed.atomic_numbers,
+                          "frac_coords": packed.frac_coords, "offsets": packed.offsets,
+                          "lattice_matrix": packed.lattices},
+                   {"layout": "packed-v1"})
 
-    def __init__(self, packed: PackedCrystals, z_table: Optional[AtomicNumberTable] = None):
+
+def read_h5(path: str) -> PackedCrystals:
+    """Read either the packed layout or the reference's per-crystal layout
+    (``atomic_number/<i>``, ``frac_coord/<i>`` in integer key order, and a
+    dense ``lattice_matrix``)."""
+    data, _ = read_datasets(path)
+    if "offsets" in data:
+        return PackedCrystals(data["atomic_numbers"], data["frac_coords"], data["offsets"],
+                              data["lattice_matrix"])
+    members = {"atomic_number": {}, "frac_coord": {}}
+    for name, array in data.items():
+        group, _, key = name.partition("/")
+        if group in members:
+            members[group][key] = array
+    zs = [members["atomic_number"][k] for k in sorted(members["atomic_number"], key=int)]
+    fracs = [members["frac_coord"][k] for k in sorted(members["frac_coord"], key=int)]
+    counts = np.array([len(z) for z in zs], dtype=np.int64)
+    return PackedCrystals(
+        atomic_numbers=np.concatenate(zs) if zs else np.zeros(0, np.int64),
+        frac_coords=np.concatenate(fracs) if fracs else np.zeros((0, 3)),
+        offsets=np.concatenate([[0], np.cumsum(counts)]),
+        lattices=data["lattice_matrix"],
+    )
+
+
+def alexandria_shards(data_dir: str) -> list[str]:
+    """The full Alexandria shards under ``data_dir``, sorted: every
+    ``alexandria_ps_0*.h5`` but the take-N subsets."""
+    paths = sorted(glob.glob(os.path.join(data_dir, "alexandria_ps_0*.h5")))
+    return [p for p in paths if "take" not in p]
+
+
+class CrystalDataset:
+    """One or more shards (or ``packed``), the z-table, and the atoms'
+    z-table indices."""
+
+    def __init__(self, paths: Sequence[str] = (), packed: Optional[PackedCrystals] = None,
+                 z_table: Optional[AtomicNumberTable] = None):
+        if packed is None:
+            packs = [read_h5(p) for p in paths]
+            packed = packs[0]
+            for p in packs[1:]:
+                packed = packed.concat(p)
         self.packed = packed
         self.z_table = z_table or table_from_zs(np.unique(packed.atomic_numbers).tolist())
         self.type_indices = self.z_table.zs_to_indices(packed.atomic_numbers)
@@ -65,9 +118,8 @@ class CrystalDataset:
     @classmethod
     def from_packed(cls, packed: PackedCrystals,
                     z_table: Optional[AtomicNumberTable] = None) -> "CrystalDataset":
-        """The JAX package's constructor name; without ``z_table`` the table
-        is the crystals' own Zs and MASK."""
-        return cls(packed, z_table)
+        """Without ``z_table`` the table is the crystals' own Zs and MASK."""
+        return cls(packed=packed, z_table=z_table)
 
     def __len__(self) -> int:
         return len(self.packed)

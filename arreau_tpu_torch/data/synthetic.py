@@ -64,4 +64,4 @@ def synthetic_packed(n: int, seed: int = 0, max_atoms: int = 24, min_atoms: int 
         offsets=offsets,
         lattices=random_lattices(rng, n),
     )
-    return CrystalDataset(packed, z_table)
+    return CrystalDataset(packed=packed, z_table=z_table)

@@ -1,5 +1,5 @@
 """Variance-preserving DDPM with a cosine alpha-bar schedule (forward
-noising and reverse steps from an x0 prediction); counterpart of
+noising, reverse steps from an eps or an x0 prediction); counterpart of
 ``arreau_tpu/diffusion/vp.py``.
 
 Every random number is passed in (``noise``, standard normal)."""
@@ -45,6 +45,32 @@ def vp_forward(
     sqrt(1 - abar) noise``, noise)."""
     abar = schedule.alpha_bars[t][:, None]
     return torch.sqrt(abar) * h0 + torch.sqrt(1 - abar) * noise, noise
+
+
+def vp_reverse_without_noise(
+    schedule: VPSchedule, ht: torch.Tensor, pred_eps: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """The mean of the DDPM ancestral step from an eps prediction (Ho et
+    al. 2020, alg. 2), alpha clamped at ``1 - betas[-2]`` as the reference
+    clamps it."""
+    alpha = torch.maximum(1 - schedule.betas[t], 1 - schedule.betas[-2])
+    abar = schedule.alpha_bars[t]
+    coef = (1.0 / torch.sqrt(alpha + EPSILON))[:, None]
+    eps_coef = ((1 - alpha) / torch.sqrt(1 - abar + EPSILON))[:, None]
+    return coef * (ht - eps_coef * pred_eps)
+
+
+def vp_reverse_step(
+    schedule: VPSchedule,
+    noise: torch.Tensor,
+    ht: torch.Tensor,
+    pred_eps: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """The DDPM ancestral step from an eps prediction: its mean plus
+    ``sigmas[t] * noise``, the noise gated off at t <= 1."""
+    z = torch.where((t > 1)[:, None], noise, 0.0)
+    return vp_reverse_without_noise(schedule, ht, pred_eps, t) + schedule.sigmas[t][:, None] * z
 
 
 def vp_reverse_given_x0(

@@ -2,17 +2,12 @@
 counterparts of ``arreau_tpu/exploration/``: dataset statistics, the VP
 prior check, lattice EDA, crystal viewers, the equivariance check and the
 reverse-chain diagnosis. The tools that compute take ``--device`` (default
-``cuda``, which raises where CUDA is unavailable); the HDF5 datasets raise
-(the port reads no HDF5)."""
+``cuda``, which raises where CUDA is unavailable); the Alexandria shards and
+``crystals.h5`` files are read by ``data/hdf5.py``."""
 
 from __future__ import annotations
 
 import torch
-
-HDF5_NOT_PORTED = ("the Alexandria HDF5 shards are not readable by the port: it has no h5py "
-                   "(ROADMAP Queue A, 'Kept out, with its reason: the HDF5 reader'); use the "
-                   "synthetic dataset")
-
 
 def open_device(name: str) -> torch.device:
     """``torch.device(name)``; a CUDA device where CUDA is unavailable raises."""

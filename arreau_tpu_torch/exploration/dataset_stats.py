@@ -3,19 +3,21 @@ constants from (average density, largest system, atom-count histogram,
 lattice length and angle ranges); counterpart of
 ``arreau_tpu/exploration/dataset_stats.py``. Host code (numpy).
 
-    python -m arreau_tpu_torch.exploration.dataset_stats [--synthetic_size 2000]
+    python -m arreau_tpu_torch.exploration.dataset_stats [--data_dir DIR | --synthetic_size 2000]
 
-``--data_dir`` (the Alexandria HDF5 shards) raises ``NotImplementedError``.
+``--data_dir`` reads every ``*.h5`` shard under it (``data/crystal.py:read_h5``).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 
 import numpy as np
 
+from arreau_tpu_torch.data.crystal import CrystalDataset
 from arreau_tpu_torch.data.synthetic import synthetic_packed
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED
 
 
 def compute_stats(packed) -> dict:
@@ -57,8 +59,10 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.data_dir:
-        raise NotImplementedError(f"--data_dir: {HDF5_NOT_PORTED}")
-    stats = compute_stats(synthetic_packed(args.synthetic_size).packed)
+        ds = CrystalDataset(sorted(glob.glob(os.path.join(args.data_dir, "*.h5"))))
+    else:
+        ds = synthetic_packed(args.synthetic_size)
+    stats = compute_stats(ds.packed)
     for k, v in stats.items():
         print(f"{k}: {v}")
     return stats

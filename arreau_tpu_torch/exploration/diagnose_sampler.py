@@ -21,8 +21,7 @@ Its random numbers are a :class:`SamplerNoise` drawn from a
     python -m arreau_tpu_torch.exploration.diagnose_sampler \\
         --checkpoint_dir ckpt --ref synthetic:20000:0 --out out/diag_sampler.json
 
-A ``--ref`` other than ``synthetic[:size[:seed]]`` (an HDF5 shard) raises
-``NotImplementedError``.
+``--ref`` is ``synthetic[:size[:seed]]`` or a packed HDF5 shard.
 """
 
 from __future__ import annotations
@@ -37,11 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from arreau_tpu_torch.cli import generate
-from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.diffusion.d3pm import d3pm_reverse_step
 from arreau_tpu_torch.diffusion.ve import ve_reverse_step
 from arreau_tpu_torch.diffusion.vp import vp_reverse_given_x0
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED, open_device
+from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.inference.quality import lattice_params_np
 from arreau_tpu_torch.tasks.diffusion import SamplerNoise, _decode_angles_safe, draw_sampler_noise
 
@@ -62,13 +60,9 @@ def parse_args(argv=None):
 
 
 def reference_lengths(ref: str) -> tuple[float, float]:
-    """Mean and variance of the reference data's lattice lengths."""
-    if not ref.startswith("synthetic"):
-        raise NotImplementedError(f"--ref {ref}: {HDF5_NOT_PORTED}")
-    parts = ref.split(":")
-    ds = synthetic_packed(int(parts[1]) if len(parts) > 1 else 2000,
-                          seed=int(parts[2]) if len(parts) > 2 else 0)
-    lengths, _ = lattice_params_np(ds.packed.lattices)
+    """Mean and variance of the reference data's lattice lengths (``ref``
+    as ``generate --quality_ref`` takes it)."""
+    lengths, _ = lattice_params_np(generate.reference_dataset(ref).packed.lattices)
     return float(lengths.mean()), float(lengths.var())
 
 

@@ -7,9 +7,10 @@ float64, the rest on the host. The statistics are printed first; the
 figure and the example cells need matplotlib and PIL, and where either does
 not import they are skipped and the tool says so.
 
-    python -m arreau_tpu_torch.exploration.lattice_eda [--out_dir out/eda]
+    python -m arreau_tpu_torch.exploration.lattice_eda [--dataset alexandria] [--out_dir out/eda]
 
-``--dataset alexandria`` (HDF5) raises ``NotImplementedError``.
+Any ``--dataset`` but ``synthetic`` reads the Alexandria shards under
+``--data_dir``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import os
 import numpy as np
 import torch
 
+from arreau_tpu_torch.data.crystal import CrystalDataset, alexandria_shards
 from arreau_tpu_torch.data.synthetic import synthetic_packed
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED, open_device
+from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.inference.visualize import plot_lattice, require_renderers
 from arreau_tpu_torch.ops.lattice import matrix_to_params
 
@@ -54,10 +56,11 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Returns :func:`lattice_stats` of the dataset."""
     args = parse_args(argv)
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {args.dataset}: {HDF5_NOT_PORTED}")
     device = open_device(args.device)
-    packed = synthetic_packed(2000, seed=args.seed).packed
+    if args.dataset == "synthetic":
+        packed = synthetic_packed(2000, seed=args.seed).packed
+    else:
+        packed = CrystalDataset(alexandria_shards(args.data_dir)).packed
     lat = np.asarray(packed.lattices)
     stats = lattice_stats(lat, packed.offsets, device)
     natoms, density = stats["natoms"], stats["density"]

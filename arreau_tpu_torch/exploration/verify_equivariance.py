@@ -12,9 +12,9 @@ term averaged over the same ``n_noise`` noise draws. Everything computes on
 
     python -m arreau_tpu_torch.exploration.verify_equivariance
 
-The crystal is the synthetic one the JAX tool takes where the Alexandria
-take-10 shard is absent. Where that shard exists the JAX tool reads it;
-the port cannot (HDF5) and raises rather than quietly check another crystal.
+The crystal is the first of the Alexandria take-10 shard
+(``<data_dir>/alexandria_ps_000_take10.h5``) where it exists, else the
+synthetic one the JAX tool takes.
 """
 
 from __future__ import annotations
@@ -29,9 +29,14 @@ import torch
 from arreau_tpu_torch.cli import generate
 from arreau_tpu_torch.cli.train_diffusion import EVAL_EQUIVARIANCE_TIMESTEP
 from arreau_tpu_torch.cli.train_diffusion import main as train_main
-from arreau_tpu_torch.data.crystal import CrystalDataset, PackedCrystals, pack_dense_batch
+from arreau_tpu_torch.data.crystal import (
+    CrystalDataset,
+    PackedCrystals,
+    pack_dense_batch,
+    read_h5,
+)
 from arreau_tpu_torch.data.synthetic import synthetic_packed
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED, open_device
+from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.tasks.diffusion import LossNoise, batch_to_device, draw_loss_noise
 
 COMPONENTS = ("loss_coord", "loss_type", "loss_lattice", "loss_angle", "loss")
@@ -55,9 +60,14 @@ def _rotate_packed(packed: PackedCrystals, angle_deg: float = 90.0) -> PackedCry
 def build_equivariance_datasets(data_dir: str):
     """(dataset, splits, z-table, pinned timestep): crystal 0 is the
     original (train), crystal 1 its rotation (valid and test)."""
-    if os.path.exists(os.path.join(data_dir, "alexandria_ps_000_take10.h5")):
-        raise NotImplementedError(f"the take-10 shard under {data_dir}: {HDF5_NOT_PORTED}")
-    one = synthetic_packed(1, seed=0, max_atoms=8, min_atoms=6).packed
+    take10 = os.path.join(data_dir, "alexandria_ps_000_take10.h5")
+    if os.path.exists(take10):
+        base = read_h5(take10)
+        end = base.offsets[1]
+        one = PackedCrystals(base.atomic_numbers[:end], base.frac_coords[:end],
+                             base.offsets[:2], base.lattices[:1])
+    else:
+        one = synthetic_packed(1, seed=0, max_atoms=8, min_atoms=6).packed
     ds = CrystalDataset.from_packed(one.concat(_rotate_packed(one)))
     splits = {"train": np.array([0]), "valid": np.array([1]), "test": np.array([1])}
     return ds, splits, ds.z_table, EVAL_EQUIVARIANCE_TIMESTEP

@@ -3,33 +3,37 @@ counterpart of ``arreau_tpu/exploration/view_crystals.py``. Host code: it
 launches nothing on a card. The renders need matplotlib and PIL, checked
 before any work (``inference/visualize.py:require_renderers``).
 
-    python -m arreau_tpu_torch.exploration.view_crystals dataset --dataset synthetic \\
-        [--num 50] [--out_dir out/alexandria_vis]
+    python -m arreau_tpu_torch.exploration.view_crystals dataset [--dataset synthetic] \\
+        [--data_dir datasets/alexandria_hdf5] [--num 50] [--out_dir out/alexandria_vis]
     python -m arreau_tpu_torch.exploration.view_crystals generated \\
-        [--crystal_file out/crystals.npz] [--index 0] [--shift 0.3 0.6 0.2]
+        [--crystal_file out/crystals.h5] [--index 0] [--shift 0.3 0.6 0.2]
 
-``generated`` reads the port's ``crystals.npz`` (the JAX tool reads
-``crystals.h5``); ``dataset --dataset alexandria`` (HDF5, the JAX tool's
-default) raises ``NotImplementedError``.
+``dataset --dataset alexandria`` (the default) renders from the first
+``--max_shards`` ``*.h5`` shards under ``--data_dir``.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 
 import numpy as np
 
+from arreau_tpu_torch.data.crystal import CrystalDataset
 from arreau_tpu_torch.data.synthetic import synthetic_packed
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED
 from arreau_tpu_torch.inference.io import load_sample_results
 from arreau_tpu_torch.inference.visualize import plot_crystal, require_renderers
 
 
 def view_dataset(args) -> int:
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {args.dataset}: {HDF5_NOT_PORTED}")
-    packed = synthetic_packed(max(args.num, 64), seed=args.seed).packed
+    if args.dataset == "synthetic":
+        packed = synthetic_packed(max(args.num, 64), seed=args.seed).packed
+    else:
+        paths = sorted(glob.glob(os.path.join(args.data_dir, "*.h5")))
+        if not paths:
+            raise SystemExit(f"no HDF5 shards under {args.data_dir}")
+        packed = CrystalDataset(paths[: args.max_shards]).packed
     n = min(args.num, len(packed))
     os.makedirs(args.out_dir, exist_ok=True)
     for i in range(n):
@@ -74,8 +78,8 @@ def parse_args(argv=None):
     d.add_argument("--seed", type=int, default=0)
     d.set_defaults(fn=view_dataset)
 
-    g = sub.add_parser("generated", help="render crystals from the sampler's crystals.npz")
-    g.add_argument("--crystal_file", default="out/crystals.npz")
+    g = sub.add_parser("generated", help="render crystals from the sampler's crystals.h5")
+    g.add_argument("--crystal_file", default="out/crystals.h5")
     g.add_argument("--index", type=int, nargs="*", default=[0])
     g.add_argument("--shift", type=float, nargs=3, default=[0.0, 0.0, 0.0])
     g.add_argument("--out_dir", default="out/crystal_vis")

@@ -13,8 +13,9 @@ tool says so, after the check.
     python -m arreau_tpu_torch.exploration.vp_prior_check [--out_dir out/eda]
 
 Every random number comes from a :class:`VPPriorNoise`: drawn from a
-``torch.Generator`` seeded ``--seed``, or handed to :func:`main`.
-``--dataset alexandria`` (HDF5) raises ``NotImplementedError``.
+``torch.Generator`` seeded ``--seed``, or handed to :func:`main`. Any
+``--dataset`` but ``synthetic`` reads the Alexandria shards under
+``--data_dir``.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from arreau_tpu_torch.data.crystal import CrystalDataset, alexandria_shards
 from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.diffusion.vp import make_vp_schedule, vp_forward
-from arreau_tpu_torch.exploration import HDF5_NOT_PORTED, open_device
+from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.inference.visualize import plot_lattice, require_renderers
 from arreau_tpu_torch.ops.lattice import (
     lattice_from_params,
@@ -97,11 +99,12 @@ def parse_args(argv=None):
 def main(argv=None, noise: VPPriorNoise | None = None) -> bool:
     """Returns whether the terminal marginal passed its check."""
     args = parse_args(argv)
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {args.dataset}: {HDF5_NOT_PORTED}")
     device = open_device(args.device)
-    lattices = torch.as_tensor(synthetic_packed(2000, seed=args.seed).packed.lattices,
-                               dtype=torch.float32, device=device)
+    if args.dataset == "synthetic":
+        packed = synthetic_packed(2000, seed=args.seed).packed
+    else:
+        packed = CrystalDataset(alexandria_shards(args.data_dir)).packed
+    lattices = torch.as_tensor(packed.lattices, dtype=torch.float32, device=device)
     if noise is None:
         noise = draw_noise(torch.Generator(device=device).manual_seed(args.seed), len(lattices),
                            args.num_render, device)

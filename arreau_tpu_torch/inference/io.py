@@ -1,8 +1,10 @@
 """Generated-crystal result container and its file; counterpart of
 ``arreau_tpu/inference/io.py``.
 
-The JAX package writes ``crystals.h5`` (group ``crystals``); the port writes
-``crystals.npz`` with the same dataset names and values, numpy only.
+Results are written as the JAX package (and the reference) writes them:
+``crystals.h5``, the five datasets under a ``crystals`` group, through
+``data/hdf5.py`` (no ``h5py``). The ``crystals.npz`` files of earlier
+versions of the port are still read, by their suffix.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from arreau_tpu_torch.data.hdf5 import read_datasets, write_datasets
 
 FIELDS = ("frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms")
 
@@ -71,10 +75,17 @@ def concat_results(results: list[SampleResult]) -> SampleResult:
 
 
 def save_sample_results(path: str, result: SampleResult) -> None:
+    """Write the reference layout: the datasets under a ``crystals`` group."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **{name: getattr(result, name) for name in FIELDS})
+    write_datasets(path, {f"crystals/{name}": getattr(result, name) for name in FIELDS})
 
 
 def load_sample_results(path: str) -> SampleResult:
-    with np.load(path) as data:
-        return SampleResult(**{name: data[name] for name in FIELDS})
+    """Read the grouped layout or flat root datasets (or, by its suffix, an
+    ``.npz`` of an earlier version of the port)."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return SampleResult(**{name: data[name] for name in FIELDS})
+    data, _ = read_datasets(path)
+    prefix = "crystals/" if any(key.startswith("crystals/") for key in data) else ""
+    return SampleResult(**{name: data[prefix + name] for name in FIELDS})

@@ -10,6 +10,7 @@ backbone of every task and of the EGNN baseline:
   params/layer_{i}/norm/scale              -> layers.{i}.norm.weight
   params/layer_{i}/layer_scale             -> layers.{i}.layer_scale
   params/readout_{i}/kernel         [C, O] -> readouts.{i}.weight      (transposed)
+  params/edge_readout_{i}/kernel    [C + 4, O] -> edge_readouts.{i}.weight (transposed)
   params/conv_{i}/kernel/kernel     [D, C] -> convs.{i}.kernel.weight  (transposed; the
                                               point-cloud model's per-layer conv)
   .../bias                                 -> .../bias
@@ -37,8 +38,8 @@ def _jax_name(torch_name: str) -> tuple[str, bool]:
     parts = torch_name.split(".")
     if parts[0] == "layers":
         parts[:2] = [f"layer_{parts[1]}"]
-    elif parts[0] == "readouts":
-        parts[:2] = [f"readout_{parts[1]}"]
+    elif parts[0] in ("readouts", "edge_readouts"):
+        parts[:2] = [f"{parts[0][:-1]}_{parts[1]}"]
     elif parts[0] == "convs":
         parts[:2] = [f"conv_{parts[1]}"]
     transpose = False

@@ -235,7 +235,7 @@ class FiberBundleConv(nn.Module):
 
     def forward(self, x, kernel_basis, fiber_kernel_basis, src, edge_mask, window=None,
                 kernel_layout: bool = False, dtype: Optional[torch.dtype] = None,
-                position_grads: bool = False):
+                position_grads: bool = False, return_messages: bool = False):
         """Plain layout: ``x [B, A, O, C]``, windowed ``kernel_basis [B, A,
         K, O, D]``, ``src``/``edge_mask [B, A, K]``. Kernel layout: ``x [B',
         O, TA, C]``, ``kernel_basis [B', O, E, D]``, tile-local ``src [B',
@@ -244,7 +244,9 @@ class FiberBundleConv(nn.Module):
         cotangent with ``position_grads`` (the spatial conv's
         ``window_grad``). With a compute ``dtype`` the spatial step runs in it
         and the fiber mixing takes its operands with float32 sums; the output
-        is float32."""
+        is float32. ``return_messages`` (plain layout only) also returns the
+        per-edge messages ``[B, A, K, O, C]``, empty slots included, as the
+        JAX package's conv returns them."""
         w = self.kernel if dtype is None else self.kernel.to(dtype)
         fiber_kernel = dense(self.fiber_kernel, fiber_kernel_basis, dtype)  # [O, P, C]
         num_ori = fiber_kernel.shape[0]
@@ -262,10 +264,11 @@ class FiberBundleConv(nn.Module):
         B, A, K = src.shape
         idx = src.reshape(B, A * K)[:, :, None, None].expand(B, A * K, *x.shape[2:])
         x_j = torch.gather(x, 1, idx).reshape(B, A, K, *x.shape[2:])
-        messages = torch.where(edge_mask[..., None, None], kernel * x_j.to(kernel.dtype), 0.0)
-        x_spatial = messages.sum(dim=2)  # a bfloat16 sum accumulates in float32, as jnp.sum's
+        messages = kernel * x_j.to(kernel.dtype)
+        # a bfloat16 sum accumulates in float32, as jnp.sum's
+        x_spatial = torch.where(edge_mask[..., None, None], messages, 0.0).sum(dim=2)
         x_out = torch.einsum("baoc,opc->bapc", x_spatial.float(), fiber_kernel.float()) / num_ori
-        return x_out + self.bias
+        return (x_out + self.bias, messages) if return_messages else x_out + self.bias
 
 
 class ConvNextBlock(nn.Module):
@@ -296,13 +299,18 @@ class ConvNextBlock(nn.Module):
 
     def forward(self, x, kernel_basis, fiber_kernel_basis, src, edge_mask, window=None,
                 kernel_layout: bool = False, dtype: Optional[torch.dtype] = None,
-                readout: Optional[nn.Linear] = None, position_grads: bool = False):
+                readout: Optional[nn.Linear] = None, position_grads: bool = False,
+                return_messages: bool = False):
         """``(x_out, r)``: ``r`` is the layer's readout ``x_out @ W + b``
         computed by the fused kernel (float32), or None where the caller
-        applies ``readout`` itself (every path but the fused one)."""
+        applies ``readout`` itself (every path but the fused one).
+        ``return_messages`` (plain layout): ``(x_out, None, messages)``,
+        the conv's per-edge messages for the edge readouts."""
         residual = x
         x = self.conv(x, kernel_basis, fiber_kernel_basis, src, edge_mask, window, kernel_layout,
-                      dtype, position_grads)
+                      dtype, position_grads, return_messages)
+        if return_messages:
+            x, messages = x
         if self.fuse_convnext and kernel_layout and dtype is not None:
             C = x.shape[-1]
             gamma = (self.layer_scale if self.layer_scale is not None
@@ -326,4 +334,4 @@ class ConvNextBlock(nn.Module):
             x = row_parallel_dense(self.linear_2, h, dtype, self.tp)
         if self.layer_scale is not None:
             x = self.layer_scale.to(x.dtype) * x
-        return residual + x, None
+        return (residual + x, None, messages) if return_messages else (residual + x, None)

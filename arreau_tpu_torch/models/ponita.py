@@ -5,13 +5,17 @@
 Scalar and vector features are lifted onto the orientation grid, per-edge
 invariants feed the polynomial-basis kernel MLPs, ``num_layers`` ConvNext
 blocks around the fiber-bundle conv exchange messages, and the per-layer
-readouts are averaged and split into node-scalar, node-vector and
-global-scalar heads. The invariants are the two spatial ones per edge and
-orientation, then ``num_edge_scalar_features`` more: 4 appends the
-diffusion task's ``lattice_edge_scalars``, 0 none (the N-body and MNIST
-tasks, d = 2). ``radius=None`` windows nothing. The JAX package's
-``output_dim_global_vec`` and edge readouts are not ported: no task of
-the port sets them.
+readouts are averaged and split into node-scalar, node-vector,
+global-vector and global-scalar heads. The invariants are the two spatial
+ones per edge and orientation, then ``num_edge_scalar_features`` more: 4
+appends the diffusion task's ``lattice_edge_scalars``, 0 none (the N-body
+and MNIST tasks, d = 2). ``radius=None`` windows nothing.
+``output_dim_edge_scalar`` adds per-edge readouts (``edge_readouts.{i}`` on
+each reading layer's messages and the lifted edge scalars, averaged over
+the orientations; one output a reading layer, as the JAX package's). They
+need the per-edge messages, which only the plain conv forms: the automatic
+branch choice then takes the plain branch, and an explicit
+``use_kernels=True`` raises (the JAX package turns its Pallas path off).
 
 On CUDA the backbone takes the kernel branch (the JAX package's
 ``use_pallas`` branch): super-crystals of ``pick_tile(B, A, 128)``
@@ -99,6 +103,8 @@ class PonitaConfig:
     output_dim_scalar: int = 0
     output_dim_vec: int = 0
     output_dim_global_scalar: int = 0
+    output_dim_global_vec: int = 0
+    output_dim_edge_scalar: int = 0
     # per-edge scalar invariants after the two spatial ones: 4 = the diffusion
     # task's [dist, 3 lattice cosines], 0 = none
     num_edge_scalar_features: int = 4
@@ -126,7 +132,8 @@ class PonitaConfig:
 
     @property
     def output_dim(self) -> int:
-        return self.output_dim_scalar + self.output_dim_vec + self.output_dim_global_scalar
+        return (self.output_dim_scalar + self.output_dim_vec + self.output_dim_global_vec
+                + self.output_dim_global_scalar)
 
 
 class FiberBundleInputs(NamedTuple):
@@ -142,6 +149,8 @@ class PonitaOutputs(NamedTuple):
     node_scalar: torch.Tensor  # [B, A, out_s]
     node_vec: torch.Tensor  # [B, A, out_v, D]
     global_scalar: torch.Tensor  # [B, out_gs]
+    global_vec: Optional[torch.Tensor] = None  # [B, out_gv, D] where out_gv > 0
+    edge_scalar: tuple = ()  # per reading layer [B, A, K, out_es] where out_es > 0
 
 
 def pick_tile(batch: int, atoms: int, target: int = 256) -> int:
@@ -229,6 +238,10 @@ class PonitaFiberBundle(nn.Module):
                 if cfg.multiple_readouts or i == cfg.num_layers - 1
             }
         )
+        if cfg.output_dim_edge_scalar:
+            self.edge_readouts = nn.ModuleDict(
+                {i: nn.Linear(cfg.hidden_dim + cfg.num_edge_scalar_features,
+                              cfg.output_dim_edge_scalar) for i in self.readouts})
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -259,9 +272,13 @@ class PonitaFiberBundle(nn.Module):
         nb = inputs.neighbors
         ori_grid = inputs.ori_grid
         num_ori = ori_grid.shape[0]
+        need_messages = cfg.output_dim_edge_scalar > 0
         use_kernels = cfg.use_kernels
         if use_kernels is None:
-            use_kernels = inputs.scalar.device.type == "cuda"
+            use_kernels = inputs.scalar.device.type == "cuda" and not need_messages
+        elif use_kernels and need_messages:
+            raise ValueError("use_kernels=True with output_dim_edge_scalar: the edge readouts "
+                             "need the per-edge messages, which only the plain branch forms")
 
         # ---- lift features to the sphere ----
         lifted = [scalar_to_sphere(inputs.scalar, num_ori)]
@@ -271,6 +288,7 @@ class PonitaFiberBundle(nn.Module):
 
         # ---- invariants and kernel bases ----
         spatial_attr, fiber_attr, dists = fiber_bundle_invariants(nb, ori_grid)
+        edge_scalars = None
         if cfg.num_edge_scalar_features > 0:
             edge_scalars = scalar_to_sphere(lattice_edge_scalars(nb, inputs.lattice), num_ori)
             attr = torch.cat([spatial_attr, edge_scalars], dim=-1)
@@ -319,12 +337,17 @@ class PonitaFiberBundle(nn.Module):
 
         # ---- embed, interaction layers, readouts ----
         x = dense(self.x_embedder, x, cdt)
-        xs, fused = [], []
+        xs, fused, edge_readouts = [], [], []
         for i, layer in enumerate(self.layers):
             readout_i = self.readouts[str(i)] if str(i) in self.readouts else None
-            x, r = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask, conv_window,
-                         kernel_layout=use_kernels, dtype=cdt, readout=readout_i,
-                         position_grads=cfg.position_grads)
+            x, r, *messages = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask,
+                                    conv_window, kernel_layout=use_kernels, dtype=cdt,
+                                    readout=readout_i, position_grads=cfg.position_grads,
+                                    return_messages=need_messages)
+            if need_messages and readout_i is not None:
+                parts = [messages[0].float()] + ([] if edge_scalars is None else [edge_scalars])
+                edge_in = torch.cat(parts, dim=-1)
+                edge_readouts.append(sphere_to_scalar(self.edge_readouts[str(i)](edge_in)))
             if r is not None:
                 fused.append(r)
             elif readout_i is not None:
@@ -350,9 +373,16 @@ class PonitaFiberBundle(nn.Module):
         # ---- split heads and project off the sphere ----
         s0 = cfg.output_dim_scalar
         s1 = s0 + cfg.output_dim_vec
-        gs = sphere_to_scalar(readout[..., s1:])
+        s2 = s1 + cfg.output_dim_global_vec
+        gs = sphere_to_scalar(readout[..., s2:])
+        global_vec = None
+        if cfg.output_dim_global_vec:
+            gv = sphere_to_vec(readout[..., s1:s2], ori_grid)  # [B, A, out_gv, D]
+            global_vec = torch.where(inputs.atom_mask[..., None, None], gv, 0.0).sum(dim=1)
         return PonitaOutputs(
             node_scalar=sphere_to_scalar(readout[..., :s0]),
             node_vec=sphere_to_vec(readout[..., s0:s1], ori_grid),
             global_scalar=torch.where(inputs.atom_mask[..., None], gs, 0.0).sum(dim=1),
+            global_vec=global_vec,
+            edge_scalar=tuple(edge_readouts),
         )

@@ -102,9 +102,77 @@ def ridge_pinv_3x3(lattice: torch.Tensor, rel_eps: float = 100.0) -> torch.Tenso
     return torch.einsum("...ki,...kj->...ij", lattice, adj / det[..., None, None])
 
 
+def cart_to_frac_without_mod(cart: torch.Tensor, lattice: torch.Tensor) -> torch.Tensor:
+    """Cartesian -> fractional coordinates, not wrapped (the damped
+    pseudo-inverse keeps a near-singular lattice finite)."""
+    return torch.einsum("...ni,...ij->...nj", cart, ridge_pinv_3x3(lattice))
+
+
 def cart_to_frac(cart: torch.Tensor, lattice: torch.Tensor) -> torch.Tensor:
     """Cartesian -> fractional coordinates wrapped into [0, 1)."""
-    return torch.einsum("...ni,...ij->...nj", cart, ridge_pinv_3x3(lattice)) % 1.0
+    return cart_to_frac_without_mod(cart, lattice) % 1.0
+
+
+def abs_cap(val: torch.Tensor, max_abs_val: float = 1.0) -> torch.Tensor:
+    return torch.clamp(val, -max_abs_val, max_abs_val)
+
+
+def symmetrize_matrix(matrix: torch.Tensor) -> torch.Tensor:
+    return (matrix + matrix.transpose(-1, -2)) / 2
+
+
+def polar_decomposition(matrix: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """SVD polar decomposition ``M = U P``: (rotation ``U``, symmetric
+    positive semidefinite ``P``)."""
+    u_svd, s, vt = torch.linalg.svd(matrix)
+    p = vt.transpose(-1, -2) @ (s[..., :, None] * vt)
+    return u_svd @ vt, symmetrize_matrix(p)
+
+
+def symmetric_matrix_to_vector(matrix: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 symmetric matrix -> its upper-triangular 6-vector."""
+    rows, cols = (0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2)
+    return matrix[..., rows, cols]
+
+
+def vector_to_symmetric_matrix(vector: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`symmetric_matrix_to_vector`."""
+    return vector[..., (0, 1, 2, 1, 3, 4, 2, 4, 5)].unflatten(-1, (3, 3))
+
+
+def volume(matrix: torch.Tensor) -> torch.Tensor:
+    return torch.abs(torch.linalg.det(matrix))
+
+
+def wrapped_angle_mse(pred_angles: torch.Tensor, target_angles: torch.Tensor) -> torch.Tensor:
+    """MSE on the circle (mod 2 pi), the reference's angle loss."""
+    max_angle = 2 * math.pi
+    diff = torch.clamp(torch.abs(pred_angles - target_angles) % max_angle, 0.0, max_angle)
+    return torch.mean(torch.minimum(diff, max_angle - diff) ** 2)
+
+
+def cubic_score(edge_lengths: torch.Tensor) -> torch.Tensor:
+    """``1 - sum |l_i - mean| / mean``: how cube-like a cell's edge lengths are."""
+    avg = torch.mean(edge_lengths, dim=-1, keepdim=True)
+    return 1.0 - torch.sum(torch.abs(edge_lengths - avg), dim=-1) / avg[..., 0]
+
+
+def vector_length_mse_loss(pred_matrices: torch.Tensor,
+                           target_matrices: torch.Tensor) -> torch.Tensor:
+    """MSE of the basis-vector lengths plus the wrapped angle MSE between
+    two lattice batches."""
+    pred_lengths, pred_angles = matrix_to_params(pred_matrices)
+    target_lengths, target_angles = matrix_to_params(target_matrices)
+    length_loss = torch.mean((pred_lengths - target_lengths) ** 2)
+    return length_loss + wrapped_angle_mse(pred_angles, target_angles)
+
+
+def angle_bound_loss(angles_deg: torch.Tensor, lower: float = 60.0, upper: float = 120.0,
+                     weight: float = 0.1) -> torch.Tensor:
+    """Quadratic penalty outside [lower, upper] degrees."""
+    over = torch.clamp(angles_deg - upper, min=0.0)
+    under = torch.clamp(angles_deg - lower, max=0.0)
+    return torch.mean((weight * over) ** 2 + (weight * under) ** 2)
 
 
 _BRAVAIS_FIXED = {

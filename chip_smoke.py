@@ -17,7 +17,8 @@ training CLI's ``--log`` and ``--profiler torch``; and a reference
 Lightning checkpoint imported and served, the conv-kernel calibration, the
 equivariance check, the sampler diagnosis and the EDA tools; and data and
 tensor parallelism (``arreau_tpu_torch/parallel``) on the one card: NCCL at
-world size 1, and gloo ranks sharing the card.
+world size 1, and gloo ranks sharing the card; and the crystal data on disk
+(HDF5 shards and ``crystals.h5``, read and written without h5py).
 
 Run from the repository root, with no arguments:
 
@@ -158,9 +159,9 @@ inner launches by name and time.
    --show_bonds`` on the flagship (16 x 8): ``sampling.gif``, its 100
    frames and the crystals' PNGs; where either does not, generate ``--gif``
    raises its ImportError before any kernel launch. It prints which ran.
-30. serving export: export_sampler on the flagship at 100 x 8, 20 strided
+30. serving export: export_sampler on the flagship at 100 x 8, 10 strided
    steps, fixed and ``variable_num_atoms``: no launch in the export; the
-   artifact (``load_exported``, ``call(0)``) launches 20 x (5 #3 + 1 #8)
+   artifact (``load_exported``, ``call(0)``) launches 10 x (5 #3 + 1 #8)
    and nothing else and gives the in-process sampler's crystals from the
    same seed (types equal, frac and lattice within 1e-6; bit for bit
    reported); export seconds, artifact bytes, crystals/min of the artifact
@@ -205,7 +206,7 @@ inner launches by name and time.
 36. EDA tools: ``dataset_stats`` on 2000 synthetic crystals,
    ``vp_prior_check`` (its gate must print PASS), ``lattice_eda`` (its
    statistics, then the renderer branch taken) and ``view_crystals
-   generated`` on phase 32's ``crystals.npz`` (its ImportError before any
+   generated`` on phase 32's ``crystals.h5`` (its ImportError before any
    work where the card has no matplotlib).
 37. NCCL, world size 1: the training CLI at the training cell (256 x 16,
    hidden 200, basis 256, 5 layers, 16 orientations, ``diffuse_angles``,
@@ -226,6 +227,23 @@ inner launches by name and time.
    gathered whole) against the one-process card step (the same gates; the
    bf16 loss terms 1e-3), the local shape of a split weight, the launches
    and step milliseconds of each rank.
+40. HDF5 data (no h5py): (a) every ``out/**/crystals.h5`` of the checkout
+   through the port's reader (``data/hdf5.py``), and the quality report of
+   ``out/r4/q_ang_s100`` recomputed against its recorded ``--quality_ref
+   synthetic:20000:0`` and held to its ``quality.json`` (1e-12); (b) an
+   Alexandria-schema ``json.bz2`` of 2000 synthetic crystals through
+   ``data/prep.py`` (its shard and take-10 shard bit for bit), and
+   ``synthetic:20000:0`` written as a packed shard by ``write_packed_h5``,
+   read back bit for bit (load seconds and MB/s), and a 100000-crystal
+   shard's read against ``np.load`` of the same arrays; (c) the training
+   CLI at the training cell (256 x 16, hidden 200) for HDF5_STEPS steps on
+   ``--dataset alexandria`` (the prepped shard) and on ``--dataset
+   synthetic`` (the same crystals): 5/1/5/1 launches of #3/#8/#4/#7 a step
+   and nothing else, the metrics bit for bit where the z-tables agree, the
+   steps/s of both; (d) generate on the shard run's checkpoint with
+   ``--quality_ref <shard> --num_atoms_dist ref``: 5 #3 and 1 #8 a forward,
+   its ``crystals.h5`` read back bit for bit, its report equal to the one
+   against ``synthetic:20000:0``; then process_results on that file.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -238,7 +256,8 @@ steps; ``spatial_conv_bf16`` and ``basis_h1_bf16`` also with those of
 phases 28, 30, 34 and 35; ``spatial_conv`` and ``basis_h1`` with those of
 phases 32 and 33, and those two with #4/#7 with phase 34's; #3/#8/#4/#7
 with ``launches_dp`` and ``launches_tp``, one count a rank, of phases 38
-and 39, and #9/#10 with phase 39's) and the result
+and 39, and #9/#10 with phase 39's; #3/#8/#4/#7 with ``launches_hdf5``
+from phase 40's shard run) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -293,10 +312,16 @@ TRAIN_BATCH, TRAIN_HIDDEN, TRAIN_STEPS = 256, 200, 35  # 35 steps = 5 epochs of 
 # best; bfloat16, diffuse_angles) converted by convert_jax_checkpoint.py, and
 # the command of the JAX package's flagship quality report
 FLAGSHIP = Path(__file__).resolve().parent / "ported_ckpt" / "ang_on"
+# the HDF5 data phase: the committed crystals.h5 files under out/, the flagship
+# report's crystals and their recorded reference, the training steps of each run
+OUT = Path(__file__).resolve().parent / "out"
+Q_ANG_S100 = OUT / "r4" / "q_ang_s100"
+QUALITY_REF = "synthetic:20000:0"
+HDF5_STEPS = 10
 FLAGSHIP_BATCH, FLAGSHIP_CRYSTALS, FLAGSHIP_STEPS = 100, 500, 100
 # snapshot sampling (the flagship's dense chain, 16 crystals, a snapshot every
-# 10 steps) and the serving export (the flagship's shape, 20 strided steps)
-SNAPSHOT_BATCH, SNAPSHOT_EVERY, EXPORT_STEPS, EXPORT_TIMED_CALLS = 16, 10, 20, 3
+# 10 steps) and the serving export (the flagship's shape, 10 strided steps)
+SNAPSHOT_BATCH, SNAPSHOT_EVERY, EXPORT_STEPS, EXPORT_TIMED_CALLS = 16, 10, 10, 3
 # the training CLI's steps/s by its extra arguments (training_path)
 CLI_RATES: dict = {}
 FLAGSHIP_ARGS = [
@@ -946,7 +971,7 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
     want = {name: per_forward.get(name, 0) * forwards for name in counts}
     if counts != want:
         raise RuntimeError(f"the sampler path launched {counts}, not {want}")
-    crystal_checks(load_sample_results(str(out_dir / "crystals.npz")), z_table, CRYSTALS,
+    crystal_checks(load_sample_results(str(out_dir / "crystals.h5")), z_table, CRYSTALS,
                    ATOMS, generate.length_bounds_from_meta(meta) or (0.0, math.inf))
     print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
           f"batch included ({CRYSTALS / wall * 60:.0f} crystals/min on {card})")
@@ -1006,7 +1031,7 @@ def flagship_path(out_dir: Path, card: str) -> dict:
     print(f"shape at {FLAGSHIP_BATCH} x {ATOMS}: B'={basis.shape[0]} TA={x.shape[2]} "
           f"E={basis.shape[2]} (O={basis.shape[1]}, D={basis.shape[3]}, C={x.shape[3]})")
     del args
-    crystal_checks(load_sample_results(str(out_dir / "crystals.npz")),
+    crystal_checks(load_sample_results(str(out_dir / "crystals.h5")),
                    AtomicNumberTable(meta["z_table_zs"]), FLAGSHIP_CRYSTALS, ATOMS, (0.0, math.inf))
     rate = re.search(r"sampler throughput: ([0-9.]+) crystals/min", tee.buf.getvalue())
     if rate is None:
@@ -1032,11 +1057,11 @@ def flagship_path(out_dir: Path, card: str) -> dict:
 
     # the relaxation runs whatever the gate said, so that one run shows both
     t0 = time.perf_counter()
-    process_results.main(["--in_path", str(out_dir / "crystals.npz"), "--device", "cuda"])
+    process_results.main(["--in_path", str(out_dir / "crystals.h5"), "--device", "cuda"])
     seconds = time.perf_counter() - t0
-    relaxed = load_sample_results(str(out_dir / "crystals_relaxed.npz"))
+    relaxed = load_sample_results(str(out_dir / "crystals_relaxed.h5"))
     e0, e1 = (mean_soft_sphere_energy(r) for r in (load_sample_results(
-        str(out_dir / "crystals.npz")), relaxed))
+        str(out_dir / "crystals.h5")), relaxed))
     in_cell = bool(np.all((relaxed.frac_x >= 0) & (relaxed.frac_x < 1)))
     print(f"process_results: mean soft-sphere energy {e0:.6f} -> {e1:.6f}, coordinates in "
           f"[0, 1): {in_cell}, {seconds:.2f} s wall (200 steps, {relaxed.num_crystals} crystals)")
@@ -1223,33 +1248,13 @@ def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> d
     that every step launched ``want_step`` kernels and no other (counts set
     to 0 just before) and that every loss is finite; prints steps/s and
     returns the launch counts of the whole run."""
-    from arreau_tpu_torch.cli import train_diffusion
-
-    per_step, step_metrics = [], []
-    step = train_diffusion.train_step
-
-    def counted_step(*a, **kw):
-        before = launch_counts()
-        metrics = step(*a, **kw)
-        after = launch_counts()
-        per_step.append({k: after[k] - before[k] for k in after})
-        step_metrics.append(metrics)
-        return metrics
-
-    reset_launch_counts()
-    tee = Tee(sys.stdout)
     t0 = time.perf_counter()
-    try:
-        train_diffusion.train_step = counted_step
-        with contextlib.redirect_stdout(tee):
-            test_loss = train_diffusion.main([
-                "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
-                "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
-                "--max_steps", str(TRAIN_STEPS), "--seed", str(SEED),
-                "--checkpoint_dir", str(ckpt), "--device", "cuda", *extra_args,
-            ])
-    finally:
-        train_diffusion.train_step = step
+    per_step, step_metrics, rate, test_loss = counted_training([
+        "--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+        "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
+        "--max_steps", str(TRAIN_STEPS), "--seed", str(SEED),
+        "--checkpoint_dir", str(ckpt), "--device", "cuda", *extra_args,
+    ])
     wall = time.perf_counter() - t0
     train_counts = launch_counts()
     want_step = {name: want_step.get(name, 0) for name in train_counts}
@@ -1258,17 +1263,45 @@ def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> d
           f"launches in the whole run (evaluation forwards included) {train_counts}")
     if len(per_step) != TRAIN_STEPS or bad:
         raise RuntimeError(f"steps {bad} did not launch {want_step}")
-    values = torch.stack([torch.stack(list(m.values())) for m in step_metrics]).cpu()
-    if not torch.isfinite(values).all() or not math.isfinite(test_loss):
+    values = np.array([list(m.values()) for m in step_metrics])
+    if not np.isfinite(values).all() or not math.isfinite(test_loss):
         raise RuntimeError("a training loss is not finite")
+    CLI_RATES[" ".join(extra_args)] = rate
+    print(f"training path {' '.join(extra_args)}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, "
+          f"hidden {TRAIN_HIDDEN} in {wall:.2f} s wall (build of the data, evaluation and "
+          f"checkpoints included); {rate:.3f} steps/s warm on {card}")
+    return train_counts
+
+
+def counted_training(argv: list) -> tuple[list, list, float, float]:
+    """The training CLI on ``argv`` (counts set to 0 just before): each
+    step's launches and metrics, the steps/s it printed and what it
+    returned (the test loss)."""
+    from arreau_tpu_torch.cli import train_diffusion
+
+    per_step, metrics, step = [], [], train_diffusion.train_step
+
+    def counted_step(*a, **kw):
+        before = launch_counts()
+        m = step(*a, **kw)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics.append(m)  # read after the run: no synchronisation between steps
+        return m
+
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    try:
+        train_diffusion.train_step = counted_step
+        with contextlib.redirect_stdout(tee):
+            test_loss = train_diffusion.main(argv)
+    finally:
+        train_diffusion.train_step = step
     rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
     if rate is None:
         raise RuntimeError("the training CLI printed no throughput")
-    CLI_RATES[" ".join(extra_args)] = float(rate.group(1))
-    print(f"training path {' '.join(extra_args)}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, "
-          f"hidden {TRAIN_HIDDEN} in {wall:.2f} s wall (build of the data, evaluation and "
-          f"checkpoints included); {float(rate.group(1)):.3f} steps/s warm on {card}")
-    return train_counts
+    metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
+    return per_step, metrics, float(rate.group(1)), test_loss
 
 
 def step_time(model, batch, noise, label: str, want_step: dict, kernels_ms: float) -> float:
@@ -2193,6 +2226,7 @@ def import_phase(tmp: Path, card: str, records: dict) -> None:
     bit those generate gives on the source weights (a checkpoint with the
     same meta) from the same seed."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.inference.io import load_sample_results
     from arreau_tpu_torch.interop.from_jax import (
         _flatten,
         load_params_npz,
@@ -2247,11 +2281,11 @@ def import_phase(tmp: Path, card: str, records: dict) -> None:
             for kernel in ("spatial_conv", "basis_h1"):
                 records[kernel]["launches_import"] = counts[kernel]
         rate = re.search(r"sampler throughput: ([0-9.]+) crystals/min", tee.buf.getvalue())
-        results[name] = np.load(str(tmp / f"out_{name}" / "crystals.npz"))
+        results[name] = vars(load_sample_results(str(tmp / f"out_{name}" / "crystals.h5")))
         print(f"{name}: {float(rate.group(1)) if rate else float('nan'):.0f} crystals/min warm "
               f"on {card}")
     same = {k: np.array_equal(results["imported"][k], results["source"][k])
-            for k in results["source"].files}
+            for k in results["source"]}
     print(f"imported checkpoint's crystals equal the source weights' bit for bit: {same}")
     if not all(same.values()):
         raise RuntimeError("the imported checkpoint samples other crystals than its source")
@@ -2848,6 +2882,7 @@ def dp_phase(tmp: Path, card: str, records: dict) -> None:
     at 128 x 8, S = 50, against one process."""
     from arreau_tpu_torch.cli import generate
     from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.inference.io import load_sample_results
     from arreau_tpu_torch.parallel.mesh import Mesh
     from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
 
@@ -2891,9 +2926,10 @@ def dp_phase(tmp: Path, card: str, records: dict) -> None:
     print(f"DP generate: each rank launched 5 spatial_conv and 1 basis_h1 in each of "
           f"{forwards} forwards")
     generate.main([*gen, "--out_dir", str(tmp / "gen_one")])
-    got, want = (np.load(tmp / d / "crystals.npz") for d in ("gen_dp", "gen_one"))
+    got, want = (vars(load_sample_results(str(tmp / d / "crystals.h5")))
+                 for d in ("gen_dp", "gen_one"))
     gaps = {}
-    for name in want.files:
+    for name in want:
         if want[name].dtype.kind == "f":
             gaps[name] = float(np.abs(got[name] - want[name]).max())
         elif not np.array_equal(got[name], want[name]):
@@ -2944,6 +2980,191 @@ def tp_phase(tmp: Path, card: str, records: dict) -> None:
     for name in CONVNEXT_STEP:
         key = name if name.startswith("convnext") else name + "_bf16"
         records[key]["launches_tp"] = [r["bfloat16"]["launches"][name] for r in ranks]
+
+
+def alexandria_document(packed) -> dict:
+    """``packed`` as an Alexandria document: pymatgen
+    ``ComputedStructureEntry`` dicts with the fields ``data/prep.py`` reads."""
+    from arreau_tpu_torch.data.atoms import z_to_symbol
+
+    entries = []
+    for i in range(len(packed)):
+        s, e = packed.offsets[i], packed.offsets[i + 1]
+        sites = [{"species": [{"element": z_to_symbol(int(z)), "occu": 1.0}], "abc": f.tolist()}
+                 for z, f in zip(packed.atomic_numbers[s:e], packed.frac_coords[s:e])]
+        entries.append({"structure": {"lattice": {"matrix": packed.lattices[i].tolist()},
+                                      "sites": sites}})
+    return {"entries": entries}
+
+
+def same_packed(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) and getattr(a, f).dtype ==
+               getattr(b, f).dtype for f in ("atomic_numbers", "frac_coords", "offsets", "lattices"))
+
+
+def hdf5_phase(tmp: Path, card: str, records: dict) -> None:
+    """Phase 40 (module docstring): the crystal data on disk, read and
+    written by the port alone."""
+    import bz2
+
+    from arreau_tpu_torch.cli import generate, process_results
+    from arreau_tpu_torch.data.atoms import AtomicNumberTable, synthetic_z_table
+    from arreau_tpu_torch.data.crystal import CrystalDataset, read_h5, write_packed_h5
+    from arreau_tpu_torch.data.prep import prep_all
+    from arreau_tpu_torch.data.synthetic import synthetic_packed
+    from arreau_tpu_torch.inference.io import load_sample_results
+    from arreau_tpu_torch.tasks.diffusion import strided_levels
+
+    # (a) the committed crystals.h5 files and the flagship report's crystals
+    paths = sorted(OUT.rglob("crystals.h5"))
+    if Q_ANG_S100 / "crystals.h5" not in paths:
+        raise RuntimeError(f"{Q_ANG_S100 / 'crystals.h5'} is missing: this phase reads the "
+                           "committed crystals.h5 files under out/")
+    t0 = time.perf_counter()
+    for path in paths:
+        r = load_sample_results(str(path))
+        starts = np.concatenate([[0], np.cumsum(r.num_atoms)[:-1]])
+        if not (len(r.frac_x) == len(r.atomic_numbers) == r.num_atoms.sum()
+                and r.lattice.shape == (r.num_crystals, 3, 3)
+                and np.array_equal(r.idx_start, starts)
+                and np.isfinite(r.frac_x).all() and np.isfinite(r.lattice).all()):
+            raise RuntimeError(f"{path}: the arrays read do not make a set of crystals")
+    seconds = time.perf_counter() - t0
+    size = sum(p.stat().st_size for p in paths)
+    print(f"read {len(paths)} crystals.h5 files ({size} bytes) in {seconds:.4f} s "
+          f"({size / seconds / 1e6:.1f} MB/s, warm)")
+    reference = generate.reference_dataset(QUALITY_REF)
+    flagship_zs = json.loads((FLAGSHIP / "meta.json").read_text())["z_table_zs"]
+    t0 = time.perf_counter()
+    report = generate.quality_from_results(load_sample_results(str(Q_ANG_S100 / "crystals.h5")),
+                                           AtomicNumberTable(flagship_zs), reference)
+    print(f"quality report against {QUALITY_REF}: {time.perf_counter() - t0:.2f} s (host)")
+    want = json.loads((Q_ANG_S100 / "quality.json").read_text())
+    gap = max(abs(report[k] - v) for k, v in want.items()) if list(report) == list(want) else None
+    print(f"out/r4/q_ang_s100: the report recomputed through the port's reader against "
+          f"{QUALITY_REF}: largest gap to quality.json {gap} (tolerance 1e-12)")
+    if gap is None or gap > 1e-12:
+        raise RuntimeError("the recomputed report of out/r4/q_ang_s100 left its quality.json")
+
+    # (b) data/prep.py on an Alexandria document; the reference as a packed shard
+    crystals = synthetic_packed(2000, seed=SEED).packed
+    src, shards = tmp / "alexandria", tmp / "shards"
+    src.mkdir()
+    t0 = time.perf_counter()
+    with bz2.open(src / "alexandria_ps_000.json.bz2", "wt", encoding="utf-8") as fh:
+        json.dump(alexandria_document(crystals), fh)
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep_all(str(src), str(shards), num_shards=1)
+    prepped = time.perf_counter() - t0
+    take10 = read_h5(str(shards / "alexandria_ps_000_take10.h5"))
+    end = int(crystals.offsets[10])
+    if not (same_packed(read_h5(str(shards / "alexandria_ps_000.h5")), crystals)
+            and len(take10) == 10 and np.array_equal(take10.lattices, crystals.lattices[:10])
+            and np.array_equal(take10.frac_coords, crystals.frac_coords[:end])):
+        raise RuntimeError("data/prep.py's shards are not the document's crystals bit for bit")
+    print(f"data/prep.py: 2000 crystals ({len(crystals.atomic_numbers)} atoms) from a "
+          f"{(src / 'alexandria_ps_000.json.bz2').stat().st_size} byte json.bz2 (written in "
+          f"{written:.2f} s) into a shard and its take-10 shard in {prepped:.2f} s; bit for bit")
+    ref_shard = tmp / "synthetic_20000_0.h5"
+    write_packed_h5(str(ref_shard), reference.packed)
+    t0 = time.perf_counter()
+    back = read_h5(str(ref_shard))
+    seconds = time.perf_counter() - t0
+    if not same_packed(back, reference.packed):
+        raise RuntimeError("the reference shard did not read back bit for bit")
+    size = ref_shard.stat().st_size
+    print(f"shard of {QUALITY_REF}: {len(back)} crystals, {size} bytes, loaded in {seconds:.4f} s "
+          f"({size / seconds / 1e6:.1f} MB/s, warm), bit for bit")
+    big = synthetic_packed(100_000, seed=SEED).packed
+    write_packed_h5(str(tmp / "big.h5"), big)
+    arrays = {f: getattr(big, f) for f in ("atomic_numbers", "frac_coords", "offsets", "lattices")}
+    np.savez(tmp / "big.npz", **arrays)
+    times = {"read_h5": [], "np.load": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        read_h5(str(tmp / "big.h5"))
+        times["read_h5"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with np.load(tmp / "big.npz") as data:
+            {f: data[f] for f in arrays}
+        times["np.load"].append(time.perf_counter() - t0)
+    size = (tmp / "big.h5").stat().st_size
+    print(f"100000-crystal shard ({len(big.atomic_numbers)} atoms, {size} bytes): "
+          + ", ".join(f"{k} best of 3 {min(v):.4f} s ({size / min(v) / 1e6:.1f} MB/s)"
+                      for k, v in times.items()) + " (warm file cache)")
+
+    # (c) the training CLI on the shard and on the synthetic set of the same crystals
+    base = ["--batch_size", str(TRAIN_BATCH), "--hidden_dim", str(TRAIN_HIDDEN), "--warmup", "0",
+            "--max_steps", str(HDF5_STEPS), "--val_interval", "1", "--seed", str(SEED),
+            "--device", "cuda"]
+    runs = {}
+    for name, flags in (("alexandria", ["--dataset", "alexandria", "--data_dir", str(shards)]),
+                        ("synthetic", ["--dataset", "synthetic", "--synthetic_size", "2000"])):
+        per_step, metrics, rate, _ = counted_training(
+            [*base, *flags, "--checkpoint_dir", str(tmp / f"ck_{name}")])
+        want_step = {k: DEFAULT_STEP.get(k, 0) for k in per_step[0]} if per_step else None
+        if len(per_step) != HDF5_STEPS or any(c != want_step for c in per_step):
+            raise RuntimeError(f"--dataset {name}: steps launched {per_step}, not {want_step} "
+                               "each")
+        runs[name] = (metrics, rate, launch_counts())
+        print(f"--dataset {name}: {HDF5_STEPS} steps at {TRAIN_BATCH} x 16, hidden "
+              f"{TRAIN_HIDDEN}: {rate:.3f} steps/s on {card}; losses "
+              f"{[m['loss'] for m in metrics]}")
+    for kernel in DEFAULT_STEP:
+        records[kernel]["launches_hdf5"] = runs["alexandria"][2][kernel]
+    shard_table = CrystalDataset([str(shards / "alexandria_ps_000.h5")]).z_table
+    if shard_table.zs == synthetic_z_table().zs:
+        differ = [i for i, (a, b) in enumerate(zip(runs["alexandria"][0], runs["synthetic"][0]))
+                  if a != b]
+        if differ:
+            raise RuntimeError(f"steps {differ}: the shard run's metrics differ from the "
+                               "synthetic run's on the same crystals")
+        print(f"every step's metrics bit for bit on the shard and on the synthetic set (z-table "
+              f"{shard_table.zs})")
+    else:
+        print(f"the metrics may differ: the shard's z-table {shard_table.zs} is not the "
+              f"synthetic set's {synthetic_z_table().zs}, so the type classes are others")
+
+    # (d) generate with the shard as the quality reference; process_results
+    out = tmp / "gen"
+    meta = json.loads((tmp / "ck_alexandria" / "meta.json").read_text())
+    reset_launch_counts()
+    result = generate.main([
+        "--checkpoint_dir", str(tmp / "ck_alexandria"), "--tag", "best", "--quality_ref",
+        str(ref_shard), "--num_atoms_dist", "ref", "--num_crystals", str(CRYSTALS),
+        "--batch_size", str(BATCH), "--num_atoms_per_sample", str(ATOMS), "--sample_steps",
+        str(STEPS), "--seed", str(SEED), "--device", "cuda", "--out_dir", str(out)])
+    counts = launch_counts()
+    forwards = math.ceil(CRYSTALS / BATCH) * (len(strided_levels(
+        meta["config"]["num_timesteps"], STEPS)) - 1)
+    L = meta["config"]["num_layers"]
+    want = {k: {"spatial_conv": L * forwards, "basis_h1": forwards}.get(k, 0) for k in counts}
+    if counts != want:
+        raise RuntimeError(f"generate on the shard's checkpoint launched {counts}, not {want}")
+    saved = load_sample_results(str(out / "crystals.h5"))
+    if not all(np.array_equal(getattr(saved, f), getattr(result, f)) and getattr(saved, f).dtype
+               == getattr(result, f).dtype for f in ("frac_x", "atomic_numbers", "lattice",
+                                                      "idx_start", "num_atoms")):
+        raise RuntimeError("crystals.h5 did not read back bit for bit")
+    shard_report = json.loads((out / "quality.json").read_text())
+    syn_report = generate.quality_from_results(saved, AtomicNumberTable(meta["z_table_zs"]),
+                                               reference)
+    print(f"generate --quality_ref <shard> --num_atoms_dist ref: {forwards} forwards, launches "
+          f"{counts}; crystals.h5 read back bit for bit; atom counts "
+          f"{np.bincount(saved.num_atoms).tolist()}")
+    if shard_report != syn_report:
+        raise RuntimeError(f"the report against the shard {shard_report} is not the report "
+                           f"against {QUALITY_REF} {syn_report}")
+    print(f"its report equals the report against {QUALITY_REF}, value for value")
+    process_results.main(["--in_path", str(out / "crystals.h5"), "--device", "cuda"])
+    relaxed = load_sample_results(str(out / "crystals_relaxed.h5"))
+    e0, e1 = mean_soft_sphere_energy(saved), mean_soft_sphere_energy(relaxed)
+    print(f"process_results on it: crystals_relaxed.h5, mean soft-sphere energy {e0:.6f} -> "
+          f"{e1:.6f}")
+    if not (e1 < e0 and relaxed.num_crystals == CRYSTALS):
+        raise RuntimeError("process_results did not relax the crystals of crystals.h5")
+    print(f"HDF5 data on {card}")
 
 
 def main() -> int:
@@ -3424,7 +3645,7 @@ def main() -> int:
         with Phase("sampler diagnosis"):
             diagnosis_phase(tmp / "diagnosis", card, records)
         with Phase("EDA tools"):
-            eda_phase(tmp / "eda", tmp / "import" / "out_imported" / "crystals.npz", card)
+            eda_phase(tmp / "eda", tmp / "import" / "out_imported" / "crystals.h5", card)
 
     # ---------------- data and tensor parallelism on the one card ----------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3435,6 +3656,10 @@ def main() -> int:
             dp_phase(tmp, card, records)
         with Phase("TP on one card"):
             tp_phase(tmp, card, records)
+
+    # ---------------- the crystal data on disk, without h5py ----------------
+    with Phase("HDF5 data"), tempfile.TemporaryDirectory() as tmp:
+        hdf5_phase(Path(tmp), card, records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -148,7 +148,7 @@ def test_kernel_branch_matches_plain_branch():
     for key in p0:
         np.testing.assert_allclose(p1[key], p0[key], **CAL_TOL, err_msg=key)
     out = kernel_backbone(pin)
-    assert all(torch.isfinite(t).all() for t in out)
+    assert all(torch.isfinite(t).all() for t in out if torch.is_tensor(t))
     # a second calibration measures the rescaled model: its stds differ
     again = calibrate_conv_kernels(_port(params, True), pin)
     assert again == pytest.approx(s1, rel=1e-5)

@@ -1171,3 +1171,49 @@ def test_eval_equivariance_and_diagnosis_launch_their_kernels(tmp_path):
     assert [r["t"] for r in records] == [298, 297, 296]
     assert all(np.isfinite(v) for r in records for v in r.values())
     assert torch.isfinite(state["lengths"]).all()
+
+
+@pytest.mark.cuda
+def test_edge_readouts_take_the_plain_branch_on_the_card():
+    """With edge readouts the automatic branch choice on the card is the
+    plain branch (the per-edge messages exist only there): no kernel
+    launch, and every head, the global-vector and edge readouts included,
+    as the CPU's on the same inputs (1e-4 of scale, float32 sums in other
+    orders through two layers)."""
+    from arreau_tpu_torch.models.ponita import FiberBundleInputs, PonitaConfig, PonitaFiberBundle
+    from arreau_tpu_torch.ops.grids import cached_grid_s2
+    from arreau_tpu_torch.ops.pbc import NeighborList
+    from arreau_tpu_torch.ops.radius import radius_neighbor_list
+
+    dev = _device()
+    g = torch.Generator().manual_seed(0)
+    pos = torch.randn(2, 6, 3, generator=g) * 1.5
+    mask = torch.ones(2, 6, dtype=torch.bool)
+    mask[1, 4:] = False
+    inputs = FiberBundleInputs(
+        scalar=torch.randn(2, 6, 3, generator=g), vec=torch.randn(2, 6, 1, 3, generator=g),
+        neighbors=radius_neighbor_list(pos, mask, 3.0, 4), atom_mask=mask,
+        lattice=torch.randn(2, 3, 3, generator=g) * 4.0,
+        ori_grid=torch.tensor(cached_grid_s2(4), dtype=torch.float32))
+    cfg = PonitaConfig(input_dim_scalar=3, input_dim_vec=1, hidden_dim=16, basis_dim=8, degree=2,
+                       num_layers=2, num_ori=4, output_dim_scalar=2, output_dim_global_vec=2,
+                       output_dim_edge_scalar=3)
+    cpu = PonitaFiberBundle(cfg)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    card = PonitaFiberBundle(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    card_inputs = inputs._replace(
+        neighbors=NeighborList(*(a.to(dev) for a in inputs.neighbors)),
+        **{f: getattr(inputs, f).to(dev) for f in ("scalar", "vec", "atom_mask", "lattice",
+                                                    "ori_grid")})
+    before = (spatial_conv.launches, basis_h1.launches)
+    with torch.no_grad():
+        got, want = card(card_inputs), cpu(inputs)
+    assert (spatial_conv.launches, basis_h1.launches) == before
+    assert len(got.edge_scalar) == len(want.edge_scalar) == 2
+    heads = [*zip(got[:4], want[:4]), *zip(got.edge_scalar, want.edge_scalar)]
+    assert sum(b.numel() > 0 for _, b in heads) == 4  # node_vec and global_scalar: 0 columns
+    assert all(torch.isfinite(b).all() for _, b in heads)
+    for a, b in heads:
+        if b.numel():
+            _assert_close(a.cpu(), b, rel=BWD_REL_TOL)

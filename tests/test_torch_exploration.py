@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from arreau_tpu.data.crystal import write_packed_h5 as j_write_packed_h5
+from arreau_tpu.data.synthetic import synthetic_packed as j_synthetic_packed
 from arreau_tpu.exploration import dataset_stats as j_dataset_stats
 from arreau_tpu.exploration import diagnose_sampler as j_diagnose
 from arreau_tpu.exploration import lattice_eda as j_lattice_eda
@@ -82,8 +84,7 @@ def argument_set(entry, argv=()) -> dict:
 @pytest.mark.parametrize("tool", ["dataset_stats", "diagnose_sampler", "lattice_eda",
                                   "view_crystals", "vp_prior_check"])
 def test_tool_arguments_match_jax(tool):
-    """The port's flags are the JAX tool's, ``--device`` apart; the viewer
-    reads ``crystals.npz`` where the JAX one reads ``crystals.h5``."""
+    """The port's flags are the JAX tool's, ``--device`` apart."""
     port = {"dataset_stats": dataset_stats.main, "diagnose_sampler": diagnose_sampler.parse_args,
             "lattice_eda": lattice_eda.main, "view_crystals": view_crystals.main,
             "vp_prior_check": vp_prior_check.main}[tool]
@@ -93,10 +94,6 @@ def test_tool_arguments_match_jax(tool):
     got, want = argument_set(port), argument_set(jax_tool)
     if tool in ("diagnose_sampler", "lattice_eda", "vp_prior_check"):
         assert got.pop("device") == (("--device",), "cuda", "str", None, None, False)
-    if tool == "view_crystals":
-        flags, default, *rest = want["generated:"]["crystal_file"]
-        assert default == "out/crystals.h5"
-        want["generated:"]["crystal_file"] = (flags, "out/crystals.npz", *rest)
     assert got == want
 
 
@@ -121,19 +118,80 @@ def test_cuda_default_raises_without_cuda(tool, argv):
         module.main(argv)
 
 
-@pytest.mark.parametrize("tool, argv", [
-    ("dataset_stats", ["--data_dir", "datasets/alexandria_hdf5"]),
-    ("lattice_eda", ["--dataset", "alexandria", "--device", "cpu"]),
-    ("vp_prior_check", ["--dataset", "alexandria", "--device", "cpu"]),
-    ("view_crystals", ["dataset"]),
-    ("diagnose_sampler", ["--checkpoint_dir", "ckpt", "--ref", "shard.h5", "--device", "cpu"]),
-])
-def test_hdf5_paths_raise(tool, argv):
-    module = {"dataset_stats": dataset_stats, "lattice_eda": lattice_eda,
-              "vp_prior_check": vp_prior_check, "view_crystals": view_crystals,
-              "diagnose_sampler": diagnose_sampler}[tool]
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        module.main(argv)
+def alexandria_dir(path, n=120, seed=5):
+    """``path`` holding a packed shard ``alexandria_ps_000.h5`` of ``n``
+    synthetic crystals, written by the JAX package (h5py), and a take-10
+    shard the full-dataset paths must skip."""
+    packed = j_synthetic_packed(n, seed=seed).packed
+    j_write_packed_h5(str(path / "alexandria_ps_000.h5"), packed)
+    j_write_packed_h5(str(path / "alexandria_ps_000_take10.h5"),
+                      j_synthetic_packed(10, seed=seed + 1).packed)
+    return packed
+
+
+@pytest.mark.parametrize("tool", ["dataset_stats", "lattice_eda", "vp_prior_check",
+                                  "view_crystals", "diagnose_sampler"])
+def test_hdf5_paths_match_jax(tool, tmp_path, capsys):
+    """Each tool's HDF5 input (``--data_dir``, ``--dataset alexandria``,
+    ``--ref <shard>``) on shards the JAX package wrote: what the port
+    prints, renders or returns is the JAX tool's on the same shards."""
+    data = tmp_path / "data"
+    data.mkdir()
+    packed = alexandria_dir(data)
+    if tool == "dataset_stats":  # every *.h5 under --data_dir, the take-10 shard too
+        j_dataset_stats.main(["--data_dir", str(data)])
+        want = capsys.readouterr().out
+        stats = dataset_stats.main(["--data_dir", str(data)])
+        assert capsys.readouterr().out == want and stats["num_crystals"] == 130
+    elif tool == "lattice_eda":
+        j_lattice_eda.main(["--dataset", "alexandria", "--data_dir", str(data),
+                            "--out_dir", str(tmp_path / "jax"), "--num_render", "1"])
+        want = capsys.readouterr().out
+        stats = lattice_eda.main(["--dataset", "alexandria", "--data_dir", str(data), "--out_dir",
+                                  str(tmp_path / "port"), "--num_render", "1", "--device", "cpu"])
+        got = capsys.readouterr().out
+        assert got.splitlines()[0] == want.splitlines()[0] and len(stats["natoms"]) == 120
+        assert _stat_lines(got) == _stat_lines(want) and len(_stat_lines(want)) == 8
+    elif tool == "vp_prior_check":
+        n = 3
+        j_vp_prior.main(["--dataset", "alexandria", "--data_dir", str(data), "--out_dir",
+                         str(tmp_path / "jax"), "--num_render", str(n)])
+        want = capsys.readouterr().out
+        kd, ka = jax.random.split(jax.random.PRNGKey(1))
+
+        def t(x):
+            return torch.tensor(np.asarray(x, np.float32))
+
+        noise = vp_prior_check.VPPriorNoise(
+            forward=t(jax.random.normal(jax.random.PRNGKey(0), (120, 3), jnp.float32)),
+            prior=t(jax.random.normal(kd, (n, 3))), angles=t(j_bravais(ka, "monoclinic", n)))
+        vp_prior_check.main(["--dataset", "alexandria", "--data_dir", str(data), "--out_dir",
+                             str(tmp_path / "port"), "--num_render", str(n), "--device", "cpu"],
+                            noise=noise)
+        got = capsys.readouterr().out
+        [w], [g] = ([ln for ln in text.splitlines() if ln.startswith("terminal marginal")]
+                    for text in (want, got))
+        np.testing.assert_allclose(*(
+            [float(x) for x in re.findall(r"[-+]?\d+\.\d+(?:e[-+]\d+)?", line)]
+            for line in (g, w)), rtol=0, atol=1.5e-4)
+    elif tool == "view_crystals":  # the first --max_shards of every *.h5, sorted
+        runs = {}
+        for name, main in (("jax", j_view.main), ("port", view_crystals.main)):
+            out = tmp_path / name
+            assert main(["dataset", "--data_dir", str(data), "--num", "3", "--out_dir",
+                         str(out)]) == 3
+            runs[name] = capsys.readouterr().out.replace(str(out), "OUT")
+            assert sorted(p.name for p in out.iterdir()) == ["0.png", "1.png", "2.png"]
+        assert runs["port"] == runs["jax"] and "sample 2 (" not in runs["port"]
+    else:
+        from arreau_tpu.data.crystal import CrystalDataset as JDataset
+        from arreau_tpu.inference.quality import lattice_params_np as j_lattice_params_np
+
+        shard = str(data / "alexandria_ps_000.h5")
+        lengths, _ = j_lattice_params_np(JDataset([shard]).packed.lattices)
+        assert diagnose_sampler.reference_lengths(shard) == (float(lengths.mean()),
+                                                             float(lengths.var()))
+        np.testing.assert_array_equal(lengths, j_lattice_params_np(packed.lattices)[0])
 
 
 # ---------------- host tools ----------------
@@ -150,17 +208,17 @@ def test_compute_stats_matches_jax(capsys):
 
 def test_view_crystals_matches_jax(tmp_path, capsys):
     """Both modes render what the JAX viewer renders (the port reads the
-    sampler's crystals.npz, the JAX viewer crystals.h5 of the same
+    port's crystals.h5, the JAX viewer the JAX package's of the same
     crystals) and print the same lines."""
     rng = np.random.default_rng(0)
     fields = dict(frac_x=rng.uniform(size=(7, 3)), atomic_numbers=np.array([1, 6, 8, 8, 14, 6, 1]),
                   lattice=np.stack([np.eye(3) * 4.0, np.eye(3) * 5.0]),
                   idx_start=np.array([0, 4]), num_atoms=np.array([4, 3]))
     j_save(str(tmp_path / "crystals.h5"), JResult(**fields))
-    save_sample_results(str(tmp_path / "crystals.npz"), SampleResult(**fields))
+    save_sample_results(str(tmp_path / "port.h5"), SampleResult(**fields))
     runs = {}
     for name, main, crystals in (("jax", j_view.main, "crystals.h5"),
-                                 ("port", view_crystals.main, "crystals.npz")):
+                                 ("port", view_crystals.main, "port.h5")):
         out = tmp_path / name
         assert main(["generated", "--crystal_file", str(tmp_path / crystals), "--index", "0", "1",
                      "--shift", "0.1", "0.2", "0.3", "--out_dir", str(out / "gen")]) == 2
@@ -251,12 +309,28 @@ def test_build_equivariance_datasets_matches_jax(tmp_path):
     np.testing.assert_allclose(b, a @ np.array([[0, 1, 0], [-1, 0, 0], [0, 0, 1]]), atol=1e-12)
 
 
-def test_build_equivariance_datasets_refuses_the_shard(tmp_path):
-    """Where the take-10 shard exists the JAX tool reads it; the port cannot
-    and raises instead of checking another crystal."""
-    (tmp_path / "alexandria_ps_000_take10.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        verify_equivariance.build_equivariance_datasets(str(tmp_path))
+def test_build_equivariance_datasets_reads_the_shard(tmp_path, capsys):
+    """Where the take-10 shard exists, both tools check its first crystal:
+    the same datasets, splits and z-table as the JAX tool's, and the
+    training CLI's ``--dataset eval-equivariance`` trains on it."""
+    j_write_packed_h5(str(tmp_path / "alexandria_ps_000_take10.h5"),
+                      j_synthetic_packed(10, seed=9).packed)
+    ds, splits, z_table, t = verify_equivariance.build_equivariance_datasets(str(tmp_path))
+    jds, jsplits, jz, jt = j_equiv.build_equivariance_datasets(str(tmp_path))
+    assert t == jt and list(z_table.zs) == list(jz.zs)
+    for field in ("atomic_numbers", "frac_coords", "offsets", "lattices"):
+        np.testing.assert_array_equal(getattr(ds.packed, field), getattr(jds.packed, field))
+    np.testing.assert_array_equal(ds.type_indices, jds.type_indices)
+    assert all(np.array_equal(splits[k], jsplits[k]) for k in jsplits)
+    first = j_synthetic_packed(10, seed=9).packed
+    np.testing.assert_array_equal(ds.packed.lattices[0], first.lattices[0])
+    loss = train_diffusion.main([
+        "--device", "cpu", "--dataset", "eval-equivariance", "--data_dir", str(tmp_path),
+        "--epochs", "2", "--val_interval", "2", "--num_timesteps", "300", "--batch_size", "4",
+        "--hidden_dim", "16", "--basis_dim", "8", "--layers", "2", "--num_ori", "4",
+        "--log", "False", "--checkpoint_dir", str(tmp_path / "ckpt")])
+    out = capsys.readouterr().out
+    assert np.isfinite(loss) and f"z-table: {len(jz)} classes" in out
 
 
 def test_train_cli_eval_equivariance_pins_the_timestep(tmp_path, monkeypatch, capsys):

@@ -220,3 +220,132 @@ def test_jax_fuse_fiber_params_load_into_port():
     back = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(model.model)))
     for path, value in jax.tree_util.tree_leaves_with_path(fused):
         np.testing.assert_array_equal(back[path], np.asarray(value))
+
+
+# ---------------- the backbone's other heads and make_ponita ----------------
+
+
+def _fiber_inputs(seed=0, B=2, A=6, K=4, num_ori=4):
+    """(JAX inputs, port inputs) of the bare backbone: scalars, one vector
+    a node, a radius graph (the second crystal with two padded atoms) and
+    random lattices for the edge scalars."""
+    from arreau_tpu.models.ponita import FiberBundleInputs as JInputs
+    from arreau_tpu.ops.grids import cached_grid_s2 as j_grid
+    from arreau_tpu.ops.radius import radius_neighbor_list as j_radius_neighbor_list
+    from arreau_tpu_torch.models.ponita import FiberBundleInputs
+    from arreau_tpu_torch.ops.pbc import NeighborList
+
+    rng = np.random.default_rng(seed)
+    arrays = dict(scalar=rng.normal(size=(B, A, 3)), vec=rng.normal(size=(B, A, 1, 3)),
+                  lattice=rng.normal(size=(B, 3, 3)) * 4.0)
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    mask = np.arange(A)[None, :] < np.array([[A], [A - 2]])
+    pos = (rng.normal(size=(B, A, 3)) * 1.5).astype(np.float32)
+    nb = j_radius_neighbor_list(jnp.asarray(pos), jnp.asarray(mask), 3.0, K)
+    grid = np.asarray(j_grid(num_ori), np.float32)
+    j_in = JInputs(neighbors=nb, atom_mask=jnp.asarray(mask), ori_grid=jnp.asarray(grid),
+                   **{k: jnp.asarray(v) for k, v in arrays.items()})
+    t_in = FiberBundleInputs(neighbors=NeighborList(*(torch.tensor(np.asarray(a)) for a in nb)),
+                             atom_mask=torch.tensor(mask), ori_grid=torch.tensor(grid),
+                             **{k: torch.tensor(v) for k, v in arrays.items()})
+    return j_in, t_in
+
+
+HEADS = dict(output_dim_scalar=2, output_dim_vec=1, output_dim_global_vec=2,
+             output_dim_global_scalar=1, output_dim_edge_scalar=3)
+# float32 heads after two conv layers, sums in another order than XLA's
+HEAD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("heads", [
+    dict(output_dim_global_vec=2, output_dim_global_scalar=1),
+    HEADS,
+], ids=["global_vec", "global_vec_and_edges"])
+def test_global_vector_and_edge_readouts_match_jax(heads):
+    """``output_dim_global_vec`` (its slice of the readout projected off the
+    sphere and summed over the atoms) and ``output_dim_edge_scalar`` (per
+    reading layer, on the messages and the lifted edge scalars) against the
+    JAX backbone's plain path with the converted parameters; the edge
+    readouts' parameters ``edge_readout_{i}`` carry both ways."""
+    from arreau_tpu.models.ponita import PonitaConfig as JPonitaConfig
+    from arreau_tpu.models.ponita import PonitaFiberBundle as JPonita
+    from arreau_tpu_torch.models.ponita import PonitaConfig, PonitaFiberBundle
+
+    j_in, t_in = _fiber_inputs()
+    common = dict(hidden_dim=16, basis_dim=8, degree=2, num_layers=2, num_ori=4, radius=3.0, **heads)
+    jmodel = JPonita(JPonitaConfig(use_pallas=False, remat=False, **common))
+    params = perturbed_params(jax.jit(jmodel.init)(jax.random.PRNGKey(3), j_in), seed=3)
+    want = jax.jit(jmodel.apply)(params, j_in)
+    model = PonitaFiberBundle(PonitaConfig(input_dim_scalar=3, input_dim_vec=1, **common))
+    params_from_jax(model, params)
+    with torch.no_grad():
+        got = model(t_in)
+    assert got.global_vec.shape == (2, heads["output_dim_global_vec"], 3)
+    assert all(torch.isfinite(t).all() for t in (*got[:4], *got.edge_scalar))
+    for name in ("node_scalar", "node_vec", "global_scalar", "global_vec"):
+        if getattr(want, name) is None:  # a head of width 0: JAX returns None, the port 0 columns
+            assert getattr(got, name).numel() == 0, name
+            continue
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   **HEAD_TOL, err_msg=name)
+    assert len(got.edge_scalar) == len(want.edge_scalar) == (2 if "output_dim_edge_scalar" in heads
+                                                             else 0)
+    for a, b in zip(got.edge_scalar, want.edge_scalar):
+        assert a.shape == (2, 6, 4, 3)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **HEAD_TOL)
+    back = dict(jax.tree_util.tree_leaves_with_path(params_to_jax(model)))
+    for path, value in jax.tree_util.tree_leaves_with_path(params):
+        np.testing.assert_array_equal(back[path], np.asarray(value))
+
+
+def test_edge_readouts_refuse_the_kernel_branch():
+    """Edge readouts need the per-edge messages: the automatic choice takes
+    the plain branch, an explicit ``use_kernels=True`` raises."""
+    from arreau_tpu_torch.models.ponita import PonitaConfig, PonitaFiberBundle
+
+    _, t_in = _fiber_inputs()
+    cfg = PonitaConfig(input_dim_scalar=3, input_dim_vec=1, hidden_dim=16, basis_dim=8,
+                       degree=2, num_layers=2, num_ori=4, **HEADS)
+    with torch.no_grad():
+        assert len(PonitaFiberBundle(cfg)(t_in).edge_scalar) == 2
+        with pytest.raises(ValueError, match="edge readouts need the per-edge messages"):
+            PonitaFiberBundle(dataclasses.replace(cfg, use_kernels=True))(t_in)
+
+
+@pytest.mark.parametrize("num_ori", [4, -1, 0], ids=["fiber_bundle", "lifted", "plain"])
+def test_make_ponita_modes_match_jax(num_ori):
+    """``make_ponita``'s three modes build the JAX factory's model, and
+    with the same parameters compute its outputs."""
+    from arreau_tpu.models import make_ponita as j_make_ponita
+    from arreau_tpu_torch.interop.from_jax import point_cloud_params_from_jax
+    from arreau_tpu_torch.models import make_ponita
+    from tests.test_torch_point_cloud import _inputs
+
+    common = dict(hidden_dim=16, basis_dim=8, degree=2, num_layers=2, output_dim_scalar=2)
+    jmodel = j_make_ponita(num_ori, **common, **({"use_pallas": False, "remat": False}
+                                                 if num_ori > 0 else {}))
+    if num_ori > 0:
+        j_in, t_in = _fiber_inputs()
+        extra = dict(input_dim_scalar=3, input_dim_vec=1)
+    else:
+        j_in, t_in = _inputs(7, lifted=num_ori == -1)
+        t_in = t_in._replace(**{k: getattr(t_in, k).float() for k in ("pos", "scalar", "vec")},
+                             neighbors=t_in.neighbors._replace(
+                                 dist=t_in.neighbors.dist.float(),
+                                 direction=t_in.neighbors.direction.float()))
+        j_in = j_in._replace(pos=j_in.pos.astype(jnp.float32), scalar=j_in.scalar.astype(jnp.float32),
+                             vec=j_in.vec.astype(jnp.float32))
+        extra = dict(input_dim_scalar=3, input_dim_vec=0)
+    model = make_ponita(num_ori, **common, **extra)
+    assert type(model).__name__ == type(jmodel).__name__
+    jcfg, cfg = dataclasses.asdict(jmodel.config), dataclasses.asdict(model.config)
+    assert all(cfg[k] == v for k, v in jcfg.items() if k in cfg)
+    params = perturbed_params(jax.jit(jmodel.init)(jax.random.PRNGKey(num_ori + 2), j_in), seed=1)
+    want = jax.jit(jmodel.apply)(params, j_in)
+    (params_from_jax if num_ori > 0 else point_cloud_params_from_jax)(model, params)
+    with torch.no_grad():
+        got = model(t_in)
+    for a, b in zip(got, want):
+        if isinstance(b, tuple) or b is None:
+            continue
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_MODEL)

@@ -31,7 +31,15 @@ from arreau_tpu_torch.models.blocks import gelu
 from arreau_tpu_torch.models.ponita import tile_senders
 from arreau_tpu_torch.ops import lattice as tlat
 from arreau_tpu_torch.ops.fourier import default_fourier_weights, gaussian_fourier_features
-from arreau_tpu_torch.ops.grids import cached_grid_s2
+from arreau_tpu_torch.ops.grids import (
+    CACHED_GRID_STEPS,
+    _repulsion_energy,
+    cached_grid_s2,
+    euclid_to_spherical,
+    geodesic_distance_s2,
+    spherical_to_euclid,
+    uniform_grid_s2,
+)
 from arreau_tpu_torch.ops.pbc import pbc_neighbor_list
 from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 
@@ -121,8 +129,133 @@ def test_carried_grid_equals_jax_grid(n):
 
 
 def test_grid_of_unsupported_size_raises():
-    with pytest.raises(ValueError, match="num_ori=12"):
-        cached_grid_s2(12)
+    """A size with no carried grid no longer raises: it gets the port's own
+    grid, ``uniform_grid_s2`` seeded 0 over ``CACHED_GRID_STEPS`` steps
+    (not the JAX package's draw)."""
+    grid = cached_grid_s2(12)
+    assert grid.shape == (12, 3) and grid.dtype == np.float64
+    np.testing.assert_allclose(np.linalg.norm(grid, axis=-1), 1.0, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(grid, uniform_grid_s2(12, steps=CACHED_GRID_STEPS).numpy())
+
+
+def _jax_grid_draws(n, steps=100, seed=0):
+    """The normals ``arreau_tpu.ops.grids.uniform_grid_s2`` draws under
+    x64 from ``PRNGKey(seed)``: the starting points, then one ``[n, 2]``
+    draw a step from the split chain of the noise key."""
+    init_key, nkey = jax.random.split(jax.random.PRNGKey(seed))
+    init = jax.random.normal(init_key, (n, 3))
+    noise = []
+    for _ in range(steps):
+        nkey, sub = jax.random.split(nkey)
+        noise.append(jax.random.normal(sub, (n, 2)))
+    return torch.tensor(np.asarray(init)), torch.tensor(np.stack(noise))
+
+
+@pytest.mark.parametrize("n", [4, 12, 16])
+def test_uniform_grid_s2_with_jax_draws_is_jax_grid(n):
+    """The same 100 SGD steps in float64 (gradient from autograd against
+    ``jax.grad``), on JAX's draws: JAX's grid within 1e-9."""
+    from arreau_tpu.ops.grids import uniform_grid_s2 as j_uniform_grid_s2
+
+    with jax.enable_x64(True):
+        want = np.asarray(j_uniform_grid_s2(n, jax.random.PRNGKey(0)))
+        init, noise = _jax_grid_draws(n)
+    assert want.dtype == np.float64
+    got = uniform_grid_s2(n, init=init, noise=noise)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+    if n in (4, 16):
+        np.testing.assert_allclose(got.numpy(), j_grid(n), rtol=0, atol=1e-9)
+
+
+def test_seeded_grid_repulsion_energy_near_jax():
+    """The port's own seeded grid of 12 points is as uniform as JAX's: its
+    repulsion energy within 1% of the JAX grid's. The 1% holds because
+    ``cached_grid_s2`` runs ``CACHED_GRID_STEPS = 300`` SGD steps: after the
+    JAX package's 100 the 12-point energy still spreads 2.5% from seed to
+    seed (1.21% from JAX's for seed 0), so lowering the constant breaks
+    this bound, not the port."""
+    from arreau_tpu.ops.grids import _repulsion_energy as j_energy
+    from arreau_tpu.ops.grids import euclid_to_spherical as j_e2s
+
+    with jax.enable_x64(True):
+        want = float(j_energy(j_e2s(jnp.asarray(j_grid(12))), 12))
+        got_jax = float(j_energy(j_e2s(jnp.asarray(cached_grid_s2(12))), 12))
+    got = float(_repulsion_energy(euclid_to_spherical(torch.tensor(cached_grid_s2(12))), 12))
+    assert got == pytest.approx(got_jax, rel=1e-12)
+    assert abs(got - want) <= 0.01 * want
+
+
+def test_spherical_helpers_match_jax():
+    from arreau_tpu.ops import grids as jg
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(7, 3))
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    sph = rng.uniform(-3, 3, size=(7, 2))
+    with jax.enable_x64(True):
+        pairs = [(euclid_to_spherical(torch.tensor(x)), jg.euclid_to_spherical(jnp.asarray(x))),
+                 (spherical_to_euclid(torch.tensor(sph)), jg.spherical_to_euclid(jnp.asarray(sph))),
+                 (geodesic_distance_s2(torch.tensor(x[:, None]), torch.tensor(x[None])),
+                  jg.geodesic_distance_s2(jnp.asarray(x[:, None]), jnp.asarray(x[None]))),
+                 (_repulsion_energy(torch.tensor(sph), 7), jg._repulsion_energy(jnp.asarray(sph), 7))]
+        for a, b in pairs:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-12)
+
+
+# ---------------- VP steps and lattice utilities in float64 ----------------
+
+F64_TOL = dict(rtol=1e-12, atol=1e-12)
+
+
+def test_vp_eps_steps_match_jax():
+    """``vp_reverse_step`` (its noise injected: JAX's draw from the key)
+    and ``vp_reverse_without_noise`` on a float64 schedule, t = 1 and 0
+    (noise gated off) included."""
+    with jax.enable_x64(True):
+        jsched = jvp.make_vp_schedule(50, dtype=jnp.float64)
+        sched = tvp.VPSchedule(*(torch.tensor(np.asarray(a)) for a in jsched))
+        rng = np.random.default_rng(12)
+        ht, eps = rng.normal(size=(6, 3)), rng.normal(size=(6, 3))
+        t = np.array([0, 1, 2, 17, 49, 50])
+        key = jax.random.PRNGKey(5)
+        want = jvp.vp_reverse_step(jsched, key, jnp.asarray(ht), jnp.asarray(eps), jnp.asarray(t))
+        z = jax.random.normal(key, ht.shape, dtype=jnp.float64)
+        want_mean = jvp.vp_reverse_without_noise(jsched, jnp.asarray(ht), jnp.asarray(eps),
+                                                 jnp.asarray(t))
+    args = (torch.tensor(ht), torch.tensor(eps), torch.tensor(t))
+    got = tvp.vp_reverse_step(sched, torch.tensor(np.asarray(z)), *args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64_TOL)
+    np.testing.assert_allclose(tvp.vp_reverse_without_noise(sched, *args).numpy(),
+                               np.asarray(want_mean), **F64_TOL)
+    np.testing.assert_array_equal(got.numpy()[:2], np.asarray(want_mean)[:2])
+
+
+@pytest.mark.parametrize("name", [
+    "abs_cap", "cart_to_frac_without_mod", "symmetrize_matrix", "polar_decomposition",
+    "symmetric_matrix_to_vector", "vector_to_symmetric_matrix", "volume", "wrapped_angle_mse",
+    "cubic_score", "vector_length_mse_loss", "angle_bound_loss"])
+def test_lattice_utilities_match_jax(name):
+    rng = np.random.default_rng(13)
+    mats = rng.normal(size=(5, 3, 3)) + 3 * np.eye(3)
+    args = {
+        "abs_cap": (rng.normal(size=(4, 3)) * 2,),
+        "cart_to_frac_without_mod": (rng.normal(size=(5, 4, 3)) * 5, mats),
+        "symmetrize_matrix": (mats,),
+        "polar_decomposition": (mats,),
+        "symmetric_matrix_to_vector": (mats + mats.transpose(0, 2, 1),),
+        "vector_to_symmetric_matrix": (rng.normal(size=(5, 6)),),
+        "volume": (mats,),
+        "wrapped_angle_mse": (rng.uniform(-10, 10, (5, 3)), rng.uniform(-10, 10, (5, 3))),
+        "cubic_score": (rng.uniform(1, 9, (5, 3)),),
+        "vector_length_mse_loss": (mats, mats + 0.3 * rng.normal(size=(5, 3, 3))),
+        "angle_bound_loss": (rng.uniform(30, 150, (5, 3)),),
+    }[name]
+    with jax.enable_x64(True):
+        want = getattr(jlat, name)(*map(jnp.asarray, args))
+    got = getattr(tlat, name)(*map(torch.tensor, args))
+    for a, b in zip(*((got, want) if isinstance(want, tuple) else ((got,), (want,)))):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F64_TOL)
 
 
 def test_carried_fourier_weights_equal_jax_default_draw():

@@ -33,6 +33,7 @@ from arreau_tpu.tasks.diffusion import DiffusionModel as JModel
 from arreau_tpu_torch.cli import generate, train_diffusion
 from arreau_tpu_torch.data.crystal import BucketedLoader, pack_dense_batch
 from arreau_tpu_torch.data.synthetic import synthetic_packed
+from arreau_tpu_torch.inference.io import load_sample_results
 from arreau_tpu_torch.interop.from_jax import _jax_name, load_params_npz
 from arreau_tpu_torch.parallel.mesh import (
     Mesh,
@@ -333,10 +334,10 @@ def test_dp_sampler_matches_one_process(runs, capsys):
     assert "data-parallel sampling over 2 devices" in logs[0] and "data-parallel" not in logs[1]
     want = generate.main([*GEN_ARGS, "--checkpoint_dir", str(runs["ck1"]), "--out_dir",
                           str(out / "gen_one")])
-    got = np.load(out / "gen_dp" / "crystals.npz")
-    ref = np.load(out / "gen_one" / "crystals.npz")
-    assert got.files == ref.files and want.num_crystals == 6
-    for name in got.files:
+    got = vars(load_sample_results(str(out / "gen_dp" / "crystals.h5")))
+    ref = vars(load_sample_results(str(out / "gen_one" / "crystals.h5")))
+    assert got.keys() == ref.keys() and want.num_crystals == 6
+    for name in got:
         if got[name].dtype.kind == "f":
             np.testing.assert_allclose(got[name], ref[name], atol=SAMPLER_ATOL, err_msg=name)
         else:

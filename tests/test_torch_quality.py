@@ -13,10 +13,12 @@ import pytest
 
 from arreau_tpu.cli.generate import _ref_num_atoms as j_ref_num_atoms
 from arreau_tpu.cli.generate import quality_from_results as j_quality_from_results
+from arreau_tpu.data.crystal import write_packed_h5 as j_write_packed_h5
 from arreau_tpu.data.synthetic import synthetic_packed as j_synthetic_packed
 from arreau_tpu.inference import bonds as j_bonds
 from arreau_tpu.inference import quality as jq
 from arreau_tpu.inference.io import SampleResult as JResult
+from arreau_tpu.inference.io import load_sample_results as j_load_sample_results
 from arreau_tpu_torch.cli import generate
 from arreau_tpu_torch.data.synthetic import random_lattices
 from arreau_tpu_torch.inference import bonds, quality
@@ -180,7 +182,7 @@ def test_generate_quality_report_matches_jax(tiny_checkpoint, tmp_path, capsys):
     run_generate(tiny_checkpoint, tmp_path, "--quality_ref", "synthetic:40:0")
     printed = capsys.readouterr().out
     got = json.loads((tmp_path / "quality.json").read_text())
-    r = load_sample_results(str(tmp_path / "crystals.npz"))
+    r = load_sample_results(str(tmp_path / "crystals.h5"))
     want = j_quality_from_results(JResult(r.frac_x, r.atomic_numbers, r.lattice, r.idx_start,
                                           r.num_atoms), Z_TABLE, "synthetic:40:0")
     assert len(got) == 18 and got.keys() == want.keys()
@@ -200,17 +202,52 @@ def test_generate_ref_atom_counts_match_jax(tiny_checkpoint, tmp_path):
     want = np.concatenate([rng.choice(ref, size=3) for _ in range(2)])[:5]
     np.testing.assert_array_equal(result.num_atoms, want)
     assert len(set(want.tolist())) > 1
-    saved = load_sample_results(str(tmp_path / "crystals.npz"))
+    saved = load_sample_results(str(tmp_path / "crystals.h5"))
     np.testing.assert_array_equal(saved.num_atoms, want)
     assert len(saved.frac_x) == want.sum()
 
 
-def test_generate_hdf5_quality_ref_raises(tiny_checkpoint, tmp_path):
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        run_generate(tiny_checkpoint, tmp_path, "--quality_ref", "train.h5")
-    assert not (tmp_path / "crystals.npz").exists()
+def test_generate_hdf5_quality_ref_matches_jax(tiny_checkpoint, tmp_path):
+    """``--quality_ref <shard>.h5 --num_atoms_dist ref`` on a packed shard
+    the JAX package wrote: the atom counts drawn from the shard's histogram
+    and the report (the shard's own z-table) are the JAX CLI's, and the
+    ``crystals.h5`` written reads the same in the JAX package."""
+    shard = tmp_path / "train.h5"
+    j_write_packed_h5(str(shard), j_synthetic_packed(40, seed=3).packed)
+    result = run_generate(tiny_checkpoint, tmp_path / "out", "--quality_ref", str(shard),
+                          "--num_atoms_dist", "ref")
+    ref = np.minimum(j_ref_num_atoms(str(shard)), 5)
+    rng = np.random.default_rng(4 + 1)
+    np.testing.assert_array_equal(result.num_atoms,
+                                  np.concatenate([rng.choice(ref, size=3) for _ in range(2)])[:5])
+    r = j_load_sample_results(str(tmp_path / "out" / "crystals.h5"))
+    for name in ("frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms"):
+        assert getattr(r, name).tobytes() == getattr(result, name).tobytes(), name
+    got = json.loads((tmp_path / "out" / "quality.json").read_text())
+    want = j_quality_from_results(r, Z_TABLE, str(shard))
+    assert len(got) == 18 and got.keys() == want.keys()
+    _same({k: float(v) for k, v in got.items()}, {k: float(v) for k, v in want.items()})
 
 
 def test_generate_ref_counts_without_reference_exit():
     with pytest.raises(SystemExit, match="requires --quality_ref"):
         generate.main(["--device", "cpu", "--num_atoms_dist", "ref"])
+
+
+def test_reports_against_one_reference_match_jax():
+    """Two results reported against one ``reference_dataset`` (its
+    statistics computed once and kept by ``reference_stats``) each give the
+    JAX CLI's report: the kept statistics are not changed by a report."""
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+
+    ds, z_table = generate.reference_dataset("synthetic:40:0"), synthetic_z_table()
+    hits = generate.reference_stats.cache_info().hits
+    for seed in (1, 2):
+        p = j_synthetic_packed(6, seed=seed).packed
+        r = JResult(p.frac_coords, p.atomic_numbers, p.lattices, p.offsets[:-1],
+                    np.diff(p.offsets))
+        got = generate.quality_from_results(r, z_table, ds)
+        want = j_quality_from_results(r, z_table, "synthetic:40:0")
+        assert got.keys() == want.keys()
+        _same({k: float(v) for k, v in got.items()}, {k: float(v) for k, v in want.items()})
+    assert generate.reference_stats.cache_info().hits == hits + 1

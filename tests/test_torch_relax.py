@@ -83,21 +83,24 @@ def _flat_result(seed=2):
 
 
 def test_process_results_matches_jax(tmp_path, capsys):
-    """``process_results --device cpu`` on a ``crystals.npz`` against the
-    JAX CLI on the same crystals as ``crystals.h5``: the relaxed file holds
+    """``process_results --device cpu`` on the port's ``crystals.h5``
+    against the JAX CLI on the same crystals in its own ``crystals.h5``
+    (another directory): the relaxed file holds
     the same crystals, coordinates within 1e-5 on the circle; the energy
     line is printed as the JAX CLI prints it."""
     result = _flat_result()
-    save_sample_results(str(tmp_path / "crystals.npz"), result)
-    j_save(str(tmp_path / "crystals.h5"), JResult(*(getattr(result, k) for k in (
+    (tmp_path / "jax").mkdir()
+    save_sample_results(str(tmp_path / "crystals.h5"), result)
+    j_save(str(tmp_path / "jax" / "crystals.h5"), JResult(*(getattr(result, k) for k in (
         "frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms"))))
-    out = process_results.main(["--in_path", str(tmp_path / "crystals.npz"), "--device", "cpu",
+    out = process_results.main(["--in_path", str(tmp_path / "crystals.h5"), "--device", "cpu",
                                 "--steps", "40"])
     printed = capsys.readouterr().out
-    j_process_results.main(["--in_path", str(tmp_path / "crystals.h5"), "--steps", "40"])
+    j_process_results.main(["--in_path", str(tmp_path / "jax" / "crystals.h5"), "--steps", "40"])
     j_printed = capsys.readouterr().out
-    saved = load_sample_results(str(tmp_path / "crystals_relaxed.npz"))
-    want = j_load(str(tmp_path / "crystals_relaxed.h5"))
+    saved = load_sample_results(str(tmp_path / "crystals_relaxed.h5"))
+    want = j_load(str(tmp_path / "jax" / "crystals_relaxed.h5"))
+    assert j_load(str(tmp_path / "crystals_relaxed.h5")).frac_x.tobytes() == saved.frac_x.tobytes()
     for name in ("atomic_numbers", "lattice", "idx_start", "num_atoms"):
         np.testing.assert_array_equal(getattr(saved, name), getattr(want, name), err_msg=name)
         np.testing.assert_array_equal(getattr(out, name), getattr(want, name), err_msg=name)

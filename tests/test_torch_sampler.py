@@ -133,8 +133,8 @@ def test_stochastic_chains_match_jax(sample_steps):
 
 
 def test_crystals_file_holds_the_h5_datasets(tmp_path):
-    """Port's crystals.npz and the JAX crystals.h5 of the same result hold the
-    same datasets, with the same values and types."""
+    """Port's crystals.h5 and the JAX crystals.h5 of the same result hold the
+    same datasets, with the same values and types, as h5py reads them."""
     rng = np.random.default_rng(0)
     mask = np.arange(A)[None, :] < np.array([5, 3, 4, 1])[:, None]
     dense = dict(
@@ -148,13 +148,14 @@ def test_crystals_file_holds_the_h5_datasets(tmp_path):
     res = from_dense_batch(CrystalBatch(**{k: torch.as_tensor(v) for k, v in dense.items()}),
                            port_z_table())
     j_save(str(tmp_path / "crystals.h5"), jres)
-    save_sample_results(str(tmp_path / "crystals.npz"), res)
-    with h5py.File(tmp_path / "crystals.h5", "r") as f, np.load(tmp_path / "crystals.npz") as npz:
-        assert set(f["crystals"].keys()) == set(npz.files)
-        for name in npz.files:
-            assert npz[name].dtype == f["crystals"][name].dtype, name
-            np.testing.assert_array_equal(npz[name], f["crystals"][name][:])
-    back = load_sample_results(str(tmp_path / "crystals.npz"))
+    save_sample_results(str(tmp_path / "port.h5"), res)
+    with h5py.File(tmp_path / "crystals.h5", "r") as f, h5py.File(tmp_path / "port.h5", "r") as g:
+        assert list(g) == list(f) == ["crystals"]
+        assert set(f["crystals"].keys()) == set(g["crystals"].keys())
+        for name in g["crystals"]:
+            assert g["crystals"][name].dtype == f["crystals"][name].dtype, name
+            np.testing.assert_array_equal(g["crystals"][name][:], f["crystals"][name][:])
+    back = load_sample_results(str(tmp_path / "port.h5"))
     assert isinstance(back, SampleResult) and back.num_crystals == B
     assert isinstance(jres, JResult)
 
@@ -179,7 +180,7 @@ def test_generate_cli_on_cpu(tmp_path, capsys):
                             "--sample_steps", "3", "--out_dir", str(out)])
     printed = capsys.readouterr().out
     assert "sampler throughput:" in printed and "cpu)" in printed
-    saved = load_sample_results(str(out / "crystals.npz"))
+    saved = load_sample_results(str(out / "crystals.h5"))
     assert saved.num_crystals == result.num_crystals == 5
     assert np.all(saved.num_atoms == 4) and np.isfinite(saved.lattice).all()
     lengths = np.linalg.norm(saved.lattice, axis=-1)  # clip_denoised: 3 - 2.5 .. 8 + 2.5
@@ -205,8 +206,8 @@ def test_generate_data_parallel_on_one_device_samples_as_without(tmp_path):
                        "--num_crystals", "3", "--batch_size", "3", "--num_atoms_per_sample", "4",
                        "--sample_steps", "3", "--seed", "7", "--data_parallel", flag,
                        "--out_dir", str(out)])
-        results[flag] = np.load(out / "crystals.npz")
-    assert results["true"].files == results["false"].files
-    for name in results["true"].files:
+        results[flag] = vars(load_sample_results(str(out / "crystals.h5")))
+    assert results["true"].keys() == results["false"].keys()
+    for name in results["true"]:
         np.testing.assert_array_equal(results["true"][name], results["false"][name], err_msg=name)
     assert results["true"]["num_atoms"].sum() == 12

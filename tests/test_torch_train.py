@@ -303,14 +303,46 @@ def test_generate_samples_ema_weights_by_default(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag, error, match", [
     (["--model_parallel", "2"], ValueError, "1 devices not divisible by model_size=2"),
-    (["--dataset", "alexandria"], NotImplementedError, "--dataset"),
-], ids=["flag0", "flag1"])
+], ids=["flag0"])
 def test_train_cli_later_slices_raise(flag, error, match, tmp_path):
     """``--model_parallel 2`` in one process (world size 1) raises the JAX
-    package's divisibility error; the Alexandria shards (HDF5) stay
-    unported."""
+    package's divisibility error."""
     with pytest.raises(error, match=match):
         train_diffusion.main([*TINY_ARGS, "--checkpoint_dir", str(tmp_path), *flag])
+
+
+def test_train_cli_alexandria_shards_match_jax(tmp_path):
+    """``--dataset alexandria`` and ``alexandria-dev`` on shards the JAX
+    package wrote: the datasets, splits and z-tables of the JAX CLI's
+    ``build_datasets``; training on the shard of the synthetic set's
+    crystals gives the ``--dataset synthetic`` run's losses bit for bit
+    (the z-tables agree); no shard raises the JAX CLI's error."""
+    from arreau_tpu.cli import train_diffusion as j_train_diffusion
+    from arreau_tpu.data.crystal import write_packed_h5 as j_write_packed_h5
+
+    data = tmp_path / "shards"
+    j_write_packed_h5(str(data / "alexandria_ps_000.h5"), j_synthetic_packed(60, seed=0).packed)
+    j_write_packed_h5(str(data / "alexandria_ps_000_take10.h5"),
+                      j_synthetic_packed(10, seed=1).packed)
+    for dataset, size in (("alexandria", 60), ("alexandria-dev", 10)):
+        argv = ["--dataset", dataset, "--data_dir", str(data)]
+        ds, splits, z_table, t = train_diffusion.build_datasets(train_diffusion.parse_args(argv))
+        jds, jsplits, jz, jt = j_train_diffusion.build_datasets(j_train_diffusion.parse_args(argv))
+        assert len(ds) == size and t is jt is None and list(z_table.zs) == list(jz.zs)
+        for field in ("atomic_numbers", "frac_coords", "offsets", "lattices"):
+            np.testing.assert_array_equal(getattr(ds.packed, field), getattr(jds.packed, field))
+        np.testing.assert_array_equal(ds.type_indices, jds.type_indices)
+        assert splits.keys() == jsplits.keys()
+        assert all(np.array_equal(splits[k], jsplits[k]) for k in splits)
+    losses = {}
+    for name, flags in (("synthetic", []),
+                        ("alexandria", ["--dataset", "alexandria", "--data_dir", str(data)])):
+        losses[name] = train_diffusion.main([*TINY_ARGS, *flags, "--max_steps", "3",
+                                             "--checkpoint_dir", str(tmp_path / name)])
+    assert np.isfinite(losses["synthetic"]) and losses["alexandria"] == losses["synthetic"]
+    for cli in (train_diffusion, j_train_diffusion):
+        with pytest.raises(FileNotFoundError, match="no alexandria shards under"):
+            cli.build_datasets(cli.parse_args(["--data_dir", str(tmp_path / "none")]))
 
 
 def test_train_cli_on_cuda_raises_without_cuda(tmp_path):

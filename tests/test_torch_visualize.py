@@ -68,19 +68,19 @@ def _is_png(path):
 
 def test_generate_renders_the_jax_cli_files(checkpoints, tmp_path, capsys):
     """``--gif --visualize --show_bonds`` on the dense chain: the same files
-    as the JAX CLI on the same checkpoint (its crystals.h5 being the port's
-    crystals.npz): the last batch's snapshots after 5, 10 and 11 of the 11
-    steps, a GIF of those three frames, and the first four crystals."""
+    as the JAX CLI on the same checkpoint (``crystals.h5`` in both): the
+    last batch's snapshots after 5, 10 and 11 of the 11 steps, a GIF of
+    those three frames, and the first four crystals."""
     jdir, pdir = checkpoints
     flags = ["--gif", "true", "--visualize", "true", "--show_bonds", "true"]
     j_generate.main(["--checkpoint_dir", str(jdir), *GEN, *flags, "--out_dir", str(tmp_path / "j")])
     generate.main(["--checkpoint_dir", str(pdir), "--device", "cpu", *GEN, *flags,
                    "--out_dir", str(tmp_path / "p")])
     printed = capsys.readouterr().out
-    want = [f.replace("crystals.h5", "crystals.npz") for f in _files(tmp_path / "j")]
+    want = _files(tmp_path / "j")
     got = _files(tmp_path / "p")
     assert got == want
-    assert got == sorted(["crystals.npz", "sampling.gif"]
+    assert got == sorted(["crystals.h5", "sampling.gif"]
                          + [f"crystal_{i}.png" for i in range(4)]
                          + [f"sampling_steps/step_{t}.png" for t in (6, 1, 0)])
     assert f"wrote {tmp_path / 'p'}/sampling.gif" in printed
@@ -90,7 +90,7 @@ def test_generate_renders_the_jax_cli_files(checkpoints, tmp_path, capsys):
             assert _is_png(tmp_path / "p" / f), f
     with Image.open(tmp_path / "p" / "sampling.gif") as gif:
         assert gif.format == "GIF" and gif.n_frames == 3
-    assert load_sample_results(str(tmp_path / "p" / "crystals.npz")).num_crystals == 4
+    assert load_sample_results(str(tmp_path / "p" / "crystals.h5")).num_crystals == 4
 
 
 def test_generate_gif_with_strided_chain_prints_the_notice(checkpoints, tmp_path, capsys):
@@ -102,7 +102,7 @@ def test_generate_gif_with_strided_chain_prints_the_notice(checkpoints, tmp_path
     assert ("gif snapshots are not supported with --sample_steps; disabling gif"
             in capsys.readouterr().out)
     assert _files(tmp_path) == ["crystal_0.png", "crystal_1.png", "crystal_2.png",
-                                "crystal_3.png", "crystals.npz"]
+                                "crystal_3.png", "crystals.h5"]
 
 
 @pytest.mark.parametrize("hidden", ["matplotlib", "PIL"])
@@ -135,16 +135,16 @@ def _result():
 
 def test_process_results_visualize_renders_the_jax_cli_files(tmp_path):
     result = _result()
-    save_sample_results(str(tmp_path / "p" / "crystals.npz"), result)
+    save_sample_results(str(tmp_path / "p" / "crystals.h5"), result)
     j_save(str(tmp_path / "j" / "crystals.h5"), JResult(*(getattr(result, k) for k in (
         "frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms"))))
-    process_results.main(["--in_path", str(tmp_path / "p" / "crystals.npz"), "--device", "cpu",
+    process_results.main(["--in_path", str(tmp_path / "p" / "crystals.h5"), "--device", "cpu",
                           "--steps", "5", "--visualize", "true"])
     j_process_results.main(["--in_path", str(tmp_path / "j" / "crystals.h5"), "--steps", "5",
                             "--visualize", "true"])
     got = _files(tmp_path / "p")
-    assert got == [f.replace(".h5", ".npz") for f in _files(tmp_path / "j")]
-    assert got == sorted(["crystals.npz", "crystals_relaxed.npz"]
+    assert got == _files(tmp_path / "j")
+    assert got == sorted(["crystals.h5", "crystals_relaxed.h5"]
                          + [f"relaxed_{i}.png" for i in range(4)])
     assert all(_is_png(tmp_path / "p" / f) for f in got if f.endswith(".png"))
 
