@@ -2,7 +2,8 @@
 
 Reads a checkpoint directory as the JAX CLI does: ``<checkpoint_dir>/meta.json``
 (the JAX package's schema: ``config``, ``z_table_zs``, optional
-``fourier_w`` and ``length_stats``; and the port's optional
+``fourier_w`` and ``length_stats``; and the port's optional ``ori_grid``,
+the S^2 grid a converted checkpoint carries, and
 ``readout_bf16_operands``, set for a checkpoint trained on a TPU, see
 ``models/ponita.py``) and the parameters of one tag
 (``--tag``, default ``last``): ``<checkpoint_dir>/<tag>/ema_params.npz``
@@ -48,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import silent
+from arreau_tpu_torch.cli.common import parse_bool, silent
 from arreau_tpu_torch.data.atoms import AtomicNumberTable
 from arreau_tpu_torch.data.crystal import CrystalDataset
 from arreau_tpu_torch.inference.io import concat_results, from_dense_batch, save_sample_results
@@ -61,14 +62,6 @@ from arreau_tpu_torch.parallel.mesh import (
     shard_rows,
 )
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, DiffusionConfig, DiffusionModel
-
-
-def parse_bool(value: str) -> bool:
-    if value.lower() in ("1", "true", "yes", "y"):
-        return True
-    if value.lower() in ("0", "false", "no", "n"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {value}")
 
 
 def parse_args(argv=None):
@@ -176,7 +169,7 @@ def load_model(checkpoint_dir: str, tag: str, use_ema: bool, device, say=print):
     with open(os.path.join(checkpoint_dir, "meta.json")) as f:
         meta = json.load(f)
     model = DiffusionModel(DiffusionConfig(**meta["config"]), device=device,
-                           fourier_w=meta.get("fourier_w"),
+                           fourier_w=meta.get("fourier_w"), ori_grid=meta.get("ori_grid"),
                            readout_bf16_operands=meta.get("readout_bf16_operands", False))
     path = params_path(checkpoint_dir, tag, use_ema)
     params_from_jax(model, load_params_npz(path))

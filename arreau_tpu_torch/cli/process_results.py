@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.generate import parse_bool
+from arreau_tpu_torch.cli.common import parse_bool
 from arreau_tpu_torch.inference.io import SampleResult, load_sample_results, save_sample_results
 from arreau_tpu_torch.inference.relax import relax_soft_sphere
 
@@ -38,6 +38,11 @@ def parse_args(argv=None):
                    help="render the first four relaxed crystals (matplotlib, PIL)")
     p.add_argument("--use_mace", type=parse_bool, default=False,
                    help="not ported: needs the mace-torch and ase packages")
+    p.add_argument("--mace_model", type=str, default=None,
+                   help="local MACE .model path (None = downloadable MACE-MP "
+                        "foundation model); only with --use_mace")
+    p.add_argument("--fmax", type=float, default=0.05,
+                   help="BFGS force convergence (eV/A); only with --use_mace")
     return p.parse_args(argv)
 
 

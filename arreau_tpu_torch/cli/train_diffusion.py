@@ -51,8 +51,7 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import silent
-from arreau_tpu_torch.cli.generate import parse_bool
+from arreau_tpu_torch.cli.common import parse_bool, silent
 from arreau_tpu_torch.data.crystal import (
     DEFAULT_BUCKETS,
     BucketedLoader,

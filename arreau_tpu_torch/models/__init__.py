@@ -11,7 +11,10 @@ def make_ponita(num_ori: int = 16, **kwargs):
     """``num_ori > 0``: ``PonitaFiberBundle`` on a grid of ``num_ori``
     orientations; ``-1``: the lifted ``PonitaPointCloud``; ``0``: the plain
     ``PonitaPointCloud``. ``kwargs`` are the fields of ``PonitaConfig`` or
-    ``PointCloudConfig``."""
+    ``PointCloudConfig``; the JAX package's name ``use_pallas`` stands for
+    ``use_kernels``."""
     if num_ori > 0:
+        if "use_pallas" in kwargs:
+            kwargs["use_kernels"] = kwargs.pop("use_pallas")
         return PonitaFiberBundle(PonitaConfig(num_ori=num_ori, **kwargs))
     return PonitaPointCloud(PointCloudConfig(lifted=num_ori == -1, **kwargs))

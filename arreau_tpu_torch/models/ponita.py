@@ -52,6 +52,15 @@ and a compute type, the kernel branch runs each layer's ConvNext MLP tail
 and its readout in the ``fused_convnext_mlp`` kernels (#9/#10); the
 parameters are the same.
 
+``remat`` (the default, as the JAX package's) runs each ConvNext block
+under ``torch.utils.checkpoint`` when gradients are on: the backward keeps
+the block's inputs and runs its forward again, the conv kernels included
+(#3, #1 or #9 launch twice a block and step), while the basis MLPs stay
+outside. It changes no number: the kernels repeat bit for bit. Without
+gradients (the sampler) it does nothing. ``stacked_readout=False`` averages
+one readout product a layer instead of one product over the concatenated
+layers, as the JAX package's per-layer ``nn.Dense``.
+
 ``readout_bf16_operands`` computes the readout, the network's one float32
 product under ``compute_dtype="bfloat16"``, as a TPU computes the JAX
 package's ``jnp.dot(xcat, wcat)`` at DEFAULT precision: both operands
@@ -62,12 +71,14 @@ readout weights under that rounding and is served with it.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from arreau_tpu_torch.models.blocks import (
     BasisMLP,
@@ -129,6 +140,13 @@ class PonitaConfig:
     # the readout product from bfloat16 operands with float32 sums, as a TPU
     # computes the JAX package's float32 readout at DEFAULT precision
     readout_bf16_operands: bool = False
+    # with gradients on, each ConvNext block keeps only its inputs for the
+    # backward and runs its forward again there (the JAX package's nn.remat
+    # around the block); no effect without gradients
+    remat: bool = True
+    # the per-layer readouts as one product over the concatenated layers;
+    # False = one product a layer, summed (the same parameters)
+    stacked_readout: bool = True
 
     @property
     def output_dim(self) -> int:
@@ -266,6 +284,15 @@ class PonitaFiberBundle(nn.Module):
             std = math.sqrt(scale / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
 
+    def _readout_product(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w^T`` in float32: a bfloat16 ``x`` times the float32 weights
+        is a float32 product (JAX's type promotion); with
+        ``readout_bf16_operands`` both operands are rounded to bfloat16."""
+        x = x.to(w.dtype)
+        if self.config.readout_bf16_operands:
+            x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        return x @ w.t()
+
     def forward(self, inputs: FiberBundleInputs) -> PonitaOutputs:
         cfg = self.config
         cdt = self.dtype
@@ -338,12 +365,17 @@ class PonitaFiberBundle(nn.Module):
         # ---- embed, interaction layers, readouts ----
         x = dense(self.x_embedder, x, cdt)
         xs, fused, edge_readouts = [], [], []
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             readout_i = self.readouts[str(i)] if str(i) in self.readouts else None
-            x, r, *messages = layer(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask,
-                                    conv_window, kernel_layout=use_kernels, dtype=cdt,
-                                    readout=readout_i, position_grads=cfg.position_grads,
-                                    return_messages=need_messages)
+            # the block alone is rematerialised, as nn.remat(ConvNextBlock); it
+            # draws no random numbers, so the generators' states are not kept
+            call = (functools.partial(checkpoint, layer, use_reentrant=False,
+                                      preserve_rng_state=False) if remat else layer)
+            x, r, *messages = call(x, kernel_bases[i], fiber_kernel_basis, conv_src, conv_mask,
+                                   conv_window, kernel_layout=use_kernels, dtype=cdt,
+                                   readout=readout_i, position_grads=cfg.position_grads,
+                                   return_messages=need_messages)
             if need_messages and readout_i is not None:
                 parts = [messages[0].float()] + ([] if edge_scalars is None else [edge_scalars])
                 edge_in = torch.cat(parts, dim=-1)
@@ -355,16 +387,15 @@ class PonitaFiberBundle(nn.Module):
         if fused:
             # the fused kernels' float32 readouts, averaged as the JAX package does
             readout = sum(fused) / len(fused)
-        else:
+        elif cfg.stacked_readout:
             # mean over layers of x_i W_i^T + b_i, as one matmul over the
-            # concatenated layers; a bfloat16 xcat times the float32 weights
-            # is a float32 product (JAX's type promotion)
+            # concatenated layers
             wcat = torch.cat([lin.weight for _, lin in xs], dim=1)
-            xcat = torch.cat([xi for xi, _ in xs], dim=-1).to(wcat.dtype)
-            if cfg.readout_bf16_operands:
-                xcat = xcat.to(torch.bfloat16).float()
-                wcat = wcat.to(torch.bfloat16).float()
-            readout = (xcat @ wcat.t() + sum(lin.bias for _, lin in xs)) / len(xs)
+            xcat = torch.cat([xi for xi, _ in xs], dim=-1)
+            readout = (self._readout_product(xcat, wcat) + sum(lin.bias for _, lin in xs)) / len(xs)
+        else:
+            readout = sum(self._readout_product(xi, lin.weight) + lin.bias
+                          for xi, lin in xs) / len(xs)
         if use_kernels:
             out = readout.shape[-1]
             readout = readout.reshape(Bp, O, tile, A, out).permute(0, 2, 3, 1, 4)

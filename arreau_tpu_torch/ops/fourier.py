@@ -1,43 +1,27 @@
 """Gaussian Fourier time-step embedding with fixed frequencies.
 
 Counterpart of ``arreau_tpu/ops/fourier.py``. The JAX package draws its
-frequencies from ``jax.random.PRNGKey(fourier_seed)``, which torch cannot
-reproduce, so the draw for the default seed is carried as a constant
-(copied from ``make_fourier_weights(PRNGKey(1234), 32, 16.0)`` in the
-package's default float32 mode). Another seed needs its frequencies passed
-in, through ``meta.json``'s ``fourier_w``.
+frequencies as ``make_fourier_weights(PRNGKey(fourier_seed), 32, 16.0)``
+in its default float32 mode; :func:`default_fourier_weights` draws the
+same numbers for any seed through ``ops/prng.py``. A checkpoint's
+``meta.json`` carries its frequencies (``fourier_w``) all the same.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-DEFAULT_FOURIER_SEED = 1234
-
-# fmt: off
-_FOURIER_W_SEED_1234 = [
-    17.649625778198242, 13.808996200561523, -5.418918132781982, 16.435932159423828,
-    -17.17728614807129, 5.269970417022705, 12.13134479522705, -4.809208393096924,
-    -5.932690143585205, 9.379473686218262, 14.142539978027344, -20.535463333129883,
-    4.335996627807617, 28.368101119995117, -19.76193618774414, -29.899629592895508,
-    -1.8110772371292114, 1.9699349403381348, 2.2411656379699707, 11.698942184448242,
-    31.981868743896484, 0.5024392604827881, 6.7659406661987305, 7.638636589050293,
-    0.6557573080062866, -19.148454666137695, 12.527305603027344, 22.05316925048828,
-    -3.3436496257781982, 4.077895164489746, 9.722626686096191, 24.921707153320312,
-]
-# fmt: on
+from arreau_tpu_torch.ops.prng import normal, prng_key
 
 
-def default_fourier_weights(seed: int, embedding_size: int) -> torch.Tensor:
-    """The carried frequencies ``[embedding_size]`` for ``seed``."""
-    if seed != DEFAULT_FOURIER_SEED or embedding_size != len(_FOURIER_W_SEED_1234):
-        raise ValueError(
-            f"no carried Fourier weights for seed={seed}, size={embedding_size}; "
-            "pass fourier_w explicitly (meta.json)"
-        )
-    return torch.tensor(_FOURIER_W_SEED_1234, dtype=torch.float32)
+def default_fourier_weights(seed: int, embedding_size: int, scale: float = 16.0) -> torch.Tensor:
+    """The JAX package's frequencies ``[embedding_size]`` float32 for
+    ``seed``: ``normal(PRNGKey(seed), (embedding_size,)) * scale``."""
+    w = normal(prng_key(seed), (embedding_size,), np.float32) * np.float32(scale)
+    return torch.from_numpy(w)
 
 
 def gaussian_fourier_features(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,30 @@
 """Orientation grids on S^2 (repulsion-optimised), the uniform S^1 grid and
 random rotations (SO(3), SO(2)) drawn from a ``torch.Generator``.
 
-The JAX package computes its grid once per process by a repulsion
+The JAX package computes its S^2 grid once per process by a repulsion
 optimisation seeded from ``jax.random`` (``arreau_tpu/ops/grids.py``,
-``cached_grid_s2``); torch cannot reproduce those draws. The seed-0 grids
-of 4, 8 and 16 points (16 is the model default) are therefore copied here,
-digit for digit. :func:`uniform_grid_s2` runs the same optimisation in
-float64 on draws from a ``torch.Generator`` (or on injected draws: JAX's
-give JAX's grid); ``cached_grid_s2`` takes it, seeded 0, for any other
-size, which is then the port's own grid and not the JAX package's.
+``cached_grid_s2``, in float64). :func:`uniform_grid_s2` runs the same
+optimisation on the same draws, made by ``ops/prng.py``. Its 100 SGD steps
+amplify last-bit differences of the gradient (autograd against XLA's) by
+up to 1e5, so the drawn grid is the JAX package's within 2e-9, not bit for
+bit. The seed-0 grids of 4, 8 and 16 points (16 is the model default) are
+therefore carried as the JAX package's own digits, and a checkpoint
+converted from the JAX package carries its grid in ``meta.json``
+(``ori_grid``) whatever its size.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-# SGD steps of the port's own grids: after the JAX package's 100 the
-# 12-point energy still differs by 2.5% from one seed to the next; after
-# 300 the seeds agree within 0.2% at 6-32 points
-CACHED_GRID_STEPS = 300
+from arreau_tpu_torch.ops import prng
 
 # fmt: off
-_GRIDS_S2 = {
+_JAX_GRIDS_S2 = {
     4: [
         [0.20478616018868961, -0.4670100195896972, 0.8602117589279997],
         [0.8407508246803733, 0.38923070644313057, -0.3763475892855615],
@@ -88,7 +88,7 @@ def _repulsion_energy(grid_sph: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(off_diag, d ** (-2.0), 0.0).sum() / (n * (n - 1))
 
 
-def uniform_grid_s2(n: int, generator: torch.Generator | None = None, steps: int = 100,
+def uniform_grid_s2(n: int, key: np.ndarray | None = None, steps: int = 100,
                     step_size: float = 0.1, alpha: float = 0.001, *,
                     init: torch.Tensor | None = None,
                     noise: torch.Tensor | None = None) -> torch.Tensor:
@@ -97,16 +97,23 @@ def uniform_grid_s2(n: int, generator: torch.Generator | None = None, steps: int
     sphere, then ``steps`` SGD steps on :func:`_repulsion_energy` (its
     gradient from autograd) with the annealed gradient noise ``(steps - i)
     / steps * alpha * noise[i]`` (``noise [steps, n, 2]``), as the JAX
-    package's. Draws not given come from ``generator`` (seeded 0 if none),
-    ``init`` first."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    f64 = dict(dtype=torch.float64, device=generator.device)
+    package's. Draws not given are the JAX package's from ``key`` (a
+    ``prng.prng_key``, seed 0 if None), in float64: ``key`` split into the
+    starting points' key and the noise key, which is split once a step.
+    ``init`` and ``noise`` exist to inject draws made elsewhere: the parity
+    tests give JAX's own, which parts the SGD steps' drift from the draws'."""
+    if key is None:
+        key = prng.prng_key(0, x64=True)
+    init_key, noise_key = prng.split(key)
     if init is None:
-        init = torch.randn((n, 3), generator=generator, **f64)
+        init = torch.from_numpy(prng.normal(init_key, (n, 3), np.float64))
     if noise is None:
-        noise = torch.randn((steps, n, 2), generator=generator, **f64)
-    init, noise = init.to(**f64), noise.to(**f64)
+        draws = []
+        for _ in range(steps):
+            noise_key, sub = prng.split(noise_key)
+            draws.append(prng.normal(sub, (n, 2), np.float64))
+        noise = torch.from_numpy(np.stack(draws))
+    init, noise = init.to(torch.float64), noise.to(torch.float64)
     grid = euclid_to_spherical(init / torch.linalg.norm(init, dim=-1, keepdim=True))
     for i in range(steps):
         grid = grid.detach().requires_grad_(True)
@@ -115,14 +122,18 @@ def uniform_grid_s2(n: int, generator: torch.Generator | None = None, steps: int
     return spherical_to_euclid(grid.detach())
 
 
-def cached_grid_s2(n: int) -> np.ndarray:
-    """The S^2 grid of ``n`` points, ``[n, 3]`` float64: the JAX package's
-    seed-0 grid for 4, 8 and 16, else :func:`uniform_grid_s2` seeded 0 over
-    ``CACHED_GRID_STEPS`` steps (the port's own grid, not the JAX
-    package's)."""
-    if n in _GRIDS_S2:
-        return np.asarray(_GRIDS_S2[n], dtype=np.float64)
-    return uniform_grid_s2(n, steps=CACHED_GRID_STEPS).numpy()
+@lru_cache(maxsize=None)
+def _grid_s2(n: int, seed: int) -> np.ndarray:
+    return uniform_grid_s2(n, prng.prng_key(seed, x64=True)).numpy()
+
+
+def cached_grid_s2(n: int, seed: int = 0) -> np.ndarray:
+    """The JAX package's S^2 grid of ``n`` points for ``seed``, ``[n, 3]``
+    float64: its digits for seed 0 at 4, 8 and 16 points, else drawn
+    (computed once per process); a fresh copy each call."""
+    if seed == 0 and n in _JAX_GRIDS_S2:
+        return np.asarray(_JAX_GRIDS_S2[n], dtype=np.float64)
+    return _grid_s2(n, seed).copy()
 
 
 def uniform_grid_s1(n: int, dtype=torch.float32, device=None) -> torch.Tensor:

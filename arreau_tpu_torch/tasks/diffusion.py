@@ -106,11 +106,9 @@ def rotate_batch(rotations: torch.Tensor, batch: CrystalBatch) -> CrystalBatch:
 @dataclass(frozen=True)
 class DiffusionConfig:
     """The JAX package's ``DiffusionConfig``, field for field, so a
-    checkpoint's ``meta.json`` loads unchanged. Training-only fields are
-    carried and unused, as is ``stacked_readout`` (the port always sums the
-    readouts as one matmul: the same function); settings of later slices
-    raise. ``compute_dtype`` is None (float32) or ``"bfloat16"``; the losses
-    and the sampler's states stay float32 either way."""
+    checkpoint's ``meta.json`` loads unchanged. ``compute_dtype`` is None
+    (float32) or ``"bfloat16"``; the losses and the sampler's states stay
+    float32 either way."""
 
     num_atomic_states: int  # len(z_table) incl. the MASK class
     num_timesteps: int = 1000
@@ -169,6 +167,8 @@ class DiffusionConfig:
             fuse_fiber=self.fuse_fiber,
             basis_bias=self.basis_bias,
             compute_dtype=self.compute_dtype,
+            remat=self.remat,
+            stacked_readout=self.stacked_readout,
         )
 
 
@@ -276,7 +276,8 @@ class DiffusionModel:
     mesh = None
 
     def __init__(self, config: DiffusionConfig, device="cuda",
-                 fourier_w: Optional[np.ndarray] = None, readout_bf16_operands: bool = False):
+                 fourier_w: Optional[np.ndarray] = None, readout_bf16_operands: bool = False,
+                 ori_grid: Optional[np.ndarray] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -292,12 +293,16 @@ class DiffusionModel:
         self.vp = make_vp_schedule(T, power=LATTICE_POWER, clipmax=LATTICE_CLIPMAX, device=device)
         self.d3pm = make_d3pm_tables(T, config.num_atomic_states, config.mask_prob, device=device)
         if fourier_w is None:
-            w = default_fourier_weights(config.fourier_seed, T_EMB_DIM // 2)
+            w = default_fourier_weights(config.fourier_seed, T_EMB_DIM // 2, FOURIER_SCALE)
         else:
             w = torch.tensor(np.asarray(fourier_w), dtype=torch.float32)
         self.fourier_w = w.to(device)
-        self.ori_grid = torch.as_tensor(cached_grid_s2(config.num_ori), dtype=torch.float32,
-                                        device=device)
+        # ori_grid: the S^2 grid a checkpoint carries (convert_jax_checkpoint.py
+        # writes the JAX model's), else the drawn one
+        if ori_grid is None:
+            ori_grid = cached_grid_s2(config.num_ori)
+        self.ori_grid = torch.as_tensor(np.asarray(ori_grid, dtype=np.float64),
+                                        dtype=torch.float32, device=device)
 
     # ---------------- init ----------------
 

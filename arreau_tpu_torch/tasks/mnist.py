@@ -61,6 +61,7 @@ class MnistConfig:
             output_dim_global_scalar=self.num_classes,
             num_edge_scalar_features=0,
             expected_degree=float(self.max_neighbors),
+            remat=False,
             use_kernels=self.use_pallas,
         )
 

@@ -58,6 +58,7 @@ class NBodyConfig:
             output_dim_vec=1,
             num_edge_scalar_features=0,
             expected_degree=float(self.n_balls),
+            remat=False,
             use_kernels=self.use_pallas,
         )
 

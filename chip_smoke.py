@@ -18,7 +18,8 @@ Lightning checkpoint imported and served, the conv-kernel calibration, the
 equivariance check, the sampler diagnosis and the EDA tools; and data and
 tensor parallelism (``arreau_tpu_torch/parallel``) on the one card: NCCL at
 world size 1, and gloo ranks sharing the card; and the crystal data on disk
-(HDF5 shards and ``crystals.h5``, read and written without h5py).
+(HDF5 shards and ``crystals.h5``, read and written without h5py); and the
+ConvNext blocks rematerialised in the backward (``remat``).
 
 Run from the repository root, with no arguments:
 
@@ -244,6 +245,14 @@ inner launches by name and time.
    ``--quality_ref <shard> --num_atoms_dist ref``: 5 #3 and 1 #8 a forward,
    its ``crystals.h5`` read back bit for bit, its report equal to the one
    against ``synthetic:20000:0``; then process_results on that file.
+41. remat: the training cell (256 x 16, hidden 200, ``diffuse_angles``)
+   with ``remat`` off and on, the same seeded weights and noise, float32,
+   bfloat16 and ``fuse_convnext`` bfloat16: the loss terms bit for bit and
+   every gradient within REMAT_GRAD_REL_TOL of its scale (printed: bit for
+   bit or not); a step's launches (with ``remat`` 10 of #3, and of #9
+   under ``fuse_convnext``; #8/#4/#7/#10 unchanged) over the counted and
+   the timed steps; the peak memory of one loss and backward and the step
+   time (CUDA events, 5 steps), both ways.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -3167,6 +3176,159 @@ def hdf5_phase(tmp: Path, card: str, records: dict) -> None:
     print(f"HDF5 data on {card}")
 
 
+# ---------------- per-block rematerialisation (remat) ----------------
+
+REMAT_STEPS = 5  # timed steps a path and setting
+REMAT_GRAD_REL_TOL = {"float32": 1e-6, "bfloat16": 1e-3}
+
+
+def holders_at_peak(events: list, top: int = 6) -> tuple[int, str, list]:
+    """Replays the CUDA allocator's history (``torch.cuda.memory._snapshot()``'s
+    ``device_traces`` of one device): the peak of the bytes allocated while it
+    recorded, where the allocation that reached it was made, and the ``top``
+    groups of blocks live at the peak as (bytes, blocks, where), ``where``
+    the innermost frame in this repository (blocks with no Python frame are
+    the autograd engine's backward)."""
+    root = str(Path(__file__).resolve().parent) + "/"
+
+    def where(event):
+        frames = event.get("frames") or []
+        for f in frames:
+            if f["filename"].startswith(root):
+                return f"{f['filename'][len(root):]}:{f['line']} ({f['name']})"
+        return f"{frames[0]['filename']}:{frames[0]['line']}" if frames else "autograd backward"
+
+    def replay(stop):
+        live, now = {}, 0
+        best, best_i = -1, -1
+        for i, e in enumerate(events[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                now += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in live:
+                now -= live.pop(e["addr"])["size"]
+            if now > best:
+                best, best_i = now, i
+        return live, best, best_i
+
+    _, peak, peak_i = replay(len(events))
+    live, _, _ = replay(peak_i + 1)
+    groups = {}
+    for e in live.values():
+        size, count = groups.get(where(e), (0, 0))
+        groups[where(e)] = (size + e["size"], count + 1)
+    ranked = sorted(((size, count, w) for w, (size, count) in groups.items()), reverse=True)
+    return peak, where(events[peak_i]), ranked[:top]
+
+
+def peak_memory_holders(step) -> str:
+    """Runs ``step`` once with the allocator's history on and says what holds
+    its peak (:func:`holders_at_peak`)."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             clear_history=True)
+    try:
+        step()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak, at, ranked = holders_at_peak(snap["device_traces"][torch.cuda.current_device()])
+    held = "; ".join(f"{size / 2**30:.3f} GiB in {count} blocks from {w}"
+                     for size, count, w in ranked)
+    return (f"{peak / 2**30:.3f} GiB allocated in the step at its peak, reached by an "
+            f"allocation from {at}; live there: {held}")
+
+
+def remat_phase(dataset, chunk, bucket, train_cfg, card: str) -> None:
+    """The training cell (256 x 16, full width) with ``remat`` off and on,
+    the same seeded weights and noise: float32, bfloat16 and bfloat16 with
+    ``fuse_convnext``. On each path the loss terms must repeat bit for bit
+    and every gradient within REMAT_GRAD_REL_TOL of its scale; a step
+    launches the default counts, with ``remat`` the block's forward kernel
+    (#3, and #9 under ``fuse_convnext``) once more a layer for the
+    recompute; the peak memory of one loss and backward and the step time
+    are printed both ways."""
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.tasks.diffusion import DiffusionModel, batch_to_device, draw_loss_noise
+    from arreau_tpu_torch.train.loop import train_step
+    from arreau_tpu_torch.train.optim import AdamW
+
+    dev = torch.device("cuda")
+    L = train_cfg.num_layers
+    batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
+    bf16_cfg = dataclasses.replace(train_cfg, compute_dtype="bfloat16")
+    for label, cfg, fuse, dtype in (("float32", train_cfg, False, "float32"),
+                                    ("bf16", bf16_cfg, False, "bfloat16"),
+                                    ("fuse_convnext bf16", bf16_cfg, True, "bfloat16")):
+        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+                                *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
+                                cfg.diffuse_angles, dev)
+        forward = {"convnext_mlp": L, "spatial_conv": L} if fuse else {"spatial_conv": L}
+        base = {"spatial_conv": L, "basis_h1": 1, "spatial_conv_bwd": L, "basis_mlp_bwd": 1}
+        if fuse:
+            base.update(convnext_mlp=L, convnext_mlp_bwd=L)
+        state, runs = None, {}
+        for remat in (False, True):
+            model = DiffusionModel(dataclasses.replace(cfg, remat=remat), device=dev)
+            if fuse:
+                model.model = fused_convnext_backbone(model)
+            if state is None:
+                model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+                state = {k: v.clone() for k, v in model.model.state_dict().items()}
+            model.model.load_state_dict(state)
+            want = {name: n + (forward.get(name, 0) if remat else 0) for name, n in base.items()}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            reset_launch_counts()
+            loss, metrics = model.loss(batch, noise)
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = launch_counts()
+            want = {name: want.get(name, 0) for name in counts}
+            if counts != want:
+                raise RuntimeError(f"a {label} step with remat={remat} launched {counts}, not {want}")
+            grads = {n: p.grad.detach().clone() for n, p in model.model.named_parameters()}
+            metrics = {k: v.item() for k, v in metrics.items()}
+            optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+            reset_launch_counts()
+            step_ms = cuda_ms(lambda: train_step(model, optimizer, None, batch, noise),
+                              runs=REMAT_STEPS)
+            steps = 3 + REMAT_STEPS
+            if launch_counts() != {name: n * steps for name, n in want.items()}:
+                raise RuntimeError(f"{steps} {label} steps with remat={remat} launched "
+                                   f"{launch_counts()}")
+            runs[remat] = (metrics, grads)
+            model.model.zero_grad(set_to_none=True)
+            holders = peak_memory_holders(lambda: model.loss(batch, noise)[0].backward())
+            print(f"{label}, remat {'on' if remat else 'off'}: launches a step "
+                  f"{ {k: v for k, v in want.items() if v} }; peak memory of one loss and "
+                  f"backward {peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} GiB above the "
+                  f"{before / 2**30:.3f} GiB held before it); training step {step_ms:.4f} ms "
+                  f"(CUDA events, {REMAT_STEPS} steps, AdamW included) on {card}")
+            print(f"{label}, remat {'on' if remat else 'off'}: {holders}")
+            del model, optimizer, loss, grads
+        (m_off, g_off), (m_on, g_on) = runs[False], runs[True]
+        if m_on != m_off:
+            raise RuntimeError(f"{label}: the loss terms moved with remat: {m_off} -> {m_on}")
+        bitwise, worst = True, 0.0
+        for name, want_g in g_off.items():
+            got = g_on[name]
+            bitwise = bitwise and torch.equal(got, want_g)
+            scale = want_g.abs().max().item()
+            worst = max(worst, (got - want_g).abs().max().item() / scale if scale else 0.0)
+        print(f"{label}: loss terms bit for bit; {len(g_off)} gradients "
+              f"{'bit for bit' if bitwise else 'not bit for bit'}, worst |on - off| / max |off| "
+              f"{worst:.3e} (tolerance {REMAT_GRAD_REL_TOL[dtype]:g})")
+        if not worst <= REMAT_GRAD_REL_TOL[dtype]:
+            raise RuntimeError(f"{label}: a gradient moved with remat")
+        del runs, noise
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3660,6 +3822,10 @@ def main() -> int:
     # ---------------- the crystal data on disk, without h5py ----------------
     with Phase("HDF5 data"), tempfile.TemporaryDirectory() as tmp:
         hdf5_phase(Path(tmp), card, records)
+
+    # ---------------- per-block rematerialisation ----------------
+    with Phase("remat"):
+        remat_phase(dataset, chunk, bucket, train_cfg, card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@ layout) and writes:
   ``length_stats``, and ``fourier_w``, the time embedding's frequencies as
   the JAX model holds them (``DiffusionModel.fourier_w``, or the meta's own
   ``fourier_w`` where it carries one), so the port never relies on its
-  carried constant for them; and ``readout_bf16_operands`` where
+  own draw for them; ``ori_grid``, the JAX model's S^2 orientation grid
+  (``arreau_tpu/ops/grids.py:cached_grid_s2`` at the config's ``num_ori``,
+  float64), which the port's own draw reproduces only within 2e-9; and
+  ``readout_bf16_operands`` where
   ``--readout_bf16_operands`` is true: the port then computes the readout
   from bfloat16 operands, as a TPU computes the JAX package's float32
   readout at DEFAULT precision (``arreau_tpu_torch/models/ponita.py``). Set
@@ -39,7 +42,7 @@ import os
 
 import numpy as np
 
-from arreau_tpu_torch.cli.generate import parse_bool
+from arreau_tpu_torch.cli.common import parse_bool
 
 
 def parse_args(argv=None):
@@ -76,6 +79,15 @@ def restore_trees(checkpoint_dir: str, tag: str):
     return meta, params_tree, ema_tree, fourier_w
 
 
+def jax_ori_grid(meta: dict) -> np.ndarray:
+    """The JAX model's S^2 grid for the checkpoint's config, ``[num_ori,
+    3]`` float64."""
+    from arreau_tpu.ops.grids import cached_grid_s2
+    from arreau_tpu.tasks.diffusion import DiffusionConfig
+
+    return cached_grid_s2(DiffusionConfig(**meta["config"]).num_ori)
+
+
 def check_tree(meta: dict, tree, fourier_w) -> None:
     """Load ``tree`` into the port's model on the CPU; raises where a
     parameter on either side is not matched."""
@@ -103,6 +115,7 @@ def convert(checkpoint_dir: str, tag: str, out_dir: str, use_ema: bool = True,
     if meta.get("length_stats") is not None:
         out_meta["length_stats"] = meta["length_stats"]
     out_meta["fourier_w"] = [float(w) for w in fourier_w]
+    out_meta["ori_grid"] = jax_ori_grid(meta).tolist()
     if readout_bf16_operands:
         out_meta["readout_bf16_operands"] = True
     written = [os.path.join(out_dir, "meta.json")]

@@ -322,8 +322,8 @@ def test_make_ponita_modes_match_jax(num_ori):
     from tests.test_torch_point_cloud import _inputs
 
     common = dict(hidden_dim=16, basis_dim=8, degree=2, num_layers=2, output_dim_scalar=2)
-    jmodel = j_make_ponita(num_ori, **common, **({"use_pallas": False, "remat": False}
-                                                 if num_ori > 0 else {}))
+    switches = {"use_pallas": False, "remat": False} if num_ori > 0 else {}
+    jmodel = j_make_ponita(num_ori, **common, **switches)
     if num_ori > 0:
         j_in, t_in = _fiber_inputs()
         extra = dict(input_dim_scalar=3, input_dim_vec=1)
@@ -336,7 +336,7 @@ def test_make_ponita_modes_match_jax(num_ori):
         j_in = j_in._replace(pos=j_in.pos.astype(jnp.float32), scalar=j_in.scalar.astype(jnp.float32),
                              vec=j_in.vec.astype(jnp.float32))
         extra = dict(input_dim_scalar=3, input_dim_vec=0)
-    model = make_ponita(num_ori, **common, **extra)
+    model = make_ponita(num_ori, **common, **switches, **extra)
     assert type(model).__name__ == type(jmodel).__name__
     jcfg, cfg = dataclasses.asdict(jmodel.config), dataclasses.asdict(model.config)
     assert all(cfg[k] == v for k, v in jcfg.items() if k in cfg)

@@ -32,7 +32,6 @@ from arreau_tpu_torch.models.ponita import tile_senders
 from arreau_tpu_torch.ops import lattice as tlat
 from arreau_tpu_torch.ops.fourier import default_fourier_weights, gaussian_fourier_features
 from arreau_tpu_torch.ops.grids import (
-    CACHED_GRID_STEPS,
     _repulsion_energy,
     cached_grid_s2,
     euclid_to_spherical,
@@ -41,12 +40,28 @@ from arreau_tpu_torch.ops.grids import (
     uniform_grid_s2,
 )
 from arreau_tpu_torch.ops.pbc import pbc_neighbor_list
+from arreau_tpu_torch.ops.prng import prng_key
 from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 
 # float32 elementwise math in two libraries: a few ulps apart
 F32_ELEMENTWISE = dict(rtol=1e-5, atol=1e-6)
 # float32 sums in another order (matmuls over up to a few hundred terms)
 F32_SUMS = dict(rtol=1e-4, atol=1e-5)
+
+# The JAX package's Fourier frequencies for seed 1234 in float32 mode, as
+# the port carried them before it drew them itself
+# fmt: off
+FOURIER_W_SEED_1234 = [
+    17.649625778198242, 13.808996200561523, -5.418918132781982, 16.435932159423828,
+    -17.17728614807129, 5.269970417022705, 12.13134479522705, -4.809208393096924,
+    -5.932690143585205, 9.379473686218262, 14.142539978027344, -20.535463333129883,
+    4.335996627807617, 28.368101119995117, -19.76193618774414, -29.899629592895508,
+    -1.8110772371292114, 1.9699349403381348, 2.2411656379699707, 11.698942184448242,
+    31.981868743896484, 0.5024392604827881, 6.7659406661987305, 7.638636589050293,
+    0.6557573080062866, -19.148454666137695, 12.527305603027344, 22.05316925048828,
+    -3.3436496257781982, 4.077895164489746, 9.722626686096191, 24.921707153320312,
+]
+# fmt: on
 
 
 def t32(a):
@@ -129,13 +144,13 @@ def test_carried_grid_equals_jax_grid(n):
 
 
 def test_grid_of_unsupported_size_raises():
-    """A size with no carried grid no longer raises: it gets the port's own
-    grid, ``uniform_grid_s2`` seeded 0 over ``CACHED_GRID_STEPS`` steps
-    (not the JAX package's draw)."""
+    """A size with no carried grid (12) raises nothing: it gets
+    ``uniform_grid_s2`` on the JAX package's seed-0 key (held against the
+    JAX package's grid in ``tests/test_torch_prng.py``)."""
     grid = cached_grid_s2(12)
     assert grid.shape == (12, 3) and grid.dtype == np.float64
     np.testing.assert_allclose(np.linalg.norm(grid, axis=-1), 1.0, rtol=0, atol=1e-12)
-    np.testing.assert_array_equal(grid, uniform_grid_s2(12, steps=CACHED_GRID_STEPS).numpy())
+    np.testing.assert_array_equal(grid, uniform_grid_s2(12, prng_key(0, x64=True)).numpy())
 
 
 def _jax_grid_draws(n, steps=100, seed=0):
@@ -168,12 +183,9 @@ def test_uniform_grid_s2_with_jax_draws_is_jax_grid(n):
 
 
 def test_seeded_grid_repulsion_energy_near_jax():
-    """The port's own seeded grid of 12 points is as uniform as JAX's: its
-    repulsion energy within 1% of the JAX grid's. The 1% holds because
-    ``cached_grid_s2`` runs ``CACHED_GRID_STEPS = 300`` SGD steps: after the
-    JAX package's 100 the 12-point energy still spreads 2.5% from seed to
-    seed (1.21% from JAX's for seed 0), so lowering the constant breaks
-    this bound, not the port."""
+    """The port's seeded grid of 12 points is the JAX package's: their
+    repulsion energies agree within 1e-12 relative, and each package's
+    energy function gives the same value on the port's grid."""
     from arreau_tpu.ops.grids import _repulsion_energy as j_energy
     from arreau_tpu.ops.grids import euclid_to_spherical as j_e2s
 
@@ -182,7 +194,7 @@ def test_seeded_grid_repulsion_energy_near_jax():
         got_jax = float(j_energy(j_e2s(jnp.asarray(cached_grid_s2(12))), 12))
     got = float(_repulsion_energy(euclid_to_spherical(torch.tensor(cached_grid_s2(12))), 12))
     assert got == pytest.approx(got_jax, rel=1e-12)
-    assert abs(got - want) <= 0.01 * want
+    assert got == pytest.approx(want, rel=1e-12)
 
 
 def test_spherical_helpers_match_jax():
@@ -259,14 +271,16 @@ def test_lattice_utilities_match_jax(name):
 
 
 def test_carried_fourier_weights_equal_jax_default_draw():
-    """The carried frequencies are the JAX package's float32-mode draw for
-    the default seed, bit for bit (the tests run JAX in x64 mode, where the
-    same key draws other numbers)."""
+    """The frequencies the port carried for the default seed are the JAX
+    package's float32-mode draw, and the port's own draw gives them, bit for
+    bit (the tests run JAX in x64 mode, where the same key draws other
+    numbers). Another seed draws JAX's numbers too, where it raised before."""
     with jax.enable_x64(False):
         want = np.asarray(make_fourier_weights(jax.random.PRNGKey(1234), 32, 16.0))
+        want7 = np.asarray(make_fourier_weights(jax.random.PRNGKey(7), 32, 16.0))
+    np.testing.assert_array_equal(np.float32(FOURIER_W_SEED_1234), want)
     np.testing.assert_array_equal(default_fourier_weights(1234, 32).numpy(), want)
-    with pytest.raises(ValueError):
-        default_fourier_weights(7, 32)
+    np.testing.assert_array_equal(default_fourier_weights(7, 32).numpy(), want7)
 
 
 def test_gaussian_fourier_features_match_jax():

@@ -298,19 +298,22 @@ def test_dp_step_matches_jax_whole_batch_and_one_process(runs, branch):
             _close(r[what], one[what], what)
 
 
-@pytest.mark.parametrize("case", ["kernel", "plain", "fuse_convnext"])
+@pytest.mark.parametrize("case", ["kernel", "plain", "fuse_convnext", "remat"])
 def test_dp_tp_step_matches_one_process(runs, case):
     """Data 2 x model 2 (ranks 0-3 at (0,0), (0,1), (1,0), (1,1)): every
     split weight holds half of its split dimension on each rank; the loss
     (rtol STEP_RTOL), every gradient, parameter and EMA shadow after the
     step (within STEP_RTOL of its scale, gathered whole) equal the
     one-process step's. ``fuse_convnext`` runs #9/#10's plain versions on
-    gathered weights (compute type float32)."""
+    gathered weights (compute type float32); ``remat`` runs each block's
+    forward, its collectives included, again in the backward."""
     out = runs["out"]
     ranks = [torch.load(out / f"tp_{case}_rank{r}.pt", weights_only=False) for r in range(4)]
     config, fuse = {**runs["inputs"]["config"], "use_pallas": case != "plain"}, False
     if case == "fuse_convnext":
         config, fuse = {**config, "compute_dtype": "float32"}, True
+    if case == "remat":
+        config = {**config, "remat": True}
     one = diffusion_step(runs["inputs"], Mesh(), config, fuse)
     for rank, r in enumerate(ranks):
         assert r["mesh"] == [2, 2, rank // 2, rank % 2]

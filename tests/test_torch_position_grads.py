@@ -189,9 +189,9 @@ def _jax_position_grad(host, fuse_fiber, seed):
     return params, np.asarray(jax.jit(jax.grad(scalar))(pos)), nl
 
 
-def _port_position_grad(host, params, nl, **cfg):
+def _port_position_grad(host, params, nl, remat=False, **cfg):
     model = PonitaFiberBundle(PonitaConfig(input_dim_scalar=3, input_dim_vec=1, **CFG,
-                                           position_grads=True, **cfg))
+                                           position_grads=True, remat=remat, **cfg))
     params_from_jax(model, params)
     src, image, mask = (torch.tensor(np.asarray(a)) for a in (nl.src, nl.image, nl.mask))
     pos = torch.tensor(host["pos"], requires_grad=True)

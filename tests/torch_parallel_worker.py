@@ -10,7 +10,8 @@ results there; it imports no JAX (the test holds the results against the
 JAX package). Scenarios: ``dp`` (a 2-rank diffusion step, kernel and plain
 branch), ``nbody`` (a 2-rank N-body step), ``generate`` (the generate CLI
 with ``--data_parallel``), ``tp`` (a data 2 x model 2 step on the kernel
-branch, the plain branch and ``fuse_convnext``), ``train_cli`` (the
+branch, the plain branch, ``fuse_convnext`` and the kernel branch with
+``remat``), ``train_cli`` (the
 training CLI at data 2 x model 2, recording which rank wrote what under the
 checkpoint directory), ``task_clis`` (the four backbone tasks' training
 CLIs, data-parallel).
@@ -100,7 +101,8 @@ def run_tp(out: Path, rank: int) -> None:
     inputs = torch.load(out / "dp_inputs.pt", weights_only=False)
     mesh = make_mesh(model_size=2)
     cases = {"kernel": ({"use_pallas": True}, False), "plain": ({"use_pallas": False}, False),
-             "fuse_convnext": ({"use_pallas": True, "compute_dtype": "float32"}, True)}
+             "fuse_convnext": ({"use_pallas": True, "compute_dtype": "float32"}, True),
+             "remat": ({"use_pallas": True, "remat": True}, False)}
     for name, (config, fuse_convnext) in cases.items():
         result = diffusion_step(inputs, mesh, {**inputs["config"], **config}, fuse_convnext)
         torch.save(result, out / f"tp_{name}_rank{rank}.pt")
