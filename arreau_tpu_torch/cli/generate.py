@@ -21,11 +21,14 @@ every ``--snapshot_every`` steps (the dense chain only), renders them under
 ``sampling_steps/`` and writes ``sampling.gif``; ``--visualize`` renders the
 first four crystals (``crystal_{i}.png``); ``--show_bonds`` draws bonds in
 both. The renders need matplotlib and PIL (``inference/visualize.py``),
-checked before any sampling.
+checked before any sampling. ``--seed`` gives the JAX CLI's crystals:
+the key ``PRNGKey(seed)``, split once per batch, and every draw of the
+sampler taken from it as the JAX sampler takes it (``tasks/diffusion.py``);
+the per-crystal atom counts come from numpy's generator, as in the JAX CLI.
 
 ``--data_parallel`` (the default) under torchrun samples every batch over
 the ranks (``parallel/mesh.py``): each rank draws the whole batch's noise
-from the shared seed and samples its rows ``r::n``; rank 0 gathers the
+from the shared key and samples its rows ``r::n``; rank 0 gathers the
 crystals and alone writes and prints. A batch the ranks do not divide is
 sampled whole on every rank (the JAX CLI's message). One process with more
 than one visible card raises: the port runs a process per card.
@@ -54,6 +57,7 @@ from arreau_tpu_torch.data.atoms import AtomicNumberTable
 from arreau_tpu_torch.data.crystal import CrystalDataset
 from arreau_tpu_torch.inference.io import concat_results, from_dense_batch, save_sample_results
 from arreau_tpu_torch.interop.from_jax import load_params_npz, params_from_jax
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.parallel.mesh import (
     Mesh,
     gather_rows,
@@ -251,21 +255,22 @@ def main(argv=None):
     if args.gif and strided:
         say("gif snapshots are not supported with --sample_steps; disabling gif")
         args.gif = False
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    key = prng.prng_key(args.seed)  # the JAX CLI's key chain: one split per batch
     results = []
     snapshots = None
     remaining = args.num_crystals
     t_gen0, n_timed = None, 0  # the throughput clock starts after the first batch
     local_batch = args.batch_size // mesh.data_size
     while remaining > 0:
+        key, sub = prng.split(key)
         num_atoms = draw_counts() if draw_counts is not None else None
         gif = args.gif and remaining <= args.batch_size
         kwargs = dict(constant_atoms=None if constant_atoms is None
                       else shard_rows(constant_atoms, mesh),
                       length_bounds=length_bounds, type_temperature=args.type_temperature,
                       num_atoms=None if num_atoms is None else shard_rows(num_atoms, mesh),
-                      # the whole batch's noise from the shared generator, this rank's rows
-                      noise=model.draw_noise(generator, args.batch_size, args.num_atoms_per_sample,
+                      # the whole batch's noise from the shared key, this rank's rows
+                      noise=model.draw_noise(sub, args.batch_size, args.num_atoms_per_sample,
                                              None if gif else args.sample_steps).rows(mesh))
         if gif:
             # the last batch: the dense chain with snapshots for the GIF

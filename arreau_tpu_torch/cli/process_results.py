@@ -7,7 +7,10 @@ soft-sphere relaxation (``inference/relax.py``) on ``--device`` (default
 ``cuda``; it never falls back to the CPU) and writes
 ``crystals_relaxed.h5`` beside it (or ``--out_path``); ``--visualize``
 renders the first four relaxed crystals to ``relaxed_{i}.png`` beside the
-output file (matplotlib and PIL, checked before any work).
+output file (matplotlib and PIL, checked before any work). ``--use_mace``
+relaxes each crystal with MACE and ASE's BFGS instead (``--mace_model``,
+``--fmax``, ``--steps``; ``inference/relax.py:relax_with_mace``) and writes
+the same file, as the JAX CLI does.
 
     python -m arreau_tpu_torch.cli.process_results --in_path out/crystals.h5
 """
@@ -22,7 +25,7 @@ import torch
 
 from arreau_tpu_torch.cli.common import parse_bool
 from arreau_tpu_torch.inference.io import SampleResult, load_sample_results, save_sample_results
-from arreau_tpu_torch.inference.relax import relax_soft_sphere
+from arreau_tpu_torch.inference.relax import relax_soft_sphere, relax_with_mace
 
 
 def parse_args(argv=None):
@@ -37,7 +40,7 @@ def parse_args(argv=None):
     p.add_argument("--visualize", type=parse_bool, default=False,
                    help="render the first four relaxed crystals (matplotlib, PIL)")
     p.add_argument("--use_mace", type=parse_bool, default=False,
-                   help="not ported: needs the mace-torch and ase packages")
+                   help="relax with MACE + ASE BFGS (needs the mace-torch and ase packages)")
     p.add_argument("--mace_model", type=str, default=None,
                    help="local MACE .model path (None = downloadable MACE-MP "
                         "foundation model); only with --use_mace")
@@ -61,8 +64,17 @@ def densify(result: SampleResult) -> tuple[np.ndarray, np.ndarray]:
 def main(argv=None):
     args = parse_args(argv)
     if args.use_mace:
-        raise NotImplementedError("--use_mace needs the mace-torch and ase packages, which the "
-                                  "port does not carry")
+        # MACE-MP + ASE BFGS per crystal on --device, as the JAX CLI; raises
+        # ImportError where mace-torch or ase is missing
+        result = load_sample_results(args.in_path)
+        out, energies = relax_with_mace(result, model_path=args.mace_model, fmax=args.fmax,
+                                        max_steps=args.steps, device=args.device)
+        print(f"MACE-relaxed {result.num_crystals} crystals: mean final energy "
+              f"{energies.mean():.4f} eV")
+        out_path = args.out_path or os.path.splitext(args.in_path)[0] + "_relaxed.h5"
+        save_sample_results(out_path, out)
+        print(f"saved {out_path}")
+        return out
     if args.visualize:
         from arreau_tpu_torch.inference.visualize import require_renderers
 

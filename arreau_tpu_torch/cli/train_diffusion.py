@@ -11,7 +11,12 @@ test pass with the best checkpoint. Runs on ``--device`` (default
 --checkpoint_dir <checkpoint_dir> --tag best`` samples from one (its EMA
 weights when ``--ema`` kept them). Batches are collated and copied to the
 device in a thread, two ahead of the step (``utils.prefetch_to_device``);
-the noise is drawn on the main thread. ``--log`` logs to wandb where it
+the noise is drawn on the main thread. ``--seed`` gives the JAX CLI's
+random streams: the key ``PRNGKey(seed)`` split into the chain key and the
+init key (the parameters Flax's ``model.init`` draws), one split a training
+step (the step's key, and under ``--train_augm`` the rotation key split off
+it) and one a validation or test batch, every draw taken from its key as
+the JAX loss takes it (``tasks/diffusion.py``). ``--log`` logs to wandb where it
 imports (else stdout only, as the JAX CLI); ``--profiler torch`` writes a
 ``torch.profiler`` Chrome trace of the first timed epoch (epoch 1) under
 ``profile_results/``.
@@ -60,11 +65,10 @@ from arreau_tpu_torch.data.crystal import (
     random_split,
 )
 from arreau_tpu_torch.data.synthetic import synthetic_packed
-from arreau_tpu_torch.ops.lattice import rotations_from_normals
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.parallel.mesh import (
     make_mesh,
     maybe_initialize_distributed,
-    shard_rows,
     shard_state,
 )
 from arreau_tpu_torch.tasks.diffusion import (
@@ -270,8 +274,8 @@ def main(argv=None):
     }
     steps_per_epoch = max(loaders["train"].num_batches(), 1)
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    model.init(generator, batch_to_device(next(iter(loaders["train"])), device))
+    key, init_key = prng.split(prng.prng_key(args.seed))
+    model.init(init_key, batch_to_device(next(iter(loaders["train"])), device))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)  # before the optimizer and the EMA: they follow the shards
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -293,10 +297,11 @@ def main(argv=None):
         step = ckpt.restore("last", model, optimizer, ema)
         say(f"resumed from {ckpt.path('last')} at step {step}")
 
-    def noise_for(batch):
-        """The global batch's noise (every rank draws it), this rank's rows."""
+    def noise_for(batch, k):
+        """The global batch's noise from the key ``k`` (every rank draws
+        it), this rank's rows."""
         B, A = batch.atom_types.shape
-        return draw_loss_noise(generator, B * mesh.data_size, A, cfg.num_atomic_states,
+        return draw_loss_noise(k, B * mesh.data_size, A, cfg.num_atomic_states,
                                cfg.num_timesteps, cfg.diffuse_angles, device,
                                timestep=fixed_t).rows(mesh)
 
@@ -306,9 +311,11 @@ def main(argv=None):
         return prefetch_to_device(loaders[split], batch_to_device, device, depth=2)
 
     def evaluate(split: str) -> dict:
+        nonlocal key
         pending = []
         for batch in device_batches(split):
-            pending.append(eval_step(model, batch, noise_for(batch), ema=ema))
+            key, k_eval = prng.split(key)
+            pending.append(eval_step(model, batch, noise_for(batch, k_eval), ema=ema))
         acc = MeanMetrics()
         for m in gather_metrics(pending):
             weighted_update(acc, m)
@@ -342,11 +349,11 @@ def main(argv=None):
         pending = []
         t_loop = time.perf_counter()
         for batch in device_batches("train"):
+            key, k_step = prng.split(key)
             if args.train_augm:
-                normals = torch.randn((batch.lattice.shape[0] * mesh.data_size, 4),
-                                      generator=generator, device=device)
-                batch = rotate_batch(rotations_from_normals(shard_rows(normals, mesh)), batch)
-            pending.append(train_step(model, optimizer, ema, batch, noise_for(batch)))
+                k_step, k_rot = prng.split(k_step)
+                batch = rotate_batch(k_rot, batch, mesh)
+            pending.append(train_step(model, optimizer, ema, batch, noise_for(batch, k_step)))
             global_step += 1
             if first:
                 if device.type == "cuda":

@@ -38,6 +38,7 @@ from arreau_tpu_torch.data.molecules import (
     load_rmd17_npz,
     synthetic_molecules,
 )
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so3_matrix
 from arreau_tpu_torch.parallel.mesh import data_mean, shard_batch, shard_rows, shard_state
 from arreau_tpu_torch.tasks.md17 import (
@@ -145,8 +146,9 @@ def main(argv=None):
             chunk = torch.as_tensor(order[s:s + bs], device=device)
             yield MD17Batch(*(a[chunk] for a in on_device))
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    model.init(generator, next(batches(tr, False)))
+    # a key chain from the seed; the JAX CLI's own chain is not followed yet
+    key, init_key = prng.split(prng.prng_key(args.seed))
+    model.init(init_key, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)
     steps_per_epoch = max(len(tr) // bs, 1)
@@ -172,7 +174,8 @@ def main(argv=None):
         t_loop = time.perf_counter()
         for batch in batches(tr, True):
             if args.train_augm:
-                batch = rotate_md17_batch(random_so3_matrix(generator, (bs,)), batch)
+                key, k_rot = prng.split(key)
+                batch = rotate_md17_batch(random_so3_matrix(k_rot, (bs,), device=device), batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:
@@ -216,7 +219,8 @@ def main(argv=None):
     e_maes, f_maes = [], []
     with ema.swapped_in(model.model), torch.no_grad():
         for batch in batches(te, False):
-            rotations = random_so3_matrix(generator, (args.repeats, bs))
+            key, k_rot = prng.split(key)
+            rotations = random_so3_matrix(k_rot, (args.repeats, bs), device=device)
             results = model.test_repeats(shard_batch(batch, mesh), shard_rows(rotations, mesh, 1))
             # [repeats, 2] energy and force MAEs, averaged over equal shards
             maes = data_mean({"mae": torch.stack([torch.stack(r) for r in results])}, mesh)["mae"]

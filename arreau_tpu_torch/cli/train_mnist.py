@@ -32,6 +32,7 @@ import torch
 
 from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
 from arreau_tpu_torch.data.mnist import load_mnist_superpixels, synthetic_superpixels
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so2_matrix
 from arreau_tpu_torch.parallel.mesh import shard_batch, shard_state
 from arreau_tpu_torch.tasks.mnist import (
@@ -130,8 +131,9 @@ def main(argv=None):
             chunk = torch.as_tensor(idx[s:s + bs], device=device)
             yield Mnist2DBatch(*(a[chunk] for a in ex))
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    model.init(generator, next(batches("train", False)))
+    # a key chain from the seed; the JAX CLI's own chain is not followed yet
+    key, init_key = prng.split(prng.prng_key(args.seed))
+    model.init(init_key, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)
     steps_per_epoch = max(len(data["train"].label) // bs, 1)
@@ -164,7 +166,9 @@ def main(argv=None):
         t_loop = time.perf_counter()
         for batch in batches("train", True):
             if args.train_augm:
-                batch = rotate_mnist_batch(random_so2_matrix(generator, (len(batch.pos),)), batch)
+                key, k_rot = prng.split(key)
+                batch = rotate_mnist_batch(random_so2_matrix(k_rot, (len(batch.pos),), device=device),
+                                          batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:

@@ -41,6 +41,7 @@ from arreau_tpu_torch.cli.common import (
 )
 from arreau_tpu_torch.data.nbody import load_or_generate
 from arreau_tpu_torch.models.egnn import EGNNConfig, EGNNNBody
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so3_matrix
 from arreau_tpu_torch.parallel.mesh import main_first, shard_batch, shard_state
 from arreau_tpu_torch.tasks.nbody import (
@@ -137,8 +138,9 @@ def main(argv=None):
             chunk = torch.as_tensor(idx[s:s + bs], device=device)
             yield NBodyBatch(*(a[chunk] for a in arrays))
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    model.init(generator, next(batches("train", False)))
+    # a key chain from the seed; the JAX CLI's own chain is not followed yet
+    key, init_key = prng.split(prng.prng_key(args.seed))
+    model.init(init_key, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)
     steps_per_epoch = max(len(splits["train"][0]) // bs, 1)
@@ -171,7 +173,9 @@ def main(argv=None):
         t_loop = time.perf_counter()
         for batch in batches("train", True):
             if args.train_augm:
-                batch = rotate_nbody_batch(random_so3_matrix(generator, (len(batch.pos),)), batch)
+                key, k_rot = prng.split(key)
+                batch = rotate_nbody_batch(random_so3_matrix(k_rot, (len(batch.pos),), device=device),
+                                          batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:

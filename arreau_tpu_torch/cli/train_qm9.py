@@ -30,6 +30,7 @@ import torch
 
 from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
 from arreau_tpu_torch.data.molecules import dimenet_split, load_qm9_xyz_dir, synthetic_molecules
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so3_matrix
 from arreau_tpu_torch.parallel.mesh import shard_batch, shard_state
 from arreau_tpu_torch.tasks.qm9 import MoleculeBatch, QM9Config, QM9Model, rotate_molecule_batch
@@ -119,8 +120,9 @@ def main(argv=None):
             chunk = torch.as_tensor(order[s:s + bs], device=device)
             yield MoleculeBatch(*(a[chunk] for a in on_device))
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    model.init(generator, next(batches(tr, False)))
+    # a key chain from the seed; the JAX CLI's own chain is not followed yet
+    key, init_key = prng.split(prng.prng_key(args.seed))
+    model.init(init_key, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)
     steps_per_epoch = max(len(tr) // bs, 1)
@@ -153,7 +155,8 @@ def main(argv=None):
         t_loop = time.perf_counter()
         for batch in batches(tr, True):
             if args.train_augm:
-                batch = rotate_molecule_batch(random_so3_matrix(generator, (bs,)), batch)
+                key, k_rot = prng.split(key)
+                batch = rotate_molecule_batch(random_so3_matrix(k_rot, (bs,), device=device), batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:

@@ -15,8 +15,9 @@ every ``--record_every`` steps:
 
 The records go to ``--out`` as JSON. The chain runs on ``--device`` (default
 ``cuda``): on the card each step is one forward through kernels #3 and #8.
-Its random numbers are a :class:`SamplerNoise` drawn from a
-``torch.Generator`` seeded ``--seed``, or handed to :func:`diagnose`.
+Its random numbers are a :class:`SamplerNoise` drawn from the JAX key
+``PRNGKey(--seed)`` as the sampler draws it (the JAX tool's own key chain
+is not followed yet), or handed to :func:`diagnose`.
 
     python -m arreau_tpu_torch.exploration.diagnose_sampler \\
         --checkpoint_dir ckpt --ref synthetic:20000:0 --out out/diag_sampler.json
@@ -41,6 +42,7 @@ from arreau_tpu_torch.diffusion.ve import ve_reverse_step
 from arreau_tpu_torch.diffusion.vp import vp_reverse_given_x0
 from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.inference.quality import lattice_params_np
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.tasks.diffusion import SamplerNoise, _decode_angles_safe, draw_sampler_noise
 
 
@@ -129,8 +131,7 @@ def main(argv=None, noise: Optional[SamplerNoise] = None) -> list:
     model, _, _ = generate.load_model(args.checkpoint_dir, args.tag, False, device)
     cfg = model.config
     if noise is None:
-        noise = draw_sampler_noise(torch.Generator(device=device).manual_seed(args.seed),
-                                   cfg.num_timesteps - 1, args.num_samples,
+        noise = draw_sampler_noise(prng.prng_key(args.seed), cfg.num_timesteps - 1, args.num_samples,
                                    args.num_atoms_per_sample, cfg.num_atomic_states,
                                    "monoclinic", cfg.diffuse_angles, device)
     records, _ = diagnose(model, noise, l0_mean, l0_var, args.record_every)

@@ -37,6 +37,7 @@ from arreau_tpu_torch.data.crystal import (
 )
 from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.exploration import open_device
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.tasks.diffusion import LossNoise, batch_to_device, draw_loss_noise
 
 COMPONENTS = ("loss_coord", "loss_type", "loss_lattice", "loss_angle", "loss")
@@ -86,8 +87,9 @@ def compare_components(ckpt_dir: str, data_dir: str = "datasets/alexandria_hdf5"
                        noises: list[LossNoise] | None = None):
     """(original, rotated): each loss term of ``ckpt_dir``'s ``best`` raw
     weights on the crystal and on its rotation at the pinned timestep,
-    averaged over the same ``n_noise`` draws (``noises``, or drawn from a
-    ``torch.Generator`` seeded 0). The coordinate term is the one a rotation
+    averaged over the same ``n_noise`` draws (``noises``, or drawn from
+    keys split off ``PRNGKey(0)``, one a draw; the JAX tool's own key chain
+    is not followed yet). The coordinate term is the one a rotation
     can change (the type loss cannot see it; the lattice head reads
     rotation-invariant lengths), so it carries the evidence. Prints the
     per-term table with the relative gaps."""
@@ -101,10 +103,9 @@ def compare_components(ckpt_dir: str, data_dir: str = "datasets/alexandria_hdf5"
     ds, _, _, _ = build_equivariance_datasets(data_dir)
     max_atoms = int(ds.packed.num_atoms.max())
     if noises is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-        noises = [draw_loss_noise(generator, 1, max_atoms, cfg.num_atomic_states,
+        noises = [draw_loss_noise(k, 1, max_atoms, cfg.num_atomic_states,
                                   cfg.num_timesteps, cfg.diffuse_angles, device, timestep)
-                  for _ in range(n_noise)]
+                  for k in prng.split(prng.prng_key(0), n_noise)]
     n_noise = len(noises)
 
     def components(idx):

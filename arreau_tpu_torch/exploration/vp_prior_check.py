@@ -12,8 +12,9 @@ tool says so, after the check.
 
     python -m arreau_tpu_torch.exploration.vp_prior_check [--out_dir out/eda]
 
-Every random number comes from a :class:`VPPriorNoise`: drawn from a
-``torch.Generator`` seeded ``--seed``, or handed to :func:`main`. Any
+Every random number comes from a :class:`VPPriorNoise`: drawn from keys
+split off ``PRNGKey(--seed)`` (the JAX tool's own key chain is not followed
+yet), or handed to :func:`main`. Any
 ``--dataset`` but ``synthetic`` reads the Alexandria shards under
 ``--data_dir``.
 """
@@ -32,6 +33,8 @@ from arreau_tpu_torch.data.synthetic import synthetic_packed
 from arreau_tpu_torch.diffusion.vp import make_vp_schedule, vp_forward
 from arreau_tpu_torch.exploration import open_device
 from arreau_tpu_torch.inference.visualize import plot_lattice, require_renderers
+from arreau_tpu_torch.kernels import threefry
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.lattice import (
     lattice_from_params,
     matrix_to_params,
@@ -52,13 +55,13 @@ class VPPriorNoise:
     angles: torch.Tensor
 
 
-def draw_noise(generator: torch.Generator, num_lattices: int, num_render: int,
-               device) -> VPPriorNoise:
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=device)
-
-    return VPPriorNoise(normal(num_lattices, 3), normal(num_render, 3),
-                        sample_bravais_angles("monoclinic", num_render, generator, device))
+def draw_noise(key, num_lattices: int, num_render: int, device) -> VPPriorNoise:
+    """The check's draws from the JAX key ``key``, one key split off it for
+    each field."""
+    k_forward, k_prior, k_angles = prng.split(np.asarray(key, np.uint32), 3)
+    return VPPriorNoise(threefry.normal(k_forward, (num_lattices, 3), device),
+                        threefry.normal(k_prior, (num_render, 3), device),
+                        sample_bravais_angles(k_angles, "monoclinic", num_render, device))
 
 
 def terminal_marginal(lattices: torch.Tensor, num_timesteps: int, noise: torch.Tensor):
@@ -106,8 +109,7 @@ def main(argv=None, noise: VPPriorNoise | None = None) -> bool:
         packed = CrystalDataset(alexandria_shards(args.data_dir)).packed
     lattices = torch.as_tensor(packed.lattices, dtype=torch.float32, device=device)
     if noise is None:
-        noise = draw_noise(torch.Generator(device=device).manual_seed(args.seed), len(lattices),
-                           args.num_render, device)
+        noise = draw_noise(prng.prng_key(args.seed), len(lattices), args.num_render, device)
 
     h_T, mu, sd, abar_T = terminal_marginal(lattices, args.num_timesteps, noise.forward)
     m, s = float(h_T.mean()), float(h_T.std(correction=0))

@@ -11,16 +11,16 @@ the program with torch and an importable ``arreau_tpu_torch.kernels``
 (which registers the operators and, at the first launch, builds the
 kernel library): no checkpoint and no Python model definition.
 
-A ``torch.Generator`` cannot live inside a program, so the program takes
-the sampler's random numbers as inputs: the fields of
+The sampler's random numbers are drawn outside the program, which takes
+them as inputs: the fields of
 :class:`~arreau_tpu_torch.tasks.diffusion.SamplerNoise` named in the
 sidecar's ``inputs`` (``angles`` only without ``diffuse_angles``), and
 with ``variable_num_atoms`` the per-crystal counts ``num_atoms int64[B]``
 last. It returns ``(frac_x [B, A, 3], atom_types [B, A], lattice [B, 3,
 3])``. :func:`load_exported` wraps it into ``call(seed[, num_atoms])``,
-which draws the noise as :meth:`DiffusionModel.sample` draws it from
-``torch.Generator(device).manual_seed(seed)``, so that ``call(seed)``
-gives that call's crystals.
+which draws the noise as :meth:`DiffusionModel.sample` draws it from the
+JAX key ``PRNGKey(seed)`` (the JAX export's ``sample_fn(seed)``), so that
+``call(seed)`` gives the crystals of ``sample`` with that key.
 
 Artifact layout: ``<out>`` holds the program (``torch.export.save``) and
 ``<out>.json`` a sidecar with the JAX export's keys (the calling
@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 import arreau_tpu_torch.kernels  # noqa: F401  (registers the operators a loaded program calls)
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.tasks.diffusion import SamplerNoise, draw_sampler_noise, strided_levels
 
 NOISE_FIELDS = ("ang_enc0", "lengths0", "frac0", "lattice", "angle", "pos", "types")
@@ -106,8 +107,8 @@ def export_sampler(
     B, A = batch_size, num_atoms_per_sample
     S = noise_steps(cfg.num_timesteps, sample_steps)
     inputs = NOISE_FIELDS + (() if cfg.diffuse_angles else ("angles",))
-    example = draw_sampler_noise(torch.Generator(device=dev).manual_seed(0), S, B, A,
-                                 cfg.num_atomic_states, LATTICE_TYPE, cfg.diffuse_angles, dev)
+    example = draw_sampler_noise(prng.prng_key(0), S, B, A, cfg.num_atomic_states,
+                                 LATTICE_TYPE, cfg.diffuse_angles, dev)
     args = [getattr(example, name) for name in inputs]
     if variable_num_atoms:
         inputs += ("num_atoms",)
@@ -133,7 +134,7 @@ def export_sampler(
             "registers the kernels' operators; the first CUDA launch builds libkernels.so), "
             "no checkpoint or model code needed; arreau_tpu_torch.inference.export."
             "load_exported(path) gives call(seed[, num_atoms]), the noise drawn from "
-            "torch.Generator(device).manual_seed(seed)"),
+            "the JAX key PRNGKey(seed) as the JAX sampler draws it"),
         "variable_num_atoms": variable_num_atoms,
         "batch_size": B,
         "num_atoms_per_sample": A,
@@ -160,9 +161,9 @@ def export_sampler(
 
 def load_exported(path: str):
     """Load an exported sampler; returns ``(call, sidecar)``. ``call(seed[,
-    num_atoms])`` draws the program's noise from
-    ``torch.Generator(device).manual_seed(seed)`` on the program's device and
-    returns ``(frac_x, atom_types, lattice)`` there."""
+    num_atoms])`` draws the program's noise from the JAX key
+    ``PRNGKey(seed)`` on the program's device and returns ``(frac_x,
+    atom_types, lattice)`` there."""
     with open(path + ".json") as f:
         sidecar = json.load(f)
     program = torch.export.load(path).module()
@@ -173,7 +174,7 @@ def load_exported(path: str):
         if (num_atoms is None) == sidecar["variable_num_atoms"]:
             raise ValueError("pass num_atoms exactly when the program was exported with "
                              "variable_num_atoms")
-        noise = draw_sampler_noise(torch.Generator(device=device).manual_seed(int(seed)),
+        noise = draw_sampler_noise(prng.prng_key(int(seed)),
                                    sidecar["noise_steps"], B, A, sidecar["num_atomic_states"],
                                    sidecar["lattice_type"], sidecar["diffuse_angles"], device)
         args = [getattr(noise, name) for name in sidecar["inputs"] if name != "num_atoms"]

@@ -6,14 +6,17 @@
   min-image offsets, every crystal of the batch at once, on the tensors'
   device. The JAX package's ``fori_loop`` is a plain loop here, its
   ``jax.grad`` ``torch.autograd.grad``.
-- :func:`relax_with_mace`: the MACE force field with ASE's BFGS, which
-  needs the ``mace-torch`` and ``ase`` packages; not ported.
+- :func:`relax_with_mace`: the MACE force field with ASE's BFGS on each
+  crystal, as the JAX package wrote it; it runs where the ``mace-torch``
+  and ``ase`` packages import, and raises ``ImportError`` (the JAX
+  package's message) where they do not.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from arreau_tpu_torch.ops.lattice import frac_to_cart
@@ -72,9 +75,52 @@ def relax_soft_sphere(
 
 def relax_with_mace(result, model_path=None, fmax: float = 0.05, max_steps: int = 100,
                     device: str = "cpu"):
-    """The JAX package's MACE-MP + ASE BFGS relaxation
-    (``arreau_tpu/inference/relax.py:relax_with_mace``): not ported."""
-    raise NotImplementedError(
-        "relax_with_mace needs the mace-torch and ase packages, which the port does not "
-        "carry; use relax_soft_sphere"
-    )
+    """MACE + ASE BFGS relaxation of a ``SampleResult``, the JAX package's
+    ``relax_with_mace``: per crystal an ASE ``Atoms`` of its scaled
+    positions (mod 1), its cell and full periodicity, the MACE calculator
+    (the local ``model_path`` file, or the MACE-MP foundation model when
+    None), BFGS to ``fmax`` in at most ``max_steps`` steps, the relaxed
+    fractional coordinates written back with the lattice held. Returns
+    ``(SampleResult, energies [num_crystals])``."""
+    try:
+        from ase import Atoms
+        from ase.optimize import BFGS
+
+        if model_path is None:
+            from mace.calculators import mace_mp
+
+            calculator = mace_mp(device=device)
+        else:
+            from mace.calculators import MACECalculator
+
+            calculator = MACECalculator(model_paths=model_path, device=device)
+    except ImportError as e:
+        raise ImportError(
+            "relax_with_mace needs the `mace-torch` and `ase` packages (the "
+            "reference's MACE-MP relaxation path). Use relax_soft_sphere for "
+            "the built-in TPU-native relaxation."
+        ) from e
+
+    from arreau_tpu_torch.inference.io import SampleResult
+
+    new_frac = np.array(result.frac_x, dtype=np.float64, copy=True)
+    energies = []
+    for i in range(len(result.num_atoms)):
+        s, n = int(result.idx_start[i]), int(result.num_atoms[i])
+        system = Atoms(
+            numbers=np.asarray(result.atomic_numbers[s : s + n]),
+            scaled_positions=np.asarray(result.frac_x[s : s + n]) % 1.0,
+            cell=np.asarray(result.lattice[i]),
+            pbc=(True, True, True),
+        )
+        system.calc = calculator
+        BFGS(system, logfile=None).run(fmax=fmax, steps=max_steps)
+        new_frac[s : s + n] = system.get_scaled_positions()
+        energies.append(float(system.get_potential_energy()))
+    return SampleResult(
+        frac_x=new_frac,
+        atomic_numbers=np.array(result.atomic_numbers, copy=True),
+        lattice=np.array(result.lattice, copy=True),
+        idx_start=np.array(result.idx_start, copy=True),
+        num_atoms=np.array(result.num_atoms, copy=True),
+    ), np.asarray(energies)

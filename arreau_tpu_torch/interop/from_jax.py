@@ -19,6 +19,11 @@ backbone of every task and of the EGNN baseline:
 ``arreau_tpu/interop/torch_import.py`` documents the same table read the
 other way.) The fixed Fourier frequencies travel beside the tree.
 
+:func:`init_from_key` draws the parameters Flax's ``model.init(key, ...)``
+gives the JAX model of the same configuration (``ops/prng.py``: each
+parameter's key from its scope path and its place in the scope) and loads
+them through the same table.
+
 ``save_params_npz`` / ``load_params_npz`` store a tree as one flat compressed npz with
 ``'/'``-joined keys, in the JAX layout, so either package can read it.
 """
@@ -31,6 +36,11 @@ import numpy as np
 import torch
 
 from arreau_tpu_torch.models.blocks import BasisMLP
+from arreau_tpu_torch.ops import prng
+
+# a parameter's place among its flax scope's ``self.param`` calls: a Dense's
+# (or a conv's) kernel and a LayerNorm's scale come before its bias
+_CREATION_RANK = {"kernel": 0, "scale": 0, "layer_scale": 0, "bias": 1}
 
 
 def _jax_name(torch_name: str) -> tuple[str, bool]:
@@ -87,6 +97,40 @@ def _load(module, tree) -> None:
     if flat:
         raise KeyError(f"JAX tree entries the port has no place for: {sorted(flat)}")
     module.load_state_dict(state, strict=True)
+
+
+def init_from_key(module, key, kernel_scale=lambda path: 1.0,
+                  layer_scale: Optional[float] = None) -> None:
+    """Initialise ``module`` as Flax's ``model.init(key, ...)`` initialises
+    the JAX model: every ``kernel`` by ``variance_scaling(kernel_scale(path),
+    "fan_in", "truncated_normal")`` (``path`` its ``'/'``-joined JAX name),
+    biases zero, LayerNorm scales one, ``layer_scale`` constant. ``key`` is
+    a JAX key (uint32 ``[2]``, ``prng.prng_key(seed)``). Drawn on the host
+    in float32 and loaded by :func:`_load`."""
+    key = np.asarray(key, dtype=np.uint32)
+    shapes = {}
+    for name, param in module.state_dict().items():
+        path, transpose = _jax_name(name)
+        shapes[path] = tuple(param.shape[::-1]) if transpose else tuple(param.shape)
+    scopes: dict = {}
+    for path in shapes:
+        scope, leaf = path.rsplit("/", 1)
+        scopes.setdefault(scope, []).append(_CREATION_RANK[leaf])
+    flat = {}
+    for path, shape in shapes.items():
+        scope, leaf = path.rsplit("/", 1)
+        counter = 1 + sum(r < _CREATION_RANK[leaf] for r in scopes[scope])
+        if leaf == "kernel":
+            k = prng.flax_param_key(key, tuple(scope.split("/")[1:]), counter)
+            fan_in = int(np.prod(shape[:-1]))
+            flat[path] = prng.variance_scaling(k, shape, kernel_scale(path), fan_in)
+        elif leaf == "scale":
+            flat[path] = np.ones(shape, np.float32)
+        elif leaf == "layer_scale":
+            flat[path] = np.full(shape, layer_scale, np.float32)
+        else:
+            flat[path] = np.zeros(shape, np.float32)
+    _load(module, _unflatten(flat))
 
 
 def params_from_jax(model, tree, fourier_w: Optional[np.ndarray] = None) -> None:

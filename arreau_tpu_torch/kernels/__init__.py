@@ -5,7 +5,8 @@ operators under the namespace ``arreau_tpu_torch`` (``spatial_conv``,
 ``basis_h1``, ``fiber_conv``, ``convnext_mlp``, ``fused_basis_mlp``), so
 that a program ``torch.export`` saved can be loaded and run; the kernel
 library is built at the first launch on the card (``build.py``), never at
-import.
+import. ``threefry`` (JAX's random draws) registers no operator: the draws
+run outside an exported program.
 """
 
 from arreau_tpu_torch.kernels import (  # noqa: F401
@@ -15,4 +16,5 @@ from arreau_tpu_torch.kernels import (  # noqa: F401
     fiber_conv,
     fused_basis_mlp,
     spatial_conv,
+    threefry,
 )

@@ -14,7 +14,6 @@ kernel here. Parameter names follow the flax tree (``embed``,
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
@@ -23,8 +22,6 @@ from torch import nn
 
 from arreau_tpu_torch.models.blocks import pin_precision
 
-# jax.nn.initializers' truncated-normal std correction for the [-2, 2] cut
-_TRUNC_STD = 0.87962566103423978
 _COORD_SCALE = 0.001  # variance scale of the coordinate head's init (flax ``coord``)
 
 
@@ -73,16 +70,14 @@ class EGNN(nn.Module):
                                     for _ in range(config.num_layers))
 
     @torch.no_grad()
-    def init_parameters(self, generator: torch.Generator) -> None:
-        """Seeded initialisation with flax's distributions: lecun-normal
+    def init_parameters(self, key) -> None:
+        """The parameters Flax's ``model.init(key, ...)`` gives the JAX
+        package's EGNN (``key`` a JAX key, uint32 ``[2]``): lecun-normal
         Dense kernels (variance scale 0.001 for ``coord``), zero biases."""
-        for name, p in self.named_parameters():
-            if not name.endswith("weight"):
-                p.zero_()
-                continue
-            scale = _COORD_SCALE if name.endswith("coord.weight") else 1.0
-            std = math.sqrt(scale / p.shape[1]) / _TRUNC_STD
-            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+        from arreau_tpu_torch.interop.from_jax import init_from_key
+
+        init_from_key(self, key, lambda path: _COORD_SCALE if path.endswith("/coord/kernel")
+                      else 1.0)
 
     def forward(self, pos, vel, charges):
         B, N, _ = pos.shape
@@ -108,8 +103,8 @@ class EGNNNBody:
         self.device = device
         self.model = EGNN(config).to(device)
 
-    def init(self, generator: torch.Generator, batch=None) -> None:
-        self.model.init_parameters(generator)
+    def init(self, key, batch=None) -> None:
+        self.model.init_parameters(key)
 
     def predict_positions(self, batch) -> torch.Tensor:
         return self.model(batch.pos, batch.vel, batch.charges)

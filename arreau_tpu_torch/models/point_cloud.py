@@ -31,10 +31,10 @@ the flax module creates it in the parent's scope.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,8 +43,6 @@ from arreau_tpu_torch.ops.pbc import NeighborList
 from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 
 _EPS = 1e-8
-# jax.nn.initializers' truncated-normal std correction for the [-2, 2] cut
-_TRUNC_STD = 0.87962566103423978
 
 
 @dataclass(frozen=True)
@@ -194,24 +192,17 @@ class PonitaPointCloud(nn.Module):
             if cfg.multiple_readouts or i == cfg.num_layers - 1})
 
     @torch.no_grad()
-    def init_parameters(self, generator: torch.Generator) -> None:
-        """Seeded initialisation with the JAX package's distributions:
-        lecun-normal Dense kernels, each conv's kernel scaled by
-        ``1/sqrt(expected_degree)``, zero biases, unit LayerNorm scale,
-        constant layer scale."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "weight" and p.dim() == 2:
-                scale = 1.0 / math.sqrt(self.config.expected_degree) if (
-                    name.startswith("convs.") and name.endswith("kernel.weight")) else 1.0
-                std = math.sqrt(scale / p.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
-            elif leaf == "weight":  # LayerNorm scale
-                p.fill_(1.0)
-            elif leaf == "layer_scale":
-                p.fill_(self.config.layer_scale)
-            else:  # biases
-                p.zero_()
+    def init_parameters(self, key) -> None:
+        """The parameters Flax's ``model.init(key, ...)`` gives the JAX
+        package's model of this configuration (``key`` a JAX key, uint32
+        ``[2]``): lecun-normal Dense kernels, each conv's kernel scaled by
+        ``1/sqrt(expected_degree)`` in float32, zero biases, unit LayerNorm
+        scales, constant layer scale."""
+        from arreau_tpu_torch.interop.from_jax import init_from_key
+
+        conv_scale = np.float32(1.0) / np.sqrt(np.float32(self.config.expected_degree))
+        init_from_key(self, key, lambda path: conv_scale if path.startswith("params/conv_")
+                      and path.endswith("/kernel/kernel") else 1.0, self.config.layer_scale)
 
     def forward(self, inputs: PointCloudInputs) -> PointCloudOutputs:
         cfg = self.config

@@ -72,10 +72,10 @@ readout weights under that rounding and is served with it.
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -93,8 +93,6 @@ from arreau_tpu_torch.ops.pbc import NeighborList
 from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 
 _EPS = 1e-8
-# jax.nn.initializers' truncated-normal std correction for the [-2, 2] cut
-_TRUNC_STD = 0.87962566103423978
 COMPUTE_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -262,27 +260,17 @@ class PonitaFiberBundle(nn.Module):
                               cfg.output_dim_edge_scalar) for i in self.readouts})
 
     @torch.no_grad()
-    def init_parameters(self, generator: torch.Generator) -> None:
-        """Seeded initialisation with the JAX package's distributions:
-        lecun-normal Dense kernels, the conv kernel scaled by
-        ``1/sqrt(expected_degree)``, zero biases, constant layer scale."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if name.endswith("conv.kernel"):
-                fan_in, scale = p.shape[0], 1.0 / math.sqrt(self.config.expected_degree)
-            elif leaf == "weight" and p.dim() == 2:
-                fan_in, scale = p.shape[1], 1.0
-            elif leaf == "weight":  # LayerNorm scale
-                p.fill_(1.0)
-                continue
-            elif leaf == "layer_scale":
-                p.fill_(self.config.layer_scale)
-                continue
-            else:  # biases
-                p.zero_()
-                continue
-            std = math.sqrt(scale / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
+    def init_parameters(self, key) -> None:
+        """The parameters Flax's ``model.init(key, ...)`` gives the JAX
+        package's backbone of this configuration (``key`` a JAX key, uint32
+        ``[2]``): lecun-normal Dense kernels, each conv's kernel scaled by
+        ``1/sqrt(expected_degree)`` in float32, zero biases, unit LayerNorm
+        scales, constant layer scale."""
+        from arreau_tpu_torch.interop.from_jax import init_from_key
+
+        conv_scale = np.float32(1.0) / np.sqrt(np.float32(self.config.expected_degree))
+        init_from_key(self, key, lambda path: conv_scale if path.endswith("/conv/kernel") else 1.0,
+                      self.config.layer_scale)
 
     def _readout_product(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``x @ w^T`` in float32: a bfloat16 ``x`` times the float32 weights

@@ -1,5 +1,6 @@
 """Orientation grids on S^2 (repulsion-optimised), the uniform S^1 grid and
-random rotations (SO(3), SO(2)) drawn from a ``torch.Generator``.
+random rotations (SO(3), SO(2)) drawn from a JAX key as the JAX package
+draws them (``kernels/threefry.py``).
 
 The JAX package computes its S^2 grid once per process by a repulsion
 optimisation seeded from ``jax.random`` (``arreau_tpu/ops/grids.py``,
@@ -155,25 +156,31 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
-def random_so3_matrix(generator: torch.Generator, shape: tuple = (),
-                      dtype=torch.float32) -> torch.Tensor:
+def random_so3_matrix(key, shape: tuple = (), dtype=torch.float32,
+                      device="cpu") -> torch.Tensor:
     """Uniform random SO(3) matrices ``[*shape, 3, 3]`` from normalised
-    normal quaternions drawn from ``generator`` (on its device)."""
-    return quat_to_matrix(random_quat(generator, shape, dtype))
+    normal quaternions, JAX's ``random_so3_matrix(key, shape)`` (``key`` a
+    JAX key, uint32 ``[2]``), on ``device``."""
+    return quat_to_matrix(random_quat(key, shape, dtype, device))
 
 
-def random_so2_matrix(generator: torch.Generator, shape: tuple = (),
-                      dtype=torch.float32) -> torch.Tensor:
-    """Uniform random SO(2) matrices ``[*shape, 2, 2]``, the angle drawn
-    from ``generator`` uniform on [0, 2 pi)."""
-    theta = torch.rand(shape, generator=generator, dtype=dtype, device=generator.device)
-    theta = theta * (2 * math.pi)
+def random_so2_matrix(key, shape: tuple = (), dtype=torch.float32,
+                      device="cpu") -> torch.Tensor:
+    """Uniform random SO(2) matrices ``[*shape, 2, 2]``, the angle uniform on
+    [0, 2 pi) drawn from the JAX key ``key`` as JAX's
+    ``random_so2_matrix``, on ``device``."""
+    from arreau_tpu_torch.kernels.threefry import uniform
+
+    theta = uniform(key, shape, device, dtype, 0.0, 2 * math.pi)
     c, s = torch.cos(theta), torch.sin(theta)
     return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
 
 
-def random_quat(generator: torch.Generator, shape: tuple = (), dtype=torch.float32) -> torch.Tensor:
+def random_quat(key, shape: tuple = (), dtype=torch.float32, device="cpu") -> torch.Tensor:
     """Uniform random unit quaternions ``[*shape, 4]`` (w, x, y, z):
-    normalised normals drawn from ``generator`` (on its device)."""
-    q = torch.randn((*shape, 4), generator=generator, dtype=dtype, device=generator.device)
+    normalised normals drawn from the JAX key ``key`` as JAX's
+    ``random_quat``, on ``device``."""
+    from arreau_tpu_torch.kernels.threefry import normal
+
+    q = normal(key, (*shape, 4), device, dtype)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)

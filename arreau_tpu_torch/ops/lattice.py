@@ -8,7 +8,6 @@ Angles are in radians.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -55,23 +54,6 @@ def matrix_to_params(matrix: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     j, k = [1, 2, 0], [2, 0, 1]
     cos = torch.sum(matrix[..., j, :] * matrix[..., k, :], dim=-1) / (lengths[..., j] * lengths[..., k])
     return lengths, torch.arccos(torch.clamp(cos, -1.0, 1.0))
-
-
-def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
-    """Unit quaternions ``[..., 4]`` (w, x, y, z) -> rotations ``[..., 3, 3]``."""
-    w, x, y, z = q.unbind(-1)
-    rows = [
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-    ]
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
-
-
-def rotations_from_normals(normals: torch.Tensor) -> torch.Tensor:
-    """Uniform random rotations ``[..., 3, 3]`` from standard normals
-    ``[..., 4]`` (normalised to unit quaternions)."""
-    return quat_to_matrix(normals / torch.linalg.norm(normals, dim=-1, keepdim=True))
 
 
 def frac_to_cart(frac: torch.Tensor, lattice: torch.Tensor) -> torch.Tensor:
@@ -184,18 +166,19 @@ _BRAVAIS_FIXED = {
 
 
 def sample_bravais_angles(
+    key,
     lattice_type: str,
     batch: int,
-    generator: Optional[torch.Generator] = None,
     device: torch.device | str = "cpu",
 ) -> torch.Tensor:
     """Lattice angles ``[batch, 3]`` in radians for one of the 7 Bravais
-    families, drawn from ``generator`` (same families and ranges as the JAX
-    package; the draws themselves differ, as torch and JAX streams do)."""
+    families: the JAX package's ``sample_bravais_angles(key, lattice_type,
+    batch)``, the same float32 draws from the JAX key ``key`` (uint32
+    ``[2]``), on ``device`` (the threefry kernel on a CUDA device)."""
+    from arreau_tpu_torch.kernels.threefry import uniform as jax_uniform
 
     def uniform(shape, lo, hi):
-        u = torch.rand(shape, generator=generator, device=device)
-        return lo + (hi - lo) * u
+        return jax_uniform(key, shape, device, minval=lo, maxval=hi)
 
     if lattice_type in _BRAVAIS_FIXED:
         deg = torch.tensor(_BRAVAIS_FIXED[lattice_type], device=device)

@@ -5,7 +5,7 @@ and random rotations; counterpart of ``arreau_tpu/ops/rotations.py``.
 Quaternions are (w, x, y, z) unit quaternions; Euler angles are intrinsic
 ZYZ (alpha, beta, gamma). Every function works on any leading shape, on
 any device and in the input's floating type. The random draws take a
-``torch.Generator`` (``ops/grids.py``).
+JAX key (``ops/grids.py``).
 """
 
 from __future__ import annotations

@@ -8,8 +8,12 @@ the weighted sum of the per-modality losses. The sampler runs both chains of
 the JAX package: the dense T-1-step reference chain and the strided
 DDIM-family chain over ``sample_steps`` levels. Every random number the
 loss or the sampler uses is drawn up front into a :class:`LossNoise` or
-:class:`SamplerNoise` (from a ``torch.Generator``), or handed in, so the
-tests can feed the port and the JAX package the same numbers.
+:class:`SamplerNoise`, or handed in. They are drawn from a JAX key (uint32
+``[2]``, ``ops/prng.py:prng_key(seed)``) exactly as the JAX package draws
+them: the key is split as the JAX code splits it, the same number of times
+in the same order, splits whose keys go unused included, and every field is
+``jax.random``'s draw for its key (the threefry kernel on the card,
+``kernels/threefry.py``). One seed gives the JAX package's numbers.
 
 Under data parallelism (``parallel/mesh.py``) a rank holds rows ``r::n``
 of the global batch: its noise is drawn for the global batch and sliced
@@ -51,8 +55,10 @@ from arreau_tpu_torch.diffusion.vp import (
 )
 from arreau_tpu_torch.models.blocks import pin_precision
 from arreau_tpu_torch.models.ponita import FiberBundleInputs, PonitaConfig, PonitaFiberBundle
+from arreau_tpu_torch.kernels import threefry
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.fourier import default_fourier_weights, gaussian_fourier_features
-from arreau_tpu_torch.ops.grids import cached_grid_s2
+from arreau_tpu_torch.ops.grids import cached_grid_s2, random_so3_matrix
 from arreau_tpu_torch.ops.lattice import (
     decode_angles,
     encode_angles,
@@ -97,9 +103,15 @@ def batch_to_device(batch: CrystalBatch, device, non_blocking: bool = False) -> 
                           .to(device=device, non_blocking=True) for a, dt in zip(batch, dtypes)))
 
 
-def rotate_batch(rotations: torch.Tensor, batch: CrystalBatch) -> CrystalBatch:
-    """Rotation augmentation: one rotation ``[B, 3, 3]`` per crystal applied
-    to the lattice rows (rows @ R^T); fractional coordinates stay."""
+def rotate_batch(key, batch: CrystalBatch, mesh=None) -> CrystalBatch:
+    """Rotation augmentation, the JAX package's ``rotate_batch(key,
+    batch)``: one rotation per crystal of the global batch drawn from the
+    JAX key ``key`` (``random_so3_matrix(key, (B,))``), this data rank's
+    rows applied to the lattice rows (rows @ R^T); fractional coordinates
+    stay."""
+    B = batch.lattice.shape[0] * (mesh.data_size if mesh is not None else 1)
+    rotations = shard_rows(random_so3_matrix(key, (B,), batch.lattice.dtype,
+                                             batch.lattice.device), mesh)
     return batch._replace(lattice=torch.einsum("brj,bij->bri", batch.lattice, rotations))
 
 
@@ -204,27 +216,45 @@ class SamplerNoise:
                                                  self.types), (0, 0, 0, 0, 1, 1, 1, 1))))
 
 
-def draw_sampler_noise(generator: torch.Generator, num_steps: int, B: int, A: int, C: int,
-                       lattice_type: str, diffuse_angles: bool, device) -> SamplerNoise:
-    """Draw a :class:`SamplerNoise` in bulk on ``device``."""
+def sampler_step_keys(key, num_steps: int) -> np.ndarray:
+    """uint32 ``[num_steps, 4, 2]``: the keys ``(k_lat, k_pos, k_type,
+    k_ang)`` of each step of the sampler's chain from its loop key, as each
+    step of the JAX sampler splits them off (``key, k_lat, k_pos, k_type,
+    k_ang = split(key, 5)``)."""
+    out = np.empty((num_steps, 4, 2), np.uint32)
+    key = np.asarray(key, np.uint32)
+    for s in range(num_steps):
+        keys = prng.split(key, 5)
+        key, out[s] = keys[0], keys[1:]
+    return out
 
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=device)
 
+def draw_sampler_noise(key, num_steps: int, B: int, A: int, C: int, lattice_type: str,
+                       diffuse_angles: bool, device) -> SamplerNoise:
+    """The :class:`SamplerNoise` the JAX sampler draws from ``key`` (uint32
+    ``[2]``) for ``num_steps`` steps of B crystals of A atoms and C
+    classes, on ``device``: ``k_ang, k_len, k_frac, k_loop = split(key,
+    4)`` for the prior, then each step's keys off ``k_loop``
+    (:func:`sampler_step_keys`); each per-step field of the whole chain is
+    one draw for ``S`` keys. Without ``diffuse_angles`` the JAX sampler
+    leaves the angle keys unused; the angle field is drawn from them all the
+    same (the sampler does not read it; an exported program takes it)."""
+    k_ang, k_len, k_frac, k_loop = prng.split(np.asarray(key, np.uint32), 4)
     if diffuse_angles:
-        angles, ang_enc0 = None, normal(B, 6)
+        angles, ang_enc0 = None, threefry.normal(k_ang, (B, 6), device)
     else:
-        angles = sample_bravais_angles(lattice_type, B, generator, device)
+        angles = sample_bravais_angles(k_ang, lattice_type, B, device)
         ang_enc0 = torch.zeros((B, 6), device=device)
+    steps = sampler_step_keys(k_loop, num_steps)
     return SamplerNoise(
         angles=angles,
         ang_enc0=ang_enc0,
-        lengths0=normal(B, 3),
-        frac0=normal(B, A, 3) * POS_SIGMA_MAX,
-        lattice=normal(num_steps, B, 3),
-        angle=normal(num_steps, B, 6),
-        pos=normal(num_steps, B, A, 3),
-        types=torch.rand((num_steps, B, A, C), generator=generator, device=device),
+        lengths0=threefry.normal(k_len, (B, 3), device),
+        frac0=threefry.normal(k_frac, (B, A, 3), device) * POS_SIGMA_MAX,
+        lattice=threefry.normal(steps[:, 0], (B, 3), device),
+        angle=threefry.normal(steps[:, 3], (B, 6), device),
+        pos=threefry.normal(steps[:, 1], (B, A, 3), device),
+        types=threefry.uniform(steps[:, 2], (B, A, C), device),
     )
 
 
@@ -247,19 +277,24 @@ class LossNoise:
                            for x in (self.t, self.pos, self.types, self.lattice, self.angle)))
 
 
-def draw_loss_noise(generator: torch.Generator, B: int, A: int, C: int, num_timesteps: int,
-                    diffuse_angles: bool, device, timestep: Optional[int] = None) -> LossNoise:
-    """Draw a :class:`LossNoise` on ``device``; ``timestep`` fixes t."""
+def draw_loss_noise(key, B: int, A: int, C: int, num_timesteps: int, diffuse_angles: bool,
+                    device, timestep: Optional[int] = None) -> LossNoise:
+    """The :class:`LossNoise` the JAX package's ``DiffusionModel.loss``
+    draws from ``key`` (uint32 ``[2]``) for B crystals of A atoms and C
+    classes, on ``device``: ``k_t, k_pos, k_type, k_lat, k_ang = split(key,
+    5)``, t from ``randint(k_t, (B,), 1, T + 1)`` unless ``timestep`` fixes
+    it (``k_t`` then goes unused, as in the JAX loss)."""
+    k_t, k_pos, k_type, k_lat, k_ang = prng.split(np.asarray(key, np.uint32), 5)
     if timestep is None:
-        t = torch.randint(1, num_timesteps + 1, (B,), generator=generator, device=device)
+        t = threefry.randint(k_t, (B,), 1, num_timesteps + 1, device)
     else:
         t = torch.full((B,), timestep, dtype=torch.long, device=device)
     return LossNoise(
         t=t,
-        pos=torch.randn((B, A, 3), generator=generator, device=device),
-        types=torch.rand((B, A, C), generator=generator, device=device),
-        lattice=torch.randn((B, 3), generator=generator, device=device),
-        angle=torch.randn((B, 6), generator=generator, device=device) if diffuse_angles else None,
+        pos=threefry.normal(k_pos, (B, A, 3), device),
+        types=threefry.uniform(k_type, (B, A, C), device),
+        lattice=threefry.normal(k_lat, (B, 3), device),
+        angle=threefry.normal(k_ang, (B, 6), device) if diffuse_angles else None,
     )
 
 
@@ -307,11 +342,13 @@ class DiffusionModel:
     # ---------------- init ----------------
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator, batch: CrystalBatch) -> None:
-        """Seeded parameters with the JAX package's init distributions,
-        checked against one forward on ``batch`` at the inputs the JAX
-        package's ``init`` traces (t = 1, lengths 4, right angles)."""
-        self.model.init_parameters(generator)
+    def init(self, key, batch: CrystalBatch) -> None:
+        """The parameters the JAX package's ``model.init(key, batch)`` draws
+        (``key`` a JAX key, uint32 ``[2]``; ``PonitaFiberBundle.
+        init_parameters``), checked against one forward on ``batch`` at the
+        inputs the JAX package's ``init`` traces (t = 1, lengths 4, right
+        angles)."""
+        self.model.init_parameters(key)
         B = batch.frac_x.shape[0]
         dev = self.device
         onehot = F.one_hot(batch.atom_types, self.config.num_atomic_states).to(torch.float32)
@@ -353,14 +390,25 @@ class DiffusionModel:
 
     # ---------------- loss ----------------
 
-    def loss(self, batch: CrystalBatch, noise: LossNoise) -> tuple[torch.Tensor, dict]:
+    def loss(self, batch: CrystalBatch, noise, timestep: Optional[int] = None
+             ) -> tuple[torch.Tensor, dict]:
         """(total, metrics): wrapped fractional-coordinate MSE + D3PM hybrid
         loss + lattice-length MSE (+ encoded-angle MSE with
-        ``diffuse_angles``), weighted by the config. Per-atom means are over
+        ``diffuse_angles``), weighted by the config. ``noise`` is a
+        :class:`LossNoise`, or a JAX key (uint32 ``[2]``) from which the
+        global batch's noise is drawn as the JAX loss draws it
+        (:func:`draw_loss_noise`, ``timestep`` fixing t) and this data
+        rank's rows kept. Per-atom means are over
         real atoms and per-crystal means over real crystals, so padding slots
         and padding crystals weigh nothing; ``num_crystals`` and
         ``num_atoms`` give those counts for exact epoch means. Every metric
         stays a tensor on the device."""
+        if not isinstance(noise, LossNoise):
+            B_, A_ = batch.atom_types.shape
+            data = self.mesh.data_size if self.mesh is not None else 1
+            noise = draw_loss_noise(noise, B_ * data, A_, self.config.num_atomic_states,
+                                    self.config.num_timesteps, self.config.diffuse_angles,
+                                    self.device, timestep=timestep).rows(self.mesh)
         cfg = self.config
         B, A, _ = batch.frac_x.shape
         t = noise.t
@@ -415,28 +463,28 @@ class DiffusionModel:
 
     # ---------------- sampler ----------------
 
-    def draw_noise(self, generator: torch.Generator, num_samples: int, num_atoms_per_sample: int,
+    def draw_noise(self, key, num_samples: int, num_atoms_per_sample: int,
                    sample_steps: Optional[int] = None,
                    lattice_type: str = "monoclinic") -> SamplerNoise:
-        """The :class:`SamplerNoise` :meth:`sample` draws from ``generator``
-        for these arguments (the dense chain's T-1 steps, or the strided
-        chain's)."""
+        """The :class:`SamplerNoise` :meth:`sample` draws from the JAX key
+        ``key`` for these arguments (the dense chain's T-1 steps, or the
+        strided chain's), as the JAX package's ``sample(params, key, ...)``
+        draws it."""
         total = self.config.num_timesteps - 1
         if sample_steps is not None and sample_steps < total:
             num_steps = strided_levels(self.config.num_timesteps, sample_steps).size - 1
         else:
             num_steps = total
-        return draw_sampler_noise(generator, num_steps, num_samples, num_atoms_per_sample,
+        return draw_sampler_noise(key, num_steps, num_samples, num_atoms_per_sample,
                                   self.config.num_atomic_states, lattice_type,
                                   self.config.diffuse_angles, self.device)
 
-    def sample(self, num_samples: int, num_atoms_per_sample: int,
-               generator: Optional[torch.Generator] = None, **kwargs):
-        """Generate ``num_samples`` crystals; keyword arguments as
-        :meth:`_sample_impl` (with ``snapshot_every``, ``(batch, snapshots)``)."""
+    def sample(self, num_samples: int, num_atoms_per_sample: int, key=None, **kwargs):
+        """Generate ``num_samples`` crystals from the JAX key ``key``;
+        keyword arguments as :meth:`_sample_impl` (with ``snapshot_every``,
+        ``(batch, snapshots)``)."""
         with torch.inference_mode():
-            return self._sample_impl(num_samples, num_atoms_per_sample, generator=generator,
-                                     **kwargs)
+            return self._sample_impl(num_samples, num_atoms_per_sample, key=key, **kwargs)
 
     def _sample_impl(
         self,
@@ -449,14 +497,14 @@ class DiffusionModel:
         sample_steps: Optional[int] = None,
         ddim_eta: float = 0.0,
         num_atoms: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
+        key=None,
         noise: Optional[SamplerNoise] = None,
         snapshot_every: Optional[int] = None,
     ):
         """Full reverse diffusion. ``sample_steps`` below ``T-1`` runs the
         strided chain over :func:`strided_levels`, else the dense chain.
         ``noise`` injects every random number; without it they are drawn
-        from ``generator``.
+        from the JAX key ``key`` (:meth:`draw_noise`).
 
         With ``snapshot_every`` (the dense chain only, as the JAX package's)
         returns ``(batch, [(timestep, batch), ...])``: the state after every
@@ -476,7 +524,9 @@ class DiffusionModel:
         ts = strided_levels(cfg.num_timesteps, sample_steps) if strided else None
         num_steps = ts.size - 1 if strided else total
         if noise is None:
-            noise = self.draw_noise(generator, B, A, sample_steps, lattice_type)
+            if key is None:
+                raise ValueError("sample needs a key (prng.prng_key(seed)) or the noise")
+            noise = self.draw_noise(key, B, A, sample_steps, lattice_type)
 
         angles = noise.angles
         frac, lengths, ang_enc = noise.frac0, noise.lengths0, noise.ang_enc0

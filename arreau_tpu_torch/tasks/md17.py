@@ -93,9 +93,10 @@ class MD17Model:
         self.device = device
         self.model = PonitaPointCloud(config.pc_config()).to(device=device, dtype=dtype)
 
-    def init(self, generator: torch.Generator, batch: Optional[MD17Batch] = None) -> None:
-        """Seeded parameters with the JAX package's init distributions."""
-        self.model.init_parameters(generator)
+    def init(self, key, batch: Optional[MD17Batch] = None) -> None:
+        """The parameters the JAX package's ``model.init(key, ...)`` draws
+        (``key`` a JAX key, uint32 ``[2]``)."""
+        self.model.init_parameters(key)
 
     def predict_energy(self, pos: torch.Tensor, batch: MD17Batch) -> torch.Tensor:
         """``[B]`` energies (z-scored units) at ``pos``, the graph built from it."""

@@ -84,9 +84,10 @@ class MnistModel:
         self.model = PonitaFiberBundle(config.ponita_config()).to(device)
         self.ori_grid = uniform_grid_s1(config.num_ori, device=device)
 
-    def init(self, generator: torch.Generator, batch: Optional[Mnist2DBatch] = None) -> None:
-        """Seeded parameters with the JAX package's init distributions."""
-        self.model.init_parameters(generator)
+    def init(self, key, batch: Optional[Mnist2DBatch] = None) -> None:
+        """The parameters the JAX package's ``model.init(key, ...)`` draws
+        (``key`` a JAX key, uint32 ``[2]``)."""
+        self.model.init_parameters(key)
 
     def node_mask(self, batch: Mnist2DBatch) -> torch.Tensor:
         """Sparsify: the valid nodes above the gray threshold, and the first

@@ -85,9 +85,10 @@ class NBodyModel:
         self.ori_grid = torch.as_tensor(cached_grid_s2(config.num_ori), dtype=torch.float32,
                                         device=device)
 
-    def init(self, generator: torch.Generator, batch: Optional[NBodyBatch] = None) -> None:
-        """Seeded parameters with the JAX package's init distributions."""
-        self.model.init_parameters(generator)
+    def init(self, key, batch: Optional[NBodyBatch] = None) -> None:
+        """The parameters the JAX package's ``model.init(key, ...)`` draws
+        (``key`` a JAX key, uint32 ``[2]``)."""
+        self.model.init_parameters(key)
 
     def build_inputs(self, batch: NBodyBatch) -> FiberBundleInputs:
         B, n, _ = batch.pos.shape

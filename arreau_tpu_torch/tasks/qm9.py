@@ -98,9 +98,10 @@ class QM9Model:
         self.device = device
         self.model = PonitaPointCloud(config.pc_config()).to(device=device, dtype=dtype)
 
-    def init(self, generator: torch.Generator, batch: Optional[MoleculeBatch] = None) -> None:
-        """Seeded parameters with the JAX package's init distributions."""
-        self.model.init_parameters(generator)
+    def init(self, key, batch: Optional[MoleculeBatch] = None) -> None:
+        """The parameters the JAX package's ``model.init(key, ...)`` draws
+        (``key`` a JAX key, uint32 ``[2]``)."""
+        self.model.init_parameters(key)
 
     def build_inputs(self, batch: MoleculeBatch) -> PointCloudInputs:
         return point_cloud_inputs(self.model, self.config, batch.pos, batch.one_hot, batch.mask)

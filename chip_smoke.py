@@ -253,6 +253,24 @@ inner launches by name and time.
    under ``fuse_convnext``; #8/#4/#7/#10 unchanged) over the counted and
    the timed steps; the peak memory of one loss and backward and the step
    time (CUDA events, 5 steps), both ways.
+42. jax streams: the threefry kernel (JAX's random bits, uniforms and
+   normals, float32 and bfloat16, for many keys a launch) at the sampler's
+   bulk shape (the flagship's full chain: 999 steps' keys, 128 x 8 atoms,
+   its 9 classes) and at the training shape (256 x 16) against its plain
+   version on the card and ``ops/prng.py``'s numpy: bits and uniforms bit
+   for bit, normals within 3 ulp; its time per launch beside the plain
+   version's and ``torch.rand``/``torch.randn``'s. Then generate ``--seed
+   0`` on the flagship with the JAX TPU run's command (``out/r4/q_ang_on``:
+   500 crystals, 100 x 8, the full chain): the first batch's key split off
+   ``PRNGKey(0)`` and its noise at steps 0 and 998 ``prng.py``'s for JAX's
+   chain, 5 bf16 #3 and 1 bf16 #8 a forward and 7 threefry draws a batch;
+   and how many crystals equal that run's (printed, no gate).
+
+Every sampler and training path also counts the threefry kernel's
+launches apart from the backbone's kernels (the noise is drawn before a
+forward or a step): 7 a sampler batch, 5 a loss with ``diffuse_angles``
+(4 without), checked wherever a phase runs ``sampler_path`` or
+``counted_training``.
 
 The last two lines are the kernels' JSON record (training-shape numbers;
 ``launches`` from the training paths, ``launches_sampler`` from the
@@ -266,7 +284,9 @@ phases 28, 30, 34 and 35; ``spatial_conv`` and ``basis_h1`` with those of
 phases 32 and 33, and those two with #4/#7 with phase 34's; #3/#8/#4/#7
 with ``launches_dp`` and ``launches_tp``, one count a rank, of phases 38
 and 39, and #9/#10 with phase 39's; #3/#8/#4/#7 with ``launches_hdf5``
-from phase 40's shard run) and the result
+from phase 40's shard run; ``threefry`` with the launches of phases 9
+and 4 and of phase 42's full chain, and its time at the sampler's bulk
+shape, each field's in ``fields``) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -288,6 +308,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from arreau_tpu_torch.ops import prng
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, and the dense
 # bfloat16 tensor cores (the bound of the same work in bfloat16)
@@ -327,6 +349,13 @@ OUT = Path(__file__).resolve().parent / "out"
 Q_ANG_S100 = OUT / "r4" / "q_ang_s100"
 QUALITY_REF = "synthetic:20000:0"
 HDF5_STEPS = 10
+# threefry launches: a sampler batch draws its prior (angles or Bravais
+# angles, lengths, coordinates) and its chain's four per-step fields
+# (lattice, angle, coordinate normals, type uniforms) with one launch each;
+# a loss its timesteps' bits, coordinate normals, type uniforms, lattice
+# normals and, with diffuse_angles, angle normals
+SAMPLER_DRAWS = 7
+LOSS_DRAWS = {False: 4, True: 5}
 FLAGSHIP_BATCH, FLAGSHIP_CRYSTALS, FLAGSHIP_STEPS = 100, 500, 100
 # snapshot sampling (the flagship's dense chain, 16 crystals, a snapshot every
 # 10 steps) and the serving export (the flagship's shape, 10 strided steps)
@@ -492,8 +521,21 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Every kernel's count to 0, the threefry kernel's included."""
+    from arreau_tpu_torch.kernels import threefry
+
     for fn in wrappers().values():
         fn.launches = 0
+    threefry.threefry.launches = 0
+
+
+def threefry_launches() -> int:
+    """The threefry kernel's launches since the last reset. It is counted
+    apart from ``kernel_sites()``: the noise is drawn outside the backbone's
+    forwards and steps whose launches those checks hold."""
+    from arreau_tpu_torch.kernels import threefry
+
+    return threefry.threefry.launches
 
 
 class Recorder:
@@ -975,11 +1017,18 @@ def sampler_path(ckpt: Path, out_dir: Path, meta: dict, z_table, card: str,
     wall = time.perf_counter() - t0
     counts = launch_counts()
     T = meta["config"]["num_timesteps"]
-    forwards = math.ceil(CRYSTALS / BATCH) * (len(strided_levels(T, STEPS)) - 1)
-    print(f"forwards {forwards}: launches {counts}")
+    batches = math.ceil(CRYSTALS / BATCH)
+    forwards = batches * (len(strided_levels(T, STEPS)) - 1)
+    draws = threefry_launches()
+    print(f"forwards {forwards}: launches {counts}; threefry {draws} "
+          f"({SAMPLER_DRAWS} a batch of {batches})")
     want = {name: per_forward.get(name, 0) * forwards for name in counts}
     if counts != want:
         raise RuntimeError(f"the sampler path launched {counts}, not {want}")
+    if draws != SAMPLER_DRAWS * batches:
+        raise RuntimeError(f"the sampler path drew through threefry {draws} times, not "
+                           f"{SAMPLER_DRAWS * batches}")
+    counts = {**counts, "threefry": draws}
     crystal_checks(load_sample_results(str(out_dir / "crystals.h5")), z_table, CRYSTALS,
                    ATOMS, generate.length_bounds_from_meta(meta) or (0.0, math.inf))
     print(f"sampler path: {CRYSTALS} crystals in {wall:.2f} s wall, checkpoint load and first "
@@ -1081,6 +1130,208 @@ def flagship_path(out_dir: Path, card: str) -> dict:
     return counts
 
 
+# the JAX package's TPU run of the flagship's full chain (out/r4/queue1.sh,
+# step 4: 500 crystals in batches of 100 x 8, 999 steps, seed 0)
+Q_ANG_ON = OUT / "r4" / "q_ang_on"
+STREAM_ARGS = [
+    "--tag", "best", "--use_ema", "false", "--num_crystals", str(FLAGSHIP_CRYSTALS),
+    "--batch_size", str(FLAGSHIP_BATCH), "--num_atoms_per_sample", str(ATOMS),
+    "--clip_denoised", "false", "--seed", str(SEED), "--device", "cuda",
+]
+STREAM_NORMAL_ULP = 3  # a normal against prng.py's: XLA's erf_inv, fused multiply-adds
+# H100 SXM (NVIDIA's Hopper architecture whitepaper: 132 SMs, each with 64
+# INT32 lanes and four schedulers of one 32-lane instruction a clock; 1.98
+# GHz, at which 132 x 128 x 2 x 1.98e9 is the data sheet's 67 TFLOP/s in
+# float32): shifts and logic on the INT32 lanes, and every instruction,
+# float32 with a fused multiply-add as one, at the issue rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+# the threefry hash's 32-bit operations an element (csrc/threefry.cu), as
+# (shifts and logic, all): 20 rounds of an add, a rotate and a xor, the
+# third key word (one three-input xor), the two words xored, and two key
+# words added before the rounds and after each group of four (12 adds, the
+# group count folded into a three-input add): 42 of 74. Adds may issue on
+# the float pipes (as integer multiply-adds), so only the shifts and logic
+# are bound to the INT32 lanes. A uniform adds a shift and an or, and a
+# subtract, a fused multiply-add and a max; a normal at least ~35 float
+# operations more (log1p's or log's polynomial, erf_inv's 9 terms, products)
+THREEFRY_OPS = {"bits": (42, 74), "uniform": (44, 79), "normal": (44, 114)}
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two float tensors in float32 units in the last place."""
+    a, b = a.float().contiguous().view(torch.int32), b.float().contiguous().view(torch.int32)
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def threefry_records(label: str, keys: np.ndarray, shape: tuple) -> dict:
+    """The threefry kernel for ``keys`` ``[K, 2]`` and ``shape`` against its
+    plain version (on the card) and ``prng.py``'s numpy on the first and
+    last keys: bits, and uniforms and normals in float32 and bfloat16; bits
+    and uniforms bit for bit, normals within STREAM_NORMAL_ULP; then its time
+    per launch beside the plain version's and ``torch.rand``/``torch.randn``
+    of the same shape. Returns the records by label, mode and type."""
+    from arreau_tpu_torch.kernels.threefry import keys_tensor, threefry, threefry_plain
+
+    records = {}
+    kt = keys_tensor(keys, "cuda")
+    for mode, dtype in (("bits", torch.float32), ("uniform", torch.float32),
+                        ("uniform", torch.bfloat16), ("normal", torch.float32),
+                        ("normal", torch.bfloat16)):
+        got = threefry(kt, shape, mode, dtype)
+        plain = threefry_plain(kt, shape, mode, dtype)
+        torch.cuda.synchronize()
+        again = threefry(kt, shape, mode, dtype)
+        np_dt = {torch.float32: np.float32, torch.bfloat16: prng.BF16}[dtype]
+        host = []
+        for row in (0, len(keys) - 1):
+            if mode == "bits":
+                host.append(torch.from_numpy(prng.random_bits(keys[row], 32, shape).astype(np.int64)))
+            else:
+                draw = prng.uniform if mode == "uniform" else prng.normal
+                host.append(torch.from_numpy(draw(keys[row], shape, np_dt)))
+        name = f"{label} {mode} {str(dtype).removeprefix('torch.')}"
+        gap_plain = ulp_gap(got, plain) if mode != "bits" else int(not torch.equal(got, plain))
+        gap_np = max((ulp_gap(got[i].cpu(), h) if mode != "bits"
+                      else int(not torch.equal(got[i].cpu(), h)))
+                     for i, h in zip((0, len(keys) - 1), host))
+        tol = STREAM_NORMAL_ULP if mode == "normal" else 0
+        print(f"threefry {name} {tuple(got.shape)}: against the plain version {gap_plain} ulp, "
+              f"against prng.py (keys 0 and {len(keys) - 1}) {gap_np} ulp (tolerance {tol}); "
+              f"a second call equal: {torch.equal(got, again)}")
+        if max(gap_plain, gap_np) > tol or not torch.equal(got, again):
+            raise RuntimeError(f"threefry {name} is not JAX's draw")
+        out_bytes = got.numel() * (4 if mode == "bits" else got.element_size())
+        ms = cuda_ms(lambda: threefry(kt, shape, mode, dtype))
+        plain_ms = cuda_ms(lambda: threefry_plain(kt, shape, mode, dtype), runs=3)
+        full = (len(keys), *shape)
+        library = ((lambda: torch.randint(0, 2**31, full, device="cuda", dtype=torch.int32))
+                   if mode == "bits" else
+                   (lambda: torch.rand(full, device="cuda", dtype=dtype)) if mode == "uniform"
+                   else (lambda: torch.randn(full, device="cuda", dtype=dtype)))
+        lib_ms = cuda_ms(library)
+        logic, ops = THREEFRY_OPS[mode]
+        b_ms, b_by = bound_ms(out_bytes + kt.numel() * 4, got.numel(),
+                              min(INT32_OPS_PER_S / logic, ISSUE_OPS_PER_S / ops))
+        print(f"threefry {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if ms < b_ms:
+            raise RuntimeError(f"threefry {name}: {ms:.4f} ms is below its bound {b_ms:.4f} ms")
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "max_abs_err": float(
+                             (got.double() - plain.double()).abs().max().item()),
+                         "ulp": max(gap_plain, gap_np)}
+        del got, plain, again
+    return records
+
+
+def circular_gap(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    d = np.abs(a - b) % 1.0
+    return np.minimum(d, 1.0 - d)
+
+
+def jax_streams_phase(tmp: Path, card: str, records: dict) -> None:
+    """The threefry kernel at the sampler's bulk shape (the flagship's full
+    chain: S = 999 steps of 128 x 8 atoms, its 9 classes) and the training
+    shape (256 x 16) against its plain version and ``prng.py``; then the
+    generate CLI with ``--seed 0`` on the flagship with the JAX TPU run's
+    command (``Q_ANG_ON``): the noise it drew for the first batch's step 0
+    and step S-1 is ``prng.py``'s for JAX's chain, every forward launched 5
+    bf16 #3 and 1 bf16 #8 and every batch 7 threefry draws; and prints how
+    many crystals match that run's (equal types; the median gaps of the
+    others: no gate, the TPU took bfloat16 products and an older JAX)."""
+    from arreau_tpu_torch.cli import generate
+    from arreau_tpu_torch.inference.io import load_sample_results
+    from arreau_tpu_torch.tasks import diffusion
+    from arreau_tpu_torch.tasks.diffusion import sampler_step_keys
+
+    meta = json.loads((FLAGSHIP / "meta.json").read_text())
+    T, C, L = (meta["config"][k] for k in ("num_timesteps", "num_atomic_states", "num_layers"))
+    S = T - 1
+    batch_key = prng.split(prng.prng_key(SEED))[1]  # the CLI's first batch
+    k_loop = prng.split(batch_key, 4)[3]
+    steps = sampler_step_keys(k_loop, S)  # [S, 4, 2]
+    loss_keys = prng.split(prng.prng_key(SEED), 5)  # a loss's k_t, k_pos, k_type, ...
+    timed = {}
+    for label, keys, shape in (("sampler types", steps[:, 2], (BATCH, ATOMS, C)),
+                               ("sampler positions", steps[:, 1], (BATCH, ATOMS, 3)),
+                               ("training types", loss_keys[2:3], (TRAIN_BATCH, 16, C)),
+                               ("training positions", loss_keys[1:2], (TRAIN_BATCH, 16, 3))):
+        timed.update(threefry_records(label, keys, shape))
+
+    captured = []
+    draw = diffusion.DiffusionModel.draw_noise
+
+    def recording(self, *a, **kw):
+        noise = draw(self, *a, **kw)
+        if not captured:
+            captured.append((a, kw, noise))
+        return noise
+
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        diffusion.DiffusionModel.draw_noise = recording
+        with contextlib.redirect_stdout(tee):
+            generate.main(["--checkpoint_dir", str(FLAGSHIP), *STREAM_ARGS,
+                           "--out_dir", str(tmp / "out")])
+    finally:
+        diffusion.DiffusionModel.draw_noise = draw
+    wall = time.perf_counter() - t0
+    counts, draws = launch_counts(), threefry_launches()
+    batches = FLAGSHIP_CRYSTALS // FLAGSHIP_BATCH
+    want = flagship_launches(batches * S, L)
+    print(f"generate --seed {SEED}, the full chain: launches {counts}; threefry {draws}")
+    if counts != want or draws != SAMPLER_DRAWS * batches:
+        raise RuntimeError(f"the full chain launched {counts} and {draws} threefry draws, not "
+                           f"{want} and {SAMPLER_DRAWS * batches}")
+    (a, _, noise) = captured[0]
+    if not np.array_equal(np.asarray(a[0]), batch_key):
+        raise RuntimeError("the first batch's key is not split off PRNGKey(seed) as JAX's CLI")
+    gaps = {}
+    for s in (0, S - 1):
+        lat, pos, typ, ang = (steps[s, i] for i in range(4))
+        want_fields = {"lattice": prng.normal(lat, (FLAGSHIP_BATCH, 3)),
+                       "pos": prng.normal(pos, (FLAGSHIP_BATCH, ATOMS, 3)),
+                       "types": prng.uniform(typ, (FLAGSHIP_BATCH, ATOMS, C)),
+                       "angle": prng.normal(ang, (FLAGSHIP_BATCH, 6))}
+        for name, w in want_fields.items():
+            gaps[f"{name}[{s}]"] = ulp_gap(getattr(noise, name)[s].cpu(), torch.from_numpy(w))
+    print(f"the first batch's noise against prng.py's for JAX's chain (ulp): {gaps}")
+    if any(v > (0 if k.startswith("types") else STREAM_NORMAL_ULP) for k, v in gaps.items()):
+        raise RuntimeError("generate --seed 0 did not draw JAX's stream")
+    rate = re.search(r"sampler throughput: ([0-9.]+) crystals/min", tee.buf.getvalue())
+    print(f"full chain: {FLAGSHIP_CRYSTALS} crystals of {ATOMS} atoms, {S} steps, "
+          f"{float(rate.group(1)) if rate else float('nan'):.1f} crystals/min warm, "
+          f"{wall:.2f} s wall on {card}")
+
+    got = load_sample_results(str(tmp / "out" / "crystals.h5"))
+    tpu = load_sample_results(str(Q_ANG_ON / "crystals.h5"))
+    same = [np.array_equal(got.crystal(i)[1], tpu.crystal(i)[1]) for i in range(got.num_crystals)]
+    frac_gap = [float(np.median(circular_gap(got.crystal(i)[0], tpu.crystal(i)[0])))
+                for i in range(got.num_crystals)]
+    len_gap = np.abs(np.linalg.norm(got.lattice, axis=-1) - np.linalg.norm(tpu.lattice, axis=-1))
+    print(f"against the JAX package's TPU run ({Q_ANG_ON.relative_to(OUT.parent)}, no gate): "
+          f"{sum(same)} of {got.num_crystals} crystals with every type equal; median frac gap "
+          f"{np.median(frac_gap):.4f}, median lattice length gap {np.median(len_gap):.4f} A "
+          f"(crystals with equal types: {np.median(np.array(frac_gap)[same]) if any(same) else float('nan'):.4f} "
+          f"and {np.median(len_gap[np.array(same)]) if any(same) else float('nan'):.4f} A)")
+
+    rec = timed["sampler types uniform float32"]
+    records["threefry"] = {
+        "name": "threefry", "route": "cuda", "source": "arreau_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: jax.random's threefry2x32 through XLA (no pallas_call)",
+        **records.get("threefry", {}),  # the launches of the sampler and training paths
+        "launches_full_chain": draws,
+        **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "shape": f"[{S}, {BATCH}, {ATOMS}, {C}] uniform float32",
+        "fields": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "ulp")}
+                   for k, v in timed.items()},
+    }
+
+
 @contextlib.contextmanager
 def shared_graphs(graphs: list, replay_on=None):
     """Record every PBC neighbour list the diffusion model builds into
@@ -1126,10 +1377,10 @@ def training_reference(ref_cfg, z_table, seed: int, loss_rel_tol: float,
     model = DiffusionModel(ref_cfg, device=dev)
     if fuse_convnext:
         model.model = fused_convnext_backbone(model)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    model.model.init_parameters(prng.prng_key(seed))
     plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
     plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
-    noise = draw_loss_noise(torch.Generator().manual_seed(seed), B, ATOMS,
+    noise = draw_loss_noise(prng.prng_key(seed), B, ATOMS,
                             ref_cfg.num_atomic_states, ref_cfg.num_timesteps, True, "cpu")
     graphs = []
     with shared_graphs(graphs):
@@ -1279,16 +1530,21 @@ def training_path(ckpt: Path, extra_args: list, want_step: dict, card: str) -> d
     print(f"training path {' '.join(extra_args)}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, "
           f"hidden {TRAIN_HIDDEN} in {wall:.2f} s wall (build of the data, evaluation and "
           f"checkpoints included); {rate:.3f} steps/s warm on {card}")
-    return train_counts
+    return {**train_counts, "threefry": threefry_launches()}
 
 
 def counted_training(argv: list) -> tuple[list, list, float, float]:
     """The training CLI on ``argv`` (counts set to 0 just before): each
     step's launches and metrics, the steps/s it printed and what it
-    returned (the test loss)."""
+    returned (the test loss). The threefry kernel's launches (the noise is
+    drawn before each training and evaluation step) must be LOSS_DRAWS a
+    loss and one more a training step under ``--train_augm`` (the
+    rotations)."""
     from arreau_tpu_torch.cli import train_diffusion
 
-    per_step, metrics, step = [], [], train_diffusion.train_step
+    per_step, metrics, step, evaluate = [], [], train_diffusion.train_step, \
+        train_diffusion.eval_step
+    evals = []
 
     def counted_step(*a, **kw):
         before = launch_counts()
@@ -1298,17 +1554,29 @@ def counted_training(argv: list) -> tuple[list, list, float, float]:
         metrics.append(m)  # read after the run: no synchronisation between steps
         return m
 
+    def counted_eval(*a, **kw):
+        evals.append(1)
+        return evaluate(*a, **kw)
+
     reset_launch_counts()
     tee = Tee(sys.stdout)
     try:
-        train_diffusion.train_step = counted_step
+        train_diffusion.train_step, train_diffusion.eval_step = counted_step, counted_eval
         with contextlib.redirect_stdout(tee):
             test_loss = train_diffusion.main(argv)
     finally:
-        train_diffusion.train_step = step
+        train_diffusion.train_step, train_diffusion.eval_step = step, evaluate
     rate = re.search(r"train throughput: ([0-9.]+) steps/s", tee.buf.getvalue())
     if rate is None:
         raise RuntimeError("the training CLI printed no throughput")
+    args = train_diffusion.parse_args(argv)
+    per_loss = LOSS_DRAWS[args.diffuse_angles]
+    draws = threefry_launches()
+    want = per_loss * (len(per_step) + len(evals)) + len(per_step) * int(args.train_augm)
+    print(f"threefry: {draws} launches over {len(per_step)} training and {len(evals)} "
+          f"evaluation steps ({per_loss} a loss, 1 more a training step under --train_augm)")
+    if draws != want:
+        raise RuntimeError(f"the training CLI drew through threefry {draws} times, not {want}")
     metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
     return per_step, metrics, float(rate.group(1)), test_loss
 
@@ -1507,7 +1775,7 @@ def nbody_phase(tmp: Path, card: str, records: dict) -> None:
     batch = NBodyBatch(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
                          for a in (ex.loc0, ex.vel0, ex.charges, ex.loc_end)))
     model = NBodyModel(NBodyConfig(), dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    model.init(prng.prng_key(SEED))
     nbody = task_kernels(model, batch, "nbody 100x5", "_nbody")
     for name, record in nbody.items():
         record["launches"] = counts[name.removesuffix("_nbody")]
@@ -1544,7 +1812,7 @@ def mnist_phase(tmp: Path, card: str, records: dict) -> None:
                          torch.as_tensor(ex.mask, device=dev),
                          torch.as_tensor(ex.label, dtype=torch.long, device=dev))
     model = MnistModel(MnistConfig(), dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    model.init(prng.prng_key(SEED))
     mnist = task_kernels(model, batch, "mnist 96x75", "_mnist")
     for name, record in mnist.items():
         record["launches"] = counts[name.removesuffix("_mnist")]
@@ -1638,7 +1906,7 @@ def position_reference(ref_cfg, seed: int, tol: float) -> None:
     num_atoms, mask = torch.full((B,), ATOMS), torch.ones((B, ATOMS), dtype=torch.bool)
     model = DiffusionModel(ref_cfg, device=dev)
     model.model = position_grads_backbone(model)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    model.model.init_parameters(prng.prng_key(seed))
     plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
     plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
     weights = None
@@ -1692,8 +1960,8 @@ def position_phase(dataset, chunk, bucket, train_cfg, card: str, records: dict) 
         cfg = dataclasses.replace(train_cfg, compute_dtype=dtype)
         model = DiffusionModel(cfg, device=dev)
         model.model = position_grads_backbone(model)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED),
                                 *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
                                 True, dev)
         with capturing() as args:
@@ -1836,7 +2104,7 @@ def point_cloud_phase(tmp: Path, card: str, task: str) -> None:
     shift, scale = float(np.mean(data.y)), float(np.std(data.y))
     Model, Config = (MD17Model, MD17Config) if md17 else (QM9Model, QM9Config)
     model = Model(Config(input_dim=data.one_hot.shape[-1]), shift, scale, dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    model.init(prng.prng_key(SEED))
     small = type(batch)(*(t[:POINT_CLOUD_BATCH] for t in batch))
     point_cloud_reference(model, Model(model.config, shift, scale, "cpu"), small, task, md17)
     torch.cuda.reset_peak_memory_stats()
@@ -1880,7 +2148,7 @@ def snapshot_phase(card: str, records: dict) -> None:
     t0 = time.perf_counter()
     with capturing(dtypes):
         batch, snaps = model.sample(SNAPSHOT_BATCH, ATOMS, snapshot_every=SNAPSHOT_EVERY,
-                                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+                                    key=prng.prng_key(SEED))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts, want = launch_counts(), flagship_launches(T - 1, L)
@@ -1895,7 +2163,7 @@ def snapshot_phase(card: str, records: dict) -> None:
         raise RuntimeError(f"snapshot labels {labels}, not {want_labels}")
     t0 = time.perf_counter()
     plain = model.sample(SNAPSHOT_BATCH, ATOMS,
-                         generator=torch.Generator(device="cuda").manual_seed(SEED))
+                         key=prng.prng_key(SEED))
     torch.cuda.synchronize()
     plain_seconds = time.perf_counter() - t0
     same = {name: torch.equal(getattr(batch, name), getattr(plain, name))
@@ -2030,8 +2298,7 @@ def export_phase(tmp: Path, card: str, records: dict, steps: int = EXPORT_STEPS,
             return call(SEED, counts_arg) if variable else call(SEED)
 
         def in_process():
-            generator = torch.Generator(device="cuda").manual_seed(SEED)
-            return model.sample(B, ATOMS, generator=generator, sample_steps=steps,
+            return model.sample(B, ATOMS, key=prng.prng_key(SEED), sample_steps=steps,
                                 length_bounds=bounds, num_atoms=counts_arg)
 
         reset_launch_counts()
@@ -2247,7 +2514,7 @@ def import_phase(tmp: Path, card: str, records: dict) -> None:
     z_table = synthetic_z_table()
     cfg = DiffusionConfig(num_atomic_states=len(z_table))
     model = DiffusionModel(cfg, device="cuda")
-    model.model.init_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    model.model.init_parameters(prng.prng_key(SEED))
     ckpt = tmp / "reference.ckpt"
     write_reference_ckpt(ckpt, model, z_table)
     print(f"reference checkpoint {ckpt.name}: {ckpt.stat().st_size} bytes "
@@ -2327,8 +2594,8 @@ def calibration_phase(card: str, records: dict) -> None:
     dataset, chunk, bucket = training_chunk()
     batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
     model = DiffusionModel(cfg, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+    model.init(prng.prng_key(SEED), batch)
+    noise = draw_loss_noise(prng.prng_key(SEED),
                             *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
                             True, dev)
     captured = []
@@ -2399,10 +2666,9 @@ def component_reference(ckpt: Path, tol: float, label: str, of_total: bool) -> N
     cfg = card.config
     ds = ve.build_equivariance_datasets("datasets/alexandria_hdf5")[0]
     max_atoms = int(ds.packed.num_atoms.max())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    draws = [draw_loss_noise(gen, 1, max_atoms, cfg.num_atomic_states, cfg.num_timesteps,
+    draws = [draw_loss_noise(k, 1, max_atoms, cfg.num_atomic_states, cfg.num_timesteps,
                              cfg.diffuse_angles, "cuda", ve.EVAL_EQUIVARIANCE_TIMESTEP)
-             for _ in range(EQUIV_REFERENCE_DRAWS)]
+             for k in prng.split(prng.prng_key(0), EQUIV_REFERENCE_DRAWS)]
     cpu_draws = [LossNoise(**{f.name: None if getattr(n, f.name) is None
                               else getattr(n, f.name).cpu() for f in dataclasses.fields(n)})
                  for n in draws]
@@ -2562,7 +2828,7 @@ def diagnosis_phase(tmp: Path, card: str, records: dict) -> None:
 
     card_model = generate.load_model(str(FLAGSHIP), "best", False, "cuda")[0]
     cpu_model = generate.load_model(str(FLAGSHIP), "best", False, "cpu")[0]
-    noise = draw_sampler_noise(torch.Generator(device="cuda").manual_seed(SEED),
+    noise = draw_sampler_noise(prng.prng_key(SEED),
                                DIAG_REFERENCE_STEPS, DIAG_BATCH, ATOMS, meta["num_atomic_states"],
                                "monoclinic", meta["diffuse_angles"], "cuda")
     cpu_noise = SamplerNoise(**{f.name: None if getattr(noise, f.name) is None
@@ -2753,10 +3019,10 @@ def parallel_step(mesh, compute_dtype, fuse_convnext: bool) -> dict:
     model = DiffusionModel(cfg, device=dev)
     if fuse_convnext:
         model.model = fused_convnext_backbone(model)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED + 3))
+    model.model.init_parameters(prng.prng_key(SEED + 3))
     dataset, chunk, bucket = training_chunk()
     batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
-    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED + 3),
+    noise = draw_loss_noise(prng.prng_key(SEED + 3),
                             *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
                             True, dev)
     shard_state(model, mesh)
@@ -2898,7 +3164,7 @@ def dp_phase(tmp: Path, card: str, records: dict) -> None:
     z_table = synthetic_z_table()
     cfg = DiffusionConfig(num_atomic_states=len(z_table))
     model = DiffusionModel(cfg, device="cuda")
-    model.model.init_parameters(torch.Generator(device="cuda").manual_seed(SEED))
+    model.model.init_parameters(prng.prng_key(SEED))
     write_checkpoint(tmp / "ckpt", cfg, model, z_table)
     del model
     gen = ["--checkpoint_dir", str(tmp / "ckpt"), "--batch_size", str(BATCH),
@@ -3261,7 +3527,7 @@ def remat_phase(dataset, chunk, bucket, train_cfg, card: str) -> None:
     for label, cfg, fuse, dtype in (("float32", train_cfg, False, "float32"),
                                     ("bf16", bf16_cfg, False, "bfloat16"),
                                     ("fuse_convnext bf16", bf16_cfg, True, "bfloat16")):
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED),
+        noise = draw_loss_noise(prng.prng_key(SEED),
                                 *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
                                 cfg.diffuse_angles, dev)
         forward = {"convnext_mlp": L, "spatial_conv": L} if fuse else {"spatial_conv": L}
@@ -3274,7 +3540,7 @@ def remat_phase(dataset, chunk, bucket, train_cfg, card: str) -> None:
             if fuse:
                 model.model = fused_convnext_backbone(model)
             if state is None:
-                model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
+                model.init(prng.prng_key(SEED), batch)
                 state = {k: v.clone() for k, v in model.model.state_dict().items()}
             model.model.load_state_dict(state)
             want = {name: n + (forward.get(name, 0) if remat else 0) for name, n in base.items()}
@@ -3369,10 +3635,10 @@ def main() -> int:
     z_table = synthetic_z_table()
     cfg = DiffusionConfig(num_atomic_states=len(z_table))
     model = DiffusionModel(cfg, device=dev)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    model.model.init_parameters(prng.prng_key(SEED))
 
     with Phase("serving kernels"):
-        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+        noise = draw_sampler_noise(prng.prng_key(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
@@ -3409,7 +3675,7 @@ def main() -> int:
         # layer scale 1 (not the init's 1e-6) so the conv layers weigh in the outputs
         ref_cfg = dataclasses.replace(cfg, layer_scale=1.0)
         model = DiffusionModel(ref_cfg, device=dev)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED + 1))
+        model.model.init_parameters(prng.prng_key(SEED + 1))
         plain = DiffusionModel(dataclasses.replace(ref_cfg, use_pallas=False), device="cpu")
         plain.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
         with torch.inference_mode():
@@ -3439,8 +3705,8 @@ def main() -> int:
         dataset, chunk, bucket = training_chunk()
         batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
         model = DiffusionModel(train_cfg, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
@@ -3470,6 +3736,8 @@ def main() -> int:
             record["launches"] = train_counts[name]
         for name in ("spatial_conv", "basis_h1"):
             records[name]["launches_sampler"] = sampler_counts[name]
+        records["threefry"] = {"launches": train_counts["threefry"],
+                               "launches_sampler": sampler_counts["threefry"]}
 
         with Phase("trained sampling"):
             reset_launch_counts()
@@ -3495,8 +3763,8 @@ def main() -> int:
 
     with Phase("fiber kernels"):
         model = DiffusionModel(fiber_cfg, device=dev)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
-        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+        model.model.init_parameters(prng.prng_key(SEED))
+        noise = draw_sampler_noise(prng.prng_key(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         basis_attrs = {}  # the basis MLP's invariants, for the fused basis kernels below
         with torch.inference_mode():
@@ -3511,8 +3779,8 @@ def main() -> int:
 
         batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
         model = DiffusionModel(fiber_train_cfg, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
         with capturing() as args, basis_input(model, basis_attrs, "train"):
             model.loss(batch, noise)[0].backward()
@@ -3528,7 +3796,7 @@ def main() -> int:
 
     with Phase("fiber sampler path"), tempfile.TemporaryDirectory() as tmp:
         sampler_model = DiffusionModel(fiber_cfg, device=dev)
-        sampler_model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        sampler_model.model.init_parameters(prng.prng_key(SEED))
         meta = write_checkpoint(Path(tmp) / "ckpt", fiber_cfg, sampler_model, z_table)
         del sampler_model
         counts = sampler_path(Path(tmp) / "ckpt", Path(tmp) / "out", meta, z_table, card,
@@ -3554,8 +3822,8 @@ def main() -> int:
 
     with Phase("bf16 kernels"):
         model = DiffusionModel(bf16_cfg, device=dev)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
-        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+        model.model.init_parameters(prng.prng_key(SEED))
+        noise = draw_sampler_noise(prng.prng_key(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
@@ -3571,8 +3839,8 @@ def main() -> int:
 
         batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
         model = DiffusionModel(bf16_train_cfg, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
@@ -3620,8 +3888,8 @@ def main() -> int:
         # computed and no check below could see it
         model = DiffusionModel(dataclasses.replace(bf16_cfg, layer_scale=1.0), device=dev)
         model.model = fused_convnext_backbone(model)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
-        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+        model.model.init_parameters(prng.prng_key(SEED))
+        noise = draw_sampler_noise(prng.prng_key(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
@@ -3635,8 +3903,8 @@ def main() -> int:
 
         model = DiffusionModel(dataclasses.replace(bf16_train_cfg, layer_scale=1.0), device=dev)
         model.model = fused_convnext_backbone(model)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
@@ -3672,14 +3940,15 @@ def main() -> int:
         # package): CRYSTALS crystals in batches of BATCH x ATOMS, STEPS steps
         sampler = DiffusionModel(bf16_cfg, device=dev)
         sampler.model = fused_convnext_backbone(sampler)
-        sampler.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+        sampler.model.init_parameters(prng.prng_key(SEED))
         bounds = generate.length_bounds_from_meta({"length_stats": {"min": 3.0, "max": 8.0}})
-        gen = torch.Generator(device=dev).manual_seed(SEED)
+        key = prng.prng_key(SEED)
         reset_launch_counts()
         t0 = time.perf_counter()
         results = []
         for _ in range(CRYSTALS // BATCH):
-            out = sampler.sample(BATCH, ATOMS, generator=gen, sample_steps=STEPS,
+            key, sub = prng.split(key)  # the generate CLI's key chain
+            out = sampler.sample(BATCH, ATOMS, key=sub, sample_steps=STEPS,
                                  length_bounds=bounds)
             results.append(from_dense_batch(out, z_table))
         torch.cuda.synchronize()
@@ -3703,8 +3972,8 @@ def main() -> int:
 
     with Phase("fiber bf16 kernels"):
         model = DiffusionModel(fiber_bf16_cfg, device=dev)
-        model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
-        noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(SEED), 1, BATCH, ATOMS,
+        model.model.init_parameters(prng.prng_key(SEED))
+        noise = draw_sampler_noise(prng.prng_key(SEED), 1, BATCH, ATOMS,
                                    cfg.num_atomic_states, "monoclinic", False, dev)
         with torch.inference_mode():
             inputs = first_step_inputs(model, noise)
@@ -3719,8 +3988,8 @@ def main() -> int:
 
         batch = batch_to_device(pack_dense_batch(dataset, chunk, bucket), dev)
         model = DiffusionModel(fiber_bf16_train_cfg, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(SEED), *batch.atom_types.shape,
+        model.init(prng.prng_key(SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(SEED), *batch.atom_types.shape,
                                 train_cfg.num_atomic_states, train_cfg.num_timesteps, True, dev)
         with capturing() as args:
             model.loss(batch, noise)[0].backward()
@@ -3745,7 +4014,7 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory() as tmp:
             sampler_model = DiffusionModel(fiber_bf16_cfg, device=dev)
-            sampler_model.model.init_parameters(torch.Generator(device=dev).manual_seed(SEED))
+            sampler_model.model.init_parameters(prng.prng_key(SEED))
             meta = write_checkpoint(Path(tmp) / "ckpt", fiber_bf16_cfg, sampler_model, z_table)
             del sampler_model
             if not (meta["config"]["fuse_fiber"] and meta["config"]["compute_dtype"] == "bfloat16"):
@@ -3826,6 +4095,10 @@ def main() -> int:
     # ---------------- per-block rematerialisation ----------------
     with Phase("remat"):
         remat_phase(dataset, chunk, bucket, train_cfg, card)
+
+    # ---------------- JAX's random streams from --seed ----------------
+    with Phase("jax streams"), tempfile.TemporaryDirectory() as tmp:
+        jax_streams_phase(Path(tmp), card, records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,7 @@ from arreau_tpu_torch.tasks.diffusion import (
     batch_to_device,
     draw_loss_noise,
 )
+from arreau_tpu_torch.ops import prng
 from tests.test_torch_model import _scores_inputs, perturbed_params, port_config
 from tests.test_torch_train import TINY_ARGS, _flat, _jax_setup, loss_noise
 
@@ -275,9 +276,9 @@ def test_bf16_loss_tracks_float32(layer_scale):
     m32 = DiffusionModel(DiffusionConfig(**kw), device="cpu")
     mbf = DiffusionModel(DiffusionConfig(**kw, compute_dtype="bfloat16"), device="cpu")
     batch = batch_to_device(host, "cpu")
-    m32.init(torch.Generator().manual_seed(0), batch)
+    m32.init(prng.prng_key(0), batch)
     mbf.model.load_state_dict(m32.model.state_dict())
-    noise = draw_loss_noise(torch.Generator().manual_seed(1), 16, 8, len(zt), 50, False, "cpu",
+    noise = draw_loss_noise(prng.prng_key(1), 16, 8, len(zt), 50, False, "cpu",
                             timestep=17)
     with torch.no_grad():
         _, r32 = m32.loss(batch, noise)

@@ -190,7 +190,7 @@ def test_wrappers_check_their_inputs():
 
 def test_build_compiles_and_hashes_both_convnext_sources(tmp_path, monkeypatch):
     """The build takes csrc/convnext_mlp.cu and csrc/convnext_mlp_bwd.cu
-    among its ten sources, and an edit of either, or of their shared
+    among its eleven sources, and an edit of either, or of their shared
     header, changes the source hash, so a stale library is rebuilt."""
     import shutil
 
@@ -198,7 +198,7 @@ def test_build_compiles_and_hashes_both_convnext_sources(tmp_path, monkeypatch):
 
     names = {p.name for p in build._sources()}
     assert {"convnext_mlp.cu", "convnext_mlp_bwd.cu"} <= names
-    assert len(names) == 10
+    assert len(names) == 11
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)

@@ -42,6 +42,7 @@ from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv_plain,
     tile_product,
 )
+from arreau_tpu_torch.ops import prng
 
 # float32 sums in another order than the plain version's matmul
 REL_TOL = 1e-5
@@ -409,7 +410,7 @@ def test_position_grads_kernel_branch_position_gradients_match_plain_branch():
               for k in (True, False)}
     models[True].model = PonitaFiberBundle(dataclasses.replace(
         models[True].model.config, position_grads=True)).to(dev)
-    models[True].model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    models[True].model.init_parameters(prng.prng_key(0))
     models[False].model.load_state_dict(models[True].model.state_dict())
     frac = torch.tensor(rng.random((B, A, 3)), dtype=torch.float32, device=dev)
     lengths = torch.tensor(3.0 + 3.0 * rng.random((B, 3)), dtype=torch.float32, device=dev)
@@ -762,7 +763,7 @@ def _assert_kernel_branch_gradients_match_plain_branch(rel=BWD_REL_TOL, fuse_con
     if fuse_convnext:
         models[True].model = PonitaFiberBundle(dataclasses.replace(
             models[True].model.config, fuse_convnext=True)).to(dev)
-    models[True].model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    models[True].model.init_parameters(prng.prng_key(0))
     models[False].model.load_state_dict(models[True].model.state_dict())
     inputs = (
         torch.tensor(rng.random((B, A, 3)), dtype=torch.float32, device=dev),
@@ -1022,7 +1023,7 @@ def test_exported_sampler_matches_eager_on_the_card(tmp_path, variable_num_atoms
     cfg = DiffusionConfig(num_atomic_states=len(zt), num_timesteps=50, hidden_dim=16,
                           basis_dim=8, num_layers=2, num_ori=4)
     model = DiffusionModel(cfg, device=dev)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.model.init_parameters(prng.prng_key(0))
     (tmp_path / "best").mkdir()
     (tmp_path / "meta.json").write_text(json.dumps({
         "config": dataclasses.asdict(cfg), "z_table_zs": [int(z) for z in zt.zs],
@@ -1040,7 +1041,7 @@ def test_exported_sampler_matches_eager_on_the_card(tmp_path, variable_num_atoms
     torch.cuda.synchronize()
     S = sidecar["noise_steps"]
     assert (spatial_conv.launches - launches[0], basis_h1.launches - launches[1]) == (2 * S, S)
-    want = model.sample(6, 5, generator=torch.Generator(device=dev).manual_seed(11),
+    want = model.sample(6, 5, key=prng.prng_key(11),
                         sample_steps=4, length_bounds=(0.5, 10.5), num_atoms=counts)
     for a, b in zip(got, (want.frac_x, want.atom_types, want.lattice)):
         assert a.device.type == "cuda" and torch.equal(a, b)
@@ -1054,7 +1055,7 @@ def _tiny_diffusion(dev, **config):
     cfg = DiffusionConfig(num_atomic_states=len(zt), num_timesteps=50, hidden_dim=16,
                           basis_dim=8, num_layers=2, num_ori=4, **config)
     model = DiffusionModel(cfg, device=dev)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.model.init_parameters(prng.prng_key(0))
     return model, zt
 
 
@@ -1074,7 +1075,7 @@ def test_calibration_on_the_card_launches_the_forward_kernels_and_matches_the_cp
     model, zt = _tiny_diffusion(dev, layer_scale=1.0)
     cfg = model.config
     batch = batch_to_device(make_synthetic_batch(np.random.default_rng(0), zt, 12, 6), dev)
-    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(0), 12, 6,
+    noise = draw_loss_noise(prng.prng_key(0), 12, 6,
                             cfg.num_atomic_states, cfg.num_timesteps, False, dev)
     captured = []
     handle = model.model.register_forward_pre_hook(lambda m, a: captured.append(a[0]))
@@ -1162,7 +1163,7 @@ def test_eval_equivariance_and_diagnosis_launch_their_kernels(tmp_path):
     assert per_step == [(2, 2, 1, 1)] * 3
     model = generate.load_model(str(tmp_path / "ckpt"), "best", False, dev)[0]
     cfg = model.config
-    noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(0), 3, 4, 8,
+    noise = draw_sampler_noise(prng.prng_key(0), 3, 4, 8,
                                cfg.num_atomic_states, "monoclinic", cfg.diffuse_angles, dev)
     before = (spatial_conv.launches, basis_h1.launches)
     records, state = diagnose_sampler.diagnose(model, noise, 5.5, 2.0, record_every=1,
@@ -1199,7 +1200,7 @@ def test_edge_readouts_take_the_plain_branch_on_the_card():
                        num_layers=2, num_ori=4, output_dim_scalar=2, output_dim_global_vec=2,
                        output_dim_edge_scalar=3)
     cpu = PonitaFiberBundle(cfg)
-    cpu.init_parameters(torch.Generator().manual_seed(0))
+    cpu.init_parameters(prng.prng_key(0))
     card = PonitaFiberBundle(cfg).to(dev)
     card.load_state_dict(cpu.state_dict())
     card_inputs = inputs._replace(
@@ -1217,3 +1218,70 @@ def test_edge_readouts_take_the_plain_branch_on_the_card():
     for a, b in heads:
         if b.numel():
             _assert_close(a.cpu(), b, rel=BWD_REL_TOL)
+
+
+# ---------------- the threefry kernel (JAX's random draws) ----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,dtype", [("bits", torch.float32), ("uniform", torch.float32),
+                                        ("uniform", torch.bfloat16), ("normal", torch.float32),
+                                        ("normal", torch.bfloat16)])
+@pytest.mark.parametrize("K,shape", [(1, ()), (3, (5, 7)), (37, (128, 8, 9)), (2, (1, 70001))])
+def test_threefry_kernel_matches_plain_and_prng(K, shape, mode, dtype):
+    """The threefry kernel for K keys against its plain version on the card
+    and ``prng.py``'s numpy: bits and uniforms (on [0, 1) and on [60, 120))
+    bit for bit, normals within 3 ulp; one launch a call; a second call
+    equal."""
+    from arreau_tpu_torch.kernels.threefry import keys_tensor, threefry, threefry_plain
+    from arreau_tpu_torch.ops import prng
+
+    dev = _device()
+    keys = prng.split(prng.prng_key(K), K)
+    kt = keys_tensor(keys, dev)
+    bounds = [(0.0, 1.0), (60.0, 120.0)] if mode == "uniform" else [(0.0, 1.0)]
+    np_dt = {torch.float32: np.float32, torch.bfloat16: prng.BF16}[dtype]
+    for lo, hi in bounds:
+        before = threefry.launches
+        got = threefry(kt, shape, mode, dtype, lo, hi)
+        torch.cuda.synchronize()
+        assert threefry.launches == before + 1 and got.device.type == "cuda"
+        assert got.shape == (K, *shape)
+        assert torch.equal(got, threefry(kt, shape, mode, dtype, lo, hi))
+        plain = threefry_plain(kt, shape, mode, dtype, lo, hi)
+        for k, row, prow in zip(keys, got.cpu(), plain.cpu()):
+            if mode == "bits":
+                want = torch.from_numpy(prng.random_bits(k, 32, shape).astype(np.int64))
+            elif mode == "uniform":
+                want = torch.from_numpy(np.asarray(prng.uniform(k, shape, np_dt, lo, hi)))
+            else:
+                want = torch.from_numpy(np.asarray(prng.normal(k, shape, np_dt)))
+            if mode == "normal":
+                a, b = row.float().view(torch.int32).long(), want.view(torch.int32).long()
+                assert int((a - b).abs().max()) <= 3
+                assert torch.equal(row, prow)
+            else:
+                assert torch.equal(row.to(want.dtype), want) and torch.equal(row, prow)
+
+
+@pytest.mark.cuda
+def test_threefry_draws_on_the_card_are_the_cpu_draws():
+    """A sampler's noise and a loss's noise drawn on the card equal the
+    plain version's on the CPU from the same key (normals within 3 ulp)."""
+    from arreau_tpu_torch.ops import prng
+    from arreau_tpu_torch.tasks.diffusion import draw_loss_noise, draw_sampler_noise
+
+    dev = _device()
+    for fn, args in ((draw_sampler_noise, (4, 6, 5, 9, "monoclinic", True)),
+                     (draw_loss_noise, (6, 5, 9, 50, True))):
+        card, cpu = fn(prng.prng_key(3), *args, dev), fn(prng.prng_key(3), *args, "cpu")
+        for name, a in vars(card).items():
+            b = getattr(cpu, name)
+            if a is None:
+                assert b is None
+                continue
+            if a.is_floating_point():
+                gap = (a.cpu().view(torch.int32).long() - b.view(torch.int32).long()).abs().max()
+                assert int(gap) <= 3, name
+            else:
+                assert torch.equal(a.cpu(), b), name

@@ -25,6 +25,7 @@ from arreau_tpu_torch.inference.export import export_sampler, load_exported, noi
 from arreau_tpu_torch.interop.from_jax import params_to_jax, save_params_npz
 from arreau_tpu_torch.kernels import basis_h1, spatial_conv
 from arreau_tpu_torch.tasks.diffusion import DiffusionConfig, DiffusionModel
+from arreau_tpu_torch.ops import prng
 
 T = 12
 LENGTH_STATS = {"min": 3.0, "max": 8.0}
@@ -38,7 +39,7 @@ def _checkpoint(path, use_pallas=None, diffuse_angles=False, ema=True):
                           num_layers=2, num_ori=4, use_pallas=use_pallas,
                           diffuse_angles=diffuse_angles)
     model = DiffusionModel(cfg, device="cpu")
-    model.model.init_parameters(torch.Generator().manual_seed(0))
+    model.model.init_parameters(prng.prng_key(0))
     (path / "best").mkdir(parents=True)
     (path / "meta.json").write_text(json.dumps({
         "config": dataclasses.asdict(cfg), "z_table_zs": [int(z) for z in zt.zs],
@@ -46,14 +47,14 @@ def _checkpoint(path, use_pallas=None, diffuse_angles=False, ema=True):
     save_params_npz(str(path / "best" / "params.npz"), params_to_jax(model.model))
     if ema:
         ema_model = DiffusionModel(cfg, device="cpu")
-        ema_model.model.init_parameters(torch.Generator().manual_seed(1))
+        ema_model.model.init_parameters(prng.prng_key(1))
         save_params_npz(str(path / "best" / "ema_params.npz"), params_to_jax(ema_model.model))
         return ema_model
     return model
 
 
 def _reference(model, seed, B, A, sample_steps, num_atoms=None):
-    return model.sample(B, A, generator=torch.Generator().manual_seed(seed),
+    return model.sample(B, A, key=prng.prng_key(seed),
                         sample_steps=sample_steps, length_bounds=(0.5, 10.5), num_atoms=num_atoms)
 
 

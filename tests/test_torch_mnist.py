@@ -25,6 +25,7 @@ from arreau_tpu_torch.data import mnist as data
 from arreau_tpu_torch.interop.from_jax import _jax_name, params_from_jax
 from arreau_tpu_torch.ops.grids import random_so2_matrix
 from arreau_tpu_torch.tasks.mnist import Mnist2DBatch, MnistConfig, MnistModel, rotate_mnist_batch
+from arreau_tpu_torch.ops import prng
 from tests.test_torch_nbody import GRAD_REL_TOL, LOSS_TOL, _neighbors_to_torch
 from tests.test_torch_model import perturbed_params
 
@@ -169,7 +170,7 @@ def test_mnist_logits_are_invariant_with_the_grid_rotated(host):
     batch = Mnist2DBatch(torch.tensor(host.pos, dtype=torch.float64),
                          torch.tensor(host.value, dtype=torch.float64),
                          torch.tensor(host.mask), torch.tensor(host.label))
-    R = random_so2_matrix(torch.Generator().manual_seed(4), (), torch.float64)
+    R = random_so2_matrix(prng.prng_key(4), (), torch.float64)
     with torch.no_grad():
         out = model.logits(batch)
         model.ori_grid = model.ori_grid.double() @ R.T

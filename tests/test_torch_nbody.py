@@ -47,6 +47,7 @@ from arreau_tpu_torch.ops.pbc import NeighborList
 from arreau_tpu_torch.ops.radius import radius_neighbor_list
 from arreau_tpu_torch.ops.windowing import polynomial_cutoff
 from arreau_tpu_torch.tasks.nbody import NBodyBatch, NBodyConfig, NBodyModel, rotate_nbody_batch
+from arreau_tpu_torch.ops import prng
 from tests.test_nbody import _oracle_trajectory
 from tests.test_torch_model import perturbed_params
 
@@ -122,9 +123,9 @@ def test_quat_to_matrix_matches_jax_and_rotations_are_rotations():
     np.testing.assert_allclose(quat_to_matrix(torch.tensor(q)).numpy(),
                                np.asarray(j_quat_to_matrix(jnp.asarray(q))), rtol=1e-12,
                                atol=1e-15)
-    g = torch.Generator().manual_seed(0)
-    for R, dim in ((random_so3_matrix(g, (7,), torch.float64), 3),
-                   (random_so2_matrix(g, (7,), torch.float64), 2)):
+    k3, k2 = prng.split(prng.prng_key(0))
+    for R, dim in ((random_so3_matrix(k3, (7,), torch.float64), 3),
+                   (random_so2_matrix(k2, (7,), torch.float64), 2)):
         assert R.shape == (7, dim, dim)
         np.testing.assert_allclose((R @ R.transpose(-1, -2)).numpy(),
                                    np.eye(dim)[None].repeat(7, 0), atol=1e-12)
@@ -293,7 +294,7 @@ def test_nbody_model_is_equivariant_with_its_grid_rotated():
     model = _port(jmodel, params, False)
     model.model.double()
     batch = NBodyBatch(**{k: torch.tensor(v, dtype=torch.float64) for k, v in host.items()})
-    R = random_so3_matrix(torch.Generator().manual_seed(3), (), torch.float64)
+    R = random_so3_matrix(prng.prng_key(3), (), torch.float64)
     with torch.no_grad():
         out = model.predict_positions(batch) - batch.pos
         model.ori_grid = model.ori_grid.double() @ R.T
@@ -305,7 +306,7 @@ def test_nbody_model_is_equivariant_with_its_grid_rotated():
 def test_rotation_augmentation_keeps_distances_and_charges():
     batch = NBodyBatch(**{k: torch.tensor(v, dtype=torch.float64)
                           for k, v in _host_batch(4, 4).items()})
-    rot = rotate_nbody_batch(random_so3_matrix(torch.Generator().manual_seed(0), (4,),
+    rot = rotate_nbody_batch(random_so3_matrix(prng.prng_key(0), (4,),
                                                torch.float64), batch)
     np.testing.assert_allclose(torch.cdist(rot.pos, rot.pos).numpy(),
                                torch.cdist(batch.pos, batch.pos).numpy(), rtol=1e-9, atol=1e-12)
@@ -332,7 +333,7 @@ def test_egnn_predictions_and_loss_match_jax():
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(loss.item(), float(jmodel.loss(params, None, jbatch)[0]),
                                **LOSS_TOL)
-    R = random_so3_matrix(torch.Generator().manual_seed(1), ())
+    R = random_so3_matrix(prng.prng_key(1), ())
     with torch.no_grad():
         got_r = model.predict_positions(batch._replace(pos=batch.pos @ R.T, vel=batch.vel @ R.T))
     np.testing.assert_allclose(got_r.numpy(), (got @ R.T).numpy(), rtol=1e-4, atol=1e-5)
@@ -340,7 +341,7 @@ def test_egnn_predictions_and_loss_match_jax():
 
 def test_egnn_init_has_flax_distributions():
     model = EGNNNBody(EGNNConfig(hidden_dim=64, num_layers=2), device="cpu")
-    model.init(torch.Generator().manual_seed(0))
+    model.init(prng.prng_key(0))
     layer = model.model.layers[0]
     assert torch.count_nonzero(layer.edge_1.bias) == 0
     assert abs(layer.edge_2.weight.std().item() - 64**-0.5) < 0.1 * 64**-0.5

@@ -115,23 +115,24 @@ def test_angle_codec_and_coordinates_match_jax():
     ["cubic", "tetragonal", "orthorhombic", "hexagonal", "monoclinic", "triclinic", "rhombohedral"],
 )
 def test_bravais_angle_families(lattice_type):
-    """Same families and ranges as the JAX package (torch and JAX draws
-    differ, so random families are checked by their ranges)."""
-    got = tlat.sample_bravais_angles(lattice_type, 256, torch.Generator().manual_seed(0))
-    want = np.asarray(jlat.sample_bravais_angles(jax.random.PRNGKey(0), lattice_type, 256))
+    """The JAX package's angles from the same key (JAX's float32 draws,
+    without ``enable_x64``): bit for bit, in the families' ranges."""
+    key = prng_key(0)
+    got = tlat.sample_bravais_angles(key, lattice_type, 256)
+    with jax.enable_x64(False):
+        want = np.asarray(jlat.sample_bravais_angles(jax.random.PRNGKey(0), lattice_type, 256))
     assert got.shape == (256, 3) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
     deg = np.rad2deg(got.numpy().astype(np.float64))
-    if lattice_type in ("cubic", "tetragonal", "orthorhombic", "hexagonal"):
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
-    elif lattice_type == "monoclinic":
+    if lattice_type == "monoclinic":
         np.testing.assert_allclose(deg[:, [0, 2]], 90.0, rtol=1e-6)
         assert deg[:, 1].min() >= 90.0 - 1e-4 and deg[:, 1].max() <= 180.0 + 1e-4
-    else:
+    elif lattice_type in ("triclinic", "rhombohedral"):
         assert deg.min() >= 60.0 - 1e-4 and deg.max() <= 120.0 + 1e-4
         if lattice_type == "rhombohedral":
             assert np.all(deg[:, 0] == deg[:, 1]) and np.all(deg[:, 1] == deg[:, 2])
     with pytest.raises(ValueError):
-        tlat.sample_bravais_angles("pentagonal", 2)
+        tlat.sample_bravais_angles(key, "pentagonal", 2)
 
 
 # ---------------- grids, Fourier features, window ----------------

@@ -48,6 +48,7 @@ from arreau_tpu_torch.ops.radius import radius_neighbor_list
 from arreau_tpu_torch.tasks.md17 import MD17Batch, MD17Config, MD17Model, rotate_md17_batch
 from arreau_tpu_torch.tasks.qm9 import MoleculeBatch, QM9Config, QM9Model, rotate_molecule_batch
 from arreau_tpu_torch.train.loop import eval_step
+from arreau_tpu_torch.ops import prng
 from tests.test_torch_model import perturbed_params
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -176,7 +177,7 @@ def test_lifted_point_cloud_is_rotation_invariant():
     (every attribute is an invariant of the geometry), in float64."""
     j_in, t_in = _inputs(2)
     _, _, model = _models(j_in, 3)
-    R = random_so3_matrix(torch.Generator().manual_seed(3), (), torch.float64)
+    R = random_so3_matrix(prng.prng_key(3), (), torch.float64)
     pos_r = t_in.pos @ R.T
     nb_r = radius_neighbor_list(pos_r, t_in.node_mask, 1000.0, 4, loop=False)
     with torch.no_grad():
@@ -209,7 +210,7 @@ def test_plain_point_cloud_mode():
 
 def test_init_has_flax_distributions():
     model = PonitaPointCloud(PointCloudConfig(input_dim_scalar=5, layer_scale=1e-6))
-    model.init_parameters(torch.Generator().manual_seed(0))
+    model.init_parameters(prng.prng_key(0))
     kernel = model.convs[0].kernel.weight  # [C, D]: 1/sqrt(8) / fan_in 256
     assert abs(kernel.std().item() - (1 / 8**0.5 / 256) ** 0.5) < 0.1 * (1 / 8**0.5 / 256) ** 0.5
     w1 = model.layers[0].linear_1.weight  # lecun normal, fan_in 128
@@ -291,7 +292,7 @@ def _port_md17(num, seed, max_atoms, min_atoms):
     data = _molecules(num, seed, max_atoms, min_atoms, with_forces=True)
     model = MD17Model(MD17Config(**TINY, input_dim=5, max_neighbors=4), device="cpu",
                       dtype=torch.float64)
-    model.init(torch.Generator().manual_seed(seed))
+    model.init(prng.prng_key(seed))
     batch = MD17Batch(*(torch.tensor(a, dtype=torch.float64 if a.dtype.kind == "f" else None)
                         for a in (data.pos, data.one_hot, data.mask, data.y, data.forces)))
     return model, batch
@@ -372,7 +373,7 @@ def test_eval_step_gives_md17_its_forces_and_keeps_qm9_off_autograd():
     assert not any(v.requires_grad for v in metrics.values())
     data = _molecules(3, 6, 5, 4)
     qm9 = QM9Model(QM9Config(**TINY, max_neighbors=4), device="cpu")
-    qm9.init(torch.Generator().manual_seed(0))
+    qm9.init(prng.prng_key(0))
     qbatch = MoleculeBatch(torch.tensor(data.pos), torch.tensor(data.one_hot),
                            torch.tensor(data.mask), torch.tensor(data.y, dtype=torch.float32))
     assert not any(v.requires_grad for v in eval_step(qm9, qbatch).values())

@@ -99,3 +99,30 @@ def _imported_names(text: str) -> list:
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     return names
+
+
+# the modules the crystal-diffusion paths run (generate, the exported
+# sampler, train_diffusion): they draw every random number from a JAX key
+DIFFUSION_PATHS = ("tasks/diffusion.py", "diffusion/d3pm.py", "diffusion/ve.py", "diffusion/vp.py",
+                   "cli/generate.py", "cli/train_diffusion.py", "inference/export.py",
+                   "train/loop.py", "ops/lattice.py", "ops/grids.py", "ops/rotations.py",
+                   "ops/prng.py", "kernels/threefry.py", "models/ponita.py", "models/blocks.py",
+                   "interop/from_jax.py")
+TORCH_RANDOM = {"Generator", "randn", "rand", "randint", "randn_like", "rand_like",
+                "randint_like", "randperm", "normal", "bernoulli", "multinomial"}
+
+
+@pytest.mark.parametrize("rel", DIFFUSION_PATHS)
+def test_diffusion_paths_draw_no_torch_random_numbers(rel):
+    """No ``torch.Generator``, no torch random function and no
+    ``generator=`` argument on the diffusion paths: their draws are
+    JAX's, from keys (``ops/prng.py``, ``kernels/threefry.py``)."""
+    tree = ast.parse((PORT / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):
+            assert not (node.value.id == "torch" and node.attr in TORCH_RANDOM), \
+                f"{rel}:{node.lineno} uses torch.{node.attr}"
+        if isinstance(node, ast.keyword):
+            assert node.arg != "generator", f"{rel}:{node.lineno} passes generator="
+        if isinstance(node, ast.ImportFrom) and node.module == "torch":
+            assert not {a.name for a in node.names} & TORCH_RANDOM, f"{rel}:{node.lineno}"

@@ -1,6 +1,12 @@
 """The port's soft-sphere relaxation (``inference/relax.py``) and the
 process_results CLI against the JAX package's, on the CPU: the same
-crystals, float32, the same gradient steps."""
+crystals, float32, the same gradient steps. The MACE relaxation against the
+JAX package's on small stand-ins for ``ase`` and ``mace`` (put into
+``sys.modules``): an ``Atoms``, a calculator whose energy and forces are a
+fixed function of the positions, and a steepest-descent ``BFGS``."""
+
+import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,9 +74,118 @@ def test_relax_soft_sphere_matches_jax():
     assert bool(((got.frac_x >= 0) & (got.frac_x < 1)).all())
 
 
-def test_relax_with_mace_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mace"):
-        relax.relax_with_mace(None)
+class _StubAtoms:
+    """``ase.Atoms`` as ``relax_with_mace`` uses it: cartesian positions
+    from scaled ones and the cell, back to scaled ones."""
+
+    def __init__(self, numbers, scaled_positions, cell, pbc):
+        assert tuple(pbc) == (True, True, True)
+        self.numbers = np.asarray(numbers)
+        self.cell = np.asarray(cell, np.float64)
+        self.positions = np.asarray(scaled_positions, np.float64) @ self.cell
+        self.calc = None
+
+    def get_scaled_positions(self):
+        return (self.positions @ np.linalg.inv(self.cell)) % 1.0
+
+    def get_forces(self):
+        return self.calc.forces(self)
+
+    def get_potential_energy(self):
+        return self.calc.energy(self)
+
+
+class _StubCalculator:
+    """Energy ``sum_i k_Z |r_i - c|^2`` about the cell's centre ``c``
+    (``k_Z`` from the atomic number), its forces ``-2 k_Z (r_i - c)``."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def _k(self, atoms):
+        return (1.0 + 0.01 * atoms.numbers)[:, None]
+
+    def energy(self, atoms):
+        d = atoms.positions - 0.5 * atoms.cell.sum(0)
+        return float((self._k(atoms) * d**2).sum())
+
+    def forces(self, atoms):
+        return -2.0 * self._k(atoms) * (atoms.positions - 0.5 * atoms.cell.sum(0))
+
+
+class _StubBFGS:
+    """Steepest descent at step 0.1 until the largest force is below
+    ``fmax``, at most ``steps`` steps."""
+
+    def __init__(self, atoms, logfile=None):
+        assert logfile is None
+        self.atoms = atoms
+
+    def run(self, fmax, steps):
+        for _ in range(steps):
+            f = self.atoms.get_forces()
+            if np.linalg.norm(f, axis=1).max() < fmax:
+                break
+            self.atoms.positions = self.atoms.positions + 0.1 * f
+
+
+@pytest.fixture
+def stub_mace(monkeypatch):
+    """Stand-in ``ase``, ``ase.optimize``, ``mace`` and ``mace.calculators``
+    modules; returns the list of calculators made."""
+    made = []
+
+    def calculator(**kwargs):
+        made.append(_StubCalculator(**kwargs))
+        return made[-1]
+
+    modules = {
+        "ase": types.SimpleNamespace(Atoms=_StubAtoms),
+        "ase.optimize": types.SimpleNamespace(BFGS=_StubBFGS),
+        "mace": types.SimpleNamespace(),
+        "mace.calculators": types.SimpleNamespace(
+            mace_mp=lambda device: calculator(device=device),
+            MACECalculator=lambda model_paths, device: calculator(model_paths=model_paths,
+                                                                  device=device)),
+    }
+    for name, module in modules.items():
+        monkeypatch.setitem(sys.modules, name, module)
+    return made
+
+
+def _j_result(result):
+    return JResult(*(getattr(result, k) for k in (
+        "frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms")))
+
+
+@pytest.mark.parametrize("model_path", [None, "local.model"])
+def test_relax_with_mace_matches_jax(stub_mace, model_path):
+    """The same crystals through both packages' ``relax_with_mace`` on the
+    stand-in modules: the same calculator arguments, relaxed coordinates
+    and energies equal, lattices, numbers and counts kept."""
+    result = _flat_result()
+    got, energies = relax.relax_with_mace(result, model_path=model_path, fmax=0.01,
+                                          max_steps=30)
+    want, j_energies = j_relax.relax_with_mace(_j_result(result), model_path=model_path,
+                                               fmax=0.01, max_steps=30)
+    assert [c.kwargs for c in stub_mace] == [
+        {"device": "cpu"} if model_path is None else
+        {"model_paths": model_path, "device": "cpu"}] * 2
+    np.testing.assert_array_equal(got.frac_x, want.frac_x)
+    np.testing.assert_array_equal(energies, j_energies)
+    for name in ("atomic_numbers", "lattice", "idx_start", "num_atoms"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(result, name), err_msg=name)
+    assert energies.shape == (5,) and not np.array_equal(got.frac_x, result.frac_x % 1.0)
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_relax_with_mace_without_the_packages_raises(package, monkeypatch):
+    """Where ``ase`` does not import, both packages raise the same
+    ``ImportError``."""
+    monkeypatch.setitem(sys.modules, "ase", None)
+    fn = relax.relax_with_mace if package == "port" else j_relax.relax_with_mace
+    with pytest.raises(ImportError, match="needs the `mace-torch` and `ase` packages"):
+        fn(_flat_result())
 
 
 def _flat_result(seed=2):
@@ -114,9 +229,24 @@ def test_process_results_matches_jax(tmp_path, capsys):
     assert e1 < e0 and abs(e0 - j_e0) <= 1e-4 and abs(e1 - j_e1) <= 1e-4
 
 
-@pytest.mark.parametrize("flag", [["--use_mace", "true"]])
-def test_process_results_unported_flags_raise(flag, tmp_path):
-    save_sample_results(str(tmp_path / "crystals.npz"), _flat_result())
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        process_results.main(["--in_path", str(tmp_path / "crystals.npz"), "--device", "cpu",
-                              *flag])
+def test_process_results_use_mace_matches_jax(stub_mace, tmp_path, capsys):
+    """``process_results --use_mace`` in both packages on the stand-in
+    modules: the same relaxed ``crystals_relaxed.h5`` and the same energy
+    line."""
+    result = _flat_result()
+    (tmp_path / "jax").mkdir()
+    save_sample_results(str(tmp_path / "crystals.h5"), result)
+    j_save(str(tmp_path / "jax" / "crystals.h5"), _j_result(result))
+    flags = ["--use_mace", "true", "--steps", "25", "--fmax", "0.02"]
+    process_results.main(["--in_path", str(tmp_path / "crystals.h5"), "--device", "cpu",
+                          *flags])
+    printed = capsys.readouterr().out
+    j_process_results.main(["--in_path", str(tmp_path / "jax" / "crystals.h5"), *flags])
+    j_printed = capsys.readouterr().out
+    saved = load_sample_results(str(tmp_path / "crystals_relaxed.h5"))
+    want = j_load(str(tmp_path / "jax" / "crystals_relaxed.h5"))
+    for name in ("frac_x", "atomic_numbers", "lattice", "idx_start", "num_atoms"):
+        np.testing.assert_array_equal(getattr(saved, name), getattr(want, name), err_msg=name)
+    line = [s for s in printed.splitlines() if s.startswith("MACE-relaxed 5 crystals")]
+    assert line and line == [s for s in j_printed.splitlines()
+                             if s.startswith("MACE-relaxed 5 crystals")]

@@ -22,6 +22,7 @@ from arreau_tpu_torch.cli import generate, train_diffusion
 from arreau_tpu_torch.interop.from_jax import _jax_name
 from arreau_tpu_torch.models import make_ponita
 from arreau_tpu_torch.models.ponita import PonitaConfig
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.tasks.diffusion import (
     DiffusionConfig,
     DiffusionModel,
@@ -89,8 +90,8 @@ def test_remat_equals_whole_blocks_bit_for_bit(branch):
     host = _batch()
     config = DiffusionConfig(**{**dataclasses.asdict(tiny_config(diffuse_angles=True, **GRAPH)),
                                 **BRANCHES[branch]})
-    g = torch.Generator().manual_seed(0)
-    noise = draw_loss_noise(g, *host.atom_types.shape, config.num_atomic_states,
+    g = torch.Generator().manual_seed(0)  # the perturbed layer scales and biases
+    noise = draw_loss_noise(prng.prng_key(0), *host.atom_types.shape, config.num_atomic_states,
                             config.num_timesteps, True, "cpu")
     state = None
     results = {}
@@ -103,7 +104,7 @@ def test_remat_equals_whole_blocks_bit_for_bit(branch):
         backbone = model.model
         if state is None:
             # layer scales of order 1 and nonzero biases: the blocks count
-            backbone.init_parameters(g)
+            backbone.init_parameters(prng.prng_key(0))
             state = {k: torch.rand(v.shape, generator=g) + 0.5 if k.endswith("layer_scale")
                      else (torch.randn(v.shape, generator=g) * 0.2 if k.endswith("bias") else v)
                      for k, v in backbone.state_dict().items()}
@@ -138,9 +139,9 @@ def test_remat_keeps_the_window_cotangent(monkeypatch):
     host = _host(1)
     nl = j_radius_neighbor_list(jnp.asarray(host["pos"]), jnp.asarray(host["mask"]), 1000.0, K,
                                 loop=False)
-    g = torch.Generator().manual_seed(2)
+    g = torch.Generator().manual_seed(2)  # the perturbed layer scales and biases
     backbone = PonitaFiberBundle(PonitaConfig(input_dim_scalar=3, input_dim_vec=1, **CFG))
-    backbone.init_parameters(g)
+    backbone.init_parameters(prng.prng_key(2))
     with torch.no_grad():
         for name, p in backbone.named_parameters():
             if name.endswith("layer_scale") or name.endswith("bias"):

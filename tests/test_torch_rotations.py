@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from arreau_tpu.ops import rotations as jrot
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops import rotations as rot
 from arreau_tpu_torch.ops.grids import random_quat, random_so3_matrix
 
@@ -92,10 +93,10 @@ def test_re_exports_are_the_grids_functions():
 def test_random_quat_is_unit_and_drives_random_so3():
     """The same draws from one seed: unit quaternions, and random_so3_matrix
     is their matrices."""
-    q = random_quat(torch.Generator().manual_seed(3), (64,), torch.float64)
+    q = random_quat(prng.prng_key(3), (64,), torch.float64)
     assert q.shape == (64, 4)
     np.testing.assert_allclose(torch.linalg.norm(q, dim=-1).numpy(), 1.0, atol=1e-12)
-    m = random_so3_matrix(torch.Generator().manual_seed(3), (64,), torch.float64)
+    m = random_so3_matrix(prng.prng_key(3), (64,), torch.float64)
     torch.testing.assert_close(m, rot.quat_to_matrix(q), rtol=0, atol=0)
 
 
@@ -103,7 +104,7 @@ def test_random_quat_is_unit_and_drives_random_so3():
 
 
 def test_random_so2_matrix_is_rotation():
-    R = rot.random_so2_matrix(torch.Generator().manual_seed(2), (10,), torch.float64).numpy()
+    R = rot.random_so2_matrix(prng.prng_key(2), (10,), torch.float64).numpy()
     for i in range(10):
         np.testing.assert_allclose(R[i] @ R[i].T, np.eye(2), atol=1e-9)
         np.testing.assert_allclose(np.linalg.det(R[i]), 1.0, rtol=1e-9)
@@ -115,7 +116,7 @@ def test_quat_to_matrix_identity():
 
 
 def test_rotation_converters_roundtrip():
-    q = random_quat(torch.Generator().manual_seed(0), (16,), torch.float64)
+    q = random_quat(prng.prng_key(0), (16,), torch.float64)
     q = torch.where(q[:, :1] < 0, -q, q)  # canonical sign (w >= 0) for comparison
     m = rot.quat_to_matrix(q)
     q2 = rot.matrix_to_quat(m)
@@ -126,8 +127,8 @@ def test_rotation_converters_roundtrip():
 
 
 def test_rotation_geodesic_and_slerp():
-    q1 = random_quat(torch.Generator().manual_seed(1), (8,), torch.float64)
-    q2 = random_quat(torch.Generator().manual_seed(2), (8,), torch.float64)
+    q1 = random_quat(prng.prng_key(1), (8,), torch.float64)
+    q2 = random_quat(prng.prng_key(2), (8,), torch.float64)
     d_q = rot.geodesic_distance_quat(q1, q2)
     d_m = rot.geodesic_distance_matrix(rot.quat_to_matrix(q1), rot.quat_to_matrix(q2))
     # the SO(3) angle is twice the quaternion angle (double cover)
@@ -141,15 +142,15 @@ def test_rotation_geodesic_and_slerp():
 
 
 def test_quat_mul_matches_matrix_product():
-    q1 = random_quat(torch.Generator().manual_seed(3), (5,), torch.float64)
-    q2 = random_quat(torch.Generator().manual_seed(4), (5,), torch.float64)
+    q1 = random_quat(prng.prng_key(3), (5,), torch.float64)
+    q2 = random_quat(prng.prng_key(4), (5,), torch.float64)
     np.testing.assert_allclose(rot.quat_to_matrix(rot.quat_mul(q1, q2)).numpy(),
                                (rot.quat_to_matrix(q1) @ rot.quat_to_matrix(q2)).numpy(),
                                atol=1e-8)
 
 
 def test_quat_conj_inverts_and_rotation_applies():
-    q = random_quat(torch.Generator().manual_seed(5), (6,), torch.float64)
+    q = random_quat(prng.prng_key(5), (6,), torch.float64)
     ident = rot.quat_mul(q, rot.quat_conj(q))
     np.testing.assert_allclose(ident.numpy(), np.tile([1.0, 0, 0, 0], (6, 1)), atol=1e-12)
     v = torch.randn((6, 3), generator=torch.Generator().manual_seed(6), dtype=torch.float64)

@@ -13,6 +13,7 @@ from arreau_tpu.tasks.diffusion import CrystalBatch as JBatch
 from arreau_tpu.tasks.diffusion import DiffusionModel as JModel
 from arreau_tpu_torch.interop.from_jax import params_from_jax
 from arreau_tpu_torch.tasks.diffusion import DiffusionModel
+from arreau_tpu_torch.ops import prng
 from tests.test_torch_model import Z_TABLE, _batch, perturbed_params, port_config, tiny_config
 from tests.test_torch_sampler import LENGTH_BOUNDS, assert_same_crystals, jax_noise
 
@@ -68,8 +69,8 @@ def test_final_batch_equals_the_unsegmented_chain_bit_for_bit(num_atoms):
     _, _, model = _models()
     counts = None if num_atoms is None else torch.tensor(num_atoms)
     kw = dict(length_bounds=LENGTH_BOUNDS, num_atoms=counts)
-    plain = model.sample(B, A, generator=torch.Generator().manual_seed(3), **kw)
-    batch, snaps = model.sample(B, A, generator=torch.Generator().manual_seed(3),
+    plain = model.sample(B, A, key=prng.prng_key(3), **kw)
+    batch, snaps = model.sample(B, A, key=prng.prng_key(3),
                                 snapshot_every=EVERY, **kw)
     for name in plain._fields:
         assert torch.equal(getattr(plain, name), getattr(batch, name)), name
@@ -86,8 +87,8 @@ def test_snapshot_labels_every_ten_of_the_full_chain():
     on 1 crystal of 2 atoms."""
     cfg = port_config(tiny_config(num_timesteps=1000, num_layers=1, hidden_dim=8))
     model = DiffusionModel(cfg, device="cpu")
-    model.model.init_parameters(torch.Generator().manual_seed(0))
-    _, snaps = model.sample(1, 2, generator=torch.Generator().manual_seed(0), snapshot_every=10)
+    model.model.init_parameters(prng.prng_key(0))
+    _, snaps = model.sample(1, 2, key=prng.prng_key(0), snapshot_every=10)
     assert [t for t, _ in snaps] == list(range(989, 8, -10)) + [0]
     assert len(snaps) == 100
 
@@ -95,9 +96,9 @@ def test_snapshot_labels_every_ten_of_the_full_chain():
 def test_snapshots_with_strided_sampling_raise():
     _, _, model = _models()
     with pytest.raises(ValueError, match="strided"):
-        model.sample(B, A, generator=torch.Generator().manual_seed(0), sample_steps=3,
+        model.sample(B, A, key=prng.prng_key(0), sample_steps=3,
                      snapshot_every=EVERY)
     # sample_steps at or above T - 1 is the dense chain, which takes snapshots
-    _, snaps = model.sample(B, A, generator=torch.Generator().manual_seed(0), sample_steps=T - 1,
+    _, snaps = model.sample(B, A, key=prng.prng_key(0), sample_steps=T - 1,
                             snapshot_every=EVERY)
     assert [t for t, _ in snaps] == [6, 1, 0]

@@ -34,6 +34,7 @@ from arreau_tpu_torch.tasks.diffusion import (
 )
 from arreau_tpu_torch.train.optim import AdamW, cosine_warmup_schedule, decays
 from arreau_tpu_torch.train.state import EMA
+from arreau_tpu_torch.ops import prng
 from tests.test_torch_model import perturbed_params, port_config, tiny_config
 
 A = 4
@@ -210,11 +211,11 @@ def test_one_optimizer_and_ema_step_matches_optax():
 
 
 def test_draw_loss_noise_shapes_and_ranges():
-    g = torch.Generator().manual_seed(0)
-    n = draw_loss_noise(g, 5, 3, 9, 50, True, "cpu")
+    k1, k2 = prng.split(prng.prng_key(0))
+    n = draw_loss_noise(k1, 5, 3, 9, 50, True, "cpu")
     assert n.t.shape == (5,) and int(n.t.min()) >= 1 and int(n.t.max()) <= 50
     assert n.pos.shape == (5, 3, 3) and n.types.shape == (5, 3, 9) and n.angle.shape == (5, 6)
-    assert draw_loss_noise(g, 5, 3, 9, 50, False, "cpu", timestep=5).angle is None
+    assert draw_loss_noise(k2, 5, 3, 9, 50, False, "cpu", timestep=5).angle is None
 
 
 def test_ranked_checkpoints_keep_the_lowest_scores(tmp_path):
@@ -369,7 +370,7 @@ def test_position_grads_builds_and_differentiates():
     params_from_jax(model, params)
     batch = batch_to_device(host, "cpu")
     frac = batch.frac_x.clone().requires_grad_()
-    noise = draw_loss_noise(torch.Generator().manual_seed(0), *host.atom_types.shape,
+    noise = draw_loss_noise(prng.prng_key(0), *host.atom_types.shape,
                             jmodel.config.num_atomic_states, jmodel.config.num_timesteps, False,
                             "cpu")
     loss, _ = model.loss(batch._replace(frac_x=frac), noise)

@@ -40,8 +40,9 @@ from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv_bwd_plain,
     spatial_conv_plain,
 )
-from arreau_tpu_torch.ops.lattice import encode_angles, matrix_to_params, rotations_from_normals
+from arreau_tpu_torch.ops.lattice import encode_angles, matrix_to_params
 from arreau_tpu_torch.ops.pbc import min_distance_pbc
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.tasks.diffusion import CrystalBatch, rotate_batch
 
 Z_TABLE = synthetic_z_table()
@@ -148,15 +149,15 @@ def test_d3pm_loss_matches_jax():
 
 
 def test_rotate_batch_matches_jax():
-    """The same quaternion normals the JAX function draws (float64 there,
-    float32 here: 1e-6)."""
+    """The JAX function's rotations from the same key (its float32 draws,
+    without ``enable_x64``): lattices within 1e-6, the quaternion products
+    taken in another order."""
     host = _host_batch()
-    key = jax.random.PRNGKey(9)
-    want = j_rotate_batch(key, JBatch(*map(jnp.asarray, host)))
-    normals = jax.random.normal(key, (host.lattice.shape[0], 4))
+    with jax.enable_x64(False):
+        want = j_rotate_batch(jax.random.PRNGKey(9), JBatch(*map(jnp.asarray, host)))
     batch = CrystalBatch(*(torch.as_tensor(np.asarray(a)) for a in host))
-    got = rotate_batch(rotations_from_normals(torch.tensor(_np(normals), dtype=torch.float32)), batch)
-    np.testing.assert_allclose(got.lattice.numpy(), _np(want.lattice), rtol=1e-6, atol=1e-5)
+    got = rotate_batch(prng.prng_key(9), batch._replace(lattice=batch.lattice.float()))
+    np.testing.assert_allclose(got.lattice.numpy(), _np(want.lattice), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(got.frac_x.numpy(), host.frac_x)
 
 
