@@ -1,12 +1,14 @@
 """argparse value parsers shared by the task CLIs; a copy of
 ``arreau_tpu/cli/common.py``: ``True``/``False``/``None``/floats accepted,
 anything else an argparse error (where ``type=eval`` would take any
-expression). And the task CLIs' data-parallel set-up."""
+expression). And the task CLIs' data-parallel set-up and the per-step
+keys of the JAX QM9, MD17 and MNIST CLIs' chain."""
 
 from __future__ import annotations
 
 import argparse
 
+from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
 
 
@@ -20,6 +22,15 @@ def data_parallel_setup(device, batch_size: int):
     if batch_size % mesh.data_size:
         raise ValueError(f"--batch_size {batch_size} not divisible by {mesh.data_size} data ranks")
     return mesh, (print if mesh.is_main else silent)
+
+
+def step_keys(key) -> tuple:
+    """``(key, k_rot)`` of one training step of the JAX QM9, MD17 and MNIST
+    CLIs: the chain splits ``key, k_step = split(key)``, and the step draws
+    its rotation from ``split(k_step)[1]``. A validation or test batch
+    takes one ``key, k_eval = split(key)`` of the chain."""
+    key, k_step = prng.split(key)
+    return key, prng.split(k_step)[1]
 
 
 def silent(*args, **kwargs) -> None:

@@ -11,6 +11,11 @@ by the force MAE), and a test pass on ``best`` averaged over
 ``--repeats`` random rotations. Runs on ``--device`` (default ``cuda``; it
 never falls back to the CPU).
 
+``--seed`` gives the JAX CLI's random numbers: its parameters, numpy's
+shuffles and the rotations of its key chain (``cli/common.py:step_keys``;
+a validation or test batch advances the chain by one split) and the test's
+rotations (``split(k_eval, repeats)``, one key a repeat).
+
     python -m arreau_tpu_torch.cli.train_md17 --epochs 300
 
 Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
@@ -32,7 +37,12 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import (
+    data_parallel_setup,
+    parse_bool,
+    parse_opt_float,
+    step_keys,
+)
 from arreau_tpu_torch.data.molecules import (
     MoleculeExamples,
     load_rmd17_npz,
@@ -146,7 +156,6 @@ def main(argv=None):
             chunk = torch.as_tensor(order[s:s + bs], device=device)
             yield MD17Batch(*(a[chunk] for a in on_device))
 
-    # a key chain from the seed; the JAX CLI's own chain is not followed yet
     key, init_key = prng.split(prng.prng_key(args.seed))
     model.init(init_key, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
@@ -173,8 +182,8 @@ def main(argv=None):
         pending = []
         t_loop = time.perf_counter()
         for batch in batches(tr, True):
+            key, k_rot = step_keys(key)
             if args.train_augm:
-                key, k_rot = prng.split(key)
                 batch = rotate_md17_batch(random_so3_matrix(k_rot, (bs,), device=device), batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
@@ -192,8 +201,11 @@ def main(argv=None):
             f"F-MAE {t.get('mae_force', 0):.4f} | {dt:.1f}s", flush=True)
         if (epoch + 1) % args.val_interval == 0 or epoch == args.epochs - 1:
             vm = MeanMetrics()
-            for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
-                                     for b in batches(va, False)]):
+            results = []
+            for b in batches(va, False):
+                key, _ = prng.split(key)  # the JAX CLI's k_eval, which its loss leaves unused
+                results.append(eval_step(model, shard_batch(b, mesh), ema=ema))
+            for m in gather_metrics(results):
                 vm.update(m)
             v = vm.compute()
             vf = v.get("mae_force", float("nan"))
@@ -219,8 +231,9 @@ def main(argv=None):
     e_maes, f_maes = [], []
     with ema.swapped_in(model.model), torch.no_grad():
         for batch in batches(te, False):
-            key, k_rot = prng.split(key)
-            rotations = random_so3_matrix(k_rot, (args.repeats, bs), device=device)
+            # one rotation key a repeat: split(k_eval, repeats), one launch for all
+            key, k_eval = prng.split(key)
+            rotations = random_so3_matrix(prng.split(k_eval, args.repeats), (bs,), device=device)
             results = model.test_repeats(shard_batch(batch, mesh), shard_rows(rotations, mesh, 1))
             # [repeats, 2] energy and force MAEs, averaged over equal shards
             maes = data_mean({"mae": torch.stack([torch.stack(r) for r in results])}, mesh)["mae"]

@@ -10,6 +10,10 @@ validation with the EMA weights every ``--val_interval`` epochs, a final
 test pass on ``best``. Runs on ``--device`` (default ``cuda``; it never
 falls back to the CPU).
 
+``--seed`` gives the JAX CLI's random numbers: its parameters, numpy's
+shuffles and the rotations of its key chain (``cli/common.py:step_keys``;
+a validation or test batch advances the chain by one split).
+
     python -m arreau_tpu_torch.cli.train_mnist --synthetic_size 4000 --epochs 50
 
 Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
@@ -30,7 +34,12 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import (
+    data_parallel_setup,
+    parse_bool,
+    parse_opt_float,
+    step_keys,
+)
 from arreau_tpu_torch.data.mnist import load_mnist_superpixels, synthetic_superpixels
 from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so2_matrix
@@ -131,7 +140,6 @@ def main(argv=None):
             chunk = torch.as_tensor(idx[s:s + bs], device=device)
             yield Mnist2DBatch(*(a[chunk] for a in ex))
 
-    # a key chain from the seed; the JAX CLI's own chain is not followed yet
     key, init_key = prng.split(prng.prng_key(args.seed))
     model.init(init_key, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
@@ -151,9 +159,13 @@ def main(argv=None):
                        else None)
 
     def evaluate(split: str) -> dict:
+        nonlocal key
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
-                                 for b in batches(split, False)]):
+        results = []
+        for b in batches(split, False):
+            key, _ = prng.split(key)  # the JAX CLI's k_eval, which its loss leaves unused
+            results.append(eval_step(model, shard_batch(b, mesh), ema=ema))
+        for m in gather_metrics(results):
             acc.update(m)
         return acc.compute()
 
@@ -165,8 +177,8 @@ def main(argv=None):
         pending = []
         t_loop = time.perf_counter()
         for batch in batches("train", True):
+            key, k_rot = step_keys(key)
             if args.train_augm:
-                key, k_rot = prng.split(key)
                 batch = rotate_mnist_batch(random_so2_matrix(k_rot, (len(batch.pos),), device=device),
                                           batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))

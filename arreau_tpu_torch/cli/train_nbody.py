@@ -9,8 +9,27 @@ the Ponita backbone (kernel branch on the card) or ``--model egnn``, then
 clip + AdamW + EMA 0.99; validation every ``--val_interval`` epochs with
 the EMA weights, ``last``/``best`` checkpoints, a final test pass on
 ``best``. Runs on ``--device`` (default ``cuda``; it never falls back to
-the CPU). ``--scan_epoch`` is accepted and changes nothing: it chooses the
-JAX package's dispatch on a TPU, and every epoch here is the per-batch loop.
+the CPU).
+
+``--seed`` gives the JAX CLI's random numbers: its parameters, shuffles and
+rotations, drawn from its key chain (``ops/prng.py``; the bulk draws on the
+card through the threefry kernel). The JAX CLI has two chains, and the port
+follows the one the JAX CLI would take with the same flags:
+
+- the scan chain (``--scan_epoch`` true, or by default in one process), as
+  the JAX CLI's epoch as one ``lax.scan``: an epoch takes ``key, k_ep =
+  split(key)`` and ``kp, k_loop = split(k_ep)``, shuffles with
+  ``jax.random.permutation(kp, n_train)`` (its first ``steps_per_epoch x
+  batch_size`` systems), and each step splits ``k_loop, k_rot, k_step =
+  split(k_loop, 3)``; a validation or test pass takes one ``key, k_eval =
+  split(key)``;
+- the per-batch chain (``--max_steps``, ``--scan_epoch false``, or by
+  default under torchrun with more than one rank): numpy's
+  ``rng.permutation`` an epoch, ``key, k_rot, k_step = split(key, 3)`` a
+  step, ``key, k_eval = split(key)`` a validation or test batch.
+
+Either way the port runs one eager step at a time; "scan" names the order
+of the draws.
 
     python -m arreau_tpu_torch.cli.train_nbody --epochs 10000 --val_interval 20 \\
         --batch_size 100 --lr 1e-3
@@ -40,6 +59,7 @@ from arreau_tpu_torch.cli.common import (
     parse_opt_float,
 )
 from arreau_tpu_torch.data.nbody import load_or_generate
+from arreau_tpu_torch.kernels import threefry
 from arreau_tpu_torch.models.egnn import EGNNConfig, EGNNNBody
 from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so3_matrix
@@ -87,7 +107,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints-nbody")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--scan_epoch", type=parse_opt_bool, default=None,
-                   help="accepted for the JAX CLI's flag set; every epoch runs the per-batch loop")
+                   help="draw the JAX CLI's scan-path key chain (an epoch's shuffle from "
+                        "jax.random.permutation, three keys a step). Default (None): on in "
+                        "one process. --max_steps always takes the per-batch chain (numpy "
+                        "shuffles), overriding scan_epoch")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises where CUDA is unavailable")
     return p.parse_args(argv)
@@ -138,15 +161,20 @@ def main(argv=None):
             chunk = torch.as_tensor(idx[s:s + bs], device=device)
             yield NBodyBatch(*(a[chunk] for a in arrays))
 
-    # a key chain from the seed; the JAX CLI's own chain is not followed yet
     key, init_key = prng.split(prng.prng_key(args.seed))
     model.init(init_key, next(batches("train", False)))
     n_params = sum(p.numel() for p in model.model.parameters())
     shard_state(model, mesh)
-    steps_per_epoch = max(len(splits["train"][0]) // bs, 1)
+    n_train = len(splits["train"][0])
+    steps_per_epoch = max(n_train // bs, 1)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     say(f"nbody model: {n_params / 1e6:.2f}M params | steps/epoch {steps_per_epoch}")
     say(f"device: {name}")
+    single = mesh.data_size * mesh.model_size == 1
+    use_scan = (single if args.scan_epoch is None else args.scan_epoch) and args.max_steps is None
+    if args.scan_epoch is True and args.max_steps is not None:
+        say("NOTE: --scan_epoch=True is ignored because --max_steps requires the per-batch "
+            "chain (the scanned epoch cannot stop mid-epoch).")
 
     schedule = cosine_warmup_schedule(args.lr, args.warmup, args.epochs, steps_per_epoch)
     optimizer = AdamW(model.model, schedule, args.weight_decay, grad_clip=0.5, mesh=mesh)
@@ -157,11 +185,37 @@ def main(argv=None):
                        else None)
 
     def evaluate(split: str) -> float:
+        """The split's MSE on the EMA weights; advances the key chain as the
+        JAX CLI's pass does (its keys go unused: no augmentation)."""
+        nonlocal key
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
-                                 for b in batches(split, False)]):
+        results = []
+        for b in batches(split, False):
+            if not use_scan:
+                key, _ = prng.split(key)
+            results.append(eval_step(model, shard_batch(b, mesh), ema=ema))
+        if use_scan:
+            key, _ = prng.split(key)
+        for m in gather_metrics(results):
             acc.update(m)
         return acc.compute().get("mse", float("nan"))
+
+    def epoch_batches():
+        """(batch, k_rot) of an epoch's training steps, from the chain."""
+        nonlocal key
+        if not use_scan:
+            for batch in batches("train", True):
+                key, k_rot, _ = prng.split(key, 3)
+                yield batch, k_rot
+            return
+        key, k_ep = prng.split(key)
+        kp, k_loop = prng.split(k_ep)
+        idx = threefry.permutation(kp, n_train, device)[:steps_per_epoch * bs]
+        arrays = splits["train"]
+        for s in range(steps_per_epoch):
+            k_loop, k_rot, _ = prng.split(k_loop, 3)
+            chunk = idx[s * bs:(s + 1) * bs]
+            yield NBodyBatch(*(a[chunk] for a in arrays)), k_rot
 
     best = float("inf")
     global_step = 0
@@ -171,11 +225,10 @@ def main(argv=None):
         timer.epoch_start()
         pending = []
         t_loop = time.perf_counter()
-        for batch in batches("train", True):
+        for batch, k_rot in epoch_batches():
             if args.train_augm:
-                key, k_rot = prng.split(key)
-                batch = rotate_nbody_batch(random_so3_matrix(k_rot, (len(batch.pos),), device=device),
-                                          batch)
+                rotations = random_so3_matrix(k_rot, (len(batch.pos),), device=device)
+                batch = rotate_nbody_batch(rotations, batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1
             if args.max_steps and global_step >= args.max_steps:

@@ -9,6 +9,14 @@ weights every ``--val_interval`` epochs, ``best``/``last`` checkpoints and
 a final test pass on ``best``. Runs on ``--device`` (default ``cuda``; it
 never falls back to the CPU).
 
+``--seed`` gives the JAX CLI's random numbers: its parameters, numpy's
+shuffles and the rotations of its key chain (``cli/common.py:step_keys``;
+a validation or test batch advances the chain by one split).
+
+``--seed`` gives the JAX CLI's random numbers: its parameters, numpy's
+shuffles and the rotations of its key chain (``cli/common.py:step_keys``;
+a validation or test batch advances the chain by one split).
+
     python -m arreau_tpu_torch.cli.train_qm9 --epochs 300
 
 Under torchrun (``python -m torch.distributed.run --nproc_per_node N -m
@@ -28,7 +36,12 @@ import time
 import numpy as np
 import torch
 
-from arreau_tpu_torch.cli.common import data_parallel_setup, parse_bool, parse_opt_float
+from arreau_tpu_torch.cli.common import (
+    data_parallel_setup,
+    parse_bool,
+    parse_opt_float,
+    step_keys,
+)
 from arreau_tpu_torch.data.molecules import dimenet_split, load_qm9_xyz_dir, synthetic_molecules
 from arreau_tpu_torch.ops import prng
 from arreau_tpu_torch.ops.grids import random_so3_matrix
@@ -120,7 +133,6 @@ def main(argv=None):
             chunk = torch.as_tensor(order[s:s + bs], device=device)
             yield MoleculeBatch(*(a[chunk] for a in on_device))
 
-    # a key chain from the seed; the JAX CLI's own chain is not followed yet
     key, init_key = prng.split(prng.prng_key(args.seed))
     model.init(init_key, next(batches(tr, False)))
     n_params = sum(p.numel() for p in model.model.parameters())
@@ -140,9 +152,13 @@ def main(argv=None):
                        else None)
 
     def evaluate(idx) -> float:
+        nonlocal key
         acc = MeanMetrics()
-        for m in gather_metrics([eval_step(model, shard_batch(b, mesh), ema=ema)
-                                 for b in batches(idx, False)]):
+        results = []
+        for b in batches(idx, False):
+            key, _ = prng.split(key)  # the JAX CLI's k_eval, which its loss leaves unused
+            results.append(eval_step(model, shard_batch(b, mesh), ema=ema))
+        for m in gather_metrics(results):
             acc.update(m)
         return acc.compute().get("mae", float("nan"))
 
@@ -154,8 +170,8 @@ def main(argv=None):
         pending = []
         t_loop = time.perf_counter()
         for batch in batches(tr, True):
+            key, k_rot = step_keys(key)
             if args.train_augm:
-                key, k_rot = prng.split(key)
                 batch = rotate_molecule_batch(random_so3_matrix(k_rot, (bs,), device=device), batch)
             pending.append(train_step(model, optimizer, ema, shard_batch(batch, mesh)))
             global_step += 1

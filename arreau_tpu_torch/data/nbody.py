@@ -7,9 +7,14 @@ A simulation is a draw of its initial state (:func:`draw_charged`) and a
 deterministic integration of every trajectory at once on the tensors'
 device (:func:`integrate_charged`): the initial half kick, then per step a
 move and a kick, each sampled frame recording the position and the
-velocity before that step's kick. JAX's threefry draws cannot be
-reproduced, so the port's datasets are its own draw of the same
-distribution; the integrator is the same function.
+velocity before that step's kick. The initial states are JAX's draws from
+JAX's keys (``PRNGKey(seed)``, one split a data split), through the
+threefry kernel on the card (``kernels/threefry.py``): the charges equal
+JAX's, the positions and velocities within 3 ulp. The integration is the
+same function in float32, but it sums the forces in another order than
+XLA's, and over the thousands of leapfrog steps before the saved frames a
+few charged systems come close enough for that rounding to grow: their
+frames part from JAX's (PERF.md, the chaos finding).
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from arreau_tpu_torch.kernels import threefry
+from arreau_tpu_torch.ops import prng
 
 DT = 1e-3
 MAX_F = 0.1 / DT
@@ -49,19 +57,19 @@ def pair_forces(loc: torch.Tensor, coupling: torch.Tensor) -> torch.Tensor:
     return torch.clamp(force, -MAX_F, MAX_F)
 
 
-def draw_charged(generator: torch.Generator, num_sims: int, n_balls: int = 5,
-                 loc_std: float = 1.0, vel_norm: float = 0.5, dtype=torch.float32):
-    """Initial states (loc, vel ``[S, n, 3]``, charges ``[S, n]``) on the
-    generator's device: charges +-1 with probability 1/2, normal positions
-    times ``loc_std (n/5)^(1/3)``, normal velocities scaled to speed
-    ``vel_norm``."""
-    dev = generator.device
+def draw_charged(key, num_sims: int, n_balls: int = 5, loc_std: float = 1.0,
+                 vel_norm: float = 0.5, device="cpu"):
+    """Initial states (loc, vel ``[S, n, 3]``, charges ``[S, n]``, float32)
+    on ``device``, as the JAX package's ``simulate_charged`` draws them from
+    the JAX key ``key`` (uint32 ``[2]``): ``k_q, k_loc, k_vel = split(key,
+    3)``; charges +1 where ``bernoulli(k_q, 0.5)``, else -1; positions
+    ``normal(k_loc)`` times ``loc_std (n/5)^(1/3)``; velocities
+    ``normal(k_vel)`` scaled to speed ``vel_norm``."""
     loc_std = loc_std * (float(n_balls) / 5.0) ** (1.0 / 3.0)
-    charges = torch.where(torch.rand((num_sims, n_balls), generator=generator, device=dev) < 0.5,
-                          1.0, -1.0).to(dtype)
-    loc = torch.randn((num_sims, n_balls, 3), generator=generator, dtype=dtype,
-                      device=dev) * loc_std
-    vel = torch.randn((num_sims, n_balls, 3), generator=generator, dtype=dtype, device=dev)
+    k_q, k_loc, k_vel = prng.split(np.asarray(key, np.uint32), 3)
+    charges = torch.where(threefry.bernoulli(k_q, 0.5, (num_sims, n_balls), device), 1.0, -1.0)
+    loc = threefry.normal(k_loc, (num_sims, n_balls, 3), device) * loc_std
+    vel = threefry.normal(k_vel, (num_sims, n_balls, 3), device)
     vel = vel * vel_norm / torch.linalg.norm(vel, dim=-1, keepdim=True)
     return loc, vel, charges
 
@@ -87,11 +95,12 @@ def integrate_charged(loc: torch.Tensor, vel: torch.Tensor, charges: torch.Tenso
     return torch.stack(locs, dim=1), torch.stack(vels, dim=1), coupling, charges
 
 
-def simulate_charged(generator: torch.Generator, num_sims: int, n_balls: int = 5,
-                     T: int = 5000, sample_freq: int = 100, loc_std: float = 1.0,
-                     vel_norm: float = 0.5, interaction_strength: float = 1.0):
-    """:func:`draw_charged` then :func:`integrate_charged`, as numpy arrays."""
-    loc, vel, charges = draw_charged(generator, num_sims, n_balls, loc_std, vel_norm)
+def simulate_charged(key, num_sims: int, n_balls: int = 5, T: int = 5000,
+                     sample_freq: int = 100, loc_std: float = 1.0, vel_norm: float = 0.5,
+                     interaction_strength: float = 1.0, device="cpu"):
+    """:func:`draw_charged` from the JAX key ``key`` on ``device``, then
+    :func:`integrate_charged`, as numpy arrays."""
+    loc, vel, charges = draw_charged(key, num_sims, n_balls, loc_std, vel_norm, device)
     out = integrate_charged(loc, vel, charges, T, sample_freq, interaction_strength)
     return tuple(t.cpu().numpy() for t in out)
 
@@ -102,11 +111,15 @@ def generate_nbody_npz(out_dir: str, num_train: int = 10000, num_valid: int = 20
                        device="cpu") -> None:
     """Write the reference npz schema (``loc_``/``vel_``/``edges_``/``charges_``
     per split; frames second, the coordinate axis before the particles),
-    simulated on ``device`` from one generator seeded ``seed``."""
+    simulated on ``device`` from JAX's keys: ``key = PRNGKey(seed)``, then
+    ``key, sub = split(key)`` a split (train, valid, test), each simulated
+    from its ``sub``."""
     os.makedirs(out_dir, exist_ok=True)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    key = prng.prng_key(seed)
     for split, num in (("train", num_train), ("valid", num_valid), ("test", num_test)):
-        loc, vel, edges, charges = simulate_charged(generator, num, n_balls, T, sample_freq)
+        key, sub = prng.split(key)
+        loc, vel, edges, charges = simulate_charged(sub, num, n_balls, T, sample_freq,
+                                                    device=device)
         np.save(os.path.join(out_dir, f"loc_{split}{suffix}.npy"), loc.transpose(0, 1, 3, 2))
         np.save(os.path.join(out_dir, f"vel_{split}{suffix}.npy"), vel.transpose(0, 1, 3, 2))
         np.save(os.path.join(out_dir, f"edges_{split}{suffix}.npy"), edges)

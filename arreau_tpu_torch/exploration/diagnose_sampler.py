@@ -15,9 +15,11 @@ every ``--record_every`` steps:
 
 The records go to ``--out`` as JSON. The chain runs on ``--device`` (default
 ``cuda``): on the card each step is one forward through kernels #3 and #8.
-Its random numbers are a :class:`SamplerNoise` drawn from the JAX key
-``PRNGKey(--seed)`` as the sampler draws it (the JAX tool's own key chain
-is not followed yet), or handed to :func:`diagnose`.
+Its random numbers are a :class:`SamplerNoise` drawn ahead from the JAX
+tool's own key chain (:func:`draw_diagnosis_noise`: ``PRNGKey(--seed)``
+split into the prior's keys and the loop's, one split of the loop key a
+step), each field of the whole chain one launch of the threefry kernel on
+the card; or handed to :func:`diagnose`.
 
     python -m arreau_tpu_torch.exploration.diagnose_sampler \\
         --checkpoint_dir ckpt --ref synthetic:20000:0 --out out/diag_sampler.json
@@ -66,6 +68,30 @@ def reference_lengths(ref: str) -> tuple[float, float]:
     as ``generate --quality_ref`` takes it)."""
     lengths, _ = lattice_params_np(generate.reference_dataset(ref).packed.lattices)
     return float(lengths.mean()), float(lengths.var())
+
+
+def diagnosis_step_keys(key, num_steps: int) -> np.ndarray:
+    """uint32 ``[num_steps, 4, 2]``: each step's ``(k_lat, k_pos, k_type,
+    k_ang)`` off the JAX tool's loop key, ``key, sub = split(key)`` then
+    ``split(sub, 4)`` a step."""
+    out = np.empty((num_steps, 4, 2), np.uint32)
+    key = np.asarray(key, np.uint32)
+    for s in range(num_steps):
+        key, sub = prng.split(key)
+        out[s] = prng.split(sub, 4)
+    return out
+
+
+def draw_diagnosis_noise(key, num_steps: int, B: int, A: int, C: int, diffuse_angles: bool,
+                         device) -> SamplerNoise:
+    """The :class:`SamplerNoise` the JAX tool draws from ``key`` (uint32
+    ``[2]``, its ``PRNGKey(seed)``) for ``num_steps`` steps of B crystals of
+    A atoms and C classes, on ``device``: its prior as the sampler's
+    (``k_ang, k_len, k_frac, k_loop = split(key, 4)``; monoclinic Bravais
+    angles without ``diffuse_angles``), each step's fields from
+    :func:`diagnosis_step_keys` off ``k_loop``."""
+    return draw_sampler_noise(key, num_steps, B, A, C, "monoclinic", diffuse_angles, device,
+                              step_keys=diagnosis_step_keys)
 
 
 def diagnose(model, noise: SamplerNoise, l0_mean: float, l0_var: float, record_every: int,
@@ -131,9 +157,9 @@ def main(argv=None, noise: Optional[SamplerNoise] = None) -> list:
     model, _, _ = generate.load_model(args.checkpoint_dir, args.tag, False, device)
     cfg = model.config
     if noise is None:
-        noise = draw_sampler_noise(prng.prng_key(args.seed), cfg.num_timesteps - 1, args.num_samples,
-                                   args.num_atoms_per_sample, cfg.num_atomic_states,
-                                   "monoclinic", cfg.diffuse_angles, device)
+        noise = draw_diagnosis_noise(prng.prng_key(args.seed), cfg.num_timesteps - 1,
+                                     args.num_samples, args.num_atoms_per_sample,
+                                     cfg.num_atomic_states, cfg.diffuse_angles, device)
     records, _ = diagnose(model, noise, l0_mean, l0_var, args.record_every)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -87,9 +87,8 @@ def compare_components(ckpt_dir: str, data_dir: str = "datasets/alexandria_hdf5"
                        noises: list[LossNoise] | None = None):
     """(original, rotated): each loss term of ``ckpt_dir``'s ``best`` raw
     weights on the crystal and on its rotation at the pinned timestep,
-    averaged over the same ``n_noise`` draws (``noises``, or drawn from
-    keys split off ``PRNGKey(0)``, one a draw; the JAX tool's own key chain
-    is not followed yet). The coordinate term is the one a rotation
+    averaged over the same ``n_noise`` draws (``noises``, or the JAX tool's:
+    one a key of ``split(PRNGKey(0), n_noise)``). The coordinate term is the one a rotation
     can change (the type loss cannot see it; the lattice head reads
     rotation-invariant lengths), so it carries the evidence. Prints the
     per-term table with the relative gaps."""

@@ -12,9 +12,8 @@ tool says so, after the check.
 
     python -m arreau_tpu_torch.exploration.vp_prior_check [--out_dir out/eda]
 
-Every random number comes from a :class:`VPPriorNoise`: drawn from keys
-split off ``PRNGKey(--seed)`` (the JAX tool's own key chain is not followed
-yet), or handed to :func:`main`. Any
+Every random number comes from a :class:`VPPriorNoise`: drawn from the JAX
+tool's keys (:func:`draw_noise`), or handed to :func:`main`. Any
 ``--dataset`` but ``synthetic`` reads the Alexandria shards under
 ``--data_dir``.
 """
@@ -55,13 +54,15 @@ class VPPriorNoise:
     angles: torch.Tensor
 
 
-def draw_noise(key, num_lattices: int, num_render: int, device) -> VPPriorNoise:
-    """The check's draws from the JAX key ``key``, one key split off it for
-    each field."""
-    k_forward, k_prior, k_angles = prng.split(np.asarray(key, np.uint32), 3)
-    return VPPriorNoise(threefry.normal(k_forward, (num_lattices, 3), device),
-                        threefry.normal(k_prior, (num_render, 3), device),
-                        sample_bravais_angles(k_angles, "monoclinic", num_render, device))
+def draw_noise(seed: int, num_lattices: int, num_render: int, device) -> VPPriorNoise:
+    """The JAX tool's draws for ``--seed``: the forward chain's normals
+    from ``PRNGKey(seed)`` (``vp_forward``'s one draw), the prior's from
+    ``kd`` and its angles from ``ka`` of ``kd, ka = split(PRNGKey(seed +
+    1))``."""
+    kd, ka = prng.split(prng.prng_key(seed + 1))
+    return VPPriorNoise(threefry.normal(prng.prng_key(seed), (num_lattices, 3), device),
+                        threefry.normal(kd, (num_render, 3), device),
+                        sample_bravais_angles(ka, "monoclinic", num_render, device))
 
 
 def terminal_marginal(lattices: torch.Tensor, num_timesteps: int, noise: torch.Tensor):
@@ -109,7 +110,7 @@ def main(argv=None, noise: VPPriorNoise | None = None) -> bool:
         packed = CrystalDataset(alexandria_shards(args.data_dir)).packed
     lattices = torch.as_tensor(packed.lattices, dtype=torch.float32, device=device)
     if noise is None:
-        noise = draw_noise(prng.prng_key(args.seed), len(lattices), args.num_render, device)
+        noise = draw_noise(args.seed, len(lattices), args.num_render, device)
 
     h_T, mu, sd, abar_T = terminal_marginal(lattices, args.num_timesteps, noise.forward)
     m, s = float(h_T.mean()), float(h_T.std(correction=0))

@@ -7,7 +7,9 @@
 sources it follows). One launch draws a field for every key: the sampler
 draws each per-step field of its whole chain with one launch (its keys
 ``[S, 2]`` come from the host-side chain ``key, k_lat, k_pos, k_type,
-k_ang = split(key, 5)``), the training loss each of its fields with one.
+k_ang = split(key, 5)``), the training loss each of its fields with one,
+the N-body simulator each field of a split's initial states, and
+:func:`permutation` each sorting round's keys.
 
 It replaces no Pallas kernel: the JAX package draws through XLA's
 threefry, and the port draws here so that one seed gives JAX's numbers.
@@ -259,3 +261,23 @@ def randint(key, shape: tuple, minval: int, maxval: int, device) -> torch.Tensor
     ``split(key)``."""
     bits = draw(prng.split(np.asarray(key, np.uint32)), shape, "bits", device)
     return prng.randint_from_bits(bits[0], bits[1], minval, maxval)
+
+
+def bernoulli(key, p: float, shape: tuple, device) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (``prng.bernoulli``) on
+    ``device``: booleans, ``uniform(key, shape) < p``."""
+    return uniform(key, shape, device) < float(np.float32(p))
+
+
+def permutation(key, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``prng.permutation``) on
+    ``device`` as int64: each round's 32-bit sort keys from one launch of
+    :func:`threefry`, then a stable sort (``torch.sort``: it orders the
+    keys, and draws nothing)."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    key = np.asarray(key, np.uint32)
+    for _ in range(prng.permutation_rounds(n)):
+        key, subkey = prng.split(key)
+        bits = draw(subkey, (n,), "bits", device)
+        x = x[torch.sort(bits, stable=True).indices]
+    return x

@@ -1,12 +1,14 @@
 """``jax.random``'s default generator in numpy: ``PRNGKey``, ``split``,
-``fold_in``, ``random_bits``, ``uniform``, ``normal``, ``randint`` and
-``truncated_normal`` as JAX 0.9.0 computes them with its defaults (the
+``fold_in``, ``random_bits``, ``uniform``, ``normal``, ``randint``,
+``bernoulli``, ``permutation`` and ``truncated_normal`` as JAX 0.9.0
+computes them with its defaults (the
 threefry2x32 hash, ``jax_threefry_partitionable`` on), and Flax 0.12.3's key
 of each parameter in ``model.init``.
 
 It is the port's random source wherever the JAX package draws from a key:
-the host-side key chains of the diffusion paths (sampling, the loss,
-rotation augmentation, training), the parameters ``model.init`` draws, and
+the host-side key chains of every training CLI, the sampler, the loss and
+the exploration tools, the N-body dataset's simulator, the shuffles of the
+N-body CLI's default chain, the parameters ``model.init`` draws, and
 the constants the JAX package draws when it builds a model (the S^2 grid
 ``ops/grids.py:cached_grid_s2``, within 2e-9, see there, and the Fourier
 frequencies ``ops/fourier.py``). The bulk draws on the card go through the
@@ -30,6 +32,12 @@ The JAX sources it follows (``jax/_src``):
   (bfloat16 takes 8 random bits, ``nmant < 8``); XLA on the CPU fuses the
   float32 ``floats * (hi - lo) + lo`` into one multiply-add, and rounds
   every bfloat16 operation to bfloat16;
+- ``random.py:1075`` ``_bernoulli``: ``uniform(key, shape, p's type) <
+  p`` in its default mode ``'low'``;
+- ``random.py:700-727`` ``permutation`` of an integer, ``_shuffle`` of
+  ``arange(n)``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each ``key,
+  subkey = split(key)`` and a stable ``sort_key_val`` on
+  ``random_bits(subkey, 32, (n,))``;
 - ``random.py:581`` ``_randint``: two 32-bit draws from ``split(key)``,
   each reduced modulo the span and combined through ``2^32 mod span``;
 - ``random.py:867`` ``_normal_real``: ``sqrt(2) erfinv(u)`` with ``u``
@@ -280,6 +288,33 @@ def randint_from_bits(higher, lower, minval: int, maxval: int):
     multiplier = ((2**16 % span) ** 2 % 2**32) % span  # the square wraps in uint32
     offset = ((higher % span) * multiplier) % 2**32 + lower % span
     return (offset % 2**32) % span + int(minval)
+
+
+def bernoulli(key: np.ndarray, p: float, shape: tuple) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)`` in its default mode
+    (``'low'``) for a float32 ``p`` (a Python float without
+    ``enable_x64``): ``uniform(key, shape) < p``, booleans."""
+    return uniform(key, shape, np.float32) < np.float32(p)
+
+
+def permutation_rounds(n: int) -> int:
+    """The sorting rounds of ``jax.random.permutation`` of ``n`` elements:
+    ``ceil(3 ln n / ln(2^32 - 1))``, 0 for n <= 1, 1 up to 1625, 2 from
+    1626 to ~2.6e6."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int64 here, int32
+    in JAX) shuffled by :func:`permutation_rounds` stable sorts, each on
+    fresh 32-bit keys: ``key, subkey = split(key)``, then the elements in
+    the order of ``random_bits(subkey, 32, (n,))``, ties in their current
+    order."""
+    x = np.arange(n, dtype=np.int64)
+    for _ in range(permutation_rounds(n)):
+        key, subkey = split(key)
+        x = x[np.argsort(random_bits(subkey, 32, (n,)), kind="stable")]
+    return x
 
 
 def erf(x) -> np.ndarray:

@@ -230,22 +230,23 @@ def sampler_step_keys(key, num_steps: int) -> np.ndarray:
 
 
 def draw_sampler_noise(key, num_steps: int, B: int, A: int, C: int, lattice_type: str,
-                       diffuse_angles: bool, device) -> SamplerNoise:
+                       diffuse_angles: bool, device, step_keys=sampler_step_keys) -> SamplerNoise:
     """The :class:`SamplerNoise` the JAX sampler draws from ``key`` (uint32
     ``[2]``) for ``num_steps`` steps of B crystals of A atoms and C
     classes, on ``device``: ``k_ang, k_len, k_frac, k_loop = split(key,
     4)`` for the prior, then each step's keys off ``k_loop``
-    (:func:`sampler_step_keys`); each per-step field of the whole chain is
-    one draw for ``S`` keys. Without ``diffuse_angles`` the JAX sampler
-    leaves the angle keys unused; the angle field is drawn from them all the
-    same (the sampler does not read it; an exported program takes it)."""
+    (``step_keys``: :func:`sampler_step_keys`, or the sampler diagnosis'
+    chain); each per-step field of the whole chain is one draw for ``S``
+    keys. Without ``diffuse_angles`` the JAX sampler leaves the angle keys
+    unused; the angle field is drawn from them all the same (the sampler
+    does not read it; an exported program takes it)."""
     k_ang, k_len, k_frac, k_loop = prng.split(np.asarray(key, np.uint32), 4)
     if diffuse_angles:
         angles, ang_enc0 = None, threefry.normal(k_ang, (B, 6), device)
     else:
         angles = sample_bravais_angles(k_ang, lattice_type, B, device)
         ang_enc0 = torch.zeros((B, 6), device=device)
-    steps = sampler_step_keys(k_loop, num_steps)
+    steps = step_keys(k_loop, num_steps)
     return SamplerNoise(
         angles=angles,
         ang_enc0=ang_enc0,

@@ -122,20 +122,31 @@ inner launches by name and time.
    beside the JAX report's; then the process_results CLI on those crystals
    on the card, which must lower the mean soft-sphere energy; and raises if
    a value left its gate (FLAGSHIP_GATE).
-23. backbone tasks: nbody: the N-body training CLI with the JAX Makefile's
-   ``train-nbody`` recipe cut at 1200 steps (40 epochs; the dataset
-   simulated on the card into a temporary directory): every step launched
-   5 of #3 and #4 and 1 of #8 and #7 and nothing else, and the valid MSE
-   at epoch 39 is within NBODY_GATE_MSE; then #3/#8/#4/#7 captured in one
-   full-width step (B'=4, TA=125, d=2) against their plain versions
-   (``*_nbody`` records), one batch card kernel branch against CPU plain
-   branch (forward, loss, every gradient), the step's time and profile;
-   then 60 steps of ``--model egnn`` (no kernel; the loss finite and
-   falling).
+23. backbone tasks: nbody: the dataset's train split (10000 systems)
+   drawn on the card from JAX's key, ``split(PRNGKey(43))[1]``, against
+   ``prng.py``'s draws (charges bit for bit, positions and velocities
+   within STREAM_NORMAL_ULP), and the default chain's first shuffle of the
+   3000 training systems (``jax.random.permutation``, two sorting rounds)
+   against ``prng.permutation`` bit for bit; the threefry kernel at their
+   shapes (a round's bits [3000] beside ``torch.randperm``, the normals
+   [10000, 5, 3]); then the N-body training CLI with the JAX Makefile's
+   ``train-nbody`` recipe cut at 1200 steps (40 epochs, the per-batch
+   chain; the dataset simulated on the card from JAX's keys into a
+   temporary directory): every step launched 5 of #3 and #4 and 1 of #8
+   and #7 and nothing else, and the valid MSE at epoch 39 is within
+   NBODY_GATE_MSE; then #3/#8/#4/#7 captured in one full-width step (B'=4,
+   TA=125, d=2) against their plain versions (``*_nbody`` records), one
+   batch card kernel branch against CPU plain branch (forward, loss, every
+   gradient), the step's time and profile; then the default (scan) chain,
+   2 epochs without ``--max_steps``: the same launches a step, 2 threefry
+   launches an epoch (the shuffle's rounds) and 1 a step (the rotations),
+   the loss finite and falling; then 60 steps of ``--model egnn`` (no
+   kernel; the loss finite and falling).
 24. backbone tasks: mnist: the MNIST training CLI at full width on 960
-   synthetic digits for 40 steps (4/4/1/1 launches a step, the loss finite
-   and falling), the four kernels at its shapes (B'=96, TA=75, C=64,
-   ``*_mnist`` records), one batch card against CPU, the step's time.
+   synthetic digits for 40 steps on the JAX CLI's chain (4/4/1/1 launches
+   a step, the loss finite and falling), the four kernels at its shapes
+   (B'=96, TA=75, C=64, ``*_mnist`` records), one batch card against CPU,
+   the step's time.
 25. position gradients: the diffusion backbone built with
    ``position_grads=True`` at the training shape (256 x 16, hidden 200),
    float32 and bfloat16: #4 with its window cotangent captured in one
@@ -146,12 +157,14 @@ inner launches by name and time.
    lattice lengths on 32 crystals of 8 atoms, card kernel branch against CPU
    plain branch on one graph topology (1e-3 of scale float32, 5e-2 bf16).
 26. backbone tasks: qm9: the QM9 training CLI on its synthetic defaults
-   (2000 molecules, batch 96, full width) for 48 steps: no kernel launch,
+   (2000 molecules, batch 96, full width) for 48 steps on the JAX CLI's
+   chain: no kernel launch,
    the loss finite and falling; 8 molecules card against CPU (loss and
    every parameter gradient); a step's time, profile and peak memory.
 27. backbone tasks: md17: the same for the MD17 CLI (1200 molecules, batch
-   16, lambda_F 500, 40 steps), the forces card against CPU too, and the
-   gradients those of a double backward.
+   16, lambda_F 500, 40 steps; the test's rotations one key a repeat), the
+   forces card against CPU too, and the gradients those of a double
+   backward.
 28. snapshot sampling: the trained flagship's dense chain (999 steps) on
    16 x 8 with a snapshot every 10 steps: 100 snapshots labelled 989, 979,
    ..., 9, 0, 5 bf16 #3 and 1 bf16 #8 a forward and nothing else, the final
@@ -200,10 +213,14 @@ inner launches by name and time.
    the draw's total loss).
 35. sampler diagnosis: ``diagnose_sampler`` on the flagship at 64 x 8, the
    dense chain's 999 steps recorded every 25: 5 bf16 #3 and 1 bf16 #8 a step
-   and nothing else, every record finite and written; its first 3 steps on
-   the card against the CPU's plain branch with the same noise on one
-   topology (BF16_DRAW_REL_TOL of scale); the JSON's path and the chain's
-   seconds.
+   and nothing else, 7 threefry draws for the whole chain, every record
+   finite and written; its noise the JAX tool's own chain (``PRNGKey(0)``
+   split into the prior's keys and a loop key, one split of it a step):
+   the prior and the first and last steps' fields against ``prng.py``'s
+   draws (uniforms bit for bit, normals within STREAM_NORMAL_ULP); its
+   first 3 steps on the card against the CPU's plain branch with the same
+   noise on one topology (BF16_DRAW_REL_TOL of scale); the JSON's path and
+   the chain's seconds.
 36. EDA tools: ``dataset_stats`` on 2000 synthetic crystals,
    ``vp_prior_check`` (its gate must print PASS), ``lattice_eda`` (its
    statistics, then the renderer branch taken) and ``view_crystals
@@ -285,8 +302,9 @@ phases 32 and 33, and those two with #4/#7 with phase 34's; #3/#8/#4/#7
 with ``launches_dp`` and ``launches_tp``, one count a rank, of phases 38
 and 39, and #9/#10 with phase 39's; #3/#8/#4/#7 with ``launches_hdf5``
 from phase 40's shard run; ``threefry`` with the launches of phases 9
-and 4 and of phase 42's full chain, and its time at the sampler's bulk
-shape, each field's in ``fields``) and the result
+and 4, of phase 42's full chain and of phase 23's scan chain, and its time
+at the sampler's bulk shape, each field's in ``fields``, phase 23's N-body
+shapes among them) and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero before printing either.
 """
@@ -1164,20 +1182,25 @@ def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def threefry_records(label: str, keys: np.ndarray, shape: tuple) -> dict:
+THREEFRY_MODES = (("bits", torch.float32), ("uniform", torch.float32),
+                  ("uniform", torch.bfloat16), ("normal", torch.float32),
+                  ("normal", torch.bfloat16))
+
+
+def threefry_records(label: str, keys: np.ndarray, shape: tuple, modes=THREEFRY_MODES) -> dict:
     """The threefry kernel for ``keys`` ``[K, 2]`` and ``shape`` against its
     plain version (on the card) and ``prng.py``'s numpy on the first and
-    last keys: bits, and uniforms and normals in float32 and bfloat16; bits
-    and uniforms bit for bit, normals within STREAM_NORMAL_ULP; then its time
-    per launch beside the plain version's and ``torch.rand``/``torch.randn``
-    of the same shape. Returns the records by label, mode and type."""
+    last keys: bits, and uniforms and normals in float32 and bfloat16 (or
+    the ``(mode, dtype)`` of ``modes``); bits and uniforms bit for bit,
+    normals within STREAM_NORMAL_ULP; then its time per launch beside the
+    plain version's and ``torch.randint``/``torch.rand``/``torch.randn`` of
+    the same shape (and, for bits of one key, ``torch.randperm`` of its
+    length). Returns the records by label, mode and type."""
     from arreau_tpu_torch.kernels.threefry import keys_tensor, threefry, threefry_plain
 
     records = {}
     kt = keys_tensor(keys, "cuda")
-    for mode, dtype in (("bits", torch.float32), ("uniform", torch.float32),
-                        ("uniform", torch.bfloat16), ("normal", torch.float32),
-                        ("normal", torch.bfloat16)):
+    for mode, dtype in modes:
         got = threefry(kt, shape, mode, dtype)
         plain = threefry_plain(kt, shape, mode, dtype)
         torch.cuda.synchronize()
@@ -1221,6 +1244,11 @@ def threefry_records(label: str, keys: np.ndarray, shape: tuple) -> dict:
                          "bound_by": b_by, "max_abs_err": float(
                              (got.double() - plain.double()).abs().max().item()),
                          "ulp": max(gap_plain, gap_np)}
+        if mode == "bits" and len(keys) == 1 and len(shape) == 1:
+            records[name]["randperm_ms"] = cuda_ms(
+                lambda: torch.randperm(shape[0], device="cuda"))
+            print(f"threefry {name}: torch.randperm({shape[0]}) "
+                  f"{records[name]['randperm_ms']:.4f} ms")
         del got, plain, again
     return records
 
@@ -1327,9 +1355,16 @@ def jax_streams_phase(tmp: Path, card: str, records: dict) -> None:
         **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
         "shape": f"[{S}, {BATCH}, {ATOMS}, {C}] uniform float32",
-        "fields": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "ulp")}
-                   for k, v in timed.items()},
+        "fields": {**records.get("threefry", {}).get("fields", {}),
+                   **threefry_fields(timed)},
     }
+
+
+def threefry_fields(timed: dict) -> dict:
+    """The ``fields`` of the threefry record from threefry_records' records."""
+    return {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "ulp",
+                                  "randperm_ms") if f in v}
+            for k, v in timed.items()}
 
 
 @contextlib.contextmanager
@@ -1626,6 +1661,11 @@ NBODY_GATE_EPOCH = 39
 # and the JAX EGNN baseline at the same epoch (0.011975, out/r2/nbody_egnn2.log)
 NBODY_GATE_MSE = 0.0100
 EGNN_STEPS = 60
+# the dataset's key (generate_nbody_npz's seed, the CLI's), its train split's
+# size (--generate_train) and the systems the CLI trains on
+NBODY_DATA_SEED, NBODY_SIMS, NBODY_TRAIN = 43, 10000, 3000
+# the default (scan) chain's short run: 2 epochs of 30 steps, no --max_steps
+NBODY_SCAN_EPOCHS = 2
 # the backbone tasks' gradient check: each parameter within GRAD_REL_TOL of
 # the larger of its own largest gradient and this share of the largest of all
 TASK_GRAD_FLOOR = 1e-4
@@ -1748,15 +1788,59 @@ def task_kernels(model, batch, label: str, suffix: str) -> dict:
     return {r["name"]: r for r in (conv, h1, conv_bwd, mlp_bwd)}
 
 
+def nbody_streams(records: dict) -> None:
+    """The N-body CLI's draws on the card against ``prng.py``'s on the host:
+    the train split's initial states as ``generate_nbody_npz(seed=43)``
+    draws them (charges bit for bit; positions, velocities within
+    STREAM_NORMAL_ULP), the default chain's first shuffle of
+    NBODY_TRAIN systems (``jax.random.permutation``, bit for bit); then the
+    threefry kernel at their shapes (a permutation round's bits, the
+    dataset's normals), timed."""
+    from arreau_tpu_torch.data.nbody import draw_charged
+    from arreau_tpu_torch.kernels import threefry as tf
+
+    train_key = prng.split(prng.prng_key(NBODY_DATA_SEED))[1]
+    loc, vel, charges = (t.cpu() for t in draw_charged(train_key, NBODY_SIMS, device="cuda"))
+    k_q, k_loc, k_vel = prng.split(train_key, 3)
+    want_charges = np.where(prng.bernoulli(k_q, 0.5, (NBODY_SIMS, 5)), 1.0, -1.0)
+    want_vel = prng.normal(k_vel, (NBODY_SIMS, 5, 3))
+    want_vel = want_vel * np.float32(0.5) / np.linalg.norm(want_vel, axis=-1, keepdims=True)
+    gaps = {"loc": ulp_gap(loc, torch.from_numpy(prng.normal(k_loc, (NBODY_SIMS, 5, 3)))),
+            "vel": ulp_gap(vel, torch.from_numpy(want_vel.astype(np.float32)))}
+    same_charges = np.array_equal(charges.numpy(), want_charges)
+    print(f"nbody train split ({NBODY_SIMS} systems) drawn on the card against prng.py: charges "
+          f"equal {same_charges}, positions {gaps['loc']} ulp, velocities {gaps['vel']} ulp "
+          f"(tolerance {STREAM_NORMAL_ULP})")
+    if not same_charges or max(gaps.values()) > STREAM_NORMAL_ULP:
+        raise RuntimeError("the N-body initial states on the card are not JAX's draws")
+    key = prng.split(prng.prng_key(SEED))[0]  # the CLI's chain after its init key
+    kp = prng.split(prng.split(key)[1])[0]  # the first epoch's shuffle key
+    got = tf.permutation(kp, NBODY_TRAIN, "cuda").cpu().numpy()
+    same = np.array_equal(got, prng.permutation(kp, NBODY_TRAIN))
+    print(f"nbody epoch 0 shuffle of {NBODY_TRAIN} ({prng.permutation_rounds(NBODY_TRAIN)} "
+          f"rounds) on the card equal to prng.permutation: {same}")
+    if not same:
+        raise RuntimeError("the card's permutation is not jax.random.permutation's")
+    round_key = prng.split(kp)[1]  # the first round's sort keys
+    timed = {**threefry_records("nbody permutation", round_key[None], (NBODY_TRAIN,),
+                                (("bits", torch.float32),)),
+             **threefry_records("nbody dataset", k_loc[None], (NBODY_SIMS, 5, 3),
+                                (("normal", torch.float32),))}
+    records.setdefault("threefry", {}).setdefault("fields", {}).update(threefry_fields(timed))
+
+
 def nbody_phase(tmp: Path, card: str, records: dict) -> None:
-    """The N-body task: the quality run through the training CLI (gated),
-    its kernels at its shapes, the kernel branch against the plain branch,
-    the step time, then the EGNN baseline."""
+    """The N-body task: its draws on the card against ``prng.py``'s, the
+    quality run through the training CLI (gated; the per-batch chain), its
+    kernels at its shapes, the kernel branch against the plain branch, the
+    step time, a short run of the default (scan) chain, then the EGNN
+    baseline."""
     from arreau_tpu_torch.cli import train_nbody
     from arreau_tpu_torch.data.nbody import load_nbody_split
     from arreau_tpu_torch.tasks.nbody import NBodyBatch, NBodyConfig, NBodyModel
 
     data_dir, dev = tmp / "nbody", torch.device("cuda")
+    nbody_streams(records)
     out, counts, _ = task_cli(train_nbody, [*NBODY_ARGS, "--data_dir", str(data_dir),
                                             "--checkpoint_dir", str(tmp / "ckpt_nbody")],
                               NBODY_STEP, "nbody")
@@ -1785,6 +1869,21 @@ def nbody_phase(tmp: Path, card: str, records: dict) -> None:
     kernels_ms = sum(nbody[k + "_nbody"]["ms"] * n for k, n in NBODY_STEP.items())
     step_time(model, batch, None, "nbody", NBODY_STEP, kernels_ms)
     del model
+
+    scan_args = [a for a in NBODY_ARGS if a not in ("--max_steps", "1200")]
+    scan_args[scan_args.index("--epochs") + 1] = str(NBODY_SCAN_EPOCHS)
+    out, counts, metrics = task_cli(train_nbody, [
+        *scan_args, "--warmup", "0", "--data_dir", str(data_dir),
+        "--checkpoint_dir", str(tmp / "ckpt_scan")], NBODY_STEP, "nbody scan chain")
+    steps, draws = len(metrics), threefry_launches()
+    want_draws = NBODY_SCAN_EPOCHS * prng.permutation_rounds(NBODY_TRAIN) + steps
+    print(f"nbody scan chain: {steps} steps, threefry {draws} launches (a permutation round's "
+          f"bits twice an epoch, a step's rotations; want {want_draws})")
+    if steps != NBODY_SCAN_EPOCHS * (NBODY_TRAIN // 100) or draws != want_draws \
+            or "NOTE" in out:
+        raise RuntimeError("the N-body CLI's default chain did not run its epochs' draws")
+    falling_losses(metrics, "nbody scan chain")
+    records["threefry"]["launches_nbody_scan"] = draws
 
     _, counts, metrics = task_cli(train_nbody, [
         "--model", "egnn", "--hidden_dim", "64", "--layers", "4", "--max_steps", str(EGNN_STEPS),
@@ -2797,26 +2896,59 @@ def diagnosis_phase(tmp: Path, card: str, records: dict) -> None:
     with the same injected noise on one topology (5e-2 of scale)."""
     from arreau_tpu_torch.cli import generate
     from arreau_tpu_torch.exploration import diagnose_sampler as ds
-    from arreau_tpu_torch.tasks.diffusion import SamplerNoise, draw_sampler_noise
+    from arreau_tpu_torch.tasks.diffusion import SamplerNoise
 
     out = tmp / "diag_sampler.json"
-    dtypes = {}
+    dtypes, captured = {}, []
+    draw = ds.draw_diagnosis_noise
+
+    def recording(*a, **kw):
+        captured.append(draw(*a, **kw))
+        return captured[-1]
+
     reset_launch_counts()
     t0 = time.perf_counter()
-    with capturing(dtypes):
-        chain = ds.main(["--checkpoint_dir", str(FLAGSHIP), "--num_samples", str(DIAG_BATCH),
-                           "--num_atoms_per_sample", str(ATOMS), "--record_every",
-                           str(DIAG_EVERY), "--out", str(out), "--device", "cuda"])
+    try:
+        ds.draw_diagnosis_noise = recording
+        with capturing(dtypes):
+            chain = ds.main(["--checkpoint_dir", str(FLAGSHIP), "--num_samples", str(DIAG_BATCH),
+                             "--num_atoms_per_sample", str(ATOMS), "--record_every",
+                             str(DIAG_EVERY), "--out", str(out), "--device", "cuda"])
+    finally:
+        ds.draw_diagnosis_noise = draw
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     meta = json.loads((FLAGSHIP / "meta.json").read_text())["config"]
-    T, L = meta["num_timesteps"], meta["num_layers"]
+    T, L, C = meta["num_timesteps"], meta["num_layers"], meta["num_atomic_states"]
     counts, want = launch_counts(), flagship_launches(T - 1, L)
+    draws = threefry_launches()
     print(f"diagnosis: {T - 1} steps at {DIAG_BATCH} x {ATOMS} in {seconds:.2f} s (checkpoint "
-          f"load and reference set included) on {card}; launches {counts}; types {dtypes}")
+          f"load and reference set included) on {card}; launches {counts}; types {dtypes}; "
+          f"threefry {draws}")
     if counts != want or dtypes != {"spatial_conv": {torch.bfloat16},
-                                    "basis_h1": {torch.bfloat16}}:
-        raise RuntimeError(f"the diagnosis launched {counts} in {dtypes}, not {want}")
+                                    "basis_h1": {torch.bfloat16}} or draws != SAMPLER_DRAWS:
+        raise RuntimeError(f"the diagnosis launched {counts} in {dtypes} and {draws} threefry "
+                           f"draws, not {want} and {SAMPLER_DRAWS}")
+    # its noise: the JAX tool's own chain off PRNGKey(seed), as prng.py draws it
+    noise = captured[0]
+    k_ang, k_len, k_frac, k_loop = prng.split(prng.prng_key(SEED), 4)
+    steps = ds.diagnosis_step_keys(k_loop, T - 1)
+    B = DIAG_BATCH
+    gaps = {"lengths0": ulp_gap(noise.lengths0.cpu(),
+                                torch.from_numpy(prng.normal(k_len, (B, 3)))),
+            "frac0": ulp_gap(noise.frac0.cpu(), torch.from_numpy(prng.normal(k_frac, (B, ATOMS, 3))))}
+    if meta["diffuse_angles"]:  # the flagship's: the prior's angle encodings are normals
+        gaps["ang_enc0"] = ulp_gap(noise.ang_enc0.cpu(),
+                                   torch.from_numpy(prng.normal(k_ang, (B, 6))))
+    for s in (0, T - 2):
+        lat, pos, typ, ang = (steps[s, i] for i in range(4))
+        for name, w in {"lattice": prng.normal(lat, (B, 3)), "pos": prng.normal(pos, (B, ATOMS, 3)),
+                        "types": prng.uniform(typ, (B, ATOMS, C)),
+                        "angle": prng.normal(ang, (B, 6))}.items():
+            gaps[f"{name}[{s}]"] = ulp_gap(getattr(noise, name)[s].cpu(), torch.from_numpy(w))
+    print(f"diagnosis noise against prng.py's for the JAX tool's chain (ulp): {gaps}")
+    if any(v > (0 if k.startswith("types") else STREAM_NORMAL_ULP) for k, v in gaps.items()):
+        raise RuntimeError("the diagnosis did not draw the JAX tool's stream")
     for kernel in ("spatial_conv", "basis_h1"):
         records[kernel + "_bf16"]["launches_diagnosis"] = counts[kernel]
     saved = json.loads(out.read_text())
@@ -2828,9 +2960,8 @@ def diagnosis_phase(tmp: Path, card: str, records: dict) -> None:
 
     card_model = generate.load_model(str(FLAGSHIP), "best", False, "cuda")[0]
     cpu_model = generate.load_model(str(FLAGSHIP), "best", False, "cpu")[0]
-    noise = draw_sampler_noise(prng.prng_key(SEED),
-                               DIAG_REFERENCE_STEPS, DIAG_BATCH, ATOMS, meta["num_atomic_states"],
-                               "monoclinic", meta["diffuse_angles"], "cuda")
+    noise = ds.draw_diagnosis_noise(prng.prng_key(SEED), DIAG_REFERENCE_STEPS, DIAG_BATCH, ATOMS,
+                                    C, meta["diffuse_angles"], "cuda")
     cpu_noise = SamplerNoise(**{f.name: None if getattr(noise, f.name) is None
                                 else getattr(noise, f.name).cpu()
                                 for f in dataclasses.fields(noise)})

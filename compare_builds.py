@@ -60,6 +60,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as smoke
+from arreau_tpu_torch.ops import prng
 
 PACKAGE = "arreau_tpu_torch"
 # kernel wrapper -> the module of the port's kernels that defines it
@@ -102,8 +103,8 @@ def captured_inputs(dev) -> dict:
     cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()))
     captured = {}
     model = DiffusionModel(cfg, device=dev)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(smoke.SEED))
-    noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(smoke.SEED), 1, smoke.BATCH,
+    model.model.init_parameters(prng.prng_key(smoke.SEED))
+    noise = draw_sampler_noise(prng.prng_key(smoke.SEED), 1, smoke.BATCH,
                                smoke.ATOMS, cfg.num_atomic_states, "monoclinic", False, dev)
     with torch.inference_mode():
         inputs = smoke.first_step_inputs(model, noise)
@@ -113,7 +114,7 @@ def captured_inputs(dev) -> dict:
     # the invariants a fuse_fiber backbone hands its basis MLP, for #5/#6
     basis_attrs = {}
     model = DiffusionModel(dataclasses.replace(cfg, fuse_fiber=True), device=dev)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(smoke.SEED))
+    model.model.init_parameters(prng.prng_key(smoke.SEED))
     with torch.inference_mode(), smoke.basis_input(model, basis_attrs, "serve"):
         model.predict_scores(*smoke.first_step_inputs(model, noise))
 
@@ -125,8 +126,8 @@ def captured_inputs(dev) -> dict:
                     ("bf16 training", bf16_cfg),
                     ("fuse_fiber bf16 training", dataclasses.replace(bf16_cfg, fuse_fiber=True))):
         model = DiffusionModel(c, device=dev)
-        model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
+        model.init(prng.prng_key(smoke.SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(smoke.SEED),
                                 *batch.atom_types.shape, c.num_atomic_states, c.num_timesteps,
                                 True, dev)
         with smoke.capturing() as args, smoke.basis_input(model, basis_attrs, "train"):
@@ -146,8 +147,8 @@ def captured_inputs(dev) -> dict:
     cn_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", layer_scale=1.0)
     model = DiffusionModel(cn_cfg, device=dev)
     model.model = smoke.fused_convnext_backbone(model)
-    model.model.init_parameters(torch.Generator(device=dev).manual_seed(smoke.SEED))
-    noise = draw_sampler_noise(torch.Generator(device=dev).manual_seed(smoke.SEED), 1, smoke.BATCH,
+    model.model.init_parameters(prng.prng_key(smoke.SEED))
+    noise = draw_sampler_noise(prng.prng_key(smoke.SEED), 1, smoke.BATCH,
                                smoke.ATOMS, cfg.num_atomic_states, "monoclinic", False, dev)
     with torch.inference_mode():
         inputs = smoke.first_step_inputs(model, noise)
@@ -157,8 +158,8 @@ def captured_inputs(dev) -> dict:
                      if name.startswith("convnext")})
     model = DiffusionModel(dataclasses.replace(bf16_cfg, layer_scale=1.0), device=dev)
     model.model = smoke.fused_convnext_backbone(model)
-    model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
-    noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
+    model.init(prng.prng_key(smoke.SEED), batch)
+    noise = draw_loss_noise(prng.prng_key(smoke.SEED),
                             *batch.atom_types.shape, cfg.num_atomic_states, cfg.num_timesteps,
                             True, dev)
     with smoke.capturing() as args:
@@ -175,8 +176,8 @@ def captured_inputs(dev) -> dict:
                     ("position_grads bf16 training", bf16_cfg)):
         model = DiffusionModel(c, device=dev)
         model.model = smoke.position_grads_backbone(model)
-        model.init(torch.Generator(device=dev).manual_seed(smoke.SEED), batch)
-        noise = draw_loss_noise(torch.Generator(device=dev).manual_seed(smoke.SEED),
+        model.init(prng.prng_key(smoke.SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(smoke.SEED),
                                 *batch.atom_types.shape, c.num_atomic_states, c.num_timesteps,
                                 True, dev)
         with smoke.capturing() as args:

@@ -61,3 +61,34 @@ def test_generate_seed_gives_the_jax_crystals(tmp_path):
     d = np.abs(got.frac_x - want.frac_x)
     assert np.minimum(d, 1 - d).max() < 1e-4
     np.testing.assert_allclose(got.lattice, want.lattice, rtol=1e-4, atol=1e-4)
+
+
+def jsonl(path) -> list:
+    """The records of a ``metrics.jsonl``."""
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def printed(text: str, label: str) -> list:
+    """Every number ``text`` prints right after ``label`` (``"test MSE"``,
+    ``"train MAE"``, ...), in order."""
+    import re
+
+    return [float(x) for x in re.findall(re.escape(label) + r" ([-+]?\d+\.\d+(?:e[-+]?\d+)?)",
+                                         text)]
+
+
+def run_both(jax_module: str, port_main, flags: list, root) -> tuple:
+    """``jax_module`` (in a fresh process, :func:`_run_jax_cli`) and the
+    port's ``port_main`` (on the CPU) with ``flags`` and checkpoint
+    directories under ``root``: ((port records, port output), (JAX records,
+    JAX output)), the records those of each ``metrics.jsonl``."""
+    import contextlib
+    import io
+
+    want_out = _run_jax_cli(jax_module, [*flags, "--checkpoint_dir", str(root / "j")])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_main(["--device", "cpu", *flags, "--checkpoint_dir", str(root / "p")])
+    return ((jsonl(root / "p" / "metrics.jsonl"), buf.getvalue()),
+            (jsonl(root / "j" / "metrics.jsonl"), want_out))

@@ -112,11 +112,33 @@ TORCH_RANDOM = {"Generator", "randn", "rand", "randint", "randn_like", "rand_lik
                 "randint_like", "randperm", "normal", "bernoulli", "multinomial"}
 
 
+# the backbone tasks' and exploration tools' paths: the N-body simulator, the
+# task CLIs (and their shared key helpers), every task and every tool. The
+# numpy generators the JAX package itself draws from (default_rng, shuffles
+# and synthetic data) stay; no torch generator does
+TASK_PATHS = ("data/nbody.py", "cli/common.py", "cli/train_nbody.py", "cli/train_qm9.py",
+              "cli/train_md17.py", "cli/train_mnist.py",
+              *sorted(str(p.relative_to(PORT)) for d in ("tasks", "exploration")
+                      for p in (PORT / d).glob("*.py")))
+
+
 @pytest.mark.parametrize("rel", DIFFUSION_PATHS)
 def test_diffusion_paths_draw_no_torch_random_numbers(rel):
     """No ``torch.Generator``, no torch random function and no
     ``generator=`` argument on the diffusion paths: their draws are
     JAX's, from keys (``ops/prng.py``, ``kernels/threefry.py``)."""
+    _assert_no_torch_random(rel)
+
+
+@pytest.mark.parametrize("rel", TASK_PATHS)
+def test_task_and_tool_paths_draw_no_torch_random_numbers(rel):
+    """The same on the backbone tasks' and exploration tools' paths: the
+    N-body dataset, shuffles, rotations and the tools' noise are JAX's
+    draws from JAX's keys."""
+    _assert_no_torch_random(rel)
+
+
+def _assert_no_torch_random(rel):
     tree = ast.parse((PORT / rel).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):

@@ -252,3 +252,43 @@ def test_flax_param_keys_equal_flax(seed):
         k = prng.flax_param_key(key, (name, "dense"), 1)
         want = np.asarray(params[name]["dense"]["kernel"])
         assert _ulp_gap(prng.variance_scaling(k, (4, 3), 1.0, 4), want) <= NORMAL_ULP
+
+
+# jax.random.permutation's sizes: no round (0, 1), one (2 to 1625), two
+# (1626 on: the N-body CLI's 3000 systems); at 100000 the seeds' sort keys
+# tie (seed 0: once in round 1; seed 1: three times, then twice), so the
+# stable order shows
+PERMUTATION_SIZES = [0, 1, 2, 1625, 1626, 3000, 10000, 100000]
+
+
+@pytest.mark.parametrize("n", PERMUTATION_SIZES)
+def test_permutation_equals_jax(n):
+    """``prng.permutation`` is ``jax.random.permutation(key, n)`` bit for
+    bit, and so is the threefry module's (its plain version on the CPU)."""
+    want_rounds = 0 if n <= 1 else 1 if n <= 1625 else 2
+    assert prng.permutation_rounds(n) == want_rounds
+    ties = 0
+    for seed in STREAM_SEEDS:
+        key = _jax_key(seed)
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+        got = prng.permutation(key, n)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(threefry.permutation(key, n, "cpu").numpy(), want)
+        for _ in range(want_rounds):
+            key, sub = prng.split(key)
+            ties += n - len(np.unique(prng.random_bits(sub, 32, (n,))))
+    if n == 100000:
+        assert ties > 0
+
+
+@pytest.mark.parametrize("shape", [(7, 5), (1000, 5), (3, 4, 2)])
+@pytest.mark.parametrize("p", [0.5, 0.1])
+def test_bernoulli_equals_jax(shape, p):
+    """``prng.bernoulli`` and the threefry module's are JAX's
+    ``bernoulli(key, p, shape)`` for a float32 ``p`` (a Python float
+    without ``enable_x64``, as the N-body simulator's) bit for bit."""
+    for seed in STREAM_SEEDS:
+        key = _jax_key(seed)
+        want = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(seed), jnp.float32(p), shape))
+        np.testing.assert_array_equal(prng.bernoulli(key, p, shape), want)
+        np.testing.assert_array_equal(threefry.bernoulli(key, p, shape, "cpu").numpy(), want)
