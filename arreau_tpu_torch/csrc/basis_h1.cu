@@ -1,4 +1,5 @@
-// First layer of the edge-basis MLP, forward, float32 or bfloat16, for sm_90a.
+// First layer of the edge-basis MLP, forward, float32, for sm_90a (#8's
+// bfloat16 instantiation: basis_h1_sm90.cu, on wgmma and TMA).
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_basis.py:_h1_fwd_kernel
 // (reached from basis_mlp_multi through _h1). For each (b', o) and edge e:
@@ -11,25 +12,13 @@
 // GELU and the second Dense stay outside, as in the JAX package.
 //
 // Bound on the H100: 2*B'*O*E*F*H operations (54 GFLOP at the training
-// shape, 524288 rows) against ~0.2 GB of output write (bfloat16; 0.4 GB in
-// float32). On the bfloat16 tensor cores (989 TFLOP/s) the write bounds it;
-// in float32 the product runs as 3xTF32 (mma.cuh, 495 / 3 = 165 TFLOP/s) and
-// the operations bound it. Design (basis_h1.cuh): one mma.sync tile product
+// shape, 524288 rows) against ~0.4 GB of output write; the product runs as
+// 3xTF32 (mma.cuh, 495 / 3 = 165 TFLOP/s) and the operations bound it. Design (basis_h1.cuh): one mma.sync tile product
 // over all B'*O*E rows, the features built in shared memory a K-stage at a
 // time from the block's staged invariants (with the model's d = 6, from
 // registers, the factors fixed at compile time) while the tensor cores work
 // on the stage before, W1 by cp.async, the bias added in the epilogue; the
-// [rows, F] features never reach device memory. Building them costs about
-// as much shared-memory traffic as the products' fragment loads, which is
-// what keeps the bfloat16 kernel near the library's addmm on materialised
-// features rather than near its bound.
-//
-// Element type T (dtype.cuh) of attrT, W1, b1 and h1_pre: float32, or
-// bfloat16 on the compute_dtype="bfloat16" path, with the JAX kernel's
-// rounding points (pallas_basis.py:86-105, :397-408): each feature is formed
-// in float32 from the T invariants and rounded to T (an exact bf16 mma
-// operand) before the product with W1; poly @ W1 + b1 is summed in float32
-// and rounded once to T.
+// [rows, F] features never reach device memory.
 //
 // arreau_tile_product_built runs run_built (tile_product.cuh) on two
 // matrices, A copied into the stage by the block itself: the card test of
@@ -87,19 +76,13 @@ int tile_product_built(const T* a, const T* b, float* d, int M, int N, int K,
 
 }  // namespace
 
-// attrT, w1, b1 and out are float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
-extern "C" int arreau_basis_h1_fwd(const void* attrT, const void* w1, const void* b1, void* out,
-                                   int Bp, int O, int d, int E, int F, int H, int is_bf16,
+// attrT, w1, b1 and out are float32.
+extern "C" int arreau_basis_h1_fwd(const float* attrT, const float* w1, const float* b1,
+                                   float* out, int Bp, int O, int d, int E, int F, int H,
                                    void* stream) {
-    const long long rows = (long long)Bp * O * E;
-    int status = 0;
-    ARREAU_DISPATCH_DTYPE(is_bf16, {
-        status = launch_h1<T, H1Out::PRE>(
-            static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
-            static_cast<T*>(out), nullptr, nullptr, rows, d, E, F, H, H,
-            static_cast<cudaStream_t>(stream));
-    });
-    return status;
+    return launch_h1<float, H1Out::PRE>(attrT, w1, b1, out, nullptr, nullptr,
+                                        (long long)Bp * O * E, d, E, F, H, H,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // d [M, N] float32 = a @ b through run_built: a is [M, K] (a_kmajor) or

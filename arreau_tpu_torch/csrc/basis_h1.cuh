@@ -1,7 +1,8 @@
 // The first layer of the edge-basis MLP as one tensor-core tile product,
 // poly(attr) @ W1 (+ b1), with the polynomial features built in shared
-// memory: #8's whole kernel (basis_h1.cu), the first product of #7
-// (basis_mlp_bwd.cu), and the first product of #5 and #6
+// memory: #8's whole kernel in float32 (basis_h1.cu), the first product of
+// #7 in float32 (basis_mlp_bwd.cu; both in bfloat16: basis_sm90.cuh), and
+// the first product of #5 and #6
 // (fused_basis_mlp.cu, fused_basis_mlp_bwd.cu), which differ in their
 // epilogue (H1Out) and in how they read their invariants and biases: #8
 // and #7 read the lane-major attrT [B'*O, d, E] and add b1; #5 and #6
@@ -46,13 +47,6 @@ enum class H1Out {
 namespace {
 
 using namespace arreau;
-
-// gelu(x) and gelu'(x) (common.cuh) from one tanh, the same expressions
-__device__ __forceinline__ void gelu_and_deriv(float x, float& value, float& deriv) {
-    const float t = tanhf(GELU_C0 * (x + GELU_C1 * x * x * x));
-    value = 0.5f * x * (1.f + t);
-    deriv = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * GELU_C0 * (1.f + 3.f * GELU_C1 * x * x);
-}
 
 // Invariant j of edge row `row`: attrT [B'*O, d, E] (lane-major, #8 and #7)
 // or, FUSED, attr [rows, d] (row-major, #5 and #6)

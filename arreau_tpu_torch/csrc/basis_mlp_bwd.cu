@@ -1,5 +1,5 @@
-// Edge-basis MLP, backward of all its consumers at once, float32 or bfloat16,
-// for sm_90a.
+// Edge-basis MLP, backward of all its consumers at once, float32, for sm_90a
+// (#7's bfloat16 instantiation: basis_mlp_bwd_sm90.cu, on wgmma and TMA).
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_basis.py:_multi_bwd_kernel
 // (the VJP of basis_mlp_multi, reached through _multi_bwd). The forward is
@@ -54,9 +54,9 @@
 //   the features are formed from registers (poly_features_part); any other
 //   d takes a slower builder that decodes each feature's factors.
 
-// Element type T (dtype.cuh) of the invariants, weights, biases, cotangents
-// and the scratch: float32, or bfloat16 on the compute_dtype="bfloat16"
-// path, with the JAX kernel's rounding points (pallas_basis.py:289-331):
+// The JAX kernel's rounding points (pallas_basis.py:289-331), T its compute
+// type, which the bfloat16 kernels keep (#7's in basis_sm90.cuh, #6's through
+// basis_mlp_bwd.cuh):
 // h1_pre and h2_pre are rounded to T, as are gelu(h1_pre), gelu'(h1_pre) and
 // gelu'(h2_pre) (the JAX kernel evaluates them in T); the cotangents are
 // summed in float32; dpre2 and dpre1 are rounded to T before their products;
@@ -69,24 +69,16 @@
 // Scratch: h1 and dg1 [rows, Hg] (Hg = H + 1 rounded up to 8; h1 ends as
 // dpre1), dpre2 [rows, D], xr [rows, 8], partial [splits * max((F+1)*H,
 // (H+1)*D)] float32. gs is a host array of n_g device pointers. attrT, the
-// weights, biases, cotangents and the scratch but partial are float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1).
-extern "C" int arreau_basis_mlp_bwd(const void* attrT, const void* w1, const void* b1,
-                                    const void* w2, const void* b2, const void* const* gs,
-                                    int n_g, void* h1, void* dg1, void* dpre2, void* xr,
+// weights, biases, cotangents and the scratch are float32.
+extern "C" int arreau_basis_mlp_bwd(const float* attrT, const float* w1, const float* b1,
+                                    const float* w2, const float* b2, const void* const* gs,
+                                    int n_g, float* h1, float* dg1, float* dpre2, float* xr,
                                     float* partial, float* dw1_ext, float* dw2_ext, int Bp, int O,
                                     int d, int E, int F, int H, int D, int splits,
-                                    int rows_per_split, int is_bf16, void* stream_ptr) {
+                                    int rows_per_split, void* stream_ptr) {
     if (n_g < 1 || n_g > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const int Hg = (H + 1 + 7) / 8 * 8;
-    int status = 0;
-    ARREAU_DISPATCH_DTYPE(is_bf16, {
-        status = basis_mlp_bwd<T, false>(
-            static_cast<const T*>(attrT), static_cast<const T*>(w1), static_cast<const T*>(b1),
-            static_cast<const T*>(w2), static_cast<const T*>(b2), gs, n_g, static_cast<T*>(h1),
-            static_cast<T*>(dg1), static_cast<T*>(dpre2), static_cast<T*>(xr), partial, dw1_ext,
-            dw2_ext, Bp, O, d, E, F, H, D, Hg, splits, rows_per_split, stream);
-    });
-    return status;
+    return basis_mlp_bwd<float, false>(attrT, w1, b1, w2, b2, gs, n_g, h1, dg1, dpre2, xr,
+                                       partial, dw1_ext, dw2_ext, Bp, O, d, E, F, H, D,
+                                       (H + 1 + 7) / 8 * 8, splits, rows_per_split,
+                                       static_cast<cudaStream_t>(stream_ptr));
 }

@@ -1,6 +1,7 @@
 // The backward of the edge-basis MLP as five tensor-core tile products
-// through device-memory scratch: #7's whole kernel (basis_mlp_bwd.cu, with
-// biases and n_g cotangents) and #6's (fused_basis_mlp_bwd.cu, FUSED: no
+// through device-memory scratch: #7's whole kernel in float32
+// (basis_mlp_bwd.cu, with biases and n_g cotangents; in bfloat16:
+// basis_sm90.cuh) and #6's (fused_basis_mlp_bwd.cu, FUSED: no
 // biases, one cotangent, the row-major invariants, and dh rounded to T
 // before its product with gelu'(h_pre), as the JAX kernel rounds it). See
 // basis_mlp_bwd.cu for the design; the steps, for every edge row:

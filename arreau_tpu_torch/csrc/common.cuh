@@ -27,6 +27,13 @@ __device__ __forceinline__ float gelu_deriv(float x) {
     return 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * GELU_C0 * (1.f + 3.f * GELU_C1 * x * x);
 }
 
+// gelu(x) and gelu'(x) from one tanh, the same expressions
+__device__ __forceinline__ void gelu_and_deriv(float x, float& value, float& deriv) {
+    const float t = tanhf(GELU_C0 * (x + GELU_C1 * x * x * x));
+    value = 0.5f * x * (1.f + t);
+    deriv = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * GELU_C0 * (1.f + 3.f * GELU_C1 * x * x);
+}
+
 // out[i] = sum_s partial[s * n + i]: the second pass of a split reduction
 // (deterministic, unlike atomics). Static: every source file that includes
 // this header gets its own copy.

@@ -1,8 +1,9 @@
 """First layer of the edge-basis MLP: polynomial features, Dense, bias.
 
 Replaces the TPU kernel ``arreau_tpu/ops/pallas_basis.py:_h1_fwd_kernel``
-(reached from ``basis_mlp_multi`` through ``_h1``) with the hand-written
-CUDA kernel ``csrc/basis_h1.cu``:
+(reached from ``basis_mlp_multi`` through ``_h1``) with hand-written CUDA
+kernels, ``csrc/basis_h1_sm90.cu`` in bfloat16 and ``csrc/basis_h1.cu`` in
+float32:
 
     h1_pre[b',o,e,h] = poly(attrT[b',o,:,e]) @ w1[:, h] + b1[h]
 
@@ -10,12 +11,14 @@ where ``poly`` is the degree-``degree`` tensor-power feature vector of the
 d edge invariants (``models/blocks.py:polynomial_features``). GELU and the
 second Dense stay outside, as in the JAX package.
 
-On the H100 the kernel is one tensor-core tile product (``mma.sync``;
-bfloat16, or 3xTF32 for float32) over all B'*O*E rows, bound by its
-output write in bfloat16 and by its 2*B'*O*E*F*H operations in float32.
-It builds the features in shared memory a K-stage at a time, so the
-``[E, F]`` feature tensor never reaches device memory (see the source;
-``csrc/basis_h1.cuh`` holds the product, which #7's backward shares).
+On the H100 the bfloat16 kernel runs on Hopper's warpgroup products
+(``wgmma``) with W1 fed by TMA, all H columns of 64 rows in one
+accumulator (``csrc/basis_sm90.cuh``; its host-side tile plan is
+:func:`sm90_plan`), bound by its output write; the float32 kernel is one
+``mma.sync`` 3xTF32 tile product (``csrc/basis_h1.cuh``, which #5 shares),
+bound by its 2*B'*O*E*F*H operations. Both build the features in shared
+memory a K-panel at a time, so the ``[E, F]`` feature tensor never reaches
+device memory.
 
 The inputs and ``h1_pre`` are float32, or all bfloat16 on the
 ``compute_dtype="bfloat16"`` path. In bfloat16 the features are formed in
@@ -37,9 +40,61 @@ import torch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_SM90_ARGTYPES = (_P,) * 5 + (_I,) * 9 + (_P,)
 _MAX_D = 8  # invariants per edge the kernel stages (csrc/basis_h1.cu: MAX_D)
 DTYPES = (torch.float32, torch.bfloat16)  # the element types the kernel takes
+
+
+# width classes of the hidden width H and of the basis width D: the N of the
+# bfloat16 kernels' wgmma products (csrc/basis_sm90.cuh: NH, ND)
+SM90_HIDDEN = (64, 128, 208, 256)
+SM90_BASIS = (128, 256)
+_PANEL = 64  # bfloat16 elements of K in a 128-byte shared-memory panel row
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _width(n: int, classes: tuple, what: str) -> int:
+    for c in classes:
+        if n <= c:
+            return c
+    raise ValueError(f"the bfloat16 basis kernels take {what} <= {classes[-1]}, got {n}")
+
+
+def sm90_plan(rows: int, F: int, H: int, D: int | None = None,
+              rows_per_split: int = 4096, max_splits: int = 256) -> dict:
+    """Host-side tile plan of the bfloat16 #8 (``D=None``) and #7 kernels
+    (``csrc/basis_sm90.cuh``), from the shapes alone:
+
+    - ``nh`` / ``nd``: the width classes of H / D, the N of their ``wgmma``
+      products (all columns of 64 rows in one accumulator, N <= 256; the
+      columns beyond H or D multiply the zeros TMA reads outside a weight);
+    - ``kw1`` / ``kw2`` / ``kw3``: F / H / D rounded up to a 64-element
+      panel, the row lengths of the K-major weight copies ``w1t [H, kw1]``,
+      ``w2t [D, kw2]``, ``w2c [H, kw3]`` (rows of 128-byte multiples, which
+      TMA can address; W1 and W2 themselves have rows of 2F and 2D bytes);
+    - ``tma_store``: #8's output rows (2H bytes) are 16-byte multiples, so
+      TMA stores write them (else the threads copy them out);
+    - ``ld``: the row length of #7's transposed scratch (rows rounded up to
+      a panel, 2 ld bytes a row for TMA);
+    - ``splits`` x ``per_split``: the weight gradients' split over the rows,
+      about ``rows_per_split`` rows each and at most ``max_splits``,
+      ``per_split`` a multiple of the 64-row panel so that no panel reaches
+      into the next split."""
+    if rows < 1 or F < 1 or H < 1:
+        raise ValueError(f"empty basis MLP: rows={rows}, F={F}, H={H}")
+    plan = {"nh": _width(H, SM90_HIDDEN, "H"), "kw1": _cdiv(F, _PANEL) * _PANEL,
+            "tma_store": 2 * H % 16 == 0}
+    if D is not None:
+        splits = max(1, min(max_splits, _cdiv(rows, rows_per_split)))
+        per = _cdiv(_cdiv(rows, splits), _PANEL) * _PANEL
+        plan.update(nd=_width(D, SM90_BASIS, "D"), kw2=_cdiv(H, _PANEL) * _PANEL,
+                    kw3=_cdiv(D, _PANEL) * _PANEL, ld=_cdiv(rows, _PANEL) * _PANEL,
+                    splits=_cdiv(rows, per), per_split=per)
+    return plan
 
 
 def poly_features_t(attrT, degree: int):
@@ -98,11 +153,20 @@ def basis_h1(attrT, w1, b1, degree: int):
     from arreau_tpu_torch.kernels.build import check, kernel_function
 
     out = torch.empty((Bp, O, E, H), dtype=attrT.dtype, device=attrT.device)
-    fn = kernel_function("arreau_basis_h1_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(attrT.device).cuda_stream
-    err = fn(attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-             Bp, O, d, E, F, H, int(attrT.dtype == torch.bfloat16), stream)
-    check("arreau_basis_h1_fwd", err)
+    if attrT.dtype == torch.bfloat16:
+        plan = sm90_plan(Bp * O * E, F, H)
+        w1t = torch.empty((H, plan["kw1"]), dtype=attrT.dtype, device=attrT.device)
+        name = "arreau_basis_h1_sm90"
+        err = kernel_function(name, _SM90_ARGTYPES)(
+            attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), w1t.data_ptr(),
+            Bp, O, d, E, F, H, plan["nh"], plan["kw1"], int(plan["tma_store"]), stream)
+    else:
+        name = "arreau_basis_h1_fwd"
+        err = kernel_function(name, _ARGTYPES)(
+            attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), Bp, O, d, E, F, H,
+            stream)
+    check(name, err)
     basis_h1.launches += 1
     return out
 

@@ -311,6 +311,43 @@ def tile_product(a, b, built: bool = False, staged: bool = False):
 
 tile_product.launches = 0
 
+_WGMMA_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def wgmma_product(a, b, tma: bool = False):
+    """``a [M, K] @ b [N, K]^T`` in float32 through ``csrc/wgmma.cuh``'s
+    warpgroup products (``csrc/wgmma_product.cu``: bfloat16, or 3xTF32 for
+    float32; both operands K-major in 128-byte-swizzled shared memory, one
+    warpgroup a 64-row tile, N <= 256), for the card test of its
+    descriptors and fragment layouts; with ``tma``, both operands staged by
+    TMA (bfloat16, K a multiple of 8). On the CPU: a float64 product rounded
+    to float32."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"wgmma_product expects [M, K] and [N, K], got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"wgmma_product takes two float32 or two bfloat16 tensors, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.device.type == "cpu":
+        return (a.double() @ b.double().t()).float()
+    if a.device.type != "cuda":
+        raise ValueError(f"wgmma_product runs on cuda or cpu, not {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()) or b.shape[0] > 256:
+        raise ValueError("wgmma_product takes contiguous operands and N <= 256")
+    from arreau_tpu_torch.kernels.build import check, kernel_function
+
+    (M, K), N = a.shape, b.shape[0]
+    d = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    err = kernel_function("arreau_wgmma_product", _WGMMA_ARGTYPES)(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), M, N, K, int(tma), int(a.dtype == torch.bfloat16),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    check("arreau_wgmma_product", err)
+    wgmma_product.launches += 1
+    return d
+
+
+wgmma_product.launches = 0
+
 
 class _SpatialConv(torch.autograd.Function):
     """``fused_spatial_conv``'s custom VJP: :func:`spatial_conv` forward

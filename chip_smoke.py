@@ -29,7 +29,8 @@ Phases, each printing its elapsed seconds and raising on any failure:
 
 1. device: requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. build: builds the port's CUDA kernels (one nvcc process per source, all
-   at once, then one link) or loads a current build.
+   at once, then one link) or loads a current build; starts cuobjdump on
+   the library in the background for phase 43.
 3. serving kernels: captures the inputs each forward kernel gets in one
    full-width forward of the sampler (batch 128 x 8 atoms), holds both
    against their plain PyTorch versions and times kernel, plain version and
@@ -282,6 +283,9 @@ inner launches by name and time.
    ``PRNGKey(0)`` and its noise at steps 0 and 998 ``prng.py``'s for JAX's
    chain, 5 bf16 #3 and 1 bf16 #8 a forward and 7 threefry draws a batch;
    and how many crystals equal that run's (printed, no gate).
+43. SASS check: in cuobjdump's SASS of the built library (dumped while the
+   phases above ran), every instantiation of #8's and #7's bfloat16
+   kernels issues warpgroup products (HGMMA) and TMA loads (UTMALDG).
 
 Every sampler and training path also counts the threefry kernel's
 launches apart from the backbone's kernels (the noise is drawn before a
@@ -311,6 +315,7 @@ repository beside it, the script exits non-zero before printing either.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -652,6 +657,78 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces, to
             "bound_by": b_by, "library_ms": lib_ms}
 
 
+def basis_source(name: str, dtype) -> str:
+    """#8's or #7's source for an element type: bfloat16 on Hopper's wgmma
+    and TMA (``csrc/basis_sm90.cuh``), float32 on ``mma.sync``."""
+    return f"arreau_tpu_torch/csrc/{name}{'_sm90' if dtype == torch.bfloat16 else ''}.cu"
+
+
+# #8's and #7's bfloat16 kernels (csrc/basis_sm90.cuh), as cuobjdump names them
+SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel")
+
+
+def start_sass_dump():
+    """cuobjdump's SASS of the built library, started in the background into
+    a temporary file: (process, path), or None where the toolkit has no
+    cuobjdump. ``sass_check`` reads it."""
+    from arreau_tpu_torch.kernels import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    fd, path = tempfile.mkstemp(suffix=".sass")
+    with open(fd, "w") as out:
+        process = subprocess.Popen([str(tool), "-sass", str(build.LIB_PATH)], stdout=out,
+                                   stderr=subprocess.DEVNULL)
+
+    def stop():  # at exit, had a phase failed before the check
+        if process.poll() is None:
+            process.kill()
+            process.wait()
+        Path(path).unlink(missing_ok=True)
+
+    atexit.register(stop)
+    return process, Path(path)
+
+
+def sass_check(dump) -> None:
+    """Every instantiation of #8's and #7's bfloat16 kernels in the built
+    library issues warpgroup products (HGMMA) and TMA loads (UTMALDG), as
+    the SASS ``start_sass_dump`` wrote shows; prints the counts. Skipped,
+    with a line, where the toolkit has no cuobjdump."""
+    if dump is None:
+        print("cuobjdump not found: the SASS is not checked")
+        return
+    process, path = dump
+    try:
+        if process.wait(timeout=300) != 0:
+            raise RuntimeError(f"cuobjdump failed ({process.returncode})")
+        counts: dict = {}
+        function = None
+        with open(path) as sass:
+            for line in sass:
+                if "Function :" in line:
+                    m = re.search(r"sm90\d+(" + "|".join(SM90_KERNELS) + r")I((?:Li\d+E)+)E", line)
+                    # (kernel, its template arguments: "208,256")
+                    function = (m.group(1), ",".join(re.findall(r"\d+", m.group(2)))) if m else None
+                    if function:
+                        counts[function] = {"HGMMA": 0, "UTMALDG": 0}
+                elif function:
+                    for op in ("HGMMA", "UTMALDG"):
+                        counts[function][op] += op in line
+    finally:
+        if process.poll() is None:
+            process.kill()
+            process.wait()
+        path.unlink(missing_ok=True)
+    for kernel in SM90_KERNELS:
+        found = {k[1]: v for k, v in counts.items() if k[0] == kernel}
+        print(f"SASS {kernel}: " + ", ".join(f"<{t}> {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
+                                              for t, v in sorted(found.items())))
+        if not found or not all(v["HGMMA"] and v["UTMALDG"] for v in found.values()):
+            raise RuntimeError(f"{kernel}: an instantiation without HGMMA or UTMALDG in its SASS")
+
+
 def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32X3_FLOP_PER_S):
     """Records of the two forward kernels (#3, #8) on captured arguments,
     named with ``suffix`` (``_bf16`` for the bfloat16 instantiations). Both
@@ -681,7 +758,7 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32
     h1 = check_kernel(
         "basis_h1" + suffix, basis_h1, basis_h1_plain, lambda: torch.addmm(b1, poly, w1),
         args["basis_h1"], O * n_valid * (2 * F_ * H + H),  # rows of filled edge slots
-        "arreau_tpu_torch/csrc/basis_h1.cu", "arreau_tpu/ops/pallas_basis.py:397", tol, peak
+        basis_source("basis_h1", attrT.dtype), "arreau_tpu/ops/pallas_basis.py:397", tol, peak
     )
     return conv, h1, n_valid
 
@@ -726,7 +803,8 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         "basis_mlp_bwd" + suffix, basis_mlp_bwd, basis_mlp_bwd_plain,
         lambda: torch.autograd.grad(lib_basis, leaves, reduce(torch.add, flat_gs), retain_graph=True),
         args["basis_mlp_bwd"], O * n_valid * 2 * (2 * F_ * H + 3 * H * w2.shape[1]),
-        "arreau_tpu_torch/csrc/basis_mlp_bwd.cu", "arreau_tpu/ops/pallas_basis.py:289", tol, peak
+        basis_source("basis_mlp_bwd", attrT.dtype), "arreau_tpu/ops/pallas_basis.py:289", tol,
+        peak
     )
     return conv_bwd, mlp_bwd
 
@@ -1462,7 +1540,12 @@ def fused_convnext_backbone(model):
 # split sum is shared with every other split-K weight gradient (#7, #10, #6
 # and #2's dKf), and the h1 product with #8 (basis_h1_kernel<T, H1Out, ...>)
 BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or the h1 product of #7, #5 or #6 "
-                                          "(H1Out 0: #8, 1: #7/#6, 2: #5)",
+                                          "(H1Out 0: #8, 1: #7/#6, 2: #5), float32",
+                     "::sm90::h1_kernel<": "#8 in bf16 (wgmma, TMA)",
+                     "::sm90::weights_kernel": "#8/#7 in bf16: the weights' K-major copies",
+                     "::sm90::rows_kernel<": "#7 in bf16: h1, dpre2, dpre1 per row tile",
+                     "::sm90::dw2_kernel<": "#7 in bf16: dW2 split-K partials",
+                     "::sm90::dw1_kernel<": "#7 in bf16: dW1 split-K partials",
                      "::basis_out_kernel<": "#5 gelu(h @ W2)",
                      "::basis_dpre2_kernel<": "#7 dpre2 (#6: db_pre)",
                      "::basis_dw2_partial_kernel<": "#7/#6 dW2 split-K partials",
@@ -3762,6 +3845,7 @@ def main() -> int:
         seconds = build.build_library()
         build.library()
         print(f"nvcc build: {seconds:.2f} s" if seconds else "kernel library up to date")
+        sass_dump = start_sass_dump()
 
     z_table = synthetic_z_table()
     cfg = DiffusionConfig(num_atomic_states=len(z_table))
@@ -4230,6 +4314,10 @@ def main() -> int:
     # ---------------- JAX's random streams from --seed ----------------
     with Phase("jax streams"), tempfile.TemporaryDirectory() as tmp:
         jax_streams_phase(Path(tmp), card, records)
+
+    # ---------------- #8's and #7's bfloat16 kernels on Hopper's own instructions ----------------
+    with Phase("SASS check"):
+        sass_check(sass_dump)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ from arreau_tpu_torch.kernels.spatial_conv import (
     spatial_conv_bwd_plain,
     spatial_conv_plain,
     tile_product,
+    wgmma_product,
 )
 from arreau_tpu_torch.ops import prng
 
@@ -504,6 +505,84 @@ def test_bf16_basis_kernels_match_plain(Bp, O, d, E, H, D, n_g):
     for a, b in zip(got, basis_mlp_bwd_plain(*args, gs)):
         assert a.dtype == torch.float32
         _assert_close(a, b, BF16_REL_TOL)
+
+
+# wgmma.cuh's warpgroup products against a float64 product: both operands
+# K-major in 128-byte-swizzled shared memory (the one layout the port's
+# wgmma kernels use), staged by the block's threads (bfloat16, and float32
+# split into tf32 halves for 3xTF32) or by TMA (bfloat16, K a multiple of
+# 8); M over several 64-row warpgroup tiles and ragged, N in each width
+# class (64, 128, 208, 256) and ragged, K ragged
+WGMMA_SHAPES = [(64, 16, 16), (130, 150, 80), (64, 256, 256), (200, 200, 272), (70, 8, 40)]
+WGMMA_CASES = ([(torch.float32, False, *s) for s in WGMMA_SHAPES + [(130, 150, 77)]]
+               + [(torch.bfloat16, False, *s) for s in WGMMA_SHAPES + [(130, 150, 77)]]
+               + [(torch.bfloat16, True, *s) for s in WGMMA_SHAPES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tma,M,N,K", WGMMA_CASES)
+def test_wgmma_products_match_float64(dtype, tma, M, N, K):
+    """a [M, K] @ b [N, K]^T through csrc/wgmma.cuh (fragments, descriptors,
+    the 128-byte swizzle, TMA loads) within TILE_REL_TOL of float64."""
+    dev = _device()
+    rng = np.random.default_rng(M + N + K)
+    a = torch.tensor(rng.normal(size=(M, K)), device=dev).to(dtype)
+    b = torch.tensor(rng.normal(size=(N, K)), device=dev).to(dtype)
+    before = wgmma_product.launches
+    got = wgmma_product(a, b, tma=tma)
+    torch.cuda.synchronize()
+    assert wgmma_product.launches == before + 1
+    want = a.double() @ b.double().t()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
+# every shape the port hands #8 and #7 in bfloat16 (on wgmma and TMA): the
+# training, serving and flagship (E = 640) cells, the N-body and MNIST
+# tasks, and the ragged shapes above (H = 33, 70; D = 20, 37, 64; F = 6 to
+# 155; one to sixteen cotangents)
+BF16_BASIS_SHAPES = [(32, 16, 6, 1024, 200, 256, 3, 5), (8, 16, 6, 1024, 200, 256, 3, 5),
+                     (10, 16, 6, 640, 200, 256, 3, 5), (4, 16, 2, 625, 128, 256, 3, 5),
+                     (96, 10, 2, 600, 64, 128, 3, 4), (2, 3, 6, 17, 33, 37, 1, 1),
+                     (2, 3, 5, 100, 70, 20, 2, 5), (1, 2, 6, 17, 70, 64, 3, 16),
+                     (2, 3, 5, 100, 33, 37, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,d,E,H,D,degree,n_g", BF16_BASIS_SHAPES)
+def test_bf16_basis_kernels_repeat_and_match_plain_at_every_shape(Bp, O, d, E, H, D, degree,
+                                                                 n_g):
+    """#8 and #7 in bfloat16, each called twice: one launch a call, every
+    output equal on both calls (no atomics: the split partials add in split
+    order), and within BF16_REL_TOL of the plain versions."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(21), dev, torch.bfloat16, Bp, O, d, E, H, D,
+                           degree, n_g)
+    before = (basis_h1.launches, basis_mlp_bwd.launches)
+    h1 = [basis_h1(*args[:3], degree) for _ in range(2)]
+    grads = [basis_mlp_bwd(*args, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (basis_h1.launches, basis_mlp_bwd.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(h1[0], h1[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    _assert_close(h1[0], basis_h1_plain(*args[:3], degree), BF16_REL_TOL)
+    for a, b in zip(grads[0], basis_mlp_bwd_plain(*args, gs)):
+        _assert_close(a, b, BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_basis_kernels_refuse_widths_past_one_accumulator():
+    """The bfloat16 kernels hold all of H and of D in one wgmma accumulator
+    (N <= 256): wider layers raise on the card rather than fall back."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(22), dev, torch.bfloat16, 1, 2, 6, 64, 300,
+                           32, 3, 1)
+    with pytest.raises(ValueError, match="<= 256"):
+        basis_h1(*args[:3], 3)
+    args, gs = _basis_args(np.random.default_rng(22), dev, torch.bfloat16, 1, 2, 6, 64, 32,
+                           300, 3, 1)
+    with pytest.raises(ValueError, match="<= 256"):
+        basis_mlp_bwd(*args, gs)
 
 
 def _convnext_args(rng, dev, dtype, Bp, O, TA, C, W, R):
