@@ -1,60 +1,43 @@
-// Spatial fiber-bundle convolution, backward, float32 or bfloat16, for sm_90a.
+// The spatial convolution's backward passes on mma.sync, float32 or bfloat16,
+// for sm_90a: the spatial part of #2 (the fused fiber conv's backward,
+// fiber_conv_bwd.cu, through the entry point arreau_spatial_conv_bwd with
+// fiber_dx = 1), and the pass #4 (spatial_conv_bwd_sm90.cu, on wgmma)
+// keeps: dx over each sender's run.
 //
-// Replaces the TPU kernel arreau_tpu/ops/pallas_conv.py:_bwd_spatial_kernel
-// (the VJP of fused_spatial_conv, reached through _bwd_spatial). With the
-// forward out[b',o,t,c] = sum_k win[e] * kern[e,c] * x[src[e],c], e = k*TA + t,
-// kern = basis @ W, and g the cotangent of out:
+// With the forward out[b',o,t,c] = sum_k win[e] * kern[e,c] * x[src[e],c],
+// e = k*TA + t, kern = basis @ W, and g the cotangent of out (the TPU
+// kernels: arreau_tpu/ops/pallas_conv.py:_bwd_kernel, :108, for #2 and
+// _bwd_spatial_kernel, :331, for #4):
 //
 //   gxw[e,c]    = g[t,c] * x[src[e],c] * win[e]          (0 on an empty slot)
 //   dbasis[e,:] = gxw[e,:] @ W^T                          (contracts C, per edge)
 //   dW          = sum over b', o, e of basis[e,:]^T gxw[e,:] (contracts every edge)
 //   dx[s,c]     = sum over e with src[e] = s of kern[e,c] * win[e] * g[t,c]
-//   dwin[b',e]  = sum over o and c of kern[e,c] * g[t,c] * x[src[e],c]   (with dwin)
 //
 // A sender outside [0, TA) is an empty slot: it is never read and adds
-// nothing (dwin is 0 there). The window cotangent (the TPU kernel's want_dwin
-// branch, pallas_conv.py:352-353, :369-370) is computed only when the caller
-// passes dwin: the window is a function of positions only, and only a path
-// that differentiates through positions needs it (the JAX package's
-// window_grad = position_grads: forces, relaxation).
+// nothing.
 //
-// Bound on the H100: three products of 2*B'*O*E*D*C operations (146 GFLOP
-// over the filled rows at the training shape B'=32, O=16, E=1024, D=256,
-// C=200) against ~0.5 GB (bfloat16) or ~1.1 GB (float32) of traffic: the
-// basis in, dbasis out. bfloat16 runs on the tensor cores (989 TFLOP/s):
-// bytes bound it. float32 runs as 3xTF32 (mma.cuh: three TF32 products
-// each, 495 / 3 = 165 TFLOP/s): operations bound it.
+// Bound on the H100: three products of 2*B'*O*E*D*C operations against the
+// basis in and dbasis out: bytes in bfloat16 (989 TFLOP/s), operations in
+// float32 (3xTF32, mma.cuh: 495 / 3 = 165 TFLOP/s).
 //
 // Design: each product is an mma.sync tile product (mma.cuh; TileProduct in
-// tile_product.cuh, shared with #8/#7) over 128 x 128 output tiles, its
-// operands copied into shared memory by 16-byte cp.async, three stages deep
-// in bfloat16 and two in float32, so that the next tile's copies overlap
-// this tile's products; each stage's products are straight-line code (no
-// branch between fragments).
-// Where a row length breaks 16-byte alignment (ragged D or C) the same
-// loaders copy element by element. The three results reduce over different
-// axes, and Hopper's blocks run in no order, so where the TPU walked the o
-// axis in sequence and carried dW in VMEM, the port launches, in order:
+// tile_product.cuh) over 128 x 128 output tiles, its operands copied into
+// shared memory by 16-byte cp.async, three stages deep in bfloat16 and two
+// in float32. Where a row length breaks 16-byte alignment (ragged D or C)
+// the same loaders copy element by element. The three results reduce over
+// different axes, and Hopper's blocks run in no order, so where the TPU
+// walked the o axis in sequence and carried dW in VMEM, the entry point
+// launches, in order:
 //
 //   0. gxw: the edge cotangent, made once into a scratch [B'*O*E, Cg] in T
-//      (Cg = C rounded up to 8, so rows stay 16-byte aligned). dbasis and dW
-//      read it as a plain row-major operand: building it inside each
-//      product would cost a gather and a division per element; the scratch
-//      costs ~0.2 GB (bfloat16) / 0.4 GB (float32) of traffic each way.
+//      (Cg = C rounded up to 8, so rows stay 16-byte aligned).
 //   1. dbasis = gxw @ W^T over all B'*O*E rows.
 //   2. dW: split-K over the rows; each block sums basis^T gxw over one slice
 //      into its own float32 partial tile, and a second pass adds the
 //      partials in a fixed order. No global atomics.
 //   3. dxc: kern = basis @ W per edge row, and in the product's epilogue the
-//      dx term dxc = round_T(kern * win * g[t]), written over gxw (which dW
-//      has read by then). With dwin, the same epilogue also sums kern * g[t]
-//      * x[src[e]] over the block's columns (g * x recomputed in float32 from
-//      x and g: gxw carries the window and is rounded to T, and dividing by
-//      win fails where the window is 0), in a fixed order (TileProduct::
-//      row_sums), into one float32 partial per column tile and edge row; a
-//      last pass adds them over o and the column tiles in ascending order, so
-//      dwin repeats bit for bit. Without dwin the epilogue computes the dx
-//      terms alone (a compile-time branch, DWIN).
+//      dx term, written over gxw (which dW has read by then).
 //   4. dx: each sender's dx terms summed in ascending e, in float32. The
 //      wrapper lists each b's live edges by sender with a stable sort (src
 //      is shared over o), so a thread walks one sender's run. The TPU kernel
@@ -63,21 +46,15 @@
 //      dense, and the run costs one read of dxc. Both are fixed orders: dx,
 //      like every output here, is the same bit for bit on every call.
 //
-// Element type T (dtype.cuh) of basis, W, x, g, gxw, dbasis and dx: float32,
-// or bfloat16 on the compute_dtype="bfloat16" path. There the JAX kernel's
-// rounding points hold (pallas_conv.py:331-390): gxw and kern * win * g are
-// rounded to T before their products (:371, :376), every product and sum is
-// float32 (bf16 x bf16 is exact in float32), dbasis and dx are rounded once
-// as they are stored, and the dW partials stay float32 (the wrapper rounds
-// the sum to W's type).
-//
-// The fused fiber conv's backward (fiber_conv_bwd.cu, #2) calls the same
-// entry point with fiber_dx = 1: its cotangent g (type G) is float32 in both
-// element types, and in bfloat16 each dx term rounds the per-edge kernel and
-// g to T apart and multiplies them in T (pallas_conv.py:143, :158: kern_k
-// and g_o cast to bf16, their product bf16) instead of rounding the float32
-// product once (:376). In float32 both roundings are the identity, and the
-// flag is not read.
+// Element type T (dtype.cuh) of basis, W, x, gxw, dbasis and dx: float32, or
+// bfloat16 on the compute_dtype="bfloat16" path. #2's cotangent g (type G) is
+// float32 in both element types, and in bfloat16 each dx term rounds the
+// per-edge kernel and g to T apart and multiplies them in T
+// (pallas_conv.py:143, :158: kern_k and g_o cast to bf16, their product
+// bf16); gxw is rounded to T before its products, every product and sum is
+// float32, dbasis and dx are rounded once as they are stored, and the dW
+// partials stay float32 (the wrapper rounds the sum to W's type). In float32
+// every rounding is the identity.
 
 #include <cstdint>
 
@@ -142,19 +119,15 @@ dbasis_kernel(Operand<T> gxw, Operand<T> w, T* __restrict__ dbasis, long long ro
 // 3. dxc[row, c] = the per-edge dx term of edge row (b', o, e), into the gxw
 //    scratch once dW has read it: kern = basis @ W on the tensor cores, then
 //    round_T(kern * win * g[t]) (with FIBER: kern * win and g rounded apart,
-//    then their product), 0 on an empty slot. With DWIN also
-//    dwin_partial[n tile, row] = sum over the block's columns c of
-//    kern[c] * (g[t,c] * x[src[e],c]) in float32, 0 on an empty slot
-template <class T, class G, bool FIBER, bool DWIN>
+//    then their product), 0 on an empty slot
+template <class T, class G, bool FIBER>
 __global__ void __launch_bounds__(WideTile<T, true, false>::THREADS, MIN_BLOCKS)
 dx_terms_kernel(Operand<T> basis,                  // [B'*O*E, D]
                 Operand<T> w,                      // [D, C]
-                const T* __restrict__ x,           // [B'*O, TA, C] (read with DWIN)
                 const int* __restrict__ src,       // [B', E]
                 const float* __restrict__ win,     // [B', E]
                 const G* __restrict__ g,           // [B'*O, TA, C]
                 T* __restrict__ dxc,               // [B'*O*E, Cg]
-                float* __restrict__ dwin_partial,  // [C tiles, B'*O*E] (written with DWIN)
                 long long rows, int O, int TA, int E, int D, int C, int Cg) {
     using P = WideTile<T, true, false>;
     const int n_tiles = (C + P::BN - 1) / P::BN;
@@ -166,26 +139,23 @@ dx_terms_kernel(Operand<T> basis,                  // [B'*O*E, D]
            n_lim, shared_buffer<T>(), acc);
     struct Row {
         const G* g_t;  // g[t] at the block's first channel; null on an empty slot
-        const T* x_s;  // x[src[e]] at the block's first channel (DWIN)
         float wv;
         T* out;        // the row of dxc; null past the last row
     };
     auto row_of = [&](int m) -> Row {
-        if (m >= m_lim) return {nullptr, nullptr, 0.f, nullptr};
+        if (m >= m_lim) return {nullptr, 0.f, nullptr};
         const long long row = m0 + m;
         const long long bo = row / E;
         const int e = (int)(row - bo * E), b = (int)(bo / O);
         const int s = src[(size_t)b * E + e];
         T* out = dxc + row * Cg + n0;
-        if (s < 0 || s >= TA) return {nullptr, nullptr, 0.f, out};
-        return {g + ((size_t)bo * TA + e % TA) * C + n0, x + ((size_t)bo * TA + s) * C + n0,
-                win[(size_t)b * E + e], out};
+        if (s < 0 || s >= TA) return {nullptr, 0.f, out};
+        return {g + ((size_t)bo * TA + e % TA) * C + n0, win[(size_t)b * E + e], out};
     };
-    // stores the pair's dx terms; returns its window-cotangent terms (DWIN)
-    auto term = [&](const Row& r, int m, int n, float v0, float v1) -> float {
-        if (r.out == nullptr || n >= n_lim) return 0.f;
+    P::for_each_row(acc, row_of, [&](const Row& r, int m, int n, float v0, float v1) {
+        if (r.out == nullptr || n >= n_lim) return;
         const bool second = n + 1 < n_lim;
-        float d[2] = {0.f, 0.f}, dw = 0.f;
+        float d[2] = {0.f, 0.f};
         if (r.g_t != nullptr) {
             const float2 gp = load2(r.g_t + n, second, C % 2 == 0);
             const float v[2] = {v0, v1}, gv[2] = {gp.x, gp.y};
@@ -196,41 +166,9 @@ dx_terms_kernel(Operand<T> basis,                  // [B'*O*E, D]
                 else
                     d[q] = round_to<T>(v[q] * r.wv * gv[q]);
             }
-            if constexpr (DWIN) {
-                const float2 xp = load2(r.x_s + n, second, C % 2 == 0);
-                dw = v0 * (gp.x * xp.x) + v1 * (gp.y * xp.y);
-            }
         }
         store2(r.out + n, d[0], d[1], second, true);
-        return dw;
-    };
-    if constexpr (DWIN) {
-        float* out = dwin_partial + (size_t)(blockIdx.x % n_tiles) * rows + m0;
-        P::row_sums(acc, row_of, term, shared_buffer<float>(), [&](int m, float v) {
-            if (m < m_lim) out[m] = v;
-        });
-    } else {
-        P::for_each_row(acc, row_of, [&](const Row& r, int m, int n, float v0, float v1) {
-            term(r, m, n, v0, v1);
-        });
-    }
-}
-
-// 5. dwin[b', e] = sum over o, then over the column tiles, in ascending
-//    order, of dwin_partial[tile, (b'*O + o)*E + e]: a fixed order, so dwin
-//    is the same bit for bit on every call
-__global__ void __launch_bounds__(THREADS)
-dwin_sum_kernel(const float* __restrict__ dwin_partial, float* __restrict__ dwin, int Bp, int O,
-                int E, int n_tiles, long long rows) {
-    const long long n = (long long)Bp * E;
-    for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n;
-         i += (long long)gridDim.x * THREADS) {
-        const long long b = i / E, e = i - b * E;
-        float s = 0.f;
-        for (int o = 0; o < O; ++o)
-            for (int j = 0; j < n_tiles; ++j) s += dwin_partial[j * rows + (b * O + o) * E + e];
-        dwin[i] = s;
-    }
+    });
 }
 
 // 4. dx[b',o,s,c] = sum over the edges e with src[e] = s, in ascending e, of
@@ -245,28 +183,31 @@ dx_kernel(const T* __restrict__ dxc,        // [B'*O*E, Cg]
           const int* __restrict__ order,    // [B', E]
           const int* __restrict__ offsets,  // [B', TA + 1]
           T* __restrict__ dx,               // [B'*O, TA, C]
-          int O, int TA, int E, int C, int Cg) {
-    const int bo = blockIdx.z, b = bo / O;
+          int BO, int O, int TA, int E, int C, int Cg) {
     const int c = 2 * (blockIdx.x * DX_THREADS + threadIdx.x);
     if (c >= C) return;
     const bool second = c + 1 < C;
-    const int* run = order + (size_t)b * E;
-    const T* rows = dxc + (size_t)bo * E * Cg + c;
-    const int s_end = min(TA, (int)(blockIdx.y + 1) * DX_SENDERS);
-    for (int s = blockIdx.y * DX_SENDERS; s < s_end; ++s) {
-        const int end = offsets[(size_t)b * (TA + 1) + s + 1];
-        float a0 = 0.f, a1 = 0.f;
-        for (int j = offsets[(size_t)b * (TA + 1) + s]; j < end; ++j) {
-            const T* v = rows + (size_t)run[j] * Cg;  // Cg is even: a pair is aligned
-            if constexpr (sizeof(T) == 2) {
-                const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
-                a0 += f.x, a1 += f.y;
-            } else {
-                const float2 f = *reinterpret_cast<const float2*>(v);
-                a0 += f.x, a1 += f.y;
+    for (int bo = blockIdx.z; bo < BO; bo += gridDim.z) {  // gridDim.z <= 65535
+        const int b = bo / O;
+        const int* run = order + (size_t)b * E;
+        const T* rows = dxc + (size_t)bo * E * Cg + c;
+        const int s_end = min(TA, (int)(blockIdx.y + 1) * DX_SENDERS);
+        for (int s = blockIdx.y * DX_SENDERS; s < s_end; ++s) {
+            const int end = offsets[(size_t)b * (TA + 1) + s + 1];
+            float a0 = 0.f, a1 = 0.f;
+            for (int j = offsets[(size_t)b * (TA + 1) + s]; j < end; ++j) {
+                const T* v = rows + (size_t)run[j] * Cg;  // Cg is even: a pair is aligned
+                if constexpr (sizeof(T) == 2) {
+                    const float2 f =
+                        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
+                    a0 += f.x, a1 += f.y;
+                } else {
+                    const float2 f = *reinterpret_cast<const float2*>(v);
+                    a0 += f.x, a1 += f.y;
+                }
             }
+            store2(dx + ((size_t)bo * TA + s) * C + c, a0, a1, second, C % 2 == 0);
         }
-        store2(dx + ((size_t)bo * TA + s) * C + c, a0, a1, second, C % 2 == 0);
     }
 }
 
@@ -308,32 +249,39 @@ tile_product_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, in
     });
 }
 
-// Step 3 with or without the window cotangent's partials
-template <class T, class G, bool FIBER, bool DWIN>
-cudaError_t launch_dx_terms(const T* basis, const T* w, const T* x, const int* src,
-                            const float* win, const G* g, T* dxc, float* dwin_partial,
-                            long long rows, int O, int TA, int E, int D, int C, int Cg,
-                            cudaStream_t stream) {
+// Step 4 for B'*O = BO tiles
+template <class T>
+cudaError_t launch_dx(const T* dxc, const int* order, const int* offsets, T* dx, int Bp, int O,
+                      int TA, int E, int C, int Cg, cudaStream_t stream) {
+    const int BO = Bp * O;
+    dx_kernel<T><<<dim3((C + 2 * DX_THREADS - 1) / (2 * DX_THREADS),
+                        (TA + DX_SENDERS - 1) / DX_SENDERS, BO < 65535 ? BO : 65535),
+                   DX_THREADS, 0, stream>>>(dxc, order, offsets, dx, BO, O, TA, E, C, Cg);
+    return cudaGetLastError();
+}
+
+// Step 3
+template <class T, class G, bool FIBER>
+cudaError_t launch_dx_terms(const T* basis, const T* w, const int* src, const float* win,
+                            const G* g, T* dxc, long long rows, int O, int TA, int E, int D,
+                            int C, int Cg, cudaStream_t stream) {
     using KX = WideTile<T, true, false>;
-    cudaError_t err = allow_smem(dx_terms_kernel<T, G, FIBER, DWIN>, KX::SMEM);
+    cudaError_t err = allow_smem(dx_terms_kernel<T, G, FIBER>, KX::SMEM);
     if (err != cudaSuccess) return err;
     const long long kx_tiles = ((rows + KX::BM - 1) / KX::BM) * ((C + KX::BN - 1) / KX::BN);
-    dx_terms_kernel<T, G, FIBER, DWIN><<<(unsigned)kx_tiles, KX::THREADS, KX::SMEM, stream>>>(
-        operand(basis, D), operand(w, C), x, src, win, g, dxc, dwin_partial, rows, O, TA, E, D, C,
-        Cg);
+    dx_terms_kernel<T, G, FIBER><<<(unsigned)kx_tiles, KX::THREADS, KX::SMEM, stream>>>(
+        operand(basis, D), operand(w, C), src, win, g, dxc, rows, O, TA, E, D, C, Cg);
     return cudaGetLastError();
 }
 
 // The passes and the split sum, for element type T, cotangent type G and dx
-// rounding FIBER; with dwin (not with FIBER) also the window cotangent.
-// Every launch goes on the caller's stream, in this order: dxc overwrites
-// gxw after dW has read it.
+// rounding FIBER. Every launch goes on the caller's stream, in this order:
+// dxc overwrites gxw after dW has read it.
 template <class T, class G, bool FIBER>
 int spatial_conv_bwd(const T* basis, const T* w, const T* x, const int* src, const float* win,
                      const int* order, const int* offsets, const G* g, T* dbasis, float* dw, T* dx,
-                     T* gxw, float* partial, float* dwin, float* dwin_partial, int Bp,
-                     int O, int K, int TA, int D, int C, int splits, int rows_per_split,
-                     cudaStream_t stream) {
+                     T* gxw, float* partial, int Bp, int O, int K, int TA, int D, int C,
+                     int splits, int rows_per_split, cudaStream_t stream) {
     const int E = K * TA, Cg = (C + 7) / 8 * 8;
     const long long rows = (long long)Bp * O * E;
     cudaError_t err;
@@ -359,29 +307,10 @@ int spatial_conv_bwd(const T* basis, const T* w, const T* x, const int* src, con
     sum_splits_kernel<<<sum_splits_blocks(n), THREADS, 0, stream>>>(partial, dw, splits, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    if constexpr (!FIBER) {
-        if (dwin != nullptr)
-            err = launch_dx_terms<T, G, FIBER, true>(basis, w, x, src, win, g, gxw, dwin_partial,
-                                                     rows, O, TA, E, D, C, Cg, stream);
-        else
-            err = launch_dx_terms<T, G, FIBER, false>(basis, w, x, src, win, g, gxw, nullptr,
-                                                      rows, O, TA, E, D, C, Cg, stream);
-    } else {
-        err = launch_dx_terms<T, G, FIBER, false>(basis, w, x, src, win, g, gxw, nullptr, rows, O,
-                                                  TA, E, D, C, Cg, stream);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-
-    dx_kernel<T><<<dim3((C + 2 * DX_THREADS - 1) / (2 * DX_THREADS),
-                        (TA + DX_SENDERS - 1) / DX_SENDERS, Bp * O),
-                   DX_THREADS, 0, stream>>>(gxw, order, offsets, dx, O, TA, E, C, Cg);
-    if ((err = cudaGetLastError()) != cudaSuccess || dwin == nullptr)
+    if ((err = launch_dx_terms<T, G, FIBER>(basis, w, src, win, g, gxw, rows, O, TA, E, D, C, Cg,
+                                            stream)) != cudaSuccess)
         return static_cast<int>(err);
-
-    using KX = WideTile<T, true, false>;
-    dwin_sum_kernel<<<sum_splits_blocks((long long)Bp * E), THREADS, 0, stream>>>(
-        dwin_partial, dwin, Bp, O, E, (C + KX::BN - 1) / KX::BN, rows);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_dx<T>(gxw, order, offsets, dx, Bp, O, TA, E, C, Cg, stream));
 }
 
 template <class T, bool A_K, bool B_K>
@@ -397,15 +326,28 @@ int tile_product(const T* a, const T* b, float* d, int M, int N, int K, cudaStre
 
 }  // namespace
 
-// basis, w, x, dbasis, dx and the gxw scratch ([B'*O*K*TA, C rounded up to
-// 8]) are float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); win, partial and
-// dw are float32. order [B', K*TA] and offsets [B', TA + 1] (int32) list
-// each b's live edges by sender, stably, and where each sender's run starts
-// (kernels/spatial_conv.py:sender_order). g is of the element type, or
-// float32 with fiber_dx = 1 (the fused fiber conv's backward, whose dx terms
-// then round as its JAX kernel's; see the header). dwin [B', K*TA] and its
-// scratch dwin_partial [ceil(C / 128), B'*O*K*TA] (float32) are null, or
-// given for the window cotangent (not with fiber_dx).
+namespace arreau {
+
+// the dx pass for #4's wgmma design (conv_sm90.cuh, spatial_conv_bwd_sm90.cu)
+int spatial_conv_dx(const void* dxc, const int* order, const int* offsets, void* dx, int Bp, int O,
+                    int TA, int E, int C, int Cg, bool is_bf16, cudaStream_t stream) {
+    if (is_bf16)
+        return static_cast<int>(launch_dx<bf16>(static_cast<const bf16*>(dxc), order, offsets,
+                                                static_cast<bf16*>(dx), Bp, O, TA, E, C, Cg,
+                                                stream));
+    return static_cast<int>(launch_dx<float>(static_cast<const float*>(dxc), order, offsets,
+                                             static_cast<float*>(dx), Bp, O, TA, E, C, Cg, stream));
+}
+
+}  // namespace arreau
+
+// #2's spatial passes: basis, w, x, dbasis, dx and the gxw scratch
+// ([B'*O*K*TA, C rounded up to 8]) are float32 (is_bf16 = 0) or bfloat16
+// (is_bf16 = 1, with fiber_dx = 1); g, win, partial and dw are float32. order
+// [B', K*TA] and offsets [B', TA + 1] (int32) list each b's live edges by
+// sender, stably, and where each sender's run starts
+// (kernels/spatial_conv.py:sender_order). dwin and dwin_partial must be null
+// (the window cotangent is #4's, spatial_conv_bwd_sm90.cu).
 extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const void* x,
                                        const int* src, const float* win, const int* order,
                                        const int* offsets, const void* g, void* dbasis, float* dw,
@@ -414,25 +356,19 @@ extern "C" int arreau_spatial_conv_bwd(const void* basis, const void* w, const v
                                        int C, int splits, int rows_per_split, int is_bf16,
                                        int fiber_dx, void* stream_ptr) {
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    if ((dwin == nullptr) != (dwin_partial == nullptr) || (dwin != nullptr && fiber_dx))
+    if (dwin != nullptr || dwin_partial != nullptr || (is_bf16 && !fiber_dx))
         return static_cast<int>(cudaErrorInvalidValue);
     if (!is_bf16)
         return spatial_conv_bwd<float, float, false>(
             static_cast<const float*>(basis), static_cast<const float*>(w),
             static_cast<const float*>(x), src, win, order, offsets, static_cast<const float*>(g),
             static_cast<float*>(dbasis), dw, static_cast<float*>(dx), static_cast<float*>(gxw),
-            partial, dwin, dwin_partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
-    if (fiber_dx)
-        return spatial_conv_bwd<bf16, float, true>(
-            static_cast<const bf16*>(basis), static_cast<const bf16*>(w),
-            static_cast<const bf16*>(x), src, win, order, offsets, static_cast<const float*>(g),
-            static_cast<bf16*>(dbasis), dw, static_cast<bf16*>(dx), static_cast<bf16*>(gxw),
-            partial, nullptr, nullptr, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
-    return spatial_conv_bwd<bf16, bf16, false>(
+            partial, Bp, O, K, TA, D, C, splits, rows_per_split, stream);
+    return spatial_conv_bwd<bf16, float, true>(
         static_cast<const bf16*>(basis), static_cast<const bf16*>(w), static_cast<const bf16*>(x),
-        src, win, order, offsets, static_cast<const bf16*>(g), static_cast<bf16*>(dbasis), dw,
-        static_cast<bf16*>(dx), static_cast<bf16*>(gxw), partial, dwin, dwin_partial, Bp, O, K,
-        TA, D, C, splits, rows_per_split, stream);
+        src, win, order, offsets, static_cast<const float*>(g), static_cast<bf16*>(dbasis), dw,
+        static_cast<bf16*>(dx), static_cast<bf16*>(gxw), partial, Bp, O, K, TA, D, C, splits,
+        rows_per_split, stream);
 }
 
 // d [M, N] float32 = a @ b through mma.cuh: a is [M, K] (a_kmajor) or

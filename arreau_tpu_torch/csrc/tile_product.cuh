@@ -368,41 +368,6 @@ struct TileProduct {
             }
     }
 
-    // As for_each_row, with f returning a float for each column pair; then
-    // out(m, sum) once for each row of the tile, on one thread, with the sum
-    // of f over the row's BN columns taken in a fixed order: a thread's pairs
-    // in ascending j, the quad of lanes that holds the row by two shuffles,
-    // then the WARPS_N warps that hold it in ascending order through s
-    // (BM * WARPS_N floats of shared memory; the mainloop's may be reused).
-    // Every thread of the block calls it.
-    template <class RowFn, class Fn, class Out>
-    __device__ __forceinline__ static void row_sums(const Acc& acc, RowFn row, Fn f, float* s,
-                                                    Out out) {
-        const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-        const int m0 = warp_m0(), wn = threadIdx.x / 32 / WARPS_M;
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int m = m0 + i * 16 + g + h * 8;
-                const auto r = row(m);
-                float v = 0.f;
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    v += f(r, m, warp_n(j) + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-                v += __shfl_xor_sync(0xffffffffu, v, 1);
-                v += __shfl_xor_sync(0xffffffffu, v, 2);
-                if (t == 0) s[m * WARPS_N + wn] = v;
-            }
-        __syncthreads();
-        for (int m = threadIdx.x; m < BM; m += THREADS) {
-            float v = 0.f;
-#pragma unroll
-            for (int w = 0; w < WARPS_N; ++w) v += s[m * WARPS_N + w];
-            out(m, v);
-        }
-    }
-
     // f(m, n, acc[m][n], acc[m][n + 1]) for every column pair of this thread
     // (n even)
     template <class Fn>

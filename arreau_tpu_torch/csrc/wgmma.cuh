@@ -17,8 +17,17 @@
 //     product step at depth k0 inside the panel starts k0 * sizeof(T) bytes
 //     further. The Tensor Memory Accelerator writes the same layout with
 //     CU_TENSOR_MAP_SWIZZLE_128B and a 128-byte box row.
-//   - cp.async.bulk.tensor (TMA) 2-D loads into shared memory, completing on
-//     an mbarrier with a byte count, and 2-D stores from shared memory;
+//   - Bfloat16 operands in the MN-major 128-byte swizzle (wgmma's transposed
+//     operands: tf32 has none): a box of K rows, each 128 bytes of 64
+//     consecutive M (or N) elements, chunk c of row k at chunk c ^ (k % 8),
+//     as TMA writes a box of a row-major [K, M] matrix; the 64-element blocks
+//     of M (or N) lie lbo bytes apart, the 8-row groups of K 1024 bytes.
+//     sw128_mn_desc gives its descriptor, Wgmma<bf16, N>::mma_mn the product
+//     of two such operands; a k16 step starts 16 * 128 bytes further.
+//   - cp.async.bulk.tensor (TMA) 2-D and 3-D loads into shared memory,
+//     completing on an mbarrier with a byte count, and 2-D stores from shared
+//     memory (a 3-D box of one outer index clips its rows at the middle
+//     dimension's extent: zeros past a slab's end);
 //     mbarrier init, arrive, arrive with expected bytes, and parity waits;
 //     the proxy fence that makes the threads' shared-memory writes visible
 //     to wgmma and TMA; an L2 prefetch of a contiguous range.
@@ -104,6 +113,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
         : "memory");
 }
+// the box at (c0, c1, c2) of a 3-D `map` into shared memory at dst; its bytes
+// complete on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
 // the box at (c0, c1) of `map` from shared memory at src; the parts of the box
 // outside the tensor are not written
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
@@ -153,6 +172,15 @@ __host__ __device__ __forceinline__ int sw128_offset(int r, int k, int rows) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
     const uint64_t a = smem_addr(p);
     return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of an MN-major SW128 bfloat16 operand at p (1024-byte aligned
+// plus the product step's 16 * 128 bytes): its 64-element blocks of M (or N)
+// lbo bytes apart, its 8-row groups of K 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p, uint32_t lbo) {
+    const uint64_t a = smem_addr(p);
+    return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -233,7 +261,8 @@ struct Wgmma;
 #define ARREAU_ACCS_256 ARREAU_ACCS_240, ARREAU_ACC8(120)
 
 // d += A B over one product step, A (64 x K) and B (N x K) both K-major in
-// shared memory (descriptors da, db): bfloat16 at K = 16, tf32 at K = 8
+// shared memory (descriptors da, db): bfloat16 at K = 16, tf32 at K = 8;
+// mma_mn (bfloat16): both MN-major (sw128_mn_desc)
 #define ARREAU_WGMMA_N(N)                                                                    \
     template <>                                                                              \
     struct Wgmma<bf16, N> {                                                                  \
@@ -244,6 +273,14 @@ struct Wgmma;
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                        \
                          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"        \
                          ARREAU_REGS_##N "}, %0, %1, p, 1, 1, 0, 0;\n}\n"                    \
+                         : "+l"(da), "+l"(db), "+r"(scale), ARREAU_ACCS_##N);               \
+        }                                                                                    \
+        __device__ __forceinline__ static void mma_mn(float (&d)[N / 2], uint64_t da,       \
+                                                      uint64_t db) {                         \
+            uint32_t scale = 1;                                                              \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                        \
+                         "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"        \
+                         ARREAU_REGS_##N "}, %0, %1, p, 1, 1, 1, 1;\n}\n"                    \
                          : "+l"(da), "+l"(db), "+r"(scale), ARREAU_ACCS_##N);               \
         }                                                                                    \
     };                                                                                       \
@@ -341,6 +378,27 @@ bool sw128_map(CUtensorMap* map, const void* base, long long dim0, long long dim
     const cuuint32_t unit[2] = {1, 1};
     return fn(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
               2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a tensor map of the row-major [dim2, dim1, dim0] tensor at base (strides
+// stride1 and stride2 bytes, multiples of 16; base 16-byte aligned) whose
+// boxes are box1 rows of one slab (index 2) by one SW128 panel row (box0 *
+// sizeof(T) == 128), in the 128-byte swizzle; a box's rows past dim1 and
+// elements past dim0 read as zeros. Returns false if the encoding fails.
+template <class T>
+bool sw128_map_3d(CUtensorMap* map, const void* base, long long dim0, long long dim1,
+                  long long dim2, long long stride1, long long stride2, int box1) {
+    static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bfloat16 or float32");
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)dim0, (cuuint64_t)dim1, (cuuint64_t)dim2};
+    const cuuint64_t strides[2] = {(cuuint64_t)stride1, (cuuint64_t)stride2};
+    const cuuint32_t box[3] = {128 / (cuuint32_t)sizeof(T), (cuuint32_t)box1, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return fn(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+              3, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

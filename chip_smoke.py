@@ -663,8 +663,14 @@ def basis_source(name: str, dtype) -> str:
     return f"arreau_tpu_torch/csrc/{name}{'_sm90' if dtype == torch.bfloat16 else ''}.cu"
 
 
-# #8's and #7's bfloat16 kernels (csrc/basis_sm90.cuh), as cuobjdump names them
-SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel")
+# #8's and #7's bfloat16 kernels (csrc/basis_sm90.cuh), and #3's and #4's in
+# both types (csrc/conv_sm90.cuh), as cuobjdump names them
+SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel", "sconv_fwd_kernel",
+                "sconv_kern_kernel", "sconv_dbasis_kernel", "sconv_dw_kernel")
+# (kernel, element type) of the instantiations whose operands the threads
+# stage, not TMA: #4's float32 dW transposes both as it stages them (tf32
+# wgmma takes K-major operands only)
+SM90_THREAD_STAGED = (("sconv_dw_kernel", "float"),)
 
 
 def start_sass_dump():
@@ -692,10 +698,11 @@ def start_sass_dump():
 
 
 def sass_check(dump) -> None:
-    """Every instantiation of #8's and #7's bfloat16 kernels in the built
-    library issues warpgroup products (HGMMA) and TMA loads (UTMALDG), as
-    the SASS ``start_sass_dump`` wrote shows; prints the counts. Skipped,
-    with a line, where the toolkit has no cuobjdump."""
+    """Every instantiation of #8's and #7's bfloat16 kernels and of #3's and
+    #4's kernels in the built library issues warpgroup products (HGMMA) and,
+    but for SM90_THREAD_STAGED, TMA loads (UTMALDG), as the SASS
+    ``start_sass_dump`` wrote shows; prints the counts. Skipped, with a line,
+    where the toolkit has no cuobjdump."""
     if dump is None:
         print("cuobjdump not found: the SASS is not checked")
         return
@@ -708,9 +715,15 @@ def sass_check(dump) -> None:
         with open(path) as sass:
             for line in sass:
                 if "Function :" in line:
-                    m = re.search(r"sm90\d+(" + "|".join(SM90_KERNELS) + r")I((?:Li\d+E)+)E", line)
-                    # (kernel, its template arguments: "208,256")
-                    function = (m.group(1), ",".join(re.findall(r"\d+", m.group(2)))) if m else None
+                    m = re.search(r"\d(" + "|".join(SM90_KERNELS) + r")I(\w+?)EEv", line)
+                    # (kernel, its template arguments: "208,256", "bf16,112,1")
+                    function = None
+                    if m:
+                        args = m.group(2)
+                        kind = ("bf16," if args.startswith("13__nv_bfloat16") else
+                                "float," if args.startswith("f") else "")
+                        function = (m.group(1), kind + ",".join(
+                            re.findall(r"\d+", args.replace("13__nv_bfloat16", ""))))
                     if function:
                         counts[function] = {"HGMMA": 0, "UTMALDG": 0}
                 elif function:
@@ -725,7 +738,9 @@ def sass_check(dump) -> None:
         found = {k[1]: v for k, v in counts.items() if k[0] == kernel}
         print(f"SASS {kernel}: " + ", ".join(f"<{t}> {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
                                               for t, v in sorted(found.items())))
-        if not found or not all(v["HGMMA"] and v["UTMALDG"] for v in found.values()):
+        if not found or not all(
+                v["HGMMA"] and (v["UTMALDG"] or (kernel, t.split(",")[0]) in SM90_THREAD_STAGED)
+                for t, v in found.items()):
             raise RuntimeError(f"{kernel}: an instantiation without HGMMA or UTMALDG in its SASS")
 
 
@@ -748,7 +763,7 @@ def forward_kernel_records(args, label, suffix="", tol=KERNEL_REL_TOL, peak=TF32
         "spatial_conv" + suffix, spatial_conv, spatial_conv_plain,
         lambda: conv_library(basis, w, x, src, win), args["spatial_conv"],
         O * n_valid * (2 * D * C + 3 * C),
-        "arreau_tpu_torch/csrc/spatial_conv.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak
+        "arreau_tpu_torch/csrc/spatial_conv_sm90.cu", "arreau_tpu/ops/pallas_conv.py:298", tol, peak
     )
     attrT, w1, b1, degree = args["basis_h1"]
     d = attrT.shape[2]
@@ -784,7 +799,7 @@ def backward_kernel_records(args, n_valid, suffix="", tol=KERNEL_REL_TOL,
         "spatial_conv_bwd" + suffix, spatial_conv_bwd, spatial_conv_bwd_plain,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 5 * C),
-        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
+        "arreau_tpu_torch/csrc/spatial_conv_bwd_sm90.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
         peak
     )
     del out, leaves
@@ -1551,14 +1566,21 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or the h1 product of #7, #5 or #
                      "::basis_dw2_partial_kernel<": "#7/#6 dW2 split-K partials",
                      "::basis_dpre1_kernel<": "#7 dpre1 (#6: dh_pre)",
                      "::basis_dw1_partial_kernel<": "#7/#6 dW1 split-K partials",
-                     "::gxw_kernel<": "#4 gxw (edge cotangent)",
-                     "::dbasis_kernel<": "#4 dbasis",
-                     "::dw_partial_kernel<": "#4 dW split-K partials",
+                     "::conv90::weights_kernel<": "#3/#4: W's K-major copies, once for each "
+                                                 "version of W (wgmma, TMA)",
+                     "::sconv_gxw_kernel<": "#4 gxw (edge cotangent, 16-byte chunks)",
+                     "::sconv_dbasis_kernel<": "#4 dbasis (wgmma, TMA)",
+                     "::sconv_dw_kernel<": "#4 dW split-K partials (wgmma; bf16 MN-major by "
+                                           "TMA, float32 staged transposed)",
+                     "::sconv_kern_kernel<": "#4 dxc (per-edge kernel on wgmma; with dwin its "
+                                             "halves' partials too)",
+                     "::dwin_sum_kernel": "#4 dwin (partials summed over o and the halves)",
+                     "::gxw_kernel<": "#2 gxw (edge cotangent)",
+                     "::dbasis_kernel<": "#2 dbasis",
+                     "::dw_partial_kernel<": "#2 dW split-K partials",
                      "sum_splits_kernel": "split sum (#4 dW and every split-K pass)",
-                     "::dx_terms_kernel<": "#4 dxc (per-edge kernel and dx terms; with dwin "
-                                           "its partials too)",
-                     "::dwin_sum_kernel": "#4 dwin (partials summed over o and column tiles)",
-                     "::dx_kernel<": "#4 dx (each sender's run)",
+                     "::dx_terms_kernel<": "#2 dxc (per-edge kernel and dx terms)",
+                     "::dx_kernel<": "#4/#2 dx (each sender's run)",
                      "::fiber_cotangent_kernel<": "#2 g_o",
                      "::fiber_kernel_grad_partial": "#2 dKf partials",
                      "::convnext_bwd_rows_kernel<": "#10 rows (forward, dm, dpre1, dyln, dxc)",
@@ -2062,7 +2084,7 @@ def window_cotangent_record(args, n_valid, suffix, tol, peak) -> dict:
         "spatial_conv_bwd_dwin" + suffix, spatial_conv_bwd, spatial_conv_bwd_plain,
         lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), args["spatial_conv_bwd"],
         O * n_valid * (6 * D * C + 8 * C),
-        "arreau_tpu_torch/csrc/spatial_conv_bwd.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
+        "arreau_tpu_torch/csrc/spatial_conv_bwd_sm90.cu", "arreau_tpu/ops/pallas_conv.py:331", tol,
         peak)
 
 
@@ -2560,7 +2582,7 @@ def training_leftovers_phase(tmp: Path, card: str) -> None:
     if len(traces) != 1 or traces[0].stat().st_size == 0:
         raise RuntimeError(f"--profiler torch wrote {traces}, not one trace")
     text = traces[0].read_text()
-    named = {k: k in text for k in ("spatial_conv_fwd_kernel", "basis_h1_kernel", "gxw_kernel",
+    named = {k: k in text for k in ("sconv_fwd_kernel", "basis_h1_kernel", "sconv_dbasis_kernel",
                                     "basis_dpre2_kernel")}
     print(f"trace {traces[0].name}: {traces[0].stat().st_size} bytes; kernels named {named}")
     if not all(named.values()):

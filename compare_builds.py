@@ -22,16 +22,15 @@ and, through ``BasisMLP(fused=True, use_bias=False)`` on the invariants a
 at both shapes and of #6 ``fused_basis_mlp_bwd`` at the training shape, in
 float32 and bfloat16; and the inputs of #3 and of #4 with its window
 cotangent (``window_grad``) in one training step of a backbone built with
-``position_grads=True``, float32 and bfloat16 (``NEW_CALLS``: the other
-build's #4 has no window cotangent). Then it calls each kernel wrapper of
+``position_grads=True``, float32 and bfloat16. Then it calls each kernel wrapper of
 this checkout twice and the other checkout's once on the same tensors
-(each checkout builds its own kernel library into its own ``build/``),
-the new calls in this build alone. The rules:
+(each checkout builds its own kernel library into its own ``build/``).
+The rules:
 
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
-- the kernels whose arithmetic this build changed (``REDESIGNED``: #8 and
-  #7, whose bfloat16 instantiations run on Hopper's wgmma and TMA) are held
+- the kernels whose arithmetic this build changed (``REDESIGNED``: #3 and
+  #4, both types on Hopper's wgmma and TMA) are held
   within ``chip_smoke.KERNEL_REL_TOL`` of each
   output's scale in their float32 instantiation and ``BF16_KERNEL_REL_TOL``
   in their bfloat16 one (whose float32 outputs follow bfloat16 roundings
@@ -39,11 +38,14 @@ the new calls in this build alone. The rules:
 - every other output equals the other build's bit for bit;
 - the wrappers of ``REDESIGNED`` and ``TIMED`` (none in this build) are
   timed with CUDA events in this process on the calls both builds take,
-  this build's before and after the other's twice; so are the kernels the
-  port now calls through their PyTorch operators (``OPERATORS``, #3 and
-  #8, on the sampler's path): this build's operator
-  (``torch.ops.arreau_tpu_torch.*``) against the other build's wrapper,
-  with the host's microseconds a call beside (the dispatcher's cost).
+  this build's before and after the other's twice, with the host's
+  microseconds a call beside; the kernels the port calls through their
+  PyTorch operators (``OPERATORS``, #3 and #8) through the operator
+  (``torch.ops.arreau_tpu_torch.*``) in both builds, as the model calls
+  them;
+- end to end, in the same order: a training step (256 x 16, hidden 200)
+  and a sampler forward (128 x 8) in float32 and in bfloat16, each build's
+  model on the same seeded weights and inputs (``time_paths``).
 
 Exits non-zero if a rule fails.
 """
@@ -73,19 +75,17 @@ MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
 # kernels whose arithmetic differs from the builds before this one's (held
 # to a tolerance), and kernels whose source changed without a change of
 # arithmetic (held bit for bit); both timed in both builds
-REDESIGNED = ("basis_h1", "basis_mlp_bwd")
+REDESIGNED = ("spatial_conv", "spatial_conv_bwd")
 TIMED = ()
 # forward kernels the port calls through their PyTorch operators since the
 # operators were registered: timed through the operator in this build and
 # through the wrapper in the other
 OPERATORS = ("spatial_conv", "basis_h1")
 HOST_CALLS = 50
-
-
-def new_call(key, args) -> bool:
-    """A call the other build's wrapper does not take: #4 with its window
-    cotangent (a seventh argument, ``window_grad``)."""
-    return key[1] == "spatial_conv_bwd" and len(args) == 7
+# a training step or sampler forward: PATH_BLOCKS blocks of PATH_RUNS timed calls
+# (each after 3 warm-up calls); the host's other load only adds time, so the
+# fastest block is the steadiest reading, the median beside it
+PATH_BLOCKS, PATH_RUNS = 5, 10
 
 
 def captured_inputs(dev) -> dict:
@@ -216,19 +216,67 @@ def host_us(fn, args) -> float:
     return seconds / HOST_CALLS * 1e6
 
 
-def time_redesigned(captured: dict, through_operators: bool) -> dict:
+def time_redesigned(captured: dict) -> dict:
     """{key: (ms per call, host microseconds per call)} of the package's
-    wrappers of the REDESIGNED and TIMED kernels and of the OPERATORS
-    kernels (through their operators with ``through_operators``)."""
+    wrappers of the REDESIGNED and TIMED kernels, the OPERATORS kernels
+    through their operators."""
     times = {}
     with torch.no_grad():
         for (path, name), args in captured.items():
             if name not in REDESIGNED + TIMED + OPERATORS:
                 continue
             fn = wrapper(name)
-            if name in OPERATORS and through_operators:
+            if name in OPERATORS:
                 fn = getattr(torch.ops.arreau_tpu_torch, name)
             times[path, name] = (smoke.cuda_ms(lambda: fn(*args)), host_us(fn, args))
+    return times
+
+
+def block_ms(fn) -> tuple:
+    """(fastest, median) of PATH_BLOCKS CUDA-event means of PATH_RUNS calls."""
+    blocks = sorted(smoke.cuda_ms(fn, runs=PATH_RUNS) for _ in range(PATH_BLOCKS))
+    return blocks[0], blocks[len(blocks) // 2]
+
+
+def time_paths(dev) -> dict:
+    """{path: (fastest, median) ms per call} of a training step (256 x 16,
+    hidden 200, ``diffuse_angles``) and a sampler forward (128 x 8) in
+    float32 and bfloat16, the models, optimizer and step of the package in
+    ``sys.modules`` on seeded weights (``block_ms``: CUDA events, the host's
+    launch gaps included)."""
+    from arreau_tpu_torch.data.atoms import synthetic_z_table
+    from arreau_tpu_torch.data.crystal import pack_dense_batch
+    from arreau_tpu_torch.tasks.diffusion import (
+        DiffusionConfig,
+        DiffusionModel,
+        batch_to_device,
+        draw_loss_noise,
+        draw_sampler_noise,
+    )
+    from arreau_tpu_torch.train.loop import train_step
+    from arreau_tpu_torch.train.optim import AdamW
+
+    cfg = DiffusionConfig(num_atomic_states=len(synthetic_z_table()))
+    batch = batch_to_device(pack_dense_batch(*smoke.training_chunk()), dev)
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=None if dtype == "float32" else dtype)
+        model = DiffusionModel(c, device=dev)
+        model.model.init_parameters(prng.prng_key(smoke.SEED))
+        noise = draw_sampler_noise(prng.prng_key(smoke.SEED), 1, smoke.BATCH, smoke.ATOMS,
+                                   c.num_atomic_states, "monoclinic", False, dev)
+        with torch.inference_mode():
+            inputs = smoke.first_step_inputs(model, noise)
+            times[f"{dtype} sampler forward"] = block_ms(lambda: model.predict_scores(*inputs))
+        c = dataclasses.replace(c, hidden_dim=smoke.TRAIN_HIDDEN, diffuse_angles=True)
+        model = DiffusionModel(c, device=dev)
+        model.init(prng.prng_key(smoke.SEED), batch)
+        noise = draw_loss_noise(prng.prng_key(smoke.SEED), *batch.atom_types.shape,
+                                c.num_atomic_states, c.num_timesteps, True, dev)
+        optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+        times[f"{dtype} training step"] = block_ms(
+            lambda: train_step(model, optimizer, None, batch, noise))
+        del model, optimizer
     return times
 
 
@@ -300,25 +348,17 @@ def main(argv: list[str]) -> int:
     print(f"captured {len(captured)} kernel calls: {sorted(captured)}")
     ours = run_kernels(captured)
     again = differences(ours, run_kernels(captured))
-    shared = {k: a for k, a in captured.items() if not new_call(k, a)}
-    ours_ms = time_redesigned(shared, True)
+    ours_ms, ours_paths = time_redesigned(captured), time_paths(dev)
     with package_from(other):
         other_build = importlib.import_module(f"{PACKAGE}.kernels.build")
         print(f"{other}'s nvcc build: {other_build.build_library():.2f} s")
-        theirs = differences({k: ours[k] for k in shared}, run_kernels(shared))
-        theirs_ms = [time_redesigned(shared, False) for _ in range(2)]
+        theirs = differences(ours, run_kernels(captured))
+        theirs_ms = [time_redesigned(captured) for _ in range(2)]
+        theirs_paths = [time_paths(dev) for _ in range(2)]
     reregister_operators()
-    ours_ms = [ours_ms, time_redesigned(shared, True)]
+    ours_ms = [ours_ms, time_redesigned(captured)]
+    ours_paths = [ours_paths, time_paths(dev)]
     ok = True
-    for key, args in captured.items():
-        if not new_call(key, args):
-            continue
-        for i, a in enumerate(ours[key]):
-            varies = again[key, i]
-            print(f"{key[0]} {key[1]} output {i} {tuple(a.shape)} {a.dtype}: new in this build; "
-                  + ("repeats bit for bit" if varies is None
-                     else f"VARIES from call to call, by up to {varies:.3e}"))
-            ok &= varies is None
     for (key, i), diff in theirs.items():
         a = ours[key][i]
         if a is None:
@@ -342,11 +382,20 @@ def main(argv: list[str]) -> int:
         old = sum(t[key][0] for t in theirs_ms) / 2
         how = "operator" if key[1] in OPERATORS else "wrapper"
         print(f"{key[0]} {key[1]}: this build's {how} {ours_ms[0][key][0]:.4f} / "
-              f"{ours_ms[1][key][0]:.4f} ms, {other.name}'s wrapper {theirs_ms[0][key][0]:.4f} / "
+              f"{ours_ms[1][key][0]:.4f} ms, {other.name}'s {how} {theirs_ms[0][key][0]:.4f} / "
               f"{theirs_ms[1][key][0]:.4f} ms (CUDA events, {smoke.TIMED_RUNS} calls each): "
               f"{old / mine:.2f}x; host {ours_ms[0][key][1]:.1f} / {ours_ms[1][key][1]:.1f} us a "
               f"call against {theirs_ms[0][key][1]:.1f} / {theirs_ms[1][key][1]:.1f} "
               f"({HOST_CALLS} calls)")
+    for path in ours_paths[0]:
+        mine = min(t[path][0] for t in ours_paths)
+        old = min(t[path][0] for t in theirs_paths)
+        print(f"{path}: this build " + " / ".join(f"{t[path][0]:.4f} ({t[path][1]:.4f})"
+                                                 for t in ours_paths) +
+              f" ms, {other.name}'s " + " / ".join(f"{t[path][0]:.4f} ({t[path][1]:.4f})"
+                                                   for t in theirs_paths) +
+              f" ms (fastest (median) of {PATH_BLOCKS} blocks of {PATH_RUNS} calls, CUDA "
+              f"events; this build first and last): fastest {old / mine:.3f}x")
     print("every rule holds" if ok else "a rule failed")
     return 0 if ok else 1
 

@@ -537,6 +537,135 @@ def test_wgmma_products_match_float64(dtype, tma, M, N, K):
     assert err <= TILE_REL_TOL * want.abs().max().item(), err
 
 
+# wgmma.cuh's two layouts for #3 and #4 (csrc/conv_sm90.cuh), bfloat16 by
+# TMA, against float64: A read through a 3-D map of slabs whose 64-row boxes
+# are clipped at the slab's end (slab = TA: 128, 125, 80, 75, 40, 12, 17
+# rows), and both operands MN-major (#4's weight gradient: N in each width
+# class 64, 128, 208, 256, ragged, with partial 64-column boxes; K ragged)
+WGMMA_SLAB_CASES = [(256, 200, 256, 128), (250, 128, 256, 125), (160, 208, 256, 80),
+                    (150, 64, 128, 75), (120, 70, 64, 40), (36, 8, 24, 12), (34, 16, 40, 17)]
+WGMMA_MN_CASES = [(256, 200, 4096), (128, 128, 200), (64, 64, 64), (200, 256, 130),
+                  (40, 72, 77), (256, 208, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,slab", WGMMA_SLAB_CASES)
+def test_wgmma_slab_map_matches_float64(M, N, K, slab):
+    dev = _device()
+    rng = np.random.default_rng(M + N + K + slab)
+    a = torch.tensor(rng.normal(size=(M, K)), device=dev).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(size=(N, K)), device=dev).to(torch.bfloat16)
+    got = wgmma_product(a, b, slab=slab)
+    torch.cuda.synchronize()
+    want = a.double() @ b.double().t()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", WGMMA_MN_CASES)
+def test_wgmma_mn_major_operands_match_float64(M, N, K):
+    dev = _device()
+    rng = np.random.default_rng(M + 3 * N + K)
+    a = torch.tensor(rng.normal(size=(K, M)), device=dev).to(torch.bfloat16)
+    b = torch.tensor(rng.normal(size=(K, N)), device=dev).to(torch.bfloat16)
+    got = wgmma_product(a, b, mn_major=True)
+    torch.cuda.synchronize()
+    want = a.double().t() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= TILE_REL_TOL * want.abs().max().item(), err
+
+
+# every shape the port hands #3 and #4 (on wgmma and TMA since the Hopper
+# redesign): the training, serving and flagship cells (TA = 128, 128, 80),
+# the N-body and MNIST tasks (TA = 125, 75; C = 128, 64; D = 128), and ragged
+# shapes (D = 37 and 24, rows the threads stage; C = 70, 130 and 8; TA = 40,
+# 12, 17, 30, 120; K = 1)
+SM90_CONV_SHAPES = [(32, 16, 8, 128, 256, 200), (8, 16, 8, 128, 256, 200),
+                    (10, 16, 8, 80, 256, 200), (4, 16, 5, 125, 256, 128),
+                    (96, 10, 8, 75, 128, 64), (2, 3, 4, 40, 37, 70), (2, 16, 8, 12, 256, 200),
+                    (1, 2, 1, 17, 24, 8), (2, 5, 3, 30, 40, 130), (2, 16, 8, 120, 256, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bp,O,K,TA,D,C", SM90_CONV_SHAPES)
+def test_conv_kernels_match_plain_and_repeat_at_every_shape(dtype, Bp, O, K, TA, D, C):
+    """#3 and #4 (with and without the window cotangent) against their plain
+    versions, float32 and bfloat16, with empty and out-of-range slots and
+    zero windows; every output the same bit for bit on a second call, and
+    #4's three outputs without the window cotangent equal to those with it."""
+    dev = _device()
+    rng = np.random.default_rng(Bp + O + K + TA + D + C)
+    *args, win = _conv_args(rng, dev, Bp, O, K, TA, D, C)
+    win[:, ::7] = 0.0
+    args = (*(_bf16(args) if dtype == torch.bfloat16 else args), win)
+    g = torch.tensor(rng.normal(size=(Bp, O, TA, C)), device=dev).to(dtype)
+    before = (spatial_conv.launches, spatial_conv_bwd.launches)
+    out = (spatial_conv(*args), spatial_conv(*args))
+    first = spatial_conv_bwd(*args, g, True)
+    second = spatial_conv_bwd(*args, g, True)
+    without = spatial_conv_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert (spatial_conv.launches, spatial_conv_bwd.launches) == (before[0] + 2, before[1] + 3)
+    assert torch.equal(out[0], out[1])
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+    for i, (a, b) in enumerate(zip(first, without)):
+        assert torch.equal(a, b), i
+    bf16 = dtype == torch.bfloat16
+    _assert_close(out[0], spatial_conv_plain(*args), BF16_REL_TOL if bf16 else REL_TOL)
+    for i, (a, b) in enumerate(zip(first, spatial_conv_bwd_plain(*args, g, True))):
+        _assert_close(a, b, BWD_REL_TOL if i == 3 or not bf16 else BF16_REL_TOL)
+    live = (args[3] >= 0) & (args[3] < TA)
+    assert (first[3][~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_weight_copies_follow_the_weights(dtype):
+    """The wrappers keep W's K-major copies for each state of W: after an
+    in-place update, after a new storage (``.data =``, as the tensor-parallel
+    plan shards a weight) and for a tensor made in inference mode (no
+    version counter), #3 and #4 use the W they are given."""
+    dev = _device()
+    rng = np.random.default_rng(7)
+    *args, win = _conv_args(rng, dev, 2, 3, 4, 40, 64, 70)
+    basis, w, x, src = _bf16(args) if dtype == torch.bfloat16 else args
+    g = torch.tensor(rng.normal(size=x.shape), device=dev).to(dtype)
+
+    def check():
+        a = (basis, w, x, src, win)
+        bf16 = dtype == torch.bfloat16
+        _assert_close(spatial_conv(*a), spatial_conv_plain(*a), BF16_REL_TOL if bf16 else REL_TOL)
+        for got, want in zip(spatial_conv_bwd(*a, g), spatial_conv_bwd_plain(*a, g)):
+            _assert_close(got, want, BF16_REL_TOL if bf16 else BWD_REL_TOL)
+
+    check()
+    w.mul_(-0.5)
+    check()
+    w.data = torch.flip(w, dims=(1,)).contiguous()
+    check()
+    with torch.inference_mode():
+        w = w.to(dtype) * 2.0
+        check()
+        w.add_(1.0)
+        check()
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_widths_past_one_accumulator():
+    """#3 and #4 hold half of C (and of D) in one warpgroup's accumulator:
+    C or D above 256 raises before any launch."""
+    dev = _device()
+    args = _conv_args(np.random.default_rng(0), dev, 1, 1, 1, 8, 16, 264)
+    with pytest.raises(ValueError, match="up to 256"):
+        spatial_conv(*args)
+    args = _conv_args(np.random.default_rng(0), dev, 1, 1, 1, 8, 264, 16)
+    with pytest.raises(ValueError, match="up to 256"):
+        spatial_conv_bwd(*args, torch.zeros((1, 1, 8, 16), device=dev))
+
+
 # every shape the port hands #8 and #7 in bfloat16 (on wgmma and TMA): the
 # training, serving and flagship (E = 640) cells, the N-body and MNIST
 # tasks, and the ragged shapes above (H = 33, 70; D = 20, 37, 64; F = 6 to
