@@ -1,12 +1,9 @@
-// The first layer of the edge-basis MLP as one tensor-core tile product,
-// poly(attr) @ W1 (+ b1), with the polynomial features built in shared
-// memory: #8's whole kernel in float32 (basis_h1.cu), the first product of
-// #7 in float32 (basis_mlp_bwd.cu; both in bfloat16: basis_sm90.cuh), and
-// the first product of #5 and #6
-// (fused_basis_mlp.cu, fused_basis_mlp_bwd.cu), which differ in their
-// epilogue (H1Out) and in how they read their invariants and biases: #8
-// and #7 read the lane-major attrT [B'*O, d, E] and add b1; #5 and #6
-// (FUSED) read the row-major attr [B'*O*E, d] and have no biases.
+// The first layer of the fused, bias-free edge-basis MLP as one tensor-core
+// tile product, poly(attr) @ W1, with the polynomial features built in
+// shared memory: the first product of #5 and #6 (fused_basis_mlp.cu,
+// fused_basis_mlp_bwd.cu), which differ in their epilogue (H1Out); both read
+// the row-major attr [B'*O*E, d]. (#8 and #7, with biases and the lane-major
+// attrT, run on wgmma: basis_sm90.cuh, basis_f32_sm90.cuh.)
 //
 // A block owns 128 edge rows x 128 hidden units (WideTile: 8 warps of
 // mma.sync, tile_product.cuh). It stages its rows' d invariants in shared
@@ -37,8 +34,7 @@ constexpr int XR = MAX_D;  // row stride of the backwards' invariant rows (16-by
 
 // What basis_h1_kernel's epilogue writes, with p = round_T(h1_pre)
 enum class H1Out {
-    PRE,        // #8: out [rows, H] = p
-    RESIDUALS,  // #7, #6: h1, gelu'(p) and the invariants for the backward (below)
+    RESIDUALS,  // #6: h1, gelu'(p) and the invariants for the backward (below)
     HIDDEN,     // #5: out [rows, ld] = [round_T(gelu(p)) | 0 ...]
 };
 
@@ -48,56 +44,39 @@ namespace {
 
 using namespace arreau;
 
-// Invariant j of edge row `row`: attrT [B'*O, d, E] (lane-major, #8 and #7)
-// or, FUSED, attr [rows, d] (row-major, #5 and #6)
-template <bool FUSED, class T>
-__device__ __forceinline__ T invariant(const T* attr, long long row, int j, int d, int E) {
-    if constexpr (FUSED) {
-        return attr[row * d + j];
-    } else {
-        const long long bo = row / E;
-        return attr[(bo * d + j) * E + (row - bo * E)];
-    }
-}
-
-// h1_pre = poly(attr) @ W1, + b1 unless FUSED (no biases); out and the
-// rest as OUT says, with p = round_T(h1_pre):
-//   PRE (#8): out [rows, ld = H] = p.
-//   RESIDUALS (#7, #6):
-//     out [rows, ld] = [round_T(gelu(p)) | 1 | 0 ...] (h1, the ones column
-//       H for db2 unless FUSED, zero to the row's 16-byte aligned end ld),
+// h1_pre = poly(attr) @ W1; out and the rest as OUT says, with p =
+// round_T(h1_pre):
+//   RESIDUALS (#6):
+//     out [rows, ld] = [round_T(gelu(p)) | 0 ...] (h1, zero to the row's
+//       16-byte aligned end ld),
 //     dg1 [rows, ld] = [round_T(gelu'(p)) | 0 ...],
 //     xr [rows, XR]  = the row's d invariants, zero-padded (the dW1 product
 //       builds the features from them, a K-stage of rows at a time).
 //   HIDDEN (#5): out [rows, ld] = [round_T(gelu(p)) | 0 ...].
-template <class T, H1Out OUT, bool FUSED, int D>
+template <class T, H1Out OUT, int D>
 __global__ void __launch_bounds__(H1Tile<T>::THREADS, MIN_BLOCKS)
-basis_h1_kernel(const T* __restrict__ attr,  // attrT [B'*O, d, E] or, FUSED, [rows, d]
+basis_h1_kernel(const T* __restrict__ attr,  // [rows, d]
                 Operand<T> w1,               // [F, H]
-                const T* __restrict__ b1,    // [H] (unless FUSED)
                 T* __restrict__ out, T* __restrict__ dg1, T* __restrict__ xr, long long rows,
-                int d, int E, int F, int H, int ld, bool b1_vec, bool out_vec) {
+                int d, int F, int H, int ld, bool out_vec) {
     using P = H1Tile<T>;
     constexpr bool RESIDUALS = OUT == H1Out::RESIDUALS;
     __shared__ float s_x[P::BM][MAX_D + 1];  // odd row stride: no bank conflicts
-    const int end = OUT == H1Out::PRE ? H : ld;  // the columns the epilogue writes
-    const int n_tiles = (end + P::BN - 1) / P::BN;
+    const int n_tiles = (ld + P::BN - 1) / P::BN;  // the columns the epilogue writes
     const long long m0 = (long long)(blockIdx.x / n_tiles) * P::BM;
     const int n0 = blockIdx.x % n_tiles * P::BN;
     const int m_lim = (int)min(rows - m0, (long long)P::BM), n_lim = H - n0;
 
     for (int i = threadIdx.x; i < P::BM * d; i += P::THREADS) {
-        // neighbouring threads on neighbouring addresses, in either layout
-        const int m = FUSED ? i / d : i % P::BM, j = FUSED ? i % d : i / P::BM;
-        s_x[m][j] = m < m_lim ? to_float(invariant<FUSED>(attr, m0 + m, j, d, E)) : 0.f;
+        const int m = i / d, j = i % d;  // neighbouring threads on neighbouring addresses
+        s_x[m][j] = m < m_lim ? to_float(attr[(m0 + m) * d + j]) : 0.f;
     }
     if constexpr (RESIDUALS) {
         if (n0 == 0)
             for (int i = threadIdx.x; i < m_lim * XR; i += P::THREADS) {
                 const int m = i / XR, j = i % XR;
                 const long long row = m0 + m;
-                xr[row * XR + j] =
-                    j < d ? invariant<FUSED>(attr, row, j, d, E) : from_float<T>(0.f);
+                xr[row * XR + j] = j < d ? attr[row * d + j] : from_float<T>(0.f);
             }
     }
 
@@ -141,32 +120,22 @@ basis_h1_kernel(const T* __restrict__ attr,  // attrT [B'*O, d, E] or, FUSED, [r
     P::for_each_chunk([&](int m, int n) {
         constexpr int CH = P::CHUNK;
         const int col = n0 + n;
-        if (m >= m_lim || col >= end) return;
-        const int count = min(CH, end - col);
-        float b[CH], v[CH];
-        if constexpr (!FUSED) load_chunk(b, b1 + col, max(min(CH, H - col), 0), b1_vec);
-        const float* a = s_acc + m * P::ACC_LD + n;
-        // h1_pre's element j of the chunk
-        const auto pre = [&](int j) {
-            if constexpr (FUSED) return a[j];
-            else return a[j] + b[j];
-        };
+        if (m >= m_lim || col >= ld) return;
+        const int count = min(CH, ld - col);
+        float v[CH];
+        const float* a = s_acc + m * P::ACC_LD + n;  // h1_pre's chunk
         T* o = out + (m0 + m) * ld + col;
-        if constexpr (OUT == H1Out::PRE) {
+        if constexpr (OUT == H1Out::HIDDEN) {
 #pragma unroll
-            for (int j = 0; j < CH; ++j) v[j] = pre(j);
-            store_chunk(o, v, count, out_vec);
-        } else if constexpr (OUT == H1Out::HIDDEN) {
-#pragma unroll
-            for (int j = 0; j < CH; ++j) v[j] = col + j < H ? gelu(round_to<T>(pre(j))) : 0.f;
+            for (int j = 0; j < CH; ++j) v[j] = col + j < H ? gelu(round_to<T>(a[j])) : 0.f;
             store_chunk(o, v, count, out_vec);
         } else {
             float dg[CH];
 #pragma unroll
             for (int j = 0; j < CH; ++j) {
                 float gv, gd;
-                gelu_and_deriv(round_to<T>(pre(j)), gv, gd);
-                v[j] = col + j < H ? gv : col + j == H && !FUSED ? 1.f : 0.f;
+                gelu_and_deriv(round_to<T>(a[j]), gv, gd);
+                v[j] = col + j < H ? gv : 0.f;
                 dg[j] = col + j < H ? gd : 0.f;
             }
             store_chunk(o, v, count, out_vec);
@@ -175,20 +144,18 @@ basis_h1_kernel(const T* __restrict__ attr,  // attrT [B'*O, d, E] or, FUSED, [r
     });
 }
 
-// basis_h1_kernel's launch: rows = B'*O*E edge rows, out's row stride ld
-// (H for PRE); D = d at compile time (0: d known at run time only)
-template <class T, H1Out OUT, bool FUSED, int D>
-int launch_h1(const T* attr, const T* w1, const T* b1, T* out, T* dg1, T* xr, long long rows,
-              int d, int E, int F, int H, int ld, cudaStream_t stream) {
+// basis_h1_kernel's launch: rows = B'*O*E edge rows, out's row stride ld;
+// D = d at compile time (0: d known at run time only)
+template <class T, H1Out OUT, int D>
+int launch_h1(const T* attr, const T* w1, T* out, T* dg1, T* xr, long long rows, int d, int F,
+              int H, int ld, cudaStream_t stream) {
     using P = H1Tile<T>;
     const size_t smem = P::staged(P::BUILT_SMEM);
-    cudaError_t err = allow_smem(basis_h1_kernel<T, OUT, FUSED, D>, smem);
+    cudaError_t err = allow_smem(basis_h1_kernel<T, OUT, D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long blocks =
-        (rows + P::BM - 1) / P::BM * (((OUT == H1Out::PRE ? H : ld) + P::BN - 1) / P::BN);
-    basis_h1_kernel<T, OUT, FUSED, D><<<(unsigned)blocks, P::THREADS, smem, stream>>>(
-        attr, operand(w1, H), b1, out, dg1, xr, rows, d, E, F, H, ld, rows_aligned(b1, 0),
-        rows_aligned(out, ld));
+    const long long blocks = (rows + P::BM - 1) / P::BM * ((ld + P::BN - 1) / P::BN);
+    basis_h1_kernel<T, OUT, D><<<(unsigned)blocks, P::THREADS, smem, stream>>>(
+        attr, operand(w1, H), out, dg1, xr, rows, d, F, H, ld, rows_aligned(out, ld));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,14 +163,12 @@ int launch_h1(const T* attr, const T* w1, const T* b1, T* out, T* dg1, T* xr, lo
 // the kernels whose features are formed from registers
 constexpr int MODEL_D = 6;
 
-template <class T, H1Out OUT, bool FUSED = false>
-int launch_h1(const T* attr, const T* w1, const T* b1, T* out, T* dg1, T* xr, long long rows,
-              int d, int E, int F, int H, int ld, cudaStream_t stream) {
+template <class T, H1Out OUT>
+int launch_h1(const T* attr, const T* w1, T* out, T* dg1, T* xr, long long rows, int d, int F,
+              int H, int ld, cudaStream_t stream) {
     return d == MODEL_D
-               ? launch_h1<T, OUT, FUSED, MODEL_D>(attr, w1, b1, out, dg1, xr, rows, d, E, F, H,
-                                                   ld, stream)
-               : launch_h1<T, OUT, FUSED, 0>(attr, w1, b1, out, dg1, xr, rows, d, E, F, H, ld,
-                                             stream);
+               ? launch_h1<T, OUT, MODEL_D>(attr, w1, out, dg1, xr, rows, d, F, H, ld, stream)
+               : launch_h1<T, OUT, 0>(attr, w1, out, dg1, xr, rows, d, F, H, ld, stream);
 }
 
 }  // namespace

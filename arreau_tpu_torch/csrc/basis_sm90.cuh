@@ -1,22 +1,21 @@
 // #8 (basis_h1) and #7 (basis_mlp_bwd) in bfloat16 on Hopper's warpgroup
 // products (wgmma) and the Tensor Memory Accelerator (TMA), wgmma.cuh's
 // building blocks. Entry points: basis_h1_sm90.cu and basis_mlp_bwd_sm90.cu.
-// (#5, #6 and the float32 instantiations of #7 and #8 keep the mma.sync
-// products of basis_h1.cuh and basis_mlp_bwd.cuh.)
+// (The float32 instantiations of #7 and #8 are basis_f32_sm90.cuh's; #5 and
+// #6 keep the mma.sync products of basis_h1.cuh and basis_mlp_bwd.cuh.)
 //
 // One design serves the four kernels of this header. A block is two
 // warpgroups; each owns 64 edge rows (wgmma's M) of the block's 128-row
 // tile, or a 64-row slice of a weight gradient's rows. Every product's B
 // operand comes through one ring of STAGES shared-memory panels (128 bytes
-// of K a row, the 128-byte swizzle): thread 0 keeps TMA loads of the next
-// panels in flight, each completing on its slot's `full` mbarrier, and
-// refills a slot once every warp of both warpgroups has arrived on its
-// `empty` barrier (without waiting for that unless its own warpgroup needs
-// the panel, so that the warpgroups do not run in lockstep; a producer warp
-// of its own would cost the consumers registers: 168 instead of 255).
-// The weights reach the ring from K-major, zero-padded copies that
-// weights_kernel writes first (W1^T, W2^T and W2: tf32's wgmma takes only
-// K-major operands, and TMA only row strides of 16-byte multiples); TMA
+// of K a row, the 128-byte swizzle), wgmma.cuh's: TMA loads of the next
+// panels stay in flight, each completing on its slot's `full` mbarrier, and
+// the last warp to release a slot refills it, so that the warpgroups do not
+// run in lockstep.
+// The weights reach the ring from K-major, zero-padded copies (W1^T, W2^T
+// and W2; TMA takes only row strides of 16-byte multiples), made once for
+// each state of a weight with their tensor maps (basis_h1_sm90.cu:
+// arreau_basis_weight_copy_sm90, kept by kernels/basis_h1.py); TMA
 // fills everything outside a weight with zeros, so no width needs to
 // divide a tile. A warpgroup multiplies one 64-row A panel by one B panel
 // (four k16 steps) while it builds the next A panel, A from its own shared
@@ -63,16 +62,17 @@ namespace arreau {
 constexpr int SM90_MAX_G = 16;  // cotangents one #7 launch sums
 
 // #7's arguments (basis_mlp_bwd_sm90.cu), shared by the source files that
-// hold its rows_kernel instantiations
+// hold its rows_kernel instantiations; the tensor maps of the weights'
+// K-major copies W1^T (boxes of NH rows), W2^T (ND) and W2 (NH)
 struct Sm90Bwd {
     const bf16 *attrT, *b1, *b2;
     const bf16* g[SM90_MAX_G];
     int n_g;
-    const bf16 *w1t, *w2t, *w2c;
+    CUtensorMap w1_map, w2t_map, w2c_map;
     bf16 *h1t, *dpre2t, *dpre1t;
     float* partial;
     long long rows, ld;
-    int d, E, F, H, D, kw1, kw2, kw3, splits, per_split;
+    int d, E, F, H, D, splits, per_split;
 };
 
 // rows_kernel<nh, 128> (basis_rows128_sm90.cu) and <nh, 256>
@@ -88,69 +88,12 @@ using namespace arreau;
 
 namespace sm90 {
 
-constexpr int WG = 128;            // threads of a warpgroup
-constexpr int ROWS = 64;           // a warpgroup's rows (wgmma's M)
 constexpr int TILE = 2 * ROWS;     // a block's rows: two warpgroups
-constexpr int THREADS = 2 * WG;
 constexpr int PK = 64;             // bfloat16 elements of K a panel row holds
-constexpr int PANEL = ROWS * 128;  // bytes of a 64-row panel
 constexpr int STAGES = 3;          // ring slots (two where the warpgroups' tiles leave no room)
-constexpr int MAX_STAGES = 8;      // #8's slots when W1 stays resident
 constexpr int PARTS = 12;          // 32-feature parts of up to 384 features
 constexpr int MODEL_D = 6;         // the diffusion model's invariants: features from registers
 constexpr int MAX_F = MAX_D + MAX_D * MAX_D + MAX_D * MAX_D * MAX_D;  // features of degree <= 3
-
-__host__ __device__ constexpr int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
-
-// the ring of B panels shared by the block's two warpgroups; q counts the
-// panels the block has consumed (the same on every thread)
-struct Ring {
-    uint64_t* full;
-    uint64_t* empty;
-    unsigned char* slots;
-    int slot_bytes;
-    int q;
-    int stages;
-    int issued, total;  // thread 0: panels issued, of the block's total
-    bool resident;      // every panel has a slot of its own, loaded once (h1_tiles)
-    __device__ unsigned char* slot(int s) const { return slots + s * slot_bytes; }
-};
-
-// thread 0: issue(q, slot) for the panels q < upto (waiting for their slots'
-// release), then for any further panel whose slot is already free
-template <class Issue>
-__device__ __forceinline__ void ring_refill(Ring& ring, int upto, Issue& issue) {
-    while (ring.issued < ring.total) {
-        const int q = ring.issued, s = q % ring.stages;
-        if (q >= ring.stages) {
-            const unsigned parity = (q / ring.stages - 1) & 1;
-            if (q < upto)
-                mbar_wait(&ring.empty[s], parity);
-            else if (!mbar_test(&ring.empty[s], parity))
-                break;
-        }
-        issue(q, s);
-        ++ring.issued;
-    }
-}
-
-// Every thread: the barriers initialised (full: one arrival and the bytes;
-// empty: one arrival a warp, once its reads of the slot are done); thread 0
-// then issues the first of the block's `total` panels.
-template <class Issue>
-__device__ __forceinline__ void ring_start(Ring& ring, int total, Issue& issue) {
-    ring.issued = 0;
-    ring.total = total;
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < ring.stages; ++s) {
-            mbar_init(&ring.full[s], 1);
-            mbar_init(&ring.empty[s], THREADS / 32);
-        }
-        mbar_fence_init();
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) ring_refill(ring, 0, issue);
-}
 
 // thread 0: panel q of `map` at (c0, c1) into its slot, box_rows x 128 bytes
 __device__ __forceinline__ void load_panel(Ring& ring, int q, const CUtensorMap* map, int c0,
@@ -160,23 +103,23 @@ __device__ __forceinline__ void load_panel(Ring& ring, int q, const CUtensorMap*
     tma_load_2d(ring.slot(s), map, &ring.full[s], c0, c1);
 }
 
-// acc += A B^T over `panels` panels of the ring and ksteps k16 steps: a_panel(p,
-// slot) returns the shared address of A's panel p (64 rows), called by the
-// whole warpgroup before the panel's products (it may build the panel there,
-// in one of two buffers that alternate, and must end with it visible to
-// wgmma); B starts b_offset bytes into the slot. Panel p's products run
-// while panel p + 1 is built: after issuing them the warpgroup waits only
-// for panel p - 1's, then releases p - 1's slot.
+// acc += A B^T over `panels` panels of the ring, the block's panels q, q + 1,
+// ... (q is advanced past them), and ksteps k16 steps: a_panel(p, slot)
+// returns the shared address of A's panel p (64 rows), called by the whole
+// warpgroup before the panel's products (it may build the panel there, in
+// one of two buffers that alternate, and must end with it visible to wgmma);
+// B starts b_offset bytes into the slot. Panel p's products run while panel
+// p + 1 is built: after issuing them the warpgroup waits only for panel p -
+// 1's, then releases p - 1's slot. A ring that is not `on` holds W1's panels
+// resident (h1_tiles): loaded once, never released.
 template <int N, class APanel, class Issue>
-__device__ __forceinline__ void ring_product(Ring& ring, float (&acc)[N / 2], int panels,
+__device__ __forceinline__ void ring_product(Ring& ring, int& q, float (&acc)[N / 2], int panels,
                                              int ksteps, APanel a_panel, Issue& issue,
                                              int b_offset = 0) {
-    int prev = -1;  // the slot of the panel whose products are in flight
-    for (int p = 0; p < panels; ++p) {
-        const int s = ring.q % ring.stages;
+    for (int p = 0; p < panels; ++p, ++q) {
+        const int s = q % ring.stages;
         const unsigned char* a = a_panel(p, s);
-        if (threadIdx.x == 0) ring_refill(ring, ring.q + 1, issue);
-        mbar_wait(&ring.full[s], ring.resident ? 0 : (ring.q / ring.stages) & 1);
+        mbar_wait(&ring.full[s], ring.on ? (q / ring.stages) & 1 : 0);
         const unsigned char* b = ring.slot(s) + b_offset;
         const int steps = min(4, ksteps - 4 * p);
         wgmma_fence();
@@ -187,21 +130,12 @@ __device__ __forceinline__ void ring_product(Ring& ring, float (&acc)[N / 2], in
         wgmma_commit();
         wgmma_wait<1>();
         fence_acc(acc);
-        if (prev >= 0 && !ring.resident && threadIdx.x % 32 == 0) mbar_arrive(&ring.empty[prev]);
-        prev = s;
-        ++ring.q;
+        if (p > 0) release(ring, q - 1, issue);
     }
     wgmma_wait<0>();
     fence_acc(acc);
-    if (prev >= 0 && !ring.resident && threadIdx.x % 32 == 0) mbar_arrive(&ring.empty[prev]);
+    if (panels > 0) release(ring, q - 1, issue);
 }
-
-// the tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... < n_tiles of a persistent block
-__device__ __forceinline__ int block_tiles(int n_tiles) {
-    return ((int)(n_tiles - blockIdx.x) + (int)gridDim.x - 1) / (int)gridDim.x;
-}
-
-__device__ __forceinline__ void wg_sync() { named_barrier(1 + threadIdx.x / WG, WG); }
 
 // the invariants of edge row `row` of the lane-major attrT [B'*O, d, E]
 // (zeros past rows): x(j) = invariant j
@@ -420,8 +354,10 @@ __device__ __forceinline__ void h1_tiles(const bf16* attrT, const float* s_b1, b
     const int wg = threadIdx.x / WG, i = threadIdx.x % WG;
     auto issue = [&](int q, int) { load_panel(ring, q, w1_map, q % kp * PK, 0, NH); };
     // with a slot for each of W1's panels they are loaded once, for every tile
-    ring.resident = ring.stages >= kp;
-    ring_start(ring, ring.resident ? kp : block_tiles(n_tiles) * kp, issue);
+    ring.on = ring.stages < kp;
+    ring.total = ring.on ? block_tiles(n_tiles) * kp : kp;
+    ring_start(ring, issue);
+    int q = 0;
     Invariants inv;
     inv.terms = terms;
     inv.load(attrT, (long long)blockIdx.x * TILE + wg * ROWS + i % ROWS, rows, d, E, s_x, i % ROWS);
@@ -430,7 +366,7 @@ __device__ __forceinline__ void h1_tiles(const bf16* attrT, const float* s_b1, b
         if (tma_store && i == 0) tma_store_wait_read<0>();  // the last tile's stores have read region
         wg_sync();  // the previous tile's stores and copies are done with region and s_x
         float acc[NH / 2] = {};
-        ring_product<NH>(ring, acc, kp, ks, [&](int p, int) {
+        ring_product<NH>(ring, q, acc, kp, ks, [&](int p, int) {
             wg_sync();  // every warp is done with the products of panel p - 2
             unsigned char* dst = region + p % 2 * PANEL;
             build_rows_panel(dst, inv, s_x[i % ROWS], p, F, d);
@@ -472,18 +408,19 @@ __host__ __device__ constexpr int h1_area(int NH) {
 }
 
 template <int NH>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
 h1_kernel(const bf16* __restrict__ attrT, const bf16* __restrict__ b1, bf16* __restrict__ out,
           long long rows, int d, int E, int F, int H, const __grid_constant__ CUtensorMap w1_map,
           const __grid_constant__ CUtensorMap out_map, bool tma_store, int stages) {
-    __shared__ uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+    __shared__ uint64_t full[MAX_STAGES];
+    __shared__ int released[MAX_STAGES];
     __shared__ float s_x[2][ROWS][MAX_D + 1];
     __shared__ float s_b1[NH];  // b1, zero past H
     __shared__ uint32_t terms[MAX_F];
-    for (int n = threadIdx.x; n < NH; n += THREADS) s_b1[n] = n < H ? to_float(b1[n]) : 0.f;
+    for (int n = threadIdx.x; n < NH; n += BLOCK_THREADS) s_b1[n] = n < H ? to_float(b1[n]) : 0.f;
     fill_terms(terms, F, d);
     unsigned char* smem = aligned_smem();
-    Ring ring{full, empty, smem, NH * 128, 0, stages, 0, 0, false};
+    Ring ring{full, released, smem, NH * 128, stages, 0, true};
     const int wg = threadIdx.x / WG;
     unsigned char* region = smem + stages * NH * 128 + wg * h1_area(NH);
     h1_tiles<NH>(attrT, s_b1, out, rows, d, E, F, H, &w1_map, &out_map, tma_store, ring, region,
@@ -588,7 +525,9 @@ __device__ __forceinline__ void rows_tiles(const bf16* attrT, const float* s_b1,
         else
             load_panel(ring, q, w2_map, (p - kp1 - kp2) * PK, 0, NH);
     };
-    ring_start(ring, block_tiles(n_tiles) * per_tile, issue);
+    ring.total = block_tiles(n_tiles) * per_tile;
+    ring_start(ring, issue);
+    int q = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const long long row0 = (long long)t * TILE + wg * ROWS;
         const int nrows = (int)max(0LL, min((long long)ROWS, rows - row0));
@@ -599,7 +538,7 @@ __device__ __forceinline__ void rows_tiles(const bf16* attrT, const float* s_b1,
 
         // 1. h1_pre = poly @ W1 + b1
         float acc1[NH / 2] = {};
-        ring_product<NH>(ring, acc1, kp1, ks1, [&](int p, int) {
+        ring_product<NH>(ring, q, acc1, kp1, ks1, [&](int p, int) {
             wg_sync();
             unsigned char* dst = region + p % 2 * PANEL;
             build_rows_panel(dst, inv, s_x[i % ROWS], p, F, d);
@@ -638,7 +577,7 @@ __device__ __forceinline__ void rows_tiles(const bf16* attrT, const float* s_b1,
 
         // 2. dpre2 = round(g * round(gelu'(round(h1 @ W2 + b2))))
         float acc2[ND / 2] = {};
-        ring_product<ND>(ring, acc2, kp2, ks2, [&](int p, int) { return region + p * PANEL; },
+        ring_product<ND>(ring, q, acc2, kp2, ks2, [&](int p, int) { return region + p * PANEL; },
                          issue);
         wg_sync();  // every warp's products have read h1
         wgmma_for_each<ND>(acc2, [&](int, int m, int n, float v0, float v1) {
@@ -678,7 +617,7 @@ __device__ __forceinline__ void rows_tiles(const bf16* attrT, const float* s_b1,
 
         // 3. dpre1 = round((dpre2 @ W2^T) * dg1)
         float acc3[NH / 2] = {};
-        ring_product<NH>(ring, acc3, kp3, ks3, [&](int p, int) { return region + p * PANEL; },
+        ring_product<NH>(ring, q, acc3, kp3, ks3, [&](int p, int) { return region + p * PANEL; },
                          issue);
         wg_sync();
         wgmma_for_each<NH>(acc3, [&](int, int m, int n, float v0, float v1) {
@@ -696,24 +635,25 @@ __device__ __forceinline__ void rows_tiles(const bf16* attrT, const float* s_b1,
 __host__ __device__ constexpr int rows_stages(int NH) { return NH > 208 ? 2 : STAGES; }
 
 template <int NH, int ND>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
 rows_kernel(const bf16* __restrict__ attrT, const bf16* __restrict__ b1,
             const bf16* __restrict__ b2, Cotangents gs, bf16* __restrict__ h1t,
             bf16* __restrict__ dpre2t, bf16* __restrict__ dpre1t, long long rows, long long ld,
             int d, int E, int F, int H, int Dw, const __grid_constant__ CUtensorMap w1_map,
             const __grid_constant__ CUtensorMap w2t_map,
             const __grid_constant__ CUtensorMap w2_map) {
-    __shared__ uint64_t full[STAGES], empty[STAGES];
+    __shared__ uint64_t full[STAGES];
+    __shared__ int released[STAGES];
     __shared__ float s_x[2][ROWS][MAX_D + 1];
     __shared__ float s_b1[NH], s_b2[ND];  // the biases, zero past H and D
-    for (int n = threadIdx.x; n < NH; n += THREADS) s_b1[n] = n < H ? to_float(b1[n]) : 0.f;
-    for (int n = threadIdx.x; n < ND; n += THREADS) s_b2[n] = n < Dw ? to_float(b2[n]) : 0.f;
+    for (int n = threadIdx.x; n < NH; n += BLOCK_THREADS) s_b1[n] = n < H ? to_float(b1[n]) : 0.f;
+    for (int n = threadIdx.x; n < ND; n += BLOCK_THREADS) s_b2[n] = n < Dw ? to_float(b2[n]) : 0.f;
     __shared__ uint32_t terms[MAX_F];
     fill_terms(terms, F, d);
     constexpr int NMAX = NH > ND ? NH : ND, RS = rows_stages(NH), SLOT = NMAX * 128;
     constexpr int REGION = cdiv(NMAX, PK) * PANEL + ROWS * NH * 2;
     unsigned char* smem = aligned_smem();
-    Ring ring{full, empty, smem, SLOT, 0, RS, 0, 0, false};
+    Ring ring{full, released, smem, SLOT, RS, 0, true};
     const int wg = threadIdx.x / WG;
     unsigned char* region = smem + RS * SLOT + wg * REGION;
     unsigned char* dg1s = region + cdiv(NMAX, PK) * PANEL;
@@ -731,13 +671,14 @@ constexpr size_t rows_smem() {
 // h1t's rows (a_map: boxes of 128 rows, the block's two 64-row slices), B =
 // dpre2t (b_map: boxes of ND rows); rows of M = H + 1, N = D
 template <int ND>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
 dw2_kernel(float* __restrict__ partial, long long rows, int per_split, int M, int N,
            const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map) {
-    __shared__ uint64_t full[STAGES], empty[STAGES];
+    __shared__ uint64_t full[STAGES];
+    __shared__ int released[STAGES];
     constexpr int SLOT = TILE * 128 + ND * 128;
     unsigned char* smem = aligned_smem();
-    Ring ring{full, empty, smem, SLOT, 0, STAGES, 0, 0, false};
+    Ring ring{full, released, smem, SLOT, STAGES, 0, true};
     const int wg = threadIdx.x / WG, m0 = blockIdx.x * TILE;
     const long long k0 = (long long)blockIdx.y * per_split;
     const int K = (int)min((long long)per_split, rows - k0), kp = cdiv(K, PK);
@@ -746,10 +687,12 @@ dw2_kernel(float* __restrict__ partial, long long rows, int per_split, int M, in
         tma_load_2d(ring.slot(s), &a_map, &ring.full[s], (int)(k0 + q * PK), m0);
         tma_load_2d(ring.slot(s) + TILE * 128, &b_map, &ring.full[s], (int)(k0 + q * PK), 0);
     };
-    ring_start(ring, kp, issue);
+    ring.total = kp;
+    ring_start(ring, issue);
+    int q = 0;
     // A's panel is this warpgroup's 64 rows of the slot; B follows both
     float acc[ND / 2] = {};
-    ring_product<ND>(ring, acc, kp, 4 * kp,
+    ring_product<ND>(ring, q, acc, kp, 4 * kp,
                      [&](int, int s) { return ring.slot(s) + wg * PANEL; }, issue, TILE * 128);
     float* out = partial + (size_t)blockIdx.y * M * N;
     const int mw = m0 + wg * ROWS;
@@ -780,9 +723,11 @@ __device__ __forceinline__ void dw1_split(const bf16* attrT, float* partial, lon
     const long long k0 = (long long)blockIdx.y * per_split;
     const int K = (int)min((long long)per_split, rows - k0), kp = cdiv(K, PK);
     auto issue = [&](int q, int) { load_panel(ring, q, b_map, (int)(k0 + q * PK), 0, NH); };
-    ring_start(ring, kp, issue);
+    ring.total = kp;
+    ring_start(ring, issue);
+    int q = 0;
     float acc[NH / 2] = {};
-    ring_product<NH>(ring, acc, kp, 4 * kp, [&](int p, int) {
+    ring_product<NH>(ring, q, acc, kp, 4 * kp, [&](int p, int) {
         const int r = i % ROWS;
         const bool live = p * PK + r < K;  // inside the split (and so inside rows)
         Invariants inv;
@@ -804,15 +749,16 @@ __device__ __forceinline__ void dw1_split(const bf16* attrT, float* partial, lon
 }
 
 template <int NH>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
 dw1_kernel(const bf16* __restrict__ attrT, float* __restrict__ partial, long long rows,
            int per_split, int d, int E, int F, int H, const __grid_constant__ CUtensorMap b_map) {
-    __shared__ uint64_t full[STAGES], empty[STAGES];
+    __shared__ uint64_t full[STAGES];
+    __shared__ int released[STAGES];
     __shared__ float s_x[2][ROWS][MAX_D + 1];
     __shared__ uint32_t terms[MAX_F];
     fill_terms(terms, F, d);
     unsigned char* smem = aligned_smem();
-    Ring ring{full, empty, smem, NH * 128, 0, STAGES, 0, 0, false};
+    Ring ring{full, released, smem, NH * 128, STAGES, 0, true};
     const int wg = threadIdx.x / WG;
     unsigned char* build = smem + STAGES * NH * 128 + wg * 2 * PANEL;
     dw1_split<NH>(attrT, partial, rows, per_split, d, E, F, H, &b_map, ring, build, s_x[wg],
@@ -824,55 +770,19 @@ constexpr size_t dw1_smem() {
     return 1024 + STAGES * NH * 128 + 4 * PANEL;
 }
 
-// K-major, zero-padded copies of the weights for the ring: w1t [H, kw1] =
-// W1^T (W1 [F, H]), and unless w2 is null w2t [D, kw2] = W2^T and w2c [H,
-// kw3] = W2 (W2 [H, D])
-__global__ void __launch_bounds__(arreau::THREADS)
-weights_kernel(const bf16* __restrict__ w1, const bf16* __restrict__ w2, bf16* __restrict__ w1t,
-               bf16* __restrict__ w2t, bf16* __restrict__ w2c, int F, int H, int D, int kw1,
-               int kw2, int kw3) {
-    const long long n1 = (long long)H * kw1, n2 = w2 ? (long long)D * kw2 : 0,
-                    n3 = w2 ? (long long)H * kw3 : 0;
-    const bf16 zero = __float2bfloat16_rn(0.f);
-    for (long long e = blockIdx.x * (long long)arreau::THREADS + threadIdx.x; e < n1 + n2 + n3;
-         e += (long long)gridDim.x * arreau::THREADS) {
-        if (e < n1) {
-            const int h = (int)(e / kw1), f = (int)(e % kw1);
-            w1t[e] = f < F ? w1[(long long)f * H + h] : zero;
-        } else if (e < n1 + n2) {
-            const long long x = e - n1;
-            const int n = (int)(x / kw2), h = (int)(x % kw2);
-            w2t[x] = h < H ? w2[(long long)h * D + n] : zero;
-        } else {
-            const long long x = e - n1 - n2;
-            const int h = (int)(x / kw3), n = (int)(x % kw3);
-            w2c[x] = n < D ? w2[(long long)h * D + n] : zero;
-        }
-    }
-}
-
-inline int sm_count();
-
-// rows_kernel<NH, ND>'s launch: the tensor maps of the weights' copies
+// rows_kernel<NH, ND>'s launch
 template <int NH, int ND>
 int launch_rows(const Sm90Bwd& a, cudaStream_t stream) {
-    CUtensorMap w1{}, w2t{}, w2{};
-    if (!sw128_map<bf16>(&w1, a.w1t, a.F, a.H, 2LL * a.kw1, NH) ||
-        !sw128_map<bf16>(&w2t, a.w2t, a.H, a.D, 2LL * a.kw2, ND) ||
-        !sw128_map<bf16>(&w2, a.w2c, a.D, a.H, 2LL * a.kw3, NH))
-        return static_cast<int>(cudaErrorInvalidValue);
     constexpr size_t smem = rows_smem<NH, ND>();
-    cudaError_t err = cudaFuncSetAttribute(rows_kernel<NH, ND>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static SmemOptIn opt_in;
+    cudaError_t err = opt_in.ensure(rows_kernel<NH, ND>, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     Cotangents gs{};
     gs.n = a.n_g;
     for (int i = 0; i < a.n_g; ++i) gs.g[i] = a.g[i];
-    const long long tiles = (a.rows + TILE - 1) / TILE;
-    const int blocks = (int)(tiles < sm_count() ? tiles : sm_count());
-    rows_kernel<NH, ND><<<blocks, THREADS, smem, stream>>>(a.attrT, a.b1, a.b2, gs, a.h1t,
-                                                            a.dpre2t, a.dpre1t, a.rows, a.ld, a.d,
-                                                            a.E, a.F, a.H, a.D, w1, w2t, w2);
+    rows_kernel<NH, ND><<<persistent_blocks(cdiv(a.rows, TILE)), BLOCK_THREADS, smem, stream>>>(
+        a.attrT, a.b1, a.b2, gs, a.h1t, a.dpre2t, a.dpre1t, a.rows, a.ld, a.d, a.E, a.F, a.H, a.D,
+        a.w1_map, a.w2t_map, a.w2c_map);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -885,16 +795,6 @@ int launch_rows_nh(const Sm90Bwd& a, int nh, cudaStream_t stream) {
         case 256: return launch_rows<256, ND>(a, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-}
-
-inline int sm_count() {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return sms;
 }
 
 }  // namespace sm90

@@ -33,15 +33,9 @@
 // through the ring with A, a K-panel at a time. A float32 A panel is split into its tf32 halves in
 // shared memory by the block's threads (split_panel) after it lands.
 //
-// The ring has no producer warp (one of its own capped the bf16 basis
-// kernels' consumers at 168 registers, basis_sm90.cuh): thread 0 issues the
-// first panels, and the last warp to release a slot (a shared-memory count)
-// issues the TMA loads of the slot's next panel at once, each completing on
-// the slot's `full` mbarrier; so no warp waits for the other warpgroup to
-// release a slot, and stages - 1 panels stay in flight. The ring's panel count runs on across a
-// persistent block's tiles, so the next tile's loads land during this
-// tile's epilogue. A warpgroup issues one K-panel's products (four k16 steps
-// in bfloat16; four k8 steps of three tf32 products in float32) while the
+// The ring is wgmma.cuh's (two warpgroups, the last warp to release a slot
+// refills it). A warpgroup issues one K-panel's products (four k16 steps in
+// bfloat16; four k8 steps of three tf32 products in float32) while the
 // previous panel's finish, then releases that one. The epilogues' loads and
 // stores go through a staging tile of each warpgroup's in 16-byte cp.async
 // copies and stores.
@@ -125,73 +119,10 @@ using namespace arreau;
 
 namespace conv90 {
 
-constexpr int WG = 128;             // threads of a warpgroup
-constexpr int BLOCK_THREADS = 2 * WG;  // a block: two warpgroups
-constexpr int ROWS = 64;            // a tile's rows (wgmma's M)
-constexpr int PANEL = ROWS * 128;   // bytes of a 64-row panel (128 bytes of K a row)
-constexpr int MAX_STAGES = 8;  // the ring's barriers are static arrays of this size
-
 template <class T>
 constexpr int PK = 128 / (int)sizeof(T);  // elements of K a panel row holds
 template <class T>
 constexpr bool F32 = sizeof(T) == 4;
-
-__host__ __device__ constexpr int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
-
-// the tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... < n of a persistent block
-__device__ __forceinline__ int block_tiles(int n) {
-    return ((int)(n - blockIdx.x) + (int)gridDim.x - 1) / (int)gridDim.x;
-}
-
-// ---- the ring ---------------------------------------------------------------
-
-// panels through `stages` slots of `bytes`; `on`: the panels come by TMA
-// (else the slots are plain buffers the threads fill); `total`: the block's
-// panels; `released[s]`: the warps done with slot s's panel so far
-struct Ring {
-    uint64_t* full;
-    int* released;
-    unsigned char* base;
-    int bytes, stages, total;
-    bool on;
-    __device__ __forceinline__ unsigned char* slot(int s) const { return base + s * bytes; }
-};
-
-// thread 0, once: the barriers (full: one arrival and the bytes) and the
-// release counts; the caller fences and syncs
-__device__ __forceinline__ void ring_init(const Ring& r) {
-    for (int s = 0; s < r.stages; ++s) {
-        mbar_init(&r.full[s], 1);
-        r.released[s] = 0;
-    }
-}
-
-// thread 0: the ring's first panels
-template <class Issue>
-__device__ __forceinline__ void ring_fill(const Ring& r, Issue& issue) {
-    for (int q = 0; q < r.stages && q < r.total; ++q) issue(q, q);
-}
-
-// every warp: done with panel q's slot. The last of the block's warps to
-// release it refills it with panel q + stages at once, so no thread waits
-// for another warpgroup, and the ring keeps stages - 1 panels in flight
-// ahead of the slower warpgroup. (In development builds a producer thread
-// that waited for every warp's release held its warpgroup to the other's
-// pace, and one that refilled only slots already free let the ring run dry.)
-template <class Issue>
-__device__ __forceinline__ void release(const Ring& r, int q, Issue& issue) {
-    if (!r.on) return;
-    if (threadIdx.x % 32 == 0) {
-        const int s = q % r.stages;
-        __threadfence_block();  // this warp's reads of the slot are done
-        if (atomicAdd(&r.released[s], 1) == BLOCK_THREADS / 32 - 1) {
-            r.released[s] = 0;
-            __threadfence_block();
-            if (q + r.stages < r.total) issue(q + r.stages, s);
-        }
-    }
-    __syncwarp();
-}
 
 // ---- shared-memory operands ---------------------------------------------------
 
@@ -237,36 +168,6 @@ __device__ __forceinline__ void split_panel(unsigned char* a) {
         *p = big;
         *reinterpret_cast<uint4*>(a + PANEL + off) = small;
     }
-}
-
-// acc += A B^T over one K-panel: A the 64-row panel at a, B the warpgroup's
-// NB-row panel at b, both K-major SW128; float32: 3xTF32 (as mma.cuh: a_small
-// b_big + a_big b_small + a_big b_big a step), A's small halves PANEL bytes
-// after a, B's b_small bytes after b. Issued and committed, not waited for.
-template <class T, int NB>
-__device__ __forceinline__ void panel_product(float (&acc)[NB / 2], const unsigned char* a,
-                                              const unsigned char* b, int b_small) {
-    wgmma_fence();
-    fence_acc(acc);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int off = 32 * k;
-        if constexpr (F32<T>) {
-            Wgmma<float, NB>::mma(acc, sw128_desc(a + PANEL + off), sw128_desc(b + off));
-            Wgmma<float, NB>::mma(acc, sw128_desc(a + off), sw128_desc(b + b_small + off));
-        }
-        Wgmma<T, NB>::mma(acc, sw128_desc(a + off), sw128_desc(b + off));
-    }
-    wgmma_commit();
-}
-
-// the last panel's products done; its slot released
-template <int NB, class Issue>
-__device__ __forceinline__ void product_finish(float (&acc)[NB / 2], Ring& ring, int q_last,
-                                               Issue& issue) {
-    wgmma_wait<0>();
-    fence_acc(acc);
-    release(ring, q_last, issue);
 }
 
 // acc = (a slot tile's 64 basis rows) @ (the warpgroup's NB columns of B)
@@ -379,9 +280,6 @@ struct SlotRows {
     }
 };
 
-// the calling warpgroup's named barrier (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void wg_sync() { named_barrier(1 + threadIdx.x / WG, WG); }
-
 // the warpgroup's staging tile (row stride stage_ld<T>(NB)): row r = row
 // rows[r] of src (rows of C elements; -1: zeros), its NB columns from col0
 // (zeros past C); 16-byte cp.async where vec (C * sizeof(T) a multiple of 16,
@@ -490,19 +388,6 @@ bool basis_map(CUtensorMap* map, const T* basis, int slabs, int TA, int D) {
                            (long long)TA * D * sizeof(T), ROWS);
 }
 
-inline int sm_count() {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return sms;
-}
-
-// the persistent grid: a block an SM, or a block a tile
-inline int persistent_blocks(int n_tiles) { return n_tiles < sm_count() ? n_tiles : sm_count(); }
-
 // the plan's widths hold D and C, and its K-panels are whole
 template <class T>
 bool plan_fits(const ConvPlan& p, int D, int C) {
@@ -510,27 +395,6 @@ bool plan_fits(const ConvPlan& p, int D, int C) {
            p.kd % PK<T> == 0 && p.kc % PK<T> == 0 && p.cg >= C && p.cg % 8 == 0 && p.splits >= 1 &&
            p.per_split % ROWS == 0;
 }
-
-// a kernel's dynamic shared memory: the plan's bytes (given), checked to hold
-// the layout the kernel addresses (need) with 2 .. MAX_STAGES ring slots, and
-// set as the kernel's limit the first time a launch asks for more than it
-// was set to on the device. One object for each kernel (a static of its
-// launch function).
-struct SmemLimit {
-    static constexpr int DEVICES = 64;
-    int set[DEVICES] = {};
-    template <class Kernel>
-    cudaError_t check(Kernel kernel, size_t need, int given, int stages) {
-        if (need > (size_t)given || stages < 2 || stages > MAX_STAGES) return cudaErrorInvalidValue;
-        int dev = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err != cudaSuccess) return err;
-        if (dev < DEVICES && set[dev] >= given) return cudaSuccess;
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, given);
-        if (err == cudaSuccess && dev < DEVICES) set[dev] = given;
-        return err;
-    }
-};
 
 }  // namespace conv90
 

@@ -37,6 +37,10 @@
 // convnext_rows.cuh) would save it, but those products run at well below
 // the 128 x 128 tiles' rate.
 //
+// arreau_tile_product_built runs run_built (tile_product.cuh), the
+// mainloop of #5's first product, on two matrices, A copied into the stage
+// by the block itself: the card test of the built operand's layouts.
+//
 // Element type T (dtype.cuh) of attr, W1, W2, h and the output: float32, or
 // bfloat16 under BasisMLP's bfloat16 compute type, with the JAX kernel's
 // rounding points (pallas_basis.py:77-83, :108-116): each feature is formed
@@ -86,8 +90,8 @@ template <class T>
 int fused_basis_mlp(const T* attr, const T* w1, const T* w2, T* h, T* out, long long rows, int d,
                     int F, int H, int D, cudaStream_t stream) {
     const int Hp = (H + 7) / 8 * 8;
-    int status = launch_h1<T, H1Out::HIDDEN, true>(attr, w1, nullptr, h, nullptr, nullptr, rows,
-                                                    d, 1, F, H, Hp, stream);
+    int status = launch_h1<T, H1Out::HIDDEN>(attr, w1, h, nullptr, nullptr, rows, d, F, H, Hp,
+                                              stream);
     if (status != 0) return status;
     using P = WideTile<T, true, false>;
     const size_t smem = P::staged(P::SMEM);
@@ -96,6 +100,52 @@ int fused_basis_mlp(const T* attr, const T* w1, const T* w2, T* h, T* out, long 
     const long long blocks = (rows + P::BM - 1) / P::BM * ((D + P::BN - 1) / P::BN);
     basis_out_kernel<T><<<(unsigned)blocks, P::THREADS, smem, stream>>>(
         operand<T>(h, Hp), operand(w2, D), out, rows, H, D, rows_aligned(out, D));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// d[m, n] = sum_k A[m, k] B[k, n] in float32 with A built by the block:
+// fetch stages A's K-slice by cp.async into a slot, build copies the slot
+// into the A tile element by element
+template <class T, bool A_K, bool B_K>
+__global__ void __launch_bounds__(WideTile<T, A_K, B_K>::THREADS)
+tile_product_built_kernel(Operand<T> a, Operand<T> b, float* __restrict__ d, int M, int N,
+                          int K) {
+    using P = WideTile<T, A_K, B_K>;
+    const int m0 = blockIdx.y * P::BM, n0 = blockIdx.x * P::BN;
+    const int m_lim = M - m0, n_lim = N - n0;
+    T* slots = shared_buffer<T>() + P::BUILT_SMEM / sizeof(T);
+    const T* ap = a.p + (A_K ? (long long)m0 * a.ld : m0);
+    auto fetch = [&](int slot, int k0) {
+        T* s = slots + slot * P::A_SIZE;
+        if constexpr (A_K)
+            load_tile<T, P::BM, P::BK, P::LDA, P::THREADS>(s, ap + k0, a.ld, m_lim, K - k0, a.vec);
+        else
+            load_tile<T, P::BK, P::BM, P::LDA, P::THREADS>(s, ap + k0 * a.ld, a.ld, K - k0, m_lim,
+                                                           a.vec);
+    };
+    auto build = [&](T* sa, int slot, int) {
+        const T* s = slots + slot * P::A_SIZE;
+        for (int i = threadIdx.x; i < P::A_SIZE; i += P::THREADS) sa[i] = s[i];
+    };
+    typename P::Acc acc = {};
+    P::run_built(fetch, build, {b.p + (B_K ? (long long)n0 * b.ld : n0), b.ld, b.vec}, K, m_lim,
+                 n_lim, shared_buffer<T>(), acc);
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m < m_lim && n < n_lim)
+            store2(d + (size_t)(m0 + m) * N + n0 + n, v0, v1, n + 1 < n_lim, N % 2 == 0);
+    });
+}
+
+template <class T, bool A_K, bool B_K>
+int tile_product_built(const T* a, const T* b, float* d, int M, int N, int K,
+                       cudaStream_t stream) {
+    using P = WideTile<T, A_K, B_K>;
+    const size_t smem = P::BUILT_SMEM + (size_t)P::STAGES * P::A_SIZE * sizeof(T);
+    cudaError_t err = allow_smem(tile_product_built_kernel<T, A_K, B_K>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_product_built_kernel<T, A_K, B_K>
+        <<<dim3((N + P::BN - 1) / P::BN, (M + P::BM - 1) / P::BM), P::THREADS, smem, stream>>>(
+            operand(a, A_K ? K : M), operand(b, B_K ? K : N), d, M, N, K);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -115,6 +165,26 @@ extern "C" int arreau_fused_basis_mlp_fwd(const void* attr, const void* w1, cons
         status = fused_basis_mlp<T>(static_cast<const T*>(attr), static_cast<const T*>(w1),
                                     static_cast<const T*>(w2), static_cast<T*>(h),
                                     static_cast<T*>(out), rows, d, F, H, D, stream);
+    });
+    return status;
+}
+
+// d [M, N] float32 = a @ b through run_built: a is [M, K] (a_kmajor) or
+// [K, M], b is [N, K] (b_kmajor) or [K, N], both float32 (3xTF32) or
+// bfloat16 (is_bf16). The card tests hold it against a float64 product.
+extern "C" int arreau_tile_product_built(const void* a, const void* b, float* d, int M, int N,
+                                         int K, int a_kmajor, int b_kmajor, int is_bf16,
+                                         void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    int status = 0;
+    ARREAU_DISPATCH_DTYPE(is_bf16, {
+        const T *ta = static_cast<const T*>(a), *tb = static_cast<const T*>(b);
+        if (a_kmajor)
+            status = b_kmajor ? tile_product_built<T, true, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_built<T, true, false>(ta, tb, d, M, N, K, stream);
+        else
+            status = b_kmajor ? tile_product_built<T, false, true>(ta, tb, d, M, N, K, stream)
+                              : tile_product_built<T, false, false>(ta, tb, d, M, N, K, stream);
     });
     return status;
 }

@@ -25,7 +25,7 @@
 //
 // Design. The TPU kernel carried per-b' weight-gradient partials across the
 // sequential o axis in VMEM. Hopper's blocks run in no order, so this is
-// #7's chain (basis_mlp_bwd.cuh, FUSED): five mma.sync tile products through
+// a chain of five mma.sync tile products (basis_mlp_bwd.cuh) through
 // device-memory scratch in T, each product's epilogue doing the elementwise
 // work, the features built in shared memory from the invariants and never
 // stored, the weight gradients as split-K products whose per-split float32
@@ -60,14 +60,13 @@ extern "C" int arreau_fused_basis_mlp_bwd(const void* attr, const void* w1, cons
     if (d > MAX_D) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     const int Hg = (H + 7) / 8 * 8;
-    const void* const gs[1] = {g};
     int status = 0;
     ARREAU_DISPATCH_DTYPE(is_bf16, {
-        status = basis_mlp_bwd<T, true>(
-            static_cast<const T*>(attr), static_cast<const T*>(w1), nullptr,
-            static_cast<const T*>(w2), nullptr, gs, 1, static_cast<T*>(h1), static_cast<T*>(dg1),
-            static_cast<T*>(dpre2), static_cast<T*>(xr), partial, dw1, dw2, Bp, O, d, E, F, H, D,
-            Hg, splits, rows_per_split, stream);
+        status = basis_mlp_bwd<T>(
+            static_cast<const T*>(attr), static_cast<const T*>(w1), static_cast<const T*>(w2),
+            static_cast<const T*>(g), static_cast<T*>(h1), static_cast<T*>(dg1),
+            static_cast<T*>(dpre2), static_cast<T*>(xr), partial, dw1, dw2, (long long)Bp * O * E,
+            d, F, H, D, Hg, splits, rows_per_split, stream);
     });
     return status;
 }

@@ -24,6 +24,8 @@
 //     of M (or N) lie lbo bytes apart, the 8-row groups of K 1024 bytes.
 //     sw128_mn_desc gives its descriptor, Wgmma<bf16, N>::mma_mn the product
 //     of two such operands; a k16 step starts 16 * 128 bytes further.
+//   - Two warpgroups on one ring of TMA panels (Ring, release,
+//     panel_product): the plumbing the sm_90 kernels share.
 //   - cp.async.bulk.tensor (TMA) 2-D and 3-D loads into shared memory,
 //     completing on an mbarrier with a byte count, and 2-D stores from shared
 //     memory (a 3-D box of one outer index clips its rows at the middle
@@ -333,6 +335,174 @@ __device__ __forceinline__ unsigned char* aligned_smem() {
     const uint32_t a = smem_addr(smem_raw);
     return smem_raw + ((1024 - (a & 1023)) & 1023);
 }
+
+// ---- two warpgroups on one ring of TMA panels --------------------------------
+//
+// The layout the sm_90 kernels share (conv_sm90.cuh, basis_sm90.cuh,
+// basis_f32_sm90.cuh): a block is two warpgroups, each on 64 rows (wgmma's
+// M), and every product's operands come through one ring of shared-memory
+// slots. The ring has no producer warp (one of its own capped the bf16 basis
+// kernels' consumers at 168 registers): thread 0 issues the first panels,
+// and the last warp to release a slot (a shared-memory count) issues the TMA
+// loads of the slot's next panel at once, each completing on the slot's
+// `full` mbarrier; so no warp waits for the other warpgroup to release a
+// slot, and stages - 1 panels stay in flight. The panel count runs on across
+// a persistent block's tiles, so the next tile's loads land during this
+// tile's epilogue. (In development builds a producer thread that waited for
+// every warp's release held its warpgroup to the other's pace, and one that
+// refilled only slots already free let the ring run dry.)
+
+constexpr int WG = 128;                // threads of a warpgroup
+constexpr int BLOCK_THREADS = 2 * WG;  // a block: two warpgroups
+constexpr int ROWS = 64;               // a warpgroup's rows (wgmma's M)
+constexpr int PANEL = ROWS * 128;      // bytes of a 64-row panel (128 bytes of K a row)
+constexpr int MAX_STAGES = 8;          // the ring's barriers are static arrays of this size
+
+__host__ __device__ constexpr int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
+
+// the tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... < n of a persistent block
+__device__ __forceinline__ int block_tiles(int n) {
+    return ((int)(n - blockIdx.x) + (int)gridDim.x - 1) / (int)gridDim.x;
+}
+
+// the calling warpgroup's named barrier (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync() { named_barrier(1 + threadIdx.x / WG, WG); }
+
+// panels through `stages` slots of `bytes`; `on`: the slots are refilled by
+// TMA as they are released (else each keeps what ring_fill or the block's
+// threads put there: a conv's thread-staged panels, bfloat16 #8's resident
+// W1); `total`: the block's panels; `released[s]`: the warps done with slot
+// s's panel so far
+struct Ring {
+    uint64_t* full;
+    int* released;
+    unsigned char* base;
+    int bytes, stages, total;
+    bool on;
+    __device__ __forceinline__ unsigned char* slot(int s) const { return base + s * bytes; }
+};
+
+// thread 0, once: the barriers (full: one arrival and the bytes) and the
+// release counts; the caller fences and syncs
+__device__ __forceinline__ void ring_init(const Ring& r) {
+    for (int s = 0; s < r.stages; ++s) {
+        mbar_init(&r.full[s], 1);
+        r.released[s] = 0;
+    }
+}
+
+// thread 0: the ring's first panels
+template <class Issue>
+__device__ __forceinline__ void ring_fill(const Ring& r, Issue& issue) {
+    for (int q = 0; q < r.stages && q < r.total; ++q) issue(q, q);
+}
+
+// every thread: ring_init, then ring_fill, the barriers visible to the block
+template <class Issue>
+__device__ __forceinline__ void ring_start(const Ring& r, Issue& issue) {
+    if (threadIdx.x == 0) {
+        ring_init(r);
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) ring_fill(r, issue);
+    __syncwarp();
+}
+
+// every warp: done with panel q's slot. The last of the block's warps to
+// release it refills it with panel q + stages at once.
+template <class Issue>
+__device__ __forceinline__ void release(const Ring& r, int q, Issue& issue) {
+    if (!r.on) return;
+    if (threadIdx.x % 32 == 0) {
+        const int s = q % r.stages;
+        __threadfence_block();  // this warp's reads of the slot are done
+        if (atomicAdd(&r.released[s], 1) == BLOCK_THREADS / 32 - 1) {
+            r.released[s] = 0;
+            __threadfence_block();
+            if (q + r.stages < r.total) issue(q + r.stages, s);
+        }
+    }
+    __syncwarp();
+}
+
+// acc += A B^T over one 128-byte K-panel: A the 64-row panel at a, B the
+// NB-row panel at b, both K-major SW128; float32: 3xTF32 (as mma.cuh: a_small
+// b_big + a_big b_small + a_big b_big a step), A's small halves a_small bytes
+// after a, B's b_small bytes after b. Issued and committed, not waited for.
+template <class T, int NB>
+__device__ __forceinline__ void panel_product(float (&acc)[NB / 2], const unsigned char* a,
+                                              const unsigned char* b, int b_small,
+                                              int a_small = PANEL) {
+    wgmma_fence();
+    fence_acc(acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int off = 32 * k;
+        if constexpr (sizeof(T) == 4) {
+            Wgmma<float, NB>::mma(acc, sw128_desc(a + a_small + off), sw128_desc(b + off));
+            Wgmma<float, NB>::mma(acc, sw128_desc(a + off), sw128_desc(b + b_small + off));
+        }
+        Wgmma<T, NB>::mma(acc, sw128_desc(a + off), sw128_desc(b + off));
+    }
+    wgmma_commit();
+}
+
+// the last panel's products done; its slot released
+template <int NB, class Issue>
+__device__ __forceinline__ void product_finish(float (&acc)[NB / 2], Ring& ring, int q_last,
+                                               Issue& issue) {
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(ring, q_last, issue);
+}
+
+// ---- launches (host) ------------------------------------------------------
+
+// a kernel's dynamic shared memory limit, set the first time a launch on a
+// device asks for more than it was set to there: one object a kernel (a
+// static of its launch function), so that cudaFuncSetAttribute runs once
+// for each kernel, device and size
+struct SmemOptIn {
+    static constexpr int DEVICES = 64;
+    int set[DEVICES] = {};
+    template <class Kernel>
+    cudaError_t ensure(Kernel kernel, int bytes) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        if (dev < DEVICES && set[dev] >= bytes) return cudaSuccess;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err == cudaSuccess && dev < DEVICES) set[dev] = bytes;
+        return err;
+    }
+};
+
+inline int sm_count() {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return sms;
+}
+
+// the persistent grid: a block an SM, or a block a tile
+inline int persistent_blocks(int n_tiles) { return n_tiles < sm_count() ? n_tiles : sm_count(); }
+
+// a kernel's dynamic shared memory: the plan's bytes (given), checked to hold
+// the layout the kernel addresses (need) with 2 .. MAX_STAGES ring slots, and
+// set as the kernel's limit once for each device and size (SmemOptIn). One
+// object for each kernel (a static of its launch function).
+struct SmemLimit {
+    SmemOptIn opt_in;
+    template <class Kernel>
+    cudaError_t check(Kernel kernel, size_t need, int given, int stages) {
+        if (need > (size_t)given || stages < 2 || stages > MAX_STAGES) return cudaErrorInvalidValue;
+        return opt_in.ensure(kernel, given);
+    }
+};
 
 // ---- tensor maps (host) ---------------------------------------------------
 

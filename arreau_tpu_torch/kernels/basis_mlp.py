@@ -9,8 +9,7 @@ Counterpart of ``arreau_tpu/ops/pallas_basis.py:_basis_mlp_multi_p`` (a
 runs its first layer in the ``basis_h1`` kernel (TPU kernel ``_h1_fwd``),
 through its operator, and its second Dense as a plain matmul (the JAX
 package leaves that one to XLA); the backward is hand-written CUDA,
-``csrc/basis_mlp_bwd_sm90.cu`` in bfloat16 and ``csrc/basis_mlp_bwd.cu``
-in float32, which replaces ``_multi_bwd_kernel``.
+``csrc/basis_mlp_bwd_sm90.cu``, which replaces ``_multi_bwd_kernel``.
 
 :func:`basis_mlp_multi` returns ``n_out`` aliases of the basis, one per conv
 layer, so the backward receives the layers' cotangents apart and the kernel
@@ -20,17 +19,20 @@ passes over a ``[B', O, E, D]`` tensor (537 MB at the training shape). The
 cost is memory: the ``n_out`` cotangents are alive together until the
 kernel runs.
 
-On the H100 the bfloat16 backward runs on Hopper's ``wgmma`` and TMA: one
-kernel takes each 128-row tile through h1, dpre2 (the cotangents read once)
-and dpre1 in registers and shared memory, and two split-K products reduce
-the weight gradients over the rows (``csrc/basis_sm90.cuh``; tile plan
-``basis_h1.sm90_plan``); the cotangent reads bound it. The float32 backward
-runs five ``mma.sync`` 3xTF32 tile products (2*rows*(2*F*H + 3*H*D)
-operations, which bound it) through device-memory scratch, each product's
-epilogue doing the elementwise work; see the sources. It
-returns (dw1, db1, dw2, db2) and no cotangent for the invariants: they
-derive from positions and the lattice, which training does not
-differentiate (the JAX package zeroes it).
+On the H100 the backward runs on Hopper's ``wgmma`` and TMA in both types,
+sized by ``basis_h1.sm90_plan``, the weights' K-major copies made once for
+each state of the weights (``basis_h1.weight_copy``). In bfloat16 one kernel
+takes each 128-row tile through h1, dpre2 (the cotangents read once) and
+dpre1 in registers and shared memory, and two split-K products reduce the
+weight gradients over the rows (``csrc/basis_sm90.cuh``); the cotangent
+reads bound it. In float32 (3xTF32 on tf32 ``wgmma``,
+``csrc/basis_f32_sm90.cuh``) the chain runs as five passes through
+device-memory scratch (h1_pre, dpre2, dpre1), each a product with its
+elementwise work in the epilogue, the weight gradients split-K over the
+rows; the 2*rows*(2*F*H + 3*H*D) operations bound it. It returns (dw1, db1,
+dw2, db2) and no cotangent for the invariants: they derive from positions
+and the lattice, which training does not differentiate (the JAX package
+zeroes it). Both take H and D up to 256 and raise above.
 
 The invariants, weights, biases and cotangents are float32, or all
 bfloat16 on the ``compute_dtype="bfloat16"`` path, where the backward
@@ -55,11 +57,9 @@ from arreau_tpu_torch.kernels.basis_h1 import poly_features_t
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 7 + (_I,) * 9 + (_P,)
-_SM90_ARGTYPES = ((_P,) * 5 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 9 + (_I,) * 12
-                  + (ctypes.c_longlong, _I, _I, _P))
-_MAX_G = 16  # cotangents one launch sums (csrc/basis_mlp_bwd.cu: MAX_G)
-_XR = 8  # row stride of the invariants' scratch (csrc/basis_h1.cuh: XR)
+_ARGTYPES = ((_P,) * 3 + (ctypes.POINTER(ctypes.c_void_p), _I) + (_P,) * 7 + (_I,) * 7
+             + (_P, _I, _P))
+_MAX_G = 16  # cotangents one launch sums (csrc/basis_sm90.cuh: SM90_MAX_G)
 _GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 _GELU_C1 = 0.044715
 
@@ -96,14 +96,6 @@ def basis_mlp_bwd_plain(attrT, w1, b1, w2, b2, degree: int, gs):
     return poly.t() @ dpre1, dpre1.sum(dim=0), h1.t() @ dpre2, dpre2.sum(dim=0)
 
 
-def padded_hidden(H: int) -> int:
-    """Row length of the kernel's ``[rows, Hg]`` scratch: the H hidden
-    units and a ones column (db2's row of the dW2 product), rounded up to 8
-    elements so that every row starts 16-byte aligned
-    (``csrc/basis_mlp_bwd.cu``)."""
-    return -(-(H + 1) // 8) * 8
-
-
 def _check(attrT, w1, b1, w2, b2, gs):
     Bp, O, _, E = attrT.shape
     H, D = w2.shape
@@ -136,74 +128,44 @@ def basis_mlp_bwd(attrT, w1, b1, w2, b2, degree: int, gs):
         raise ValueError("basis_mlp_bwd's CUDA kernels need contiguous inputs")
     if len(gs) > _MAX_G:
         raise ValueError(f"basis_mlp_bwd sums at most {_MAX_G} cotangents, got {len(gs)}")
-    from arreau_tpu_torch.kernels.basis_h1 import _MAX_D
-    from arreau_tpu_torch.kernels.build import check, kernel_function, row_splits
-
-    Bp, O, d, E = attrT.shape
-    F_, H = w1.shape
-    D = w2.shape[1]
-    if d > _MAX_D or Bp * O > 65535:
-        raise ValueError(f"basis_mlp_bwd's kernels take d <= {_MAX_D} and B'*O <= 65535")
-    rows = Bp * O * E
-    dev = attrT.device
-    pointers = (ctypes.c_void_p * len(gs))(*[g.data_ptr() for g in gs])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if attrT.dtype == torch.bfloat16:
-        dw1_ext, dw2_ext = _bwd_sm90(attrT, w1, b1, w2, b2, gs, pointers, stream)
-        basis_mlp_bwd.launches += 1
-        return dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]
-    splits, per_split = row_splits(rows)
-    h1 = torch.empty((rows, padded_hidden(H)), dtype=attrT.dtype, device=dev)
-    dg1 = torch.empty_like(h1)
-    dpre2 = torch.empty((rows, D), dtype=attrT.dtype, device=dev)
-    xr = torch.empty((rows, _XR), dtype=attrT.dtype, device=dev)
-    partial = torch.empty(splits * max((F_ + 1) * H, (H + 1) * D), dtype=torch.float32, device=dev)
-    dw1_ext = torch.empty((F_ + 1, H), dtype=torch.float32, device=dev)
-    dw2_ext = torch.empty((H + 1, D), dtype=torch.float32, device=dev)
-    fn = kernel_function("arreau_basis_mlp_bwd", _ARGTYPES)
-    err = fn(attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-             pointers, len(gs), h1.data_ptr(), dg1.data_ptr(), dpre2.data_ptr(), xr.data_ptr(),
-             partial.data_ptr(), dw1_ext.data_ptr(), dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D,
-             splits, per_split, stream)
-    check("arreau_basis_mlp_bwd", err)
-    basis_mlp_bwd.launches += 1
-    return dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]
-
-
-basis_mlp_bwd.launches = 0
-
-
-def _bwd_sm90(attrT, w1, b1, w2, b2, gs, pointers, stream):
-    """(dw1_ext ``[F+1, H]``, dw2_ext ``[H+1, D]``) from the bfloat16 kernels
-    (``csrc/basis_mlp_bwd_sm90.cu``), their scratch sized by
-    :func:`~arreau_tpu_torch.kernels.basis_h1.sm90_plan`."""
-    from arreau_tpu_torch.kernels.basis_h1 import sm90_plan
+    from arreau_tpu_torch.kernels.basis_h1 import _MAX_D, kernel_plan, sm90_plan, weight_copy
     from arreau_tpu_torch.kernels.build import check, kernel_function
 
     Bp, O, d, E = attrT.shape
     F_, H = w1.shape
     D = w2.shape[1]
-    p = sm90_plan(Bp * O * E, F_, H, D)
-    dev, bf16 = attrT.device, torch.bfloat16
-    w1t = torch.empty((H, p["kw1"]), dtype=bf16, device=dev)
-    w2t = torch.empty((D, p["kw2"]), dtype=bf16, device=dev)
-    w2c = torch.empty((H, p["kw3"]), dtype=bf16, device=dev)
-    h1t = torch.empty((H + 1, p["ld"]), dtype=bf16, device=dev)
-    dpre2t = torch.empty((D, p["ld"]), dtype=bf16, device=dev)
-    dpre1t = torch.empty((H, p["ld"]), dtype=bf16, device=dev)
+    if d > _MAX_D:
+        raise ValueError(f"basis_mlp_bwd's kernels take d <= {_MAX_D}, got {d}")
+    rows = Bp * O * E
+    shape = (rows, F_, H, D, attrT.dtype)
+    p = sm90_plan(*shape)
+    # the weights' K-major copies W1^T, W2^T and W2 (referenced until queued)
+    copies = (weight_copy(w1, True, p["nh"], p["kw1"]), weight_copy(w2, True, p["nd"], p["kw2"]),
+              weight_copy(w2, False, p["nh"], p["kw3"]))
+    maps = ctypes.create_string_buffer(b"".join(m.raw for _, m in copies), 3 * 128)
+    dev = attrT.device
+    if attrT.dtype == torch.bfloat16:  # transposed scratch: h1 with db2's row of ones, dpre2, dpre1
+        scratch = [torch.empty((n, p["ld"]), dtype=attrT.dtype, device=dev) for n in (H + 1, D, H)]
+    else:  # h1_pre, dpre2, dpre1 row-major
+        scratch = [torch.empty((rows, n), dtype=attrT.dtype, device=dev)
+                   for n in (p["hp"], p["dp"], p["hp"])]
     partial = torch.empty(p["splits"] * max((F_ + 1) * H, (H + 1) * D), dtype=torch.float32,
                           device=dev)
     dw1_ext = torch.empty((F_ + 1, H), dtype=torch.float32, device=dev)
     dw2_ext = torch.empty((H + 1, D), dtype=torch.float32, device=dev)
+    pointers = (ctypes.c_void_p * len(gs))(*[g.data_ptr() for g in gs])
     name = "arreau_basis_mlp_bwd_sm90"
-    err = kernel_function(name, _SM90_ARGTYPES)(
-        attrT.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), pointers,
-        len(gs), w1t.data_ptr(), w2t.data_ptr(), w2c.data_ptr(), h1t.data_ptr(),
-        dpre2t.data_ptr(), dpre1t.data_ptr(), partial.data_ptr(), dw1_ext.data_ptr(),
-        dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D, p["nh"], p["nd"], p["kw1"], p["kw2"],
-        p["kw3"], p["ld"], p["splits"], p["per_split"], stream)
+    err = kernel_function(name, _ARGTYPES)(
+        attrT.data_ptr(), b1.data_ptr(), b2.data_ptr(), pointers, len(gs), maps,
+        *(t.data_ptr() for t in scratch), partial.data_ptr(), dw1_ext.data_ptr(),
+        dw2_ext.data_ptr(), Bp, O, d, E, F_, H, D, ctypes.byref(kernel_plan(*shape)),
+        int(attrT.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     check(name, err)
-    return dw1_ext, dw2_ext
+    basis_mlp_bwd.launches += 1
+    return dw1_ext[:F_], dw1_ext[F_], dw2_ext[:H], dw2_ext[H]
+
+
+basis_mlp_bwd.launches = 0
 
 
 class _BasisMLPMulti(torch.autograd.Function):

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv, padded_hidden
+from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +48,14 @@ MAX_C = 256  # channels a row block holds (csrc/convnext_rows.cuh: MAX_CHANNELS)
 MAX_R = 64  # readout columns the backward kernel takes (csrc/convnext_rows.cuh: MAX_READOUT)
 MIN_ROW_BLOCK = 64  # the fewest rows a row block of #10 holds (its partials' count)
 LN_EPS = 1e-5
+
+
+def padded_hidden(H: int) -> int:
+    """Row length of the backward's ``[rows, Hg]`` scratch: the H units and a
+    ones column (the bias row of a weight-gradient product), rounded up to 8
+    elements so that every row starts 16-byte aligned
+    (``csrc/convnext_mlp_bwd.cu``)."""
+    return -(-(H + 1) // 8) * 8
 
 
 def _forward(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma):

@@ -90,7 +90,7 @@ SMEM_BUDGET = 232448 - 1024
 _ROWS_PER_SPLIT = 4096
 _MIN_DW_BLOCKS = 256
 _MAX_SPLITS = 256
-# weight tensors whose K-major copies stay cached (the least recent go first)
+# weight copies that stay cached (the least recent go first)
 _HELD_WEIGHTS = 16
 
 
@@ -194,6 +194,27 @@ def _kernel_plan(*shape_and_dtype) -> _ConvPlan:
     return _ConvPlan(*(plan[name] for name, _ in _ConvPlan._fields_))
 
 
+def held_for_state(held: collections.OrderedDict, key, w, make):
+    """``make()``'s value for the current state of the weight ``w`` (its
+    storage and version counter: an in-place update or a new storage makes
+    it anew), kept in ``held`` under ``key`` for the last ``_HELD_WEIGHTS``
+    keys. A tensor made in inference mode has no version counter and gets a
+    value of its own on each call, which the caller keeps until its launch is
+    queued."""
+    state = None if w.is_inference() else (w.data_ptr(), w._version)
+    entry = held.get(key)
+    if state is not None and entry is not None and entry[0] is w and entry[1] == state:
+        held.move_to_end(key)
+        return entry[2]
+    value = make()
+    if state is not None:
+        held[key] = (w, state, value)
+        held.move_to_end(key)
+        while len(held) > _HELD_WEIGHTS:
+            held.popitem(last=False)
+    return value
+
+
 _weight_copies_held = collections.OrderedDict()
 
 
@@ -202,32 +223,22 @@ def weight_copies(w, plan: dict, kernel_plan: _ConvPlan) -> tuple:
     operands, ``wt`` = W^T and ``wk`` = W (``plan["wt"]`` / ``plan["wk"]``
     elements; float32 as tf32 halves), and a buffer of their two TMA tensor
     maps, made by ``arreau_conv_weights_sm90``. Made once for each state of
-    ``w`` (its storage and version counter: an in-place update makes them
-    anew) and kept for the last ``_HELD_WEIGHTS`` weight tensors, so that a
-    layer's backward and every sampler step reuse its forward's copies. A
-    tensor made in inference mode has no version counter and gets copies of
-    its own on each call, which the caller keeps until its launch is queued."""
+    ``w`` (:func:`held_for_state`), so that a layer's backward and every
+    sampler step reuse its forward's copies."""
     from arreau_tpu_torch.kernels.build import check, kernel_function
 
-    state = None if w.is_inference() else (w.data_ptr(), w._version)
-    held = _weight_copies_held.get(id(w))
-    if state is not None and held is not None and held[0] is w and held[1] == state:
-        _weight_copies_held.move_to_end(id(w))
-        return held[2:]
-    wt = torch.empty(plan["wt"], dtype=w.dtype, device=w.device)
-    wk = torch.empty(plan["wk"], dtype=w.dtype, device=w.device)
-    maps = ctypes.create_string_buffer(256)
-    fn = kernel_function("arreau_conv_weights_sm90", _WEIGHTS_ARGTYPES)
-    err = fn(w.data_ptr(), wt.data_ptr(), wk.data_ptr(), maps, w.shape[0], w.shape[1],
-             ctypes.byref(kernel_plan), int(w.dtype == torch.bfloat16),
-             torch.cuda.current_stream(w.device).cuda_stream)
-    check("arreau_conv_weights_sm90", err)
-    if state is not None:
-        _weight_copies_held[id(w)] = (w, state, wt, wk, maps)
-        _weight_copies_held.move_to_end(id(w))
-        while len(_weight_copies_held) > _HELD_WEIGHTS:
-            _weight_copies_held.popitem(last=False)
-    return wt, wk, maps
+    def make():
+        wt = torch.empty(plan["wt"], dtype=w.dtype, device=w.device)
+        wk = torch.empty(plan["wk"], dtype=w.dtype, device=w.device)
+        maps = ctypes.create_string_buffer(256)
+        fn = kernel_function("arreau_conv_weights_sm90", _WEIGHTS_ARGTYPES)
+        err = fn(w.data_ptr(), wt.data_ptr(), wk.data_ptr(), maps, w.shape[0], w.shape[1],
+                 ctypes.byref(kernel_plan), int(w.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(w.device).cuda_stream)
+        check("arreau_conv_weights_sm90", err)
+        return wt, wk, maps
+
+    return held_for_state(_weight_copies_held, id(w), w, make)
 
 
 def spatial_conv_plain(basis, w, x, src, win):

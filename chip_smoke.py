@@ -284,8 +284,10 @@ inner launches by name and time.
    chain, 5 bf16 #3 and 1 bf16 #8 a forward and 7 threefry draws a batch;
    and how many crystals equal that run's (printed, no gate).
 43. SASS check: in cuobjdump's SASS of the built library (dumped while the
-   phases above ran), every instantiation of #8's and #7's bfloat16
-   kernels issues warpgroup products (HGMMA) and TMA loads (UTMALDG).
+   phases above ran), every instantiation of #8's and #7's kernels in both
+   types and of #3's and #4's issues warpgroup products (HGMMA) and, but
+   for the weight gradients whose threads stage both operands (#4's and #7's
+   float32 dW), TMA loads (UTMALDG).
 
 Every sampler and training path also counts the threefry kernel's
 launches apart from the backbone's kernels (the noise is drawn before a
@@ -658,19 +660,22 @@ def check_kernel(name, kernel, plain, library, args, flops, source, replaces, to
 
 
 def basis_source(name: str, dtype) -> str:
-    """#8's or #7's source for an element type: bfloat16 on Hopper's wgmma
-    and TMA (``csrc/basis_sm90.cuh``), float32 on ``mma.sync``."""
-    return f"arreau_tpu_torch/csrc/{name}{'_sm90' if dtype == torch.bfloat16 else ''}.cu"
+    """#8's or #7's entry source, both types on Hopper's wgmma and TMA
+    (bfloat16: ``csrc/basis_sm90.cuh``; float32: ``csrc/basis_f32_sm90.cuh``)."""
+    return f"arreau_tpu_torch/csrc/{name}_sm90.cu"
 
 
-# #8's and #7's bfloat16 kernels (csrc/basis_sm90.cuh), and #3's and #4's in
-# both types (csrc/conv_sm90.cuh), as cuobjdump names them
-SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel", "sconv_fwd_kernel",
-                "sconv_kern_kernel", "sconv_dbasis_kernel", "sconv_dw_kernel")
-# (kernel, element type) of the instantiations whose operands the threads
-# stage, not TMA: #4's float32 dW transposes both as it stages them (tf32
-# wgmma takes K-major operands only)
-SM90_THREAD_STAGED = (("sconv_dw_kernel", "float"),)
+# #8's and #7's kernels in bfloat16 (csrc/basis_sm90.cuh) and float32
+# (csrc/basis_f32_sm90.cuh), and #3's and #4's in both types
+# (csrc/conv_sm90.cuh), as cuobjdump names them
+SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel", "f32_h1_kernel",
+                "f32_rows_kernel", "f32_dw_kernel", "sconv_fwd_kernel", "sconv_kern_kernel",
+                "sconv_dbasis_kernel", "sconv_dw_kernel")
+# (kernel, element type, or None for every instantiation) of the kernels
+# whose operands the threads stage, not TMA: #4's float32 dW and float32
+# #7's weight gradients transpose both as they stage them (tf32 wgmma takes
+# K-major operands only; a TMA-fed float32 #7 dW was slower, PERF.md §6)
+SM90_THREAD_STAGED = (("sconv_dw_kernel", "float"), ("f32_dw_kernel", None))
 
 
 def start_sass_dump():
@@ -698,8 +703,8 @@ def start_sass_dump():
 
 
 def sass_check(dump) -> None:
-    """Every instantiation of #8's and #7's bfloat16 kernels and of #3's and
-    #4's kernels in the built library issues warpgroup products (HGMMA) and,
+    """Every instantiation of #8's and #7's kernels (both types) and of #3's
+    and #4's kernels in the built library issues warpgroup products (HGMMA) and,
     but for SM90_THREAD_STAGED, TMA loads (UTMALDG), as the SASS
     ``start_sass_dump`` wrote shows; prints the counts. Skipped, with a line,
     where the toolkit has no cuobjdump."""
@@ -739,7 +744,8 @@ def sass_check(dump) -> None:
         print(f"SASS {kernel}: " + ", ".join(f"<{t}> {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG"
                                               for t, v in sorted(found.items())))
         if not found or not all(
-                v["HGMMA"] and (v["UTMALDG"] or (kernel, t.split(",")[0]) in SM90_THREAD_STAGED)
+                v["HGMMA"] and (v["UTMALDG"] or (kernel, t.split(",")[0]) in SM90_THREAD_STAGED
+                                or (kernel, None) in SM90_THREAD_STAGED)
                 for t, v in found.items()):
             raise RuntimeError(f"{kernel}: an instantiation without HGMMA or UTMALDG in its SASS")
 
@@ -1550,22 +1556,31 @@ def fused_convnext_backbone(model):
 
 
 # the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu), #7
-# and #6 (basis_mlp_bwd.cuh), #10 (convnext_mlp_bwd.cu) and #5
-# (fused_basis_mlp.cu), by the kernel function names a profile shows; the
-# split sum is shared with every other split-K weight gradient (#7, #10, #6
-# and #2's dKf), and the h1 product with #8 (basis_h1_kernel<T, H1Out, ...>)
-BWD_INNER_KERNELS = {"::basis_h1_kernel<": "#8, or the h1 product of #7, #5 or #6 "
-                                          "(H1Out 0: #8, 1: #7/#6, 2: #5), float32",
+# (basis_sm90.cuh, basis_f32_sm90.cuh), #6 (basis_mlp_bwd.cuh), #10
+# (convnext_mlp_bwd.cu) and #5 (fused_basis_mlp.cu), by the kernel function
+# names a profile shows; the split sum is shared with every other split-K
+# weight gradient (#7, #10, #6 and #2's dKf), and float32 #7's first pass
+# with #8 (f32_h1_kernel)
+BWD_INNER_KERNELS = {"::basis_h1_kernel<": "the h1 product of #6 or #5 "
+                                          "(H1Out 1: #6, 2: #5)",
                      "::sm90::h1_kernel<": "#8 in bf16 (wgmma, TMA)",
-                     "::sm90::weights_kernel": "#8/#7 in bf16: the weights' K-major copies",
+                     "::basis_weight_copy_kernel<": "#8/#7: the weights' K-major copies, once "
+                                                   "for each state of a weight",
+                     "::basis32::f32_h1_kernel<": "#8, or #7's first pass, in float32 (tf32 "
+                                                 "wgmma, TMA)",
+                     "::basis32::f32_rows_kernel<": "#7 in float32: dpre2 (Pass 0) and dpre1 "
+                                                   "(Pass 1) row passes",
+                     "::basis32::dpre2_scale_kernel": "#7 in float32: dpre2 times the "
+                                                     "cotangents' sum (streaming pass)",
+                     "::basis32::f32_dw_kernel<": "#7 in float32: dW2 and dW1 split-K partials",
                      "::sm90::rows_kernel<": "#7 in bf16: h1, dpre2, dpre1 per row tile",
                      "::sm90::dw2_kernel<": "#7 in bf16: dW2 split-K partials",
                      "::sm90::dw1_kernel<": "#7 in bf16: dW1 split-K partials",
                      "::basis_out_kernel<": "#5 gelu(h @ W2)",
-                     "::basis_dpre2_kernel<": "#7 dpre2 (#6: db_pre)",
-                     "::basis_dw2_partial_kernel<": "#7/#6 dW2 split-K partials",
-                     "::basis_dpre1_kernel<": "#7 dpre1 (#6: dh_pre)",
-                     "::basis_dw1_partial_kernel<": "#7/#6 dW1 split-K partials",
+                     "::basis_dpre2_kernel<": "#6 db_pre",
+                     "::basis_dw2_partial_kernel<": "#6 dW2 split-K partials",
+                     "::basis_dpre1_kernel<": "#6 dh_pre",
+                     "::basis_dw1_partial_kernel<": "#6 dW1 split-K partials",
                      "::conv90::weights_kernel<": "#3/#4: W's K-major copies, once for each "
                                                  "version of W (wgmma, TMA)",
                      "::sconv_gxw_kernel<": "#4 gxw (edge cotangent, 16-byte chunks)",
@@ -2582,8 +2597,8 @@ def training_leftovers_phase(tmp: Path, card: str) -> None:
     if len(traces) != 1 or traces[0].stat().st_size == 0:
         raise RuntimeError(f"--profiler torch wrote {traces}, not one trace")
     text = traces[0].read_text()
-    named = {k: k in text for k in ("sconv_fwd_kernel", "basis_h1_kernel", "sconv_dbasis_kernel",
-                                    "basis_dpre2_kernel")}
+    named = {k: k in text for k in ("sconv_fwd_kernel", "f32_h1_kernel", "sconv_dbasis_kernel",
+                                    "f32_rows_kernel")}
     print(f"trace {traces[0].name}: {traces[0].stat().st_size} bytes; kernels named {named}")
     if not all(named.values()):
         raise RuntimeError("the trace does not name the port's kernels")

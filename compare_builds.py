@@ -22,19 +22,20 @@ and, through ``BasisMLP(fused=True, use_bias=False)`` on the invariants a
 at both shapes and of #6 ``fused_basis_mlp_bwd`` at the training shape, in
 float32 and bfloat16; and the inputs of #3 and of #4 with its window
 cotangent (``window_grad``) in one training step of a backbone built with
-``position_grads=True``, float32 and bfloat16. Then it calls each kernel wrapper of
+``position_grads=True``, float32 and bfloat16; and the inputs of #3, #8, #4
+and #7 in one N-body training step (100 systems of 5 bodies, the N-body
+CLI's model). Then it calls each kernel wrapper of
 this checkout twice and the other checkout's once on the same tensors
 (each checkout builds its own kernel library into its own ``build/``).
 The rules:
 
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
-- the kernels whose arithmetic this build changed (``REDESIGNED``: #3 and
-  #4, both types on Hopper's wgmma and TMA) are held
-  within ``chip_smoke.KERNEL_REL_TOL`` of each
-  output's scale in their float32 instantiation and ``BF16_KERNEL_REL_TOL``
-  in their bfloat16 one (whose float32 outputs follow bfloat16 roundings
-  too, as ``chip_smoke.py`` holds them);
+- the kernel instantiations whose arithmetic this build changed
+  (``REDESIGNED``: #8 and #7 in float32, 3xTF32 on tf32 wgmma) are held
+  within ``chip_smoke.KERNEL_REL_TOL`` of each output's scale in float32 and
+  ``BF16_KERNEL_REL_TOL`` in bfloat16 (whose float32 outputs follow
+  bfloat16 roundings too, as ``chip_smoke.py`` holds them);
 - every other output equals the other build's bit for bit;
 - the wrappers of ``REDESIGNED`` and ``TIMED`` (none in this build) are
   timed with CUDA events in this process on the calls both builds take,
@@ -44,8 +45,9 @@ The rules:
   (``torch.ops.arreau_tpu_torch.*``) in both builds, as the model calls
   them;
 - end to end, in the same order: a training step (256 x 16, hidden 200)
-  and a sampler forward (128 x 8) in float32 and in bfloat16, each build's
-  model on the same seeded weights and inputs (``time_paths``).
+  and a sampler forward (128 x 8) in float32 and in bfloat16, and an
+  N-body training step, each build's model on the same seeded weights and
+  inputs (``time_paths``).
 
 Exits non-zero if a rule fails.
 """
@@ -72,10 +74,11 @@ MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
            "fiber_conv": "fiber_conv", "fiber_conv_bwd": "fiber_conv",
            "convnext_mlp": "convnext_mlp", "convnext_mlp_bwd": "convnext_mlp",
            "fused_basis_mlp": "fused_basis_mlp", "fused_basis_mlp_bwd": "fused_basis_mlp"}
-# kernels whose arithmetic differs from the builds before this one's (held
-# to a tolerance), and kernels whose source changed without a change of
-# arithmetic (held bit for bit); both timed in both builds
-REDESIGNED = ("spatial_conv", "spatial_conv_bwd")
+# kernels whose arithmetic differs from the builds before this one's in the
+# instantiations of the element types given (held to a tolerance; their
+# other instantiations bit for bit), and kernels whose source changed without
+# a change of arithmetic (held bit for bit); both timed in both builds
+REDESIGNED = {"basis_h1": (torch.float32,), "basis_mlp_bwd": (torch.float32,)}
 TIMED = ()
 # forward kernels the port calls through their PyTorch operators since the
 # operators were registered: timed through the operator in this build and
@@ -88,9 +91,29 @@ HOST_CALLS = 50
 PATH_BLOCKS, PATH_RUNS = 5, 10
 
 
+def nbody_batch(dev):
+    """100 seeded systems of 5 charged bodies (the N-body CLI's batch size),
+    as the package in ``sys.modules`` takes them."""
+    from arreau_tpu_torch.tasks.nbody import NBodyBatch
+
+    g = torch.Generator().manual_seed(smoke.SEED)
+    pos, vel, shift = (torch.randn((100, 5, 3), generator=g) for _ in range(3))
+    charges = torch.where(torch.rand((100, 5), generator=g) < 0.5, -1.0, 1.0)
+    return NBodyBatch(*(t.to(dev) for t in (pos, vel, charges, pos + 0.1 * shift)))
+
+
+def nbody_model(dev):
+    """The N-body CLI's model (``NBodyConfig()``) on seeded weights."""
+    from arreau_tpu_torch.tasks.nbody import NBodyConfig, NBodyModel
+
+    model = NBodyModel(NBodyConfig(), dev)
+    model.init(prng.prng_key(smoke.SEED))
+    return model
+
+
 def captured_inputs(dev) -> dict:
     """{(path, kernel name): wrapper arguments} of the first call of each
-    kernel on the eight paths, and of #5/#6's calls in both types."""
+    kernel on the nine paths, and of #5/#6's calls in both types."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import pack_dense_batch
     from arreau_tpu_torch.tasks.diffusion import (
@@ -185,6 +208,11 @@ def captured_inputs(dev) -> dict:
             model.loss(batch, noise)[0].backward()
         captured.update({(path, name): a for name, a in args.items()})
         del model
+
+    model = nbody_model(dev)
+    with smoke.capturing() as args:
+        model.loss(nbody_batch(dev))[0].backward()
+    captured.update({("nbody training", name): a for name, a in args.items()})
     return captured
 
 
@@ -223,7 +251,7 @@ def time_redesigned(captured: dict) -> dict:
     times = {}
     with torch.no_grad():
         for (path, name), args in captured.items():
-            if name not in REDESIGNED + TIMED + OPERATORS:
+            if name not in (*REDESIGNED, *TIMED, *OPERATORS):
                 continue
             fn = wrapper(name)
             if name in OPERATORS:
@@ -241,9 +269,9 @@ def block_ms(fn) -> tuple:
 def time_paths(dev) -> dict:
     """{path: (fastest, median) ms per call} of a training step (256 x 16,
     hidden 200, ``diffuse_angles``) and a sampler forward (128 x 8) in
-    float32 and bfloat16, the models, optimizer and step of the package in
-    ``sys.modules`` on seeded weights (``block_ms``: CUDA events, the host's
-    launch gaps included)."""
+    float32 and bfloat16, and of an N-body training step (float32), the
+    models, optimizer and step of the package in ``sys.modules`` on seeded
+    weights (``block_ms``: CUDA events, the host's launch gaps included)."""
     from arreau_tpu_torch.data.atoms import synthetic_z_table
     from arreau_tpu_torch.data.crystal import pack_dense_batch
     from arreau_tpu_torch.tasks.diffusion import (
@@ -277,6 +305,10 @@ def time_paths(dev) -> dict:
         times[f"{dtype} training step"] = block_ms(
             lambda: train_step(model, optimizer, None, batch, noise))
         del model, optimizer
+    model, nbody = nbody_model(dev), nbody_batch(dev)
+    optimizer = AdamW(model.model, lambda count: 1e-3, weight_decay=1e-10)
+    times["float32 nbody training step"] = block_ms(
+        lambda: train_step(model, optimizer, None, nbody))
     return times
 
 
@@ -368,8 +400,8 @@ def main(argv: list[str]) -> int:
         if again[key, i] is not None:
             line += f"; VARIES from call to call in this build, by up to {again[key, i]:.3e}"
             ok = False
-        if key[1] in REDESIGNED:
-            bf16 = any(torch.is_tensor(t) and t.dtype == torch.bfloat16 for t in captured[key])
+        bf16 = any(torch.is_tensor(t) and t.dtype == torch.bfloat16 for t in captured[key])
+        if (torch.bfloat16 if bf16 else torch.float32) in REDESIGNED.get(key[1], ()):
             tol = smoke.BF16_KERNEL_REL_TOL if bf16 else smoke.KERNEL_REL_TOL
             rel = (diff or 0.0) / max(a.float().abs().max().item(), 1e-30)
             line += f" (rel {rel:.3e}, tolerance {tol:g})"

@@ -700,6 +700,81 @@ def test_bf16_basis_kernels_repeat_and_match_plain_at_every_shape(Bp, O, d, E, H
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,d,E,H,D,degree,n_g", BF16_BASIS_SHAPES)
+def test_f32_basis_kernels_repeat_and_match_plain_at_every_shape(Bp, O, d, E, H, D, degree, n_g):
+    """#8 and #7 in float32 (3xTF32 on tf32 wgmma, csrc/basis_f32_sm90.cuh)
+    at every shape the port hands them (the bfloat16 list above: the
+    training, serving and flagship cells, N-body, MNIST, the ragged shapes,
+    one to sixteen cotangents), each called twice: one launch a call, every
+    output equal on both calls, #8 within REL_TOL and #7 within BWD_REL_TOL
+    of the plain versions."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(23), dev, torch.float32, Bp, O, d, E, H, D,
+                           degree, n_g)
+    before = (basis_h1.launches, basis_mlp_bwd.launches)
+    h1 = [basis_h1(*args[:3], degree) for _ in range(2)]
+    grads = [basis_mlp_bwd(*args, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (basis_h1.launches, basis_mlp_bwd.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(h1[0], h1[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    _assert_close(h1[0], basis_h1_plain(*args[:3], degree))
+    for a, b in zip(grads[0], basis_mlp_bwd_plain(*args, gs)):
+        assert a.dtype == torch.float32
+        _assert_close(a, b, BWD_REL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_basis_weight_copies_follow_the_weights(dtype):
+    """#8 and #7 keep the weights' K-major copies for each state of W1 and W2:
+    after an in-place update, after a new storage (``.data =``) and for
+    tensors made in inference mode (no version counter: #8's launch copies
+    such a W1 in its own call), both kernels use the weights they are
+    given."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(24), dev, dtype, 2, 3, 6, 100, 70, 37, 3, 2)
+    attrT, w1, b1, w2, b2, degree = args
+    f32 = dtype == torch.float32
+
+    def check():
+        a = (attrT, w1, b1, w2, b2, degree)
+        _assert_close(basis_h1(*a[:3], degree), basis_h1_plain(*a[:3], degree),
+                      REL_TOL if f32 else BF16_REL_TOL)
+        for got, want in zip(basis_mlp_bwd(*a, gs), basis_mlp_bwd_plain(*a, gs)):
+            _assert_close(got, want, BWD_REL_TOL if f32 else BF16_REL_TOL)
+
+    check()
+    w1.mul_(-0.5)
+    w2.mul_(2.0)
+    check()
+    w1.data = torch.flip(w1, dims=(1,)).contiguous()
+    w2.data = torch.flip(w2, dims=(0,)).contiguous()
+    check()
+    with torch.inference_mode():
+        w1, w2 = w1.to(dtype) * 2.0, w2.to(dtype) * 0.5
+        check()
+        w1.add_(0.25)
+        w2.sub_(0.25)
+        check()
+
+
+@pytest.mark.cuda
+def test_f32_basis_kernels_refuse_widths_past_one_accumulator():
+    """The float32 kernels hold all of H and of D in one wgmma accumulator
+    (N <= 256) too: wider layers raise on the card rather than fall back."""
+    dev = _device()
+    args, gs = _basis_args(np.random.default_rng(22), dev, torch.float32, 1, 2, 6, 64, 300,
+                           32, 3, 1)
+    with pytest.raises(ValueError, match="<= 256"):
+        basis_h1(*args[:3], 3)
+    args, gs = _basis_args(np.random.default_rng(22), dev, torch.float32, 1, 2, 6, 64, 32,
+                           300, 3, 1)
+    with pytest.raises(ValueError, match="<= 256"):
+        basis_mlp_bwd(*args, gs)
+
+
+@pytest.mark.cuda
 def test_bf16_basis_kernels_refuse_widths_past_one_accumulator():
     """The bfloat16 kernels hold all of H and of D in one wgmma accumulator
     (N <= 256): wider layers raise on the card rather than fall back."""

@@ -15,13 +15,14 @@ It also prints, without asserting, what 1-pass TF32 (``cvt.rna`` of each
 operand, one product) gives on the same inputs: the open question of
 whether the float32 path could take the JAX kernel's own 1-pass precision.
 
-The same holds for the basis MLP's kernels, whose float32 products run as
-3xTF32 too: #8 (``csrc/basis_h1.cu``: h1_pre = poly @ W1 + b1, the bias
-added after the product) and #7's five products (``csrc/basis_mlp_bwd.cu``:
-h1 recomputed with its ones column in the padded scratch row, dpre2 from
-the summed cotangents, dW2|db2 and dW1|db1 as split-K products whose
-per-split partials are added in split order, dpre1 between them), each
-output within 1e-5 of the float64 plain version's scale.
+The same holds for the basis MLP's float32 algorithm, whose products run as
+3xTF32 too: #8 (h1_pre = poly @ W1 + b1, the bias added after the product)
+and #7's five products (h1 recomputed, here with its ones column in a padded
+scratch row, dpre2 from the summed cotangents, dW2|db2 and dW1|db1 as
+split-K products whose per-split partials are added in split order, dpre1
+between them), each output within 1e-5 of the float64 plain version's
+scale. (The kernels' own order on tf32 wgmma, ``csrc/basis_f32_sm90.cuh``,
+is emulated in ``tests/test_torch_basis_sm90.py``.)
 
 And for the forward convs, whose per-edge kernels run as 3xTF32 too: #3
 (``csrc/spatial_conv.cu`` through ``csrc/conv_fwd.cuh``: each neighbour
@@ -60,12 +61,13 @@ import pytest
 import torch
 
 from arreau_tpu_torch.kernels.basis_h1 import basis_h1_plain, poly_features_t
-from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd_plain, padded_hidden
+from arreau_tpu_torch.kernels.basis_mlp import basis_mlp_bwd_plain
 from arreau_tpu_torch.kernels.build import row_splits
 from arreau_tpu_torch.kernels.convnext_mlp import (
     MIN_ROW_BLOCK,
     convnext_mlp_bwd_plain,
     convnext_mlp_plain,
+    padded_hidden,
 )
 from arreau_tpu_torch.kernels.fiber_conv import fiber_conv_plain
 from arreau_tpu_torch.kernels.fused_basis_mlp import (
@@ -286,8 +288,9 @@ def test_3xtf32_basis_products_keep_float32_precision(basis_case, i, name):
 @pytest.mark.parametrize("H,Hg", [(1, 8), (7, 8), (8, 16), (33, 40), (70, 72), (200, 208),
                                   (256, 264)])
 def test_padded_hidden_keeps_a_ones_column_and_aligned_rows(H, Hg):
-    """#7's scratch row: the H hidden units and the ones column, rounded up
-    to 8 elements (16 bytes in bfloat16, 32 in float32)."""
+    """A scratch row of the H units and the ones column (#10's, and this
+    file's basis emulation's), rounded up to 8 elements (16 bytes in
+    bfloat16, 32 in float32)."""
     assert padded_hidden(H) == Hg
 
 
