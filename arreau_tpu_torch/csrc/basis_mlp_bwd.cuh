@@ -92,25 +92,8 @@ basis_dpre1_kernel(Operand<T> dpre2,           // [rows, D]
 }
 
 // 3. partial[split, m, n] = sum over the split's rows of A[row, m] * B[row, n]
-//    with A = h1 ([rows, Hg], M = H) and B = dpre2 ([rows, D])
-template <class T>
-__global__ void __launch_bounds__(WideTile<T, false, false>::THREADS, MIN_BLOCKS)
-basis_dw2_partial_kernel(Operand<T> a, Operand<T> b, float* __restrict__ partial,
-                         long long rows, int rows_per_split, int M, int N) {
-    using P = WideTile<T, false, false>;
-    const int n_tiles = (N + P::BN - 1) / P::BN;
-    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
-    const long long k0 = (long long)blockIdx.y * rows_per_split;
-    const int K = (int)min(rows - k0, (long long)rows_per_split);
-    typename P::Acc acc = {};
-    P::run({a.p + k0 * a.ld + m0, a.ld, a.vec}, {b.p + k0 * b.ld + n0, b.ld, b.vec}, K, M - m0,
-           N - n0, shared_buffer<T>(), acc);
-    float* out = partial + (size_t)blockIdx.y * M * N + (size_t)m0 * N + n0;
-    P::for_each(acc, [&](int m, int n, float v0, float v1) {
-        if (m0 + m < M && n0 + n < N)
-            store2(out + (size_t)m * N + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
-    });
-}
+//    with A = h1 ([rows, Hg], M = H) and B = dpre2 ([rows, D]):
+//    wide_rows_partial_kernel (tile_product.cuh)
 
 // 5. partial[split, f, h] = sum over the split's rows of poly[row, f] * dpre1[row, h]
 //    (M = F): A built into each stage from the stage's rows of invariants
@@ -216,9 +199,9 @@ int basis_mlp_bwd(const T* attr, const T* w1, const T* w2, const T* g, T* h1, T*
 
     using WG = WideTile<T, false, false>;
     const int m2 = H;
-    if ((err = allow_smem(basis_dw2_partial_kernel<T>, WG::SMEM)) != cudaSuccess)
+    if ((err = allow_smem(wide_rows_partial_kernel<T>, WG::SMEM)) != cudaSuccess)
         return static_cast<int>(err);
-    basis_dw2_partial_kernel<T>
+    wide_rows_partial_kernel<T>
         <<<dim3(((m2 + WG::BM - 1) / WG::BM) * ((D + WG::BN - 1) / WG::BN), splits),
            WG::THREADS, WG::SMEM, stream>>>(operand<T>(h1, Hg), operand<T>(dpre2, D), partial,
                                             rows, rows_per_split, m2, D);

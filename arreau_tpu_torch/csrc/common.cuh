@@ -1,7 +1,8 @@
 // What the port's kernels share outside their tile products: the
 // tanh-approximation GELU and its derivative, and the fixed-order second
-// pass of a split reduction (per-split float32 partials added in split
-// order, so that every output is the same bit for bit on every call).
+// passes of a split reduction (per-split float32 partials added in split
+// order, or many row blocks' partials of a few outputs, so that every output
+// is the same bit for bit on every call).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +46,30 @@ sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ out, in
         float s = 0.f;
         for (int k = 0; k < splits; ++k) s += partial[k * n + i];
         out[i] = s;
+    }
+}
+
+// out[i] = sum over the row blocks b of part[b * n + i], for many blocks and
+// few outputs (a block of THREADS threads for each 32 outputs): a warp's
+// lanes take 32 consecutive outputs, its 8 warps every 8th block (each in
+// ascending order), and the warps' sums are added in warp order. Static, as
+// sum_splits_kernel.
+static __global__ void __launch_bounds__(THREADS)
+sum_blocks_kernel(const float* __restrict__ part, float* __restrict__ out, int blocks,
+                  long long n) {
+    constexpr int WARPS = THREADS / 32;
+    __shared__ float warp_sum[WARPS][32];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const long long i = blockIdx.x * 32LL + lane;
+    float v = 0.f;
+    if (i < n)
+        for (int b = warp; b < blocks; b += WARPS) v += part[b * n + i];
+    warp_sum[warp][lane] = v;
+    __syncthreads();
+    if (warp == 0 && i < n) {
+        float total = 0.f;
+        for (int w = 0; w < WARPS; ++w) total += warp_sum[w][lane];
+        out[i] = total;
     }
 }
 

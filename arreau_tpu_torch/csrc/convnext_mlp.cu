@@ -1,5 +1,5 @@
-// Fused ConvNext MLP tail with the per-layer readout, forward, float32 or
-// bfloat16, for sm_90a.
+// Fused ConvNext MLP tail with the per-layer readout, forward, float32, for
+// sm_90a (bfloat16: convnext_mlp_sm90.cu).
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_convnext.py:_fwd_kernel (the
 // forward of fused_convnext_mlp, reached through _fwd). For each row (one
@@ -8,23 +8,21 @@
 //   yl  = LayerNorm(xc) (scale ln_s, bias ln_b)
 //   m   = gelu(yl @ W1 + b1) @ W2 + b2          (C -> W = 4C -> C)
 //   out = res + gamma * m
-//   r   = out @ Wr + br                          (optional readout, float32)
+//   r   = out @ Wr + br                          (optional readout)
 //
-// with the JAX kernel's rounding points for the element type T (see
-// convnext_rows.cuh). out is stored in T, r in float32.
+// all in float32 (convnext_rows.cuh).
 //
 // Bound on the H100: 2*M*(2*C*W + C*R) operations (42.4 GFLOP at the
-// training shape, M = 65536 rows, C = 200, W = 800, R = 19) against ~110 MB
-// of traffic (xc, res and out, r), so arithmetic bounds it: 0.043 ms at the
-// 989 TFLOP/s of the bf16 tensor cores, 0.26 ms at float32's 3xTF32 rate.
-// Design: rows are independent, so a block owns 128 (bfloat16) or 64 rows
-// and their whole channel width (convnext_rows.cuh): LayerNorm into shared
-// memory, then both products on the tensor cores, the hidden width in
+// training shape, M = 65536 rows, C = 200, W = 800, R = 19) against ~160 MB
+// of traffic (xc, res and out, r), so arithmetic bounds it: 0.26 ms at
+// float32's 3xTF32 rate. Design: rows are independent, so a block owns 64
+// rows and their whole channel width (convnext_rows.cuh): LayerNorm into
+// shared memory, then both products on the tensor cores, the hidden width in
 // chunks whose activations are formed in shared memory and folded at once
 // into m's float32 accumulators in registers, so neither pre1 nor h reaches
 // device memory. The epilogue forms out from m in 16-byte row chunks and
-// the float32 readout, about 1% of the work, runs on the CUDA cores from
-// out in shared memory.
+// the readout, about 1% of the work, runs on the CUDA cores from out in
+// shared memory.
 //
 // arreau_tile_product_staged runs TileProduct::product (tile_product.cuh)
 // on two matrices, at the row blocks' odd count of n8 tiles a warp: the card
@@ -36,10 +34,10 @@ namespace {
 
 using namespace arreau;
 
-template <class T, int CN>
+template <int CN>
 __global__ void __launch_bounds__(ROW_THREADS, 1)
-convnext_fwd_kernel(ConvNextArgs<T> a, T* __restrict__ out, float* __restrict__ r_out) {
-    using B = RowBlock<T, CN>;
+convnext_fwd_kernel(ConvNextArgs a, float* __restrict__ out, float* __restrict__ r_out) {
+    using B = RowBlock<CN>;
     const typename B::Smem s = B::carve();
     const long long row0 = (long long)blockIdx.x * B::RB;
     const int nch = B::chunks(a.W);
@@ -54,7 +52,7 @@ convnext_fwd_kernel(ConvNextArgs<T> a, T* __restrict__ out, float* __restrict__ 
         const long long row = row0 + r;
         if (row >= a.M || c0 >= a.C) return;
         const int count = min(B::CH, a.C - c0);
-        T* sa = s.a + r * B::LD_A + c0;
+        float* sa = s.a + r * B::LD_A + c0;
         float m[B::CH], o[B::CH];
         load_chunk(m, sa, B::CH, true);
         B::residual_out(a, row, c0, count, m, o);
@@ -69,20 +67,20 @@ convnext_fwd_kernel(ConvNextArgs<T> a, T* __restrict__ out, float* __restrict__ 
         const int r = i / a.R, q = i - r * a.R;
         const long long row = row0 + r;
         if (row >= a.M) break;
-        const T* o = s.a + r * B::LD_A;
+        const float* o = s.a + r * B::LD_A;
         float v = 0.f;
-        for (int c = 0; c < a.C; ++c) v += to_float(o[c]) * a.wr[c * a.R + q];
+        for (int c = 0; c < a.C; ++c) v += o[c] * a.wr[c * a.R + q];
         r_out[row * a.R + q] = v + a.br[q];
     }
 }
 
-template <class T, int CN>
-cudaError_t launch_fwd(const ConvNextArgs<T>& a, T* out, float* r, cudaStream_t stream) {
-    using B = RowBlock<T, CN>;
-    const cudaError_t err = allow_smem(convnext_fwd_kernel<T, CN>, B::SMEM);
+template <int CN>
+cudaError_t launch_fwd(const ConvNextArgs& a, float* out, float* r, cudaStream_t stream) {
+    using B = RowBlock<CN>;
+    const cudaError_t err = allow_smem(convnext_fwd_kernel<CN>, B::SMEM);
     if (err != cudaSuccess) return err;
     const unsigned blocks = static_cast<unsigned>((a.M + B::RB - 1) / B::RB);
-    convnext_fwd_kernel<T, CN><<<blocks, ROW_THREADS, B::SMEM, stream>>>(a, out, r);
+    convnext_fwd_kernel<CN><<<blocks, ROW_THREADS, B::SMEM, stream>>>(a, out, r);
     return cudaGetLastError();
 }
 
@@ -132,28 +130,21 @@ int tile_product_staged(const T* a, const T* b, float* d, int M, int N, int K,
 
 }  // namespace
 
-// xc [M, C], ln_s, ln_b, gamma [C] float32; res [M, C], w1 [C, W], b1 [W],
-// w2 [W, C], b2 [C] and out [M, C] float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); wr [C, R], br [R] and r [M, R] float32, or all three null
-// (no readout). C <= 256.
-extern "C" int arreau_convnext_mlp_fwd(const float* xc, const void* res, const float* ln_s,
-                                       const float* ln_b, const void* w1, const void* b1,
-                                       const void* w2, const void* b2, const float* gamma,
-                                       const float* wr, const float* br, void* out, float* r,
-                                       int M, int C, int W, int R, int is_bf16,
-                                       void* stream_ptr) {
+// xc [M, C], ln_s, ln_b, gamma [C], res [M, C], w1 [C, W], b1 [W], w2 [W, C],
+// b2 [C] and out [M, C] float32; wr [C, R], br [R] and r [M, R] float32, or
+// all three null (no readout). C <= 256. (bfloat16: convnext_mlp_sm90.cu.)
+extern "C" int arreau_convnext_mlp_fwd(const float* xc, const float* res, const float* ln_s,
+                                       const float* ln_b, const float* w1, const float* b1,
+                                       const float* w2, const float* b2, const float* gamma,
+                                       const float* wr, const float* br, float* out, float* r,
+                                       int M, int C, int W, int R, void* stream_ptr) {
     if (C < 1 || C > MAX_CHANNELS) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err = cudaSuccess;
-    ARREAU_DISPATCH_DTYPE(is_bf16, {
-        const bool rows_vec = rows_aligned(static_cast<const T*>(res), C) &&
-                              rows_aligned(static_cast<const T*>(out), C);
-        const ConvNextArgs<T> a =
-            convnext_args<T>(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R,
-                             rows_vec);
-        err = C <= MODEL_CN ? launch_fwd<T, MODEL_CN>(a, static_cast<T*>(out), r, stream)
-                            : launch_fwd<T, MAX_CHANNELS>(a, static_cast<T*>(out), r, stream);
-    });
+    const bool rows_vec = rows_aligned(res, C) && rows_aligned(out, C);
+    const ConvNextArgs a =
+        convnext_args(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R, rows_vec);
+    const cudaError_t err = C <= MODEL_CN ? launch_fwd<MODEL_CN>(a, out, r, stream)
+                                          : launch_fwd<MAX_CHANNELS>(a, out, r, stream);
     return static_cast<int>(err);
 }
 

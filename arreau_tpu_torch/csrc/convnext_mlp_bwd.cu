@@ -1,5 +1,5 @@
-// Fused ConvNext MLP tail with the per-layer readout, backward, float32 or
-// bfloat16, for sm_90a.
+// Fused ConvNext MLP tail with the per-layer readout, backward, float32, for
+// sm_90a (bfloat16: convnext_mlp_bwd_sm90.cu).
 //
 // Replaces the TPU kernel arreau_tpu/ops/pallas_convnext.py:_bwd_kernel (the
 // VJP of fused_convnext_mlp, reached through _bwd). The forward is recomputed
@@ -7,7 +7,7 @@
 // g_r the cotangents of out and r:
 //
 //   g_total = g_out + g_r @ Wr^T               dWr = out^T g_r, dbr = sum g_r
-//   dgamma  = sum_rows g_total * m             dres = g_total (stored in T)
+//   dgamma  = sum_rows g_total * m             dres = g_total
 //   dm      = g_total * gamma                  dW2 = h^T dm,    db2 = sum dm
 //   dh      = dm @ W2^T
 //   dpre1   = dh * gelu'(pre1)                 dW1 = yl^T dpre1, db1 = sum dpre1
@@ -15,22 +15,18 @@
 //   dln_s   = sum_rows dyln * xhat             dln_b = sum_rows dyln
 //   dxc     = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),  dxhat = dyln * ln_s
 //
-// (the last line is the VJP of the fast-variance LayerNorm). Rounding points
-// for T = bfloat16 (pallas_convnext.py:78-140): dm is rounded to T; dh is
-// summed in float32 and rounded to T; dpre1 = dh * gelu'(pre1) is rounded to
-// T; dyln, dxc and every parameter gradient are float32.
+// (the last line is the VJP of the fast-variance LayerNorm), all in float32.
 //
 // Bound on the H100: three times the forward's products, 2*M*(6*C*W +
 // 2*C*R) operations (127 GFLOP at the training shape), so arithmetic bounds
-// it: 0.13 ms at the bf16 tensor cores' rate, 0.77 ms at float32's 3xTF32
-// rate. On the TPU each grid step held a (b', o) block and carried the
+// it: 0.77 ms at float32's 3xTF32 rate. On the TPU each grid step held a (b', o) block and carried the
 // parameter gradients across the sequential o axis. Hopper's blocks run in
 // no order and per-block partials of dW1 and dW2 would take about 1.3 GB, so
 // the weight gradients are split-K products over device-memory scratch
 // written by a rows pass. Every product of width C or W runs on the tensor
-// cores (mma.sync, tile_product.cuh; 3xTF32 in float32):
+// cores (mma.sync in 3xTF32, tile_product.cuh):
 //
-//   1. rows (convnext_rows.cuh): a block of 128 (bfloat16) or 64 rows
+//   1. rows (convnext_rows.cuh): a block of 64 rows
 //      recomputes the forward (both products on the tensor cores, chunk by
 //      chunk), writing yl and h, each with a ones column, and pre1. From m
 //      it forms g_total (g_r @ Wr^T from Wr^T and g_r staged in shared
@@ -39,12 +35,13 @@
 //      cores, about 1% of the work) and takes its column sums of g_total *
 //      m. Then, with dm back in shared memory, chunk by chunk again (each
 //      stage brings the chunk's pre1 with W's slices): dh = dm @ W2[chunk]^T,
-//      dpre1 = round(round(dh) * gelu'(pre1)) (written over pre1 and into
+//      dpre1 = dh * gelu'(pre1) (written over pre1 and into
 //      shared memory) and dyln += dpre1 @ W1[:, chunk]^T, held in registers
 //      at full width; last the LayerNorm VJP, whose row sums stay in the
 //      block (a warp a row), writing dxc and the block's column sums of
 //      dyln * xhat and dyln.
-//   2. [dW2; db2]: split-K over the rows with A = [h | 1], B = dm.
+//   2. [dW2; db2]: split-K over the rows with A = [h | 1], B = dm
+//      (wide_rows_partial_kernel, tile_product.cuh).
 //   3. [dW1; db1]: split-K with A = [yl | 1], B = dpre1.
 //   4. the per-split and per-block partials are added in a fixed order (the
 //      row blocks' across a block's warps, sum_blocks_kernel).
@@ -60,15 +57,15 @@ namespace {
 using namespace arreau;
 
 // 1. The forward of a row block and the row-wise part of the backward.
-template <class T, int CN>
+template <int CN>
 __global__ void __launch_bounds__(ROW_THREADS, 1)
-convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
+convnext_bwd_rows_kernel(ConvNextArgs a, const float* __restrict__ g_out,
                          const float* __restrict__ g_r, float* __restrict__ dxc,
-                         T* __restrict__ dres, T* __restrict__ yl_ext, int Cg,
-                         T* pre1,  // [M, W]: pre1, then dpre1
-                         bool pre1_vec, T* __restrict__ h_ext, int Wg, T* __restrict__ dm_out,
+                         float* __restrict__ dres, float* __restrict__ yl_ext, int Cg,
+                         float* pre1,  // [M, W]: pre1, then dpre1
+                         bool pre1_vec, float* __restrict__ h_ext, int Wg, float* __restrict__ dm_out,
                          bool dm_vec, float* __restrict__ colpart) {
-    using B = RowBlock<T, CN>;
+    using B = RowBlock<CN>;
     constexpr int CH = B::CH;
     const typename B::Smem s = B::carve();
     const long long row0 = (long long)blockIdx.x * B::RB;
@@ -81,7 +78,7 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
     for (int i = threadIdx.x; i < B::RB * (Wg - a.W); i += ROW_THREADS) {
         const long long row = row0 + i / (Wg - a.W);
         const int c = a.W + i % (Wg - a.W);
-        if (row < a.M) h_ext[row * Wg + c] = from_float<T>(c == a.W ? 1.f : 0.f);
+        if (row < a.M) h_ext[row * Wg + c] = (c == a.W ? 1.f : 0.f);
     }
     typename B::WideAcc acc = {};
     B::forward_chunks(a, row0, s, nch, nch, acc, pre1, h_ext, Wg);
@@ -111,7 +108,7 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
     B::for_each_chunk([&](int r, int c0) {
         const long long row = row0 + r;
         if (row >= a.M || c0 >= a.C) return;
-        T* sa = s.a + r * B::LD_A + c0;
+        float* sa = s.a + r * B::LD_A + c0;
         const int count = min(CH, a.C - c0);
         const long long at = row * a.C + c0;
         float m[CH], g[CH], dm[CH] = {};
@@ -137,7 +134,7 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
 #pragma unroll
         for (int j = 0; j < CH; ++j) {
             if (j >= count) continue;
-            dm[j] = round_to<T>(g[j] * a.gamma[c0 + j]);
+            dm[j] = (g[j] * a.gamma[c0 + j]);
             dg[j] += g[j] * m[j];
         }
         store_chunk(dres + at, g, count, a.rows_vec);
@@ -167,7 +164,7 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
             float v[4] = {};
 #pragma unroll 4
             for (int r = 0; r < rows; ++r) {
-                const float o = c < a.C ? to_float(s.a[r * B::LD_A + c]) : 1.f;
+                const float o = c < a.C ? s.a[r * B::LD_A + c] : 1.f;
                 const float4 gq = *reinterpret_cast<const float4*>(grs + r * RP + q0);
                 v[0] += o * gq.x, v[1] += o * gq.y, v[2] += o * gq.z, v[3] += o * gq.w;
             }
@@ -178,7 +175,7 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
     }
     __syncthreads();  // every warp is done with sA and the stages
     // dm into sA (zero past M and C), with loop 2's first stage
-    load_tile<T, B::RB, CN, B::LD_A, ROW_THREADS>(s.a, dm_out + row0 * a.C, a.C,
+    load_tile<float, B::RB, CN, B::LD_A, ROW_THREADS>(s.a, dm_out + row0 * a.C, a.C,
                                                   (int)min((long long)B::RB, a.M - row0), a.C,
                                                   dm_vec);
     B::fetch_chunk(a, s, nch, nch, total, row0, pre1, pre1_vec);
@@ -192,8 +189,8 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
         // with stage q - 1
         __syncthreads();
         B::fetch_chunk(a, s, q + 1, nch, total, row0, pre1, pre1_vec);
-        const T* w1s = s.stage + q % 2 * B::STAGE;
-        const T* sp = s.pre1 + q % 2 * B::RB * B::LD_P;  // the chunk's pre1
+        const float* w1s = s.stage + q % 2 * B::STAGE;
+        const float* sp = s.pre1 + q % 2 * B::RB * B::LD_P;  // the chunk's pre1
         const int w0 = j * B::WC;
         typename B::ChunkAcc dh = {};
         B::template Chunk<true>::template product<CN>(s.a, B::LD_A, w1s + CN * B::LD_W1,
@@ -204,9 +201,9 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
             const bool live = row < a.M && w < a.W, second = live && w + 1 < a.W;
             const float2 p = load2(sp + m * B::LD_P + n, true, true);
             const float d0 =
-                live ? round_to<T>(round_to<T>(dh[i][jj][2 * hh]) * gelu_deriv(p.x)) : 0.f;
+                live ? ((dh[i][jj][2 * hh]) * gelu_deriv(p.x)) : 0.f;
             const float d1 =
-                second ? round_to<T>(round_to<T>(dh[i][jj][2 * hh + 1]) * gelu_deriv(p.y)) : 0.f;
+                second ? ((dh[i][jj][2 * hh + 1]) * gelu_deriv(p.y)) : 0.f;
             store2(s.h + m * B::LD_H + n, d0, d1, true, true);
             if (live) store2(pre1 + row * a.W + w, d0, d1, second, a.W % 2 == 0);
         });
@@ -275,37 +272,16 @@ convnext_bwd_rows_kernel(ConvNextArgs<T> a, const T* __restrict__ g_out,
     }
 }
 
-// 2./3. partial[split, m, n] = sum over the split's rows of A[row, m] *
-// B[row, n], A [rows, a.ld] and B [rows, b.ld] (m and n contiguous): [dW2;
-// db2] with A = [h | 1] (M = W + 1) and B = dm, [dW1; db1] with A = [yl | 1]
-// (M = C + 1) and B = dpre1
-template <class T>
-__global__ void __launch_bounds__(WideTile<T, false, false>::THREADS, MIN_BLOCKS)
-convnext_wgrad_partial_kernel(Operand<T> a, Operand<T> b, float* __restrict__ partial,
-                              long long rows, int rows_per_split, int M, int N) {
-    using P = WideTile<T, false, false>;
-    const int n_tiles = (N + P::BN - 1) / P::BN;
-    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
-    const long long k0 = (long long)blockIdx.y * rows_per_split;
-    const int K = (int)min(rows - k0, (long long)rows_per_split);
-    typename P::Acc acc = {};
-    P::run({a.p + k0 * a.ld + m0, a.ld, a.vec}, {b.p + k0 * b.ld + n0, b.ld, b.vec}, K, M - m0,
-           N - n0, shared_buffer<T>(), acc);
-    float* out = partial + (size_t)blockIdx.y * M * N + (size_t)m0 * N + n0;
-    P::for_each(acc, [&](int m, int n, float v0, float v1) {
-        if (m0 + m < M && n0 + n < N)
-            store2(out + (size_t)m * N + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
-    });
-}
-
-// [partial] = split-K partials of A^T B over the rows, then their fixed-order sum into out
-template <class T>
-cudaError_t weight_grad(Operand<T> a, Operand<T> b, float* partial, float* out, long long rows,
-                        int M, int N, int splits, int rows_per_split, cudaStream_t stream) {
-    using P = WideTile<T, false, false>;
-    cudaError_t err = allow_smem(convnext_wgrad_partial_kernel<T>, P::SMEM);
+// 2./3. [partial] = split-K partials of A^T B over the rows
+// (wide_rows_partial_kernel: [dW2; db2] with A = [h | 1] and B = dm, [dW1;
+// db1] with A = [yl | 1] and B = dpre1), then their fixed-order sum into out
+cudaError_t weight_grad(Operand<float> a, Operand<float> b, float* partial, float* out,
+                        long long rows, int M, int N, int splits, int rows_per_split,
+                        cudaStream_t stream) {
+    using P = WideTile<float, false, false>;
+    cudaError_t err = allow_smem(wide_rows_partial_kernel<float>, P::SMEM);
     if (err != cudaSuccess) return err;
-    convnext_wgrad_partial_kernel<T>
+    wide_rows_partial_kernel<float>
         <<<dim3(((M + P::BM - 1) / P::BM) * ((N + P::BN - 1) / P::BN), splits), P::THREADS,
            P::SMEM, stream>>>(a, b, partial, rows, rows_per_split, M, N);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -314,48 +290,26 @@ cudaError_t weight_grad(Operand<T> a, Operand<T> b, float* partial, float* out, 
     return cudaGetLastError();
 }
 
-// out[i] = sum over the row blocks b of part[b * n + i], for many blocks and
-// few outputs: a warp's lanes take 32 consecutive outputs, its 8 warps every
-// 8th block (each in ascending order), and the warps' sums are added in warp
-// order
-__global__ void __launch_bounds__(ROW_THREADS)
-sum_blocks_kernel(const float* __restrict__ part, float* __restrict__ out, int blocks,
-                  long long n) {
-    __shared__ float warp_sum[ROW_WARPS][32];
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    const long long i = blockIdx.x * 32LL + lane;
-    float v = 0.f;
-    if (i < n)
-        for (int b = warp; b < blocks; b += ROW_WARPS) v += part[b * n + i];
-    warp_sum[warp][lane] = v;
-    __syncthreads();
-    if (warp == 0 && i < n) {
-        float total = 0.f;
-        for (int w = 0; w < ROW_WARPS; ++w) total += warp_sum[w][lane];
-        out[i] = total;
-    }
-}
-
-template <class T, int CN>
-int convnext_mlp_bwd(const ConvNextArgs<T>& a, const T* g_out, const float* g_r, float* dxc,
-                     T* dres, float* dw1_ext, float* dw2_ext, float* dwr_ext, float* colsum,
-                     T* yl_s, T* pre1_s, T* h_s, T* dm_s, float* colpart,
+template <int CN>
+int convnext_mlp_bwd(const ConvNextArgs& a, const float* g_out, const float* g_r, float* dxc,
+                     float* dres, float* dw1_ext, float* dw2_ext, float* dwr_ext, float* colsum,
+                     float* yl_s, float* pre1_s, float* h_s, float* dm_s, float* colpart,
                      float* partial, int splits, int rows_per_split, cudaStream_t stream) {
-    using B = RowBlock<T, CN>;
+    using B = RowBlock<CN>;
     const int Cg = (a.C + 1 + 7) / 8 * 8, Wg = (a.W + 1 + 7) / 8 * 8;  // rows stay 16-byte aligned
     const unsigned blocks = static_cast<unsigned>((a.M + B::RB - 1) / B::RB);
-    cudaError_t err = allow_smem(convnext_bwd_rows_kernel<T, CN>, B::BWD_SMEM);
+    cudaError_t err = allow_smem(convnext_bwd_rows_kernel<CN>, B::BWD_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    convnext_bwd_rows_kernel<T, CN><<<blocks, ROW_THREADS, B::BWD_SMEM, stream>>>(
+    convnext_bwd_rows_kernel<CN><<<blocks, ROW_THREADS, B::BWD_SMEM, stream>>>(
         a, g_out, g_r, dxc, dres, yl_s, Cg, pre1_s, rows_aligned(pre1_s, a.W), h_s, Wg, dm_s,
         rows_aligned(dm_s, a.C), colpart);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-    if ((err = weight_grad<T>(operand<T>(h_s, Wg), operand<T>(dm_s, a.C), partial, dw2_ext, a.M,
-                              a.W + 1, a.C, splits, rows_per_split, stream)) != cudaSuccess)
+    if ((err = weight_grad(operand(h_s, Wg), operand(dm_s, a.C), partial, dw2_ext, a.M, a.W + 1,
+                           a.C, splits, rows_per_split, stream)) != cudaSuccess)
         return static_cast<int>(err);
-    if ((err = weight_grad<T>(operand<T>(yl_s, Cg), operand<T>(pre1_s, a.W), partial, dw1_ext,
-                              a.M, a.C + 1, a.W, splits, rows_per_split, stream)) != cudaSuccess)
+    if ((err = weight_grad(operand(yl_s, Cg), operand(pre1_s, a.W), partial, dw1_ext, a.M,
+                           a.C + 1, a.W, splits, rows_per_split, stream)) != cudaSuccess)
         return static_cast<int>(err);
 
     if (a.wr != nullptr) {
@@ -372,44 +326,35 @@ int convnext_mlp_bwd(const ConvNextArgs<T>& a, const T* g_out, const float* g_r,
 
 }  // namespace
 
-// Inputs as arreau_convnext_mlp_fwd, with g_out [M, C] (T) and g_r [M, R]
-// (float32; null without a readout). Outputs: dxc [M, C] float32, dres
-// [M, C] T, dw1_ext [C+1, W] = [dW1; db1], dw2_ext [W+1, C] = [dW2; db2],
-// dwr_ext [C+1, R] = [dWr; dbr] (unused without a readout) and colsum [3, C]
-// = (dgamma, dln_s, dln_b), all float32. Scratch in T: yl_s [M, Cg] and h_s
-// [M, Wg] (Cg, Wg = C + 1, W + 1 rounded up to 8), pre1_s [M, W] and dm_s
-// [M, C]; float32: colpart [at least ceil(M/64) * (3*C + (C+1)*R)] (the row
-// blocks' column sums, then their [dWr; dbr] partials) and partial [splits *
-// max((W+1)*C, (C+1)*W)]. R <= MAX_READOUT.
+// Inputs as arreau_convnext_mlp_fwd, with g_out [M, C] and g_r [M, R] (null
+// without a readout). Outputs: dxc [M, C], dres [M, C], dw1_ext [C+1, W] =
+// [dW1; db1], dw2_ext [W+1, C] = [dW2; db2], dwr_ext [C+1, R] = [dWr; dbr]
+// (unused without a readout) and colsum [3, C] = (dgamma, dln_s, dln_b).
+// Scratch: yl_s [M, Cg] and h_s [M, Wg] (Cg, Wg = C + 1, W + 1 rounded up to
+// 8), pre1_s [M, W] and dm_s [M, C]; colpart [at least ceil(M/64) * (3*C +
+// (C+1)*R)] (the row blocks' column sums, then their [dWr; dbr] partials) and
+// partial [splits * max((W+1)*C, (C+1)*W)]. All float32. R <= MAX_READOUT.
+// (bfloat16: convnext_mlp_bwd_sm90.cu.)
 extern "C" int arreau_convnext_mlp_bwd(
-    const float* xc, const void* res, const float* ln_s, const float* ln_b, const void* w1,
-    const void* b1, const void* w2, const void* b2, const float* gamma, const float* wr,
-    const float* br, const void* g_out, const float* g_r, float* dxc, void* dres, float* dw1_ext,
-    float* dw2_ext, float* dwr_ext, float* colsum, void* yl_s, void* pre1_s, void* h_s,
-    void* dm_s, float* colpart, float* partial, int M, int C, int W, int R,
-    int splits, int rows_per_split, int is_bf16, void* stream_ptr) {
+    const float* xc, const float* res, const float* ln_s, const float* ln_b, const float* w1,
+    const float* b1, const float* w2, const float* b2, const float* gamma, const float* wr,
+    const float* br, const float* g_out, const float* g_r, float* dxc, float* dres,
+    float* dw1_ext, float* dw2_ext, float* dwr_ext, float* colsum, float* yl_s, float* pre1_s,
+    float* h_s, float* dm_s, float* colpart, float* partial, int M, int C, int W, int R,
+    int splits, int rows_per_split, void* stream_ptr) {
     if (C < 1 || C > MAX_CHANNELS || (wr != nullptr && (R < 1 || R > MAX_READOUT)))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    int status = 0;
-    ARREAU_DISPATCH_DTYPE(is_bf16, {
-        const bool rows_vec =
-            rows_aligned(static_cast<const T*>(res), C) &&
-            rows_aligned(static_cast<const T*>(g_out), C) &&
-            rows_aligned(static_cast<const T*>(dres), C) &&
-            rows_aligned(static_cast<const T*>(dm_s), C);
-        const ConvNextArgs<T> a =
-            convnext_args<T>(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R,
-                             rows_vec);
-        const auto run = [&](auto cn) {
-            return convnext_mlp_bwd<T, decltype(cn)::value>(
-                a, static_cast<const T*>(g_out), g_r, dxc, static_cast<T*>(dres), dw1_ext,
-                dw2_ext, dwr_ext, colsum, static_cast<T*>(yl_s), static_cast<T*>(pre1_s),
-                static_cast<T*>(h_s), static_cast<T*>(dm_s), colpart,
-                partial, splits, rows_per_split, stream);
-        };
-        status = C <= MODEL_CN ? run(std::integral_constant<int, MODEL_CN>{})
-                               : run(std::integral_constant<int, MAX_CHANNELS>{});
-    });
-    return status;
+    const bool rows_vec = rows_aligned(res, C) && rows_aligned(g_out, C) &&
+                          rows_aligned(dres, C) && rows_aligned(dm_s, C);
+    const ConvNextArgs a =
+        convnext_args(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, M, C, W, R, rows_vec);
+    const auto run = [&](auto cn) {
+        return convnext_mlp_bwd<decltype(cn)::value>(a, g_out, g_r, dxc, dres, dw1_ext, dw2_ext,
+                                                     dwr_ext, colsum, yl_s, pre1_s, h_s, dm_s,
+                                                     colpart, partial, splits, rows_per_split,
+                                                     stream);
+    };
+    return C <= MODEL_CN ? run(std::integral_constant<int, MODEL_CN>{})
+                         : run(std::integral_constant<int, MAX_CHANNELS>{});
 }

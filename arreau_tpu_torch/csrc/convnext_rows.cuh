@@ -1,33 +1,27 @@
-// Row blocks of the fused ConvNext MLP (csrc/convnext_mlp.cu, #9, and the
-// rows pass of csrc/convnext_mlp_bwd.cu, #10): a block owns RB rows (one
-// row = one (b', o, t) position) and every one of their C <= 256 channels,
-// which LayerNorm and its VJP need whole.
+// Row blocks of the fused ConvNext MLP in float32 (csrc/convnext_mlp.cu, #9,
+// and the rows pass of csrc/convnext_mlp_bwd.cu, #10; bfloat16 runs
+// convnext_sm90.cuh's wgmma kernels): a block owns RB = 64 rows (one row =
+// one (b', o, t) position) and every one of their C <= 256 channels, which
+// LayerNorm and its VJP need whole.
 //
 // The widened activations never reach device memory in the forward: the
-// LayerNorm output yl sits in shared memory (sA, rounded to T) as the A
-// operand of pre1 = yl @ W1 + b1, which runs on the tensor cores
-// (TileProduct::product: mma.sync in bfloat16, or 3xTF32 in float32) one
-// chunk of WC hidden units at a time. The chunk's epilogue adds b1, rounds,
-// applies gelu and writes h into shared memory (sH) as the A operand of
+// LayerNorm output yl sits in shared memory (sA) as the A operand of pre1 =
+// yl @ W1 + b1, which runs on the tensor cores (TileProduct::product,
+// 3xTF32) one chunk of WC hidden units at a time. The chunk's epilogue adds
+// b1, applies gelu and writes h into shared memory (sH) as the A operand of
 // m += h @ W2[chunk, :], whose float32 accumulators stay in registers across
 // the chunks. The chunks' slices of W1 ([C, WC]) and W2 ([WC, C]) arrive by
 // cp.async in two alternating stages, the next chunk's while the tensor
 // cores work on this one's.
 //
-// Shapes: 8 warps, 4 along the rows and 2 along the columns. A block holds
-// CN = 208 columns (any C <= 208: the model's C = 200 is 26 n8 tiles, 4%
-// padding where 256-wide tiles would pad 22%) or CN = 256 (C <= 256), and
-// RB = 128 rows in bfloat16 at CN = 208 (a warp 32 rows x 13 n8 tiles: 104
-// float32 accumulators a thread), else 64 rows. The products over the
-// channels are CN deep (zero past C), fixed at compile time, as is the
-// chunk depth WC, so that every product unrolls.
+// Shapes: 8 warps, 4 along the rows and 2 along the columns, a warp 16 rows.
+// A block holds CN = 208 columns (any C <= 208: the model's C = 200 is 26 n8
+// tiles, 4% padding where 256-wide tiles would pad 22%) or CN = 256 (C <=
+// 256). The products over the channels are CN deep (zero past C), fixed at
+// compile time, as is the chunk depth WC, so that every product unrolls.
 //
-// Rounding points (pallas_convnext.py:_forward_block): LayerNorm in float32
-// with the fast variance and eps 1e-5; yl rounded to T; pre1 = yl @ W1 + b1
-// summed in float32 and rounded once to T; h = gelu(pre1) rounded to T (the
-// JAX kernel evaluates gelu in T); m = h @ W2 + b2 summed in float32 and
-// rounded once; out = res + gamma * m with gamma rounded to T and every
-// step rounded to T. For T = float all of that is plain float32.
+// Arithmetic (pallas_convnext.py:_forward_block in float32): LayerNorm with
+// the fast variance and eps 1e-5, every product summed in float32.
 #pragma once
 
 #include "dtype.cuh"
@@ -43,37 +37,35 @@ constexpr int MAX_CHANNELS = 256;
 constexpr int MODEL_CN = 208;  // the block width of C <= 208 (the model's C = 200)
 constexpr int MAX_READOUT = 64;  // readout columns #10 takes (Wr^T in shared memory)
 
-template <class T>
 struct ConvNextArgs {
     const float* xc;     // [M, C] conv output
-    const T* res;        // [M, C] residual
+    const float* res;    // [M, C] residual
     const float* ln_s;   // [C]
     const float* ln_b;   // [C]
-    const T* w1;         // [C, W]
-    const T* b1;         // [W]
-    const T* w2;         // [W, C]
-    const T* b2;         // [C]
+    const float* w1;     // [C, W]
+    const float* b1;     // [W]
+    const float* w2;     // [W, C]
+    const float* b2;     // [C]
     const float* gamma;  // [C] layer scale
     const float* wr;     // [C, R] readout, or null
     const float* br;     // [R]
     long long M;
     int C, W, R;
-    bool rows_vec;        // the [M, C] tensors in T have 16-byte aligned rows
+    bool rows_vec;        // the [M, C] tensors have 16-byte aligned rows
     bool w1_vec, w2_vec;  // W1's and W2's rows are 16-byte aligned (cp.async)
 };
 
 // The C entry points' arguments as ConvNextArgs; R is 0 without a readout.
-// rows_vec: whether every [M, C] tensor in T the caller reads or writes in
+// rows_vec: whether every [M, C] tensor the caller reads or writes in
 // 16-byte chunks has 16-byte aligned rows.
-template <class T>
-ConvNextArgs<T> convnext_args(const float* xc, const void* res, const float* ln_s,
-                              const float* ln_b, const void* w1, const void* b1, const void* w2,
-                              const void* b2, const float* gamma, const float* wr,
-                              const float* br, int M, int C, int W, int R, bool rows_vec) {
-    ConvNextArgs<T> a;
-    a.xc = xc, a.res = static_cast<const T*>(res), a.ln_s = ln_s, a.ln_b = ln_b;
-    a.w1 = static_cast<const T*>(w1), a.b1 = static_cast<const T*>(b1);
-    a.w2 = static_cast<const T*>(w2), a.b2 = static_cast<const T*>(b2);
+inline ConvNextArgs convnext_args(const float* xc, const float* res, const float* ln_s,
+                                  const float* ln_b, const float* w1, const float* b1,
+                                  const float* w2, const float* b2, const float* gamma,
+                                  const float* wr, const float* br, int M, int C, int W, int R,
+                                  bool rows_vec) {
+    ConvNextArgs a;
+    a.xc = xc, a.res = res, a.ln_s = ln_s, a.ln_b = ln_b;
+    a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2;
     a.gamma = gamma, a.wr = wr, a.br = br;
     a.M = M, a.C = C, a.W = W, a.R = wr != nullptr ? R : 0;
     a.rows_vec = rows_vec;
@@ -81,22 +73,21 @@ ConvNextArgs<T> convnext_args(const float* xc, const void* res, const float* ln_
     return a;
 }
 
-template <class T, int CN>
+template <int CN>
 struct RowBlock {
     static_assert(CN % 16 == 0 && CN <= MAX_CHANNELS, "whole k16 steps, at most 256 channels");
-    static constexpr int MT = sizeof(T) == 2 && CN <= MODEL_CN ? 2 : 1;  // m16 tiles a warp
-    static constexpr int RB = 4 * 16 * MT;                               // rows a block
-    // hidden units a chunk (16 in float32 at CN = 256, so that #10's shared
-    // memory fits)
-    static constexpr int WC = sizeof(T) == 2 ? 64 : CN <= MODEL_CN ? 32 : 16;
+    static constexpr int MT = 1;       // m16 tiles a warp
+    static constexpr int RB = 4 * 16;  // rows a block
+    // hidden units a chunk (16 at CN = 256, so that #10's shared memory fits)
+    static constexpr int WC = CN <= MODEL_CN ? 32 : 16;
     static constexpr int NTC = WC / 16, NTW = CN / 16;  // n8 tiles a warp: chunk, full width
     // [RB, WC] (a chunk of pre1; of dh in #10) and [RB, CN] (m; dyln in #10)
     // products; B_K: B stored [n][k] (else [k][n]). The accumulator layouts
     // of both B layouts agree.
     template <bool B_K>
-    using Chunk = TileProduct<T, true, B_K, 4, 2, MT, NTC>;
+    using Chunk = TileProduct<float, true, B_K, 4, 2, MT, NTC>;
     template <bool B_K>
-    using Wide = TileProduct<T, true, B_K, 4, 2, MT, NTW>;
+    using Wide = TileProduct<float, true, B_K, 4, 2, MT, NTW>;
     using ChunkAcc = typename Chunk<false>::Acc;
     using WideAcc = typename Wide<false>::Acc;
     static_assert(Chunk<false>::THREADS == ROW_THREADS, "8 warps");
@@ -105,22 +96,22 @@ struct RowBlock {
     // sH [RB][LD_H] (a chunk's h; dpre1 in #10), two stages of [CN][LD_W1]
     // (W1's chunk) and [WC][LD_W2] (W2's chunk), #10's row statistics and
     // its two slots of [RB][LD_P] (a chunk of pre1, arriving with the stage).
-    // Strides keep ldmatrix rows (bfloat16) or tf32 reads (float) on
-    // distinct banks and rows 16-byte aligned.
-    static constexpr int LD_A = CN + k_pad<T>();
-    static constexpr int LD_H = WC + k_pad<T>();
+    // Strides keep the tf32 reads on distinct banks and rows 16-byte
+    // aligned.
+    static constexpr int LD_A = CN + k_pad<float>();
+    static constexpr int LD_H = WC + k_pad<float>();
     static constexpr int LD_W1 = WC + 8;
     static constexpr int LD_W2 = CN + 8;
     static constexpr int STAGE = CN * LD_W1 + WC * LD_W2;
     static constexpr int LD_P = WC + 8;
     static constexpr int LD_ACC = CN + 8;  // float [RB][LD_ACC] staged over the stages
-    static constexpr size_t A_BYTES = (size_t)RB * LD_A * sizeof(T);
-    static constexpr size_t H_BYTES = (size_t)RB * LD_H * sizeof(T);
-    static constexpr size_t STAGE_BYTES = 2 * (size_t)STAGE * sizeof(T);
+    static constexpr size_t A_BYTES = (size_t)RB * LD_A * sizeof(float);
+    static constexpr size_t H_BYTES = (size_t)RB * LD_H * sizeof(float);
+    static constexpr size_t STAGE_BYTES = 2 * (size_t)STAGE * sizeof(float);
     static constexpr size_t SMEM = A_BYTES + H_BYTES + STAGE_BYTES + 2 * RB * sizeof(float);
-    static constexpr size_t BWD_SMEM = SMEM + 2 * (size_t)RB * LD_P * sizeof(T);
+    static constexpr size_t BWD_SMEM = SMEM + 2 * (size_t)RB * LD_P * sizeof(float);
     // 16-byte chunks of a row; for_each_chunk's row groups
-    static constexpr int CH = 16 / sizeof(T), PER_ROW = CN / CH, RG = ROW_THREADS / PER_ROW;
+    static constexpr int CH = 16 / sizeof(float), PER_ROW = CN / CH, RG = ROW_THREADS / PER_ROW;
     static_assert(BWD_SMEM <= 232448, "a block's shared memory");
     static_assert((size_t)MAX_READOUT * (CN + RB) * sizeof(float) <= STAGE_BYTES,
                   "Wr^T and the rows of g_r over the stages");
@@ -129,18 +120,18 @@ struct RowBlock {
     static_assert((size_t)2 * ROW_WARPS * CN * sizeof(float) <= A_BYTES, "column sums of warps");
 
     struct Smem {
-        T* a;
-        T* h;
-        T* stage;
+        float* a;
+        float* h;
+        float* stage;
         float* stats;  // [2][RB]: each row's mean and 1/std
-        T* pre1;       // two [RB][LD_P] slots (#10)
+        float* pre1;       // two [RB][LD_P] slots (#10)
     };
     __device__ __forceinline__ static Smem carve() {
         unsigned char* p = shared_buffer<unsigned char>();
         unsigned char* stats = p + A_BYTES + H_BYTES + STAGE_BYTES;
-        return {reinterpret_cast<T*>(p), reinterpret_cast<T*>(p + A_BYTES),
-                reinterpret_cast<T*>(p + A_BYTES + H_BYTES), reinterpret_cast<float*>(stats),
-                reinterpret_cast<T*>(stats + 2 * RB * sizeof(float))};
+        return {reinterpret_cast<float*>(p), reinterpret_cast<float*>(p + A_BYTES),
+                reinterpret_cast<float*>(p + A_BYTES + H_BYTES), reinterpret_cast<float*>(stats),
+                reinterpret_cast<float*>(stats + 2 * RB * sizeof(float))};
     }
 
     __host__ __device__ static int chunks(int W) { return (W + WC - 1) / WC; }
@@ -148,38 +139,38 @@ struct RowBlock {
     // Starts the copies of stage q of the ring (chunk q % nch's slices of W1
     // and W2, zero outside C and W; with pre1, also the block's rows of that
     // chunk of pre1 [M, W] into slot q % 2) if q < total, and commits.
-    __device__ __forceinline__ static void fetch_chunk(const ConvNextArgs<T>& a, const Smem& s,
+    __device__ __forceinline__ static void fetch_chunk(const ConvNextArgs& a, const Smem& s,
                                                        int q, int nch, int total,
                                                        long long row0 = 0,
-                                                       const T* pre1 = nullptr,
+                                                       const float* pre1 = nullptr,
                                                        bool pre1_vec = false) {
         if (q < total) {
             const int w0 = q % nch * WC;
-            T* st = s.stage + q % 2 * STAGE;
-            load_tile<T, CN, WC, LD_W1, ROW_THREADS>(st, a.w1 + w0, a.W, a.C, a.W - w0, a.w1_vec);
-            load_tile<T, WC, CN, LD_W2, ROW_THREADS>(st + CN * LD_W1, a.w2 + (long long)w0 * a.C,
+            float* st = s.stage + q % 2 * STAGE;
+            load_tile<float, CN, WC, LD_W1, ROW_THREADS>(st, a.w1 + w0, a.W, a.C, a.W - w0, a.w1_vec);
+            load_tile<float, WC, CN, LD_W2, ROW_THREADS>(st + CN * LD_W1, a.w2 + (long long)w0 * a.C,
                                                      a.C, a.W - w0, a.C, a.w2_vec);
             if (pre1 != nullptr)
-                load_tile<T, RB, WC, LD_P, ROW_THREADS>(
+                load_tile<float, RB, WC, LD_P, ROW_THREADS>(
                     s.pre1 + q % 2 * RB * LD_P, pre1 + row0 * a.W + w0, a.W,
                     (int)min(a.M - row0, (long long)RB), a.W - w0, pre1_vec);
         }
         cp_async_commit();
     }
 
-    // LayerNorm of the block's rows into sA (rounded to T; zero on rows >= M
-    // and columns >= C), a warp a row, the lanes over the channels. Where
+    // LayerNorm of the block's rows into sA (zero on rows >= M and columns
+    // >= C), a warp a row, the lanes over the channels. Where
     // given, each row's mean and 1/std go to stats, and yl with a ones
     // column and zero padding to yl_ext [M, Cg].
-    __device__ static void layer_norm(const ConvNextArgs<T>& a, long long row0, const Smem& s,
-                                      float* stats, T* yl_ext, int Cg) {
+    __device__ static void layer_norm(const ConvNextArgs& a, long long row0, const Smem& s,
+                                      float* stats, float* yl_ext, int Cg) {
         constexpr int PER_LANE = (CN + 31) / 32;
         const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
         for (int r = warp; r < RB; r += ROW_WARPS) {
             const long long row = row0 + r;
-            T* ya = s.a + r * LD_A;
+            float* ya = s.a + r * LD_A;
             if (row >= a.M) {  // warp-uniform
-                for (int c = lane; c < CN; c += 32) ya[c] = from_float<T>(0.f);
+                for (int c = lane; c < CN; c += 32) ya[c] = 0.f;
                 continue;
             }
             const float* xr = a.xc + row * a.C;
@@ -202,12 +193,12 @@ struct RowBlock {
             for (int k = 0; k < PER_LANE; ++k) {
                 const int c = lane + 32 * k;
                 if (c < CN)
-                    ya[c] = from_float<T>(
+                    ya[c] = (
                         c < a.C ? (x[k] - mu) * rstd * a.ln_s[c] + a.ln_b[c] : 0.f);
             }
             if (yl_ext != nullptr)  // each lane reads back the columns it wrote
                 for (int c = lane; c < Cg; c += 32)
-                    yl_ext[row * Cg + c] = c < a.C ? ya[c] : from_float<T>(c == a.C ? 1.f : 0.f);
+                    yl_ext[row * Cg + c] = c < a.C ? ya[c] : (c == a.C ? 1.f : 0.f);
             if (stats != nullptr && lane == 0) {
                 stats[r] = mu;
                 stats[RB + r] = rstd;
@@ -231,30 +222,30 @@ struct RowBlock {
     }
 
     // m_acc += h @ W2 over the hidden chunks (b2 not added), h =
-    // round(gelu(round(yl @ W1 + b1))) from yl in sA; ring stage q holds
+    // gelu(yl @ W1 + b1) from yl in sA; ring stage q holds
     // chunk q (the caller fetched stage 0). Where given, pre1 [M, W] (from the
     // accumulators) and h [M, Wg] (from sH, 16 bytes a thread) are written
     // out. Ends with every warp past its last read of sA
     // (the last chunk's barrier), possibly still in its last h @ W2.
-    __device__ static void forward_chunks(const ConvNextArgs<T>& a, long long row0,
+    __device__ static void forward_chunks(const ConvNextArgs& a, long long row0,
                                           const Smem& s, int nch, int total, WideAcc& m_acc,
-                                          T* pre1_out, T* h_out, int Wg) {
+                                          float* pre1_out, float* h_out, int Wg) {
         for (int j = 0; j < nch; ++j) {
             cp_async_wait<0>();
             __syncthreads();  // stage j has landed; every warp is done with sH and stage j - 1
             fetch_chunk(a, s, j + 1, nch, total);
-            const T* w1s = s.stage + j % 2 * STAGE;
+            const float* w1s = s.stage + j % 2 * STAGE;
             ChunkAcc acc = {};
             Chunk<false>::template product<CN>(s.a, LD_A, w1s, LD_W1, acc);
             const int w0 = j * WC;
             chunk_pairs([&](int i, int hh, int jj, int m, int n) {
                 const int w = w0 + n;
                 const bool live = w < a.W, second = w + 1 < a.W;
-                const float p0 = live ? round_to<T>(acc[i][jj][2 * hh] + to_float(a.b1[w])) : 0.f;
+                const float p0 = live ? acc[i][jj][2 * hh] + a.b1[w] : 0.f;
                 const float p1 =
-                    second ? round_to<T>(acc[i][jj][2 * hh + 1] + to_float(a.b1[w + 1])) : 0.f;
-                const float h0 = live ? round_to<T>(gelu(p0)) : 0.f;
-                const float h1 = second ? round_to<T>(gelu(p1)) : 0.f;
+                    second ? acc[i][jj][2 * hh + 1] + a.b1[w + 1] : 0.f;
+                const float h0 = live ? gelu(p0) : 0.f;
+                const float h1 = second ? gelu(p1) : 0.f;
                 store2(s.h + m * LD_H + n, h0, h1, true, true);
                 const long long row = row0 + m;
                 if (pre1_out != nullptr && live && row < a.M)
@@ -266,8 +257,8 @@ struct RowBlock {
                     const int m = i / (WC / CH), n = i % (WC / CH) * CH, w = w0 + n;
                     const long long row = row0 + m;
                     if (row >= a.M || w >= a.W) continue;
-                    const T* src = s.h + m * LD_H + n;
-                    T* dst = h_out + row * Wg + w;  // 16-byte aligned: Wg a multiple of 8
+                    const float* src = s.h + m * LD_H + n;
+                    float* dst = h_out + row * Wg + w;  // 16-byte aligned: Wg a multiple of 8
                     if (w + CH <= a.W)
                         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
                     else
@@ -277,12 +268,12 @@ struct RowBlock {
         }
     }
 
-    // sA = m = round(m_acc + b2), zero in columns >= C. Call after
+    // sA = m = m_acc + b2, zero in columns >= C. Call after
     // forward_chunks: no warp reads sA any more.
-    __device__ static void store_m(const ConvNextArgs<T>& a, const WideAcc& m_acc, const Smem& s) {
+    __device__ static void store_m(const ConvNextArgs& a, const WideAcc& m_acc, const Smem& s) {
         Wide<false>::for_each(m_acc, [&](int m, int c, float v0, float v1) {
-            const float m0 = c < a.C ? round_to<T>(v0 + to_float(a.b2[c])) : 0.f;
-            const float m1 = c + 1 < a.C ? round_to<T>(v1 + to_float(a.b2[c + 1])) : 0.f;
+            const float m0 = c < a.C ? v0 + a.b2[c] : 0.f;
+            const float m1 = c + 1 < a.C ? v1 + a.b2[c + 1] : 0.f;
             store2(s.a + m * LD_A + c, m0, m1, true, true);
         });
     }
@@ -298,9 +289,9 @@ struct RowBlock {
         for (int r = threadIdx.x / PER_ROW; r < RB; r += RG) f(r, c0);
     }
 
-    // out = round(res + round(round(gamma) * m)) for the `count` channels of
+    // out = res + gamma * m for the `count` channels of
     // a chunk from c0 (0 past them)
-    __device__ __forceinline__ static void residual_out(const ConvNextArgs<T>& a, long long row,
+    __device__ __forceinline__ static void residual_out(const ConvNextArgs& a, long long row,
                                                         int c0, int count, const float* m,
                                                         float* out) {
         float r[CH];
@@ -308,7 +299,7 @@ struct RowBlock {
 #pragma unroll
         for (int j = 0; j < CH; ++j)
             out[j] = j < count
-                         ? round_to<T>(r[j] + round_to<T>(round_to<T>(a.gamma[c0 + j]) * m[j]))
+                         ? r[j] + a.gamma[c0 + j] * m[j]
                          : 0.f;
     }
 };

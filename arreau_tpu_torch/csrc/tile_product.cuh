@@ -464,3 +464,29 @@ Operand<T> operand(const T* p, long long ld) {
 }
 
 }  // namespace arreau
+
+namespace {
+
+// partial[split, m, n] = sum over the split's rows of A[row, m] * B[row, n],
+// A [rows, a.ld] and B [rows, b.ld] (m and n contiguous): the split-K
+// weight gradients of #6 and float32 #10 on WideTile, blockIdx.y the split
+template <class T>
+__global__ void __launch_bounds__(arreau::WideTile<T, false, false>::THREADS, arreau::MIN_BLOCKS)
+wide_rows_partial_kernel(arreau::Operand<T> a, arreau::Operand<T> b, float* __restrict__ partial,
+                         long long rows, int rows_per_split, int M, int N) {
+    using P = arreau::WideTile<T, false, false>;
+    const int n_tiles = (N + P::BN - 1) / P::BN;
+    const int m0 = blockIdx.x / n_tiles * P::BM, n0 = blockIdx.x % n_tiles * P::BN;
+    const long long k0 = (long long)blockIdx.y * rows_per_split;
+    const int K = (int)min(rows - k0, (long long)rows_per_split);
+    typename P::Acc acc = {};
+    P::run({a.p + k0 * a.ld + m0, a.ld, a.vec}, {b.p + k0 * b.ld + n0, b.ld, b.vec}, K, M - m0,
+           N - n0, arreau::shared_buffer<T>(), acc);
+    float* out = partial + (size_t)blockIdx.y * M * N + (size_t)m0 * N + n0;
+    P::for_each(acc, [&](int m, int n, float v0, float v1) {
+        if (m0 + m < M && n0 + n < N)
+            arreau::store2(out + (size_t)m * N + n, v0, v1, n0 + n + 1 < N, N % 2 == 0);
+    });
+}
+
+}  // namespace

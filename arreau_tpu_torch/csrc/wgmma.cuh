@@ -242,6 +242,73 @@ struct Wgmma;
 #define ARREAU_REGS_224 ARREAU_REGS_208 ARREAU_R13
 #define ARREAU_REGS_240 ARREAU_REGS_224 ARREAU_R14
 #define ARREAU_REGS_256 ARREAU_REGS_240 ARREAU_R15
+// the operand lists of a product whose A is four registers (mma_rs): the N /
+// 2 accumulators are operands 0.., the inputs follow them: the fragments and
+// the descriptor of B (ARREAU_RS_IN_N), the scale flag (ARREAU_RS_S_N)
+#define ARREAU_T0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define ARREAU_T1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define ARREAU_T2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define ARREAU_T3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define ARREAU_T4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define ARREAU_T5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define ARREAU_T6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define ARREAU_T7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define ARREAU_T8 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define ARREAU_T9 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define ARREAU_T10 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define ARREAU_T11 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define ARREAU_T12 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define ARREAU_T13 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define ARREAU_T14 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define ARREAU_T15 ", %120, %121, %122, %123, %124, %125, %126, %127"
+#define ARREAU_TS_16 ARREAU_T0
+#define ARREAU_TS_32 ARREAU_TS_16 ARREAU_T1
+#define ARREAU_TS_48 ARREAU_TS_32 ARREAU_T2
+#define ARREAU_TS_64 ARREAU_TS_48 ARREAU_T3
+#define ARREAU_TS_80 ARREAU_TS_64 ARREAU_T4
+#define ARREAU_TS_96 ARREAU_TS_80 ARREAU_T5
+#define ARREAU_TS_112 ARREAU_TS_96 ARREAU_T6
+#define ARREAU_TS_128 ARREAU_TS_112 ARREAU_T7
+#define ARREAU_TS_144 ARREAU_TS_128 ARREAU_T8
+#define ARREAU_TS_160 ARREAU_TS_144 ARREAU_T9
+#define ARREAU_TS_176 ARREAU_TS_160 ARREAU_T10
+#define ARREAU_TS_192 ARREAU_TS_176 ARREAU_T11
+#define ARREAU_TS_208 ARREAU_TS_192 ARREAU_T12
+#define ARREAU_TS_224 ARREAU_TS_208 ARREAU_T13
+#define ARREAU_TS_240 ARREAU_TS_224 ARREAU_T14
+#define ARREAU_TS_256 ARREAU_TS_240 ARREAU_T15
+#define ARREAU_RS_IN_16 "{%8, %9, %10, %11}, %12"
+#define ARREAU_RS_S_16 "%13"
+#define ARREAU_RS_IN_32 "{%16, %17, %18, %19}, %20"
+#define ARREAU_RS_S_32 "%21"
+#define ARREAU_RS_IN_48 "{%24, %25, %26, %27}, %28"
+#define ARREAU_RS_S_48 "%29"
+#define ARREAU_RS_IN_64 "{%32, %33, %34, %35}, %36"
+#define ARREAU_RS_S_64 "%37"
+#define ARREAU_RS_IN_80 "{%40, %41, %42, %43}, %44"
+#define ARREAU_RS_S_80 "%45"
+#define ARREAU_RS_IN_96 "{%48, %49, %50, %51}, %52"
+#define ARREAU_RS_S_96 "%53"
+#define ARREAU_RS_IN_112 "{%56, %57, %58, %59}, %60"
+#define ARREAU_RS_S_112 "%61"
+#define ARREAU_RS_IN_128 "{%64, %65, %66, %67}, %68"
+#define ARREAU_RS_S_128 "%69"
+#define ARREAU_RS_IN_144 "{%72, %73, %74, %75}, %76"
+#define ARREAU_RS_S_144 "%77"
+#define ARREAU_RS_IN_160 "{%80, %81, %82, %83}, %84"
+#define ARREAU_RS_S_160 "%85"
+#define ARREAU_RS_IN_176 "{%88, %89, %90, %91}, %92"
+#define ARREAU_RS_S_176 "%93"
+#define ARREAU_RS_IN_192 "{%96, %97, %98, %99}, %100"
+#define ARREAU_RS_S_192 "%101"
+#define ARREAU_RS_IN_208 "{%104, %105, %106, %107}, %108"
+#define ARREAU_RS_S_208 "%109"
+#define ARREAU_RS_IN_224 "{%112, %113, %114, %115}, %116"
+#define ARREAU_RS_S_224 "%117"
+#define ARREAU_RS_IN_240 "{%120, %121, %122, %123}, %124"
+#define ARREAU_RS_S_240 "%125"
+#define ARREAU_RS_IN_256 "{%128, %129, %130, %131}, %132"
+#define ARREAU_RS_S_256 "%133"
 #define ARREAU_ACC8(i)                                                                  \
     "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
         "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -264,7 +331,11 @@ struct Wgmma;
 
 // d += A B over one product step, A (64 x K) and B (N x K) both K-major in
 // shared memory (descriptors da, db): bfloat16 at K = 16, tf32 at K = 8;
-// mma_mn (bfloat16): both MN-major (sw128_mn_desc)
+// mma_mn (bfloat16): both MN-major (sw128_mn_desc); mma_rs (bfloat16): A
+// from registers, four packed bfloat16 pairs a thread in the layout of a
+// m64n16 accumulator (a[0]: row 16w + g, k 2t..2t+1; a[1]: row + 8; a[2]
+// and a[3]: k + 8), so that one product's accumulators, rounded, are the
+// next one's A
 #define ARREAU_WGMMA_N(N)                                                                    \
     template <>                                                                              \
     struct Wgmma<bf16, N> {                                                                  \
@@ -284,6 +355,14 @@ struct Wgmma;
                          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"        \
                          ARREAU_REGS_##N "}, %0, %1, p, 1, 1, 1, 1;\n}\n"                    \
                          : "+l"(da), "+l"(db), "+r"(scale), ARREAU_ACCS_##N);               \
+        }                                                                                    \
+        __device__ __forceinline__ static void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], \
+                                                      uint64_t db) {                         \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " ARREAU_RS_S_##N ", 0;\n"         \
+                         "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"        \
+                         ARREAU_TS_##N "}, " ARREAU_RS_IN_##N ", p, 1, 1, 0;\n}\n"         \
+                         : ARREAU_ACCS_##N                                                   \
+                         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));   \
         }                                                                                    \
     };                                                                                       \
     template <>                                                                              \

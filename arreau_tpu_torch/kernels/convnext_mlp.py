@@ -25,15 +25,21 @@ as the JAX VJP's ``.astype``) and ``dres`` in ``cdt``.
 
 On the H100 both directions are bound by arithmetic (2*M*(2*C*W + C*R)
 operations forward, about three times that backward), and every product of
-width C or W runs on the tensor cores (bfloat16, or 3xTF32 in float32); see
-the sources for the designs. :func:`convnext_mlp` and :func:`convnext_mlp_bwd` launch their
-kernels for CUDA tensors and run the plain versions for CPU tensors; they
-never fall back.
+width C or W runs on the tensor cores. In bfloat16 they run on Hopper's
+``wgmma`` with the weights by TMA (``csrc/convnext_sm90.cuh``: the two
+products of a hidden chunk back to back, the first one's activations the
+second one's A operand from registers), sized by the host-side plan
+:func:`sm90_plan`, the weights' K-major copies made by each call; in float32
+on ``mma.sync`` in 3xTF32
+(``csrc/convnext_rows.cuh``). :func:`convnext_mlp` and
+:func:`convnext_mlp_bwd` launch their kernels for CUDA tensors and run the
+plain versions for CPU tensors; they never fall back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,13 +47,34 @@ from arreau_tpu_torch.kernels.basis_mlp import gelu_and_deriv
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P,) * 13 + (_I,) * 5 + (_P,)
-_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 7 + (_P,)
+_ARGTYPES = (_P,) * 13 + (_I,) * 4 + (_P,)
+_BWD_ARGTYPES = (_P,) * 25 + (_I,) * 6 + (_P,)
+_SM90_ARGTYPES = (_P,) * 14 + (_I,) * 4 + (_P, _P)
+_SM90_BWD_ARGTYPES = (_P,) * 31 + (_I,) * 4 + (_P, _P)
 DTYPES = (torch.float32, torch.bfloat16)  # the compute types the kernels take
 MAX_C = 256  # channels a row block holds (csrc/convnext_rows.cuh: MAX_CHANNELS)
 MAX_R = 64  # readout columns the backward kernel takes (csrc/convnext_rows.cuh: MAX_READOUT)
-MIN_ROW_BLOCK = 64  # the fewest rows a row block of #10 holds (its partials' count)
+MIN_ROW_BLOCK = 64  # the fewest rows a row block of float32 #10 holds (its partials' count)
 LN_EPS = 1e-5
+
+# the bfloat16 kernels (csrc/convnext_sm90.cuh): the width classes of C (the
+# N of m's and dyln's wgmma products), a warpgroup's rows, a block's tile,
+# a 64-row K-panel's bytes, the hidden chunk, C's K-panels
+SM90_WIDTHS = (208, 256)
+_ROWS, _TILE, _PANEL, _WC, _KPANELS = 64, 128, 64 * 128, 64, 4
+_STAGES = 2  # the row kernels' ring slots
+_MAX_STAGES = 8  # csrc/wgmma.cuh: MAX_STAGES
+SMEM_LIMIT = 232448  # shared memory an H100 block may take
+# the row kernels' static shared memory beside the plan's dynamic (cnx_rows_kernel's,
+# the larger): b2, each warpgroup's threads' four 16-byte pre1 fragments, the
+# barriers
+ROWS_STATIC = 256 * 4 + 2 * 4 * 128 * 16 + 64
+_DW_STATIC = 2 * _MAX_STAGES * 8  # cnx_dw_kernel's barriers and counts (rounded up)
+_DW_N1 = 208  # [dW1; db1]'s column tile
+# the weight gradients' split over the rows (as basis_h1.sm90_plan's): about
+# _ROWS_PER_SPLIT rows a split, more where that leaves fewer than _MIN_DW_BLOCKS
+# blocks, at most _MAX_SPLITS; [dWr; dbr]'s about _R_SPLITS splits
+_ROWS_PER_SPLIT, _MIN_DW_BLOCKS, _MAX_SPLITS, _R_SPLITS = 4096, 256, 256, 256
 
 
 def padded_hidden(H: int) -> int:
@@ -56,6 +83,92 @@ def padded_hidden(H: int) -> int:
     elements so that every row starts 16-byte aligned
     (``csrc/convnext_mlp_bwd.cu``)."""
     return -(-(H + 1) // 8) * 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(n: int, m: int) -> int:
+    return _cdiv(n, m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_plan(M: int, C: int, W: int, R: int = 0) -> dict:
+    """Host-side plan of the bfloat16 kernels (``csrc/convnext_sm90.cuh``)
+    for M rows, C channels, W hidden units and R readout columns, from the
+    shapes alone; the kernels take it as it is (:func:`kernel_plan`) and check
+    it:
+
+    - ``cn``: the width class of C (208 or 256), the N of m's and dyln's
+      ``wgmma`` products (one accumulator for all C columns of 64 rows; the
+      columns beyond C multiply the zeros of the weights' padding);
+    - ``nch``: W's chunks of 64 hidden units, ``kw`` = ``nch`` * 64 the row
+      length of the weights' [C, kw] copies (W2^T, W1); the [W, 256] copies
+      (W1^T, W2) hold C's four 64-element K-panels; a call makes them first
+      (the weights change with every step, and the sampler casts them anew
+      on every call);
+    - ``slot`` / ``smem``: a ring slot (four 64-row panels and one ``cn``-row
+      panel of the weights) and the row kernels' dynamic shared memory (the
+      1024 bytes of alignment, the two warpgroups' 64 x 256 tiles, two
+      slots), which with ``ROWS_STATIC`` fits the block's 227 KB;
+    - ``cg`` / ``wg``: the row lengths of #10's ``[yl | 1]`` and ``[h | 1]``
+      scratch (C + 1 and W + 1 rounded up to 8: 16-byte rows, which TMA
+      reads); ``cp`` / ``wp``: of dm and out, and of dpre1 (C and W rounded up
+      to 8);
+    - ``splits`` x ``per_split``: the weight gradients' split over the rows,
+      about 4096 rows each, or more splits where that leaves fewer than 256
+      blocks of the smaller product ([dW2; db2]: 128 rows of W + 1 a block,
+      [dW1; db1]: 128 rows of C + 1 by ``n1`` = 208 columns of W), at most
+      256, in whole 64-row panels; ``r_splits`` x ``r_per_split`` the same for
+      [dWr; dbr] (about 256 splits of whole panels);
+    - ``dw_stages`` / ``dw_smem``: the weight gradients' ring slots (both
+      warpgroups' 64-column boxes of A and four of B, 48 KB a slot) and
+      shared memory;
+    - the scratch's elements: ``copies`` (both weights' K-major copies,
+      made by each call), ``pre1s`` (pre1 in the accumulators' layout,
+      every 64-row tile's chunks of the row kernels' 128-row tiles),
+      ``colpart`` (each 64-row tile's three column sums) and ``partial``.
+
+    Cached (a wrapper call looks it up); the dict is not to be changed."""
+    if M < 1 or W < 1 or not 1 <= C <= MAX_C or not 0 <= R <= MAX_R:
+        raise ValueError(f"convnext_mlp's bfloat16 kernels take C <= {MAX_C} and R <= {MAX_R}; "
+                         f"got M={M}, C={C}, W={W}, R={R}")
+    cn = SM90_WIDTHS[0] if C <= SM90_WIDTHS[0] else SM90_WIDTHS[1]
+    nch = _cdiv(W, _WC)
+    slot = _KPANELS * _PANEL + cn * 128
+    plan = {"cn": cn, "nch": nch, "kw": nch * _WC, "slot": slot,
+            "smem": 1024 + 2 * _KPANELS * _PANEL + _STAGES * slot, "cg": padded_hidden(C),
+            "wg": padded_hidden(W), "cp": _round_up(C, 8), "wp": _round_up(W, 8), "n1": _DW_N1}
+    dw_slot = (2 + _KPANELS) * _PANEL
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - _DW_STATIC) // dw_slot)
+    plan.update(dw_stages=stages, dw_smem=1024 + stages * dw_slot)
+    blocks = min(_cdiv(W + 1, _TILE), _cdiv(C + 1, _TILE) * _cdiv(W, _DW_N1))
+    splits = max(_cdiv(M, _ROWS_PER_SPLIT), _cdiv(_MIN_DW_BLOCKS, blocks))
+    splits = max(1, min(_MAX_SPLITS, splits))
+    per = _round_up(_cdiv(M, splits), _ROWS)
+    r_per = _round_up(_cdiv(M, _R_SPLITS), _ROWS)
+    plan.update(splits=_cdiv(M, per), per_split=per, r_splits=_cdiv(M, r_per), r_per_split=r_per)
+    tiles = _cdiv(M, _TILE)
+    plan.update(copies=2 * (W * _KPANELS * 64 + C * nch * _WC),
+                pre1s=2 * tiles * nch * _ROWS * _WC, colpart=_cdiv(M, _ROWS) * 3 * C,
+                partial=max(plan["splits"] * max((W + 1) * C, (C + 1) * W),
+                            plan["r_splits"] * (C + 1) * max(R, 1)))
+    return plan
+
+
+class _CnxPlan(ctypes.Structure):
+    """``csrc/convnext_sm90.cuh``'s ``CnxPlan``: the plan as the kernels take it."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "cn", "nch", "smem", "cg", "wg", "cp", "wp", "splits", "per_split", "r_splits",
+        "r_per_split", "dw_stages", "dw_smem", "n1")]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(M: int, C: int, W: int, R: int) -> _CnxPlan:
+    """:func:`sm90_plan` as the kernels' ``CnxPlan`` (cached)."""
+    plan = sm90_plan(M, C, W, R)
+    return _CnxPlan(*(int(plan[name]) for name, _ in _CnxPlan._fields_))
 
 
 def _forward(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma):
@@ -186,11 +299,20 @@ def convnext_mlp(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr=None, br=None):
     R = wr.shape[1] if wr is not None else 0
     out = torch.empty_like(res)
     r = torch.empty((*xc.shape[:-1], R), dtype=torch.float32, device=xc.device) if R else None
-    fn = kernel_function("arreau_convnext_mlp_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(xc.device).cuda_stream
-    err = fn(*(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, out, r)),
-             M, C, W, R, int(res.dtype == torch.bfloat16), stream)
-    check("arreau_convnext_mlp_fwd", err)
+    if res.dtype == torch.bfloat16:
+        copies = torch.empty(sm90_plan(M, C, W, R)["copies"], dtype=res.dtype, device=xc.device)
+        name = "arreau_convnext_fwd_sm90"
+        err = kernel_function(name, _SM90_ARGTYPES)(
+            *(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, out, r,
+                                copies)),
+            M, C, W, R, ctypes.byref(kernel_plan(M, C, W, R)), stream)
+    else:
+        name = "arreau_convnext_mlp_fwd"
+        err = kernel_function(name, _ARGTYPES)(
+            *(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, out, r)),
+            M, C, W, R, stream)
+    check(name, err)
     convnext_mlp.launches += 1
     return out, r
 
@@ -249,13 +371,33 @@ def convnext_mlp_bwd(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, 
     dev, cdt = xc.device, res.dtype
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = lambda *shape: torch.empty(shape, dtype=cdt, device=dev)  # noqa: E731
-    splits, per_split = row_splits(M)
     dxc = torch.empty_like(xc)
     dres = torch.empty_like(res)
     dw1_ext = torch.empty((C + 1, W), **f32)
     dw2_ext = torch.empty((W + 1, C), **f32)
     dwr_ext = torch.empty((C + 1, max(R, 1)), **f32)
     colsum = torch.empty((3, C), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if cdt == torch.bfloat16:
+        plan = sm90_plan(M, C, W, R)
+        # g_total, dyln and each row's LayerNorm statistics; [yl | 1], [h |
+        # 1], dm, m, out, dpre1 (rows 16-byte aligned); pre1 in the
+        # accumulators' layout; the 64-row tiles' column sums; split partials
+        tensors = (torch.empty((M, C), **f32), torch.empty((M, C), **f32),
+                   torch.empty((M, 2), **f32), scratch(M, plan["cg"]), scratch(M, plan["wg"]),
+                   scratch(M, plan["cp"]), scratch(M, plan["cp"]), scratch(M, plan["cp"]),
+                   scratch(M, plan["wp"]), scratch(plan["pre1s"]),
+                   torch.empty(plan["colpart"], **f32), torch.empty(plan["partial"], **f32))
+        name = "arreau_convnext_bwd_sm90"
+        err = kernel_function(name, _SM90_BWD_ARGTYPES)(
+            *(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, g_out, g_r,
+                                scratch(plan["copies"]), dxc, dres, dw1_ext, dw2_ext, dwr_ext,
+                                colsum, *tensors)),
+            M, C, W, R, ctypes.byref(kernel_plan(M, C, W, R)), stream)
+        check(name, err)
+        convnext_mlp_bwd.launches += 1
+        return _bwd_outputs(C, R, dxc, dres, dw1_ext, dw2_ext, dwr_ext, colsum)
+    splits, per_split = row_splits(M)
     # yl and h with a ones column (the bias gradients), rows 16-byte aligned;
     # pre1, then dpre1 over it
     yl_s, h_s = scratch(M, padded_hidden(C)), scratch(M, padded_hidden(W))
@@ -264,20 +406,25 @@ def convnext_mlp_bwd(xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, 
     colpart = torch.empty(-(-M // MIN_ROW_BLOCK) * (3 * C + (C + 1) * R), **f32)
     partial = torch.empty(splits * max((W + 1) * C, (C + 1) * W), **f32)
     fn = kernel_function("arreau_convnext_mlp_bwd", _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*(_ptr(t) for t in (xc, res, ln_s, ln_b, w1, b1, w2, b2, gamma, wr, br, g_out, g_r,
                                  dxc, dres, dw1_ext, dw2_ext, dwr_ext, colsum, yl_s, pre1_s,
                                  h_s, dm_s, colpart, partial)),
-             M, C, W, R, splits, per_split, int(cdt == torch.bfloat16), stream)
+             M, C, W, R, splits, per_split, stream)
     check("arreau_convnext_mlp_bwd", err)
     convnext_mlp_bwd.launches += 1
+    return _bwd_outputs(C, R, dxc, dres, dw1_ext, dw2_ext, dwr_ext, colsum)
+
+
+convnext_mlp_bwd.launches = 0
+
+
+def _bwd_outputs(C, R, dxc, dres, dw1_ext, dw2_ext, dwr_ext, colsum):
+    """The backward kernels' outputs as :func:`convnext_mlp_bwd` returns them."""
+    W = dw1_ext.shape[1]
     dgamma, dln_s, dln_b = colsum
     dwr, dbr = (dwr_ext[:C], dwr_ext[C]) if R else (None, None)
     return (dxc, dres, dln_s, dln_b, dw1_ext[:C], dw1_ext[C], dw2_ext[:W], dw2_ext[W], dgamma,
             dwr, dbr)
-
-
-convnext_mlp_bwd.launches = 0
 
 
 class _ConvNextMLP(torch.autograd.Function):

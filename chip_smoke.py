@@ -670,7 +670,8 @@ def basis_source(name: str, dtype) -> str:
 # (csrc/conv_sm90.cuh), as cuobjdump names them
 SM90_KERNELS = ("h1_kernel", "rows_kernel", "dw2_kernel", "dw1_kernel", "f32_h1_kernel",
                 "f32_rows_kernel", "f32_dw_kernel", "sconv_fwd_kernel", "sconv_kern_kernel",
-                "sconv_dbasis_kernel", "sconv_dw_kernel")
+                "sconv_dbasis_kernel", "sconv_dw_kernel", "cnx_fwd_kernel", "cnx_rows_kernel",
+                "cnx_dw_kernel")
 # (kernel, element type, or None for every instantiation) of the kernels
 # whose operands the threads stage, not TMA: #4's float32 dW and float32
 # #7's weight gradients transpose both as they stage them (tf32 wgmma takes
@@ -703,11 +704,11 @@ def start_sass_dump():
 
 
 def sass_check(dump) -> None:
-    """Every instantiation of #8's and #7's kernels (both types) and of #3's
-    and #4's kernels in the built library issues warpgroup products (HGMMA) and,
-    but for SM90_THREAD_STAGED, TMA loads (UTMALDG), as the SASS
-    ``start_sass_dump`` wrote shows; prints the counts. Skipped, with a line,
-    where the toolkit has no cuobjdump."""
+    """Every instantiation of #8's and #7's kernels (both types), of #3's and
+    #4's kernels and of bfloat16 #9's and #10's in the built library issues
+    warpgroup products (HGMMA) and, but for SM90_THREAD_STAGED, TMA loads
+    (UTMALDG), as the SASS ``start_sass_dump`` wrote shows; prints the
+    counts. Skipped, with a line, where the toolkit has no cuobjdump."""
     if dump is None:
         print("cuobjdump not found: the SASS is not checked")
         return
@@ -923,7 +924,9 @@ def convnext_records(args, label, tol, peak):
     if not share > tol:
         raise RuntimeError(f"{label}: the MLP's share of out is within the tolerance")
     del out
-    src, rep = "arreau_tpu_torch/csrc/convnext_mlp.cu", "arreau_tpu/ops/pallas_convnext.py:61"
+    sm90 = res.dtype == torch.bfloat16  # bfloat16 on wgmma (convnext_sm90.cuh)
+    src = f"arreau_tpu_torch/csrc/convnext_mlp{'_sm90' if sm90 else ''}.cu"
+    rep = "arreau_tpu/ops/pallas_convnext.py:61"
     fwd = check_kernel("convnext_mlp", convnext_mlp, convnext_mlp_plain,
                        lambda: convnext_library(*fargs), fargs, 2 * M * (2 * C * W + C * R),
                        src, rep, tol, peak)
@@ -934,8 +937,8 @@ def convnext_records(args, label, tol, peak):
     records = [fwd]
     if "convnext_mlp_bwd" in args:
         bargs = args["convnext_mlp_bwd"]
-        src, rep = ("arreau_tpu_torch/csrc/convnext_mlp_bwd.cu",
-                    "arreau_tpu/ops/pallas_convnext.py:78")
+        src = f"arreau_tpu_torch/csrc/convnext_mlp_bwd{'_sm90' if sm90 else ''}.cu"
+        rep = "arreau_tpu/ops/pallas_convnext.py:78"
 
         def library_bwd(call_args):
             leaves = [t.detach().requires_grad_() for t in call_args[:11] if t is not None]
@@ -1557,10 +1560,10 @@ def fused_convnext_backbone(model):
 
 # the launches inside #4 (spatial_conv_bwd.cu), #2 (fiber_conv_bwd.cu), #7
 # (basis_sm90.cuh, basis_f32_sm90.cuh), #6 (basis_mlp_bwd.cuh), #10
-# (convnext_mlp_bwd.cu) and #5 (fused_basis_mlp.cu), by the kernel function
-# names a profile shows; the split sum is shared with every other split-K
-# weight gradient (#7, #10, #6 and #2's dKf), and float32 #7's first pass
-# with #8 (f32_h1_kernel)
+# (convnext_mlp_bwd.cu, convnext_sm90.cuh) and #5 (fused_basis_mlp.cu), by
+# the kernel function names a profile shows; the split sum is shared with
+# every other split-K weight gradient (#7, #10, #6 and #2's dKf), and
+# float32 #7's first pass with #8 (f32_h1_kernel)
 BWD_INNER_KERNELS = {"::basis_h1_kernel<": "the h1 product of #6 or #5 "
                                           "(H1Out 1: #6, 2: #5)",
                      "::sm90::h1_kernel<": "#8 in bf16 (wgmma, TMA)",
@@ -1578,7 +1581,8 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "the h1 product of #6 or #5 "
                      "::sm90::dw1_kernel<": "#7 in bf16: dW1 split-K partials",
                      "::basis_out_kernel<": "#5 gelu(h @ W2)",
                      "::basis_dpre2_kernel<": "#6 db_pre",
-                     "::basis_dw2_partial_kernel<": "#6 dW2 split-K partials",
+                     "::wide_rows_partial_kernel<": "#6 dW2, float32 #10 [dW2; db2] and [dW1; "
+                                                    "db1] split-K partials",
                      "::basis_dpre1_kernel<": "#6 dh_pre",
                      "::basis_dw1_partial_kernel<": "#6 dW1 split-K partials",
                      "::conv90::weights_kernel<": "#3/#4: W's K-major copies, once for each "
@@ -1598,10 +1602,15 @@ BWD_INNER_KERNELS = {"::basis_h1_kernel<": "the h1 product of #6 or #5 "
                      "::dx_kernel<": "#4/#2 dx (each sender's run)",
                      "::fiber_cotangent_kernel<": "#2 g_o",
                      "::fiber_kernel_grad_partial": "#2 dKf partials",
-                     "::convnext_bwd_rows_kernel<": "#10 rows (forward, dm, dpre1, dyln, dxc)",
-                     "::convnext_wgrad_partial_kernel<": "#10 [dW2; db2] and [dW1; db1] split-K "
-                                                         "partials",
-                     "::sum_blocks_kernel": "#10 sums of the row blocks' partials"}
+                     "::convnext_bwd_rows_kernel<": "float32 #10 rows (forward, dm, dpre1, dyln, "
+                                                    "dxc)",
+                     "::cnx_cotangent_kernel": "bf16 #10 g_total and dres",
+                     "::cnx_rows_kernel<": "bf16 #10 rows (wgmma: forward, dm, dpre1, dyln, dxc)",
+                     "::cnx_dw_kernel<": "bf16 #10 [dW2; db2] and [dW1; db1] split-K partials "
+                                         "(wgmma, MN-major by TMA)",
+                     "::cnx_readout_dw_kernel": "bf16 #10 [dWr; dbr] split partials",
+                     "::cnx_weights_kernel": "#9/#10 bf16: the weights' K-major copies, each call's",
+                     "::sum_blocks_kernel": "#10 sums of the row blocks' (tiles') partials"}
 
 
 def profile_step(one_step, step_ms: float, steps: int = 3, what: str = "step") -> None:

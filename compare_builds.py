@@ -32,7 +32,7 @@ The rules:
 - every output of this checkout is the same on both calls (``torch.equal``):
   no kernel sums in an order that changes from call to call;
 - the kernel instantiations whose arithmetic this build changed
-  (``REDESIGNED``: #8 and #7 in float32, 3xTF32 on tf32 wgmma) are held
+  (``REDESIGNED``: #9 and #10 in bfloat16, on wgmma and TMA) are held
   within ``chip_smoke.KERNEL_REL_TOL`` of each output's scale in float32 and
   ``BF16_KERNEL_REL_TOL`` in bfloat16 (whose float32 outputs follow
   bfloat16 roundings too, as ``chip_smoke.py`` holds them);
@@ -78,7 +78,7 @@ MODULES = {"spatial_conv": "spatial_conv", "spatial_conv_bwd": "spatial_conv",
 # instantiations of the element types given (held to a tolerance; their
 # other instantiations bit for bit), and kernels whose source changed without
 # a change of arithmetic (held bit for bit); both timed in both builds
-REDESIGNED = {"basis_h1": (torch.float32,), "basis_mlp_bwd": (torch.float32,)}
+REDESIGNED = {"convnext_mlp": (torch.bfloat16,), "convnext_mlp_bwd": (torch.bfloat16,)}
 TIMED = ()
 # forward kernels the port calls through their PyTorch operators since the
 # operators were registered: timed through the operator in this build and

@@ -268,11 +268,10 @@ def _rel(got, want):
     return np.abs(np.asarray(got, np.float32) - want).max() / scale
 
 
-@pytest.mark.parametrize("degree,n_g", [(3, 3), (2, 1), (3, 5)])
-def test_emulated_sm90_chain_matches_plain_and_pallas(degree, n_g):
-    """#7's bfloat16 chain, emulated over 300 edge rows (d = 6: F = 258 or
-    42; H = 20, D = 12; three splits of 128 rows), against basis_mlp_bwd_plain
-    and against _multi_bwd in Pallas interpret mode, at the tolerances above."""
+def _chain_case(degree, n_g):
+    """(emulated, plain, Pallas) (dw1, db1, dw2, db2) of
+    test_emulated_sm90_chain_matches_plain_and_pallas's case, as float32
+    numpy arrays."""
     rng = np.random.default_rng(40 + degree + n_g)
     Bp, O, d, E, H, D = 2, 3, 6, 50, 20, 12
     F = sum(d**i for i in range(1, degree + 1))
@@ -290,10 +289,54 @@ def test_emulated_sm90_chain_matches_plain_and_pallas(degree, n_g):
     j = [jnp.asarray(a, jnp.bfloat16) for a in (attrT, w1, b1, w2, b2)]
     pallas = _multi_bwd(*j, poly_selection_matrices(d, degree),
                         [jnp.asarray(g, jnp.bfloat16) for g in gs])
+    return ([np.asarray(a, np.float32) for a in got], [p.numpy() for p in plain],
+            [np.asarray(q.astype(jnp.float32)) for q in pallas])
+
+
+# runs _chain_case in a fresh interpreter (argv: degree, n_g, the .npz to write),
+# with JAX's float64 on and one torch thread, as a test session without
+# other tests before it
+_FRESH = """
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import numpy as np
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, sys.argv[4])
+import test_torch_basis_sm90 as t
+got, plain, pallas = t._chain_case(int(sys.argv[1]), int(sys.argv[2]))
+np.savez(sys.argv[3], *got, *plain, *pallas)
+"""
+
+
+@pytest.mark.parametrize("degree,n_g", [(3, 3), (2, 1), (3, 5)])
+def test_emulated_sm90_chain_matches_plain_and_pallas(degree, n_g, tmp_path):
+    """#7's bfloat16 chain, emulated over 300 edge rows (d = 6: F = 258 or
+    42; H = 20, D = 12; three splits of 128 rows), against basis_mlp_bwd_plain
+    and against _multi_bwd in Pallas interpret mode, at the tolerances above.
+    The three are computed in a fresh interpreter (``_FRESH``), so that no
+    state another test left in this process (thread pools, JAX's float64
+    switch, allocations) reaches their roundings."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    out = tmp_path / "chain.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tests.parent), os.environ.get("PYTHONPATH", "")]))
+    subprocess.run([sys.executable, "-c", _FRESH, str(degree), str(n_g), str(out), str(tests)],
+                   check=True, env=env, timeout=300)
+    with np.load(out) as f:
+        arrays = [f[f"arr_{i}"] for i in range(12)]
+    got, plain, pallas = arrays[:4], arrays[4:8], arrays[8:]
     for name, a, p, q in zip(("dw1", "db1", "dw2", "db2"), got, plain, pallas):
-        assert a.shape == tuple(p.shape), name
-        assert _rel(a, p.numpy()) <= PLAIN_REL_TOL, name
-        assert _rel(a, q.astype(jnp.float32)) <= PALLAS_REL_TOL, name
+        assert a.shape == p.shape, name
+        assert _rel(a, p) <= PLAIN_REL_TOL, name
+        assert _rel(a, q) <= PALLAS_REL_TOL, name
 
 
 # ---------------- #8's and #7's float32 chains, emulated ----------------

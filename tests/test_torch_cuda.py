@@ -11,6 +11,8 @@ it runs on the card's machine:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -839,6 +841,66 @@ def test_convnext_mlp_kernels_match_plain(dtype, Bp, O, TA, C, W, R):
         assert (a is None) == (b is None)
         if b is not None:
             _assert_close(a, b, BWD_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
+
+
+# bfloat16 #9/#10 on wgmma (csrc/convnext_sm90.cuh) at the widest shapes the
+# wrappers take: C = 256 (the 256 class), R = 64, ragged W (1000: a partial
+# last chunk of the 64-unit chunks) and rows off the 128-row tile (M = 129,
+# 1 + 64 rows); and C = 200, W = 800 at 65 and 1000 rows
+CONVNEXT_SM90_SHAPES = [(1, 3, 43, 256, 1000, 64), (1, 1, 129, 256, 1000, 64),
+                        (1, 1, 65, 200, 800, 19), (2, 5, 100, 200, 800, 19)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bp,O,TA,C,W,R", CONVNEXT_SM90_SHAPES)
+def test_bf16_convnext_sm90_widest_shapes_match_plain_and_repeat(Bp, O, TA, C, W, R):
+    """bfloat16 #9 and #10 (wgmma kernels) against their plain versions at
+    BF16_REL_TOL, and a second call's outputs equal to the first's bit for
+    bit (fixed-order sums, no atomics)."""
+    dev = _device()
+    *args, g_out, g_r = _convnext_args(np.random.default_rng(23), dev, torch.bfloat16, Bp, O,
+                                       TA, C, W, R)
+    first = (*convnext_mlp(*args), *convnext_mlp_bwd(*args, g_out, g_r))
+    second = (*convnext_mlp(*args), *convnext_mlp_bwd(*args, g_out, g_r))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = (*convnext_mlp_plain(*args), *convnext_mlp_bwd_plain(*args, g_out, g_r))
+    for a, b in zip(first, want):
+        _assert_close(a, b, BF16_REL_TOL)
+
+
+@pytest.mark.cuda
+def test_convnext_sm90_kernels_issue_warpgroup_products():
+    """Every instantiation of the bfloat16 #9/#10 kernels (cnx_fwd_kernel,
+    cnx_rows_kernel, cnx_dw_kernel) in the built library issues HGMMA
+    (wgmma) and UTMALDG (TMA loads) in its SASS, and no bfloat16
+    instantiation of the mma.sync row blocks remains."""
+    import re
+    import subprocess
+
+    from arreau_tpu_torch.kernels import build
+
+    _device()
+    build.library()  # built and loaded
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.LIB_PATH)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d(cnx_fwd_kernel|cnx_rows_kernel|cnx_dw_kernel)I(\w+?)EEv", line)
+            current = (m.group(1), m.group(2)) if m else None
+            if current:
+                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+            assert "convnext_fwd_kernelI13__nv_bfloat16" not in line
+            assert "convnext_bwd_rows_kernelI13__nv_bfloat16" not in line
+        elif current:
+            for op in counts[current]:
+                counts[current][op] += op in line
+    assert {k[0] for k in counts} == {"cnx_fwd_kernel", "cnx_rows_kernel", "cnx_dw_kernel"}
+    for key, c in counts.items():
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (key, c)
 
 
 def _fiber_args(rng, dev, Bp, O, P, K, TA, D, C):
